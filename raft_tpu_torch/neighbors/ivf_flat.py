@@ -1,0 +1,535 @@
+"""IVF-Flat: inverted-file index over raw vectors.
+
+Port of ``raft_tpu/neighbors/ivf_flat.py``. Lists are one dense
+capacity-padded tensor ``data (n_lists, cap, dim)``; slot j of list l is
+valid iff ``j < list_sizes[l]`` and it is not tombstoned in ``deleted``.
+
+* ``build`` trains the coarse centers with balanced k-means on a strided
+  subsample (whose assignments run kernel B1 on ``cuda``) and fills the
+  lists with ``extend``;
+* ``extend`` packs an empty index in bulk, or appends in place at each
+  list's fill offset, growing the capacity to the next power of two when a
+  list overflows (``conservative_memory_allocation`` grows exactly);
+* ``search`` probes the ``n_probes`` nearest centers, then scans the
+  probed lists with one of two engines:
+
+  - the packed-cells engine (kernel B2, ``ops/fused_knn.py``): the probe
+    map is inverted into fixed-width query cells per list, every cell is
+    scored against its list in one launch, and each pair's candidates are
+    routed back for the final per-query selection. ``"auto"`` takes it on
+    ``cuda`` when the probe load fills cells, as the reference does on
+    ``tpu``; ``"bucketed"`` with ``bucket_cap=0`` forces it;
+  - the scan engine (:func:`_probe_scan`): per probe rank, gather each
+    query's list, score it, and merge into a running top-k, for what the
+    cells engine does not take (k > 256, tiny probe loads, "scan").
+
+The legacy bucket-table engine (an explicit ``bucket_cap``), save/load
+and int64 ids come in a later slice and raise here.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from raft_tpu_torch.cluster import kmeans_balanced
+from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
+from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.resources import as_float, as_tensor, resolve_device
+from raft_tpu_torch.core.sentinels import PAD_ID, worst_value
+from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
+from raft_tpu_torch.distance.pairwise import gram, row_norms_sq
+from raft_tpu_torch.matrix.select_k import select_k, stable_top_k
+from raft_tpu_torch.ops.fused_knn import fused_cells_knn
+from raft_tpu_torch.random.rng_state import RngState
+from raft_tpu_torch.util.pow2 import next_pow2, round_up_safe
+
+
+@dataclass
+class IndexParams:
+    """Same field names and defaults as raft_tpu's ``IndexParams``."""
+
+    n_lists: int = 1024
+    metric: DistanceType = DistanceType.L2Expanded
+    metric_arg: float = 2.0
+    add_data_on_build: bool = True
+    kmeans_n_iters: int = 20
+    kmeans_trainset_fraction: float = 0.5
+    adaptive_centers: bool = False
+    conservative_memory_allocation: bool = False
+    idx_dtype: torch.dtype = torch.int32
+
+
+@dataclass
+class SearchParams:
+    """``engine``: "auto" | "scan" | "bucketed"; ``bucket_cap`` other than
+    0 selects the legacy bucket-table engine, not ported yet."""
+
+    n_probes: int = 20
+    engine: str = "auto"
+    bucket_cap: int = 0
+
+
+@dataclass
+class Index:
+    """Trained IVF-Flat index; data/indices are capacity-padded."""
+
+    metric: DistanceType
+    centers: torch.Tensor       # (n_lists, dim)
+    data: torch.Tensor          # (n_lists, cap, dim)
+    indices: torch.Tensor       # (n_lists, cap) int32 global row ids
+    list_sizes: torch.Tensor    # (n_lists,) int32
+    adaptive_centers: bool = False
+    conservative_memory_allocation: bool = False
+    epoch: int = 0
+    deleted: Optional[torch.Tensor] = None   # (n_lists, cap) bool
+    n_deleted: int = 0
+    _next_id: Optional[int] = None
+
+    def __post_init__(self):
+        expects(self.data.shape[0] == self.indices.shape[0]
+                == self.list_sizes.shape[0] == self.centers.shape[0],
+                "n_lists mismatch across index tensors")
+        expects(self.data.shape[1] == self.indices.shape[1],
+                "list capacity mismatch between data and indices")
+        expects(self.data.shape[2] == self.centers.shape[1],
+                "dim mismatch between data and centers")
+
+    @property
+    def n_lists(self) -> int:
+        return self.centers.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.centers.shape[1]
+
+    @property
+    def capacity(self) -> int:
+        return self.indices.shape[0] * self.indices.shape[1]
+
+    @property
+    def size(self) -> int:
+        return int(torch.sum(self.list_sizes))
+
+
+def index_from_numpy(centers, data, indices, list_sizes, metric,
+                     deleted=None, device=None) -> Index:
+    """A port ``Index`` from the arrays of a raft_tpu ``Index`` (as numpy),
+    on ``device`` (``cuda`` by default)."""
+    dev = resolve_device(device)
+
+    def t(a, dtype=None):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+
+    ind = np.asarray(indices)
+    expects(ind.dtype == np.int32, "only int32 ids are ported")
+    del_t = None if deleted is None else t(deleted, torch.bool)
+    return Index(metric=resolve_metric(metric), centers=t(centers),
+                 data=t(data), indices=t(ind),
+                 list_sizes=t(list_sizes, torch.int32), deleted=del_t,
+                 n_deleted=0 if del_t is None else int(del_t.sum()))
+
+
+def _pack_lists(X, labels, ids, n_lists: int, min_cap: int = 0):
+    """Scatter rows into (n_lists, cap, dim) storage: sort by list, in-list
+    position from the offset prefix sums, one scatter."""
+    n, d = X.shape
+    labels = labels.long()
+    counts = torch.bincount(labels, minlength=n_lists)
+    cap = int(max(int(torch.max(counts)), 1, min_cap))
+    order = torch.argsort(labels, stable=True)
+    sl = labels[order]
+    offsets = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(n, device=X.device) - offsets[sl]
+    data = torch.zeros((n_lists, cap, d), dtype=X.dtype, device=X.device)
+    idx = torch.full((n_lists, cap), PAD_ID, dtype=ids.dtype,
+                     device=X.device)
+    data[sl, pos] = X[order]
+    idx[sl, pos] = ids[order]
+    return data, idx, counts.to(torch.int32)
+
+
+def _train_centers(params: IndexParams, Xf: torch.Tensor) -> torch.Tensor:
+    """Train the coarse centers on a strided ``kmeans_trainset_fraction``
+    subsample."""
+    n = Xf.shape[0]
+    frac = min(max(params.kmeans_trainset_fraction, 0.0), 1.0)
+    n_train = max(params.n_lists, int(n * frac)) if frac < 1.0 else n
+    stride = max(1, n // n_train)
+    # One contiguous copy: every k-means assignment reads it.
+    trainset = Xf[::stride][:n_train].contiguous()
+    kb = KMeansBalancedParams(n_iters=params.kmeans_n_iters,
+                              metric=params.metric,
+                              rng_state=RngState(seed=0))
+    return kmeans_balanced.fit(kb, trainset, params.n_lists)
+
+
+def _coarse_probe(Q, centers, n_probes: int, inner_is_l2: bool):
+    """The ``n_probes`` best centers of each query (int32 list ids)."""
+    if inner_is_l2:
+        cd = (row_norms_sq(Q)[:, None] + row_norms_sq(centers)[None, :]
+              - 2.0 * gram(Q, centers))
+        _, probe_ids = select_k(cd, n_probes, select_min=True)
+    else:
+        _, probe_ids = select_k(gram(Q, centers), n_probes, select_min=False)
+    return probe_ids
+
+
+def build(params: IndexParams, dataset, handle=None) -> Index:
+    """Train centers (balanced k-means on a subsample) and fill the lists."""
+    expects(params.idx_dtype == torch.int32, "only int32 ids are ported")
+    X = as_tensor(dataset, handle)
+    expects(X.ndim == 2, "dataset must be (n_rows, dim)")
+    n = X.shape[0]
+    expects(n >= params.n_lists, "need at least n_lists rows")
+    centers = _train_centers(params, as_float(X))
+    index = Index(
+        metric=params.metric,
+        centers=centers,
+        data=torch.zeros((params.n_lists, 1, X.shape[1]), dtype=X.dtype,
+                         device=X.device),
+        indices=torch.full((params.n_lists, 1), PAD_ID, dtype=torch.int32,
+                           device=X.device),
+        list_sizes=torch.zeros((params.n_lists,), dtype=torch.int32,
+                               device=X.device),
+        adaptive_centers=params.adaptive_centers,
+        conservative_memory_allocation=params.conservative_memory_allocation,
+    )
+    if params.add_data_on_build:
+        index = extend(index, X, torch.arange(n, dtype=torch.int32,
+                                              device=X.device))
+    return index
+
+
+def _grown_cap(list_sizes, counts, cap: int, conservative: bool) -> int:
+    """Capacity after an append: unchanged when everything fits, else the
+    next power of two, or the exact need under conservative allocation."""
+    need = int(torch.max(list_sizes + counts))
+    if need <= cap:
+        return cap
+    return max(need, 1) if conservative else next_pow2(need)
+
+
+def _append_in_place(store, ids, list_sizes, payload, new_ids, labels,
+                     conservative: bool, adaptive: bool = False,
+                     centers=None):
+    """Grow if needed, then scatter the new rows at each list's fill
+    offset. Writes into ``store``/``ids`` in place when they have room.
+    Returns ``(store, ids, sizes, centers)``."""
+    n_lists, cap = store.shape[0], store.shape[1]
+    labels = labels.long()
+    counts = torch.bincount(labels, minlength=n_lists)
+    new_cap = _grown_cap(list_sizes, counts, cap, conservative)
+    if new_cap > cap:
+        store = torch.nn.functional.pad(store, (0, 0, 0, new_cap - cap))
+        ids = torch.nn.functional.pad(ids, (0, new_cap - cap), value=PAD_ID)
+    order = torch.argsort(labels, stable=True)
+    sl = labels[order]
+    offsets = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(labels.shape[0], device=store.device) - offsets[sl]
+    pos = list_sizes.long()[sl] + rank
+    store[sl, pos] = payload[order].to(store.dtype)
+    ids[sl, pos] = new_ids[order].to(ids.dtype)
+    new_sizes = list_sizes + counts.to(torch.int32)
+    if adaptive:
+        # The size-weighted update keeps each center the mean of its
+        # members without a pass over the existing rows.
+        sums = torch.zeros_like(centers).index_add_(
+            0, labels, as_float(payload).to(centers.dtype))
+        tot = torch.clamp_min(new_sizes.to(centers.dtype), 1.0)
+        upd = (centers * list_sizes.to(centers.dtype)[:, None] + sums) \
+            / tot[:, None]
+        centers = torch.where((counts > 0)[:, None], upd, centers)
+    return store, ids, new_sizes, centers
+
+
+def _auto_id_base(index: Index) -> int:
+    """First free auto-assigned id: ``max(existing id) + 1``."""
+    if index._next_id is not None:
+        return index._next_id
+    return int(torch.max(index.indices)) + 1
+
+
+def _track_next_id(index: Index, new_indices, default_base=None,
+                   n_new: int = 0) -> None:
+    cur = _auto_id_base(index)
+    if default_base is not None:
+        index._next_id = max(cur, default_base + n_new)
+    else:
+        index._next_id = max(cur, int(torch.max(new_indices)) + 1)
+
+
+def _pad_deleted(deleted, new_cap: int):
+    """Grow the tombstone mask with the capacity: new slots are live."""
+    if deleted is None or deleted.shape[-1] == new_cap:
+        return deleted
+    fresh = deleted.new_zeros(deleted.shape[:-1]
+                              + (new_cap - deleted.shape[-1],))
+    return torch.cat([deleted, fresh], dim=-1)
+
+
+def extend(index: Index, new_vectors, new_indices=None,
+           handle=None) -> Index:
+    """Append vectors (ids default to ``max id + 1`` onwards). The index
+    is mutated and returned; its storage is written in place when the
+    lists have room. Tombstoned slots are not reclaimed."""
+    dev = handle.device if handle is not None else index.centers.device
+    X = as_tensor(new_vectors, device=dev)
+    expects(X.ndim == 2 and X.shape[1] == index.dim, "dim mismatch")
+    n_new = X.shape[0]
+    if n_new == 0:
+        return index
+    default_base = None
+    if new_indices is None:
+        default_base = _auto_id_base(index)
+        new_indices = torch.arange(default_base, default_base + n_new,
+                                   dtype=index.indices.dtype, device=dev)
+    else:
+        new_indices = as_tensor(new_indices, device=dev).to(
+            index.indices.dtype)
+
+    labels = kmeans_balanced.predict(
+        KMeansBalancedParams(metric=index.metric), index.centers,
+        as_float(X))
+
+    if not index.size:
+        min_cap = 0
+        if not index.conservative_memory_allocation:
+            counts = torch.bincount(labels.long(), minlength=index.n_lists)
+            min_cap = next_pow2(int(torch.max(counts)))
+        data, ids, sizes = _pack_lists(X.to(index.data.dtype), labels,
+                                       new_indices, index.n_lists, min_cap)
+        centers = index.centers
+        if index.adaptive_centers:
+            sums = torch.zeros_like(centers).index_add_(
+                0, labels.long(), as_float(X))
+            cnt = torch.clamp_min(sizes.to(centers.dtype), 1.0)
+            centers = torch.where((sizes > 0)[:, None], sums / cnt[:, None],
+                                  centers)
+        index.data, index.indices, index.list_sizes = data, ids, sizes
+        index.centers = centers
+        index.deleted = (None if index.deleted is None
+                         else torch.zeros(ids.shape, dtype=torch.bool,
+                                          device=dev))
+        index.n_deleted = 0
+    else:
+        data, ids, sizes, centers = _append_in_place(
+            index.data, index.indices, index.list_sizes, X, new_indices,
+            labels, index.conservative_memory_allocation,
+            index.adaptive_centers,
+            index.centers if index.adaptive_centers else None)
+        index.data, index.indices, index.list_sizes = data, ids, sizes
+        index.deleted = _pad_deleted(index.deleted, data.shape[1])
+        if index.adaptive_centers:
+            index.centers = centers
+    _track_next_id(index, new_indices, default_base, n_new)
+    index.epoch += 1
+    return index
+
+
+def _probe_scan(queries, data, data_sq_norms, indices, list_sizes, k: int,
+                inner_is_l2: bool, sqrt: bool, probe_ids, deleted=None):
+    """Scan engine: for each probe rank, gather every query's list, score
+    it, mask invalid and tombstoned slots to the worst value, and merge
+    into the running top-k (stable: ties keep candidate position)."""
+    q = queries.shape[0]
+    cap = data.shape[1]
+    qn = row_norms_sq(queries) if inner_is_l2 else None
+    worst = worst_value(inner_is_l2)
+    slot = torch.arange(cap, device=queries.device)[None, :]
+    best_d = torch.full((q, k), worst, dtype=queries.dtype,
+                        device=queries.device)
+    best_i = torch.full((q, k), PAD_ID, dtype=indices.dtype,
+                        device=queries.device)
+    for j in range(probe_ids.shape[1]):
+        lists = probe_ids[:, j].long()
+        block = data[lists]                                 # (q, cap, d)
+        invalid = slot >= list_sizes[lists][:, None]
+        if deleted is not None:
+            invalid = invalid | deleted[lists]
+        g = torch.bmm(block, queries[:, :, None])[:, :, 0]
+        if inner_is_l2:
+            dt = torch.clamp_min(qn[:, None] + data_sq_norms[lists]
+                                 - 2.0 * g, 0.0)
+        else:
+            dt = g
+        dt = torch.where(invalid, worst, dt)
+        cat_d = torch.cat([best_d, dt], dim=1)
+        cat_i = torch.cat([best_i, indices[lists]], dim=1)
+        best_d, pos = stable_top_k(cat_d, k, select_min=inner_is_l2)
+        best_i = torch.gather(cat_i, 1, pos)
+    if inner_is_l2 and sqrt:
+        best_d = torch.sqrt(best_d)
+    return best_d, best_i
+
+
+def _chunked_over_queries(fn, Q, probe_ids, per_q_bytes: int,
+                          budget: int = 64 * 1024 * 1024):
+    """Run ``fn(Q_chunk, probe_ids_chunk)`` over query chunks sized so the
+    per-probe gather stays under ``budget`` bytes."""
+    nq = Q.shape[0]
+    chunk = max(1, min(nq, budget // max(per_q_bytes, 1)))
+    outs = [fn(Q[s:s + chunk], probe_ids[s:s + chunk])
+            for s in range(0, nq, chunk)]
+    return (torch.cat([o[0] for o in outs], dim=0),
+            torch.cat([o[1] for o in outs], dim=0))
+
+
+def _sorted_probe_pairs(probe_ids, n_lists: int):
+    """Flatten the (query, probe) pairs probe-rank-major, stable-sort them
+    by list, and rank each pair within its list. Returns
+    ``(sorted_lists, sorted_query, pos, order)``, all int64."""
+    q, p = probe_ids.shape
+    dev = probe_ids.device
+    flat_lists = probe_ids.t().reshape(-1).long()
+    flat_query = torch.arange(q, device=dev).repeat(p)
+    order = torch.argsort(flat_lists, stable=True)
+    sorted_lists = flat_lists[order]
+    sorted_query = flat_query[order]
+    starts = torch.searchsorted(sorted_lists,
+                                torch.arange(n_lists, device=dev))
+    pos = torch.arange(q * p, device=dev) - starts[sorted_lists]
+    return sorted_lists, sorted_query, pos, order
+
+
+def _invert_probe_map_cells(probe_ids, n_lists: int, qrows: int):
+    """Invert (query -> probed lists) into packed query cells: list l owns
+    ``ceil(load_l / qrows)`` consecutive cells of ``qrows`` slots, so no
+    pair is dropped. Returns ``(cell_list (max_cells,) int32, -1 = unused;
+    bucket (max_cells, qrows) query ids, -1 = pad; route)``."""
+    q, p = probe_ids.shape
+    dev = probe_ids.device
+    max_cells = (q * p) // qrows + n_lists
+    sorted_lists, sorted_query, pos, order = _sorted_probe_pairs(
+        probe_ids, n_lists)
+    loads = torch.bincount(sorted_lists, minlength=n_lists)
+    n_cells = (loads + qrows - 1) // qrows
+    base_cell = torch.cumsum(n_cells, 0) - n_cells
+    cell = base_cell[sorted_lists] + pos // qrows
+    slot = pos % qrows
+    bucket = torch.full((max_cells * qrows,), -1, dtype=torch.int64,
+                        device=dev)
+    bucket[cell * qrows + slot] = sorted_query
+    cell_list = torch.full((max_cells,), -1, dtype=torch.int32, device=dev)
+    cell_list[cell] = sorted_lists.to(torch.int32)
+    return cell_list, bucket.reshape(max_cells, qrows), (cell, slot, order)
+
+
+def _route_candidates_cells(bd_, gi, route, q: int, p: int):
+    """Send each cell slot's top-kk candidates back to its query: (q,
+    p*kk) candidate rows, probe-rank-major, for the final selection."""
+    cell, slot, order = route
+    kk = bd_.shape[2]
+    cd = bd_[cell, slot]                                     # (p*q, kk)
+    ci = gi[cell, slot]
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], device=order.device)
+    cd = cd[inv].reshape(p, q, kk).transpose(0, 1).reshape(q, p * kk)
+    ci = ci[inv].reshape(p, q, kk).transpose(0, 1).reshape(q, p * kk)
+    return cd, ci
+
+
+# Query-slot width of one packed cell, the per-list data-block budget of
+# the cells engine, and the widest top-k queue of kernel B2.
+_CELL_QROWS = 64
+_CELL_DB_BYTES = 6 * 1024 * 1024
+_CELLS_MAX_K = 256
+
+
+def _cells_eligible(engine: str, k: int, bucket_cap: int, cap: int, dim: int,
+                    n_queries: int, n_probes: int, n_lists: int,
+                    device: torch.device) -> bool:
+    """The packed-cells dispatch gate: engine allows it, k within the B2
+    queue, no explicit bucket_cap, one list's block within the budget,
+    and for "auto" a ``cuda`` device with a probe load that fills cells."""
+    if not (engine in ("auto", "bucketed") and k <= _CELLS_MAX_K
+            and bucket_cap == 0):
+        return False
+    if round_up_safe(cap, 128) * round_up_safe(dim, 128) * 4 > _CELL_DB_BYTES:
+        return False
+    if engine == "bucketed":
+        return True
+    load = n_queries * n_probes / max(n_lists, 1)
+    return device.type == "cuda" and load >= 8
+
+
+def _cells_scan_probes(Q, probe_ids, data, indices, list_sizes, k: int,
+                       inner_is_l2: bool, qrows: int, qsplit: bool,
+                       deleted=None):
+    """Scan the given probed lists with the packed-cells engine (kernel
+    B2): best-first (q, k) candidates in true metric values, no sqrt."""
+    q = Q.shape[0]
+    cap = data.shape[1]
+    cell_list, bucket, route = _invert_probe_map_cells(
+        probe_ids, data.shape[0], qrows)
+    Qc = Q[torch.clamp_min(bucket, 0)]             # (max_cells, qrows, d)
+    invalid = (torch.arange(cap, device=Q.device)[None, :]
+               >= list_sizes[:, None])
+    if deleted is not None:
+        invalid = invalid | deleted
+    bd_, bi_ = fused_cells_knn(cell_list, Qc, data, invalid, k,
+                               l2=inner_is_l2,
+                               bf16=data.dtype == torch.bfloat16,
+                               qsplit=qsplit)
+    gi = indices[torch.clamp_min(cell_list, 0).long()[:, None, None],
+                 torch.clamp_min(bi_, 0).long()]
+    gi = torch.where(bi_ < 0, PAD_ID, gi)
+    cd, ci = _route_candidates_cells(bd_, gi, route, q, probe_ids.shape[1])
+    best_d, best_i = select_k(cd, k, select_min=True, indices=ci)
+    if not inner_is_l2:
+        best_d = -best_d
+    return best_d, best_i
+
+
+def search(params: SearchParams, index: Index, queries, k: int,
+           handle=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Probe the ``n_probes`` nearest centers, then scan the probed lists.
+    Returns ``(distances (q, k), int32 neighbors (q, k))``; fewer than k
+    valid candidates leave (worst, -1) slots."""
+    dev = handle.device if handle is not None else index.centers.device
+    Q = as_float(queries, device=dev)
+    expects(Q.ndim == 2 and Q.shape[1] == index.dim, "query dim mismatch")
+    expects(params.engine in ("auto", "scan", "bucketed"),
+            f"unknown engine {params.engine!r} (auto|scan|bucketed)")
+    n_probes = min(params.n_probes, index.n_lists)
+    k = min(k, max(index.capacity, 1))
+    metric = index.metric
+    inner_is_l2 = metric != DistanceType.InnerProduct
+    sqrt = metric in (DistanceType.L2SqrtExpanded,
+                      DistanceType.L2SqrtUnexpanded)
+    probe_ids = _coarse_probe(Q, index.centers, n_probes, inner_is_l2)
+
+    if _cells_eligible(params.engine, k, params.bucket_cap,
+                       index.data.shape[1], index.dim, Q.shape[0], n_probes,
+                       index.n_lists, Q.device):
+        if index.data.dtype in (torch.uint8, torch.int8):
+            # 8-bit values are exact in bf16: the kernel reads bf16 rows
+            # and keeps f32 query precision with the split query.
+            data, qsplit = index.data.to(torch.bfloat16), True
+        else:
+            data, qsplit = as_float(index.data), False
+        best_d, best_i = _cells_scan_probes(
+            Q, probe_ids, data, index.indices, index.list_sizes, k,
+            inner_is_l2, min(_CELL_QROWS, max(8, Q.shape[0])), qsplit,
+            index.deleted)
+        if inner_is_l2 and sqrt:
+            best_d = torch.sqrt(best_d)
+        return best_d, best_i
+
+    expects(params.engine != "bucketed" or params.bucket_cap == 0,
+            "the legacy bucket-table engine (bucket_cap > 0) is not ported "
+            "yet; use bucket_cap=0 or engine='scan'")
+    expects(params.engine != "bucketed",
+            "the cells engine does not take this search (k > %s or an "
+            "oversized list block) and the legacy bucket-table engine is "
+            "not ported yet; use engine='scan'", _CELLS_MAX_K)
+    dataf = as_float(index.data)
+    norms = row_norms_sq(dataf) if inner_is_l2 else None
+    return _chunked_over_queries(
+        lambda q_, p_: _probe_scan(q_, dataf, norms, index.indices,
+                                   index.list_sizes, k, inner_is_l2, sqrt,
+                                   p_, index.deleted),
+        Q, probe_ids, dataf.shape[1] * index.dim * 4)
