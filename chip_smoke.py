@@ -21,7 +21,9 @@ no result line):
    (through B2) at recall@10 >= 0.995 against the brute-force result;
 5. timings at the main-path shapes: each kernel, its plain version, and a
    library yardstick (``torch`` matmul + ``torch.topk``, which the port
-   never calls), beside the kernel's bound on an H100 SXM;
+   never calls), beside the kernel's bound on an H100 SXM; B1 is also held
+   against its plain version at every k=1 assignment shape of the build
+   (trainset x 32 and x 1024 centers on both tiers, rows x 1024 in f32);
 6. a ``kernels`` line, the card line, and the result line.
 
 The data is made with numpy from a fixed seed: 1000 Gaussian blobs
@@ -303,23 +305,46 @@ def b1_entry(dev, X, Q, bf):
             else "bytes", "library_ms": lib_ms}
 
 
-def b1_kmeans_shape(dev, X):
-    """B1 at the k-means assignment shape of the build: the trainset
-    against the 1024 centers, k=1, f32 and split-bf16 tiers."""
+def b1_kmeans_shape(dev, X, centers):
+    """B1 at the k=1 assignment shapes of the IVF-Flat build, each held
+    against its plain version: the trainset (half the rows) against the
+    32 mesocluster-sized and the 1024 list-sized center sets on the f32 and
+    split-bf16 tiers (the balancing EM runs both), and every row against
+    the 1024 centers in f32 (the extend assignment). Arg-min agreement must
+    reach RECALL_BF and the distances agree within ``norm_tol``."""
+    import torch
+
     from raft_tpu_torch.ops import fused_knn as fk
 
     T = X[::2][:N_ROWS // 2].contiguous()
-    C = X[:N_LISTS].contiguous()
-    m, n, d = T.shape[0], C.shape[0], C.shape[1]
-    for tier, bf16 in (("f32", False), ("split-bf16", True)):
-        ms = time_ms(lambda: fk._fused_knn_cuda(T, C, 1, True, bf16, bf16),
+    C1024 = centers.contiguous()
+    C32 = centers[::N_LISTS // 32].contiguous()
+    cases = [("train", T, C32, "f32", False),
+             ("train", T, C32, "split-bf16", True),
+             ("train", T, C1024, "f32", False),
+             ("train", T, C1024, "split-bf16", True),
+             ("extend", X, C1024, "f32", False)]
+    for what, A, C, tier, bf16 in cases:
+        m, n, d = A.shape[0], C.shape[0], C.shape[1]
+        kd, ki = fk._fused_knn_cuda(A, C, 1, True, bf16, bf16)
+        pd, pi = fk._fused_knn_plain(A, C, 1, True, bf16, bf16)
+        torch.cuda.synchronize()
+        agree = float((ki == pi).float().mean())
+        err = max_err(kd, pd)
+        tol = norm_tol(A, C)
+        tag = f"B1 k-means {what} m={m} n={n} d={d} k=1 {tier}"
+        log(f"{tag}: arg-min agreement {agree:.6f} (bar {RECALL_BF}), max "
+            f"|d| err {err:.3e} (tol {tol:.3e})")
+        if agree < RECALL_BF or err > tol:
+            raise AssertionError(f"{tag}: kernel disagrees with plain")
+        del kd, ki, pd, pi
+        ms = time_ms(lambda: fk._fused_knn_cuda(A, C, 1, True, bf16, bf16),
                      5)
         ops = 2.0 * m * n * d * (2 if bf16 else 1)
         peak = PEAK_BF16 if bf16 else PEAK_FP32
         nbytes = 4.0 * (m * d + n * d) + 8.0 * m
         bound = max(ops / peak, nbytes / PEAK_BYTES) * 1e3
-        log(f"B1 k-means assignment m={m} n={n} d={d} k=1 {tier}: kernel "
-            f"{ms:.3f} ms, bound {bound:.3f} ms")
+        log(f"{tag}: kernel {ms:.3f} ms, bound {bound:.3f} ms")
 
 
 def b2_entry(dev, Q, index):
@@ -420,7 +445,7 @@ def main() -> int:
 
     mp = main_path(dev, X, Q)
     b1 = b1_entry(dev, X, Q, mp["bf"])
-    b1_kmeans_shape(dev, X)
+    b1_kmeans_shape(dev, X, mp["index"].centers)
     b2 = b2_entry(dev, Q, mp["index"])
 
     kernels = [

@@ -15,12 +15,17 @@
 // product, and a top-k ordered by (distance, id) so ties go to the lowest
 // id. Norms are always f32 from the unrounded operands.
 //
-// What bounds them on the H100: the gram tile is 2*d flops for every
-// (query, row) pair against 4*d bytes per row shared by a block of 32
-// queries, so at the main-path shapes they are bound by arithmetic at the
-// FP32 (non tensor core) rate, not by HBM. The f32 path must not use TF32
+// What bounds them on the H100: the work's own bound is arithmetic (2*d
+// flops per (query, row) pair at the FP32 non-tensor-core rate; the inputs
+// are read once). This design does not reach it: every 32-query CTA
+// re-reads the whole database, so at the brute-force shape (10k queries x
+// 1M x 128) about 313 CTAs stream 512 MB each, ~160 GB in all, which is
+// 2*32 flops per 4 bytes = 16 flop/B, under the card's ~20 flop/B ridge.
+// Unless L2 catches the reuse, the kernel is bound by that memory traffic.
+// The lever is more queries per CTA or a db-tile-major schedule whose
+// tiles stay in L2 across query blocks. The f32 path must not use TF32
 // tensor cores (about 3 decimal digits; it breaks parity with the
-// reference's Precision.HIGHEST), so the design is a plain register-tiled
+// reference's Precision.HIGHEST), so the product is a plain register-tiled
 // FMA product: a CTA of 256 threads holds 32 queries, streams the database
 // in 128-row tiles through shared memory in 32-feature chunks, and each
 // thread accumulates a 4x4 micro-tile. The TPU grid's sequential db axis

@@ -1,10 +1,10 @@
 """Fused L2 nearest-neighbor: pairwise L2 + row-wise arg-min in one pass.
 
-Port of ``raft_tpu/distance/fused_l2_nn.py``, the k-means inner loop. On
-``cuda`` it routes to the fused kNN kernel with k=1 (``ops/fused_knn.py``,
-kernel B1), as the reference routes to its Pallas kernel on ``tpu``; the
-kernel's output is (m, 1), so no query chunking is needed. Elsewhere the
-same fusion is a loop over column tiles of ``y`` with a running arg-min.
+Port of ``raft_tpu/distance/fused_l2_nn.py``, the k-means inner loop. It is
+the fused kNN of ``ops/fused_knn.py`` with k=1 on every device: kernel B1
+on ``cuda`` (as the reference routes to its Pallas kernel on ``tpu``), its
+plain version on the CPU. The kernel's output is (m, 1), so no query
+chunking is needed.
 
 ``bf16`` picks the precision tier: None keeps f32, "split" rounds the y
 (centroid) operand to bf16 and recovers x with a hi/lo double product,
@@ -19,62 +19,29 @@ import torch
 
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.resources import as_float
-from raft_tpu_torch.distance.pairwise import gram, row_norms_sq
-
-_TILE_N = 2048
-
-
-def _gram_tier(a, b, bf16: Optional[str]) -> torch.Tensor:
-    """``a @ b^T`` honoring the requested bf16 tier."""
-    if bf16 is None:
-        return gram(a, b)
-    bb = b.to(torch.bfloat16).float()
-    ah = a.to(torch.bfloat16).float()
-    if bf16 == "full":
-        return gram(ah, bb)
-    al = (a - ah).to(torch.bfloat16).float()
-    return gram(ah, bb) + gram(al, bb)
+from raft_tpu_torch.ops.fused_knn import fused_knn
 
 
 def fused_l2_nn_min_reduce(
     x,
     y,
     sqrt: bool = False,
-    tile_n: int = _TILE_N,
+    tile_n: int = 2048,
     bf16: Optional[str] = None,
     handle=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """For each row of ``x``, the L2-nearest row of ``y``: returns
     ``(min_dist (m,), argmin (m,) int32)``, squared unless ``sqrt``. Ties
-    go to the lowest index. ``tile_n`` applies to the tiled path only; a
-    non-default value keeps that path on the card too."""
+    go to the lowest index. ``tile_n`` is the reference's column-tile
+    width; it is accepted for signature parity and ignored, since the
+    fused kNN tiles ``y`` itself and the result does not depend on it."""
     expects(bf16 in (None, "split", "full"),
             f"bf16 must be None, 'split' or 'full' (got {bf16!r})")
     x = as_float(x, handle)
     y = as_float(y, handle, x.device)
     expects(x.ndim == 2 and y.ndim == 2, "x and y must be matrices")
     expects(x.shape[1] == y.shape[1], "x and y must have the same n_cols")
-    m, d = x.shape
-    n = y.shape[0]
-
-    if (x.device.type == "cuda" and x.dtype == torch.float32
-            and y.dtype == torch.float32 and d <= 1024 and n >= 2
-            and tile_n == _TILE_N):
-        from raft_tpu_torch.ops.fused_knn import fused_knn
-
-        d1, i1 = fused_knn(x, y, 1, metric="l2", sqrt=sqrt,
-                           bf16=bf16 is not None, qsplit=bf16 == "split")
-        return d1[:, 0], i1[:, 0]
-
-    xn = row_norms_sq(x)
-    best_d = torch.full((m,), float("inf"), dtype=x.dtype, device=x.device)
-    best_i = torch.zeros((m,), dtype=torch.int32, device=x.device)
-    for s in range(0, n, tile_n):
-        yt = y[s:s + tile_n]
-        dt = torch.clamp_min(xn[:, None] + row_norms_sq(yt)[None, :]
-                             - 2.0 * _gram_tier(x, yt, bf16), 0.0)
-        td, ti = torch.min(dt, dim=1)
-        upd = td < best_d          # strict: earlier tiles win ties
-        best_d = torch.where(upd, td, best_d)
-        best_i = torch.where(upd, ti.to(torch.int32) + s, best_i)
-    return (torch.sqrt(best_d) if sqrt else best_d), best_i
+    expects(y.shape[0] >= 1, "y must have at least one row")
+    d1, i1 = fused_knn(x, y, 1, metric="l2", sqrt=sqrt,
+                       bf16=bf16 is not None, qsplit=bf16 == "split")
+    return d1[:, 0], i1[:, 0]

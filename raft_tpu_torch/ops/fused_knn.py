@@ -39,7 +39,8 @@ _PLAIN_BLOCK = 1 << 26
 
 
 def fused_knn_supported(m: int, n: int, d: int, k: int) -> bool:
-    """Shapes the kernel takes: k within the top-k queue, d <= 1024."""
+    """The reference's kernel gate: k within the top-k queue, d <= 1024.
+    The CUDA kernel itself takes any d (it stages 32-feature chunks)."""
     return k <= MAX_K and d <= MAX_DIM and n >= 1 and m >= 1
 
 
@@ -134,13 +135,15 @@ def _fused_knn_cuda(queries, db, k: int, l2: bool, bf16: bool,
             "fused_knn: the kernel takes float32 queries and db")
     m, d = queries.shape
     n = db.shape[0]
-    expects(fused_knn_supported(m, n, d, k),
+    expects(1 <= k <= MAX_K and n >= 1,
             "fused_knn: unsupported shape m=%s n=%s d=%s k=%s", m, n, d, k)
     out_d = torch.empty((m, k), dtype=torch.float32, device=queries.device)
     out_i = torch.empty((m, k), dtype=torch.int32, device=queries.device)
-    err = _lib().fused_knn_launch(
-        _ptr(queries), _ptr(db), _ptr(out_d), _ptr(out_i), m, n, d, k,
-        int(l2), int(bf16), int(qsplit), _stream(queries.device))
+    lib = _lib()
+    with torch.cuda.device(queries.device):
+        err = lib.fused_knn_launch(
+            _ptr(queries), _ptr(db), _ptr(out_d), _ptr(out_i), m, n, d, k,
+            int(l2), int(bf16), int(qsplit), _stream(queries.device))
     _build.check(err, "fused_knn launch")
     fused_knn.launches += 1
     return out_d, out_i
@@ -229,11 +232,13 @@ def _fused_cells_knn_cuda(cell_list, queries, db, invalid, k: int, l2: bool,
                         device=queries.device)
     out_i = torch.empty((n_cells, qrows, k), dtype=torch.int32,
                         device=queries.device)
-    err = _lib().fused_cells_knn_launch(
-        _ptr(cell_list), _ptr(queries), _ptr(db),
-        int(db.dtype == torch.bfloat16), _ptr(invalid), _ptr(out_d),
-        _ptr(out_i), n_cells, qrows, cap, d, k, int(l2), int(bf16),
-        int(qsplit), _stream(queries.device))
+    lib = _lib()
+    with torch.cuda.device(queries.device):
+        err = lib.fused_cells_knn_launch(
+            _ptr(cell_list), _ptr(queries), _ptr(db),
+            int(db.dtype == torch.bfloat16), _ptr(invalid), _ptr(out_d),
+            _ptr(out_i), n_cells, qrows, cap, d, k, int(l2), int(bf16),
+            int(qsplit), _stream(queries.device))
     _build.check(err, "fused_cells_knn launch")
     fused_cells_knn.launches += 1
     return out_d, out_i

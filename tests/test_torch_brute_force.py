@@ -102,6 +102,7 @@ def test_pairwise_expanded(rng, metric):
 def test_fused_l2_nn_tiers(rng, bf16, tile_n):
     x = int_data(rng, (200, 16))
     y = int_data(rng, (150, 16))
+    # tile_n only shapes the reference's tiling; the port ignores it.
     d, i = fused_l2_nn_min_reduce(t(x), t(y), tile_n=tile_n, bf16=bf16)
     jd, ji = jfused_l2_nn(x, y, tile_n=tile_n, bf16=bf16)
     np.testing.assert_array_equal(n(i), n(ji))
