@@ -19,16 +19,24 @@ valid iff ``j < list_sizes[l]`` and it is not tombstoned in ``deleted``.
     routed back for the final per-query selection. ``"auto"`` takes it on
     ``cuda`` when the probe load fills cells, as the reference does on
     ``tpu``; ``"bucketed"`` with ``bucket_cap=0`` forces it;
+  - the legacy bucket-table engine (kernel B3, ``fused_batch_knn``): the
+    probe map is inverted into one query bucket of ``bucket_cap`` slots
+    per list (:func:`_pick_engine` measures the capacity when it is 0),
+    every bucket is scored against its list in one batched launch, and
+    overflowing pairs drop their farthest-centroid probes first. An
+    explicit ``bucket_cap`` selects it, as does ``"bucketed"`` where the
+    cells engine does not apply (k > 256, an oversized list block); on the
+    card B3 holds k <= 256 and raises past it;
   - the scan engine (:func:`_probe_scan`): per probe rank, gather each
     query's list, score it, and merge into a running top-k, for what the
-    cells engine does not take (k > 256, tiny probe loads, "scan").
+    other engines do not take (tiny probe loads, "scan").
 
-The legacy bucket-table engine (an explicit ``bucket_cap``), save/load
-and int64 ids come in a later slice and raise here.
+save/load and int64 ids come in a later slice.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -43,9 +51,11 @@ from raft_tpu_torch.core.sentinels import PAD_ID, worst_value
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
 from raft_tpu_torch.distance.pairwise import gram, row_norms_sq
 from raft_tpu_torch.matrix.select_k import select_k, stable_top_k
-from raft_tpu_torch.ops.fused_knn import fused_cells_knn
+from raft_tpu_torch.ops.fused_knn import fused_batch_knn, fused_cells_knn
 from raft_tpu_torch.random.rng_state import RngState
 from raft_tpu_torch.util.pow2 import next_pow2, round_up_safe
+
+logger = logging.getLogger("raft_tpu_torch")
 
 
 @dataclass
@@ -66,7 +76,8 @@ class IndexParams:
 @dataclass
 class SearchParams:
     """``engine``: "auto" | "scan" | "bucketed"; ``bucket_cap`` other than
-    0 selects the legacy bucket-table engine, not ported yet."""
+    0 selects the legacy bucket-table engine at that per-list query
+    capacity (pairs beyond it drop their farthest-centroid probes)."""
 
     n_probes: int = 20
     engine: str = "auto"
@@ -113,6 +124,11 @@ class Index:
     @property
     def size(self) -> int:
         return int(torch.sum(self.list_sizes))
+
+    def reset_search_cache(self) -> None:
+        """Drop the memoized auto bucket capacity (measured from the first
+        query batch of each shape)."""
+        self.__dict__.pop("_auto_cap_cache", None)
 
 
 def index_from_numpy(centers, data, indices, list_sizes, metric,
@@ -327,6 +343,7 @@ def extend(index: Index, new_vectors, new_indices=None,
             index.centers = centers
     _track_next_id(index, new_indices, default_base, n_new)
     index.epoch += 1
+    index.reset_search_cache()  # occupancy changed
     return index
 
 
@@ -393,6 +410,150 @@ def _sorted_probe_pairs(probe_ids, n_lists: int):
                                 torch.arange(n_lists, device=dev))
     pos = torch.arange(q * p, device=dev) - starts[sorted_lists]
     return sorted_lists, sorted_query, pos, order
+
+
+# Memory budget of the bucketed engine's query-gather table (n_lists,
+# bucket_cap, dim) f32: beyond it "auto" takes the scan engine instead.
+_BUCKET_TABLE_BYTES = 512 * 1024 * 1024
+
+
+def _auto_cap_cache(index) -> dict:
+    """Per-index memo of the auto-measured bucket capacity, keyed on
+    (n_queries, n_probes); extend() and reset_search_cache() clear it."""
+    return index.__dict__.setdefault("_auto_cap_cache", {})
+
+
+def _front_rank_contention(probe_ids, n_lists: int) -> Tuple[int, int]:
+    """``(best_half_max, rank0_max)``: the largest per-list count of
+    (query, probe) pairs whose probe rank is in the query's best half, and
+    of rank-0 pairs alone."""
+    half = max(1, probe_ids.shape[1] - probe_ids.shape[1] // 2)
+    front = probe_ids[:, :half].reshape(-1).long()
+    return (int(torch.max(torch.bincount(front, minlength=n_lists))),
+            int(torch.max(torch.bincount(probe_ids[:, 0].long(),
+                                         minlength=n_lists))))
+
+
+def _pick_engine(engine: str, n_queries: int, n_probes: int, n_lists: int,
+                 k: int, bucket_cap: int, dim: int, probe_ids,
+                 device: torch.device, allow_bucketed: bool = True,
+                 cap_cache=None) -> Tuple[str, int]:
+    """Resolve ``engine`` ("auto" takes "bucketed" on ``cuda`` when the
+    mean probe load per list fills buckets, as the reference does on
+    ``tpu``) and the bucket capacity. A measured capacity covers every
+    pair in each query's best half of probes, bounded at 8x the mean load
+    but never below the rank-0 contention, rounded up to a power of two
+    and memoized in ``cap_cache``. If it would overflow the bucket-table
+    budget, "auto" takes the scan engine; an explicit "bucketed" is
+    clamped to the budget with a warning."""
+    expects(engine in ("auto", "scan", "bucketed"),
+            f"unknown engine {engine!r} (auto|scan|bucketed)")
+    cap_q = bucket_cap
+    cap_clamp = max(8, _BUCKET_TABLE_BYTES // max(n_lists * dim * 4, 1))
+    mean_load = max(1, (n_queries * n_probes) // n_lists)
+
+    def measured_cap():
+        key = (n_queries, n_probes)
+        if cap_cache is not None and key in cap_cache:
+            return cap_cache[key]
+        front, rank0 = _front_rank_contention(probe_ids, n_lists)
+        cap = next_pow2(max(front, 4 * mean_load, 8))
+        bound = max(next_pow2(8 * mean_load), next_pow2(max(rank0, 1)))
+        if cap > bound:
+            logger.debug("auto bucket cap %d exceeds skew bound %d - "
+                         "capping; deep-rank probes of contended lists may "
+                         "drop", cap, bound)
+            cap = bound
+        cap = min(n_queries, cap)
+        if cap_cache is not None:
+            cap_cache[key] = cap
+        return cap
+
+    if engine == "auto":
+        load = n_queries * n_probes / n_lists
+        if (allow_bucketed and device.type == "cuda" and load >= 8
+                and k <= 128):
+            if cap_q == 0:
+                cap_q = measured_cap()
+                engine = "bucketed" if cap_q <= cap_clamp else "scan"
+            else:
+                engine = "bucketed"
+        else:
+            engine = "scan"
+    elif engine == "bucketed" and cap_q == 0:
+        cap_q = measured_cap()
+        if cap_q > cap_clamp:
+            logger.warning(
+                "bucketed capacity clamped %d -> %d by the bucket-table "
+                "memory budget; under heavy skew queries may lose "
+                "best-rank probes (use engine='auto' or 'scan' for the "
+                "drop-safe behavior)", cap_q, cap_clamp)
+            cap_q = cap_clamp
+    logger.debug("ivf search dispatch: engine=%s q=%d probes=%d lists=%d "
+                 "k=%d cap_q=%d", engine, n_queries, n_probes, n_lists, k,
+                 cap_q)
+    return engine, cap_q
+
+
+def _invert_probe_map(probe_ids, n_lists: int, bucket_cap: int):
+    """Invert (query -> probed lists) into per-list query buckets of
+    ``bucket_cap`` slots, rank-major, so overflow drops the farthest-
+    centroid probes first. Returns ``(bucket (n_lists, bucket_cap) int64
+    query ids, -1 = empty; route)``."""
+    sorted_lists, sorted_query, pos, order = _sorted_probe_pairs(
+        probe_ids, n_lists)
+    keep = pos < bucket_cap
+    bucket = torch.full((n_lists * bucket_cap,), -1, dtype=torch.int64,
+                        device=probe_ids.device)
+    bucket[(sorted_lists * bucket_cap + pos)[keep]] = sorted_query[keep]
+    return (bucket.reshape(n_lists, bucket_cap),
+            (sorted_lists, pos, keep, order))
+
+
+def _route_candidates(bd_, gi, route, q: int, p: int, bucket_cap: int,
+                      worst: float):
+    """Send each (list, slot) pair's top-kk candidates back to its query:
+    (q, p*kk) rows, probe-rank-major; dropped pairs give (worst, -1)."""
+    sorted_lists, pos, keep, order = route
+    kk = bd_.shape[2]
+    ppos = torch.clamp_max(pos, bucket_cap - 1)
+    cd = torch.where(keep[:, None], bd_[sorted_lists, ppos], worst)
+    ci = torch.where(keep[:, None], gi[sorted_lists, ppos], PAD_ID)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], device=order.device)
+    cd = cd[inv].reshape(p, q, kk).transpose(0, 1).reshape(q, p * kk)
+    ci = ci[inv].reshape(p, q, kk).transpose(0, 1).reshape(q, p * kk)
+    return cd, ci
+
+
+def _bucketed_probe_scan(queries, data, indices, list_sizes, probe_ids,
+                         k: int, inner_is_l2: bool, sqrt: bool,
+                         bucket_cap: int, qsplit: bool = False,
+                         deleted=None):
+    """Bucket-table engine: invert the probe map into per-list query
+    buckets, score every bucket against its own list in one batched B3
+    launch, route each pair's candidates back and select per query."""
+    q = queries.shape[0]
+    n_lists, cap, _ = data.shape
+    bucket, route = _invert_probe_map(probe_ids, n_lists, bucket_cap)
+    Qb = queries[torch.clamp_min(bucket, 0)]          # (L, bucket_cap, d)
+    invalid = (torch.arange(cap, device=queries.device)[None, :]
+               >= list_sizes[:, None])
+    if deleted is not None:
+        invalid = invalid | deleted
+    bd_, bi_ = fused_batch_knn(Qb, data, invalid, k,
+                               metric="l2" if inner_is_l2 else "ip",
+                               bf16=data.dtype == torch.bfloat16,
+                               qsplit=qsplit)
+    gi = indices[torch.arange(n_lists, device=queries.device)[:, None, None],
+                 torch.clamp_min(bi_, 0).long()]
+    gi = torch.where(bi_ < 0, PAD_ID, gi)
+    cd, ci = _route_candidates(bd_, gi, route, q, probe_ids.shape[1],
+                               bucket_cap, worst_value(inner_is_l2))
+    best_d, best_i = select_k(cd, k, select_min=inner_is_l2, indices=ci)
+    if inner_is_l2 and sqrt:
+        best_d = torch.sqrt(best_d)
+    return best_d, best_i
 
 
 def _invert_probe_map_cells(probe_ids, n_lists: int, qrows: int):
@@ -501,16 +662,16 @@ def search(params: SearchParams, index: Index, queries, k: int,
     sqrt = metric in (DistanceType.L2SqrtExpanded,
                       DistanceType.L2SqrtUnexpanded)
     probe_ids = _coarse_probe(Q, index.centers, n_probes, inner_is_l2)
+    if index.data.dtype in (torch.uint8, torch.int8):
+        # 8-bit values are exact in bf16: the kernels read bf16 rows and
+        # keep f32 query precision with the split query.
+        data, qsplit = index.data.to(torch.bfloat16), True
+    else:
+        data, qsplit = as_float(index.data), False
 
     if _cells_eligible(params.engine, k, params.bucket_cap,
                        index.data.shape[1], index.dim, Q.shape[0], n_probes,
                        index.n_lists, Q.device):
-        if index.data.dtype in (torch.uint8, torch.int8):
-            # 8-bit values are exact in bf16: the kernel reads bf16 rows
-            # and keeps f32 query precision with the split query.
-            data, qsplit = index.data.to(torch.bfloat16), True
-        else:
-            data, qsplit = as_float(index.data), False
         best_d, best_i = _cells_scan_probes(
             Q, probe_ids, data, index.indices, index.list_sizes, k,
             inner_is_l2, min(_CELL_QROWS, max(8, Q.shape[0])), qsplit,
@@ -519,13 +680,15 @@ def search(params: SearchParams, index: Index, queries, k: int,
             best_d = torch.sqrt(best_d)
         return best_d, best_i
 
-    expects(params.engine != "bucketed" or params.bucket_cap == 0,
-            "the legacy bucket-table engine (bucket_cap > 0) is not ported "
-            "yet; use bucket_cap=0 or engine='scan'")
-    expects(params.engine != "bucketed",
-            "the cells engine does not take this search (k > %s or an "
-            "oversized list block) and the legacy bucket-table engine is "
-            "not ported yet; use engine='scan'", _CELLS_MAX_K)
+    engine, cap_q = _pick_engine(params.engine, Q.shape[0], n_probes,
+                                 index.n_lists, k, params.bucket_cap,
+                                 index.dim, probe_ids, Q.device,
+                                 cap_cache=_auto_cap_cache(index))
+    if engine == "bucketed":
+        return _bucketed_probe_scan(Q, data, index.indices,
+                                    index.list_sizes, probe_ids, k,
+                                    inner_is_l2, sqrt, cap_q, qsplit,
+                                    index.deleted)
     dataf = as_float(index.data)
     norms = row_norms_sq(dataf) if inner_is_l2 else None
     return _chunked_over_queries(

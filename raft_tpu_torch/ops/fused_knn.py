@@ -1,8 +1,10 @@
-"""Fused exact kNN (B1) and the packed-cells IVF-Flat scan (B2).
+"""Fused exact kNN (B1), the packed-cells IVF-Flat scan (B2) and the
+batched independent kNN (B3).
 
-Port of ``raft_tpu/ops/fused_knn.py::fused_knn`` and ``::fused_cells_knn``.
-The kernels are hand-written CUDA in ``csrc/fused_knn.cu`` (see its header
-for the design). Beside each one is its plain PyTorch version, which
+Port of ``raft_tpu/ops/fused_knn.py::fused_knn``, ``::fused_cells_knn`` and
+``::fused_batch_knn``. The kernels are hand-written CUDA in
+``csrc/fused_knn.cu`` over the tile loop of ``csrc/knn_tile.cuh`` (see their
+headers for the design). Beside each one is its plain PyTorch version, which
 repeats the kernel's arithmetic and tie rules:
 
 * the distance tile of :func:`distance_tile`: a gram in f32 (or on
@@ -14,8 +16,8 @@ repeats the kernel's arithmetic and tie rules:
 
 Dispatch: a wrapper takes the plain version only when its tensors lie on
 the CPU. For CUDA tensors it launches the kernel or raises; nothing falls
-back. ``fused_knn.launches`` and ``fused_cells_knn.launches`` count the
-kernel launches.
+back. ``fused_knn.launches``, ``fused_cells_knn.launches`` and
+``fused_batch_knn.launches`` count the kernel launches.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from raft_tpu_torch.distance.pairwise import gram
 from raft_tpu_torch.matrix.select_k import stable_top_k
 from raft_tpu_torch.ops import _build
 
-#: Widest top-k queue of both kernels (the reference warpsort cap).
+#: Widest top-k queue of the kernels (the reference warpsort cap).
 MAX_K = 256
 MAX_DIM = 1024
 
@@ -116,6 +118,9 @@ _KNN_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _CELLS_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
+_BATCH_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
 
 
 def _lib():
@@ -125,6 +130,8 @@ def _lib():
         lib.fused_knn_launch.restype = ctypes.c_int
         lib.fused_cells_knn_launch.argtypes = _CELLS_ARGTYPES
         lib.fused_cells_knn_launch.restype = ctypes.c_int
+        lib.fused_batch_knn_launch.argtypes = _BATCH_ARGTYPES
+        lib.fused_batch_knn_launch.restype = ctypes.c_int
     return lib
 
 
@@ -273,3 +280,85 @@ def fused_cells_knn(cell_list, queries, db, invalid, k: int, *,
 
 
 fused_cells_knn.launches = 0
+
+
+def _fused_batch_knn_plain(queries, db, invalid, k: int, l2: bool,
+                           bf16: bool, qsplit: bool
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of B3: B2's plain version with the identity cell map
+    (element b scores its queries against its own slab)."""
+    cells = torch.arange(queries.shape[0], dtype=torch.int32,
+                         device=queries.device)
+    return _fused_cells_knn_plain(cells, queries, db, invalid, k, l2, bf16,
+                                  qsplit)
+
+
+def _fused_batch_knn_cuda(queries, db, invalid, k: int, l2: bool,
+                          bf16: bool, qsplit: bool
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check_cuda("fused_batch_knn", queries, db, invalid)
+    expects(queries.dtype == torch.float32 and invalid.dtype == torch.bool
+            and db.dtype in (torch.float32, torch.bfloat16),
+            "fused_batch_knn: f32 queries, f32/bf16 db and bool invalid "
+            "expected")
+    batch, m, d = queries.shape
+    n = db.shape[1]
+    expects(db.shape == (batch, n, d) and invalid.shape == (batch, n),
+            "fused_batch_knn: shape mismatch")
+    expects(1 <= k <= min(MAX_K, n),
+            "fused_batch_knn: the card kernel's queue holds k <= %s (got "
+            "k=%s, n=%s)", MAX_K, k, n)
+    out_d = torch.empty((batch, m, k), dtype=torch.float32,
+                        device=queries.device)
+    out_i = torch.empty((batch, m, k), dtype=torch.int32,
+                        device=queries.device)
+    lib = _lib()
+    with torch.cuda.device(queries.device):
+        err = lib.fused_batch_knn_launch(
+            _ptr(queries), _ptr(db), int(db.dtype == torch.bfloat16),
+            _ptr(invalid), _ptr(out_d), _ptr(out_i), batch, m, n, d, k,
+            int(l2), int(bf16), int(qsplit), _stream(queries.device))
+    _build.check(err, "fused_batch_knn launch")
+    fused_batch_knn.launches += 1
+    return out_d, out_i
+
+
+def fused_batch_knn(queries, db, invalid, k: int, *, metric: str = "l2",
+                    sqrt: bool = False, bd: int = 0, bf16: bool = False,
+                    qsplit: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched independent fused kNN: element b searches ``queries[b]``
+    (m, d) against ``db[b]`` (n, d), skipping slots where ``invalid[b]``
+    (n,) is set. A bf16 ``db`` is taken as is when ``bf16``; otherwise it
+    is read as f32. ``bd`` is the reference's db tile width: the result
+    does not depend on it, so it is accepted and ignored. Returns
+    (distances (B, m, k), int32 local slot ids) with k = min(k, n); short
+    results pad with (worst, -1). On the card k is at most 256."""
+    expects(metric in ("l2", "ip"), "metric must be 'l2' or 'ip'")
+    expects(queries.ndim == 3 and db.ndim == 3 and invalid.ndim == 2,
+            "fused_batch_knn: queries (B, m, d), db (B, n, d) and invalid "
+            "(B, n) expected")
+    queries = queries.to(torch.float32)
+    if not (bf16 and db.dtype == torch.bfloat16):
+        db = db.to(torch.float32)
+    k = int(min(k, db.shape[1]))
+    l2 = metric == "l2"
+    qsplit = qsplit and bf16
+    tensors = (queries, db, invalid)
+    if all(t.device.type == "cpu" for t in tensors):
+        outd, outi = _fused_batch_knn_plain(queries, db, invalid, k, l2,
+                                            bf16, qsplit)
+    elif queries.device.type == "cuda":
+        outd, outi = _fused_batch_knn_cuda(
+            queries.contiguous(), db.contiguous(),
+            invalid.to(torch.bool).contiguous(), k, l2, bf16, qsplit)
+    else:
+        raise CudaError(f"fused_batch_knn: no kernel for {queries.device}")
+    if l2:
+        if sqrt:
+            outd = torch.sqrt(outd)
+    else:
+        outd = -outd
+    return outd, outi
+
+
+fused_batch_knn.launches = 0

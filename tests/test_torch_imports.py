@@ -15,9 +15,10 @@ import torch
 import raft_tpu_torch
 from raft_tpu_torch.core.error import CudaError
 from raft_tpu_torch.core.resources import Resources, as_tensor, resolve_device
-from raft_tpu_torch.neighbors import brute_force, ivf_flat
+from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
 from raft_tpu_torch.ops import _build
 from raft_tpu_torch.ops import fused_knn as fk
+from raft_tpu_torch.ops import pq_scan as ps
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -28,7 +29,8 @@ _MODULES = sorted(
 
 def test_module_list_covers_the_slice():
     for name in ("core.resources", "ops.fused_knn", "ops._build",
-                 "neighbors.ivf_flat", "cluster.kmeans_balanced",
+                 "ops.pq_scan", "neighbors.ivf_flat", "neighbors.ivf_pq",
+                 "neighbors.refine", "cluster.kmeans_balanced",
                  "matrix.select_k", "distance.fused_l2_nn"):
         assert f"raft_tpu_torch.{name}" in _MODULES
 
@@ -77,6 +79,8 @@ def test_numpy_inputs_go_to_the_card_or_raise(rng):
         ivf_flat.index_from_numpy(x[:2], x[:2, None], np.zeros((2, 1),
                                                                 np.int32),
                                   np.ones(2, np.int32), 0)
+    with pytest.raises(CudaError):
+        ivf_pq.build(ivf_pq.IndexParams(n_lists=2, pq_dim=2), x)
     # Tensors stay where they are; the CPU is chosen by asking for it.
     assert as_tensor(torch.ones(2)).device.type == "cpu"
     assert as_tensor(x, device="cpu").device.type == "cpu"
@@ -95,6 +99,13 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     q = torch.zeros((4, 8))
     with pytest.raises(CudaError):
         fk._fused_knn_cuda(q, q, 2, True, False, False)
+    with pytest.raises(CudaError):
+        fk._fused_batch_knn_cuda(q[None], q[None], torch.zeros((1, 4),
+                                                              dtype=torch.bool),
+                                 2, True, False, False)
+    monkeypatch.setattr(_build, "_LOADED", {})
+    with pytest.raises(CudaError):
+        _build.load_library("pq_scan")
     assert list((tmp_path / "build").iterdir()) == []
 
 
@@ -102,7 +113,10 @@ def test_library_name_follows_the_sources():
     path = _build._library_path("fused_knn")
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libfused_knn-") and path.suffix == ".so"
-    assert _build.sources() == ["fused_knn"]
+    assert _build.sources() == ["fused_knn", "pq_scan"]
+    # Every library's name also follows the shared header.
+    assert any(p.name == "knn_tile.cuh"
+               for p in _build.CSRC_DIR.glob("*.cuh"))
 
 
 def test_chip_smoke_alone_fails_without_a_result(tmp_path):

@@ -22,7 +22,6 @@ import torch
 from raft_tpu.distance.distance_types import DistanceType as JDistance
 from raft_tpu.neighbors import brute_force as jbf
 from raft_tpu.neighbors import ivf_flat as jivf
-from raft_tpu_torch.core.error import LogicError
 from raft_tpu_torch.distance.distance_types import DistanceType
 from raft_tpu_torch.neighbors import ivf_flat
 from test_torch_common import blobs, int_data, n, recall, t
@@ -201,20 +200,6 @@ def test_extend_grows_the_deleted_mask():
     assert idx.deleted.shape == idx.indices.shape
     assert idx.indices.shape[1] > jidx.indices.shape[1]
     assert bool(idx.deleted[0, 0]) and int(idx.deleted.sum()) == 1
-
-
-def test_legacy_engine_is_not_ported(int_case):
-    X, Q = int_case
-    idx = _port_index(_int_index())
-    with pytest.raises(LogicError):
-        ivf_flat.search(ivf_flat.SearchParams(engine="bucketed",
-                                              bucket_cap=16), idx, t(Q), 5)
-    with pytest.raises(LogicError):
-        ivf_flat.search(ivf_flat.SearchParams(engine="bucketed"), idx,
-                        t(Q), 300)
-    d, _ = ivf_flat.search(ivf_flat.SearchParams(n_probes=12), idx, t(Q),
-                           300)
-    assert d.shape == (40, 300)
 
 
 def test_auto_engine_on_cpu_is_the_scan(int_case):

@@ -14,8 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from raft_tpu_torch.neighbors import brute_force, ivf_flat
+from raft_tpu_torch.core.error import LogicError
+from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
 from raft_tpu_torch.ops import fused_knn as fk
+from raft_tpu_torch.ops import pq_scan as ps
 from test_torch_common import int_data, n
 
 _TIERS = [(False, False), (True, False), (True, True)]
@@ -96,3 +98,117 @@ def test_entry_points_launch_the_kernels(dev, gen):
     assert fk.fused_cells_knn.launches == b2 + 1
     # All lists probed: the IVF search is exact.
     np.testing.assert_array_equal(n(vd), n(d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("bf16,qsplit", _TIERS)
+@pytest.mark.parametrize("k", [1, 10, 256])
+def test_fused_batch_knn_kernel(dev, gen, metric, bf16, qsplit, k):
+    """B3 on integer data, multi-tile ragged n, an empty and a starved
+    slab, f32 and bf16 db."""
+    B, m, nn, d = 5, 37, 700, 48
+    q, db = int_data(gen, (B, m, d)), int_data(gen, (B, nn, d))
+    invalid = gen.random((B, nn)) < 0.3
+    invalid[1, :] = True
+    invalid[3, 5:] = True
+    q, db, invalid = _on(dev, q, db, invalid)
+    if bf16:
+        db = db.to(torch.bfloat16)
+    before = fk.fused_batch_knn.launches
+    kd, ki = fk.fused_batch_knn(q, db, invalid, k, metric=metric, bf16=bf16,
+                                qsplit=qsplit)
+    assert fk.fused_batch_knn.launches == before + 1
+    pd, pi = fk._fused_batch_knn_plain(q, db.float() if not bf16 else db,
+                                       invalid, k, metric == "l2", bf16,
+                                       qsplit)
+    if metric == "ip":
+        pd = -pd
+    np.testing.assert_array_equal(n(ki), n(pi))
+    np.testing.assert_array_equal(n(kd), n(pd))
+    assert (n(ki)[1] == -1).all()
+
+
+@pytest.mark.cuda
+def test_fused_batch_knn_raises_past_the_queue(dev, gen):
+    q, db = _on(dev, int_data(gen, (2, 4, 8)), int_data(gen, (2, 300, 8)))
+    invalid = torch.zeros((2, 300), dtype=torch.bool, device=dev)
+    with pytest.raises(LogicError):
+        fk.fused_batch_knn(q, db, invalid, 257)
+
+
+def _pq_case(gen, bits, cap=700, J=8, L=2, C=7, qrows=40):
+    B = 1 << bits
+    books = gen.integers(-3, 4, (J, B, L)).astype(np.float32)
+    # One +-127 entry in every row of both table halves gives the int8
+    # tables a scale of exactly 1, so they dequantize to the same integers.
+    books[:, 0, :] = 127.0
+    books[:, B // 2, :] = -127.0
+    codes = gen.integers(0, B, (5, cap, J)).astype(np.int32)
+    packed = ivf_pq.pack_codes(torch.as_tensor(codes), bits).numpy()
+    codesT = np.ascontiguousarray(packed.transpose(0, 2, 1))
+    invalid = gen.random((5, cap)) < 0.2
+    invalid[1, :] = True            # an empty list
+    invalid[3, 5:] = True           # a starved list
+    cells = np.array([0, 1, -1, 3, 2, 4, 3], np.int32)
+    q = gen.integers(-4, 5, (C, qrows, J * L)).astype(np.float32)
+    return books, cells, q, codesT, invalid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("is_ip", [False, True])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("k", [1, 10, 256])
+def test_pq_fused_scan_kernel(dev, gen, bits, is_ip, int8, k):
+    """B4 on integer codebooks and queries: pq_bits 4/8, L2/IP, f32/int8
+    tables, -1 cells, empty and starved lists."""
+    books, cells, q, codesT, invalid = _pq_case(gen, bits)
+    tables = [t.to(dev) for t in ps.book_tables(torch.as_tensor(books),
+                                                 bits, int8=int8)]
+    cells, q, codesT, invalid = _on(dev, cells, q, codesT, invalid)
+    scale = tables[2] if int8 else None
+    before = ps.pq_fused_scan.launches
+    kd, ki = ps.pq_fused_scan(cells, q, codesT, tables[0], tables[1],
+                              invalid, k, 8, bits, is_ip, int8_lut=scale)
+    assert ps.pq_fused_scan.launches == before + 1
+    pd, pi = ps.pq_fused_scan(cells.cpu(), q.cpu(), codesT.cpu(),
+                              tables[0].cpu(), tables[1].cpu(),
+                              invalid.cpu(), k, 8, bits, is_ip,
+                              int8_lut=None if scale is None else scale.cpu())
+    np.testing.assert_array_equal(n(ki), n(pi))
+    np.testing.assert_array_equal(n(kd), n(pd))
+    assert (n(ki)[2] == -1).all() and (n(ki)[1] == -1).all()
+    if k > 5:
+        assert (n(ki)[3, :, 5:] == -1).all()
+
+
+@pytest.mark.cuda
+def test_ivf_pq_entry_points_launch_b3_and_b4(dev, gen):
+    """IVF-PQ build on the card, the compressed tier through B4 and the
+    recon tier through B3, held to the plain path on the CPU copy of the
+    same index."""
+    X = int_data(gen, (9000, 32))
+    Q = int_data(gen, (400, 32))
+    index = ivf_pq.build(ivf_pq.IndexParams(n_lists=16, kmeans_n_iters=4,
+                                            pq_dim=16), X)
+    cpu = ivf_pq.index_from_numpy(
+        n(index.centers), n(index.rotation_matrix), n(index.pq_centers),
+        n(index.pq_codes), n(index.indices), n(index.list_sizes),
+        index.pq_bits, index.pq_dim, 0, 0, device="cpu")
+    b3, b4 = fk.fused_batch_knn.launches, ps.pq_fused_scan.launches
+    sp = ivf_pq.SearchParams(n_probes=8)            # auto: compressed
+    d, i = ivf_pq.search(sp, index, Q, 10)
+    assert ps.pq_fused_scan.launches == b4 + 1
+    pd, pi = ivf_pq.search(ivf_pq.SearchParams(n_probes=8,
+                                               engine="bucketed"), cpu,
+                           torch.as_tensor(Q), 10)
+    assert np.mean(n(i) == n(pi)) > 0.99
+    np.testing.assert_allclose(n(d), n(pd), rtol=1e-4, atol=1e-2)
+    index.reconstructed()
+    cpu.reconstructed()
+    sr = ivf_pq.SearchParams(n_probes=8, engine="bucketed", bucket_cap=256)
+    rd, ri = ivf_pq.search(sr, index, Q, 10)
+    assert fk.fused_batch_knn.launches == b3 + 1
+    prd, pri = ivf_pq.search(sr, cpu, torch.as_tensor(Q), 10)
+    assert np.mean(n(ri) == n(pri)) > 0.99
