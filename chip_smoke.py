@@ -9,12 +9,18 @@ Phases, each fatal on failure (the script then exits non-zero and prints
 no result line):
 
 1. device: the card's name and power limit, torch and CUDA versions;
-2. build: every kernel under ``raft_tpu_torch/csrc`` with ``nvcc``;
+2. build: every kernel under ``raft_tpu_torch/csrc`` with ``nvcc``, one
+   process per source, all started together;
 3. kernel vs plain: B1 (``fused_knn``), B2 (``fused_cells_knn``), B3
    (``fused_batch_knn``) and B4 (``pq_fused_scan``) against their plain
    PyTorch versions on the card, on integer-valued data (ids and distances
    must be identical) and Gaussian data (distances within a stated
-   tolerance);
+   tolerance); B5 (``stream_extract``) against its plain version on
+   Gaussian keys, integer keys with ties, sorted rows, a constant batch,
+   +-inf-heavy rows, NaN rows and a batch of 13 x 100,000 keys (candidate
+   arrays bit for bit), and ``select_k(kStream)`` on those keys in f32,
+   bf16 and f16, both polarities, against the plain path on the CPU and
+   ``kTopK`` on the card (values and ids bit for bit);
 4. the main path, with every launch counter set to 0 just before it and
    read just after: brute-force kNN of 10,000 queries against 1,000,000 x
    128 clustered rows (k=10, through B1), IVF-Flat build with 1024 lists
@@ -34,7 +40,26 @@ no result line):
    compressed tier's recall there, and the decode scan (B3), whose ids
    must equal the recon tier's; then B3 and B4 held against their plain
    versions and timed at those shapes;
-7. a ``kernels`` line, the card line, and the result line.
+7. the select path, counters set to 0 before it and read after:
+   ``select_k`` through ``kAuto`` on Gaussian keys made on the card at
+   bench.py's shapes (64 x 131,072, k=128; 1000 x 10,000, k=10) and at the
+   gate's corners (8 x 65,536, k=64; 1024 x 262,144, k=256): one B5 launch
+   per gated call and none at k=10, results equal to ``kTopK``'s; at each
+   gated shape B5's candidates bit for bit against its plain version, and
+   no row flagged by kStream's audit; then B5 alone, the whole kStream
+   select, ``kTopK``'s stable sort and
+   ``torch.topk`` (the library yardstick) timed beside B5's bound;
+8. the lifecycle path on the 1M indexes of phases 4 and 6, after their
+   timings, counters set to 0 before it and read after each step:
+   multi-part ``knn`` over 4 parts of 250,000 rows (ids and distances equal
+   to phase 4's), ``delete`` of 100,000 seeded ids from both indexes (no
+   deleted id returned; IVF-Flat recall@10 >= 0.995 against brute force
+   over the survivors; IVF-PQ recall within 0.01 of phase 6's), ``compact``
+   (search ids identical to the tombstoned search's), ``compact`` with
+   ``shrink_capacity`` (capacity before and after), and an ``upsert`` of
+   1000 rows (exactly one epoch bump), with the delete, compact and search
+   times;
+9. a ``kernels`` line, the card line, and the result line.
 
 The data is made with numpy from a fixed seed: 1000 Gaussian blobs
 (centers uniform in [-10, 10], sigma 5), queries = database rows + N(0, 1).
@@ -66,6 +91,13 @@ RECALL_PQ_V5E = 0.864     # BENCH_r05, TPU v5e, same shape (for reference)
 PQ_TIER_GAP = 0.01        # LUT scan and recon tier against compressed
 N_SUB = 1000              # queries of the LUT-scan and recon-tier steps
 BUCKET_CAP = 256
+# The select path: bench.py's select_k rows and the kAuto gate's corners.
+SELECT_SHAPES = ((64, 131072, 128), (1000, 10000, 10), (8, 65536, 64),
+                 (1024, 262144, 256))
+B5_K = 64                 # k of the phase-3 kStream checks
+N_PARTS = 4               # lifecycle: multi-part brute force
+N_DELETE = 100_000        # lifecycle: rows deleted from each index
+N_UPSERT = 1000           # lifecycle: rows upserted into each index
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FP32 = 67e12
@@ -129,6 +161,26 @@ def max_err(a, b) -> float:
     if not bool(fin.any()):
         return 0.0
     return float(torch.max(torch.abs(a[fin] - b[fin])))
+
+
+def device_ms(fn, kernel: str, reps: int = 10):
+    """Mean device time per call of the kernels whose name holds
+    ``kernel``, from a ``torch.profiler`` trace of ``reps`` calls: the
+    kernel alone, without the host time a CUDA-event window also spans
+    when the wrapper is slower than the kernel. None when the trace holds
+    no device time for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0.0)
+             for e in prof.key_averages() if kernel in e.key)
+    return us / reps / 1e3 if us > 0 else None
 
 
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -346,8 +398,7 @@ def main_path(dev, X, Q):
     from raft_tpu_torch.neighbors import brute_force, ivf_flat
     from raft_tpu_torch.ops import fused_knn as fk
 
-    fk.fused_knn.launches = 0
-    fk.fused_cells_knn.launches = 0
+    _zero_counters()
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
@@ -393,7 +444,8 @@ def main_path(dev, X, Q):
         f"{N_QUERIES / search_ms * 1e3:.1f} QPS (n_probes={N_PROBES}, "
         f"k={K})")
     log(f"IVF-Flat build: {build_s:.3f} s (n_lists={N_LISTS}, first call)")
-    return {"bf": (bf_d, bf_i), "index": index, "launches": launches}
+    return {"bf": (bf_d, bf_i), "index": index, "launches": launches,
+            "search_ms": search_ms}
 
 
 def b1_entry(dev, X, Q, bf):
@@ -541,14 +593,26 @@ def b2_entry(dev, Q, index):
             else "bytes", "library_ms": lib_ms}
 
 
-def _launches():
+def _counted():
+    """Every kernel wrapper with a launch counter, by kernel name."""
     from raft_tpu_torch.ops import fused_knn as fk
     from raft_tpu_torch.ops import pq_scan as ps
+    from raft_tpu_torch.ops import stream_select as ss
 
-    return {"fused_knn": fk.fused_knn.launches,
-            "fused_cells_knn": fk.fused_cells_knn.launches,
-            "fused_batch_knn": fk.fused_batch_knn.launches,
-            "pq_fused_scan": ps.pq_fused_scan.launches}
+    return {"fused_knn": fk.fused_knn,
+            "fused_cells_knn": fk.fused_cells_knn,
+            "fused_batch_knn": fk.fused_batch_knn,
+            "pq_fused_scan": ps.pq_fused_scan,
+            "stream_extract": ss.stream_extract}
+
+
+def _zero_counters() -> None:
+    for fn in _counted().values():
+        fn.launches = 0
+
+
+def _launches():
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 def _step(before):
@@ -564,12 +628,8 @@ def pq_path(dev, X, Q, bf_i):
 
     from raft_tpu_torch.distance.pairwise import gram
     from raft_tpu_torch.neighbors import ivf_pq
-    from raft_tpu_torch.ops import fused_knn as fk
-    from raft_tpu_torch.ops import pq_scan as ps
 
-    for fn in (fk.fused_knn, fk.fused_cells_knn, fk.fused_batch_knn,
-               ps.pq_fused_scan):
-        fn.launches = 0
+    _zero_counters()
     torch.cuda.synchronize()
     steps = {}
 
@@ -659,7 +719,7 @@ def pq_path(dev, X, Q, bf_i):
     total = {k: sum(st[k] for st in steps.values())
              for k in steps["build"]}
     return {"index": index, "launches": total, "search_ms": search_ms,
-            "probes_sub": probes, "rotq_sub": rotq}
+            "probes_sub": probes, "rotq_sub": rotq, "recall": rec}
 
 
 def b4_entry(dev, Q, index, search_ms):
@@ -796,6 +856,335 @@ def b3_entry(dev, index, probes, rotq):
             else "bytes", "library_ms": lib_ms}
 
 
+def same_bits(a, b) -> bool:
+    """Equal shapes and values, NaN where NaN (a selection has no
+    rounding, so kernel and plain version must agree exactly)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    an, bn = torch.isnan(a), torch.isnan(b)
+    return torch.equal(an, bn) and torch.equal(a.masked_fill(an, 0),
+                                               b.masked_fill(bn, 0))
+
+
+def max_err_nan(a, b) -> float:
+    """:func:`max_err` over the entries that are not NaN; the NaN patterns
+    must agree."""
+    import torch
+
+    an, bn = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(an, bn):
+        raise AssertionError("NaN patterns differ")
+    return max_err(a.masked_fill(an, 0), b.masked_fill(bn, 0))
+
+
+def check_b5_candidates(x, what: str) -> float:
+    """B5 against its plain version on the card keys ``x``: positions
+    equal, values bit for bit. Returns the values' max_err_nan."""
+    import torch
+
+    from raft_tpu_torch.ops import stream_select as ss
+
+    kv, ki = ss._stream_extract_cuda(x)
+    pv, pi = ss._stream_extract_plain(x)
+    torch.cuda.synchronize()
+    if not (same_bits(kv, pv) and torch.equal(ki, pi)):
+        raise AssertionError(f"B5 {what} {tuple(x.shape)}: kernel "
+                             f"candidates != plain")
+    return max_err_nan(kv, pv)
+
+
+def b5_keys(rng, kind):
+    """Phase-3 keys for B5: (16, 24576), or (13, 100000), ragged in both
+    axes."""
+    if kind == "ragged":
+        return rng.standard_normal((13, 100_000)).astype(np.float32)
+    x = rng.standard_normal((16, 24576)).astype(np.float32)
+    if kind == "int_ties":
+        x = rng.integers(0, 3, x.shape).astype(np.float32)
+    elif kind == "sorted":
+        x[:5] = np.sort(x[:5], axis=1)
+        x[5:9] = np.sort(x[5:9], axis=1)[:, ::-1]
+    elif kind == "constant":
+        x[:] = 2.5
+    elif kind == "inf_heavy":
+        x[0, :5000] = -np.inf
+        x[1, 1000:] = np.inf
+        x[2] = np.inf
+    elif kind == "nan":
+        x[3, 100] = np.nan
+        x[7, 8000:8003] = np.nan
+    return x
+
+
+def check_kernel_b5(dev) -> float:
+    """Phase 3 for B5: candidates against the plain version on the card,
+    bit for bit; then select_k(kStream) on the card against the plain
+    path on the CPU and kTopK on the card, values and ids bit for bit.
+    Returns the candidates' largest max_err_nan."""
+    import torch
+
+    from raft_tpu_torch.matrix.select_k import SelectMethod, select_k
+
+    rng = np.random.default_rng(SEED + 2)
+    err = 0.0
+    for kind in ("gauss", "int_ties", "sorted", "constant", "inf_heavy",
+                 "nan", "ragged"):
+        x = torch.as_tensor(b5_keys(rng, kind))
+        err = max(err, check_b5_candidates(x.to(dev), kind))
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            # One cast, then a copy: the CPU casts NaN to bf16 as a negative
+            # NaN and the card as a positive one.
+            xt = x.to(dtype)
+            xtd = xt.to(dev)
+            for select_min in (True, False):
+                v, i = select_k(xtd, B5_K, select_min,
+                                method=SelectMethod.kStream)
+                pv2, pi2 = select_k(xt, B5_K, select_min,
+                                    method=SelectMethod.kStream)
+                tv, ti = select_k(xtd, B5_K, select_min,
+                                  method=SelectMethod.kTopK)
+                for rv, ri, what in ((pv2, pi2, "plain path on the CPU"),
+                                     (tv, ti, "kTopK")):
+                    if not (torch.equal(i.cpu(), ri.cpu())
+                            and same_bits(v.cpu(), rv.cpu())):
+                        raise AssertionError(
+                            f"kStream {kind} {dtype} select_min="
+                            f"{select_min}: != {what}")
+        log(f"B5 ok {kind} {tuple(x.shape)} (candidates bit-identical; "
+            f"kStream k={B5_K} f32/bf16/f16, min/max = plain path = kTopK)")
+    return err
+
+
+def select_phase(dev, b5_err: float):
+    """Phase 7: select_k through kAuto at bench.py's shapes and the gate's
+    corners, with the counters set to 0 before and read after; then B5's
+    candidates against its plain version and the audit at every gated
+    shape, and the timings. Returns B5's kernels-line entry, whose
+    max_abs_err is the largest over these shapes and ``b5_err`` (phase
+    3's)."""
+    import torch
+
+    from raft_tpu_torch.matrix import select_k as sk
+    from raft_tpu_torch.matrix.select_k import SelectMethod, select_k
+    from raft_tpu_torch.ops import stream_select as ss
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    keys = [torch.randn((b, nn), generator=gen, device=dev)
+            for b, nn, _ in SELECT_SHAPES]
+    _zero_counters()
+    torch.cuda.synchronize()
+    per_call = []
+    for (b, nn, k), x in zip(SELECT_SHAPES, keys):
+        before = ss.stream_extract.launches
+        v, i = select_k(x, k)
+        torch.cuda.synchronize()
+        per_call.append(ss.stream_extract.launches - before)
+        gated = sk._stream_supported(b, nn, k, x.dtype, x.device)
+        tv, ti = select_k(x, k, method=SelectMethod.kTopK)
+        if not (torch.equal(i, ti) and torch.equal(v, tv)):
+            raise AssertionError(f"kAuto select {b}x{nn} k={k} != kTopK")
+        if per_call[-1] != int(gated):
+            raise AssertionError(f"kAuto select {b}x{nn} k={k}: "
+                                 f"{per_call[-1]} B5 launches, expected "
+                                 f"{int(gated)}")
+    launches = _launches()
+    log(f"select path: B5 launches per call {per_call} "
+        f"(shapes {SELECT_SHAPES}), all equal to kTopK; counters {launches}")
+    if launches["stream_extract"] != 3:
+        raise AssertionError("B5 did not launch once per gated call")
+
+    # The audit sends a row whose candidates look short to the exact sort,
+    # so equality with kTopK alone cannot show that B5's candidates made
+    # the answer: hold them against the plain version, and require that
+    # the audit flags no row of these Gaussian keys.
+    for (b, nn, k), x in zip(SELECT_SHAPES, keys):
+        if not sk._stream_supported(b, nn, k, x.dtype, x.device):
+            continue
+        b5_err = max(b5_err, check_b5_candidates(x, "select path"))
+        cand_v, _ = ss._stream_extract_cuda(x)
+        n_flagged = int(sk._audit_failures(
+            cand_v, sk.stable_top_k(cand_v, k)[0]).sum())
+        log(f"select {b}x{nn} k={k}: B5 candidates = plain version, "
+            f"audit flags {n_flagged} of {b} rows")
+        if n_flagged:
+            raise AssertionError(f"kStream audit flagged {n_flagged} rows "
+                                 f"of Gaussian keys at {b}x{nn} k={k}")
+
+    entry = None
+    for (b, nn, k), x in zip(SELECT_SHAPES, keys):
+        auto_ms = time_ms(lambda: select_k(x, k), 5)
+        sort_ms = time_ms(lambda: select_k(x, k, method=SelectMethod.kTopK),
+                          5)
+        lib_ms = time_ms(lambda: torch.topk(x, k, largest=False), 5)
+        line = (f"select {b}x{nn} k={k}: kAuto {auto_ms:.3f} ms, kTopK "
+                f"(stable sort) {sort_ms:.3f} ms, torch.topk {lib_ms:.3f} ms")
+        if sk._stream_supported(b, nn, k, x.dtype, x.device):
+            b5_ms = time_ms(lambda: ss._stream_extract_cuda(x), 10)
+            dev_ms = device_ms(lambda: ss._stream_extract_cuda(x),
+                               "stream_extract_kernel")
+            nbytes = 4.0 * b * nn + 8.0 * b * ss.n_candidates(nn)
+            bound = nbytes / PEAK_BYTES * 1e3
+            dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+            line += (f", B5 alone {b5_ms:.4f} ms by CUDA events (device "
+                     f"time by torch.profiler {dev_txt}; bound {bound:.4f} "
+                     f"ms, bytes), kStream - B5 = rank + audit "
+                     f"{auto_ms - b5_ms:.3f} ms")
+            if (b, nn, k) == SELECT_SHAPES[0]:
+                plain_ms = time_ms(lambda: ss._stream_extract_plain(x), 3)
+                line += f", B5 plain version {plain_ms:.3f} ms"
+                entry = {"max_abs_err": b5_err, "ms": b5_ms,
+                         "plain_ms": plain_ms,
+                         "bound_ms": bound, "bound_by": "bytes",
+                         "library_ms": lib_ms}
+        log(line)
+    entry["launches"] = launches["stream_extract"]
+    return entry
+
+
+def lifecycle_phase(dev, X, Q, bf, flat, pq, flat_ms, pq_ms, pq_recall):
+    """Phase 8: multi-part knn, delete, compact and upsert on the 1M
+    indexes, with the counters set to 0 before and read after each step.
+    Returns the launches of the phase."""
+    import torch
+
+    from raft_tpu_torch import lifecycle as lc
+    from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
+
+    bf_d, bf_i = bf
+    # Phase 6 left IVF-PQ's reconstruction cache in place, which routes
+    # search to the recon tier; this path searches the compressed tier
+    # (B4), as the main path does.
+    pq._recon = None
+    _zero_counters()
+    torch.cuda.synchronize()
+    steps = {}
+
+    before = _launches()
+    part = N_ROWS // N_PARTS
+    t0 = time.perf_counter()
+    md, mi = brute_force.knn([X[s:s + part] for s in range(0, N_ROWS, part)],
+                             Q, K)
+    torch.cuda.synchronize()
+    mp_s = time.perf_counter() - t0
+    steps["multipart_knn"] = _step(before)
+    if not (torch.equal(mi, bf_i) and torch.equal(md, bf_d)):
+        raise AssertionError("multi-part knn != single-part brute force")
+    log(f"multi-part knn over {N_PARTS} parts of {part}: {mp_s:.3f} s, ids "
+        f"and distances equal to single-part brute force")
+
+    rng = np.random.default_rng(SEED + 3)
+    dels = torch.as_tensor(rng.choice(N_ROWS, N_DELETE, replace=False),
+                           device=dev)
+    delete_ms = {}
+    for name, index in (("ivf_flat", flat), ("ivf_pq", pq)):
+        before = _launches()
+        e0 = index.epoch
+        t0 = time.perf_counter()
+        got = lc.delete(index, dels)
+        torch.cuda.synchronize()
+        delete_ms[name] = (time.perf_counter() - t0) * 1e3
+        steps[f"delete_{name}"] = _step(before)
+        if got != N_DELETE or index.epoch != e0 + 1:
+            raise AssertionError(f"{name}: delete tombstoned {got}, epoch "
+                                 f"{e0} -> {index.epoch}")
+    is_del = torch.zeros(N_ROWS, dtype=torch.bool, device=dev)
+    is_del[dels] = True
+    surv = torch.nonzero(~is_del)[:, 0]
+    _, si = brute_force.knn(X[surv], Q, K)
+    truth = surv[si.long()].to(torch.int32)
+
+    sp = ivf_flat.SearchParams(n_probes=N_PROBES)
+    spq = ivf_pq.SearchParams(n_probes=N_PROBES)
+    before = _launches()
+    fd, fi = ivf_flat.search(sp, flat, Q, K)
+    pd, pi = ivf_pq.search(spq, pq, Q, K)
+    torch.cuda.synchronize()
+    steps["tombstoned_search"] = _step(before)
+    rec_f, rec_p = recall(fi, truth), recall(pi, truth)
+    for name, ids in (("IVF-Flat", fi), ("IVF-PQ", pi)):
+        if bool(torch.isin(ids, dels.to(ids.dtype)).any()):
+            raise AssertionError(f"{name} returned a deleted id")
+    log(f"delete {N_DELETE} ids: IVF-Flat {delete_ms['ivf_flat']:.3f} ms, "
+        f"IVF-PQ {delete_ms['ivf_pq']:.3f} ms; no deleted id returned; "
+        f"recall@{K} over the survivors: IVF-Flat {rec_f:.6f} (bar "
+        f"{RECALL_IVF}), IVF-PQ {rec_p:.6f} (before the delete "
+        f"{pq_recall:.6f}, bar +-{PQ_TIER_GAP})")
+    if rec_f < RECALL_IVF or abs(rec_p - pq_recall) > PQ_TIER_GAP:
+        raise AssertionError("recall after the delete out of bounds")
+    tomb_ms = {"ivf_flat": time_ms(lambda: ivf_flat.search(sp, flat, Q, K),
+                                   5),
+               "ivf_pq": time_ms(lambda: ivf_pq.search(spq, pq, Q, K), 5)}
+
+    compacted, compact_s, after_ms, caps = {}, {}, {}, {}
+    for name, index, search, params, ids in (
+            ("ivf_flat", flat, ivf_flat.search, sp, fi),
+            ("ivf_pq", pq, ivf_pq.search, spq, pi)):
+        before = _launches()
+        t0 = time.perf_counter()
+        new, rep = lc.compact(index)
+        torch.cuda.synchronize()
+        compact_s[name] = time.perf_counter() - t0
+        _, ci = search(params, new, Q, K)
+        if rep.reclaimed_slots != N_DELETE or new.epoch != index.epoch + 1:
+            raise AssertionError(f"{name}: compaction report {rep}")
+        if not torch.equal(ci, ids):
+            raise AssertionError(f"{name}: ids after compact() differ from "
+                                 f"the tombstoned search's")
+        shrunk, srep = lc.compact(new, lc.CompactionPolicy(
+            shrink_capacity=True))
+        _, si2 = search(params, shrunk, Q, K)
+        torch.cuda.synchronize()
+        steps[f"compact_{name}"] = _step(before)
+        caps[name] = (srep.cap_before, srep.cap_after,
+                      torch.equal(si2, ids))
+        compacted[name] = shrunk
+        after_ms[name] = time_ms(lambda: search(params, new, Q, K), 5)
+        del new
+    log(f"compact: IVF-Flat {compact_s['ivf_flat']:.3f} s, IVF-PQ "
+        f"{compact_s['ivf_pq']:.3f} s, search ids identical to the "
+        f"tombstoned search's; shrink_capacity (cap before, after, ids "
+        f"unchanged): {caps}")
+    for name, base_ms in (("ivf_flat", flat_ms), ("ivf_pq", pq_ms)):
+        log(f"{name} QPS ({N_QUERIES} queries, {N_PROBES} probes): before "
+            f"the delete {N_QUERIES / base_ms * 1e3:.1f} ({base_ms:.3f} ms), "
+            f"tombstoned {N_QUERIES / tomb_ms[name] * 1e3:.1f} "
+            f"({tomb_ms[name]:.3f} ms), compacted "
+            f"{N_QUERIES / after_ms[name] * 1e3:.1f} ({after_ms[name]:.3f} "
+            f"ms)")
+
+    up = torch.cat([dels[:N_UPSERT // 2], surv[:N_UPSERT // 2]])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    vecs = X[up] + 0.5 * torch.randn((up.shape[0], DIM), generator=gen,
+                                     device=dev)
+    for name, module, params in (("ivf_flat", ivf_flat, sp),
+                                 ("ivf_pq", ivf_pq, spq)):
+        index = compacted[name]
+        before = _launches()
+        e0 = index.epoch
+        index = lc.upsert(index, vecs, up)
+        torch.cuda.synchronize()
+        steps[f"upsert_{name}"] = _step(before)
+        _, ui = module.search(params, index, vecs, 1)
+        self_hit = float((ui[:, 0] == up.to(ui.dtype)).float().mean())
+        log(f"upsert {up.shape[0]} rows into {name}: epoch {e0} -> "
+            f"{index.epoch}, top-1 is the upserted id for {self_hit:.4f}")
+        if index.epoch != e0 + 1:
+            raise AssertionError(f"{name}: upsert bumped the epoch "
+                                 f"{index.epoch - e0} times")
+    log(f"lifecycle launches per step: {steps}")
+    if (steps["multipart_knn"]["fused_knn"] < N_PARTS
+            or steps["tombstoned_search"]["fused_cells_knn"] < 1
+            or steps["tombstoned_search"]["pq_fused_scan"] < 1):
+        raise AssertionError(f"a kernel of the lifecycle path did not "
+                             f"launch: {steps}")
+    return {k: sum(st[k] for st in steps.values())
+            for k in steps["multipart_knn"]}
+
+
 def main() -> int:
     import torch
 
@@ -821,6 +1210,7 @@ def main() -> int:
 
     check_kernels(dev)
     check_kernels_b3_b4(dev)
+    b5_err = check_kernel_b5(dev)
 
     t0 = time.perf_counter()
     Xh, Qh = make_data(N_ROWS, DIM, N_BLOBS, N_QUERIES)
@@ -834,23 +1224,26 @@ def main() -> int:
     b1 = b1_entry(dev, X, Q, mp["bf"])
     b1_kmeans_shape(dev, X, mp["index"].centers)
     b2 = b2_entry(dev, Q, mp["index"])
-    del mp["index"]
-    torch.cuda.empty_cache()
 
     pq = pq_path(dev, X, Q, mp["bf"][1])
     b4 = b4_entry(dev, Q, pq["index"], pq["search_ms"])
     b3 = b3_entry(dev, pq["index"], pq["probes_sub"], pq["rotq_sub"])
+
+    b5 = select_phase(dev, b5_err)
+    lc = lifecycle_phase(dev, X, Q, mp["bf"], mp["index"], pq["index"],
+                         mp["search_ms"], pq["search_ms"], pq["recall"])
 
     kernels = [
         dict(name="fused_knn", route="cuda",
              source="raft_tpu_torch/csrc/fused_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:179",
              launches=mp["launches"]["fused_knn"]
-             + pq["launches"]["fused_knn"], **b1),
+             + pq["launches"]["fused_knn"] + lc["fused_knn"], **b1),
         dict(name="fused_cells_knn", route="cuda",
              source="raft_tpu_torch/csrc/fused_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:426",
-             launches=mp["launches"]["fused_cells_knn"], **b2),
+             launches=mp["launches"]["fused_cells_knn"]
+             + lc["fused_cells_knn"], **b2),
         dict(name="fused_batch_knn", route="cuda",
              source="raft_tpu_torch/csrc/fused_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:277",
@@ -858,7 +1251,11 @@ def main() -> int:
         dict(name="pq_fused_scan", route="cuda",
              source="raft_tpu_torch/csrc/pq_scan.cu",
              replaces="raft_tpu/ops/pq_scan.py:440",
-             launches=pq["launches"]["pq_fused_scan"], **b4),
+             launches=pq["launches"]["pq_fused_scan"] + lc["pq_fused_scan"],
+             **b4),
+        dict(name="stream_extract", route="cuda",
+             source="raft_tpu_torch/csrc/stream_select.cu",
+             replaces="raft_tpu/matrix/select_k.py:218", **b5),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

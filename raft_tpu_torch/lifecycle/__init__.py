@@ -1,0 +1,32 @@
+"""Mutable index lifecycle for the single-host IVF indexes: tombstone
+delete, upsert and compaction.
+
+Port of ``raft_tpu/lifecycle`` (``delete.py`` and ``compact.py``):
+
+* :func:`delete` tombstones rows by id. Every scan engine folds the mask
+  into its ``invalid`` operand (kernels B2 and B4 take it as is), so the
+  results are exact over the survivors at once;
+* :func:`upsert` tombstones and extends under one epoch bump;
+* :func:`compact` builds a copy-on-write successor at ``epoch + 1`` that
+  reclaims the tombstoned slots and, for IVF-Flat, can split overfull
+  lists and recluster drifted ones (relabelled by kernel B1 on ``cuda``).
+
+The sharded indexes, the background ``Compactor`` (it drives a serving
+``Searcher``), the write-ahead log and elastic membership wait for the
+serving and sharding slices.
+"""
+
+from raft_tpu_torch.lifecycle.compact import (
+    CompactionPolicy,
+    CompactionReport,
+    compact,
+)
+from raft_tpu_torch.lifecycle.delete import (
+    delete,
+    enable_tombstones,
+    tombstone_frac,
+    upsert,
+)
+
+__all__ = ["delete", "upsert", "enable_tombstones", "tombstone_frac",
+           "compact", "CompactionPolicy", "CompactionReport"]

@@ -1,0 +1,143 @@
+"""Tombstone delete and upsert for the single-host IVF indexes.
+
+Port of ``raft_tpu/lifecycle/delete.py``. A delete writes the per-slot
+boolean mask ``Index.deleted``; the IVF-Flat and IVF-PQ engines fold it into
+the ``invalid`` mask that already hides below-fill padding, so tombstoned
+rows never rank and the results equal those of an index rebuilt without
+them, before any compaction.
+
+Epoch rules: :func:`delete` bumps ``index.epoch`` exactly when a slot was
+newly tombstoned (a delete that hits nothing changes nothing);
+:func:`upsert` writes its tombstones silently and lets its extend carry
+the one bump, after validating every input, so no epoch shows half an
+upsert. The mask is replaced, never written in place, so a tensor read off
+the index before a delete keeps its contents.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.resources import as_tensor
+from raft_tpu_torch.neighbors import ivf_flat as _flat
+from raft_tpu_torch.neighbors import ivf_pq as _pq
+
+_INDEX_KINDS = (_flat.Index, _pq.Index)
+
+
+def _check_index(index, mesh) -> None:
+    expects(mesh is None, "sharded indexes wait for the sharding slice")
+    expects(isinstance(index, _INDEX_KINDS),
+            "lifecycle ops support ivf_flat/ivf_pq indexes, got %s",
+            type(index).__name__)
+
+
+def _id_tensor(ids, device) -> torch.Tensor:
+    t = ids if isinstance(ids, torch.Tensor) else torch.as_tensor(
+        np.asarray(ids))
+    return t.reshape(-1).to(device)
+
+
+def _prepare_ids(index, ids) -> Optional[torch.Tensor]:
+    """The delete ids as a tensor of the index's id dtype and device, or
+    None for an empty batch. Ids must be >= 0, so none matches the
+    ``PAD_ID`` of an empty slot."""
+    t = _id_tensor(ids, index.indices.device)
+    if t.numel() == 0:
+        return None
+    lo = int(t.min())
+    expects(lo >= 0, "ids must be >= 0 (got %s)", lo)
+    return t.to(index.indices.dtype)
+
+
+def _tombstone(indices, list_sizes, deleted, del_ids
+               ) -> Tuple[torch.Tensor, int]:
+    """Slots whose id is in ``del_ids``, below their list's fill line and
+    not yet deleted become tombstones. Returns ``(new mask, newly deleted
+    count)``; the input mask is not written."""
+    hit = torch.isin(indices, del_ids)
+    slot = torch.arange(indices.shape[-1], device=indices.device)
+    valid = slot < list_sizes[..., None]
+    newly = hit & valid & ~deleted
+    return deleted | newly, int(newly.sum())
+
+
+def _blank_mask(index) -> torch.Tensor:
+    return torch.zeros(index.indices.shape, dtype=torch.bool,
+                       device=index.indices.device)
+
+
+def _drop_derived(index) -> None:
+    """Drop the caches that bake the validity mask in (the compressed-scan
+    operands) or were measured on the old occupancy."""
+    if isinstance(index, _pq.Index):
+        index._scan_ops = None
+        index._scan_ops_i8 = None
+    index.reset_search_cache()
+
+
+def enable_tombstones(index, mesh=None) -> None:
+    """Attach an all-live mask ahead of the first delete. An all-False
+    mask scores exactly as no mask, so the epoch stays."""
+    _check_index(index, mesh)
+    if index.deleted is None:
+        index.deleted = _blank_mask(index)
+
+
+def tombstone_frac(index) -> float:
+    """Fraction of stored slots that are tombstoned, the compaction
+    trigger statistic."""
+    size = int(torch.sum(index.list_sizes))
+    return index.n_deleted / size if size else 0.0
+
+
+def delete(index, ids, mesh=None) -> int:
+    """Tombstone the rows whose stored id is in ``ids``; returns how many
+    slots were newly tombstoned. Ids with no live slot are ignored, so a
+    re-delete is a no-op. Bumps ``index.epoch`` only when something was
+    deleted."""
+    _check_index(index, mesh)
+    del_ids = _prepare_ids(index, ids)
+    if del_ids is None:
+        return 0
+    mask = index.deleted if index.deleted is not None else _blank_mask(index)
+    new_mask, n = _tombstone(index.indices, index.list_sizes, mask, del_ids)
+    if n == 0:
+        return 0
+    index.deleted = new_mask
+    index.n_deleted += n
+    _drop_derived(index)
+    index.epoch += 1
+    return n
+
+
+def upsert(index, new_vectors, new_indices, mesh=None):
+    """Replace or insert rows by explicit id: tombstone the live slots
+    holding these ids, then extend with the new rows, under the one epoch
+    bump of the extend. Ids must be unique within the batch. Every input
+    is checked before the mask is written. Returns the index."""
+    _check_index(index, mesh)
+    dev = index.centers.device
+    ids = _id_tensor(new_indices, dev)
+    X = as_tensor(new_vectors, device=dev).to(dev)
+    expects(X.ndim == 2 and X.shape[0] == ids.numel(),
+            "upsert needs (n, dim) vectors with one id per row, got %s rows "
+            "/ %s ids", tuple(X.shape), ids.numel())
+    expects(X.shape[1] == index.dim, "upsert dim %s != index dim %s",
+            X.shape[1], index.dim)
+    expects(torch.unique(ids).numel() == ids.numel(),
+            "upsert ids must be unique within the batch")
+    if ids.numel() == 0:
+        return index
+    del_ids = _prepare_ids(index, ids)
+    mask = index.deleted if index.deleted is not None else _blank_mask(index)
+    new_mask, n = _tombstone(index.indices, index.list_sizes, mask, del_ids)
+    index.deleted = new_mask
+    index.n_deleted += n
+    _drop_derived(index)
+    extend = _pq.extend if isinstance(index, _pq.Index) else _flat.extend
+    return extend(index, X, ids)

@@ -10,21 +10,24 @@ metrics, with one database part. Two engines:
   the reference's ``method="pallas"``.
 
 ``"auto"`` takes the kernel on ``cuda`` for n >= 8192 and k <= 128, the
-same rule as the reference's ``_use_pallas`` on ``tpu``. Multi-part
-databases (``knn_merge_parts``), int64 ids and the other metrics come in a
-later slice and raise here.
+same rule as the reference's ``_use_pallas`` on ``tpu``. A database of
+several parts is searched part by part and merged by
+:func:`knn_merge_parts` (``comms/topk_merge.merge_parts``). int64 ids and
+the other metrics come in a later slice and raise here.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
+from raft_tpu_torch.comms.topk_merge import merge_parts
 from raft_tpu_torch.core.error import expects
-from raft_tpu_torch.core.resources import as_float
+from raft_tpu_torch.core.resources import as_float, as_tensor
 from raft_tpu_torch.core.sentinels import PAD_ID, worst_value
-from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
+from raft_tpu_torch.distance.distance_types import (
+    DistanceType, resolve_metric, value_form_select_min)
 from raft_tpu_torch.distance.pairwise import gram, row_norms_sq
 from raft_tpu_torch.matrix.select_k import stable_top_k
 from raft_tpu_torch.ops.fused_knn import fused_knn, fused_knn_supported
@@ -107,6 +110,21 @@ def tiled_brute_force_knn(
                          min(tile_db, max(db.shape[0], 1)), is_l2)
 
 
+def knn_merge_parts(in_keys, in_values, select_min: bool = True,
+                    translations: Optional[Sequence[int]] = None,
+                    handle=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-part kNN results ``(n_parts, n_queries, k)`` into the
+    global top-k; ``translations`` offsets each part's local ids. Ties go
+    to the lower part, then the lower rank within it. Returns ``(keys
+    (n_queries, k), values (n_queries, k))``. The reference's
+    ``n_samples`` argument, which it does not read either, is not
+    taken."""
+    keys = as_tensor(in_keys, handle)
+    vals = as_tensor(in_values, handle, keys.device)
+    return merge_parts(keys, vals, select_min=select_min,
+                       translations=translations)
+
+
 def knn(
     index: Union[torch.Tensor, Sequence[torch.Tensor]],
     queries,
@@ -117,19 +135,46 @@ def knn(
     handle=None,
     method: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact kNN over one database part (a list of several parts waits for
-    the multi-part merge). Returns ``(distances (n_queries, k), int32
-    indices (n_queries, k))``."""
+    """Exact kNN over one database part or a list of parts. Parts are
+    searched one by one and merged; part p's ids start at
+    ``global_id_offset`` plus the rows of the parts before it. Returns
+    ``(distances (n_queries, k), int32 indices (n_queries, k))``."""
     metric = resolve_metric(metric)
-    if isinstance(index, (list, tuple)):
-        expects(len(index) == 1,
-                "multi-part knn (knn_merge_parts) is not ported yet")
-        index = index[0]
-    d, i = tiled_brute_force_knn(queries, index, k, metric, metric_arg,
-                                 method=method, handle=handle)
-    if global_id_offset:
-        i = i + global_id_offset
-    return d, i
+    parts = list(index) if isinstance(index, (list, tuple)) else [index]
+    expects(len(parts) >= 1, "index must contain at least one part")
+    if len(parts) == 1:
+        d, i = tiled_brute_force_knn(queries, parts[0], k, metric, metric_arg,
+                                     method=method, handle=handle)
+        if global_id_offset:
+            i = i + global_id_offset
+        return d, i
+
+    queries = as_float(queries, handle)
+    select_min = value_form_select_min(metric)
+    all_d, all_i, offsets = [], [], []
+    base = global_id_offset
+    for p in parts:
+        p = as_float(p, handle, queries.device)
+        pd, pi = tiled_brute_force_knn(queries, p, min(k, p.shape[0]), metric,
+                                       metric_arg, method=method,
+                                       handle=handle)
+        kk = pd.shape[1]
+        if kk < k:
+            # A short part pads to k. The merge adds ``base`` to every id,
+            # so the pad ids are pre-shifted to come out as PAD_ID.
+            pd = torch.cat([pd, torch.full((pd.shape[0], k - kk),
+                                            worst_value(select_min),
+                                            dtype=pd.dtype,
+                                            device=pd.device)], dim=1)
+            pi = torch.cat([pi, torch.full((pi.shape[0], k - kk),
+                                           PAD_ID - base, dtype=pi.dtype,
+                                           device=pi.device)], dim=1)
+        all_d.append(pd)
+        all_i.append(pi)
+        offsets.append(base)
+        base += p.shape[0]
+    return knn_merge_parts(torch.stack(all_d), torch.stack(all_i),
+                           select_min=select_min, translations=offsets)
 
 
 def fused_l2_knn(index, queries, k: int, sqrt: bool = False, handle=None):

@@ -107,3 +107,26 @@ def check(err: int, what: str) -> None:
     """Raise when a C entry point returned a non-zero ``cudaError_t``."""
     if err != 0:
         raise CudaError(f"{what} failed: cudaError_t {err}")
+
+
+def check_operands(name: str, *tensors) -> None:
+    """Raise unless every operand of a launch is contiguous and on the
+    first one's device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise CudaError(f"{name}: tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise CudaError(f"{name}: operands must be contiguous")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's device pointer for a C entry point."""
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(device) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on ``device``, for a C entry point."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

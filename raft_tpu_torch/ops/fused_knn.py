@@ -31,6 +31,9 @@ from raft_tpu_torch.core.error import CudaError, expects
 from raft_tpu_torch.distance.pairwise import gram
 from raft_tpu_torch.matrix.select_k import stable_top_k
 from raft_tpu_torch.ops import _build
+from raft_tpu_torch.ops._build import check_operands as _check_cuda
+from raft_tpu_torch.ops._build import ptr as _ptr
+from raft_tpu_torch.ops._build import stream as _stream
 
 #: Widest top-k queue of the kernels (the reference warpsort cap).
 MAX_K = 256
@@ -95,23 +98,6 @@ def _fused_knn_plain(queries, db, k: int, l2: bool, bf16: bool,
             best_i = torch.gather(ci, 1, pos)
     best_i = best_i.to(torch.int32)
     return best_d, _starved_to_pad(best_d, best_i)
-
-
-def _check_cuda(name: str, *tensors) -> None:
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev:
-            raise CudaError(f"{name}: tensors on {t.device} and {dev}")
-        if not t.is_contiguous():
-            raise CudaError(f"{name}: operands must be contiguous")
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 _KNN_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]

@@ -80,8 +80,8 @@ def test_unported_paths_raise(rng):
     db = t(gauss(rng, (10, 4)))
     with pytest.raises(LogicError):
         brute_force.knn(db, db, 2, metric=DistanceType.L1)
-    with pytest.raises(LogicError):
-        brute_force.knn([db, db], db, 2)
+    with pytest.raises(LogicError):      # multi-part: the metric still
+        brute_force.knn([db, db], db, 2, metric=DistanceType.L1)
     with pytest.raises(LogicError):
         distance(db, db, metric="cosine")
 

@@ -19,6 +19,7 @@ from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
 from raft_tpu_torch.ops import _build
 from raft_tpu_torch.ops import fused_knn as fk
 from raft_tpu_torch.ops import pq_scan as ps
+from raft_tpu_torch.ops import stream_select as ss
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -31,7 +32,9 @@ def test_module_list_covers_the_slice():
     for name in ("core.resources", "ops.fused_knn", "ops._build",
                  "ops.pq_scan", "neighbors.ivf_flat", "neighbors.ivf_pq",
                  "neighbors.refine", "cluster.kmeans_balanced",
-                 "matrix.select_k", "distance.fused_l2_nn"):
+                 "matrix.select_k", "distance.fused_l2_nn",
+                 "ops.stream_select", "comms.topk_merge", "lifecycle.delete",
+                 "lifecycle.compact"):
         assert f"raft_tpu_torch.{name}" in _MODULES
 
 
@@ -106,6 +109,8 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_LOADED", {})
     with pytest.raises(CudaError):
         _build.load_library("pq_scan")
+    with pytest.raises(CudaError):
+        ss._stream_extract_cuda(q)
     assert list((tmp_path / "build").iterdir()) == []
 
 
@@ -113,7 +118,7 @@ def test_library_name_follows_the_sources():
     path = _build._library_path("fused_knn")
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libfused_knn-") and path.suffix == ".so"
-    assert _build.sources() == ["fused_knn", "pq_scan"]
+    assert _build.sources() == ["fused_knn", "pq_scan", "stream_select"]
     # Every library's name also follows the shared header.
     assert any(p.name == "knn_tile.cuh"
                for p in _build.CSRC_DIR.glob("*.cuh"))

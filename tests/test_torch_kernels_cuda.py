@@ -14,10 +14,13 @@ import numpy as np
 import pytest
 import torch
 
+from raft_tpu_torch import lifecycle as lc
 from raft_tpu_torch.core.error import LogicError
+from raft_tpu_torch.matrix.select_k import SelectMethod, select_k
 from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
 from raft_tpu_torch.ops import fused_knn as fk
 from raft_tpu_torch.ops import pq_scan as ps
+from raft_tpu_torch.ops import stream_select as ss
 from test_torch_common import int_data, n
 
 _TIERS = [(False, False), (True, False), (True, True)]
@@ -212,3 +215,115 @@ def test_ivf_pq_entry_points_launch_b3_and_b4(dev, gen):
     assert fk.fused_batch_knn.launches == b3 + 1
     prd, pri = ivf_pq.search(sr, cpu, torch.as_tensor(Q), 10)
     assert np.mean(n(ri) == n(pri)) > 0.99
+
+
+_B5_KINDS = ["gauss", "int_ties", "sorted", "constant", "inf_heavy", "nan",
+             "ragged"]
+
+
+def _b5_keys(gen, kind):
+    """Keys for B5: (16, 24576), or (13, 100000) ragged in both axes."""
+    if kind == "ragged":
+        return gen.standard_normal((13, 100_000)).astype(np.float32)
+    x = gen.standard_normal((16, 24576)).astype(np.float32)
+    if kind == "int_ties":
+        x = gen.integers(0, 3, x.shape).astype(np.float32)
+    elif kind == "sorted":
+        x[:5] = np.sort(x[:5], axis=1)
+        x[5:9] = np.sort(x[5:9], axis=1)[:, ::-1]
+    elif kind == "constant":
+        x[:] = 2.5
+    elif kind == "inf_heavy":
+        x[0, :5000] = -np.inf
+        x[1, 1000:] = np.inf
+        x[2] = np.inf
+    elif kind == "nan":
+        x[3, 100] = np.nan
+        x[7, 8000:8003] = np.nan
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", _B5_KINDS)
+def test_stream_extract_kernel(dev, gen, kind):
+    """B5's candidate arrays equal the plain version's bit for bit (NaN
+    where NaN)."""
+    x = torch.as_tensor(_b5_keys(gen, kind), device=dev)
+    before = ss.stream_extract.launches
+    v, i = ss.stream_extract(x)
+    assert ss.stream_extract.launches == before + 1
+    pv, pi = ss.stream_extract(x.cpu())
+    np.testing.assert_array_equal(n(v), n(pv))
+    np.testing.assert_array_equal(n(i), n(pi))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", _B5_KINDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("select_min", [True, False])
+def test_kstream_select_on_the_card(dev, gen, kind, dtype, select_min):
+    """select_k(kStream) on the card equals the plain path on the CPU and
+    kTopK on the card, values and ids."""
+    x = torch.as_tensor(_b5_keys(gen, kind)).to(dtype)
+    xc = x.to(dev)
+    before = ss.stream_extract.launches
+    v, i = select_k(xc, 64, select_min, method=SelectMethod.kStream)
+    assert ss.stream_extract.launches == before + 1
+    pv, pi = select_k(x, 64, select_min, method=SelectMethod.kStream)
+    tv, ti = select_k(xc, 64, select_min, method=SelectMethod.kTopK)
+    for ref_v, ref_i in ((pv, pi), (tv, ti)):
+        np.testing.assert_array_equal(n(i), n(ref_i))
+        np.testing.assert_array_equal(n(v.float()), n(ref_v.float()))
+
+
+@pytest.mark.cuda
+def test_kauto_gate_launches_b5_on_the_card(dev, gen):
+    x = torch.as_tensor(gen.standard_normal((8, 65536)).astype(np.float32),
+                        device=dev)
+    before = ss.stream_extract.launches
+    v, i = select_k(x, 64)
+    assert ss.stream_extract.launches == before + 1
+    tv, ti = select_k(x, 64, method=SelectMethod.kTopK)
+    np.testing.assert_array_equal(n(i), n(ti))
+    select_k(x[:, :10000], 10)
+    select_k(x[:7], 64)
+    assert ss.stream_extract.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_lifecycle_and_multipart_knn_on_the_card(dev, gen):
+    """Multi-part knn (B1 per part) equals one-part search; a tombstoned
+    IVF-Flat search (B2) and its compaction return no deleted id and equal
+    the CPU copy of the same index."""
+    X = int_data(gen, (12000, 32))
+    Q = int_data(gen, (300, 32))
+    d, i = brute_force.knn(X, Q, 10)
+    parts = [X[:5000], X[5000:9000], X[9000:]]
+    md, mi = brute_force.knn(parts, Q, 10)
+    np.testing.assert_array_equal(n(mi), n(i))
+    np.testing.assert_array_equal(n(md), n(d))
+    index = ivf_flat.build(ivf_flat.IndexParams(n_lists=16,
+                                                kmeans_n_iters=4), X)
+    # Integer centers keep the probe order exact on both devices.
+    index.centers = torch.round(index.centers)
+    cpu = ivf_flat.index_from_numpy(n(index.centers), n(index.data),
+                                    n(index.indices), n(index.list_sizes), 0,
+                                    device="cpu")
+    dels = np.arange(0, 12000, 3)
+    assert lc.delete(index, dels) == lc.delete(cpu, dels) == dels.size
+    sp = ivf_flat.SearchParams(n_probes=16)
+    b2 = fk.fused_cells_knn.launches
+    td, ti = ivf_flat.search(sp, index, Q, 10)
+    assert fk.fused_cells_knn.launches == b2 + 1
+    cd, ci = ivf_flat.search(ivf_flat.SearchParams(n_probes=16,
+                                                   engine="bucketed"), cpu,
+                             torch.as_tensor(Q), 10)
+    np.testing.assert_array_equal(n(ti), n(ci))
+    np.testing.assert_array_equal(n(td), n(cd))
+    assert not np.isin(n(ti), dels).any()
+    new, rep = lc.compact(index)
+    assert rep.reclaimed_slots == dels.size and new.epoch == index.epoch + 1
+    nd, ni = ivf_flat.search(sp, new, Q, 10)
+    np.testing.assert_array_equal(n(ni), n(ti))
+    np.testing.assert_array_equal(n(nd), n(td))

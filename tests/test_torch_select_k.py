@@ -11,7 +11,6 @@ import torch
 
 from raft_tpu.matrix.select_k import SelectMethod as JMethod
 from raft_tpu.matrix.select_k import select_k as jselect_k
-from raft_tpu_torch.core.error import LogicError
 from raft_tpu_torch.matrix.select_k import SelectMethod, select_k
 from test_torch_common import n, t
 
@@ -73,8 +72,3 @@ def test_one_dimensional_and_integer_keys(rng):
     jv, ji = jselect_k(x, 6)
     np.testing.assert_array_equal(n(i), n(ji))
     np.testing.assert_array_equal(n(v), n(jv))
-
-
-def test_kstream_is_not_ported():
-    with pytest.raises(LogicError, match="kStream"):
-        select_k(torch.zeros((2, 100)), 4, method=SelectMethod.kStream)
