@@ -15,7 +15,9 @@ no result line):
    (``fused_batch_knn``) and B4 (``pq_fused_scan``) against their plain
    PyTorch versions on the card, on integer-valued data (ids and distances
    must be identical) and Gaussian data (distances within a stated
-   tolerance); B5 (``stream_extract``) against its plain version on
+   tolerance), B1 also on its split-database path (m = 1 and 129 against
+   200,000 rows, {0, 1} data with ties across the slices), at each
+   queries-per-CTA boundary of k, n < 128 and d in {33, 96, 1024}; B5 (``stream_extract``) against its plain version on
    Gaussian keys, integer keys with ties, sorted rows, a constant batch,
    +-inf-heavy rows, NaN rows and a batch of 13 x 100,000 keys (candidate
    arrays bit for bit), and ``select_k(kStream)`` on those keys in f32,
@@ -95,6 +97,17 @@ BUCKET_CAP = 256
 SELECT_SHAPES = ((64, 131072, 128), (1000, 10000, 10), (8, 65536, 64),
                  (1024, 262144, 256))
 B5_K = 64                 # k of the phase-3 kStream checks
+# Phase-3 B1 cases (m, n, d, k, hi), integer data in [0, hi): the slice-1
+# cases, the split path (m = 1 and 129 against 200,000 rows; {0, 1} data
+# makes ties across the slices), each BQ boundary of k (1, 64 | 65, 128 |
+# 129, 256), n < 128, n not a multiple of the slice, d in {33, 96, 1024}.
+B1_CASES = ((37, 1000, 32, 1, 8), (100, 5000, 128, 10, 8),
+            (64, 3001, 64, 256, 8), (33, 129, 128, 129, 8),
+            (1, 200_000, 96, 10, 2), (129, 200_000, 96, 10, 2),
+            (129, 200_001, 33, 64, 2), (1, 200_000, 96, 256, 2),
+            *((200, 5000, 32, k, 2) for k in (1, 10, 64, 65, 128, 129, 256)),
+            (50, 100, 33, 10, 8), (50, 100, 24, 100, 2),
+            (100, 3000, 1024, 10, 8), (300, 3000, 33, 129, 2))
 N_PARTS = 4               # lifecycle: multi-part brute force
 N_DELETE = 100_000        # lifecycle: rows deleted from each index
 N_UPSERT = 1000           # lifecycle: rows upserted into each index
@@ -207,13 +220,13 @@ def check_kernels(dev) -> None:
 
     from raft_tpu_torch.ops import fused_knn as fk
 
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(SEED)
-    for m, n, d, k in ((37, 1000, 32, 1), (100, 5000, 128, 10),
-                       (64, 3001, 64, 256), (33, 129, 128, 129)):
+    for m, n, d, k, hi in B1_CASES:
         for integer in (True, False):
             if integer:
-                q = rng.integers(0, 8, (m, d)).astype(np.float32)
-                y = rng.integers(0, 8, (n, d)).astype(np.float32)
+                q = rng.integers(0, hi, (m, d)).astype(np.float32)
+                y = rng.integers(0, hi, (n, d)).astype(np.float32)
             else:
                 q = rng.standard_normal((m, d), dtype=np.float32)
                 y = rng.standard_normal((n, d), dtype=np.float32)
@@ -239,8 +252,30 @@ def check_kernels(dev) -> None:
                     if not ok:
                         raise AssertionError(f"{tag}: kernel != plain "
                                              f"(max err {err})")
-        log(f"B1 ok m={m} n={n} d={d} k={k} (l2/ip, f32/bf16/qsplit, "
-            f"int exact / gauss max err within tol)")
+        log(f"B1 ok m={m} n={n} d={d} k={k} slices="
+            f"{len(fk._b1_plan(m, n, k, n_sm).bounds)} (l2/ip, "
+            f"f32/bf16/qsplit, int in [0, {hi}) exact / gauss max err "
+            f"within tol)")
+    # Contiguous operands that start one float past 16 bytes take the
+    # 4-byte copies and must still agree exactly.
+    q = rng.integers(0, 2, (129, 96)).astype(np.float32)
+    y = rng.integers(0, 2, (200_000, 96)).astype(np.float32)
+    qt, yt = torch.as_tensor(q, device=dev), torch.as_tensor(y, device=dev)
+    qv = torch.empty(qt.numel() + 1, device=dev)[1:].view(qt.shape)
+    yv = torch.empty(yt.numel() + 1, device=dev)[1:].view(yt.shape)
+    qv.copy_(qt)
+    yv.copy_(yt)
+    for metric in ("l2", "ip"):
+        for bf16, qsplit in ((False, False), (True, False), (True, True)):
+            kd, ki = fk._fused_knn_cuda(qv, yv, 10, metric == "l2", bf16,
+                                        qsplit)
+            pd, pi = fk._fused_knn_plain(qt, yt, 10, metric == "l2", bf16,
+                                         qsplit)
+            if not (torch.equal(ki, pi) and torch.equal(kd, pd)):
+                raise AssertionError(f"B1 unaligned {metric} bf16={bf16} "
+                                     f"qsplit={qsplit}: kernel != plain")
+    log("B1 ok on operands off 16-byte alignment (m=129 n=200000 d=96 "
+        "k=10, l2/ip, f32/bf16/qsplit, exact)")
 
     for L, cap, d, C, qrows, k in ((6, 300, 32, 9, 64, 10),
                                    (5, 129, 128, 7, 8, 256),
@@ -476,12 +511,16 @@ def b1_entry(dev, X, Q, bf):
             torch.topk(g, K, dim=1, largest=False)
 
     lib_ms = time_ms(library, 3)
+    plan = fk._b1_plan(m, n, K, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     ops = 2.0 * m * n * d
     nbytes = 4.0 * (m * d + n * d) + 8.0 * m * K
     bound = max(ops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
-    log(f"B1 timing m={m} n={n} d={d} k={K}: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, library (addmm + topk over {-(-m // chunk)} "
-        f"query chunks) {lib_ms:.3f} ms, bound {bound:.3f} ms (FP32 ops)")
+    log(f"B1 timing m={m} n={n} d={d} k={K}: kernel {ms:.3f} ms "
+        f"({ops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, library "
+        f"(addmm + topk over {-(-m // chunk)} query chunks) {lib_ms:.3f} ms, "
+        f"bound {bound:.3f} ms (FP32 ops); plan: {plan.bq} queries per CTA, "
+        f"{len(plan.bounds)} database slices")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": "operations" if ops / PEAK_FP32 >= nbytes / PEAK_BYTES
@@ -523,11 +562,17 @@ def b1_kmeans_shape(dev, X, centers):
         del kd, ki, pd, pi
         ms = time_ms(lambda: fk._fused_knn_cuda(A, C, 1, True, bf16, bf16),
                      5)
+        # Split-bf16 makes two products per pair; every tier runs on FMA.
         ops = 2.0 * m * n * d * (2 if bf16 else 1)
-        peak = PEAK_BF16 if bf16 else PEAK_FP32
         nbytes = 4.0 * (m * d + n * d) + 8.0 * m
-        bound = max(ops / peak, nbytes / PEAK_BYTES) * 1e3
-        log(f"{tag}: kernel {ms:.3f} ms, bound {bound:.3f} ms")
+        fma = max(ops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+        line = (f"{tag}: kernel {ms:.3f} ms, FP32-FMA bound {fma:.3f} ms "
+                f"({ops / ms / 1e9:.1f} TFLOP/s)")
+        if bf16:
+            tc = max(ops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+            line += (f", bf16 tensor-core bound {tc:.3f} ms (the kernel "
+                     f"does not use tensor cores)")
+        log(line)
 
 
 def b2_entry(dev, Q, index):
@@ -1235,7 +1280,7 @@ def main() -> int:
 
     kernels = [
         dict(name="fused_knn", route="cuda",
-             source="raft_tpu_torch/csrc/fused_knn.cu",
+             source="raft_tpu_torch/csrc/knn_gemm.cuh",
              replaces="raft_tpu/ops/fused_knn.py:179",
              launches=mp["launches"]["fused_knn"]
              + pq["launches"]["fused_knn"] + lc["fused_knn"], **b1),

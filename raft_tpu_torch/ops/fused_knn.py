@@ -2,9 +2,12 @@
 batched independent kNN (B3).
 
 Port of ``raft_tpu/ops/fused_knn.py::fused_knn``, ``::fused_cells_knn`` and
-``::fused_batch_knn``. The kernels are hand-written CUDA in
-``csrc/fused_knn.cu`` over the tile loop of ``csrc/knn_tile.cuh`` (see their
-headers for the design). Beside each one is its plain PyTorch version, which
+``::fused_batch_knn``. The kernels are hand-written CUDA with their entry
+points in ``csrc/fused_knn.cu``: B1 is the register-tiled FP32 scan, norm
+pre-pass and slice merge of ``csrc/knn_gemm.cuh``, B2 and B3 run the tile
+loop of ``csrc/knn_tile.cuh`` (see the headers for the design). B1 splits
+the database into slices when its query blocks alone cannot fill the card
+(:func:`_b1_plan`). Beside each kernel is its plain PyTorch version, which
 repeats the kernel's arithmetic and tie rules:
 
 * the distance tile of :func:`distance_tile`: a gram in f32 (or on
@@ -23,7 +26,7 @@ back. ``fused_knn.launches``, ``fused_cells_knn.launches`` and
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,11 +45,94 @@ MAX_DIM = 1024
 # Element budget of one plain-version distance block (~256 MB of f32).
 _PLAIN_BLOCK = 1 << 26
 
+# B1's launch geometry (the constants of csrc/knn_gemm.cuh): database rows
+# per tile, features per staged chunk, staged chunks in flight, candidate
+# slots per CTA, the most slices the merge takes; and the fewest tiles a
+# slice gets.
+B1_BN = 128
+B1_BK = 16
+B1_STAGES = 2
+B1_CAND = 4096
+B1_MAX_SLICES = 256
+B1_MIN_SLICE_TILES = 4
+#: Shared memory a block may use on the H100 (232,448 bytes).
+SMEM_LIMIT = 232448
+
 
 def fused_knn_supported(m: int, n: int, d: int, k: int) -> bool:
     """The reference's kernel gate: k within the top-k queue, d <= 1024.
     The CUDA kernel itself takes any d (it stages 32-feature chunks)."""
     return k <= MAX_K and d <= MAX_DIM and n >= 1 and m >= 1
+
+
+class B1Plan(NamedTuple):
+    """B1's launch: ``bq`` queries per CTA, and the database slices
+    ``bounds`` [(lo, hi), ...], each ``slice_rows`` long but the last."""
+    bq: int
+    slice_rows: int
+    bounds: List[Tuple[int, int]]
+
+
+def _b1_bq(m: int, k: int) -> int:
+    """Queries per CTA: 128, or 64 / 32 when the top-k queue (bq x k x 8
+    bytes) needs the room or m is small; k=1 keeps no queue."""
+    if k == 1:
+        return 128
+    cap = 128 if k <= 64 else 64 if k <= 128 else 32
+    return min(cap, 32 if m <= 32 else 64 if m <= 64 else 128)
+
+
+def _b1_smem_bytes(bq: int, k: int, qsplit: bool) -> int:
+    """Shared-memory bytes of one B1 CTA, as knn_gemm.cuh's smem_bytes
+    counts them (the CPU tests hold them to ``SMEM_LIMIT``): the
+    ring of row-major staging chunks (stride BK + 8), the double-buffered
+    feature-major query (and lo-half) and row tiles (stride rows + 4),
+    then, for k > 1, the queue, the candidate buffer, its counters and the
+    bitmask of queries with candidates."""
+    stage = 4 * B1_STAGES * (bq + B1_BN) * (B1_BK + 8)
+    tiles = 4 * 2 * B1_BK * ((bq + 4) * (2 if qsplit else 1) + B1_BN + 4)
+    if k == 1:
+        return stage + tiles
+    return (stage + tiles + 8 * bq * k + 8 * bq * (B1_CAND // bq) + 4 * bq
+            + 4 * (-(-bq // 32)))
+
+
+def _b1_ctas_per_sm(k: int) -> int:
+    """CTAs of B1 an SM holds at once: the minimum blocks of
+    b1_scan_kernel's ``__launch_bounds__`` (two for the k = 1 scan, one
+    for the k > 1 scan, whose queue and epilogue need the registers)."""
+    return 2 if k == 1 else 1
+
+
+def _b1_plan(m: int, n: int, k: int, n_sm: int) -> B1Plan:
+    """Split the database so that the grid (query blocks x slices) covers
+    at least two waves where m x n allows it (a wave: ``n_sm`` SMs times
+    the CTAs an SM holds). Slices are whole 128-row tiles, at least
+    ``B1_MIN_SLICE_TILES`` of them, at most ``B1_MAX_SLICES`` slices; among
+    the counts from the two-wave minimum to twice it, the one whose last
+    wave is fullest wins (ties to fewer)."""
+    bq = _b1_bq(m, k)
+    slots = n_sm * _b1_ctas_per_sm(k)
+    blocks = -(-m // bq)
+    tiles = -(-n // B1_BN)
+    most = max(1, min(B1_MAX_SLICES, tiles // B1_MIN_SLICE_TILES))
+    per = tiles
+    if blocks < 2 * slots and most > 1:
+        want = min(most, -(-2 * slots // blocks))
+        best = None
+        for s in range(want, min(most, 2 * want) + 1):
+            p = -(-tiles // s)
+            used = -(-tiles // p)
+            if used < want and best is not None:
+                continue
+            ctas = blocks * used
+            fill = ctas / (-(-ctas // slots) * slots)
+            if best is None or fill > best[0] + 1e-12:
+                best = (fill, p)
+        per = best[1]
+    rows = per * B1_BN
+    bounds = [(lo, min(n, lo + rows)) for lo in range(0, n, rows)]
+    return B1Plan(bq, rows, bounds)
 
 
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -76,31 +162,50 @@ def _starved_to_pad(d: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isinf(d), torch.full_like(i, -1), i)
 
 
-def _fused_knn_plain(queries, db, k: int, l2: bool, bf16: bool,
-                     qsplit: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of B1: min-order (m, k) values and int32 ids. The db
-    is swept in row tiles; each tile's best k merge into the running best
-    k with a stable sort. Earlier tiles hold lower ids, so positional
-    stability is the (distance, id) order."""
+def _plain_sweep(queries, db, k: int, l2: bool, bf16: bool, qsplit: bool,
+                 base: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The best min(k, rows) of db rows [base, base + rows), ascending by
+    (distance, id), int64 ids. The rows are swept in tiles; each tile's
+    best k merge into the running best k with a stable sort. Earlier tiles
+    hold lower ids, so positional stability is the (distance, id) order."""
     m, n = queries.shape[0], db.shape[0]
     tile = max(k, min(n, _PLAIN_BLOCK // max(m, 1)))
     best_d = best_i = None
     for s in range(0, n, tile):
         w = distance_tile(queries, db[s:s + tile], l2, bf16, qsplit)
         td, ti = stable_top_k(w, min(k, w.shape[1]))
-        ti = ti + s
-        if best_d is None:
-            best_d, best_i = td, ti
-        else:
-            cd = torch.cat([best_d, td], dim=1)
-            ci = torch.cat([best_i, ti], dim=1)
-            best_d, pos = stable_top_k(cd, k)
-            best_i = torch.gather(ci, 1, pos)
+        part = (td, ti + (base + s))
+        best_d, best_i = part if best_d is None else _merge_sorted(
+            [(best_d, best_i), part], k)
+    return best_d, best_i
+
+
+def _merge_sorted(parts: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                  k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-row lists sorted by (distance, id), whose ids ascend from
+    one part to the next, into the best k: the plain version of B1's slice
+    merge (a stable selection over the parts laid side by side)."""
+    cd = torch.cat([p[0] for p in parts], dim=1)
+    ci = torch.cat([p[1] for p in parts], dim=1)
+    best_d, pos = stable_top_k(cd, min(k, cd.shape[1]))
+    return best_d, torch.gather(ci, 1, pos)
+
+
+def _fused_knn_plain(queries, db, k: int, l2: bool, bf16: bool,
+                     qsplit: bool, bounds: Optional[Sequence[Tuple[int, int]]]
+                     = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of B1: min-order (m, k) values and int32 ids. With
+    ``bounds`` (a plan's slices) each slice is swept alone and the slice
+    lists are merged, as the kernel does; the result is the one sweep's."""
+    bounds = [(0, db.shape[0])] if bounds is None else bounds
+    parts = [_plain_sweep(queries, db[lo:hi], k, l2, bf16, qsplit, lo)
+             for lo, hi in bounds]
+    best_d, best_i = parts[0] if len(parts) == 1 else _merge_sorted(parts, k)
     best_i = best_i.to(torch.int32)
     return best_d, _starved_to_pad(best_d, best_i)
 
 
-_KNN_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_KNN_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _CELLS_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
@@ -130,13 +235,23 @@ def _fused_knn_cuda(queries, db, k: int, l2: bool, bf16: bool,
     n = db.shape[0]
     expects(1 <= k <= MAX_K and n >= 1,
             "fused_knn: unsupported shape m=%s n=%s d=%s k=%s", m, n, d, k)
-    out_d = torch.empty((m, k), dtype=torch.float32, device=queries.device)
-    out_i = torch.empty((m, k), dtype=torch.int32, device=queries.device)
     lib = _lib()
-    with torch.cuda.device(queries.device):
+    dev = queries.device
+    plan = _b1_plan(m, n, k, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    s = len(plan.bounds)
+    out_d = torch.empty((m, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((m, k), dtype=torch.int32, device=dev)
+    norms = torch.empty(m + n if l2 else 0, dtype=torch.float32, device=dev)
+    ws_d = torch.empty((s, m, k) if s > 1 else 0, dtype=torch.float32,
+                       device=dev)
+    ws_i = torch.empty((s, m, k) if s > 1 else 0, dtype=torch.int32,
+                       device=dev)
+    with torch.cuda.device(dev):
         err = lib.fused_knn_launch(
-            _ptr(queries), _ptr(db), _ptr(out_d), _ptr(out_i), m, n, d, k,
-            int(l2), int(bf16), int(qsplit), _stream(queries.device))
+            _ptr(queries), _ptr(db), _ptr(norms), _ptr(ws_d), _ptr(ws_i),
+            _ptr(out_d), _ptr(out_i), m, n, d, k, int(l2), int(bf16),
+            int(qsplit), plan.bq, plan.slice_rows, s, _stream(dev))
     _build.check(err, "fused_knn launch")
     fused_knn.launches += 1
     return out_d, out_i

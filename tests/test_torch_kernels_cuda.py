@@ -42,20 +42,87 @@ def _on(dev, *arrays):
     return [torch.as_tensor(a, device=dev) for a in arrays]
 
 
+# B1 cases (m, n, d, k, hi), integer data in [0, hi): the split path (m = 1
+# and 129 against 200,000 rows; {0, 1} data ties across the slices), each
+# BQ boundary of k, n < 128, n not a multiple of the slice, d in {33, 96,
+# 1024}.
+_B1_CASES = [(70, 3001, 96, 1, 8), (70, 3001, 96, 16, 8),
+             (70, 3001, 96, 256, 8), (1, 200_000, 96, 10, 2),
+             (129, 200_000, 96, 10, 2), (129, 200_001, 33, 64, 2),
+             (1, 200_000, 96, 256, 2),
+             *[(200, 5000, 32, k, 2) for k in (1, 10, 64, 65, 128, 129, 256)],
+             (50, 100, 33, 10, 8), (50, 100, 24, 100, 2),
+             (100, 3000, 1024, 10, 8), (300, 3000, 33, 129, 2)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 @pytest.mark.parametrize("bf16,qsplit", _TIERS)
-@pytest.mark.parametrize("k", [1, 16, 256])
-def test_fused_knn_kernel(dev, gen, metric, bf16, qsplit, k):
-    q, db = _on(dev, int_data(gen, (70, 96)), int_data(gen, (3001, 96)))
+@pytest.mark.parametrize("m,rows,d,k,hi", _B1_CASES)
+def test_fused_knn_kernel(dev, gen, metric, bf16, qsplit, m, rows, d, k, hi):
+    q, db = _on(dev, int_data(gen, (m, d), hi), int_data(gen, (rows, d), hi))
     before = fk.fused_knn.launches
-    d, i = fk.fused_knn(q, db, k, metric=metric, bf16=bf16, qsplit=qsplit)
+    dd, i = fk.fused_knn(q, db, k, metric=metric, bf16=bf16, qsplit=qsplit)
     assert fk.fused_knn.launches == before + 1
     pd, pi = fk._fused_knn_plain(q, db, k, metric == "l2", bf16, qsplit)
     if metric == "ip":
         pd = -pd
     np.testing.assert_array_equal(n(i), n(pi))
-    np.testing.assert_array_equal(n(d), n(pd))
+    np.testing.assert_array_equal(n(dd), n(pd))
+
+
+def _offset_view(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``x`` that starts ``offset`` floats into its
+    storage (off the 16-byte alignment for an odd offset)."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    v = buf[offset:].view(x.shape)
+    v.copy_(x)
+    return v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("bf16,qsplit", _TIERS)
+@pytest.mark.parametrize("m,rows,d,k,q_off,db_off",
+                         [(129, 200_000, 96, 10, 1, 1),
+                          (70, 3001, 32, 1, 0, 3), (70, 3001, 128, 65, 2, 0)])
+def test_fused_knn_kernel_unaligned_operands(dev, gen, metric, bf16, qsplit,
+                                             m, rows, d, k, q_off, db_off):
+    """Contiguous views that start off 16 bytes take the 4-byte copies and
+    agree with the plain version bit for bit; the card stays usable."""
+    q, db = _on(dev, int_data(gen, (m, d), 2), int_data(gen, (rows, d), 2))
+    qv, dbv = _offset_view(q, q_off), _offset_view(db, db_off)
+    assert (qv.data_ptr() % 16 != 0) or (dbv.data_ptr() % 16 != 0)
+    dd, i = fk.fused_knn(qv, dbv, k, metric=metric, bf16=bf16, qsplit=qsplit)
+    pd, pi = fk._fused_knn_plain(q, db, k, metric == "l2", bf16, qsplit)
+    if metric == "ip":
+        pd = -pd
+    np.testing.assert_array_equal(n(i), n(pi))
+    np.testing.assert_array_equal(n(dd), n(pd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("bf16,qsplit", _TIERS)
+@pytest.mark.parametrize("m,rows,d,k", [(129, 200_000, 96, 10),
+                                        (1, 200_000, 33, 64),
+                                        (300, 5000, 1024, 129)])
+def test_fused_knn_kernel_gaussian(dev, gen, metric, bf16, qsplit, m, rows,
+                                   d, k):
+    """Gaussian data: the kernel sums in another order than the plain
+    version's matmul, so distances agree within 2e-6 of the largest
+    |q|^2 + |y|^2 (chip_smoke.py's norm_tol) and near-ties may swap ids."""
+    q = torch.as_tensor(gen.standard_normal((m, d), dtype=np.float32),
+                        device=dev)
+    db = torch.as_tensor(gen.standard_normal((rows, d), dtype=np.float32),
+                         device=dev)
+    l2 = metric == "l2"
+    kd, ki = fk._fused_knn_cuda(q, db, k, l2, bf16, qsplit)
+    pd, pi = fk._fused_knn_plain(q, db, k, l2, bf16, qsplit)
+    tol = 2e-6 * float(torch.max(torch.sum(q * q, 1))
+                       + torch.max(torch.sum(db * db, 1)))
+    assert float(torch.max(torch.abs(kd - pd))) <= tol
+    assert float((ki == pi).float().mean()) >= 0.99
 
 
 @pytest.mark.cuda

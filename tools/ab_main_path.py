@@ -1,5 +1,5 @@
-"""Time the IVF-Flat main-path search and the two selections under it,
-for the raft_tpu_torch found at a given repository root.
+"""Time the main path's kernels and entry points for the raft_tpu_torch
+found at a given repository root.
 
     python3 tools/ab_main_path.py <repository root>
 
@@ -10,13 +10,28 @@ one go on one card, parent, change, change, parent::
     for r in build/parent . . build/parent; do
         python3 tools/ab_main_path.py $r; done
 
-Each run builds the 1M x 128 IVF-Flat index of that root's
-``chip_smoke.py`` (1024 lists) and prints the median search time of
-10,000 queries at 32 probes, and the ``select_k`` times of a 10,000 x
-1024 selection of 32 (the coarse probe) and a 10,000 x 320 selection of
-10 (the final merge), by CUDA events.
+Each run builds that root's kernels, makes the 1M x 128 rows and 10,000
+queries of its ``chip_smoke.py`` and prints one JSON line, times by CUDA
+events (median) unless named ``_s``:
+
+* ``bf_ms``: kernel B1 (``fused_knn``) at the brute-force shape (k=10,
+  f32);
+* ``train_32_f32_ms`` ... ``extend_1024_f32_ms``: B1 at the five k=1
+  assignment shapes of the builds (the 500,000-row trainset against 32 and
+  1024 centers, f32 and split-bf16; all 1M rows against 1024 centers,
+  f32). The centers are every 1000th row: the time of a k=1 scan does not
+  depend on where they lie;
+* ``ivf_flat_build_s``, ``ivf_pq_build_s``: the first ``build`` of each
+  index (1024 lists), host clock around a synchronise;
+* ``search_ms``: the IVF-Flat search of the 10,000 queries at 32 probes;
+* ``select_10000x1024_k32_ms``, ``select_10000x320_k10_ms``: ``select_k``
+  of a 10,000 x 1024 selection of 32 (the coarse probe) and a 10,000 x
+  320 selection of 10 (the final merge).
 """
+import json
+import subprocess
 import sys
+import time
 
 sys.path.insert(0, sys.argv[1])
 
@@ -24,19 +39,49 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from raft_tpu_torch.matrix.select_k import select_k  # noqa: E402
-from raft_tpu_torch.neighbors import ivf_flat  # noqa: E402
+from raft_tpu_torch.neighbors import ivf_flat, ivf_pq  # noqa: E402
+from raft_tpu_torch.ops import _build  # noqa: E402
+from raft_tpu_torch.ops import fused_knn as fk  # noqa: E402
+
+
+def build_s(mod, X):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = mod.build(mod.IndexParams(n_lists=cs.N_LISTS), X)
+    torch.cuda.synchronize()
+    return index, time.perf_counter() - t0
+
 
 dev = torch.device("cuda")
+_build.build_all()
 Xh, Qh = cs.make_data(cs.N_ROWS, cs.DIM, cs.N_BLOBS, cs.N_QUERIES)
 X, Q = torch.as_tensor(Xh, device=dev), torch.as_tensor(Qh, device=dev)
-index = ivf_flat.build(ivf_flat.IndexParams(n_lists=cs.N_LISTS), X)
+del Xh, Qh
+out = {"root": sys.argv[1],
+       "card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True,
+                              text=True, check=True).stdout.strip(),
+       "bf_ms": cs.time_ms(
+           lambda: fk._fused_knn_cuda(Q, X, cs.K, True, False, False), 5)}
+T = X[::2][:cs.N_ROWS // 2].contiguous()
+C1024 = X[::1000][:cs.N_LISTS].contiguous()
+C32 = C1024[::cs.N_LISTS // 32].contiguous()
+for name, A, C, bf16 in (("train_32_f32", T, C32, False),
+                         ("train_32_bf16", T, C32, True),
+                         ("train_1024_f32", T, C1024, False),
+                         ("train_1024_bf16", T, C1024, True),
+                         ("extend_1024_f32", X, C1024, False)):
+    out[name + "_ms"] = cs.time_ms(
+        lambda: fk._fused_knn_cuda(A, C, 1, True, bf16, bf16), 5)
+del T
+index, out["ivf_flat_build_s"] = build_s(ivf_flat, X)
+_, out["ivf_pq_build_s"] = build_s(ivf_pq, X)
 sp = ivf_flat.SearchParams(n_probes=cs.N_PROBES)
 g = torch.Generator(device=dev)
 g.manual_seed(1)
 a = torch.randn((10000, 1024), generator=g, device=dev)
 b = torch.randn((10000, 320), generator=g, device=dev)
-out = {"search_ms": cs.time_ms(lambda: ivf_flat.search(sp, index, Q, cs.K),
-                               11),
-       "select_10000x1024_k32_ms": cs.time_ms(lambda: select_k(a, 32), 21),
-       "select_10000x320_k10_ms": cs.time_ms(lambda: select_k(b, 10), 21)}
-print(sys.argv[1], out, flush=True)
+out["search_ms"] = cs.time_ms(lambda: ivf_flat.search(sp, index, Q, cs.K), 11)
+out["select_10000x1024_k32_ms"] = cs.time_ms(lambda: select_k(a, 32), 21)
+out["select_10000x320_k10_ms"] = cs.time_ms(lambda: select_k(b, 10), 21)
+print(json.dumps(out), flush=True)
