@@ -32,7 +32,8 @@ no result line):
    library yardstick (``torch`` matmul + ``torch.topk``, which the port
    never calls), beside the kernel's bound on an H100 SXM; B1 is also held
    against its plain version at every k=1 assignment shape of the build
-   (trainset x 32 and x 1024 centers on both tiers, rows x 1024 in f32);
+   (trainset x 32 and x 1024 centers on both tiers, rows x 1024 in f32)
+   and timed there beside ``addmm`` + ``argmin``;
 6. the IVF-PQ path on the same rows and queries, the counters again set to
    0 before it and read after each step: build with 1024 lists (pq_dim 64,
    pq_bits 8), the compressed search with 32 probes (through B4, recall@10
@@ -41,7 +42,9 @@ no result line):
    through B3) on the first 1000 queries, each within 0.01 of the
    compressed tier's recall there, and the decode scan (B3), whose ids
    must equal the recon tier's; then B3 and B4 held against their plain
-   versions and timed at those shapes;
+   versions and timed at those shapes: B4 with its launch plan, the
+   device-time share of its pre-pass and ptxas' registers and spills, B3
+   also at one decode-scan launch (the first block of lists);
 7. the select path, counters set to 0 before it and read after:
    ``select_k`` through ``kAuto`` on Gaussian keys made on the card at
    bench.py's shapes (64 x 131,072, k=128; 1000 x 10,000, k=10) and at the
@@ -566,8 +569,14 @@ def b1_kmeans_shape(dev, X, centers):
         ops = 2.0 * m * n * d * (2 if bf16 else 1)
         nbytes = 4.0 * (m * d + n * d) + 8.0 * m
         fma = max(ops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+        # The library yardstick of a k=1 scan: one addmm of the expanded
+        # L2 (f32) and its row arg-min.
+        cn = torch.sum(C * C, dim=1)
+        lib_ms = time_ms(lambda: torch.argmin(
+            torch.addmm(cn, A, C.t(), alpha=-2.0), dim=1), 3)
         line = (f"{tag}: kernel {ms:.3f} ms, FP32-FMA bound {fma:.3f} ms "
-                f"({ops / ms / 1e9:.1f} TFLOP/s)")
+                f"({ops / ms / 1e9:.1f} TFLOP/s), library (addmm + argmin) "
+                f"{lib_ms:.3f} ms")
         if bf16:
             tc = max(ops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
             line += (f", bf16 tensor-core bound {tc:.3f} ms (the kernel "
@@ -773,6 +782,7 @@ def b4_entry(dev, Q, index, search_ms):
 
     from raft_tpu_torch.distance.pairwise import gram
     from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
+    from raft_tpu_torch.ops import _build
     from raft_tpu_torch.ops import fused_knn as fk
     from raft_tpu_torch.ops import pq_scan as ps
 
@@ -802,6 +812,12 @@ def b4_entry(dev, Q, index, search_ms):
 
     ms = time_ms(lambda: ps._pq_fused_scan_cuda(*args), 5)
     plain_ms = time_ms(lambda: ps._pq_fused_scan_plain(*args), 2)
+    # One call is the code-norm pre-pass and the scan: their device times.
+    pre_ms = device_ms(lambda: ps._pq_fused_scan_cuda(*args),
+                       "b4_norms_kernel", reps=5)
+    scan_ms = device_ms(lambda: ps._pq_fused_scan_cuda(*args),
+                        "b4_scan_kernel", reps=5)
+    plan = ps._b4_plan(Qc.shape[1], Qc.shape[2], J, bits, K)
     step = 128
 
     def library():
@@ -837,6 +853,17 @@ def b4_entry(dev, Q, index, search_ms):
         f"search), plain {plain_ms:.3f} ms, library (decode + bf16 baddbmm + "
         f"topk over {step}-cell chunks) {lib_ms:.3f} ms, bound {bound:.3f} "
         f"ms; B2 on the bf16 recon cache at the same cells {b2_ms:.3f} ms")
+    regs = [line.strip() for line in
+            _build.BUILD_LOG.get("pq_scan", "").splitlines()
+            if "registers" in line or "spill" in line]
+    log(f"B4 plan: {plan.bq} query rows per CTA, "
+        f"{'sliced' if plan.sliced else 'resident'} table (slice {plan.ks} "
+        f"of rot {plan.kp}), {plan.smem} B of shared memory; device time "
+        f"pre-pass {pre_ms} ms + scan {scan_ms} ms (pre-pass share "
+        f"{pre_ms / (pre_ms + scan_ms):.1%})" if pre_ms and scan_ms else
+        f"B4 plan: {plan}; device times not traced (pre-pass {pre_ms}, "
+        f"scan {scan_ms})")
+    log(f"B4 ptxas (registers, spills): {regs}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": "operations" if ops / PEAK_BF16 >= nbytes / PEAK_BYTES
@@ -895,10 +922,54 @@ def b3_entry(dev, index, probes, rotq):
         f"(bf16 db): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
         f"(bf16 baddbmm + topk over {step}-list chunks) {lib_ms:.3f} ms, "
         f"bound {bound:.3f} ms")
+    decode_block(index, Qb, route, invalid)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": "operations" if ops / PEAK_BF16 >= nbytes / PEAK_BYTES
             else "bytes", "library_ms": lib_ms}
+
+
+def decode_block(index, Qb, route, invalid):
+    """B3 at the decode-scan shape: one of its launches, the first block
+    of lists (as many as ``ivf_pq._bucketed_decode_scan`` decodes at once),
+    held against the plain version and timed beside its bound: the block's
+    routed (query, row) pairs at the bf16 rate, or its bytes (the queries,
+    the valid bf16 rows, the mask and the results)."""
+    import torch
+
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.ops import fused_knn as fk
+
+    n_lists, cap, J = index.pq_codes.shape[0], index.pq_codes.shape[1], \
+        index.pq_dim
+    d = index.rot_dim
+    B, L = 1 << index.pq_bits, d // J
+    block = max(1, min(n_lists, ivf_pq._DECODE_BLOCK // (cap * d)))
+    block = 1 << (block.bit_length() - 1)
+    while n_lists % block and block > 1:
+        block //= 2
+    recon = ivf_pq._decode_lists_block(
+        index.pq_codes[:block], index.centers_rot()[:block],
+        index.pq_centers.reshape(-1), J, B, L, index.pq_bits, False)
+    args = (Qb[:block].contiguous(), recon, invalid[:block].contiguous(), K,
+            True, True, False)
+    kd, ki = fk._fused_batch_knn_cuda(*args)
+    pd, pi = fk._fused_batch_knn_plain(*args)
+    rec = recall(ki.reshape(-1, K), pi.reshape(-1, K))
+    if rec < RECALL_BF:
+        raise AssertionError("B3 decode-scan block disagrees with plain")
+    ms = time_ms(lambda: fk._fused_batch_knn_cuda(*args), 5)
+    sizes = index.list_sizes.long()
+    lists = route[0][route[2]].long()
+    pair_rows = float(torch.sum(sizes[lists[lists < block]]))
+    ops = 2.0 * d * pair_rows
+    nbytes = (4.0 * args[0].numel() + 2.0 * d * float(torch.sum(
+        sizes[:block])) + float(args[2].numel()) + 8.0 * kd.numel())
+    bound = max(ops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+    log(f"B3 decode-scan block ({block} of {n_lists} lists, {n_lists // block} "
+        f"launches per search; m={BUCKET_CAP} n={cap} d={d} k={K}, bf16 "
+        f"db): per-slot recall@{K} {rec:.6f}, kernel {ms:.3f} ms, bound "
+        f"{bound:.4f} ms ({'operations' if ops / PEAK_BF16 >= nbytes / PEAK_BYTES else 'bytes'})")
 
 
 def same_bits(a, b) -> bool:

@@ -26,11 +26,11 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
-from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.error import expects, expects_finite
 from raft_tpu_torch.core.resources import as_float
 from raft_tpu_torch.distance.distance_types import (
     DistanceType, value_form_select_min)
-from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn_min_reduce
+from raft_tpu_torch.distance.fused_l2_nn import _min_reduce
 from raft_tpu_torch.distance.pairwise import distance as pairwise_distance_fn
 from raft_tpu_torch.distance.pairwise import gram, row_norms_sq
 
@@ -42,7 +42,7 @@ def _labels(X, centroids, metric: DistanceType) -> torch.Tensor:
     """Nearest-centroid labels: fused L2 arg-min for the L2 family,
     pairwise + arg-min/arg-max otherwise."""
     if metric in (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded):
-        _, labels = fused_l2_nn_min_reduce(X, centroids)
+        _, labels = _min_reduce(X, centroids)
         return labels
     d = pairwise_distance_fn(X, centroids, metric=metric)
     lab = (torch.argmin(d, dim=1) if value_form_select_min(metric)
@@ -52,9 +52,18 @@ def _labels(X, centroids, metric: DistanceType) -> torch.Tensor:
 
 def predict(params: KMeansBalancedParams, centroids, X,
             handle=None) -> torch.Tensor:
-    """Nearest-centroid labels (int32)."""
+    """Nearest-centroid labels (int32). Rejects non-finite inputs."""
     X = as_float(X, handle)
-    return _labels(X, as_float(centroids, handle, X.device), params.metric)
+    centroids = as_float(centroids, handle, X.device)
+    expects_finite("kmeans_balanced.predict", X, centroids)
+    return _labels(X, centroids, params.metric)
+
+
+def _predict(params: KMeansBalancedParams, centroids,
+             X: torch.Tensor) -> torch.Tensor:
+    """:func:`predict` for the indexes' internal calls, on operands their
+    entry points have checked."""
+    return _labels(X, as_float(centroids, device=X.device), params.metric)
 
 
 def _segment_sum(values, labels, n_segments: int) -> torch.Tensor:
@@ -73,7 +82,7 @@ def _balanced_em(X, centroids0, n_iters: int, n_clusters: int,
     ones = torch.ones((X.shape[0],), dtype=X.dtype, device=X.device)
 
     def body(centroids, bf16):
-        dists, labels = fused_l2_nn_min_reduce(X, centroids, bf16=bf16)
+        dists, labels = _min_reduce(X, centroids, bf16=bf16)
         sums = _segment_sum(X, labels, n_clusters)
         counts = _segment_sum(ones, labels, n_clusters)
         new = sums / torch.clamp_min(counts, 1.0)[:, None]
@@ -202,8 +211,16 @@ def fit(params: KMeansBalancedParams, X, n_clusters: int,
         handle=None) -> torch.Tensor:
     """Train centroids, hierarchically for large k: sqrt(k) mesoclusters,
     a fine-cluster quota per mesocluster in proportion to its population,
-    a masked fine EM, then a balancing polish over the full set."""
+    a masked fine EM, then a balancing polish over the full set. Rejects
+    non-finite inputs."""
     X = as_float(X, handle)
+    expects_finite("kmeans_balanced.fit", X)
+    return _fit(params, X, n_clusters)
+
+
+def _fit(params: KMeansBalancedParams, X: torch.Tensor,
+         n_clusters: int) -> torch.Tensor:
+    """:func:`fit` on a float tensor its caller has checked."""
     n = X.shape[0]
     expects(n >= n_clusters, "need at least n_clusters samples")
     if n_clusters <= 256 or n < 4 * n_clusters:
@@ -240,7 +257,8 @@ def fit(params: KMeansBalancedParams, X, n_clusters: int,
 
 def fit_predict(params: KMeansBalancedParams, X, n_clusters: int,
                 handle=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Centroids and the labels of X."""
+    """Centroids and the labels of X. Rejects non-finite inputs."""
     X = as_float(X, handle)
-    centroids = fit(params, X, n_clusters)
-    return centroids, predict(params, centroids, X)
+    expects_finite("kmeans_balanced.fit_predict", X)
+    centroids = _fit(params, X, n_clusters)
+    return centroids, _labels(X, centroids, params.metric)

@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.error import expects, expects_finite
 from raft_tpu_torch.core.resources import as_float
 from raft_tpu_torch.ops.fused_knn import fused_knn
 
@@ -42,6 +42,15 @@ def fused_l2_nn_min_reduce(
     expects(x.ndim == 2 and y.ndim == 2, "x and y must be matrices")
     expects(x.shape[1] == y.shape[1], "x and y must have the same n_cols")
     expects(y.shape[0] >= 1, "y must have at least one row")
+    expects_finite("fused_l2_nn_min_reduce", x, y)
+    return _min_reduce(x, y, sqrt, bf16)
+
+
+def _min_reduce(x, y, sqrt: bool = False, bf16: Optional[str] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The arg-min of :func:`fused_l2_nn_min_reduce` on float tensors,
+    without the entry point's checks (the k-means loop calls it on
+    operands derived from checked inputs)."""
     d1, i1 = fused_knn(x, y, 1, metric="l2", sqrt=sqrt,
                        bf16=bf16 is not None, qsplit=bf16 == "split")
     return d1[:, 0], i1[:, 0]

@@ -182,7 +182,7 @@ def _flat_model_pass(index, policy: CompactionPolicy, live):
         rowsf = as_float(rows)
         if policy.split_above is not None and n_live:
             kb = KMeansBalancedParams(metric=index.metric)
-            labels = kmeans_balanced.predict(kb, centers, rowsf).long()
+            labels = kmeans_balanced._predict(kb, centers, rowsf).long()
             counts = torch.bincount(labels,
                                     minlength=centers.shape[0]).cpu().numpy()
             mean_live = max(1.0, n_live / centers.shape[0])
@@ -204,7 +204,7 @@ def _compact_flat(index, policy: CompactionPolicy):
     centers, changed, n_split, n_recl, rows, ids = _flat_model_pass(
         index, policy, live)
     if changed:
-        labels = kmeans_balanced.predict(
+        labels = kmeans_balanced._predict(
             KMeansBalancedParams(metric=index.metric), centers,
             as_float(rows)).long()
         data, idx, sizes, new_cap = _repack(rows.to(index.data.dtype), labels,

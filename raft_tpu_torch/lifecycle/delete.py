@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.error import expects, expects_finite
 from raft_tpu_torch.core.resources import as_tensor
 from raft_tpu_torch.neighbors import ivf_flat as _flat
 from raft_tpu_torch.neighbors import ivf_pq as _pq
@@ -131,6 +131,7 @@ def upsert(index, new_vectors, new_indices, mesh=None):
             X.shape[1], index.dim)
     expects(torch.unique(ids).numel() == ids.numel(),
             "upsert ids must be unique within the batch")
+    expects_finite("lifecycle.upsert", X)
     if ids.numel() == 0:
         return index
     del_ids = _prepare_ids(index, ids)
@@ -139,5 +140,6 @@ def upsert(index, new_vectors, new_indices, mesh=None):
     index.deleted = new_mask
     index.n_deleted += n
     _drop_derived(index)
-    extend = _pq.extend if isinstance(index, _pq.Index) else _flat.extend
-    return extend(index, X, ids)
+    if isinstance(index, _pq.Index):
+        return _pq._extend(index, X, ids, dev)
+    return _flat._extend(index, X, ids)

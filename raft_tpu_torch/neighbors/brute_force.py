@@ -23,7 +23,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 from raft_tpu_torch.comms.topk_merge import merge_parts
-from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.error import expects, expects_finite
 from raft_tpu_torch.core.resources import as_float, as_tensor
 from raft_tpu_torch.core.sentinels import PAD_ID, worst_value
 from raft_tpu_torch.distance.distance_types import (
@@ -88,9 +88,17 @@ def tiled_brute_force_knn(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """kNN by the L2 family or inner product. ``method``: "auto", "scan"
     (the tiled engine) or "kernel" (B1; on CPU tensors its plain version).
-    Returns ``(distances (m, k), int32 indices (m, k))``."""
+    Returns ``(distances (m, k), int32 indices (m, k))``. Rejects
+    non-finite inputs."""
     queries = as_float(queries, handle)
     db = as_float(db, handle, queries.device)
+    expects_finite("brute_force.knn", queries, db)
+    return _knn_one_part(queries, db, k, metric, tile_db, method)
+
+
+def _knn_one_part(queries, db, k: int, metric: DistanceType, tile_db: int,
+                  method: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`tiled_brute_force_knn` on checked float tensors."""
     expects(queries.shape[1] == db.shape[1], "dim mismatch")
     expects(method in ("auto", "scan", "kernel"),
             f"unknown method {method!r} (auto|scan|kernel)")
@@ -150,14 +158,14 @@ def knn(
         return d, i
 
     queries = as_float(queries, handle)
+    parts = [as_float(p, handle, queries.device) for p in parts]
+    expects_finite("brute_force.knn", queries, *parts)
     select_min = value_form_select_min(metric)
     all_d, all_i, offsets = [], [], []
     base = global_id_offset
     for p in parts:
-        p = as_float(p, handle, queries.device)
-        pd, pi = tiled_brute_force_knn(queries, p, min(k, p.shape[0]), metric,
-                                       metric_arg, method=method,
-                                       handle=handle)
+        pd, pi = _knn_one_part(queries, p, min(k, p.shape[0]), metric,
+                               _TILE_DB, method)
         kk = pd.shape[1]
         if kk < k:
             # A short part pads to k. The merge adds ``base`` to every id,

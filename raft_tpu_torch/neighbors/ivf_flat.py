@@ -45,7 +45,7 @@ import torch
 
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
-from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.error import expects, expects_finite
 from raft_tpu_torch.core.resources import as_float, as_tensor, resolve_device
 from raft_tpu_torch.core.sentinels import PAD_ID, worst_value
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
@@ -180,7 +180,7 @@ def _train_centers(params: IndexParams, Xf: torch.Tensor) -> torch.Tensor:
     kb = KMeansBalancedParams(n_iters=params.kmeans_n_iters,
                               metric=params.metric,
                               rng_state=RngState(seed=0))
-    return kmeans_balanced.fit(kb, trainset, params.n_lists)
+    return kmeans_balanced._fit(kb, trainset, params.n_lists)
 
 
 def _coarse_probe(Q, centers, n_probes: int, inner_is_l2: bool):
@@ -201,6 +201,7 @@ def build(params: IndexParams, dataset, handle=None) -> Index:
     expects(X.ndim == 2, "dataset must be (n_rows, dim)")
     n = X.shape[0]
     expects(n >= params.n_lists, "need at least n_lists rows")
+    expects_finite("ivf_flat.build", X)
     centers = _train_centers(params, as_float(X))
     index = Index(
         metric=params.metric,
@@ -215,8 +216,8 @@ def build(params: IndexParams, dataset, handle=None) -> Index:
         conservative_memory_allocation=params.conservative_memory_allocation,
     )
     if params.add_data_on_build:
-        index = extend(index, X, torch.arange(n, dtype=torch.int32,
-                                              device=X.device))
+        index = _extend(index, X, torch.arange(n, dtype=torch.int32,
+                                               device=X.device))
     return index
 
 
@@ -291,10 +292,18 @@ def extend(index: Index, new_vectors, new_indices=None,
            handle=None) -> Index:
     """Append vectors (ids default to ``max id + 1`` onwards). The index
     is mutated and returned; its storage is written in place when the
-    lists have room. Tombstoned slots are not reclaimed."""
+    lists have room. Tombstoned slots are not reclaimed. Rejects
+    non-finite vectors."""
     dev = handle.device if handle is not None else index.centers.device
     X = as_tensor(new_vectors, device=dev)
     expects(X.ndim == 2 and X.shape[1] == index.dim, "dim mismatch")
+    expects_finite("ivf_flat.extend", X)
+    return _extend(index, X, new_indices)
+
+
+def _extend(index: Index, X: torch.Tensor, new_indices=None) -> Index:
+    """:func:`extend` on checked vectors already on the index's device."""
+    dev = X.device
     n_new = X.shape[0]
     if n_new == 0:
         return index
@@ -307,7 +316,7 @@ def extend(index: Index, new_vectors, new_indices=None,
         new_indices = as_tensor(new_indices, device=dev).to(
             index.indices.dtype)
 
-    labels = kmeans_balanced.predict(
+    labels = kmeans_balanced._predict(
         KMeansBalancedParams(metric=index.metric), index.centers,
         as_float(X))
 
@@ -653,6 +662,7 @@ def search(params: SearchParams, index: Index, queries, k: int,
     dev = handle.device if handle is not None else index.centers.device
     Q = as_float(queries, device=dev)
     expects(Q.ndim == 2 and Q.shape[1] == index.dim, "query dim mismatch")
+    expects_finite("ivf_flat.search", Q)
     expects(params.engine in ("auto", "scan", "bucketed"),
             f"unknown engine {params.engine!r} (auto|scan|bucketed)")
     n_probes = min(params.n_probes, index.n_lists)

@@ -46,7 +46,7 @@ import torch
 
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
-from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.error import expects, expects_finite
 from raft_tpu_torch.core.resources import as_float, as_tensor, resolve_device
 from raft_tpu_torch.core.sentinels import PAD_ID, worst_value
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
@@ -645,6 +645,7 @@ def build(params: IndexParams, dataset, handle=None) -> Index:
     n, dim = X.shape
     expects(n >= params.n_lists, "need at least n_lists rows")
     expects(4 <= params.pq_bits <= 8, "pq_bits must be in [4, 8]")
+    expects_finite("ivf_pq.build", X)
     Xf = as_float(X)
     dev = X.device
 
@@ -662,11 +663,11 @@ def build(params: IndexParams, dataset, handle=None) -> Index:
     kb = KMeansBalancedParams(n_iters=params.kmeans_n_iters,
                               metric=DistanceType.L2Expanded,
                               rng_state=state)
-    centers = kmeans_balanced.fit(kb, trainset, params.n_lists)
+    centers = kmeans_balanced._fit(kb, trainset, params.n_lists)
     rot = make_rotation_matrix(
         state.next_generator(dev) if params.force_random_rotation else None,
         dim, rot_dim, params.force_random_rotation, dev)
-    labels = kmeans_balanced.predict(kb, centers, trainset)
+    labels = kmeans_balanced._predict(kb, centers, trainset)
 
     # OPQ alternation: train throwaway books, then the orthogonal
     # Procrustes rotation update R <- U V^T from SVD(Xhat^T Xres), each
@@ -721,8 +722,8 @@ def build(params: IndexParams, dataset, handle=None) -> Index:
         pq_bits=params.pq_bits, pq_dim=pq_dim,
         conservative_memory_allocation=params.conservative_memory_allocation)
     if params.add_data_on_build:
-        index = extend(index, X, torch.arange(n, dtype=torch.int32,
-                                              device=dev))
+        index = _extend(index, X, torch.arange(n, dtype=torch.int32,
+                                               device=dev), dev)
         if params.retain_dataset:
             index._source = X
     return index
@@ -740,7 +741,7 @@ def encode_rows(model, X) -> Tuple[torch.Tensor, torch.Tensor]:
     ``(labels, packed code rows)``, in row chunks so only the labels and
     the packed codes ever exist at full n."""
     kb = KMeansBalancedParams(metric=DistanceType.L2Expanded)
-    labels = kmeans_balanced.predict(kb, model.centers, X)
+    labels = kmeans_balanced._predict(kb, model.centers, X)
     per_cluster = model.codebook_kind == CodebookGen.PER_CLUSTER
     parts = []
     for s in range(0, X.shape[0], _ENCODE_ROWS):
@@ -759,10 +760,17 @@ def extend(index: Index, new_vectors, new_indices=None,
     index is mutated and returned: an empty index is packed in bulk,
     otherwise rows go in place at each list's fill offset (capacity grows
     to the next power of two on overflow). Bumps ``epoch`` and drops the
-    search caches."""
+    search caches. Rejects non-finite vectors."""
     dev = handle.device if handle is not None else index.centers.device
     X = as_float(new_vectors, device=dev)
     expects(X.ndim == 2 and X.shape[1] == index.dim, "dim mismatch")
+    expects_finite("ivf_pq.extend", X)
+    return _extend(index, new_vectors, new_indices, dev)
+
+
+def _extend(index: Index, new_vectors, new_indices, dev) -> Index:
+    """:func:`extend` on vectors its caller has checked."""
+    X = as_float(new_vectors, device=dev)
     n_new = X.shape[0]
     if n_new == 0:
         return index
@@ -902,10 +910,17 @@ def search(params: SearchParams, index: Index, queries, k: int,
            handle=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Approximate search. Returns ``(distances (q, k), int32 neighbors
     (q, k))``; L2 metrics report approximate squared (or sqrt'ed)
-    distances from the PQ scores."""
+    distances from the PQ scores. Rejects non-finite queries."""
     dev = handle.device if handle is not None else index.centers.device
     Q = as_float(queries, device=dev)
     expects(Q.ndim == 2 and Q.shape[1] == index.dim, "query dim mismatch")
+    expects_finite("ivf_pq.search", Q)
+    return _search(params, index, Q, k, handle)
+
+
+def _search(params: SearchParams, index: Index, Q: torch.Tensor, k: int,
+            handle=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`search` on checked queries already on the index's device."""
     lut_dtype, internal_dtype = validate_search_dtypes(params)
 
     if (params.min_recall is not None
@@ -915,10 +930,9 @@ def search(params: SearchParams, index: Index, queries, k: int,
             sp = dataclasses.replace(
                 params, min_recall=None,
                 n_probes=max(params.n_probes, 64 if robust else 48))
-            return search_refined(sp, index, index._source, Q, k,
-                                  refine_ratio=4 if robust else 2,
-                                  handle=handle,
-                                  bound_queue=False if robust else None)
+            return _search_refined(sp, index, index._source, Q, k,
+                                   4 if robust else 2, handle,
+                                   False if robust else None)
         logger.warning(
             "min_recall=%.2f requested but the index retains no source "
             "dataset - running the native PQ search; use "
@@ -1000,23 +1014,34 @@ def search_refined(params: SearchParams, index: Index, dataset, queries,
     exactly against ``dataset`` (None: the dataset retained by build).
     ``bound_queue`` (compressed tier only): None keeps each (query, probe)
     queue at k when the measured probe concentration says it is safe (L2
-    only), True forces it, False keeps the pool-deep queue."""
-    from raft_tpu_torch.neighbors.refine import refine
-
+    only), True forces it, False keeps the pool-deep queue. Rejects a
+    non-finite dataset or queries."""
     if dataset is None:
         dataset = index._source
         expects(dataset is not None,
                 "search_refined(dataset=None) needs the build-retained "
                 "dataset; this index has none - pass the dataset")
+    dev = handle.device if handle is not None else index.centers.device
+    Q = as_float(queries, device=dev)
+    expects_finite("ivf_pq.search_refined", Q, torch.as_tensor(dataset))
+    return _search_refined(params, index, dataset, Q, k, refine_ratio,
+                           handle, bound_queue)
+
+
+def _search_refined(params: SearchParams, index: Index, dataset,
+                    Q: torch.Tensor, k: int, refine_ratio: int, handle,
+                    bound_queue: Optional[bool]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`search_refined` on a checked dataset and queries."""
+    from raft_tpu_torch.neighbors.refine import refine
+
     expects(refine_ratio >= 1, "refine_ratio must be >= 1")
     if params.min_recall is not None:
         params = dataclasses.replace(params, min_recall=None)
     refine_ratio = int(refine_ratio)
     if refine_ratio == 1:
-        return search(params, index, queries, k, handle=handle)
+        return _search(params, index, Q, k, handle)
 
-    dev = handle.device if handle is not None else index.centers.device
-    Q = as_float(queries, device=dev)
     lut_dtype, internal_dtype = validate_search_dtypes(params)
     default_dtypes = (lut_dtype == torch.float32
                       and internal_dtype == torch.float32)
@@ -1046,5 +1071,5 @@ def search_refined(params: SearchParams, index: Index, dataset, queries,
             min(k, pool) if bound_queue else 0,
             int8_lut=ops[5] if int8 else None)
     else:
-        _, i = search(params, index, Q, pool, handle=handle)
+        _, i = _search(params, index, Q, pool, handle)
     return refine(dataset, Q, i, k, metric=index.metric)

@@ -263,7 +263,10 @@ def fused_knn(queries: torch.Tensor, db: torch.Tensor, k: int, *,
     """Fused exact kNN. ``metric`` is "l2" (squared L2, optionally sqrt'd)
     or "ip" (max inner product). ``bf16`` rounds both operands to bf16
     (f32 accumulation and norms); ``qsplit`` adds the low half of the
-    split query on that path. Returns (distances (m, k), int32 ids)."""
+    split query on that path. Returns (distances (m, k), int32 ids).
+    Operands must be finite (the entry points reject
+    non-finite inputs): on the card an L2 NaN comes out of ``fmaxf`` as
+    distance 0."""
     expects(metric in ("l2", "ip"), "metric must be 'l2' or 'ip'")
     expects(queries.ndim == 2 and db.ndim == 2
             and queries.shape[1] == db.shape[1],
@@ -360,7 +363,9 @@ def fused_cells_knn(cell_list, queries, db, invalid, k: int, *,
     skipping slots where ``invalid`` (n_lists, cap) is set. Min-selection
     order for both metrics (ip scores negated). Returns (distances
     (n_cells, qrows, k), int32 local slot ids); -1 cells and starved
-    slots give (inf, -1)."""
+    slots give (inf, -1). Operands must be finite (the entry points reject
+    non-finite inputs): on the card an L2 NaN comes out of ``fmaxf`` as
+    distance 0."""
     expects(queries.ndim == 3 and db.ndim == 3 and invalid.ndim == 2,
             "fused_cells_knn: queries (C, qrows, d), db (L, cap, d) and "
             "invalid (L, cap) expected")
@@ -433,7 +438,10 @@ def fused_batch_knn(queries, db, invalid, k: int, *, metric: str = "l2",
     is read as f32. ``bd`` is the reference's db tile width: the result
     does not depend on it, so it is accepted and ignored. Returns
     (distances (B, m, k), int32 local slot ids) with k = min(k, n); short
-    results pad with (worst, -1). On the card k is at most 256."""
+    results pad with (worst, -1). On the card k is at most 256.
+    Operands must be finite (the entry points reject
+    non-finite inputs): on the card an L2 NaN comes out of ``fmaxf`` as
+    distance 0."""
     expects(metric in ("l2", "ip"), "metric must be 'l2' or 'ip'")
     expects(queries.ndim == 3 and db.ndim == 3 and invalid.ndim == 2,
             "fused_batch_knn: queries (B, m, d), db (B, n, d) and invalid "

@@ -7,8 +7,13 @@ holds ``books[perm[j'], b, s]``, split into two 128-column halves (lo, hi).
 The caller shifts each cell's query rows by its list's rotated center (L2),
 so the scan scores residual-scale operands.
 
-The kernel is hand-written CUDA in ``csrc/pq_scan.cu``. Beside it is its
-plain PyTorch version, which repeats ``_pq_scan_cell_body`` step by step:
+The kernel is hand-written CUDA in ``csrc/pq_scan.cu`` (bf16 ``mma``
+tensor-core tiles over codes decoded once per cell through a codeword
+table resident in shared memory; see the source's header). One call is a
+pre-pass (live tiles, code norms) and the scan, on the launch plan of
+:func:`_b4_plan` (query rows per CTA, resident or sliced table). Beside it
+is its plain PyTorch version, which repeats ``_pq_scan_cell_body`` step by
+step:
 
 * decode: ``cj = codesT[list, :, c]`` (pq_bits 8) or ``[raw & 0xF ; raw >>
   4]`` (pq_bits 4); codeword row ``r = j'·L + s`` is ``table[r, cj[j']]``
@@ -24,23 +29,23 @@ plain PyTorch version, which repeats ``_pq_scan_cell_body`` step by step:
 
 Dispatch: the wrapper takes the plain version only for CPU tensors; for
 CUDA tensors it launches the kernel or raises. ``pq_fused_scan.launches``
-counts the launches.
+counts the calls (one per call, pre-pass included).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from raft_tpu_torch.core.error import CudaError, expects
+from raft_tpu_torch.core.error import CudaError, LogicError, expects
 from raft_tpu_torch.distance.pairwise import gram
 from raft_tpu_torch.matrix.select_k import stable_top_k
 from raft_tpu_torch.ops import _build
-from raft_tpu_torch.ops.fused_knn import (MAX_K, _check_cuda, _ptr,
-                                          _round_bf16, _starved_to_pad,
+from raft_tpu_torch.ops.fused_knn import (MAX_K, SMEM_LIMIT, _check_cuda,
+                                          _ptr, _round_bf16, _starved_to_pad,
                                           _stream)
 from raft_tpu_torch.util.pow2 import round_up_safe
 
@@ -51,6 +56,84 @@ _SC = 512
 
 # Element budget of one plain-version block (~256 MB of f32).
 _PLAIN_BLOCK = 1 << 26
+
+# B4's launch geometry (the constants of csrc/pq_scan.cu): code slots per
+# tile, candidate slots per CTA, the query rows a CTA may take, and the
+# table slice widths the sliced mode tries (widest first).
+B4_BN = 128
+B4_CAND = 4096
+B4_ROWS = (64, 32, 16)
+B4_SLICES = (512, 256, 128, 64, 32, 16)
+B4_NET_K = 16
+
+
+class B4Plan(NamedTuple):
+    """B4's launch: ``bq`` query rows per CTA; ``sliced`` False keeps the
+    whole bf16 codeword table resident in shared memory, True stages it
+    in slices of ``ks`` rows of rot in step with the product's K chunks;
+    ``kp`` is rot zero-padded to a multiple of 16; ``smem`` the bytes of
+    one CTA."""
+    bq: int
+    sliced: bool
+    ks: int
+    kp: int
+    smem: int
+
+
+def _r16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _b4_smem_bytes(bq: int, kp: int, ks: int, pq_bits: int, nbytes: int,
+                   k: int, sliced: bool) -> int:
+    """Shared-memory bytes of one B4 CTA, region by region as
+    pq_scan.cu's ``Carve`` lays them out, each rounded up to 16 bytes:
+    the bf16 query operand (bq x (kp + 8)), the bf16 table (2^pq_bits x
+    (ks + 2)), the bf16 code tiles (two, or one when sliced; 128 x (ks + 8)),
+    two u8 code tiles (nbytes x 128, resident mode only), the K map
+    (kp ints), the query norms, two tiles' code norms and valid flags;
+    then for k = 1 the cross-warp (min, slot) of each row, else the queue
+    (bq x k pairs), the candidate buffer, its counters and the bitmask of
+    rows with candidates, and for k <= 16 (queues kept in registers) the
+    per-thread row minima and the rows' first-tile bounds."""
+    warps_n = 8 // max(1, bq // 32)
+    parts = [bq * (kp + 8) * 2, (1 << pq_bits) * (ks + 2) * 2,
+             (1 if sliced else 2) * B4_BN * (ks + 8) * 2,
+             0 if sliced else 2 * nbytes * B4_BN, kp * 4, bq * 4,
+             2 * B4_BN * 4, 2 * B4_BN * 4]
+    if k == 1:
+        parts.append(warps_n * bq * 8)
+    else:
+        parts += [bq * k * 4, bq * k * 4, B4_CAND * 4, B4_CAND * 4, bq * 4,
+                  4 * (-(-bq // 32))]
+        if k <= B4_NET_K:
+            parts += [bq * warps_n * 4 * 4, bq * 4]
+    return sum(_r16(p) for p in parts)
+
+
+def _b4_plan(qrows: int, rot: int, pq_dim: int, pq_bits: int,
+             k: int) -> B4Plan:
+    """The resident table with the most query rows per CTA that fits
+    ``SMEM_LIMIT`` (64, or 32 / 16 as the top-k queue grows; never more
+    than ``qrows`` needs), else the sliced table with the most rows, then
+    the widest slice. Raises when nothing fits."""
+    kp = _r16(rot)
+    nbytes = pq_dim if pq_bits == 8 else pq_dim // 2
+    most = max(16, min(64, _r16(qrows)))
+    rows = [bq for bq in B4_ROWS if bq <= most]
+    for bq in rows:
+        smem = _b4_smem_bytes(bq, kp, kp, pq_bits, nbytes, k, False)
+        if smem <= SMEM_LIMIT:
+            return B4Plan(bq, False, kp, kp, smem)
+    for bq in rows:
+        for ks in B4_SLICES:
+            if ks >= kp:
+                continue
+            smem = _b4_smem_bytes(bq, kp, ks, pq_bits, nbytes, k, True)
+            if smem <= SMEM_LIMIT:
+                return B4Plan(bq, True, ks, kp, smem)
+    raise LogicError(f"pq_fused_scan: no plan fits shared memory (qrows="
+                     f"{qrows}, rot={rot}, pq_bits={pq_bits}, k={k})")
 
 
 def subspace_perm(pq_dim: int, pq_bits: int) -> List[int]:
@@ -169,7 +252,8 @@ def _pq_fused_scan_plain(cell_list, rotq_cells, codesT, lo, hi, invalid,
     return out_d, out_i
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 14
+             + [ctypes.c_void_p])
 
 
 def _lib():
@@ -198,23 +282,40 @@ def _pq_fused_scan_cuda(cell_list, rotq_cells, codesT, lo, hi, invalid,
             "expected")
     n_cells, qrows, rot = rotq_cells.shape
     n_lists, nbytes, capp = codesT.shape
-    expects(1 <= k <= MAX_K and pq_bits in (4, 8) and rot % J == 0
+    if capp % B4_BN:
+        # The kernel walks whole 128-slot tiles.
+        pad = B4_BN - capp % B4_BN
+        codesT = F.pad(codesT, (0, pad))
+        invalid = F.pad(invalid, (0, pad), value=True)
+        capp += pad
+    expects(1 <= k <= MAX_K and k <= capp
+            and pq_bits in (4, 8) and rot % J == 0
+            and nbytes == (J if pq_bits == 8 else J // 2)
             and lo.shape == (1, rot, _LANES)
             and invalid.shape == (n_lists, capp)
             and (pq_bits == 4 or hi.shape == (1, rot, _LANES)),
             "pq_fused_scan: unsupported shape (k=%s, pq_bits=%s, rot=%s)",
             k, pq_bits, rot)
+    plan = _b4_plan(qrows, rot, J, pq_bits, k)
+    dev = rotq_cells.device
     out_d = torch.empty((n_cells, qrows, k), dtype=torch.float32,
-                        device=rotq_cells.device)
-    out_i = torch.empty((n_cells, qrows, k), dtype=torch.int32,
-                        device=rotq_cells.device)
+                        device=dev)
+    out_i = torch.empty((n_cells, qrows, k), dtype=torch.int32, device=dev)
+    # The pre-pass's code norms (L2 only) and live-tile flags: one call's
+    # scratch.
+    cwn = torch.empty((n_lists, capp) if not is_ip else (1,),
+                      dtype=torch.float32, device=dev)
+    live = torch.empty((n_lists, capp // B4_BN), dtype=torch.uint8,
+                       device=dev)
     lib = _lib()
-    with torch.cuda.device(rotq_cells.device):
+    with torch.cuda.device(dev):
         err = lib.pq_fused_scan_launch(
             _ptr(cell_list), _ptr(rotq_cells), _ptr(codesT), _ptr(lo),
             _ptr(hi), None if scale is None else _ptr(scale), _ptr(invalid),
-            _ptr(out_d), _ptr(out_i), n_cells, qrows, rot, nbytes, capp, J,
-            pq_bits, k, int(is_ip), _stream(rotq_cells.device))
+            _ptr(cwn), _ptr(live), _ptr(out_d), _ptr(out_i), n_cells,
+            n_lists, qrows,
+            rot, nbytes, capp, J, pq_bits, k, int(is_ip), plan.bq,
+            int(plan.sliced), plan.ks, plan.smem, _stream(dev))
     _build.check(err, "pq_fused_scan launch")
     pq_fused_scan.launches += 1
     return out_d, out_i
@@ -234,7 +335,9 @@ def pq_fused_scan(cell_list, rotq_cells, codesT, abs_lo, abs_hi, invalid,
     int8 with the (1, rot_dim, 2) scales passed as ``int8_lut``.
     ``invalid`` (n_lists, cap) bool. Returns (min-order distances
     (max_cells, qrows, k), int32 local slots); -1 cells and starved slots
-    give (inf, -1)."""
+    give (inf, -1). Operands must be finite (the entry points reject
+    non-finite inputs): on the card an L2 NaN comes out of ``fmaxf`` as
+    distance 0."""
     expects(rotq_cells.ndim == 3 and codesT.ndim == 3 and invalid.ndim == 2,
             "pq_fused_scan: rotq_cells (C, qrows, rot), codesT (L, nbytes, "
             "cap) and invalid (L, cap) expected")

@@ -207,22 +207,55 @@ def test_fused_batch_knn_raises_past_the_queue(dev, gen):
         fk.fused_batch_knn(q, db, invalid, 257)
 
 
-def _pq_case(gen, bits, cap=700, J=8, L=2, C=7, qrows=40):
+def _pq_case(gen, bits, cap=700, J=8, L=2, C=7, qrows=40, hi=4):
+    """B4 operands on integer data: books in [-3, 3] with a +-127 entry
+    in every row of both table halves (so the int8 tables have a scale of
+    exactly 1 and dequantize to the same integers) and queries in [-hi,
+    hi]; hi=0 gives {0, 1} books and queries instead (ties everywhere:
+    within an mma fragment and across tiles). Lists: an empty one (1) and
+    a starved one (3); cells: one -1."""
     B = 1 << bits
-    books = gen.integers(-3, 4, (J, B, L)).astype(np.float32)
-    # One +-127 entry in every row of both table halves gives the int8
-    # tables a scale of exactly 1, so they dequantize to the same integers.
-    books[:, 0, :] = 127.0
-    books[:, B // 2, :] = -127.0
+    if hi:
+        books = gen.integers(-3, 4, (J, B, L)).astype(np.float32)
+        books[:, 0, :] = 127.0
+        books[:, B // 2, :] = -127.0
+        q = gen.integers(-hi, hi + 1, (C, qrows, J * L)).astype(np.float32)
+    else:
+        books = gen.integers(0, 2, (J, B, L)).astype(np.float32)
+        q = gen.integers(0, 2, (C, qrows, J * L)).astype(np.float32)
     codes = gen.integers(0, B, (5, cap, J)).astype(np.int32)
     packed = ivf_pq.pack_codes(torch.as_tensor(codes), bits).numpy()
     codesT = np.ascontiguousarray(packed.transpose(0, 2, 1))
     invalid = gen.random((5, cap)) < 0.2
     invalid[1, :] = True            # an empty list
     invalid[3, 5:] = True           # a starved list
-    cells = np.array([0, 1, -1, 3, 2, 4, 3], np.int32)
-    q = gen.integers(-4, 5, (C, qrows, J * L)).astype(np.float32)
+    cells = np.array([0, 1, -1, 3, 2, 4, 3], np.int32)[:C]
     return books, cells, q, codesT, invalid
+
+
+def _pq_both(dev, books, cells, q, codesT, invalid, k, J, bits, is_ip,
+             int8):
+    """B4 on the card through the wrapper (one launch) and its plain
+    version on the CPU copies."""
+    tables = [t.to(dev) for t in ps.book_tables(torch.as_tensor(books),
+                                                 bits, int8=int8)]
+    cells, q, codesT, invalid = _on(dev, cells, q, codesT, invalid)
+    scale = tables[2] if int8 else None
+    before = ps.pq_fused_scan.launches
+    kd, ki = ps.pq_fused_scan(cells, q, codesT, tables[0], tables[1],
+                              invalid, k, J, bits, is_ip, int8_lut=scale)
+    assert ps.pq_fused_scan.launches == before + 1
+    pd, pi = ps.pq_fused_scan(cells.cpu(), q.cpu(), codesT.cpu(),
+                              tables[0].cpu(), tables[1].cpu(),
+                              invalid.cpu(), k, J, bits, is_ip,
+                              int8_lut=None if scale is None else scale.cpu())
+    return kd, ki, pd, pi
+
+
+# (J, L, qrows): rot 16 at 40 rows; rot 128 with L = 1, 2, 4 at 64, 1 and
+# 40 rows; rot 96 with L = 3 (codes straddle the 32-bit words).
+_PQ_GEOMS = [(8, 2, 40), (128, 1, 64), (64, 2, 1), (32, 4, 40),
+             (32, 3, 64)]
 
 
 @pytest.mark.cuda
@@ -230,27 +263,116 @@ def _pq_case(gen, bits, cap=700, J=8, L=2, C=7, qrows=40):
 @pytest.mark.parametrize("is_ip", [False, True])
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("k", [1, 10, 256])
-def test_pq_fused_scan_kernel(dev, gen, bits, is_ip, int8, k):
+@pytest.mark.parametrize("J,L,qrows", _PQ_GEOMS)
+def test_pq_fused_scan_kernel(dev, gen, bits, is_ip, int8, k, J, L, qrows):
     """B4 on integer codebooks and queries: pq_bits 4/8, L2/IP, f32/int8
-    tables, -1 cells, empty and starved lists."""
-    books, cells, q, codesT, invalid = _pq_case(gen, bits)
-    tables = [t.to(dev) for t in ps.book_tables(torch.as_tensor(books),
-                                                 bits, int8=int8)]
-    cells, q, codesT, invalid = _on(dev, cells, q, codesT, invalid)
-    scale = tables[2] if int8 else None
-    before = ps.pq_fused_scan.launches
-    kd, ki = ps.pq_fused_scan(cells, q, codesT, tables[0], tables[1],
-                              invalid, k, 8, bits, is_ip, int8_lut=scale)
-    assert ps.pq_fused_scan.launches == before + 1
-    pd, pi = ps.pq_fused_scan(cells.cpu(), q.cpu(), codesT.cpu(),
-                              tables[0].cpu(), tables[1].cpu(),
-                              invalid.cpu(), k, 8, bits, is_ip,
-                              int8_lut=None if scale is None else scale.cpu())
+    tables, -1 cells, empty and starved lists, odd L, 1 to 64 rows."""
+    books, cells, q, codesT, invalid = _pq_case(gen, bits, J=J, L=L,
+                                                qrows=qrows)
+    kd, ki, pd, pi = _pq_both(dev, books, cells, q, codesT, invalid, k, J,
+                              bits, is_ip, int8)
     np.testing.assert_array_equal(n(ki), n(pi))
     np.testing.assert_array_equal(n(kd), n(pd))
     assert (n(ki)[2] == -1).all() and (n(ki)[1] == -1).all()
     if k > 5:
         assert (n(ki)[3, :, 5:] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("is_ip", [False, True])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("k", [1, 10, 256])
+@pytest.mark.parametrize("J,L", [(256, 2), (128, 4)])
+def test_pq_fused_scan_kernel_sliced_table(dev, gen, is_ip, int8, k, J, L):
+    """rot 512 at pq_bits 8: the table does not fit beside the tiles, so
+    the plan stages it in slices; exact on integer data."""
+    assert ps._b4_plan(64, J * L, J, 8, k).sliced
+    books, cells, q, codesT, invalid = _pq_case(gen, 8, J=J, L=L, qrows=64,
+                                                hi=2)
+    kd, ki, pd, pi = _pq_both(dev, books, cells, q, codesT, invalid, k, J, 8,
+                              is_ip, int8)
+    np.testing.assert_array_equal(n(ki), n(pi))
+    np.testing.assert_array_equal(n(kd), n(pd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("is_ip", [False, True])
+@pytest.mark.parametrize("k", [1, 10, 20, 64, 256])
+@pytest.mark.parametrize("J,L,qrows", [(8, 2, 64), (64, 2, 40),
+                                       (256, 2, 64)])
+def test_pq_fused_scan_kernel_ties(dev, gen, bits, is_ip, k, J, L, qrows):
+    """{0, 1} books and queries: distances tie within an mma fragment and
+    across tiles, so a wrong lane-to-(row, slot) map shows as a wrong id.
+    f32 tables (the int8 scale of a {0, 1} row is not exact). k covers
+    each selection path: 1 (a register minimum), 10 (the insertion
+    network), 20, 64 and 256 (warp merges at 64, 32 and 16 rows a
+    CTA)."""
+    books, cells, q, codesT, invalid = _pq_case(gen, bits, J=J, L=L,
+                                                qrows=qrows, hi=0)
+    kd, ki, pd, pi = _pq_both(dev, books, cells, q, codesT, invalid, k, J,
+                              bits, is_ip, False)
+    np.testing.assert_array_equal(n(ki), n(pi))
+    np.testing.assert_array_equal(n(kd), n(pd))
+
+
+# B4's tolerance on Gaussian data, as chip_smoke.py states it.
+_B4_REL_TOL = 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("is_ip", [False, True])
+def test_pq_fused_scan_kernel_gaussian(dev, gen, is_ip):
+    """The main-path geometry (64-row cells, capacity 4096, rot 128, pq_dim
+    64, pq_bits 8, k = 10) on Gaussian books and queries: per-slot recall
+    >= 0.999 against the plain version, distances within the tolerance."""
+    J, L, B, C, cap = 64, 2, 256, 24, 4096
+    books = gen.standard_normal((J, B, L)).astype(np.float32)
+    q = gen.standard_normal((C, 64, J * L)).astype(np.float32)
+    codes = gen.integers(0, B, (8, cap, J)).astype(np.int32)
+    codesT = np.ascontiguousarray(
+        ivf_pq.pack_codes(torch.as_tensor(codes), 8).numpy()
+        .transpose(0, 2, 1))
+    invalid = np.arange(cap)[None, :] >= gen.integers(700, 1300, (8, 1))
+    cells = gen.integers(0, 8, C).astype(np.int32)
+    kd, ki, pd, pi = _pq_both(dev, books, cells, q, codesT, invalid, 10, J,
+                              8, is_ip, False)
+    table = torch.as_tensor(books).permute(0, 2, 1).reshape(J * L, B)
+    tol = _B4_REL_TOL * (float(torch.max(torch.sum(torch.as_tensor(q) ** 2,
+                                                   dim=-1)))
+                         + float(torch.sum(torch.amax(table ** 2, dim=1))))
+    hit = (ki.cpu()[:, :, :, None] == pi[:, :, None, :]).any(dim=3)
+    assert float(hit.float().mean()) >= 0.999
+    assert float(torch.max(torch.abs(kd.cpu() - pd))) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf],
+                         ids=["nan", "+inf", "-inf"])
+def test_entry_points_reject_non_finite_on_the_card(dev, gen, value):
+    """On the card, as on the CPU, a non-finite input raises before any
+    kernel is launched (an L2 NaN would come out of fmaxf as distance 0)."""
+    from raft_tpu_torch.cluster import kmeans_balanced
+    from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
+
+    X = torch.as_tensor(int_data(gen, (9000, 32)), device=dev)
+    Q = torch.as_tensor(int_data(gen, (300, 32)), device=dev)
+    index = ivf_pq.build(ivf_pq.IndexParams(n_lists=16, kmeans_n_iters=4,
+                                            pq_dim=16), X)
+    Xb, Qb = X.clone(), Q.clone()
+    Xb[17, 3] = value
+    Qb[5, 30] = value
+    calls = [lambda: brute_force.knn(X, Qb, 10),
+             lambda: brute_force.knn(Xb, Q, 10),
+             lambda: ivf_pq.search(ivf_pq.SearchParams(n_probes=8), index,
+                                   Qb, 10),
+             lambda: kmeans_balanced.fit(KMeansBalancedParams(n_iters=4),
+                                         Xb, 16)]
+    for call in calls:
+        before = (fk.fused_knn.launches, ps.pq_fused_scan.launches)
+        with pytest.raises(LogicError, match="finite"):
+            call()
+        assert (fk.fused_knn.launches, ps.pq_fused_scan.launches) == before
 
 
 @pytest.mark.cuda

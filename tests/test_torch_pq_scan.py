@@ -146,3 +146,51 @@ def test_wrapper_rejects_other_devices():
                          torch.zeros((1, 16, 128), **m),
                          torch.zeros((2, 512), dtype=torch.bool, **m),
                          4, 8, 8, False)
+
+
+def _geometries():
+    """(rot, pq_dim) from rot 16 to 1024 with L = 1, 2, 3, 4."""
+    for rot in (16, 32, 48, 96, 128, 256, 384, 512, 1024):
+        for L in (1, 2, 3, 4):
+            if rot % L == 0 and (rot // L) % 2 == 0:
+                yield rot, rot // L
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("k", [1, 2, 10, 16, 17, 32, 33, 64, 65, 128, 129,
+                               256])
+def test_b4_plan_fits_every_shape(bits, k):
+    """Every (qrows 1-64, rot 16-1024, pq_bits, k) gets a plan within the
+    H100's 232,448 bytes of shared memory: the resident table whenever it
+    fits at some row count, else the sliced one."""
+    for rot, pq_dim in _geometries():
+        nbytes = pq_dim if bits == 8 else pq_dim // 2
+        kp = -(-rot // 16) * 16
+        for qrows in (1, 8, 16, 17, 40, 64):
+            plan = ps._b4_plan(qrows, rot, pq_dim, bits, k)
+            assert plan.smem <= ps.SMEM_LIMIT
+            assert plan.kp == kp and plan.bq in ps.B4_ROWS
+            assert plan.bq <= max(16, -(-qrows // 16) * 16)
+            assert plan.smem == ps._b4_smem_bytes(
+                plan.bq, kp, plan.ks, bits, nbytes, k, plan.sliced)
+            resident = [bq for bq in ps.B4_ROWS if bq <= max(
+                16, min(64, -(-qrows // 16) * 16)) and ps._b4_smem_bytes(
+                    bq, kp, kp, bits, nbytes, k, False) <= ps.SMEM_LIMIT]
+            assert plan.sliced == (not resident)
+            if plan.sliced:
+                assert plan.ks % 16 == 0 and plan.ks < kp
+            else:
+                assert plan.ks == kp and plan.bq == max(resident)
+
+
+@pytest.mark.parametrize("qrows,rot,pq_dim,bits,k,bq,sliced", [
+    (64, 128, 64, 8, 10, 64, False),    # the IVF-PQ main path
+    (64, 128, 64, 8, 64, 32, False),    # the queue takes the room
+    (64, 128, 64, 8, 256, 16, False),
+    (8, 128, 64, 8, 10, 16, False),     # few rows
+    (64, 512, 256, 8, 10, 64, True),    # the table does not fit
+    (64, 1024, 1024, 4, 256, 32, True),  # nor do the code tiles
+])
+def test_b4_plan_main_cases(qrows, rot, pq_dim, bits, k, bq, sliced):
+    plan = ps._b4_plan(qrows, rot, pq_dim, bits, k)
+    assert (plan.bq, plan.sliced) == (bq, sliced)

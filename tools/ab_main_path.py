@@ -26,7 +26,11 @@ events (median) unless named ``_s``:
 * ``search_ms``: the IVF-Flat search of the 10,000 queries at 32 probes;
 * ``select_10000x1024_k32_ms``, ``select_10000x320_k10_ms``: ``select_k``
   of a 10,000 x 1024 selection of 32 (the coarse probe) and a 10,000 x
-  320 selection of 10 (the final merge).
+  320 selection of 10 (the final merge);
+* ``ivf_pq_search_ms``: the IVF-PQ compressed search of the 10,000
+  queries at 32 probes (through kernel B4);
+* ``b4_ms``: kernel B4 (``pq_fused_scan``) alone at that search's cells
+  (6024 cells x 64 rows, capacity 4096, rot 128, k=10).
 """
 import json
 import subprocess
@@ -39,9 +43,11 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from raft_tpu_torch.matrix.select_k import select_k  # noqa: E402
+from raft_tpu_torch.distance.pairwise import gram  # noqa: E402
 from raft_tpu_torch.neighbors import ivf_flat, ivf_pq  # noqa: E402
 from raft_tpu_torch.ops import _build  # noqa: E402
 from raft_tpu_torch.ops import fused_knn as fk  # noqa: E402
+from raft_tpu_torch.ops import pq_scan as ps  # noqa: E402
 
 
 def build_s(mod, X):
@@ -75,7 +81,7 @@ for name, A, C, bf16 in (("train_32_f32", T, C32, False),
         lambda: fk._fused_knn_cuda(A, C, 1, True, bf16, bf16), 5)
 del T
 index, out["ivf_flat_build_s"] = build_s(ivf_flat, X)
-_, out["ivf_pq_build_s"] = build_s(ivf_pq, X)
+pq_index, out["ivf_pq_build_s"] = build_s(ivf_pq, X)
 sp = ivf_flat.SearchParams(n_probes=cs.N_PROBES)
 g = torch.Generator(device=dev)
 g.manual_seed(1)
@@ -84,4 +90,17 @@ b = torch.randn((10000, 320), generator=g, device=dev)
 out["search_ms"] = cs.time_ms(lambda: ivf_flat.search(sp, index, Q, cs.K), 11)
 out["select_10000x1024_k32_ms"] = cs.time_ms(lambda: select_k(a, 32), 21)
 out["select_10000x320_k10_ms"] = cs.time_ms(lambda: select_k(b, 10), 21)
+sp_pq = ivf_pq.SearchParams(n_probes=cs.N_PROBES)
+out["ivf_pq_search_ms"] = cs.time_ms(
+    lambda: ivf_pq.search(sp_pq, pq_index, Q, cs.K), 11)
+codesT, lo, hi, invalid, crot_p = pq_index.compressed_scan_operands()
+J, bits = pq_index.pq_dim, pq_index.pq_bits
+probes = ivf_pq._select_clusters(Q, pq_index.centers, cs.N_PROBES, False)
+rotq_p = ps.permute_subspaces(gram(Q, pq_index.rotation_matrix), J, bits)
+cell_list, bucket, _ = ivf_flat._invert_probe_map_cells(
+    probes, pq_index.n_lists, ivf_flat._CELL_QROWS)
+Qc = (rotq_p[torch.clamp_min(bucket, 0)]
+      - crot_p[torch.clamp_min(cell_list, 0).long()][:, None, :]).contiguous()
+out["b4_ms"] = cs.time_ms(lambda: ps._pq_fused_scan_cuda(
+    cell_list, Qc, codesT, lo, hi, invalid, cs.K, J, bits, False), 11)
 print(json.dumps(out), flush=True)
