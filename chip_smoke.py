@@ -17,7 +17,10 @@ no result line):
    must be identical) and Gaussian data (distances within a stated
    tolerance), B1 also on its split-database path (m = 1 and 129 against
    200,000 rows, {0, 1} data with ties across the slices), at each
-   queries-per-CTA boundary of k, n < 128 and d in {33, 96, 1024}; B5 (``stream_extract``) against its plain version on
+   queries-per-CTA boundary of k, n < 128 and d in {33, 96, 1024}; B2
+   at cells of 8, 64 and 65 rows, k on each selection path (1, 10, 16,
+   17, 256), cap off the 128-slot tile and on operands off 16-byte
+   alignment; B5 (``stream_extract``) against its plain version on
    Gaussian keys, integer keys with ties, sorted rows, a constant batch,
    +-inf-heavy rows, NaN rows and a batch of 13 x 100,000 keys (candidate
    arrays bit for bit), and ``select_k(kStream)`` on those keys in f32,
@@ -33,7 +36,9 @@ no result line):
    never calls), beside the kernel's bound on an H100 SXM; B1 is also held
    against its plain version at every k=1 assignment shape of the build
    (trainset x 32 and x 1024 centers on both tiers, rows x 1024 in f32)
-   and timed there beside ``addmm`` + ``argmin``;
+   and timed there beside ``addmm`` + ``argmin``; B2 at k=10 and k=1 with
+   its plan, its pre-pass's device-time share and its share of the
+   search;
 6. the IVF-PQ path on the same rows and queries, the counters again set to
    0 before it and read after each step: build with 1024 lists (pq_dim 64,
    pq_bits 8), the compressed search with 32 probes (through B4, recall@10
@@ -44,7 +49,8 @@ no result line):
    must equal the recon tier's; then B3 and B4 held against their plain
    versions and timed at those shapes: B4 with its launch plan, the
    device-time share of its pre-pass and ptxas' registers and spills, B3
-   also at one decode-scan launch (the first block of lists);
+   also at one decode-scan launch (the first block of lists) beside a bf16
+   ``baddbmm`` + ``torch.topk`` there;
 7. the select path, counters set to 0 before it and read after:
    ``select_k`` through ``kAuto`` on Gaussian keys made on the card at
    bench.py's shapes (64 x 131,072, k=128; 1000 x 10,000, k=10) and at the
@@ -111,6 +117,12 @@ B1_CASES = ((37, 1000, 32, 1, 8), (100, 5000, 128, 10, 8),
             *((200, 5000, 32, k, 2) for k in (1, 10, 64, 65, 128, 129, 256)),
             (50, 100, 33, 10, 8), (50, 100, 24, 100, 2),
             (100, 3000, 1024, 10, 8), (300, 3000, 33, 129, 2))
+# Phase-3 B2 cases (L, cap, d, cells, qrows, k), integer data: cap off the
+# 128-slot tile, qrows off and on the row blocks (8, 64, 65), k on each
+# selection path (1, 10, 16 | 17, 256), d off the 16-feature chunk.
+B2_CASES = ((6, 300, 32, 9, 64, 10), (5, 129, 128, 7, 8, 256),
+            (4, 2048, 128, 6, 64, 1), (6, 300, 40, 9, 65, 16),
+            (6, 1000, 24, 9, 65, 17))
 N_PARTS = 4               # lifecycle: multi-part brute force
 N_DELETE = 100_000        # lifecycle: rows deleted from each index
 N_UPSERT = 1000           # lifecycle: rows upserted into each index
@@ -280,9 +292,7 @@ def check_kernels(dev) -> None:
     log("B1 ok on operands off 16-byte alignment (m=129 n=200000 d=96 "
         "k=10, l2/ip, f32/bf16/qsplit, exact)")
 
-    for L, cap, d, C, qrows, k in ((6, 300, 32, 9, 64, 10),
-                                   (5, 129, 128, 7, 8, 256),
-                                   (4, 2048, 128, 6, 64, 1)):
+    for L, cap, d, C, qrows, k in B2_CASES:
         db = rng.integers(0, 8, (L, cap, d)).astype(np.float32)
         invalid = rng.random((L, cap)) < 0.3
         invalid[1, :] = True            # an empty list
@@ -309,7 +319,33 @@ def check_kernels(dev) -> None:
             if k > 3 and not bool((ki[1, :, 3:] == -1).all()):
                 raise AssertionError("B2 starved list did not report -1")
         log(f"B2 ok L={L} cap={cap} d={d} cells={C} qrows={qrows} k={k} "
-            f"(-1 cells, masks, starved list, f32/bf16 db, l2/ip)")
+            f"rows/CTA={fk._b2_plan(qrows, d, k).bq} (-1 cells, masks, "
+            f"starved list, f32/bf16 db, l2/ip)")
+    # Contiguous operands one element past 16 bytes take the narrower
+    # copies (4-byte f32, 2-byte bf16) and must still agree exactly.
+    db = rng.integers(0, 2, (6, 300, 40)).astype(np.float32)
+    invalid = rng.random((6, 300)) < 0.3
+    cells = np.array([0, 1, -1, 2, 3, 4, 5], np.int32)
+    q = rng.integers(0, 2, (7, 65, 40)).astype(np.float32)
+    args = [torch.as_tensor(a, device=dev) for a in (cells, q, db, invalid)]
+    for bf16_db in (False, True):
+        a = list(args)
+        if bf16_db:
+            a[2] = a[2].to(torch.bfloat16)
+        views = []
+        for x in (a[1], a[2]):
+            v = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:]
+            views.append(v.view(x.shape))
+            views[-1].copy_(x)
+        for l2 in (True, False):
+            kd, ki = fk._fused_cells_knn_cuda(a[0], views[0], views[1], a[3],
+                                              10, l2, bf16_db, bf16_db)
+            pd, pi = fk._fused_cells_knn_plain(*a, 10, l2, bf16_db, bf16_db)
+            if not (torch.equal(ki, pi) and torch.equal(kd, pd)):
+                raise AssertionError(f"B2 unaligned l2={l2} bf16_db="
+                                     f"{bf16_db}: kernel != plain")
+    log("B2 ok on operands off 16-byte alignment (qrows=65 d=40 k=10, "
+        "l2/ip, f32/bf16 db, exact)")
 
 
 def _pq_case(rng, bits, integer=True, J=64, L=2, cap=1500, n_cells=9,
@@ -584,11 +620,14 @@ def b1_kmeans_shape(dev, X, centers):
         log(line)
 
 
-def b2_entry(dev, Q, index):
-    """Phase 5 for B2 at the IVF-Flat search shape."""
+def b2_entry(dev, Q, index, search_ms):
+    """Phase 5 for B2 at the IVF-Flat search shape: k=10 and k=1, its
+    plan, the device-time share of its pre-pass, its share of the search
+    and ptxas' registers and spills."""
     import torch
 
     from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.ops import _build
     from raft_tpu_torch.ops import fused_knn as fk
 
     qrows = ivf_flat._CELL_QROWS
@@ -614,8 +653,15 @@ def b2_entry(dev, Q, index):
 
     ms = time_ms(lambda: fk._fused_cells_knn_cuda(*args, K, True, False,
                                                   False), 5)
+    k1_ms = time_ms(lambda: fk._fused_cells_knn_cuda(*args, 1, True, False,
+                                                     False), 5)
     plain_ms = time_ms(lambda: fk._fused_cells_knn_plain(*args, K, True,
                                                          False, False), 2)
+    # One call is the pre-pass (live tiles, row norms) and the scan.
+    pre_ms = device_ms(lambda: fk._fused_cells_knn_cuda(
+        *args, K, True, False, False), "b2_norms_kernel", reps=5)
+    scan_ms = device_ms(lambda: fk._fused_cells_knn_cuda(
+        *args, K, True, False, False), "b2_scan_kernel", reps=5)
     dn = torch.sum(data * data, dim=2)
     step = 512
 
@@ -638,9 +684,20 @@ def b2_entry(dev, Q, index):
               + 8.0 * kd.numel())
     bound = max(ops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
     log(f"B2 timing cells={cell_list.shape[0]} (used {int(live.sum())}) "
-        f"qrows={qrows} cap={cap} d={DIM} k={K}: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, library (gather + baddbmm + topk over "
-        f"{step}-cell chunks) {lib_ms:.3f} ms, bound {bound:.3f} ms")
+        f"qrows={qrows} cap={cap} d={DIM} k={K}: kernel {ms:.3f} ms "
+        f"({ms / search_ms:.1%} of the {search_ms:.3f} ms search; k=1 "
+        f"{k1_ms:.3f} ms), plain {plain_ms:.3f} ms, library (gather + "
+        f"baddbmm + topk over {step}-cell chunks) {lib_ms:.3f} ms, bound "
+        f"{bound:.3f} ms")
+    plan = fk._b2_plan(qrows, DIM, K, False)
+    log(f"B2 plan: {plan.bq} query rows per CTA, queries staged with every "
+        f"chunk, {plan.smem} B of shared memory; device time pre-pass "
+        f"{pre_ms} ms + scan {scan_ms} ms" + (
+            f" (pre-pass share {pre_ms / (pre_ms + scan_ms):.1%})"
+            if pre_ms and scan_ms else " (not traced)"))
+    text = _build.BUILD_LOG.get("cells_knn", "")
+    log(f"B2 ptxas (registers, spills): "
+        f"{[ln.strip() for ln in text.splitlines() if 'registers' in ln or 'spill' in ln]}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": "operations" if ops / PEAK_FP32 >= nbytes / PEAK_BYTES
@@ -934,7 +991,8 @@ def decode_block(index, Qb, route, invalid):
     of lists (as many as ``ivf_pq._bucketed_decode_scan`` decodes at once),
     held against the plain version and timed beside its bound: the block's
     routed (query, row) pairs at the bf16 rate, or its bytes (the queries,
-    the valid bf16 rows, the mask and the results)."""
+    the valid bf16 rows, the mask and the results), and beside the
+    library yardstick of one launch (bf16 ``baddbmm`` + ``torch.topk``)."""
     import torch
 
     from raft_tpu_torch.neighbors import ivf_pq
@@ -959,6 +1017,15 @@ def decode_block(index, Qb, route, invalid):
     if rec < RECALL_BF:
         raise AssertionError("B3 decode-scan block disagrees with plain")
     ms = time_ms(lambda: fk._fused_batch_knn_cuda(*args), 5)
+    ynb = torch.sum(recon.float() ** 2, dim=2).to(torch.bfloat16)
+
+    def library():
+        g = torch.baddbmm(ynb[:, None, :], args[0].to(torch.bfloat16),
+                          recon.transpose(1, 2), alpha=-2.0)
+        g.masked_fill_(args[2][:, None, :], float("inf"))
+        torch.topk(g, K, dim=2, largest=False)
+
+    lib_ms = time_ms(library, 5)
     sizes = index.list_sizes.long()
     lists = route[0][route[2]].long()
     pair_rows = float(torch.sum(sizes[lists[lists < block]]))
@@ -968,8 +1035,9 @@ def decode_block(index, Qb, route, invalid):
     bound = max(ops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
     log(f"B3 decode-scan block ({block} of {n_lists} lists, {n_lists // block} "
         f"launches per search; m={BUCKET_CAP} n={cap} d={d} k={K}, bf16 "
-        f"db): per-slot recall@{K} {rec:.6f}, kernel {ms:.3f} ms, bound "
-        f"{bound:.4f} ms ({'operations' if ops / PEAK_BF16 >= nbytes / PEAK_BYTES else 'bytes'})")
+        f"db): per-slot recall@{K} {rec:.6f}, kernel {ms:.3f} ms, library "
+        f"(bf16 baddbmm + topk) {lib_ms:.3f} ms, bound {bound:.4f} ms "
+        f"({'operations' if ops / PEAK_BF16 >= nbytes / PEAK_BYTES else 'bytes'})")
 
 
 def same_bits(a, b) -> bool:
@@ -1339,7 +1407,7 @@ def main() -> int:
     mp = main_path(dev, X, Q)
     b1 = b1_entry(dev, X, Q, mp["bf"])
     b1_kmeans_shape(dev, X, mp["index"].centers)
-    b2 = b2_entry(dev, Q, mp["index"])
+    b2 = b2_entry(dev, Q, mp["index"], mp["search_ms"])
 
     pq = pq_path(dev, X, Q, mp["bf"][1])
     b4 = b4_entry(dev, Q, pq["index"], pq["search_ms"])
@@ -1356,7 +1424,7 @@ def main() -> int:
              launches=mp["launches"]["fused_knn"]
              + pq["launches"]["fused_knn"] + lc["fused_knn"], **b1),
         dict(name="fused_cells_knn", route="cuda",
-             source="raft_tpu_torch/csrc/fused_knn.cu",
+             source="raft_tpu_torch/csrc/cells_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:426",
              launches=mp["launches"]["fused_cells_knn"]
              + lc["fused_cells_knn"], **b2),

@@ -1,37 +1,34 @@
-// Fused exact kNN, packed-cells IVF-Flat scan and batched kNN for Hopper
-// (sm_90a).
+// Fused exact kNN (B1) and batched kNN (B3) for Hopper (sm_90a).
 //
-// Replaces three Pallas kernels of raft_tpu/ops/fused_knn.py:
+// Replaces two Pallas kernels of raft_tpu/ops/fused_knn.py:
 //   * B1 replaces _fused_knn / _fused_knn_kernel: exact kNN of m queries
 //     against an (n, d) database; with k=1 it is also the k-means
 //     assignment (distance/fused_l2_nn.py). Its scan, norm pre-pass and
 //     slice merge live in knn_gemm.cuh (a 128 x 128 register-tiled FP32
 //     tile with a register filter and a split-database merge; the header
 //     says what bounds it and what the design does about it);
-//   * fused_cells_knn_kernel (B2) replaces fused_cells_knn /
-//     _cells_knn_kernel: cell c scores its qrows queries against the list
-//     cell_list[c] of a capacity-padded (L, cap, d) store, with a per-slot
-//     invalid mask; cell_list[c] == -1 writes sentinels;
 //   * fused_batch_knn_kernel (B3) replaces _fused_batch_knn /
 //     _batch_knn_kernel: batch element b scores its m queries against its
-//     own (n, d) slab with mask invalid[b]. It is B2 with the identity cell
-//     map; the reference's db tiling (bd) and running merge become the
-//     tile loop inside one CTA.
+//     own (n, d) slab with mask invalid[b]; the reference's db tiling (bd)
+//     and running merge become the tile loop inside one CTA.
 //
-// All three compute what the Pallas kernels compute: a gram tile in f32
-// (or on operands rounded to bf16, optionally with the hi/lo split query),
-// the clamped expanded-L2 or the negated inner product, and a top-k ordered
+// The third kernel of that file, B2 (fused_cells_knn, the packed-cells
+// IVF-Flat scan), is cells_knn.cu, on B1's tile.
+//
+// Both compute what the Pallas kernels compute: a gram tile in f32 (or on
+// operands rounded to bf16, optionally with the hi/lo split query), the
+// clamped expanded-L2 or the negated inner product, and a top-k ordered
 // by (distance, id) so ties go to the lowest id.
 //
-// B2 and B3 run the tile loop of knn_tile.cuh. What bounds them on the
-// H100: the work's own bound is arithmetic (2*d flops per (query, row)
-// pair at the FP32 non-tensor-core rate, or the bf16 tensor-core rate on
-// the bf16 tiers). Their 32-query CTAs re-read each list (or slab) once
-// per 32 queries, and the bf16 tiers use the same FMA path on rounded
-// operands (exact products, f32 sums): they do not reach the tensor cores
-// yet. The top-k queue lives in shared memory, 8 bytes x 32 queries x k,
-// so k is capped at 256 (the reference's warpsort cap); the B3 wrapper
-// raises past it on the card.
+// B3 runs the tile loop of knn_tile.cuh. What bounds it on the H100: the
+// work's own bound is arithmetic (2*d flops per (query, row) pair at the
+// FP32 non-tensor-core rate, or the bf16 tensor-core rate on the bf16
+// tiers), or at the decode scan its bytes. Its 32-query CTAs re-read each
+// slab once per 32 queries, and the bf16 tiers use the same FMA path on
+// rounded operands (exact products, f32 sums): they do not reach the
+// tensor cores yet. The top-k queue lives in shared memory, 8 bytes x 32
+// queries x k, so k is capped at 256 (the reference's warpsort cap); the
+// B3 wrapper raises past it on the card.
 
 #include "knn_gemm.cuh"
 #include "knn_tile.cuh"
@@ -60,31 +57,6 @@ struct RowLoader {
     }
   }
 };
-
-template <typename DbT>
-__global__ void __launch_bounds__(NT)
-fused_cells_knn_kernel(const int* __restrict__ cell_list,
-                       const float* __restrict__ q, const DbT* __restrict__ db,
-                       const uint8_t* __restrict__ invalid,
-                       float* __restrict__ out_d, int* __restrict__ out_i,
-                       int qrows, int cap, int d, int k, int l2, int bf16,
-                       int qsplit) {
-  extern __shared__ __align__(16) char smem[];
-  Smem s = carve(smem, k);
-  int cell = blockIdx.x;
-  int q0 = blockIdx.y * BQ;
-  int nq = min(BQ, qrows - q0);
-  size_t row0 = (size_t)cell * qrows + q0;
-  int list = cell_list[cell];
-  if (list < 0) {
-    write_sentinels(nq, k, out_d + row0 * k, out_i + row0 * k);
-    return;
-  }
-  scan_tiles(s, q + row0 * d, nq, cap, d, invalid + (size_t)list * cap, k,
-             l2, bf16, qsplit,
-             RowLoader<DbT>{db + (size_t)list * cap * d, cap, d});
-  write_queues(s, nq, k, out_d + row0 * k, out_i + row0 * k);
-}
 
 template <typename DbT>
 __global__ void __launch_bounds__(NT)
@@ -192,34 +164,6 @@ int fused_knn_launch(const float* q, const float* db, float* norms,
   constexpr int W = knn_gemm::MERGE_WARPS;
   knn_gemm::b1_merge_kernel<<<(m + W - 1) / W, W * 32, 0, st>>>(
       ws_d, ws_i, out_d, out_i, m, k, n_slices);
-  return (int)cudaGetLastError();
-}
-
-int fused_cells_knn_launch(const int* cell_list, const float* q,
-                           const void* db, int db_is_bf16,
-                           const uint8_t* invalid, float* out_d, int* out_i,
-                           int n_cells, int qrows, int cap, int d, int k,
-                           int l2, int bf16, int qsplit, void* stream) {
-  if (n_cells <= 0 || qrows <= 0) return 0;
-  if (k < 1 || k > KMAX) return (int)cudaErrorInvalidValue;
-  size_t bytes = smem_bytes(k);
-  dim3 grid(n_cells, (qrows + BQ - 1) / BQ);
-  cudaError_t err;
-  if (db_is_bf16) {
-    auto kern = fused_cells_knn_kernel<__nv_bfloat16>;
-    err = allow_smem(kern, bytes);
-    if (err != cudaSuccess) return (int)err;
-    kern<<<grid, NT, bytes, (cudaStream_t)stream>>>(
-        cell_list, q, (const __nv_bfloat16*)db, invalid, out_d, out_i, qrows,
-        cap, d, k, l2, bf16, qsplit);
-  } else {
-    auto kern = fused_cells_knn_kernel<float>;
-    err = allow_smem(kern, bytes);
-    if (err != cudaSuccess) return (int)err;
-    kern<<<grid, NT, bytes, (cudaStream_t)stream>>>(
-        cell_list, q, (const float*)db, invalid, out_d, out_i, qrows, cap, d,
-        k, l2, bf16, qsplit);
-  }
   return (int)cudaGetLastError();
 }
 

@@ -52,11 +52,17 @@
 //     arithmetic does not depend on the slice, so the result is the one
 //     sweep's, bit for bit.
 //
+// B2 (cells_knn.cu) runs the same pieces (staging, which also reads bf16
+// rows, the transposing move, the chunk's FMAs, the k = 1 reduction) over
+// the cells of the packed IVF-Flat scan.
+//
 // On the H100 this runs at about half the FP32 peak (PERF.md); the k = 1
 // scan, which does no selection, runs faster than k > 1, whose queue and
 // epilogue need the registers of a second CTA.
 
 #pragma once
+
+#include <type_traits>
 
 #include "knn_tile.cuh"
 
@@ -106,6 +112,13 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                "l"(src), "r"(bytes));
 }
 
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int bytes) {
+  unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -134,23 +147,41 @@ struct Piece {
 
 // Issue this thread's copies of the chunk at features [c0, c0 + BK):
 // queries q0 + [0, BQ) (valid below m), database rows t0 + [0, BN) (valid
-// below r1).
-template <int BQ>
+// below r1). f32 rows take 16-byte copies with `vec` (queries) / `dvec`
+// (rows), else 4-byte ones. A bf16 row's 4 features of a piece are 8 bytes
+// and land in the first half of the piece's slot (transpose_piece widens
+// them): one 8-byte copy with `dvec`, else 2-byte loads and stores.
+template <int BQ, typename DbT = float>
 __device__ __forceinline__ void stage(float* stg, const float* __restrict__ q,
-                                      const float* __restrict__ db, int q0,
+                                      const DbT* __restrict__ db, int q0,
                                       int m, int t0, int r1, int c0, int d,
-                                      bool vec) {
+                                      bool vec, bool dvec) {
 #pragma unroll
   for (int u = threadIdx.x; u < Piece<BQ>::COUNT; u += NT) {
     Piece<BQ> p(u);
     bool is_q = p.row < BQ;
     int r = is_q ? q0 + p.row : t0 + p.row - BQ;
     bool row_ok = r < (is_q ? m : r1);
-    const float* x = is_q ? q : db;
-    const float* g = x + (size_t)(row_ok ? r : 0) * d;
     int c = c0 + 4 * p.c4;
     float* s = stg + p.row * SKP + 4 * p.c4;
-    if (vec) {
+    if constexpr (!std::is_same<DbT, float>::value) {
+      if (!is_q) {
+        const DbT* g = db + (size_t)(row_ok ? r : 0) * d;
+        if (dvec) {
+          bool ok = row_ok && c < d;
+          cp_async8(s, ok ? g + c : db, ok ? 8 : 0);
+        } else {
+          unsigned short* h = reinterpret_cast<unsigned short*>(s);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            h[j] = row_ok && c + j < d ? __bfloat16_as_ushort(g[c + j]) : 0;
+        }
+        continue;
+      }
+    }
+    const float* x = is_q ? q : reinterpret_cast<const float*>(db);
+    const float* g = x + (size_t)(row_ok ? r : 0) * d;
+    if (is_q ? vec : dvec) {
       bool ok = row_ok && c < d;
       cp_async16(s, ok ? g + c : x, ok ? 16 : 0);
     } else {
@@ -165,16 +196,25 @@ __device__ __forceinline__ void stage(float* stg, const float* __restrict__ q,
 
 // Move this thread's landed piece u into the feature-major tiles A[f][row]
 // (queries; with QSPLIT also the low half into L) and B[f][row] (database
-// rows), rounded to bf16 on the bf16 tiers. Branch-free, so that it
-// schedules among the FMAs of the chunk being multiplied.
+// rows), widening bf16 rows (`db16`) to f32 and rounding to bf16 on the
+// bf16 tiers. Branch-free, so that it schedules among the FMAs of the
+// chunk being multiplied.
 template <int BQ, bool BF16, bool QSPLIT>
 __device__ __forceinline__ void transpose_piece(const float* stg, float* A,
-                                                float* L, float* B, int u) {
+                                                float* L, float* B, int u,
+                                                bool db16) {
   constexpr int LDA = BQ + 4, LDB = BN + 4;
   Piece<BQ> p(u);
   float4 v = *reinterpret_cast<const float4*>(stg + p.row * SKP + 4 * p.c4);
   float x[4] = {v.x, v.y, v.z, v.w};
   const bool is_q = p.row < BQ;
+  if (db16 && !is_q) {
+    const unsigned lo = __float_as_uint(v.x), hi = __float_as_uint(v.y);
+    x[0] = __uint_as_float(lo << 16);
+    x[1] = __uint_as_float(lo & 0xffff0000u);
+    x[2] = __uint_as_float(hi << 16);
+    x[3] = __uint_as_float(hi & 0xffff0000u);
+  }
   float* dst = is_q ? A + p.row : B + (p.row - BQ);
   const int ld = is_q ? LDA : LDB;
   const int f = 4 * p.c4;
@@ -189,10 +229,10 @@ __device__ __forceinline__ void transpose_piece(const float* stg, float* A,
 // All of this thread's pieces of a landed chunk.
 template <int BQ, bool BF16, bool QSPLIT>
 __device__ __forceinline__ void transpose(const float* stg, float* A,
-                                          float* L, float* B) {
+                                          float* L, float* B, bool db16) {
 #pragma unroll
   for (int u = threadIdx.x; u < Piece<BQ>::COUNT; u += NT)
-    transpose_piece<BQ, BF16, QSPLIT>(stg, A, L, B, u);
+    transpose_piece<BQ, BF16, QSPLIT>(stg, A, L, B, u, db16);
 }
 
 // Thread (tx, ty) of the 16 x 16 grid: a warp covers tx = 8 (w % 2) + l % 8
@@ -217,9 +257,11 @@ __device__ __forceinline__ void load_a(float (&a)[TM], const float* A, int ty) {
   } else if constexpr (TM == 4) {
     float4 u = *reinterpret_cast<const float4*>(A + ty * 4);
     a[0] = u.x; a[1] = u.y; a[2] = u.z; a[3] = u.w;
-  } else {
+  } else if constexpr (TM == 2) {
     float2 u = *reinterpret_cast<const float2*>(A + ty * 2);
     a[0] = u.x; a[1] = u.y;
+  } else {
+    a[0] = A[ty];
   }
 }
 
@@ -232,7 +274,7 @@ __device__ __forceinline__ void compute_chunk(
     float (&acc)[BQ / 16][8], const float* __restrict__ A,
     const float* __restrict__ L, const float* __restrict__ B, int tx, int ty,
     const float* __restrict__ nstg, float* __restrict__ An,
-    float* __restrict__ Ln, float* __restrict__ Bn) {
+    float* __restrict__ Ln, float* __restrict__ Bn, bool db16) {
   constexpr int TM = BQ / 16, LDA = BQ + 4, LDB = BN + 4;
   constexpr int COUNT = Piece<BQ>::COUNT;
   constexpr int PPT = (COUNT + NT - 1) / NT;  // pieces per thread
@@ -259,8 +301,66 @@ __device__ __forceinline__ void compute_chunk(
     if (f % EVERY == 0 && f / EVERY < PPT) {
       const int piece = threadIdx.x + NT * (f / EVERY);
       if (COUNT % NT == 0 || piece < COUNT)
-        transpose_piece<BQ, BF16, QSPLIT>(nstg, An, Ln, Bn, piece);
+        transpose_piece<BQ, BF16, QSPLIT>(nstg, An, Ln, Bn, piece, db16);
     }
+  }
+}
+
+// Write the k = 1 result of each of the CTA's nq query rows to od / oi[r]:
+// each row's 16 running (min, id) pairs sit in lanes l % 8 of warps w and
+// w ^ 1; reduce the 8 in a warp by shuffles, the two warps through
+// `scratch` (4 * BQ words of idle shared memory). With `direct`, ids of
+// empty or inf slots become -1. Called by the whole CTA, synchronised.
+template <int BQ>
+__device__ __forceinline__ void write_k1(float (&bd)[BQ / 16],
+                                         int (&bi)[BQ / 16], float* scratch,
+                                         int nq, float* od, int* oi,
+                                         bool direct) {
+  constexpr int TM = BQ / 16;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ty = 4 * (warp >> 1) + (lane >> 3);
+  float* red_d = scratch;                                  // [2][BQ]
+  int* red_i = reinterpret_cast<int*>(scratch + 2 * BQ);   // [2][BQ]
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) {
+      float v = __shfl_xor_sync(0xffffffffu, bd[i], o);
+      int id = __shfl_xor_sync(0xffffffffu, bi[i], o);
+      if (pair_less(v, id, bd[i], bi[i])) {
+        bd[i] = v;
+        bi[i] = id;
+      }
+    }
+    if ((lane & 7) == 0) {
+      int r = qrow<TM>(ty, i);
+      red_d[(warp & 1) * BQ + r] = bd[i];
+      red_i[(warp & 1) * BQ + r] = bi[i];
+    }
+  }
+  __syncthreads();
+  for (int r = tid; r < nq; r += NT) {
+    float v = red_d[r];
+    int id = red_i[r];
+    if (pair_less(red_d[BQ + r], red_i[BQ + r], v, id)) {
+      v = red_d[BQ + r];
+      id = red_i[BQ + r];
+    }
+    od[r] = v;
+    oi[r] = (direct && (id == NONE || isinf(v))) ? -1 : id;
+  }
+}
+
+// Write the sorted queues kd / ki [nq][k] to od / oi; with `direct`, ids
+// of empty or inf slots become -1.
+__device__ __forceinline__ void write_queue(const float* kd, const int* ki,
+                                            int nq, int k, float* od,
+                                            int* oi, bool direct) {
+  for (int e = threadIdx.x; e < nq * k; e += NT) {
+    float v = kd[e];
+    int id = ki[e];
+    od[e] = v;
+    oi[e] = (direct && (id == NONE || isinf(v))) ? -1 : id;
   }
 }
 
@@ -332,13 +432,13 @@ b1_scan_kernel(const float* __restrict__ q, const float* __restrict__ db,
   auto issue = [&](int j) {
     if (j < total)
       stage<BQ>(stg + (j % STAGES) * SSZ, q, db, q0, m, r0 + (j / nchunk) * BN,
-                r1, (j % nchunk) * BK, d, vec);
+                r1, (j % nchunk) * BK, d, vec, vec);
     cp_commit();
   };
 #pragma unroll
   for (int j = 0; j < STAGES; ++j) issue(j);
   cp_wait<STAGES - 1>();
-  transpose<BQ, BF16, QSPLIT>(stg, At, Lt, Bt);
+  transpose<BQ, BF16, QSPLIT>(stg, At, Lt, Bt, false);
   issue(STAGES);
   __syncthreads();
   for (int it = 0; it < total; ++it) {
@@ -349,7 +449,7 @@ b1_scan_kernel(const float* __restrict__ q, const float* __restrict__ db,
     compute_chunk<BQ, BF16, QSPLIT>(
         acc, At + buf * BK * LDA, Lt + buf * BK * LDA, Bt + buf * BK * LDB,
         tx, ty, stg + ((it + 1) % STAGES) * SSZ, At + nb * BK * LDA,
-        Lt + nb * BK * LDA, Bt + nb * BK * LDB);
+        Lt + nb * BK * LDA, Bt + nb * BK * LDB, false);
     // This thread has read its pieces of chunk it + 1: refill the buffer.
     issue(it + 1 + STAGES);
 
@@ -464,48 +564,10 @@ b1_scan_kernel(const float* __restrict__ q, const float* __restrict__ db,
   float* od = out_d + ((size_t)blockIdx.y * m + q0) * k;
   int* oi = out_i + ((size_t)blockIdx.y * m + q0) * k;
   __syncthreads();
-  if (K1) {
-    // A query row's 16 threads: lanes l % 8 of warps w and w ^ 1. Reduce
-    // the 8 in a warp by shuffles, the two warps through the (now idle)
-    // staging buffer.
-    float* red_d = stg;                                  // [2][BQ]
-    int* red_i = reinterpret_cast<int*>(stg + 2 * BQ);   // [2][BQ]
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-#pragma unroll
-      for (int o = 4; o > 0; o >>= 1) {
-        float v = __shfl_xor_sync(0xffffffffu, bd[i], o);
-        int id = __shfl_xor_sync(0xffffffffu, bi[i], o);
-        if (pair_less(v, id, bd[i], bi[i])) {
-          bd[i] = v;
-          bi[i] = id;
-        }
-      }
-      if ((lane & 7) == 0) {
-        int r = qrow<TM>(ty, i);
-        red_d[(warp & 1) * BQ + r] = bd[i];
-        red_i[(warp & 1) * BQ + r] = bi[i];
-      }
-    }
-    __syncthreads();
-    for (int r = tid; r < nq; r += NT) {
-      float v = red_d[r];
-      int id = red_i[r];
-      if (pair_less(red_d[BQ + r], red_i[BQ + r], v, id)) {
-        v = red_d[BQ + r];
-        id = red_i[BQ + r];
-      }
-      od[r] = v;
-      oi[r] = (direct && (id == NONE || isinf(v))) ? -1 : id;
-    }
-  } else {
-    for (int e = tid; e < nq * k; e += NT) {
-      float v = kd[e];
-      int id = ki[e];
-      od[e] = v;
-      oi[e] = (direct && (id == NONE || isinf(v))) ? -1 : id;
-    }
-  }
+  if (K1)
+    write_k1<BQ>(bd, bi, stg, nq, od, oi, direct);
+  else
+    write_queue(kd, ki, nq, k, od, oi, direct);
 }
 
 // |x|^2 of the m rows of q, then the n rows of db, into out[0, m + n): one

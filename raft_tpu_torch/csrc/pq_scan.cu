@@ -69,6 +69,8 @@
 //     unrolled insertion network on the queue held in registers; for
 //     k > 16 one warp per row, by a warp bitonic sort and a merge by
 //     rank. k = 1 keeps a running (min, slot) per row in registers.
+//     The bound, the network and the merge are cell_select.cuh's, which
+//     B2 (cells_knn.cu) shares.
 //
 // On the H100 (tools/tune_b4.py, PERF.md) selection still takes about
 // half of the k = 10 time: the insertion rounds run on the 2 warps that
@@ -78,7 +80,7 @@
 // Callers pass finite operands (the entry points reject non-finite
 // inputs): an L2 NaN would come out of fmaxf as distance 0.
 
-#include "knn_tile.cuh"
+#include "cell_select.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -86,13 +88,13 @@ namespace {
 using knn::KMAX;
 using knn::NONE;
 using knn::pair_less;
+using cell_select::NET_K;
 
 constexpr int NT = 256;      // threads per CTA
 constexpr int NW = NT / 32;  // warps per CTA
 constexpr int BN = 128;      // code slots per tile
 constexpr int CAND = 4096;   // candidate slots per CTA
 constexpr int LANES = 128;   // codes per table half
-constexpr int NET_K = 16;    // widest queue kept in registers
 
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
 
@@ -201,20 +203,6 @@ struct Args {
   int n_cells, qrows, rot, nbytes, capp, L, pq_bits, k, l2, kp, ks, vec;
   int n_lists;
 };
-
-// The next tile after t that holds a valid slot (ntiles if none), from
-// the pre-pass's live flags of the list, 32 tiles a load. Every warp
-// computes the same answer, so no barrier is needed.
-__device__ __forceinline__ int next_live(const uint8_t* __restrict__ live,
-                                         int t, int ntiles) {
-  const int lane = threadIdx.x & 31;
-  for (int t0 = t + 1; t0 < ntiles; t0 += 32) {
-    const unsigned m = __ballot_sync(
-        0xffffffffu, t0 + lane < ntiles && live[t0 + lane]);
-    if (m) return t0 + __ffs(m) - 1;
-  }
-  return ntiles;
-}
 
 // The u8 codes of tile t (nbytes rows x 128 slots) into cs.
 __device__ __forceinline__ void load_codes(uint8_t* cs,
@@ -364,175 +352,6 @@ struct Smem {
   unsigned* qmask;
 };
 
-// Warp-wide bitonic sort of 32 * E (distance, slot) pairs, E per lane
-// (element lane * E + e), ascending by pair_less.
-template <int E>
-__device__ __forceinline__ void warp_sort(float (&d)[E], int (&id)[E]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int size = 2; size <= 32 * E; size <<= 1) {
-#pragma unroll
-    for (int j = size >> 1; j > 0; j >>= 1) {
-      if (j < E) {
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          const int f = e | j;
-          if (e & j) continue;
-          const bool up = ((lane * E + e) & size) == 0;
-          if (pair_less(d[f], id[f], d[e], id[e]) == up) {
-            const float td = d[e];
-            const int ti = id[e];
-            d[e] = d[f];
-            id[e] = id[f];
-            d[f] = td;
-            id[f] = ti;
-          }
-        }
-      } else {
-        const int lj = j / E;
-        const bool lower = (lane & lj) == 0;
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          const float od = __shfl_xor_sync(0xffffffffu, d[e], lj);
-          const int oi = __shfl_xor_sync(0xffffffffu, id[e], lj);
-          const bool up = ((lane * E + e) & size) == 0;
-          const bool other_less = pair_less(od, oi, d[e], id[e]);
-          if (lower == up ? other_less : !other_less) {
-            d[e] = od;
-            id[e] = oi;
-          }
-        }
-      }
-    }
-  }
-}
-
-// How many of the n ascending pairs (d[i], id[i]) come before (x, xi).
-__device__ __forceinline__ int rank_in(const float* d, const int* id, int n,
-                                       float x, int xi) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (pair_less(d[mid], id[mid], x, xi))
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
-
-// One warp merges the nc <= 32 * E candidates cd / ci of a row into its
-// ascending queue qd / qi of length k: sort the candidates, then place
-// every element of both lists at its rank in the union (the pairs are
-// distinct: each slot is offered once) and keep the first k.
-template <int E>
-__device__ __forceinline__ void merge_row(float* qd, int* qi, int k,
-                                          float* cd, int* ci, int nc) {
-  const int lane = threadIdx.x & 31;
-  float d[E];
-  int id[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int j = lane * E + e;
-    d[e] = j < nc ? cd[j] : INFINITY;
-    id[e] = j < nc ? ci[j] : NONE;
-  }
-  warp_sort<E>(d, id);
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int j = lane * E + e;
-    if (j < nc) {
-      cd[j] = d[e];
-      ci[j] = id[e];
-    }
-  }
-  __syncwarp();
-  int cpos[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int j = lane * E + e;
-    cpos[e] = (j < nc && j < k) ? j + rank_in(qd, qi, k, d[e], id[e]) : k;
-  }
-  constexpr int QT = KMAX / 32;
-  float vd[QT];
-  int vi[QT], vpos[QT];
-#pragma unroll
-  for (int t = 0; t < QT; ++t) {
-    const int q = t * 32 + lane;
-    vpos[t] = k;
-    if (q < k) {
-      vd[t] = qd[q];
-      vi[t] = qi[q];
-      vpos[t] = q + rank_in(cd, ci, nc, vd[t], vi[t]);
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int t = 0; t < QT; ++t)
-    if (vpos[t] < k) {
-      qd[vpos[t]] = vd[t];
-      qi[vpos[t]] = vi[t];
-    }
-#pragma unroll
-  for (int e = 0; e < E; ++e)
-    if (cpos[e] < k) {
-      qd[cpos[e]] = d[e];
-      qi[cpos[e]] = id[e];
-    }
-  __syncwarp();
-}
-
-// One thread inserts the nc candidates cd / ci[j * stride] of a row, in
-// order, into its ascending queue qd / qi of length k <= NET_K. The queue
-// lives in registers meanwhile and each candidate goes through an
-// unrolled insertion network (no dependent shared-memory round trips);
-// entries past k are ignored.
-__device__ __forceinline__ void insert_regs(float* qd, int* qi, int k,
-                                            const float* cd, const int* ci,
-                                            int stride, int nc) {
-  float qv[NET_K];
-  int qx[NET_K];
-  float td = INFINITY;
-  int ti = NONE;
-#pragma unroll
-  for (int j = 0; j < NET_K; ++j) {
-    qv[j] = j < k ? qd[j] : INFINITY;
-    qx[j] = j < k ? qi[j] : NONE;
-    if (j == k - 1) {
-      td = qv[j];
-      ti = qx[j];
-    }
-  }
-  for (int c = 0; c < nc; ++c) {
-    const float v = cd[c * stride];
-    const int id = ci[c * stride];
-    if (!pair_less(v, id, td, ti)) continue;
-    bool lt[NET_K];
-#pragma unroll
-    for (int j = 0; j < NET_K; ++j) lt[j] = pair_less(v, id, qv[j], qx[j]);
-#pragma unroll
-    for (int j = NET_K - 1; j >= 0; --j) {
-      if (j > 0 && lt[j - 1]) {
-        qv[j] = qv[j - 1];
-        qx[j] = qx[j - 1];
-      } else if (lt[j]) {
-        qv[j] = v;
-        qx[j] = id;
-      }
-      if (j == k - 1) {
-        td = qv[j];
-        ti = qx[j];
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NET_K; ++j)
-    if (j < k) {
-      qd[j] = qv[j];
-      qi[j] = qx[j];
-    }
-}
-
 // The epilogue and selection of tile t (slots t * 128 + [0, 128)) for the
 // nq rows of this CTA: acc becomes min-order distances in place (NaN for
 // invalid slots and padding rows), then k = 1 folds them into the running
@@ -582,7 +401,8 @@ __device__ __forceinline__ void select_tile(
           }
     return;
   }
-  const unsigned mine = 0x01010101u << warp;  // rows r % NW == warp
+  const cell_select::Queues q{s.kd,  s.ki,    s.cd, s.ci,
+                              s.cnt, s.qmask, s.tm, s.thr};
   // Row r's candidate j is at cd[r * rs + j * js]: slot-major (all rows'
   // j-th side by side) when each thread inserts its row (k <= NET_K),
   // row-major when a warp merges a row.
@@ -608,17 +428,7 @@ __device__ __forceinline__ void select_tile(
         s.tm[(wm0 + mt * 16 + g + h * 8) * NE + (warp % G::WARPS_N) * 4 + tq] =
             mn;
       }
-    __syncthreads();
-    for (int i = threadIdx.x; i < BQ * NE; i += NT) {
-      const float* row = s.tm + (i / NE) * NE;
-      const int e = i % NE;
-      const float v = row[e];
-      int rank = 0;
-      for (int f = 0; f < NE; ++f)
-        rank += row[f] < v || (row[f] == v && f < e);
-      if (rank == k - 1) s.thr[i / NE] = v;
-    }
-    __syncthreads();
+    cell_select::first_tile_bounds<BQ, NE>(s.tm, s.thr, k);
   }
   while (true) {
     bool over = false, any = false;
@@ -662,36 +472,7 @@ __device__ __forceinline__ void select_tile(
           }
       }
     if (!__syncthreads_or(any)) break;
-    if (small_k) {
-      // Thread r inserts row r's candidates, all rows at once.
-      const int r = threadIdx.x;
-      if (r < nq && s.cnt[r] > 0) {
-        insert_regs(s.kd + r * k, s.ki + r * k, k, s.cd + r, s.ci + r, BQ,
-                    min(s.cnt[r], C));
-        s.cnt[r] = 0;
-      }
-      if (threadIdx.x < (BQ + 31) / 32) s.qmask[threadIdx.x] = 0;
-      if (!__syncthreads_or(over)) break;
-      continue;
-    }
-    // Warp w merges the candidates of its rows r % NW == w that have any
-    // (the bits of qmask) into their queues, then clears its bits.
-    for (int w0 = 0; w0 < (BQ + 31) / 32; ++w0) {
-      unsigned bits = __shfl_sync(0xffffffffu, s.qmask[w0], 0) & mine;
-      while (bits) {
-        const int r = 32 * w0 + __ffs(bits) - 1;
-        bits &= bits - 1;
-        const int nc_r = min(s.cnt[r], C);
-        if (nc_r <= 32)
-          merge_row<1>(s.kd + r * k, s.ki + r * k, k, s.cd + r * C,
-                       s.ci + r * C, nc_r);
-        else
-          merge_row<C / 32>(s.kd + r * k, s.ki + r * k, k, s.cd + r * C,
-                            s.ci + r * C, nc_r);
-        if (lane == 0) s.cnt[r] = 0;
-      }
-      if (lane == 0) atomicAnd(&s.qmask[w0], ~mine);
-    }
+    cell_select::drain<BQ, C>(q, nq, k);
     if (!__syncthreads_or(over)) break;
   }
 }
@@ -800,7 +581,7 @@ __global__ void __launch_bounds__(NT, 1) b4_scan_kernel(const Args<T> a) {
     if (!SLICED) {
       // Tile t is decoded in Bt[cur]; the codes of tn sit in cs[cur ^ 1].
       const int csz = a.nbytes * BN;
-      int t = next_live(live, -1, ntiles);
+      int t = cell_select::next_live(live, -1, ntiles);
       if (t < ntiles) load_codes(s.cs, codes, t, a.nbytes, a.capp, a.vec);
       cp_commit();
       cp_wait_all();
@@ -809,7 +590,7 @@ __global__ void __launch_bounds__(NT, 1) b4_scan_kernel(const Args<T> a) {
       if (t < ntiles) {
         decode_tile(pairs, s.kmap, s.tab, a.ks, 0, a.kp, s.cs, BN, s.Bt, SB);
         tile_meta(inv, cwn, t, l2, s.ok, s.yn);
-        tn = next_live(live, t, ntiles);
+        tn = cell_select::next_live(live, t, ntiles);
         if (tn < ntiles)
           load_codes(s.cs + csz, codes, tn, a.nbytes, a.capp, a.vec);
       }
@@ -832,7 +613,7 @@ __global__ void __launch_bounds__(NT, 1) b4_scan_kernel(const Args<T> a) {
           decode_tile(pairs, s.kmap, s.tab, a.ks, 0, a.kp, s.cs + nxt * csz, BN,
                       s.Bt + nxt * tile_elems, SB);
           tile_meta(inv, cwn, tn, l2, s.ok + nxt * BN, s.yn + nxt * BN);
-          tnn = next_live(live, tn, ntiles);
+          tnn = cell_select::next_live(live, tn, ntiles);
           if (tnn < ntiles)
             load_codes(s.cs + cur * csz, codes, tnn, a.nbytes, a.capp, a.vec);
         }
@@ -848,8 +629,8 @@ __global__ void __launch_bounds__(NT, 1) b4_scan_kernel(const Args<T> a) {
       }
     } else {
       __syncthreads();
-      for (int t = next_live(live, -1, ntiles); t < ntiles;
-           t = next_live(live, t, ntiles)) {
+      for (int t = cell_select::next_live(live, -1, ntiles); t < ntiles;
+           t = cell_select::next_live(live, t, ntiles)) {
 #pragma unroll
         for (int mt = 0; mt < G::MT; ++mt)
 #pragma unroll

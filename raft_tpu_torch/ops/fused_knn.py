@@ -2,13 +2,21 @@
 batched independent kNN (B3).
 
 Port of ``raft_tpu/ops/fused_knn.py::fused_knn``, ``::fused_cells_knn`` and
-``::fused_batch_knn``. The kernels are hand-written CUDA with their entry
-points in ``csrc/fused_knn.cu``: B1 is the register-tiled FP32 scan, norm
-pre-pass and slice merge of ``csrc/knn_gemm.cuh``, B2 and B3 run the tile
-loop of ``csrc/knn_tile.cuh`` (see the headers for the design). B1 splits
-the database into slices when its query blocks alone cannot fill the card
-(:func:`_b1_plan`). Beside each kernel is its plain PyTorch version, which
-repeats the kernel's arithmetic and tie rules:
+``::fused_batch_knn``. The kernels are hand-written CUDA (see the sources'
+headers for the design):
+
+* B1 is the register-tiled FP32 scan, norm pre-pass and slice merge of
+  ``csrc/knn_gemm.cuh`` (entry point in ``csrc/fused_knn.cu``); it splits
+  the database into slices when its query blocks alone cannot fill the
+  card (:func:`_b1_plan`);
+* B2 is ``csrc/cells_knn.cu``: a pre-pass (live tiles, row norms) and one
+  CTA per (cell, block of query rows) on B1's tile, with the cell-level
+  selection of ``csrc/cell_select.cuh`` that it shares with B4; its plan
+  is :func:`_b2_plan`;
+* B3 runs the tile loop of ``csrc/knn_tile.cuh`` (``csrc/fused_knn.cu``).
+
+Beside each kernel is its plain PyTorch version, which repeats the
+kernel's arithmetic and tie rules:
 
 * the distance tile of :func:`distance_tile`: a gram in f32 (or on
   operands rounded to bf16 and accumulated in f32, plus the hi/lo split
@@ -30,7 +38,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from raft_tpu_torch.core.error import CudaError, expects
+from raft_tpu_torch.core.error import CudaError, LogicError, expects
 from raft_tpu_torch.distance.pairwise import gram
 from raft_tpu_torch.matrix.select_k import stable_top_k
 from raft_tpu_torch.ops import _build
@@ -61,7 +69,7 @@ SMEM_LIMIT = 232448
 
 def fused_knn_supported(m: int, n: int, d: int, k: int) -> bool:
     """The reference's kernel gate: k within the top-k queue, d <= 1024.
-    The CUDA kernel itself takes any d (it stages 32-feature chunks)."""
+    The CUDA kernel itself takes any d (it stages 16-feature chunks)."""
     return k <= MAX_K and d <= MAX_DIM and n >= 1 and m >= 1
 
 
@@ -133,6 +141,62 @@ def _b1_plan(m: int, n: int, k: int, n_sm: int) -> B1Plan:
     rows = per * B1_BN
     bounds = [(lo, min(n, lo + rows)) for lo in range(0, n, rows)]
     return B1Plan(bq, rows, bounds)
+
+
+# B2's launch geometry (the constants of csrc/cells_knn.cu, on B1's tile):
+# the query rows a CTA may take, the threads (and per-thread minima) of a
+# row, and the widest queue selected by the insertion network.
+B2_ROWS = (64, 32, 16)
+B2_NE = 16
+B2_NET_K = 16
+
+
+class B2Plan(NamedTuple):
+    """B2's launch: ``bq`` query rows per CTA (the queries are staged with
+    every chunk of the list's rows) and ``smem`` the bytes of one CTA."""
+    bq: int
+    smem: int
+
+
+def _r16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _b2_smem_bytes(bq: int, k: int, qsplit: bool) -> int:
+    """Shared-memory bytes of one B2 CTA, region by region as
+    cells_knn.cu's ``Layout`` lays them out, each rounded up to 16 bytes:
+    B1's staging ring and feature-major tiles (the query's lo half with
+    ``qsplit``), the query norms; for k > 1 the queue (bq x k pairs), the
+    candidate buffer, its counters and the bitmask of rows with
+    candidates, and for k <= 16 the per-thread row minima and the rows'
+    first-tile bounds."""
+    tile = 4 * 2 * B1_BK * (bq + 4)
+    parts = [4 * B1_STAGES * (bq + B1_BN) * (B1_BK + 8), tile,
+             tile if qsplit else 0, 4 * 2 * B1_BK * (B1_BN + 4), 4 * bq]
+    if k > 1:
+        parts += [4 * bq * k, 4 * bq * k, 4 * B1_CAND, 4 * B1_CAND, 4 * bq,
+                  4 * (-(-bq // 32))]
+        if k <= B2_NET_K:
+            parts += [4 * bq * B2_NE, 4 * bq]
+    return sum(_r16(p) for p in parts)
+
+
+def _b2_plan(qrows: int, d: int, k: int, qsplit: bool = True) -> B2Plan:
+    """The most query rows per CTA (64, 32 or 16; never more than
+    ``qrows`` needs) whose shared memory fits ``SMEM_LIMIT``. The queries
+    are staged with every feature chunk of the rows, so ``d`` does not
+    change the plan. Raises when nothing fits."""
+    expects(1 <= k <= MAX_K and d >= 1 and qrows >= 1,
+            "fused_cells_knn: no plan for qrows=%s d=%s k=%s", qrows, d, k)
+    most = max(16, min(64, _r16(qrows)))
+    for bq in B2_ROWS:
+        if bq > most:
+            continue
+        smem = _b2_smem_bytes(bq, k, qsplit)
+        if smem <= SMEM_LIMIT:
+            return B2Plan(bq, smem)
+    raise LogicError(f"fused_cells_knn: no plan fits shared memory (qrows="
+                     f"{qrows}, k={k})")
 
 
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -207,7 +271,7 @@ def _fused_knn_plain(queries, db, k: int, l2: bool, bf16: bool,
 
 _KNN_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _CELLS_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
                    + [ctypes.c_void_p])
 _BATCH_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
@@ -219,10 +283,16 @@ def _lib():
     if lib.fused_knn_launch.argtypes is None:
         lib.fused_knn_launch.argtypes = _KNN_ARGTYPES
         lib.fused_knn_launch.restype = ctypes.c_int
-        lib.fused_cells_knn_launch.argtypes = _CELLS_ARGTYPES
-        lib.fused_cells_knn_launch.restype = ctypes.c_int
         lib.fused_batch_knn_launch.argtypes = _BATCH_ARGTYPES
         lib.fused_batch_knn_launch.restype = ctypes.c_int
+    return lib
+
+
+def _cells_lib():
+    lib = _build.load_library("cells_knn")
+    if lib.fused_cells_knn_launch.argtypes is None:
+        lib.fused_cells_knn_launch.argtypes = _CELLS_ARGTYPES
+        lib.fused_cells_knn_launch.restype = ctypes.c_int
     return lib
 
 
@@ -335,21 +405,29 @@ def _fused_cells_knn_cuda(cell_list, queries, db, invalid, k: int, l2: bool,
             "and bool invalid expected")
     n_cells, qrows, d = queries.shape
     n_lists, cap, _ = db.shape
-    expects(k <= MAX_K and d <= MAX_DIM,
-            "fused_cells_knn: k <= %s and d <= %s", MAX_K, MAX_DIM)
+    expects(1 <= k <= MAX_K and d <= MAX_DIM,
+            "fused_cells_knn: 1 <= k <= %s and d <= %s", MAX_K, MAX_DIM)
     expects(invalid.shape == (n_lists, cap) and cell_list.shape == (n_cells,),
             "fused_cells_knn: shape mismatch")
-    out_d = torch.empty((n_cells, qrows, k), dtype=torch.float32,
-                        device=queries.device)
-    out_i = torch.empty((n_cells, qrows, k), dtype=torch.int32,
-                        device=queries.device)
-    lib = _lib()
-    with torch.cuda.device(queries.device):
+    qsplit = qsplit and bf16
+    dev = queries.device
+    out_d = torch.empty((n_cells, qrows, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n_cells, qrows, k), dtype=torch.int32, device=dev)
+    plan = _b2_plan(qrows, d, k, qsplit)
+    # The pre-pass's row norms (NaN for invalid slots) and live-tile
+    # flags: one call's scratch.
+    capp = -(-cap // B1_BN) * B1_BN
+    yn = torch.empty((n_lists, capp), dtype=torch.float32, device=dev)
+    live = torch.empty((n_lists, capp // B1_BN), dtype=torch.uint8,
+                       device=dev)
+    lib = _cells_lib()
+    with torch.cuda.device(dev):
         err = lib.fused_cells_knn_launch(
             _ptr(cell_list), _ptr(queries), _ptr(db),
-            int(db.dtype == torch.bfloat16), _ptr(invalid), _ptr(out_d),
-            _ptr(out_i), n_cells, qrows, cap, d, k, int(l2), int(bf16),
-            int(qsplit), _stream(queries.device))
+            int(db.dtype == torch.bfloat16), _ptr(invalid), _ptr(yn),
+            _ptr(live), _ptr(out_d), _ptr(out_i), n_cells, n_lists, qrows,
+            cap, d, k, int(l2), int(bf16), int(qsplit), plan.bq, plan.smem,
+            _stream(dev))
     _build.check(err, "fused_cells_knn launch")
     fused_cells_knn.launches += 1
     return out_d, out_i

@@ -45,8 +45,8 @@ from raft_tpu_torch.distance.pairwise import gram
 from raft_tpu_torch.matrix.select_k import stable_top_k
 from raft_tpu_torch.ops import _build
 from raft_tpu_torch.ops.fused_knn import (MAX_K, SMEM_LIMIT, _check_cuda,
-                                          _ptr, _round_bf16, _starved_to_pad,
-                                          _stream)
+                                          _ptr, _r16, _round_bf16,
+                                          _starved_to_pad, _stream)
 from raft_tpu_torch.util.pow2 import round_up_safe
 
 _LANES = 128
@@ -78,10 +78,6 @@ class B4Plan(NamedTuple):
     ks: int
     kp: int
     smem: int
-
-
-def _r16(x: int) -> int:
-    return -(-x // 16) * 16
 
 
 def _b4_smem_bytes(bq: int, kp: int, ks: int, pq_bits: int, nbytes: int,

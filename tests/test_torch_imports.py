@@ -110,6 +110,11 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(CudaError):
         _build.load_library("pq_scan")
     with pytest.raises(CudaError):
+        fk._fused_cells_knn_cuda(torch.zeros(1, dtype=torch.int32),
+                                 q[None], q[None],
+                                 torch.zeros((1, 4), dtype=torch.bool), 2,
+                                 True, False, False)
+    with pytest.raises(CudaError):
         ss._stream_extract_cuda(q)
     assert list((tmp_path / "build").iterdir()) == []
 
@@ -118,7 +123,8 @@ def test_library_name_follows_the_sources():
     path = _build._library_path("fused_knn")
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libfused_knn-") and path.suffix == ".so"
-    assert _build.sources() == ["fused_knn", "pq_scan", "stream_select"]
+    assert _build.sources() == ["cells_knn", "fused_knn", "pq_scan",
+                                "stream_select"]
     # Every library's name also follows the shared header.
     assert any(p.name == "knn_tile.cuh"
                for p in _build.CSRC_DIR.glob("*.cuh"))

@@ -149,6 +149,140 @@ def test_fused_cells_knn_kernel(dev, gen, l2, bf16_db):
     assert (n(ki)[3, :, 4:] == -1).all() and (n(ki)[2] == -1).all()
 
 
+def _cells_case(gen, qrows, hi=8, L=6, cap=300, d=40, C=7):
+    """B2 operands on integer data in [0, hi): cap not a multiple of 128,
+    an empty list (1), a starved one (2: 3 valid rows), tombstone-style
+    scattered invalid slots, a list whose middle 128-slot tiles are all
+    invalid (4, when cap > 512), and -1 cells."""
+    db = int_data(gen, (L, cap, d), hi)
+    invalid = gen.random((L, cap)) < 0.3
+    invalid[1, :] = True
+    invalid[2, 3:] = True
+    if cap > 512:
+        invalid[4, 128:512] = True
+    cells = np.array([0, 1, -1, 2, 3, 4, 5, 3, -1], np.int32)[:C]
+    q = int_data(gen, (C, qrows, d), hi)
+    return cells, q, db, invalid
+
+
+def _cells_both(dev, cells, q, db, invalid, k, l2, bf16_db, bf16, qsplit):
+    """B2 on the card through the wrapper (one launch) and its plain
+    version on the card's operands."""
+    args = _on(dev, cells, q, db, invalid)
+    if bf16_db:
+        args[2] = args[2].to(torch.bfloat16)
+    before = fk.fused_cells_knn.launches
+    kd, ki = fk.fused_cells_knn(*args, k, l2=l2, bf16=bf16, qsplit=qsplit)
+    assert fk.fused_cells_knn.launches == before + 1
+    pd, pi = fk._fused_cells_knn_plain(*args, k, l2, bf16, bf16 and qsplit)
+    return kd, ki, pd, pi
+
+
+_B2_KS = [1, 10, 16, 17, 64, 65, 128, 129, 256]
+_B2_QROWS = [1, 8, 63, 64, 65, 128]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l2", [True, False])
+@pytest.mark.parametrize("bf16,qsplit", _TIERS)
+@pytest.mark.parametrize("bf16_db", [False, True])
+@pytest.mark.parametrize("k", _B2_KS)
+@pytest.mark.parametrize("qrows", _B2_QROWS)
+def test_cells_kernel_grid(dev, gen, l2, bf16, qsplit, bf16_db, k, qrows):
+    """B2 against its plain version, bit for bit on integer data: every
+    store x tier x metric, each selection path of k (a register minimum,
+    the insertion network up to 16, warp merges above, 64 / 32 / 16 rows
+    a CTA), qrows off and on the row blocks, sentinels."""
+    cells, q, db, invalid = _cells_case(gen, qrows)
+    kd, ki, pd, pi = _cells_both(dev, cells, q, db, invalid, k, l2,
+                                 bf16_db, bf16, qsplit)
+    np.testing.assert_array_equal(n(ki), n(pi))
+    np.testing.assert_array_equal(n(kd), n(pd))
+    ki = n(ki)
+    assert (ki[1] == -1).all() and (ki[2] == -1).all()
+    if k > 3:
+        assert (ki[3, :, 3:] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l2", [True, False])
+@pytest.mark.parametrize("bf16,qsplit", _TIERS)
+@pytest.mark.parametrize("bf16_db", [False, True])
+@pytest.mark.parametrize("k", [1, 10, 17, 256])
+@pytest.mark.parametrize("qrows", [1, 64, 65])
+def test_cells_kernel_ties_and_skipped_tiles(dev, gen, l2, bf16, qsplit,
+                                             bf16_db, k, qrows):
+    """{0, 1} data: distances tie within a thread's micro-tile, across
+    threads and across tiles, so a wrong (row, slot) map shows as a wrong
+    id; cap 1000 with a list whose tiles 1-3 are all invalid (skipped)."""
+    cells, q, db, invalid = _cells_case(gen, qrows, hi=2, cap=1000, d=24)
+    kd, ki, pd, pi = _cells_both(dev, cells, q, db, invalid, k, l2,
+                                 bf16_db, bf16, qsplit)
+    np.testing.assert_array_equal(n(ki), n(pi))
+    np.testing.assert_array_equal(n(kd), n(pd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l2", [True, False])
+@pytest.mark.parametrize("bf16,qsplit", _TIERS)
+@pytest.mark.parametrize("bf16_db", [False, True])
+@pytest.mark.parametrize("d,q_off,db_off", [(40, 1, 1), (40, 0, 1),
+                                            (40, 1, 0), (33, 0, 0),
+                                            (42, 0, 0)])
+def test_cells_kernel_unaligned_operands(dev, gen, l2, bf16, qsplit,
+                                         bf16_db, d, q_off, db_off):
+    """Operands one element past 16-byte alignment, and d with d % 4 != 0,
+    take the narrower copies and still agree bit for bit."""
+    cells, q, db, invalid = _cells_case(gen, 65, hi=2, d=d)
+    args = _on(dev, cells, q, db, invalid)
+    if bf16_db:
+        args[2] = args[2].to(torch.bfloat16)
+    qv, dbv = _offset_view(args[1], q_off), _offset_view(args[2], db_off)
+    if q_off or db_off:
+        assert qv.data_ptr() % 16 != 0 or dbv.data_ptr() % 16 != 0
+    kd, ki = fk.fused_cells_knn(args[0], qv, dbv, args[3], 10, l2=l2,
+                                bf16=bf16, qsplit=qsplit)
+    pd, pi = fk._fused_cells_knn_plain(*args, 10, l2, bf16, bf16 and qsplit)
+    np.testing.assert_array_equal(n(ki), n(pi))
+    np.testing.assert_array_equal(n(kd), n(pd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l2", [True, False])
+@pytest.mark.parametrize("bf16,qsplit", _TIERS)
+@pytest.mark.parametrize("bf16_db", [False, True])
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_cells_kernel_gaussian(dev, gen, l2, bf16, qsplit, bf16_db, k):
+    """The main-path geometry (64-row cells, capacity 4096 with 700-1300
+    valid rows, d 128) on Gaussian data: the kernel sums in another order
+    than the plain version's matmul, so distances agree within 2e-6 of the
+    largest |q|^2 + |y|^2 (chip_smoke.py's norm_tol) and near-ties may
+    swap ids (per-slot recall >= 0.999)."""
+    L, cap, d, C = 8, 4096, 128, 24
+    db = torch.as_tensor(gen.standard_normal((L, cap, d), dtype=np.float32),
+                         device=dev)
+    q = torch.as_tensor(gen.standard_normal((C, 64, d), dtype=np.float32),
+                        device=dev)
+    if bf16_db:
+        db = db.to(torch.bfloat16)
+    invalid = torch.as_tensor(
+        np.arange(cap)[None, :] >= gen.integers(700, 1300, (L, 1)),
+        device=dev)
+    cells = torch.as_tensor(gen.integers(-1, L, C).astype(np.int32),
+                            device=dev)
+    kd, ki = fk._fused_cells_knn_cuda(cells, q, db, invalid, k, l2, bf16,
+                                      qsplit)
+    pd, pi = fk._fused_cells_knn_plain(cells, q, db, invalid, k, l2, bf16,
+                                       qsplit)
+    tol = 2e-6 * float(torch.max(torch.sum(q * q, -1))
+                       + torch.max(torch.sum(db.float() ** 2, -1)))
+    fin = torch.isfinite(pd)
+    assert torch.equal(fin, torch.isfinite(kd))
+    assert float(torch.max(torch.abs(kd[fin] - pd[fin]))) <= tol
+    hit = (ki[:, :, :, None] == pi[:, :, None, :]).any(dim=3)
+    assert float(hit.float().mean()) >= 0.999
+
+
 @pytest.mark.cuda
 def test_entry_points_launch_the_kernels(dev, gen):
     """brute force, the k-means of build, and search go through B1/B2."""

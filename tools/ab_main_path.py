@@ -10,6 +10,9 @@ one go on one card, parent, change, change, parent::
     for r in build/parent . . build/parent; do
         python3 tools/ab_main_path.py $r; done
 
+This script times every root, so a metric that an older root's copy of it
+lacks is read on both.
+
 Each run builds that root's kernels, makes the 1M x 128 rows and 10,000
 queries of its ``chip_smoke.py`` and prints one JSON line, times by CUDA
 events (median) unless named ``_s``:
@@ -24,6 +27,8 @@ events (median) unless named ``_s``:
 * ``ivf_flat_build_s``, ``ivf_pq_build_s``: the first ``build`` of each
   index (1024 lists), host clock around a synchronise;
 * ``search_ms``: the IVF-Flat search of the 10,000 queries at 32 probes;
+* ``b2_ms``: kernel B2 (``fused_cells_knn``) alone at that search's cells
+  (6024 cells x 64 rows, capacity 4096, d 128, k=10, f32);
 * ``select_10000x1024_k32_ms``, ``select_10000x320_k10_ms``: ``select_k``
   of a 10,000 x 1024 selection of 32 (the coarse probe) and a 10,000 x
   320 selection of 10 (the final merge);
@@ -88,6 +93,15 @@ g.manual_seed(1)
 a = torch.randn((10000, 1024), generator=g, device=dev)
 b = torch.randn((10000, 320), generator=g, device=dev)
 out["search_ms"] = cs.time_ms(lambda: ivf_flat.search(sp, index, Q, cs.K), 11)
+cells, bucket, _ = ivf_flat._invert_probe_map_cells(
+    ivf_flat._coarse_probe(Q, index.centers, cs.N_PROBES, True),
+    index.n_lists, ivf_flat._CELL_QROWS)
+Qc = Q[torch.clamp_min(bucket, 0)].contiguous()
+invalid = (torch.arange(index.data.shape[1], device=dev)[None, :]
+           >= index.list_sizes[:, None]).contiguous()
+out["b2_ms"] = cs.time_ms(lambda: fk._fused_cells_knn_cuda(
+    cells, Qc, index.data, invalid, cs.K, True, False, False), 11)
+del Qc
 out["select_10000x1024_k32_ms"] = cs.time_ms(lambda: select_k(a, 32), 21)
 out["select_10000x320_k10_ms"] = cs.time_ms(lambda: select_k(b, 10), 21)
 sp_pq = ivf_pq.SearchParams(n_probes=cs.N_PROBES)

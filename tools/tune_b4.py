@@ -21,59 +21,16 @@ the card line.
 """
 import ctypes
 import json
-import re
-import subprocess
 import sys
-import time
-from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
+from tune_common import ROOT, build, card_line, parse, time_ms
+
 sys.path.insert(0, str(ROOT))
 
 from raft_tpu_torch.ops import _build  # noqa: E402
 from raft_tpu_torch.ops import pq_scan as ps  # noqa: E402
-
-
-def parse(spec):
-    name, _, src = spec.partition("@")
-    return name, Path(src) if src else _build.CSRC_DIR
-
-
-def build(variants):
-    out = ROOT / "build" / "tune_b4"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, src in variants:
-        lib = out / f"lib{name}.so"
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
-               str(src / "pq_scan.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       lib, time.perf_counter())
-    libs = {}
-    for name, (proc, lib, t0) in procs.items():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            print(f"{name}: build failed\n{text[-4000:]}", flush=True)
-            continue
-        regs, spills, kern = [], [], None
-        for line in text.splitlines():
-            if "entry function" in line:
-                kern = line
-            elif kern and "b4_scan_kernel" in kern:
-                m = re.search(r"Used (\d+) registers", line)
-                if m:
-                    regs.append(int(m.group(1)))
-                m = re.search(r"(\d+) bytes spill stores", line)
-                if m:
-                    spills.append(int(m.group(1)))
-        print(f"{name}: built in {time.perf_counter() - t0:.1f} s; B4 scan "
-              f"registers {sorted(set(regs))}, spill stores "
-              f"{sorted(set(spills))}", flush=True)
-        libs[name] = lib
-    return libs
 
 
 def use(path):
@@ -81,20 +38,6 @@ def use(path):
     lib.pq_fused_scan_launch.argtypes = ps._ARGTYPES
     lib.pq_fused_scan_launch.restype = ctypes.c_int
     ps._lib = lambda: lib
-
-
-def time_ms(fn, reps=5):
-    fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return sorted(times)[len(times) // 2]
 
 
 def operands(g, dev, n_lists, capp, n_cells, J, L, lo_size, hi_size,
@@ -119,12 +62,10 @@ def operands(g, dev, n_lists, capp, n_cells, J, L, lo_size, hi_size,
 
 
 def main():
-    variants = [parse(s) for s in sys.argv[1:]]
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    print(f"card: {card}", flush=True)
-    libs = build(variants)
+    variants = [parse(s, _build.CSRC_DIR) for s in sys.argv[1:]]
+    print(f"card: {card_line()}", flush=True)
+    libs = build(variants, "pq_scan.cu", "b4_scan_kernel", "tune_b4", _build.nvcc_path(),
+                 _build.NVCC_FLAGS)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(0)
