@@ -20,12 +20,13 @@ no result line):
    queries-per-CTA boundary of k, n < 128 and d in {33, 96, 1024}; B2
    at cells of 8, 64 and 65 rows, k on each selection path (1, 10, 16,
    17, 256), cap off the 128-slot tile and on operands off 16-byte
-   alignment; B5 (``stream_extract``) against its plain version on
-   Gaussian keys, integer keys with ties, sorted rows, a constant batch,
-   +-inf-heavy rows, NaN rows and a batch of 13 x 100,000 keys (candidate
-   arrays bit for bit), and ``select_k(kStream)`` on those keys in f32,
-   bf16 and f16, both polarities, against the plain path on the CPU and
-   ``kTopK`` on the card (values and ids bit for bit);
+   alignment; B3 on both of its paths (the tensor-core scan, B2's scan),
+   with every row and with live rows; B5 (``stream_extract``) against its
+   plain version on Gaussian keys, integer keys with ties, sorted rows, a
+   constant batch, +-inf-heavy rows, NaN rows and a batch of 13 x 100,000
+   keys (candidate arrays bit for bit), and ``select_k(kStream)`` on those
+   keys in f32, bf16 and f16, both polarities, against the plain path on
+   the CPU and ``kTopK`` on the card (values and ids bit for bit);
 4. the main path, with every launch counter set to 0 just before it and
    read just after: brute-force kNN of 10,000 queries against 1,000,000 x
    128 clustered rows (k=10, through B1), IVF-Flat build with 1024 lists
@@ -46,11 +47,15 @@ no result line):
    (``reconstructed()`` then ``engine="bucketed"``, ``bucket_cap=256``,
    through B3) on the first 1000 queries, each within 0.01 of the
    compressed tier's recall there, and the decode scan (B3), whose ids
-   must equal the recon tier's; then B3 and B4 held against their plain
-   versions and timed at those shapes: B4 with its launch plan, the
-   device-time share of its pre-pass and ptxas' registers and spills, B3
-   also at one decode-scan launch (the first block of lists) beside a bf16
-   ``baddbmm`` + ``torch.topk`` there;
+   must equal the recon tier's (both searches also timed, median of 5);
+   then B3 and B4 held against their plain versions and timed at those
+   shapes, each with its launch plan, the device-time share of its
+   pre-pass and ptxas' registers and spills; B3 with the buckets' live
+   rows, at k=10 and k=1, beside its bound on the live rows and the old
+   bound on every bucket slot and slab, also at one decode-scan launch
+   (the first block of lists); its library yardstick, a bf16 ``baddbmm``
+   + ``torch.topk``, runs over the live rows (lists sorted by them, each
+   chunk cut to its most live rows) and over every slot;
 7. the select path, counters set to 0 before it and read after:
    ``select_k`` through ``kAuto`` on Gaussian keys made on the card at
    bench.py's shapes (64 x 131,072, k=128; 1000 x 10,000, k=10) and at the
@@ -387,34 +392,43 @@ def check_kernels_b3_b4(dev) -> None:
 
     rng = np.random.default_rng(SEED + 1)
     # B3: n > the reference's 2048-row db tile (2500, 3001) and ragged
-    # (3001, 129); an empty slab (1) and a starved one (2: 3 valid rows).
+    # (3001, 129); an empty slab (1) and a starved one (2: 3 valid rows);
+    # every row, or live rows 0, 1, a middle count, m, ... per slab; d 1024
+    # (B2's scan on every tier).
     for B, m, nn, d, k in ((6, 37, 2500, 64, 10), (5, 70, 3001, 128, 256),
-                           (4, 9, 129, 32, 1)):
+                           (4, 9, 129, 32, 1), (4, 65, 700, 100, 16),
+                           (3, 40, 300, 1024, 17)):
         q = rng.integers(0, 8, (B, m, d)).astype(np.float32)
         db = rng.integers(0, 8, (B, nn, d)).astype(np.float32)
         invalid = rng.random((B, nn)) < 0.3
         invalid[1, :] = True
         invalid[2, 3:] = True
-        qt, dbt, inv = (torch.as_tensor(a, device=dev)
-                        for a in (q, db, invalid))
-        for l2 in (True, False):
-            for bf16, qsplit in ((False, False), (True, False),
-                                 (True, True)):
-                y = dbt.to(torch.bfloat16) if bf16 else dbt
-                kd, ki = fk._fused_batch_knn_cuda(qt, y, inv, k, l2, bf16,
-                                                  qsplit)
-                pd, pi = fk._fused_batch_knn_plain(qt, y, inv, k, l2, bf16,
-                                                   qsplit)
-                torch.cuda.synchronize()
-                if not (torch.equal(ki, pi) and torch.equal(kd, pd)):
-                    raise AssertionError(
-                        f"B3 B={B} m={m} n={nn} d={d} k={k} l2={l2} "
-                        f"bf16={bf16} qsplit={qsplit}: kernel != plain")
-        if not bool((ki[1] == -1).all()) or (k > 3 and not bool(
-                (ki[2, :, 3:] == -1).all())):
-            raise AssertionError("B3 empty/starved slab did not report -1")
+        live = np.resize([0, 1, m // 2, m], B).astype(np.int32)
+        qt, dbt, inv, lrt = (torch.as_tensor(a, device=dev)
+                             for a in (q, db, invalid, live))
+        for lr in (None, lrt):
+            for l2 in (True, False):
+                for bf16, qsplit in ((False, False), (True, False),
+                                     (True, True)):
+                    y = dbt.to(torch.bfloat16) if bf16 else dbt
+                    kd, ki = fk._fused_batch_knn_cuda(qt, y, inv, k, l2,
+                                                      bf16, qsplit, lr)
+                    pd, pi = fk._fused_batch_knn_plain(qt, y, inv, k, l2,
+                                                       bf16, qsplit, lr)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(ki, pi) and torch.equal(kd, pd)):
+                        raise AssertionError(
+                            f"B3 B={B} m={m} n={nn} d={d} k={k} l2={l2} "
+                            f"bf16={bf16} qsplit={qsplit} live_rows="
+                            f"{lr is not None}: kernel != plain")
+            if not bool((ki[1] == -1).all()) or (k > 3 and not bool(
+                    (ki[2, :, 3:] == -1).all())):
+                raise AssertionError("B3 empty/starved slab did not report "
+                                     "-1")
+        plan = fk._b3_plan(m, d, k, "bf16", "bf16")
         log(f"B3 ok B={B} m={m} n={nn} d={d} k={k} (l2/ip, f32/bf16/qsplit, "
-            f"empty and starved slabs, bit-identical)")
+            f"all rows and live rows, empty and starved slabs, "
+            f"bit-identical; bf16 store plan {plan.path} {plan.bq} rows)")
 
     # B4 on integer codebooks and queries: bit-identical.
     for bits in (4, 8):
@@ -798,22 +812,32 @@ def pq_path(dev, X, Q, bf_i):
     rec_r = recall(ri, truth)
     recon_ms = time_ms(lambda: ivf_pq.search(sp_r, index, Qs, K), reps=5)
 
+    def decode_search():
+        """The search without the cache: the probes, the rotation and the
+        decode scan, block by block of lists (as ``search`` runs it when
+        the cache would be too large)."""
+        pr = ivf_pq._select_clusters(Qs, index.centers, N_PROBES, False)
+        return ivf_pq._bucketed_decode_scan(
+            gram(Qs, index.rotation_matrix), index.pq_codes,
+            index.pq_centers, index.centers_rot(), index.indices,
+            index.list_sizes, pr, K, False, False, BUCKET_CAP, index.pq_dim,
+            index.pq_bits, index.deleted)
+
     probes = ivf_pq._select_clusters(Qs, index.centers, N_PROBES, False)
     rotq = gram(Qs, index.rotation_matrix)
     before = _launches()
     t0 = time.perf_counter()
-    _, di = ivf_pq._bucketed_decode_scan(
-        rotq, index.pq_codes, index.pq_centers, index.centers_rot(),
-        index.indices, index.list_sizes, probes, K, False, False,
-        BUCKET_CAP, index.pq_dim, index.pq_bits, index.deleted)
+    _, di = decode_search()
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     steps["decode_scan"] = _step(before)
+    decode_ms = time_ms(decode_search, reps=5)
 
     log(f"first {N_SUB} queries: recall@{K} compressed {rec_c:.6f}, LUT "
         f"scan {rec_l:.6f} ({lut_s:.3f} s), recon tier {rec_r:.6f} (cache "
         f"{recon_s:.3f} s, first search {recon_search_s:.3f} s, then "
-        f"{recon_ms:.3f} ms), decode scan {decode_s:.3f} s")
+        f"{recon_ms:.3f} ms), decode scan first search {decode_s:.3f} s, "
+        f"then {decode_ms:.3f} ms")
     log(f"IVF-PQ launches per step: {steps}")
     if abs(rec_l - rec_c) > PQ_TIER_GAP or abs(rec_r - rec_c) > PQ_TIER_GAP:
         raise AssertionError(f"tier recalls differ by more than "
@@ -821,6 +845,7 @@ def pq_path(dev, X, Q, bf_i):
                              f"{rec_l}, recon {rec_r}")
     if not torch.equal(di, ri):
         raise AssertionError("decode scan ids differ from the recon tier's")
+    log("decode scan ids equal to the recon tier's")
     if (steps["build"]["fused_knn"] < 1
             or steps["compressed"]["pq_fused_scan"] < 1
             or steps["recon"]["fused_batch_knn"] < 1
@@ -927,12 +952,94 @@ def b4_entry(dev, Q, index, search_ms):
             else "bytes", "library_ms": lib_ms}
 
 
+def _b3_bounds(d, live, sizes, pair_rows, m, cap):
+    """B3's bound (ms, what bounds it) on the work its live rows need, and
+    the old bound, which counted every bucket slot and every slab: the bf16
+    products of the routed (query, row) pairs, or the bytes of the live
+    rows' queries, the valid bf16 rows and the mask of the slabs with a live
+    row, and the results. A slab with no live row returns sentinels that
+    depend on neither its rows nor its mask."""
+    ops = 2.0 * d * pair_rows
+    used = live > 0
+    out = 8.0 * live.numel() * m * K
+    new = (4.0 * d * _total(live) + 2.0 * d * _total(sizes[used])
+           + cap * _total(used) + out)
+    old = (4.0 * d * live.numel() * m + 2.0 * d * _total(sizes)
+           + cap * live.numel() + out)
+    bound = max(ops / PEAK_BF16, new / PEAK_BYTES) * 1e3
+    by = "operations" if ops / PEAK_BF16 >= new / PEAK_BYTES else "bytes"
+    return bound, by, max(ops / PEAK_BF16, old / PEAK_BYTES) * 1e3
+
+
+def _total(x) -> float:
+    """The sum of a tensor's entries, as a float."""
+    return float(x.double().sum())
+
+
+def _b3_library(Qb, db, ynb, invalid, live, step, every_slot=False):
+    """B3's library yardstick: bf16 ``baddbmm`` + ``torch.topk`` in chunks
+    of ``step`` slabs. With ``every_slot`` it scans all of each bucket's
+    slots in slab order; else the slabs, sorted by live rows (most first),
+    are gathered chunk by chunk and scanned over their chunk's most live
+    rows only. Returns the function to time."""
+    import torch
+
+    if every_slot:
+        plan = [(slice(s, s + step), Qb.shape[1])
+                for s in range(0, Qb.shape[0], step)]
+    else:
+        order = torch.argsort(live, descending=True, stable=True)
+        plan = [(order[s:s + step], int(live[order[s]]))
+                for s in range(0, Qb.shape[0], step)]
+
+    def library():
+        for idx, rows in plan:
+            if rows:
+                g = torch.baddbmm(ynb[idx, None, :],
+                                  Qb[idx, :rows].to(torch.bfloat16),
+                                  db[idx].transpose(1, 2), alpha=-2.0)
+                g.masked_fill_(invalid[idx, None, :], float("inf"))
+                torch.topk(g, K, dim=2, largest=False)
+    return library
+
+
+def _b3_check(what, args, live, tol):
+    """B3 against its plain version on the live rows: per-slot recall@K
+    >= RECALL_BF and max |d| error within ``tol``; the other rows (inf, -1)
+    in both. Returns the max error and the recall."""
+    import torch
+
+    from raft_tpu_torch.ops import fused_knn as fk
+
+    kd, ki = fk._fused_batch_knn_cuda(*args)
+    pd, pi = fk._fused_batch_knn_plain(*args)
+    err = max_err(kd, pd)
+    rows = (torch.arange(kd.shape[1], device=kd.device)[None, :]
+            < live[:, None])
+    rec = recall(ki[rows], pi[rows])
+    dead = bool((ki[~rows] == -1).all()) and bool((pi[~rows] == -1).all())
+    log(f"B3 vs plain at {what}: per-slot recall@{K} {rec:.6f} over "
+        f"{int(rows.sum())} live rows, max |d| err {err:.3e} (tol "
+        f"{tol:.3e}), unscanned rows (inf, -1): {dead}")
+    if rec < RECALL_BF or err > tol or not dead:
+        raise AssertionError(f"B3 disagrees with its plain version at "
+                             f"{what}")
+    return err, rec
+
+
 def b3_entry(dev, index, probes, rotq):
-    """Phase 6 timings for B3 at the recon-tier shape (first N_SUB
-    queries, bucket_cap 256, the bf16 reconstruction cache)."""
+    """Phase 6 for B3 at the recon-tier shape (first N_SUB queries,
+    bucket_cap 256, the bf16 reconstruction cache), with the live rows the
+    bucket engine passes: held against its plain version, timed at k=10
+    and k=1 beside its bound (live rows, and the old count of every bucket
+    slot), the plain version and the library call (:func:`_b3_library`,
+    over the live rows and over every slot); its plan, the device times of its
+    pre-pass and scan, and ptxas' registers and spills for ``batch_knn``.
+    Then one decode-scan launch (:func:`decode_block`)."""
     import torch
 
     from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.ops import _build
     from raft_tpu_torch.ops import fused_knn as fk
 
     recon = index.reconstructed()
@@ -941,58 +1048,65 @@ def b3_entry(dev, index, probes, rotq):
     Qb = rotq[torch.clamp_min(bucket, 0)].contiguous()
     invalid = (torch.arange(cap, device=dev)[None, :]
                >= index.list_sizes[:, None]).contiguous()
-    args = (Qb, recon, invalid, K, True, True, False)
-    kd, ki = fk._fused_batch_knn_cuda(*args)
-    pd, pi = fk._fused_batch_knn_plain(*args)
-    err = max_err(kd, pd)
+    live = (bucket >= 0).sum(1).to(torch.int32)
+    args = (Qb, recon, invalid, K, True, True, False, live)
+    lsz, lv = index.list_sizes.float(), live.float()
+    log(f"B3 operands: valid rows a list min / median / max "
+        f"{int(lsz.min())} / {float(lsz.median()):.0f} / {int(lsz.max())}; "
+        f"live rows a bucket min / median / mean / max {int(lv.min())} / "
+        f"{float(lv.median()):.0f} / {float(lv.mean()):.2f} / "
+        f"{int(lv.max())}")
     yn = torch.sum(recon.float() ** 2, dim=2)
     tol = REL_NORM_TOL * (float(torch.max(torch.sum(Qb ** 2, dim=-1)))
                           + float(torch.max(yn)))
-    rec = recall(ki.reshape(-1, K), pi.reshape(-1, K))
-    log(f"B3 vs plain at main path: per-slot recall@{K} {rec:.6f}, max |d| "
-        f"err {err:.3e} (tol {tol:.3e})")
-    if rec < RECALL_BF or err > tol:
-        raise AssertionError("B3 disagrees with its plain version")
+    err, _ = _b3_check("the recon shape", args, live, tol)
 
     ms = time_ms(lambda: fk._fused_batch_knn_cuda(*args), 5)
+    k1 = (Qb, recon, invalid, 1, True, True, False, live)
+    k1_ms = time_ms(lambda: fk._fused_batch_knn_cuda(*k1), 5)
     plain_ms = time_ms(lambda: fk._fused_batch_knn_plain(*args), 2)
+    pre_ms = device_ms(lambda: fk._fused_batch_knn_cuda(*args),
+                       "b2_norms_kernel", reps=5)
+    scan_ms = device_ms(lambda: fk._fused_batch_knn_cuda(*args),
+                        "b3_scan_kernel", reps=5)
     step = 128
     ynb = yn.to(torch.bfloat16)
-
-    def library():
-        for s in range(0, n_lists, step):
-            g = torch.baddbmm(ynb[s:s + step, None, :],
-                              Qb[s:s + step].to(torch.bfloat16),
-                              recon[s:s + step].transpose(1, 2), alpha=-2.0)
-            g.masked_fill_(invalid[s:s + step, None, :], float("inf"))
-            torch.topk(g, K, dim=2, largest=False)
-
-    lib_ms = time_ms(library, 3)
+    all_ms = time_ms(_b3_library(Qb, recon, ynb, invalid, live, step, True),
+                     3)
+    lib_ms = time_ms(_b3_library(Qb, recon, ynb, invalid, live, step), 3)
     sizes = index.list_sizes.long()
-    keep = route[2]
-    pair_rows = float(torch.sum(sizes[route[0][keep].long()]))
-    ops = 2.0 * d * pair_rows
-    nbytes = (4.0 * Qb.numel() + 2.0 * d * float(torch.sum(sizes))
-              + float(invalid.numel()) + 8.0 * kd.numel())
-    bound = max(ops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
-    log(f"B3 timing batch={n_lists} m={BUCKET_CAP} n={cap} d={d} k={K} "
-        f"(bf16 db): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
-        f"(bf16 baddbmm + topk over {step}-list chunks) {lib_ms:.3f} ms, "
-        f"bound {bound:.3f} ms")
-    decode_block(index, Qb, route, invalid)
+    pair_rows = _total(sizes[route[0][route[2]].long()])
+    bound, by, old = _b3_bounds(d, live, sizes, pair_rows, BUCKET_CAP, cap)
+    plan = fk._b3_plan(BUCKET_CAP, d, K, "bf16", "bf16")
+    log(f"B3 timing batch={n_lists} m={BUCKET_CAP} ({int(live.sum())} live "
+        f"rows) n={cap} d={d} k={K} (bf16 db): kernel {ms:.3f} ms (k=1 "
+        f"{k1_ms:.3f} ms), plain {plain_ms:.3f} ms, library (bf16 baddbmm + "
+        f"topk in {step}-list chunks) {lib_ms:.3f} ms over the live rows "
+        f"(lists sorted by them), {all_ms:.3f} ms over every slot, bound "
+        f"{bound:.4f} ms ({by}, live rows; counting every bucket slot's "
+        f"query bytes as before: {old:.4f} ms)")
+    regs = [line.strip() for line in
+            _build.BUILD_LOG.get("batch_knn", "").splitlines()
+            if "registers" in line or "spill" in line]
+    log(f"B3 plan: path {plan.path}, {plan.bq} query rows per CTA, "
+        f"{plan.smem} B of shared memory; device time pre-pass {pre_ms} ms "
+        f"+ scan {scan_ms} ms" + (
+            f" (pre-pass share {pre_ms / (pre_ms + scan_ms):.1%})"
+            if pre_ms and scan_ms else " (not traced)"))
+    log(f"B3 ptxas (registers, spills): {regs}")
+    decode_block(index, Qb, route, invalid, live)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound,
-            "bound_by": "operations" if ops / PEAK_BF16 >= nbytes / PEAK_BYTES
-            else "bytes", "library_ms": lib_ms}
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
 
 
-def decode_block(index, Qb, route, invalid):
+def decode_block(index, Qb, route, invalid, live):
     """B3 at the decode-scan shape: one of its launches, the first block
-    of lists (as many as ``ivf_pq._bucketed_decode_scan`` decodes at once),
-    held against the plain version and timed beside its bound: the block's
-    routed (query, row) pairs at the bf16 rate, or its bytes (the queries,
-    the valid bf16 rows, the mask and the results), and beside the
-    library yardstick of one launch (bf16 ``baddbmm`` + ``torch.topk``)."""
+    of lists (as many as ``ivf_pq._bucketed_decode_scan`` decodes at once)
+    with their live rows, held against the plain version and timed at k=10
+    and k=1 beside its bound (:func:`_b3_bounds`) and the library
+    yardstick of one launch (:func:`_b3_library`, over the live rows and
+    over every slot), with the
+    device times of its pre-pass and scan."""
     import torch
 
     from raft_tpu_torch.neighbors import ivf_pq
@@ -1009,35 +1123,37 @@ def decode_block(index, Qb, route, invalid):
     recon = ivf_pq._decode_lists_block(
         index.pq_codes[:block], index.centers_rot()[:block],
         index.pq_centers.reshape(-1), J, B, L, index.pq_bits, False)
+    lr = live[:block].contiguous()
     args = (Qb[:block].contiguous(), recon, invalid[:block].contiguous(), K,
-            True, True, False)
-    kd, ki = fk._fused_batch_knn_cuda(*args)
-    pd, pi = fk._fused_batch_knn_plain(*args)
-    rec = recall(ki.reshape(-1, K), pi.reshape(-1, K))
-    if rec < RECALL_BF:
-        raise AssertionError("B3 decode-scan block disagrees with plain")
+            True, True, False, lr)
+    yn = torch.sum(recon.float() ** 2, dim=2)
+    tol = REL_NORM_TOL * (float(torch.max(torch.sum(args[0] ** 2, dim=-1)))
+                          + float(torch.max(yn)))
+    _b3_check("a decode-scan launch", args, lr, tol)
     ms = time_ms(lambda: fk._fused_batch_knn_cuda(*args), 5)
-    ynb = torch.sum(recon.float() ** 2, dim=2).to(torch.bfloat16)
-
-    def library():
-        g = torch.baddbmm(ynb[:, None, :], args[0].to(torch.bfloat16),
-                          recon.transpose(1, 2), alpha=-2.0)
-        g.masked_fill_(args[2][:, None, :], float("inf"))
-        torch.topk(g, K, dim=2, largest=False)
-
-    lib_ms = time_ms(library, 5)
+    k1 = args[:3] + (1,) + args[4:]
+    k1_ms = time_ms(lambda: fk._fused_batch_knn_cuda(*k1), 5)
+    pre_ms = device_ms(lambda: fk._fused_batch_knn_cuda(*args),
+                       "b2_norms_kernel", reps=5)
+    scan_ms = device_ms(lambda: fk._fused_batch_knn_cuda(*args),
+                        "b3_scan_kernel", reps=5)
+    ynb = yn.to(torch.bfloat16)
+    all_ms = time_ms(_b3_library(*args[:2], ynb, args[2], lr, block, True),
+                     5)
+    lib_ms = time_ms(_b3_library(*args[:2], ynb, args[2], lr, block), 5)
     sizes = index.list_sizes.long()
     lists = route[0][route[2]].long()
-    pair_rows = float(torch.sum(sizes[lists[lists < block]]))
-    ops = 2.0 * d * pair_rows
-    nbytes = (4.0 * args[0].numel() + 2.0 * d * float(torch.sum(
-        sizes[:block])) + float(args[2].numel()) + 8.0 * kd.numel())
-    bound = max(ops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
-    log(f"B3 decode-scan block ({block} of {n_lists} lists, {n_lists // block} "
-        f"launches per search; m={BUCKET_CAP} n={cap} d={d} k={K}, bf16 "
-        f"db): per-slot recall@{K} {rec:.6f}, kernel {ms:.3f} ms, library "
-        f"(bf16 baddbmm + topk) {lib_ms:.3f} ms, bound {bound:.4f} ms "
-        f"({'operations' if ops / PEAK_BF16 >= nbytes / PEAK_BYTES else 'bytes'})")
+    pair_rows = _total(sizes[lists[lists < block]])
+    bound, by, old = _b3_bounds(d, lr, sizes[:block], pair_rows,
+                                BUCKET_CAP, cap)
+    log(f"B3 decode-scan launch ({block} of {n_lists} lists, "
+        f"{n_lists // block} launches per search; m={BUCKET_CAP} "
+        f"({int(lr.sum())} live rows) n={cap} d={d} k={K}, bf16 db): kernel "
+        f"{ms:.4f} ms (k=1 {k1_ms:.4f} ms), library (bf16 baddbmm + topk) "
+        f"{lib_ms:.4f} ms over the live rows (one chunk cut to its most "
+        f"live rows), {all_ms:.4f} ms over every slot, bound "
+        f"{bound:.4f} ms ({by}, live rows; every slot: {old:.4f} ms); "
+        f"device time pre-pass {pre_ms} ms + scan {scan_ms} ms")
 
 
 def same_bits(a, b) -> bool:
@@ -1429,7 +1545,7 @@ def main() -> int:
              launches=mp["launches"]["fused_cells_knn"]
              + lc["fused_cells_knn"], **b2),
         dict(name="fused_batch_knn", route="cuda",
-             source="raft_tpu_torch/csrc/fused_knn.cu",
+             source="raft_tpu_torch/csrc/batch_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:277",
              launches=pq["launches"]["fused_batch_knn"], **b3),
         dict(name="pq_fused_scan", route="cuda",

@@ -1,11 +1,12 @@
-// Cell-level top-k selection of the packed-cells scans for Hopper: B2
-// (cells_knn.cu) and B4 (pq_scan.cu).
+// Cell-level top-k selection of the packed scans for Hopper: B2
+// (cells_knn.cu), B3 (batch_knn.cu) and B4 (pq_scan.cu).
 //
-// Both scans give one CTA of 256 threads the rows of one query cell and
-// sweep the 128-slot tiles of one list. Each tile ends as a register
-// filter (in the kernel, because it depends on the tile's register map):
-// the pairs that beat their row's k-th (distance, slot) go into per-row
-// candidate buffers in shared memory. The pieces here then serve both:
+// Each scan gives one CTA of 256 threads the rows of one query cell (B3:
+// one block of a bucket) and sweeps the 128-slot tiles of one list. Each
+// tile ends as a register filter (in the kernel, because it depends on the
+// tile's register map): the pairs that beat their row's k-th (distance,
+// slot) go into per-row candidate buffers in shared memory. The pieces
+// here then serve all three:
 //
 //   * next_live: the next tile of a list that holds a valid slot, from
 //     the per-tile live flags of a pre-pass, with no barrier;
@@ -36,6 +37,11 @@ using knn::pair_less;
 constexpr int NT = 256;      // threads per CTA
 constexpr int NW = NT / 32;  // warps per CTA
 constexpr int NET_K = 16;    // widest queue kept in registers
+
+// Selection of a scan instance: k = 1 (a register minimum per row),
+// k <= NET_K (the insertion network), k > NET_K (warp merges), or either
+// of the last two by k at run time.
+enum Sel { SEL_MIN, SEL_NET, SEL_MERGE, SEL_ANY };
 
 // The shared-memory queues of one CTA's BQ rows.
 struct Queues {

@@ -51,28 +51,23 @@
 // Callers pass finite operands (the entry points reject non-finite
 // inputs): an L2 NaN would come out of fmaxf as distance 0.
 
+#include "cell_norms.cuh"
 #include "cell_select.cuh"
 #include "knn_gemm.cuh"
 
 namespace {
 
 using cell_select::NET_K;
+using cell_select::SEL_MERGE;
+using cell_select::SEL_MIN;
+using cell_select::SEL_NET;
 using knn::KMAX;
 using knn::NONE;
 using knn::pair_less;
+using knn::take;
 using namespace knn_gemm;
 
 constexpr int NE = 16;  // threads (and per-thread minima) per query row
-
-// Selection of a scan instance: k = 1 (a register minimum per row),
-// k <= NET_K (the insertion network) or k > NET_K (warp merges).
-enum Sel { SEL_MIN, SEL_NET, SEL_MERGE };
-
-__host__ __device__ inline size_t take(size_t& at, size_t bytes) {
-  size_t here = at;
-  at += (bytes + 15) / 16 * 16;
-  return here;
-}
 
 // Byte offsets of the shared-memory regions (ops/fused_knn.py::
 // _b2_smem_bytes counts the same regions in the same order).
@@ -109,13 +104,15 @@ struct Args {
   const void* db;        // (n_lists, cap, d) f32 or bf16
   const float* yn;       // (n_lists, capp): the pre-pass's norms / NaN
   const uint8_t* live;   // (n_lists, capp / 128): the pre-pass's flags
+  const int* live_rows;  // (n_cells,): rows scanned per cell, or nullptr
   float* out_d;          // (n_cells, qrows, k)
   int* out_i;
   int n_cells, qrows, cap, capp, d, k, l2, db16, qvec, dvec;
 };
 
 // One CTA: query rows [q0, q0 + BQ) of cell blockIdx.x / ceil(qrows / BQ)
-// against the live tiles of its list.
+// against the live tiles of its list. With live_rows, rows of cell c at or
+// past live_rows[c] are not scanned and report (inf, -1).
 template <int BQ, bool BF16, bool QSPLIT, int SEL>
 __global__ void __launch_bounds__(NT, 2) b2_scan_kernel(const Args a) {
   constexpr bool K1 = SEL == SEL_MIN, NET = SEL == SEL_NET;
@@ -145,18 +142,20 @@ __global__ void __launch_bounds__(NT, 2) b2_scan_kernel(const Args a) {
   const bool l2 = a.l2 != 0, db16 = a.db16 != 0;
   const int nqb = (a.qrows + BQ - 1) / BQ;
   const int cell = blockIdx.x / nqb, q0 = (blockIdx.x % nqb) * BQ;
-  const int nq = min(BQ, a.qrows - q0);
+  const int rows = min(BQ, a.qrows - q0);
+  const int nq = a.live_rows == nullptr
+                     ? rows
+                     : max(0, min(rows, a.live_rows[cell] - q0));
   const size_t row0 = (size_t)cell * a.qrows + q0;
   float* od = a.out_d + row0 * k;
   int* oi = a.out_i + row0 * k;
   const int list = a.cell_list[cell];
-  if (list < 0) {
-    for (int e = tid; e < nq * k; e += NT) {
-      od[e] = INFINITY;
-      oi[e] = -1;
-    }
-    return;
+  // The rows not scanned: sentinels.
+  for (int e = (list < 0 ? 0 : nq * k) + tid; e < rows * k; e += NT) {
+    od[e] = INFINITY;
+    oi[e] = -1;
   }
+  if (list < 0 || nq == 0) return;
   const float* q = a.q + row0 * a.d;
   const int ntiles = a.capp / BN;
   const uint8_t* live = a.live + (size_t)list * ntiles;
@@ -392,52 +391,6 @@ __global__ void __launch_bounds__(NT, 2) b2_scan_kernel(const Args a) {
     write_queue(sq.kd, sq.ki, nq, k, od, oi, true);
 }
 
-// The pre-pass: one block of 128 threads per (128-slot tile, list). Each
-// tile's live flag (it holds a valid slot) and each slot's norm: NaN for
-// an invalid slot or one past cap, else |y|^2 in f32 of the unrounded
-// (widened) row for L2, 0 for inner product. A warp reads a row at a
-// time, lanes over the features, and sums with shuffles.
-__global__ void __launch_bounds__(BN)
-b2_norms_kernel(const void* __restrict__ db, int db16,
-                const uint8_t* __restrict__ invalid, float* __restrict__ yn,
-                uint8_t* __restrict__ live, int cap, int capp, int d,
-                int l2) {
-  const int list = blockIdx.y, t = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int base = t * BN + warp * 32;
-  const int slot = base + lane;
-  const bool valid = slot < cap && !invalid[(size_t)list * cap + slot];
-  float* out = yn + (size_t)list * capp;
-  if (!valid || !l2) out[slot] = valid ? 0.f : nan_f();
-  unsigned bits = __ballot_sync(0xffffffffu, valid);
-  const int any = __syncthreads_or(valid);
-  if (threadIdx.x == 0) live[(size_t)list * gridDim.x + t] = any != 0;
-  if (!l2) return;
-  while (bits) {
-    const int s = __ffs(bits) - 1;
-    bits &= bits - 1;
-    const size_t row = ((size_t)list * cap + base + s) * d;
-    float acc = 0.f;
-    if (db16) {
-      const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(db) + row;
-      for (int c = lane; c < d; c += 32) {
-        const float v = __bfloat162float(x[c]);
-        acc = fmaf(v, v, acc);
-      }
-    } else {
-      const float* x = static_cast<const float*>(db) + row;
-      for (int c = lane; c < d; c += 32) {
-        const float v = __ldg(x + c);
-        acc = fmaf(v, v, acc);
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == 0) out[base + s] = acc;
-  }
-}
-
 template <int BQ, bool BF16, bool QSPLIT, int SEL>
 cudaError_t run_scan(const Args& a, size_t bytes, cudaStream_t st) {
   auto kern = b2_scan_kernel<BQ, BF16, QSPLIT, SEL>;
@@ -474,15 +427,19 @@ extern "C" {
 // capp / 128), capp = cap rounded up to 128, then the scan on the plan of
 // ops/fused_knn.py::_b2_plan (bq query rows per CTA, smem bytes, which
 // must equal this file's Layout). db is f32, or bf16 with db_is_bf16.
+// live_rows (n_cells,), or nullptr for every row: rows of cell c at or past
+// live_rows[c] are not scanned and report (inf, -1) (B3's bucket callers
+// fill each bucket from slot 0 upward).
 // Operands need only their element alignment: the 16-byte copies (8-byte
 // for bf16 rows) run when d % 4 == 0 and the operand starts on 16 (8)
 // bytes. Returns the first launch error.
 int fused_cells_knn_launch(const int* cell_list, const float* q,
                            const void* db, int db_is_bf16,
-                           const uint8_t* invalid, float* yn, uint8_t* live,
-                           float* out_d, int* out_i, int n_cells, int n_lists,
-                           int qrows, int cap, int d, int k, int l2, int bf16,
-                           int qsplit, int bq, int smem, void* stream) {
+                           const uint8_t* invalid, const int* live_rows,
+                           float* yn, uint8_t* live, float* out_d, int* out_i,
+                           int n_cells, int n_lists, int qrows, int cap, int d,
+                           int k, int l2, int bf16, int qsplit, int bq,
+                           int smem, void* stream) {
   if (n_cells <= 0 || qrows <= 0) return 0;
   qsplit = qsplit && bf16;
   const int capp = (cap + BN - 1) / BN * BN;
@@ -493,14 +450,13 @@ int fused_cells_knn_launch(const int* cell_list, const float* q,
   const Layout lay(bq, k, qsplit != 0);
   if ((size_t)smem != lay.total) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  b2_norms_kernel<<<dim3(capp / BN, (unsigned)n_lists), BN, 0, st>>>(
-      db, db_is_bf16, invalid, yn, live, cap, capp, d, l2);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = cell_norms::launch(db, db_is_bf16, invalid, yn, live,
+                                      n_lists, cap, capp, d, l2, st);
   if (err != cudaSuccess) return (int)err;
   const uintptr_t qa = reinterpret_cast<uintptr_t>(q);
   const uintptr_t da = reinterpret_cast<uintptr_t>(db);
-  const Args a{cell_list, q, db, yn, live, out_d, out_i, n_cells, qrows, cap,
-               capp, d, k, l2, db_is_bf16,
+  const Args a{cell_list, q, db, yn, live, live_rows, out_d, out_i, n_cells,
+               qrows, cap, capp, d, k, l2, db_is_bf16,
                d % 4 == 0 && (qa & 15) == 0,
                d % 4 == 0 && (da & (db_is_bf16 ? 7 : 15)) == 0};
   if (!bf16)

@@ -69,6 +69,7 @@
 namespace knn_gemm {
 
 using knn::KMAX;
+using knn::nan_f;
 using knn::NONE;
 using knn::pair_less;
 using knn::round_bf16;
@@ -81,9 +82,6 @@ constexpr int SKP = BK + 8;      // row stride of a staging buffer
 constexpr int STAGES = 2;        // staged chunks in flight
 constexpr int CAND = 4096;       // candidate slots per CTA (CAND / BQ each)
 constexpr int MAX_SLICES = 256;  // database slices the merge takes
-
-// A quiet NaN: no comparison accepts it.
-__device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
 
 static_assert(BK % 16 == 0, "a staged row is whole 32-byte sectors");
 

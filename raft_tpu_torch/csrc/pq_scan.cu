@@ -70,7 +70,8 @@
 //     k > 16 one warp per row, by a warp bitonic sort and a merge by
 //     rank. k = 1 keeps a running (min, slot) per row in registers.
 //     The bound, the network and the merge are cell_select.cuh's, which
-//     B2 (cells_knn.cu) shares.
+//     B2 (cells_knn.cu) shares; the product, the filter and the write-out
+//     are mma_tile.cuh's, which B3 (batch_knn.cu) shares.
 //
 // On the H100 (tools/tune_b4.py, PERF.md) selection still takes about
 // half of the k = 10 time: the insertion rounds run on the 2 warps that
@@ -80,23 +81,13 @@
 // Callers pass finite operands (the entry points reject non-finite
 // inputs): an L2 NaN would come out of fmaxf as distance 0.
 
-#include "cell_select.cuh"
-#include "mma_bf16.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
-using knn::KMAX;
-using knn::NONE;
-using knn::pair_less;
-using cell_select::NET_K;
+using namespace mma_tile;
 
-constexpr int NT = 256;      // threads per CTA
-constexpr int NW = NT / 32;  // warps per CTA
-constexpr int BN = 128;      // code slots per tile
-constexpr int CAND = 4096;   // candidate slots per CTA
 constexpr int LANES = 128;   // codes per table half
-
-__device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
@@ -112,43 +103,6 @@ __device__ __forceinline__ float cw_value(const T* __restrict__ lo,
                   : to_f(__ldg(&lo[(size_t)r * LANES + b]));
   if (scale != nullptr) v *= __ldg(&scale[r * 2 + (upper ? 1 : 0)]);
   return v;
-}
-
-__device__ __forceinline__ unsigned short bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  unsigned s = mma_bf16::smem_addr(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// Warp geometry of a BQ x 128 block: WARPS_M x WARPS_N warps, each WM x WN
-// (MT m16 tiles by NT8 n8 tiles).
-template <int BQ>
-struct Geo {
-  static constexpr int WARPS_M = BQ >= 32 ? BQ / 32 : 1;
-  static constexpr int WARPS_N = NW / WARPS_M;
-  static constexpr int WM = BQ / WARPS_M;
-  static constexpr int WN = BN / WARPS_N;
-  static constexpr int MT = WM / 16;
-  static constexpr int NT8 = WN / 8;
-  static_assert(WM % 16 == 0 && NT8 % 2 == 0, "warp tile");
-};
-
-__host__ __device__ inline size_t take(size_t& at, size_t bytes) {
-  size_t here = at;
-  at += (bytes + 15) / 16 * 16;
-  return here;
 }
 
 // Byte offsets of the shared-memory regions (ops/pq_scan.py::
@@ -213,7 +167,7 @@ __device__ __forceinline__ void load_codes(uint8_t* cs,
   if (vec) {
     for (int u = threadIdx.x; u < nbytes * 8; u += NT) {
       const int row = u >> 3, part = u & 7;
-      cp_async16(cs + row * BN + part * 16,
+      cp_async<16>(cs + row * BN + part * 16,
                  codes + (size_t)row * capp + t0 + part * 16);
     }
   } else {
@@ -302,36 +256,6 @@ __device__ __forceinline__ void tile_meta(const uint8_t* __restrict__ inv,
   }
 }
 
-// acc += A[rows of this warp][k0 + [0, kw)] * Bt[cols of this warp][0, kw).
-template <int BQ>
-__device__ __forceinline__ void mma_range(
-    float (&acc)[Geo<BQ>::MT][Geo<BQ>::NT8][4], const unsigned short* As,
-    int SA, const unsigned short* Bt, int SB, int k0, int kw, int wm0,
-    int wn0) {
-  using G = Geo<BQ>;
-  const int lane = threadIdx.x & 31;
-  const unsigned short* a_row = As + (wm0 + (lane & 15)) * SA + k0 + (lane >> 4) * 8;
-  const unsigned short* b_row =
-      Bt + (wn0 + (lane >> 4) * 8 + (lane & 7)) * SB + ((lane >> 3) & 1) * 8;
-#pragma unroll 2
-  for (int kk = 0; kk < kw; kk += 16) {
-    uint32_t af[G::MT][4];
-#pragma unroll
-    for (int mt = 0; mt < G::MT; ++mt)
-      mma_bf16::ldmatrix_x4(af[mt], a_row + mt * 16 * SA + kk);
-#pragma unroll
-    for (int p = 0; p < G::NT8 / 2; ++p) {
-      uint32_t bf[4];
-      mma_bf16::ldmatrix_x4(bf, b_row + p * 16 * SB + kk);
-#pragma unroll
-      for (int mt = 0; mt < G::MT; ++mt) {
-        mma_bf16::mma_16816(acc[mt][2 * p], af[mt], bf[0], bf[1]);
-        mma_bf16::mma_16816(acc[mt][2 * p + 1], af[mt], bf[2], bf[3]);
-      }
-    }
-  }
-}
-
 // Shared-memory pointers of one CTA.
 struct Smem {
   unsigned short *A, *tab, *Bt;
@@ -352,135 +276,11 @@ struct Smem {
   unsigned* qmask;
 };
 
-// The epilogue and selection of tile t (slots t * 128 + [0, 128)) for the
-// nq rows of this CTA: acc becomes min-order distances in place (NaN for
-// invalid slots and padding rows), then k = 1 folds them into the running
-// (bd, bi) of each row, k > 1 filters them against the queues.
-template <int BQ, bool K1>
-__device__ __forceinline__ void select_tile(
-    float (&acc)[Geo<BQ>::MT][Geo<BQ>::NT8][4], float (&bd)[2 * Geo<BQ>::MT],
-    int (&bi)[2 * Geo<BQ>::MT], const Smem& s, const float* yn, const int* ok,
-    int t, int nq, int k, bool l2, int wm0, int wn0, bool first) {
-  using G = Geo<BQ>;
-  constexpr int C = CAND / BQ;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tq = lane & 3;
-  const int t0 = t * BN;
-#pragma unroll
-  for (int mt = 0; mt < G::MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = wm0 + mt * 16 + g + h * 8;
-      const bool rok = row < nq;
-      const float qn = l2 ? s.qn[row] : 0.f;
-#pragma unroll
-      for (int nt = 0; nt < G::NT8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = wn0 + nt * 8 + 2 * tq + e;
-          const float gv = acc[mt][nt][2 * h + e];
-          const float v = l2 ? fmaxf(qn + yn[col] - 2.0f * gv, 0.f) : -gv;
-          acc[mt][nt][2 * h + e] = (rok && ok[col]) ? v : nan_f();
-        }
-    }
-  if (K1) {
-#pragma unroll
-    for (int mt = 0; mt < G::MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int nt = 0; nt < G::NT8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int id = t0 + wn0 + nt * 8 + 2 * tq + e;
-            const float v = acc[mt][nt][2 * h + e];
-            if (pair_less(v, id, bd[2 * mt + h], bi[2 * mt + h])) {
-              bd[2 * mt + h] = v;
-              bi[2 * mt + h] = id;
-            }
-          }
-    return;
-  }
-  const cell_select::Queues q{s.kd,  s.ki,    s.cd, s.ci,
-                              s.cnt, s.qmask, s.tm, s.thr};
-  // Row r's candidate j is at cd[r * rs + j * js]: slot-major (all rows'
-  // j-th side by side) when each thread inserts its row (k <= NET_K),
-  // row-major when a warp merges a row.
-  const bool small_k = k <= NET_K;
-  const int rs = small_k ? 1 : C, js = small_k ? BQ : 1;
-  // On an item's first tile the queues are empty, so every pair would
-  // pass. For k <= NET_K the k-th smallest of the per-thread minima of
-  // a row (WARPS_N x 4 threads hold its 128 values, each min a distinct
-  // pair) bounds the row's k-th smallest from above: pairs above it
-  // cannot enter the queue.
-  const bool bound = first && small_k;
-  if (bound) {
-    constexpr int NE = G::WARPS_N * 4;  // minima per row
-#pragma unroll
-    for (int mt = 0; mt < G::MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float mn = INFINITY;  // fminf skips the NaN marks
-#pragma unroll
-        for (int nt = 0; nt < G::NT8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) mn = fminf(mn, acc[mt][nt][2 * h + e]);
-        s.tm[(wm0 + mt * 16 + g + h * 8) * NE + (warp % G::WARPS_N) * 4 + tq] =
-            mn;
-      }
-    cell_select::first_tile_bounds<BQ, NE>(s.tm, s.thr, k);
-  }
-  while (true) {
-    bool over = false, any = false;
-#pragma unroll
-    for (int mt = 0; mt < G::MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = wm0 + mt * 16 + g + h * 8;
-        if (row >= nq) continue;
-        const float td = s.kd[row * k + k - 1];
-        const int ti = s.ki[row * k + k - 1];
-        const float tb = bound ? fminf(td, s.thr[row]) : td;
-        // The float test first: almost every pair fails it. One atomic
-        // per (thread, row) reserves the buffer slots of its passes.
-        unsigned pass = 0;
-#pragma unroll
-        for (int nt = 0; nt < G::NT8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float v = acc[mt][nt][2 * h + e];
-            const int id = t0 + wn0 + nt * 8 + 2 * tq + e;
-            if (v <= tb && pair_less(v, id, td, ti)) pass |= 1u << (2 * nt + e);
-          }
-        if (!pass) continue;
-        any = true;
-        int slot = atomicAdd(&s.cnt[row], __popc(pass));
-        if (slot == 0) atomicOr(&s.qmask[row >> 5], 1u << (row & 31));
-#pragma unroll
-        for (int nt = 0; nt < G::NT8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            if (!(pass >> (2 * nt + e) & 1)) continue;
-            if (slot < C) {
-              s.cd[row * rs + slot * js] = acc[mt][nt][2 * h + e];
-              s.ci[row * rs + slot * js] = t0 + wn0 + nt * 8 + 2 * tq + e;
-              acc[mt][nt][2 * h + e] = nan_f();
-            } else {
-              over = true;
-            }
-            ++slot;
-          }
-      }
-    if (!__syncthreads_or(any)) break;
-    cell_select::drain<BQ, C>(q, nq, k);
-    if (!__syncthreads_or(over)) break;
-  }
-}
-
 // One CTA walks (cell, row block) items w = blockIdx.x, + gridDim.x, ...
 template <int BQ, bool SLICED, bool K1, typename T>
 __global__ void __launch_bounds__(NT, 1) b4_scan_kernel(const Args<T> a) {
   using G = Geo<BQ>;
+  constexpr int SEL = K1 ? SEL_MIN : SEL_ANY;
   extern __shared__ __align__(16) char smem[];
   const Layout lay(BQ, G::WARPS_N, a.kp, a.ks, a.pq_bits, a.nbytes, a.k,
                    SLICED);
@@ -503,6 +303,8 @@ __global__ void __launch_bounds__(NT, 1) b4_scan_kernel(const Args<T> a) {
   s.qmask = reinterpret_cast<unsigned*>(smem + lay.qmask);
   s.tm = reinterpret_cast<float*>(smem + lay.tm);
   s.thr = reinterpret_cast<float*>(smem + lay.thr);
+  const cell_select::Queues q{s.kd,  s.ki,    s.cd, s.ci,
+                              s.cnt, s.qmask, s.tm, s.thr};
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm0 = (warp / G::WARPS_N) * G::WM;
@@ -584,7 +386,7 @@ __global__ void __launch_bounds__(NT, 1) b4_scan_kernel(const Args<T> a) {
       int t = cell_select::next_live(live, -1, ntiles);
       if (t < ntiles) load_codes(s.cs, codes, t, a.nbytes, a.capp, a.vec);
       cp_commit();
-      cp_wait_all();
+      cp_wait<0>();
       __syncthreads();
       int tn = ntiles;
       if (t < ntiles) {
@@ -595,7 +397,7 @@ __global__ void __launch_bounds__(NT, 1) b4_scan_kernel(const Args<T> a) {
           load_codes(s.cs + csz, codes, tn, a.nbytes, a.capp, a.vec);
       }
       cp_commit();
-      cp_wait_all();
+      cp_wait<0>();
       __syncthreads();
       int cur = 0;
       while (t < ntiles) {
@@ -618,10 +420,10 @@ __global__ void __launch_bounds__(NT, 1) b4_scan_kernel(const Args<T> a) {
             load_codes(s.cs + cur * csz, codes, tnn, a.nbytes, a.capp, a.vec);
         }
         cp_commit();
-        select_tile<BQ, K1>(acc, bd, bi, s, s.yn + cur * BN, s.ok + cur * BN,
-                            t, nq, k, l2, wm0, wn0, first);
+        select_tile<BQ, SEL>(acc, bd, bi, s.qn, q, s.yn + cur * BN,
+                             s.ok + cur * BN, t, nq, k, l2, wm0, wn0, first);
         first = false;
-        cp_wait_all();
+        cp_wait<0>();
         __syncthreads();
         t = tn;
         tn = tnn;
@@ -648,55 +450,15 @@ __global__ void __launch_bounds__(NT, 1) b4_scan_kernel(const Args<T> a) {
           __syncthreads();
           mma_range<BQ>(acc, s.A, SA, s.Bt, SB, k0, kw, wm0, wn0);
         }
-        select_tile<BQ, K1>(acc, bd, bi, s, s.yn, s.ok, t, nq, k, l2, wm0,
-                            wn0, first);
+        select_tile<BQ, SEL>(acc, bd, bi, s.qn, q, s.yn, s.ok, t, nq, k, l2,
+                             wm0, wn0, first);
         first = false;
       }
       __syncthreads();
     }
 
-    if (K1) {
-      // A row's values sit in the 4 lanes of a quad and the WARPS_N warps
-      // of its warp row: shuffles, then shared memory.
-      const int g = lane >> 2;
-#pragma unroll
-      for (int i = 0; i < 2 * G::MT; ++i) {
-#pragma unroll
-        for (int o = 1; o < 4; o <<= 1) {
-          const float v = __shfl_xor_sync(0xffffffffu, bd[i], o);
-          const int id = __shfl_xor_sync(0xffffffffu, bi[i], o);
-          if (pair_less(v, id, bd[i], bi[i])) {
-            bd[i] = v;
-            bi[i] = id;
-          }
-        }
-        if ((lane & 3) == 0) {
-          const int row = wm0 + (i >> 1) * 16 + g + (i & 1) * 8;
-          const int wn = warp % G::WARPS_N;
-          s.red_d[wn * BQ + row] = bd[i];
-          s.red_i[wn * BQ + row] = bi[i];
-        }
-      }
-      __syncthreads();
-      for (int r = tid; r < nq; r += NT) {
-        float v = s.red_d[r];
-        int id = s.red_i[r];
-        for (int wn = 1; wn < G::WARPS_N; ++wn)
-          if (pair_less(s.red_d[wn * BQ + r], s.red_i[wn * BQ + r], v, id)) {
-            v = s.red_d[wn * BQ + r];
-            id = s.red_i[wn * BQ + r];
-          }
-        od[r] = v;
-        oi[r] = (id == NONE || isinf(v)) ? -1 : id;
-      }
-    } else {
-      for (int e = tid; e < nq * k; e += NT) {
-        const float v = s.kd[e];
-        const int id = s.ki[e];
-        od[e] = v;
-        oi[e] = (id == NONE || isinf(v)) ? -1 : id;
-      }
-    }
+    write_rows<BQ, K1>(bd, bi, s.red_d, s.red_i, s.kd, s.ki, nq, k, wm0, od,
+                       oi);
     __syncthreads();
   }
 }

@@ -550,10 +550,13 @@ def _bucketed_probe_scan(queries, data, indices, list_sizes, probe_ids,
                >= list_sizes[:, None])
     if deleted is not None:
         invalid = invalid | deleted
+    # Each bucket fills from slot 0 upward, and the routing reads only the
+    # filled slots: B3 scans just those.
+    live_rows = (bucket >= 0).sum(1).to(torch.int32)
     bd_, bi_ = fused_batch_knn(Qb, data, invalid, k,
                                metric="l2" if inner_is_l2 else "ip",
                                bf16=data.dtype == torch.bfloat16,
-                               qsplit=qsplit)
+                               qsplit=qsplit, live_rows=live_rows)
     gi = indices[torch.arange(n_lists, device=queries.device)[:, None, None],
                  torch.clamp_min(bi_, 0).long()]
     gi = torch.where(bi_ < 0, PAD_ID, gi)

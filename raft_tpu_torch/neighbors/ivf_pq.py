@@ -375,6 +375,8 @@ def _bucketed_decode_scan(rotq, pq_codes, pq_centers, centers_rot, indices,
                >= list_sizes[:, None])
     if deleted is not None:
         invalid = invalid | deleted
+    # B3 scans only the filled slots of each bucket (see ivf_flat's engine).
+    live_rows = (bucket >= 0).sum(1).to(torch.int32)
     block = max(1, min(n_lists, _DECODE_BLOCK // max(cap * rot_dim, 1)))
     block = 1 << (block.bit_length() - 1)
     while n_lists % block and block > 1:
@@ -388,7 +390,7 @@ def _bucketed_decode_scan(rotq, pq_codes, pq_centers, centers_rot, indices,
                                     pq_dim, B, L, pq_bits, per_cluster)
         bd_, bi_ = fused_batch_knn(Qb[l0:l1], recon, invalid[l0:l1], k,
                                    metric="ip" if is_ip else "l2",
-                                   bf16=True)
+                                   bf16=True, live_rows=live_rows[l0:l1])
         parts_d.append(bd_)
         parts_i.append(bi_)
     bd_, bi_ = torch.cat(parts_d), torch.cat(parts_i)

@@ -13,7 +13,12 @@ headers for the design):
   CTA per (cell, block of query rows) on B1's tile, with the cell-level
   selection of ``csrc/cell_select.cuh`` that it shares with B4; its plan
   is :func:`_b2_plan`;
-* B3 runs the tile loop of ``csrc/knn_tile.cuh`` (``csrc/fused_knn.cu``).
+* B3 is ``csrc/batch_knn.cu`` for the bf16 tier on a bf16 store (every
+  main-path call): B2's pre-pass and one CTA per (element, block of query
+  rows) on the bf16 tensor-core tile and selection of
+  ``csrc/mma_tile.cuh``, which it shares with B4; every other tier, and a
+  d whose tile does not fit shared memory, runs B2's scan with the
+  identity cell map. Its plan is :func:`_b3_plan`.
 
 Beside each kernel is its plain PyTorch version, which repeats the
 kernel's arithmetic and tie rules:
@@ -271,11 +276,9 @@ def _fused_knn_plain(queries, db, k: int, l2: bool, bf16: bool,
 
 _KNN_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _CELLS_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
                    + [ctypes.c_void_p])
-_BATCH_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-                   + [ctypes.c_void_p])
+_BATCH_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def _lib():
@@ -283,6 +286,12 @@ def _lib():
     if lib.fused_knn_launch.argtypes is None:
         lib.fused_knn_launch.argtypes = _KNN_ARGTYPES
         lib.fused_knn_launch.restype = ctypes.c_int
+    return lib
+
+
+def _batch_lib():
+    lib = _build.load_library("batch_knn")
+    if lib.fused_batch_knn_launch.argtypes is None:
         lib.fused_batch_knn_launch.argtypes = _BATCH_ARGTYPES
         lib.fused_batch_knn_launch.restype = ctypes.c_int
     return lib
@@ -424,7 +433,7 @@ def _fused_cells_knn_cuda(cell_list, queries, db, invalid, k: int, l2: bool,
     with torch.cuda.device(dev):
         err = lib.fused_cells_knn_launch(
             _ptr(cell_list), _ptr(queries), _ptr(db),
-            int(db.dtype == torch.bfloat16), _ptr(invalid), _ptr(yn),
+            int(db.dtype == torch.bfloat16), _ptr(invalid), None, _ptr(yn),
             _ptr(live), _ptr(out_d), _ptr(out_i), n_cells, n_lists, qrows,
             cap, d, k, int(l2), int(bf16), int(qsplit), plan.bq, plan.smem,
             _stream(dev))
@@ -467,20 +476,95 @@ fused_cells_knn.launches = 0
 
 
 def _fused_batch_knn_plain(queries, db, invalid, k: int, l2: bool,
-                           bf16: bool, qsplit: bool
+                           bf16: bool, qsplit: bool, live_rows=None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of B3: B2's plain version with the identity cell map
-    (element b scores its queries against its own slab)."""
+    (element b scores its queries against its own slab); with
+    ``live_rows``, rows [live_rows[b], m) of element b give (inf, -1), as
+    the kernel, which does not scan them, reports them."""
     cells = torch.arange(queries.shape[0], dtype=torch.int32,
                          device=queries.device)
-    return _fused_cells_knn_plain(cells, queries, db, invalid, k, l2, bf16,
-                                  qsplit)
+    out_d, out_i = _fused_cells_knn_plain(cells, queries, db, invalid, k, l2,
+                                          bf16, qsplit)
+    if live_rows is not None:
+        rows = torch.arange(queries.shape[1], device=queries.device)
+        dead = (rows[None, :] >= live_rows.to(queries.device)[:, None]
+                )[:, :, None]
+        out_d = out_d.masked_fill(dead, float("inf"))
+        out_i = out_i.masked_fill(dead, -1)
+    return out_d, out_i
+
+
+# B3's launch geometry (the constants of csrc/batch_knn.cu, on the bf16 tile
+# of csrc/mma_tile.cuh): slots per tile, candidate slots per CTA, the query
+# rows a CTA may take and the widest queue of the insertion network.
+B3_BN = 128
+B3_CAND = 2048
+B3_ROWS = (64, 32, 16)
+B3_NET_K = 16
+
+
+class B3Plan(NamedTuple):
+    """B3's launch: ``path`` "mma" (the bf16 tensor-core scan of
+    ``csrc/batch_knn.cu``) or "cells" (B2's scan of ``csrc/cells_knn.cu``
+    with the identity cell map), ``bq`` query rows per CTA and ``smem``
+    the bytes of one CTA."""
+    path: str
+    bq: int
+    smem: int
+
+
+def _b3_smem_bytes(bq: int, kp: int, k: int) -> int:
+    """Shared-memory bytes of one CTA of B3's tensor-core scan, region by
+    region as batch_knn.cu's ``Layout`` lays them out, each rounded up to
+    16 bytes: the bf16 query operand (bq x (kp + 8)), two bf16 row tiles
+    (128 x (kp + 8)), the query norms, two tiles' row norms and valid
+    flags; then for k = 1 the cross-warp (min, slot) of each row, else the
+    queue (bq x k pairs), the candidate buffer, its counters and the
+    bitmask of rows with candidates, and for k <= 16 the per-thread row
+    minima and the rows' first-tile bounds."""
+    warps_n = 8 // max(1, bq // 32)
+    parts = [bq * (kp + 8) * 2, 2 * B3_BN * (kp + 8) * 2, 4 * bq,
+             2 * B3_BN * 4, 2 * B3_BN * 4]
+    if k == 1:
+        parts.append(warps_n * bq * 8)
+    else:
+        parts += [4 * bq * k, 4 * bq * k, 4 * B3_CAND, 4 * B3_CAND, 4 * bq,
+                  4 * (-(-bq // 32))]
+        if k <= B3_NET_K:
+            parts += [bq * warps_n * 4 * 4, 4 * bq]
+    return sum(_r16(p) for p in parts)
+
+
+def _b3_plan(m: int, d: int, k: int, tier: str, store: str) -> B3Plan:
+    """B3's path and launch. ``tier`` is "f32", "bf16" or "qsplit" (the
+    bf16 tier with the split query), ``store`` "f32" or "bf16". The bf16
+    tier on a bf16 store takes the tensor-core scan with the most query
+    rows per CTA (64, 32 or 16; never more than ``m`` needs) whose two
+    resident row tiles fit ``SMEM_LIMIT`` (d up to about 384); every other
+    tier and store, and a d past that, takes B2's scan on B2's plan.
+    Raises when nothing fits."""
+    expects(tier in ("f32", "bf16", "qsplit") and store in ("f32", "bf16")
+            and 1 <= k <= MAX_K and d >= 1 and m >= 1,
+            "fused_batch_knn: no plan for m=%s d=%s k=%s tier=%s store=%s",
+            m, d, k, tier, store)
+    if tier == "bf16" and store == "bf16":
+        most = max(16, min(64, _r16(m)))
+        for bq in B3_ROWS:
+            if bq > most:
+                continue
+            smem = _b3_smem_bytes(bq, _r16(d), k)
+            if smem <= SMEM_LIMIT:
+                return B3Plan("mma", bq, smem)
+    plan = _b2_plan(m, d, k, tier == "qsplit")
+    return B3Plan("cells", plan.bq, plan.smem)
 
 
 def _fused_batch_knn_cuda(queries, db, invalid, k: int, l2: bool,
-                          bf16: bool, qsplit: bool
+                          bf16: bool, qsplit: bool, live_rows=None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    _check_cuda("fused_batch_knn", queries, db, invalid)
+    rows = () if live_rows is None else (live_rows,)
+    _check_cuda("fused_batch_knn", queries, db, invalid, *rows)
     expects(queries.dtype == torch.float32 and invalid.dtype == torch.bool
             and db.dtype in (torch.float32, torch.bfloat16),
             "fused_batch_knn: f32 queries, f32/bf16 db and bool invalid "
@@ -489,19 +573,43 @@ def _fused_batch_knn_cuda(queries, db, invalid, k: int, l2: bool,
     n = db.shape[1]
     expects(db.shape == (batch, n, d) and invalid.shape == (batch, n),
             "fused_batch_knn: shape mismatch")
+    expects(live_rows is None or (live_rows.dtype == torch.int32
+                                  and live_rows.shape == (batch,)),
+            "fused_batch_knn: live_rows must be (B,) int32")
     expects(1 <= k <= min(MAX_K, n),
             "fused_batch_knn: the card kernel's queue holds k <= %s (got "
             "k=%s, n=%s)", MAX_K, k, n)
-    out_d = torch.empty((batch, m, k), dtype=torch.float32,
-                        device=queries.device)
-    out_i = torch.empty((batch, m, k), dtype=torch.int32,
-                        device=queries.device)
-    lib = _lib()
-    with torch.cuda.device(queries.device):
-        err = lib.fused_batch_knn_launch(
-            _ptr(queries), _ptr(db), int(db.dtype == torch.bfloat16),
-            _ptr(invalid), _ptr(out_d), _ptr(out_i), batch, m, n, d, k,
-            int(l2), int(bf16), int(qsplit), _stream(queries.device))
+    expects(batch <= 65535, "fused_batch_knn: at most 65535 slabs a call "
+            "(got %s)", batch)
+    qsplit = qsplit and bf16
+    tier = "qsplit" if qsplit else "bf16" if bf16 else "f32"
+    store = "bf16" if db.dtype == torch.bfloat16 else "f32"
+    plan = _b3_plan(m, d, k, tier, store)
+    lib = _batch_lib() if plan.path == "mma" else _cells_lib()
+    dev = queries.device
+    out_d = torch.empty((batch, m, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((batch, m, k), dtype=torch.int32, device=dev)
+    # The pre-pass's row norms (NaN for invalid slots) and live-tile
+    # flags, and the slabs' scan order: one call's scratch.
+    capp = -(-n // B3_BN) * B3_BN
+    yn = torch.empty((batch, capp), dtype=torch.float32, device=dev)
+    live = torch.empty((batch, capp // B3_BN), dtype=torch.uint8, device=dev)
+    lr = None if live_rows is None else _ptr(live_rows)
+    with torch.cuda.device(dev):
+        if plan.path == "mma":
+            order = torch.empty(batch, dtype=torch.int32, device=dev)
+            err = lib.fused_batch_knn_launch(
+                _ptr(queries), _ptr(db), _ptr(invalid), lr, _ptr(yn),
+                _ptr(live), _ptr(order), _ptr(out_d), _ptr(out_i), batch, m,
+                n, d, k, int(l2), plan.bq, plan.smem, _stream(dev))
+        else:
+            cells = torch.arange(batch, dtype=torch.int32, device=dev)
+            err = lib.fused_cells_knn_launch(
+                _ptr(cells), _ptr(queries), _ptr(db),
+                int(db.dtype == torch.bfloat16), _ptr(invalid), lr,
+                _ptr(yn), _ptr(live), _ptr(out_d), _ptr(out_i), batch,
+                batch, m, n, d, k, int(l2), int(bf16), int(qsplit), plan.bq,
+                plan.smem, _stream(dev))
     _build.check(err, "fused_batch_knn launch")
     fused_batch_knn.launches += 1
     return out_d, out_i
@@ -509,7 +617,8 @@ def _fused_batch_knn_cuda(queries, db, invalid, k: int, l2: bool,
 
 def fused_batch_knn(queries, db, invalid, k: int, *, metric: str = "l2",
                     sqrt: bool = False, bd: int = 0, bf16: bool = False,
-                    qsplit: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                    qsplit: bool = False, live_rows=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched independent fused kNN: element b searches ``queries[b]``
     (m, d) against ``db[b]`` (n, d), skipping slots where ``invalid[b]``
     (n,) is set. A bf16 ``db`` is taken as is when ``bf16``; otherwise it
@@ -517,6 +626,13 @@ def fused_batch_knn(queries, db, invalid, k: int, *, metric: str = "l2",
     does not depend on it, so it is accepted and ignored. Returns
     (distances (B, m, k), int32 local slot ids) with k = min(k, n); short
     results pad with (worst, -1). On the card k is at most 256.
+
+    ``live_rows`` (B,) int32 on the queries' device, or None for every
+    row: rows [live_rows[b], m) of element b are not scanned and come back
+    as (worst, -1). It is a work-skip for the port's bucket engines, which
+    fill each bucket from slot 0 upward and never read the rest; no public
+    entry point exposes it, and None is the reference's contract.
+
     Operands must be finite (the entry points reject
     non-finite inputs): on the card an L2 NaN comes out of ``fmaxf`` as
     distance 0."""
@@ -530,14 +646,18 @@ def fused_batch_knn(queries, db, invalid, k: int, *, metric: str = "l2",
     k = int(min(k, db.shape[1]))
     l2 = metric == "l2"
     qsplit = qsplit and bf16
-    tensors = (queries, db, invalid)
+    if live_rows is not None:
+        live_rows = live_rows.to(torch.int32).contiguous()
+    tensors = (queries, db, invalid) + (() if live_rows is None
+                                        else (live_rows,))
     if all(t.device.type == "cpu" for t in tensors):
         outd, outi = _fused_batch_knn_plain(queries, db, invalid, k, l2,
-                                            bf16, qsplit)
+                                            bf16, qsplit, live_rows)
     elif queries.device.type == "cuda":
         outd, outi = _fused_batch_knn_cuda(
             queries.contiguous(), db.contiguous(),
-            invalid.to(torch.bool).contiguous(), k, l2, bf16, qsplit)
+            invalid.to(torch.bool).contiguous(), k, l2, bf16, qsplit,
+            live_rows)
     else:
         raise CudaError(f"fused_batch_knn: no kernel for {queries.device}")
     if l2:

@@ -123,8 +123,8 @@ def test_library_name_follows_the_sources():
     path = _build._library_path("fused_knn")
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libfused_knn-") and path.suffix == ".so"
-    assert _build.sources() == ["cells_knn", "fused_knn", "pq_scan",
-                                "stream_select"]
+    assert _build.sources() == ["batch_knn", "cells_knn", "fused_knn",
+                                "pq_scan", "stream_select"]
     # Every library's name also follows the shared header.
     assert any(p.name == "knn_tile.cuh"
                for p in _build.CSRC_DIR.glob("*.cuh"))

@@ -341,6 +341,170 @@ def test_fused_batch_knn_raises_past_the_queue(dev, gen):
         fk.fused_batch_knn(q, db, invalid, 257)
 
 
+def _batch_case(gen, m, d=48, hi=8, B=5, nn=300):
+    """B3 operands on integer data in [0, hi): n off the 128-slot tile, an
+    empty slab (1), a starved one (2: 3 valid slots), a slab whose second
+    tile is all tombstones (4), and per-element live rows 0, 1, a middle
+    count, m and past m."""
+    q, db = int_data(gen, (B, m, d), hi), int_data(gen, (B, nn, d), hi)
+    invalid = gen.random((B, nn)) < 0.3
+    invalid[1, :] = True
+    invalid[2, 3:] = True
+    invalid[4, 128:256] = True
+    live = np.array([0, 1, m // 2, m, m + 3], np.int32)[:B]
+    return q, db, invalid, live
+
+
+def _batch_both(dev, q, db, invalid, live, k, metric, bf16_db, bf16, qsplit,
+                q_off=0, db_off=0):
+    """B3 on the card through the wrapper (one launch, on operands q_off /
+    db_off elements past their storage's start) and its plain version on
+    the card's operands; the plain distances un-negated for ip."""
+    q, db, invalid = _on(dev, q, db, invalid)
+    if bf16_db:
+        db = db.to(torch.bfloat16)
+    lr = None if live is None else torch.as_tensor(live, device=dev)
+    qv, dbv = _offset_view(q, q_off), _offset_view(db, db_off)
+    before = fk.fused_batch_knn.launches
+    kd, ki = fk.fused_batch_knn(qv, dbv, invalid, k, metric=metric,
+                                bf16=bf16, qsplit=qsplit, live_rows=lr)
+    assert fk.fused_batch_knn.launches == before + 1
+    y = db if bf16 and bf16_db else db.float()
+    pd, pi = fk._fused_batch_knn_plain(q, y, invalid, min(k, db.shape[1]),
+                                       metric == "l2", bf16, bf16 and qsplit,
+                                       lr)
+    return kd, ki, (pd if metric == "l2" else -pd), pi
+
+
+def _batch_exact(kd, ki, pd, pi, live, k):
+    np.testing.assert_array_equal(n(ki), n(pi))
+    np.testing.assert_array_equal(n(kd), n(pd))
+    ki = n(ki)
+    assert (ki[1] == -1).all()
+    if live is not None:
+        # No live row in slab 0; slab 2's rows past m // 2 are not scanned.
+        assert (ki[0] == -1).all()
+        assert (ki[2, ki.shape[1] // 2:] == -1).all()
+    if k > 3:
+        assert (ki[2, :, 3:] == -1).all()
+
+
+_B3_KS = [1, 10, 16, 17, 64, 256]
+_B3_MS = [1, 37, 64, 65, 256]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", [False, True])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("bf16,qsplit", _TIERS)
+@pytest.mark.parametrize("bf16_db", [False, True])
+@pytest.mark.parametrize("k", _B3_KS)
+@pytest.mark.parametrize("m", _B3_MS)
+def test_batch_kernel_grid(dev, gen, live, metric, bf16, qsplit, bf16_db, k,
+                           m):
+    """B3 against its plain version, bit for bit on integer data: every
+    store x tier x metric (the bf16 tier on a bf16 store runs the
+    tensor-core scan, the rest B2's scan), each selection path of k (a
+    register minimum, the network up to 16 with its drain schedule, warp
+    merges above), m off and on the row blocks, live rows or all rows,
+    sentinels of empty, starved and unscanned rows."""
+    q, db, invalid, lr = _batch_case(gen, m)
+    lr = lr if live else None
+    kd, ki, pd, pi = _batch_both(dev, q, db, invalid, lr, k, metric,
+                                 bf16_db, bf16, qsplit)
+    _batch_exact(kd, ki, pd, pi, lr, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("bf16,qsplit", _TIERS)
+@pytest.mark.parametrize("bf16_db", [False, True])
+@pytest.mark.parametrize("k", [1, 10, 17, 256])
+@pytest.mark.parametrize("d", [16, 48, 100, 128, 1024])
+def test_batch_kernel_dims(dev, gen, metric, bf16, qsplit, bf16_db, k, d):
+    """Feature counts off and on the 16-feature k-step (100: zero padding
+    to 112), and d 1024, which the plan sends to B2's scan."""
+    q, db, invalid, lr = _batch_case(gen, 37, d=d)
+    kd, ki, pd, pi = _batch_both(dev, q, db, invalid, lr, k, metric,
+                                 bf16_db, bf16, qsplit)
+    _batch_exact(kd, ki, pd, pi, lr, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("bf16,qsplit", _TIERS)
+@pytest.mark.parametrize("bf16_db", [False, True])
+@pytest.mark.parametrize("k", [1, 10, 17, 256])
+@pytest.mark.parametrize("m", [1, 65])
+def test_batch_kernel_ties_and_skipped_tiles(dev, gen, metric, bf16, qsplit,
+                                             bf16_db, k, m):
+    """{0, 1} data: distances tie within an mma fragment, across warps and
+    across tiles, so a wrong (row, slot) map shows as a wrong id; n 1000
+    with a slab whose tiles 1-3 are all invalid (skipped)."""
+    q, db, invalid, lr = _batch_case(gen, m, d=24, hi=2, nn=1000)
+    invalid[3, 128:512] = True
+    kd, ki, pd, pi = _batch_both(dev, q, db, invalid, lr, k, metric,
+                                 bf16_db, bf16, qsplit)
+    _batch_exact(kd, ki, pd, pi, lr, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("bf16,qsplit", _TIERS)
+@pytest.mark.parametrize("bf16_db", [False, True])
+@pytest.mark.parametrize("d,q_off,db_off", [(48, 1, 1), (48, 0, 1),
+                                            (48, 1, 0), (33, 0, 0),
+                                            (42, 0, 0), (44, 0, 2)])
+def test_batch_kernel_unaligned_operands(dev, gen, metric, bf16, qsplit,
+                                         bf16_db, d, q_off, db_off):
+    """Operands one element past 16-byte alignment, and d off 8, 4 and 2,
+    take the narrower copies and still agree bit for bit."""
+    q, db, invalid, lr = _batch_case(gen, 65, d=d, hi=2)
+    kd, ki, pd, pi = _batch_both(dev, q, db, invalid, lr, 10, metric,
+                                 bf16_db, bf16, qsplit, q_off, db_off)
+    _batch_exact(kd, ki, pd, pi, lr, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("bf16,qsplit", _TIERS)
+@pytest.mark.parametrize("bf16_db", [False, True])
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_batch_kernel_gaussian(dev, gen, metric, bf16, qsplit, bf16_db, k):
+    """The main-path geometry (256-slot buckets with 10-60 live rows,
+    capacity 4096 with 700-1300 valid rows, d 128) on Gaussian data: the
+    kernel sums in another order than the plain version's matmul, so
+    distances agree within 2e-6 of the largest |q|^2 + |y|^2
+    (chip_smoke.py's norm_tol) and near-ties may swap ids (per-slot recall
+    >= 0.999)."""
+    B, cap, d, m = 16, 4096, 128, 256
+    db = torch.as_tensor(gen.standard_normal((B, cap, d), dtype=np.float32),
+                         device=dev)
+    q = torch.as_tensor(gen.standard_normal((B, m, d), dtype=np.float32),
+                        device=dev)
+    if bf16_db:
+        db = db.to(torch.bfloat16)
+    invalid = torch.as_tensor(
+        np.arange(cap)[None, :] >= gen.integers(700, 1300, (B, 1)),
+        device=dev)
+    lr = torch.as_tensor(gen.integers(10, 61, B).astype(np.int32),
+                         device=dev)
+    y = db if bf16 and bf16_db else db.float()
+    kd, ki = fk._fused_batch_knn_cuda(q, y, invalid, k, metric == "l2", bf16,
+                                      qsplit, lr)
+    pd, pi = fk._fused_batch_knn_plain(q, y, invalid, k, metric == "l2",
+                                       bf16, qsplit, lr)
+    tol = 2e-6 * float(torch.max(torch.sum(q * q, -1))
+                       + torch.max(torch.sum(db.float() ** 2, -1)))
+    fin = torch.isfinite(pd)
+    assert torch.equal(fin, torch.isfinite(kd))
+    assert float(torch.max(torch.abs(kd[fin] - pd[fin]))) <= tol
+    hit = (ki[:, :, :, None] == pi[:, :, None, :]).any(dim=3)
+    live = torch.arange(m, device=dev)[None, :] < lr[:, None]
+    assert float(hit[live].float().mean()) >= 0.999
+    assert bool((ki[~live] == -1).all())
+
+
 def _pq_case(gen, bits, cap=700, J=8, L=2, C=7, qrows=40, hi=4):
     """B4 operands on integer data: books in [-3, 3] with a +-127 entry
     in every row of both table halves (so the int8 tables have a scale of

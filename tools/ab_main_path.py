@@ -35,8 +35,20 @@ events (median) unless named ``_s``:
 * ``ivf_pq_search_ms``: the IVF-PQ compressed search of the 10,000
   queries at 32 probes (through kernel B4);
 * ``b4_ms``: kernel B4 (``pq_fused_scan``) alone at that search's cells
-  (6024 cells x 64 rows, capacity 4096, rot 128, k=10).
+  (6024 cells x 64 rows, capacity 4096, rot 128, k=10);
+* ``recon_search_ms``: the IVF-PQ recon tier (``reconstructed()``, then
+  ``engine="bucketed"``, ``bucket_cap=256``) on the first 1000 queries;
+* ``b3_ms``: kernel B3 (``fused_batch_knn``) alone at that search's shape
+  (1024 buckets of 256 query slots, ~31 live, against the (1024, 4096,
+  128) bf16 cache, k=10), called as that root's engine calls it (with the
+  buckets' live rows where the root's B3 takes them);
+* ``b3_decode_ms``: B3 at one decode-scan launch (the first 32 lists,
+  decoded), likewise;
+* ``decode_search_ms``: the decode scan of those 1000 queries (the
+  probes, the rotation, then 32 blocks of 32 lists decoded and scanned),
+  as ``search`` runs it when the cache would be too large.
 """
+import inspect
 import json
 import subprocess
 import sys
@@ -117,4 +129,44 @@ Qc = (rotq_p[torch.clamp_min(bucket, 0)]
       - crot_p[torch.clamp_min(cell_list, 0).long()][:, None, :]).contiguous()
 out["b4_ms"] = cs.time_ms(lambda: ps._pq_fused_scan_cuda(
     cell_list, Qc, codesT, lo, hi, invalid, cs.K, J, bits, False), 11)
+del Qc
+Qs = Q[:cs.N_SUB]
+recon = pq_index.reconstructed()
+sp_r = ivf_pq.SearchParams(n_probes=cs.N_PROBES, engine="bucketed",
+                           bucket_cap=cs.BUCKET_CAP)
+out["recon_search_ms"] = cs.time_ms(
+    lambda: ivf_pq.search(sp_r, pq_index, Qs, cs.K), 11)
+bucket, _ = ivf_flat._invert_probe_map(
+    ivf_pq._select_clusters(Qs, pq_index.centers, cs.N_PROBES, False),
+    pq_index.n_lists, cs.BUCKET_CAP)
+Qb = gram(Qs, pq_index.rotation_matrix)[torch.clamp_min(bucket, 0)]
+invalid = (torch.arange(recon.shape[1], device=dev)[None, :]
+           >= pq_index.list_sizes[:, None]).contiguous()
+extra = ()
+if "live_rows" in inspect.signature(fk._fused_batch_knn_cuda).parameters:
+    extra = ((bucket >= 0).sum(1).to(torch.int32),)
+out["b3_ms"] = cs.time_ms(lambda: fk._fused_batch_knn_cuda(
+    Qb, recon, invalid, cs.K, True, True, False, *extra), 11)
+blk = 32
+drecon = ivf_pq._decode_lists_block(
+    pq_index.pq_codes[:blk], pq_index.centers_rot()[:blk],
+    pq_index.pq_centers.reshape(-1), J, 1 << bits, recon.shape[2] // J, bits,
+    False)
+dargs = (Qb[:blk].contiguous(), drecon, invalid[:blk].contiguous(), cs.K,
+         True, True, False) + tuple(x[:blk].contiguous() for x in extra)
+out["b3_decode_ms"] = cs.time_ms(lambda: fk._fused_batch_knn_cuda(*dargs),
+                                 11)
+del drecon, dargs
+
+
+def decode_search():
+    pr = ivf_pq._select_clusters(Qs, pq_index.centers, cs.N_PROBES, False)
+    return ivf_pq._bucketed_decode_scan(
+        gram(Qs, pq_index.rotation_matrix), pq_index.pq_codes,
+        pq_index.pq_centers, pq_index.centers_rot(), pq_index.indices,
+        pq_index.list_sizes, pr, cs.K, False, False, cs.BUCKET_CAP, J, bits,
+        pq_index.deleted)
+
+
+out["decode_search_ms"] = cs.time_ms(decode_search, 5)
 print(json.dumps(out), flush=True)
