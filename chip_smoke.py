@@ -23,8 +23,11 @@ no result line):
    alignment; B3 on both of its paths (the tensor-core scan, B2's scan),
    with every row and with live rows; B5 (``stream_extract``) against its
    plain version on Gaussian keys, integer keys with ties, sorted rows, a
-   constant batch, +-inf-heavy rows, NaN rows and a batch of 13 x 100,000
-   keys (candidate arrays bit for bit), and ``select_k(kStream)`` on those
+   constant batch, +-inf-heavy rows, NaN rows, a batch of 13 x 100,000
+   keys, 9 and 33 keys tied at the threshold (its survivor list and its
+   eight passes) and signed zeros, each also one float into its storage
+   (its 4-byte loads), candidate arrays bit for bit (the sign of a zero
+   included), and ``select_k(kStream)`` on those
    keys in f32, bf16 and f16, both polarities, against the plain path on
    the CPU and ``kTopK`` on the card (values and ids bit for bit);
 4. the main path, with every launch counter set to 0 just before it and
@@ -62,9 +65,11 @@ no result line):
    gate's corners (8 x 65,536, k=64; 1024 x 262,144, k=256): one B5 launch
    per gated call and none at k=10, results equal to ``kTopK``'s; at each
    gated shape B5's candidates bit for bit against its plain version, and
-   no row flagged by kStream's audit; then B5 alone, the whole kStream
-   select, ``kTopK``'s stable sort and
-   ``torch.topk`` (the library yardstick) timed beside B5's bound;
+   no row flagged by kStream's audit; then B5 alone (CUDA events, device
+   time, and the wrapper's host time a call over 200 calls enqueued
+   without a synchronise), the whole kStream select, ``kTopK``'s stable
+   sort and ``torch.topk`` (the library yardstick) timed beside B5's
+   bound;
 8. the lifecycle path on the 1M indexes of phases 4 and 6, after their
    timings, counters set to 0 before it and read after each step:
    multi-part ``knn`` over 4 parts of 250,000 rows (ids and distances equal
@@ -232,6 +237,22 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def host_enqueue_ms(fn, reps: int = 200) -> float:
+    """Host milliseconds per call of ``fn`` over ``reps`` calls enqueued
+    without a synchronise (the wrapper's own cost; the device may still be
+    running when the clock stops)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return host
 
 
 def check_kernels(dev) -> None:
@@ -1157,15 +1178,18 @@ def decode_block(index, Qb, route, invalid, live):
 
 
 def same_bits(a, b) -> bool:
-    """Equal shapes and values, NaN where NaN (a selection has no
-    rounding, so kernel and plain version must agree exactly)."""
+    """Equal shapes and bits, NaN where NaN (a selection has no rounding,
+    so kernel and plain version must agree exactly, the sign of a zero
+    included; a NaN's payload may differ)."""
     import torch
 
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
     an, bn = torch.isnan(a), torch.isnan(b)
-    return torch.equal(an, bn) and torch.equal(a.masked_fill(an, 0),
-                                               b.masked_fill(bn, 0))
+    ints = {torch.float32: torch.int32, torch.float16: torch.int16,
+            torch.bfloat16: torch.int16}[a.dtype]
+    return torch.equal(an, bn) and torch.equal(
+        a.masked_fill(an, 0).view(ints), b.masked_fill(bn, 0).view(ints))
 
 
 def max_err_nan(a, b) -> float:
@@ -1197,11 +1221,24 @@ def check_b5_candidates(x, what: str) -> float:
 
 def b5_keys(rng, kind):
     """Phase-3 keys for B5: (16, 24576), or (13, 100000), ragged in both
-    axes."""
+    axes. ``ties`` puts 9 keys (in 9 lanes) at one value in the first half
+    of the sub-chunks and 33 in the rest, so the kernel takes its survivor
+    list and its eight passes; ``zeros`` mixes -0 and +0 among the
+    extracts."""
     if kind == "ragged":
         return rng.standard_normal((13, 100_000)).astype(np.float32)
     x = rng.standard_normal((16, 24576)).astype(np.float32)
-    if kind == "int_ties":
+    if kind == "ties":
+        x = 5 + rng.random(x.shape).astype(np.float32)
+        subs = x.reshape(16, 48, 512)
+        lanes = np.arange(32) + 32 * (np.arange(32) % 4)
+        subs[:, :24, lanes[:9]] = 1.0
+        subs[:, 24:, lanes] = 1.0
+        subs[:, 24:, 511] = 1.0
+    elif kind == "zeros":
+        x[rng.random(x.shape) < 0.01] = 0.0
+        x[rng.random(x.shape) < 0.01] = -0.0
+    elif kind == "int_ties":
         x = rng.integers(0, 3, x.shape).astype(np.float32)
     elif kind == "sorted":
         x[:5] = np.sort(x[:5], axis=1)
@@ -1230,9 +1267,14 @@ def check_kernel_b5(dev) -> float:
     rng = np.random.default_rng(SEED + 2)
     err = 0.0
     for kind in ("gauss", "int_ties", "sorted", "constant", "inf_heavy",
-                 "nan", "ragged"):
+                 "nan", "ragged", "ties", "zeros"):
         x = torch.as_tensor(b5_keys(rng, kind))
         err = max(err, check_b5_candidates(x.to(dev), kind))
+        # One float into its storage: the rows leave 16 bytes, so the
+        # kernel takes its 4-byte loads.
+        buf = torch.empty(x.numel() + 1, device=dev)
+        err = max(err, check_b5_candidates(buf[1:].view(x.shape).copy_(x),
+                                           kind + " (4-byte loads)"))
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             # One cast, then a copy: the CPU casts NaN to bf16 as a negative
             # NaN and the card as a positive one.
@@ -1325,12 +1367,14 @@ def select_phase(dev, b5_err: float):
             b5_ms = time_ms(lambda: ss._stream_extract_cuda(x), 10)
             dev_ms = device_ms(lambda: ss._stream_extract_cuda(x),
                                "stream_extract_kernel")
+            host_ms = host_enqueue_ms(lambda: ss._stream_extract_cuda(x))
             nbytes = 4.0 * b * nn + 8.0 * b * ss.n_candidates(nn)
             bound = nbytes / PEAK_BYTES * 1e3
             dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
             line += (f", B5 alone {b5_ms:.4f} ms by CUDA events (device "
-                     f"time by torch.profiler {dev_txt}; bound {bound:.4f} "
-                     f"ms, bytes), kStream - B5 = rank + audit "
+                     f"time by torch.profiler {dev_txt}; wrapper host time "
+                     f"{host_ms:.4f} ms a call; bound {bound:.4f} ms, "
+                     f"bytes), kStream - B5 = rank + audit "
                      f"{auto_ms - b5_ms:.3f} ms")
             if (b, nn, k) == SELECT_SHAPES[0]:
                 plain_ms = time_ms(lambda: ss._stream_extract_plain(x), 3)

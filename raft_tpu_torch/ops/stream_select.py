@@ -4,16 +4,20 @@ Port of the Pallas sweep of ``raft_tpu/matrix/select_k.py::
 _stream_select_min`` (kernel ``_mextract_kernel``, core
 :func:`extract_m_rows`). The f32 keys (batch, n) are read as if padded with
 +inf to a multiple of 8192 positions; every 512-position sub-chunk yields
-its 8 smallest (value, position) pairs, ascending, ties to the lowest
-position, at columns [8s, 8s + 8) of a (batch, n_pad / 64) candidate block.
-A sub-chunk with fewer than 8 finite entries repeats (inf, its first
-position) on its tail passes; one holding a NaN gives (NaN, INT32_MAX) on
-every pass, as ``jnp.min`` propagates NaN and ``==`` matches nothing.
+its 8 smallest (value, position) pairs, ascending by (value compared as a
+float, position), at columns [8s, 8s + 8) of a (batch, n_pad / 64)
+candidate block. -0 and +0 compare equal there, and the value written is
+the key's own bits at the written position (the reference writes
+``jnp.min``'s result, whose zero sign is unspecified). A sub-chunk with
+fewer than 8 entries below +inf repeats (inf, its first position) on its
+tail passes; one holding a NaN gives (NaN, INT32_MAX) on every pass, as
+``jnp.min`` propagates NaN and ``==`` matches nothing.
 
-The kernel is hand-written CUDA in ``csrc/stream_select.cu``. The plain
-version runs :func:`extract_m_rows` over a (batch, n_pad / 512, 512) view.
-The wrapper takes the plain version only for CPU tensors; for CUDA tensors
-it launches the kernel or raises. ``stream_extract.launches`` counts the
+The kernel is hand-written CUDA in ``csrc/stream_select.cu``; its one
+launch choice, the load width, is :func:`_b5_plan`'s. The plain version
+runs :func:`extract_m_rows` over a (batch, n_pad / 512, 512) view. The
+wrapper takes the plain version only for CPU tensors; for CUDA tensors it
+launches the kernel or raises. ``stream_extract.launches`` counts the
 launches.
 """
 
@@ -47,14 +51,21 @@ def extract_m_rows(work, ids, m: int, out_v, out_i, lane_base: int = 0):
     """``m`` passes of the streaming extract over the last axis of ``work``
     (f32, min order): each pass takes the minimum, the lowest id among the
     entries equal to it, knocks that entry out with +inf and writes the
-    pair at column ``lane_base + t`` of ``(out_v, out_i)``. Leading axes
+    entry's own value (a NaN minimum matches no id: NaN, ``I32MAX``) and
+    id at column ``lane_base + t`` of ``(out_v, out_i)``. Leading axes
     broadcast. Returns ``(residual work, out_v, out_i)``."""
     col = torch.arange(out_v.shape[-1], device=out_v.device)
     for t in range(m):
         cur = torch.amin(work, dim=-1, keepdim=True)
         hit = work == cur
         sel = torch.amin(torch.where(hit, ids, I32MAX), dim=-1, keepdim=True)
-        work = torch.where(ids == sel, float("inf"), work)
+        at = ids == sel
+        # The key at sel, not cur: amin's choice between -0 and +0 is
+        # unspecified.
+        own = torch.gather(work, -1, torch.argmax(at.to(torch.uint8), -1,
+                                                  keepdim=True))
+        cur = torch.where(sel == I32MAX, cur, own)
+        work = torch.where(at, float("inf"), work)
         put = col == lane_base + t
         out_v = torch.where(put, cur, out_v)
         out_i = torch.where(put, sel, out_i)
@@ -76,12 +87,21 @@ def _stream_extract_plain(keys) -> Tuple[torch.Tensor, torch.Tensor]:
     return out_v.reshape(batch, nc * M), out_i.reshape(batch, nc * M)
 
 
+def _b5_plan(n: int, data_ptr: int) -> bool:
+    """Whether B5 takes 16-byte loads: every row must start on 16 bytes,
+    so ``n % 4 == 0`` and the keys' pointer aligned (a contiguous view one
+    float into its storage is not). The C entry refuses a 16-byte launch
+    that breaks either."""
+    return n % 4 == 0 and data_ptr % 16 == 0
+
+
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
 def _lib():
     lib = _build.load_library("stream_select")
     if lib.stream_extract_launch.argtypes is None:
-        lib.stream_extract_launch.argtypes = ([ctypes.c_void_p] * 3
-                                              + [ctypes.c_int] * 3
-                                              + [ctypes.c_void_p])
+        lib.stream_extract_launch.argtypes = _ARGTYPES
         lib.stream_extract_launch.restype = ctypes.c_int
     return lib
 
@@ -100,6 +120,7 @@ def _stream_extract_cuda(keys) -> Tuple[torch.Tensor, torch.Tensor]:
         err = lib.stream_extract_launch(_build.ptr(keys), _build.ptr(out_v),
                                         _build.ptr(out_i),
                                         batch, n, width // M,
+                                        int(_b5_plan(n, keys.data_ptr())),
                                         _build.stream(keys.device))
     _build.check(err, "stream_extract launch")
     stream_extract.launches += 1

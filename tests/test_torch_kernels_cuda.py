@@ -744,6 +744,133 @@ def test_stream_extract_kernel(dev, gen, kind):
     np.testing.assert_array_equal(n(i), n(pi))
 
 
+def _same_bits(a, b):
+    """Candidate values equal by bits (so -0 != +0), NaN where NaN (a
+    NaN's payload may differ: the plain version keeps the key's)."""
+    a, b = n(a), n(b)
+    an, bn = np.isnan(a), np.isnan(b)
+    np.testing.assert_array_equal(an, bn)
+    np.testing.assert_array_equal(np.where(an, 0, a).view(np.int32),
+                                  np.where(bn, 0, b).view(np.int32))
+
+
+# One position per sub-chunk lane in both of B5's lane layouts (16-byte:
+# lane (p % 128) // 4; 4-byte: lane p % 32): p_i = i + 32 (i % 4).
+_B5_LANE_SPREAD = np.arange(32) + 32 * (np.arange(32) % 4)
+
+
+def _b5_edge_keys(gen, kind):
+    """(4, 8192) keys whose sub-chunks hit B5's branches: ``ties_C``, C
+    keys at the threshold value (the first 32 in 32 lanes, so C keys are
+    <= tau; C <= 32 takes the survivor list, C > 32 the eight passes) with
+    the rest above it; ``zeros``, a random sign for each of the 9 tied
+    zeros; ``neg_inf`` (-inf-heavy), ``starved`` (1-7 keys below +inf),
+    ``constant``; ``nan_slow``, a constant row with a NaN in one
+    sub-chunk."""
+    x = 5 + gen.random((4, 8192)).astype(np.float32)
+    subs = x.reshape(4, 16, 512)
+    if kind.startswith("ties_") or kind == "zeros":
+        cnt = 9 if kind == "zeros" else int(kind[5:])
+        for r in range(4):
+            for s in range(16):
+                pos = list(_B5_LANE_SPREAD[:min(cnt, 32)])
+                rest = np.setdiff1d(np.arange(512), pos)
+                pos += list(gen.permutation(rest)[:max(0, cnt - 32)])
+                subs[r, s, pos] = 1.0
+                if kind == "zeros":
+                    subs[r, s, pos] = np.where(gen.random(cnt) < 0.5, 0.0,
+                                               -0.0)
+    elif kind == "neg_inf":
+        x[gen.random(x.shape) < 0.3] = -np.inf
+        x[1, :600] = -np.inf
+    elif kind == "starved":
+        x[:] = np.inf
+        for r in range(4):
+            for s in range(16):
+                k = 1 + (r * 16 + s) % 7
+                subs[r, s, gen.permutation(512)[:k]] = gen.standard_normal(k)
+    elif kind == "constant":
+        x[:] = 3.0
+    elif kind == "nan_slow":
+        x[:] = 3.0
+        x[2, 1000] = np.nan
+    return x
+
+
+_B5_EDGES = ["ties_8", "ties_9", "ties_32", "ties_33", "ties_512", "zeros",
+             "neg_inf", "starved", "constant", "nan_slow"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", _B5_EDGES)
+def test_stream_extract_kernel_branches(dev, gen, kind):
+    """Both branches of B5 (the survivor list and the eight passes), both
+    load widths, against the plain version: positions equal, values by
+    bits (the key's own zero sign)."""
+    x = _b5_edge_keys(gen, kind)
+    pv, pi = ss.stream_extract(torch.as_tensor(x))
+    for keys in (torch.as_tensor(x, device=dev),
+                 _offset_view(torch.as_tensor(x, device=dev), 1)):
+        v, i = ss.stream_extract(keys)
+        np.testing.assert_array_equal(n(i), n(pi))
+        _same_bits(v, pv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,length,offset", [
+    (3, 8193, 0), (3, 8194, 0), (3, 8195, 0), (5, 65539, 0),
+    (4, 8192, 1), (4, 8192, 2), (4, 24576, 3), (3, 9000, 0), (3, 9000, 1),
+    (2, 300, 0), (2, 511, 0), (2, 513, 0)])
+def test_stream_extract_kernel_load_widths(dev, gen, batch, length, offset):
+    """Rows off 16 bytes (n % 4 != 0, or a view ``offset`` floats into its
+    storage) take the 4-byte loads, the rest the 16-byte ones; row lengths
+    off the 512-key sub-chunk read +inf past n."""
+    x = gen.standard_normal((batch, length)).astype(np.float32)
+    x[0, :5] = [0.0, -0.0, -np.inf, 0.0, -0.0]
+    keys = _offset_view(torch.as_tensor(x, device=dev), offset)
+    assert ss._b5_plan(length, keys.data_ptr()) == (
+        length % 4 == 0 and offset % 4 == 0)
+    v, i = ss.stream_extract(keys)
+    pv, pi = ss.stream_extract(torch.as_tensor(x))
+    np.testing.assert_array_equal(n(i), n(pi))
+    _same_bits(v, pv)
+
+
+@pytest.mark.cuda
+def test_stream_extract_refuses_16_byte_loads_off_alignment(dev):
+    """The C entry refuses the 16-byte loads on a row start off 16 bytes."""
+    keys = _offset_view(torch.zeros((2, 8192), device=dev), 1)
+    out_v = torch.empty((2, ss.n_candidates(8192)), device=dev)
+    out_i = torch.empty((2, ss.n_candidates(8192)), dtype=torch.int32,
+                        device=dev)
+    lib = ss._lib()
+    for n_keys, k in ((8192, keys), (8190, keys[:, :8190].contiguous())):
+        err = lib.stream_extract_launch(
+            ss._build.ptr(k), ss._build.ptr(out_v), ss._build.ptr(out_i), 2,
+            n_keys, 16, 1, ss._build.stream(dev))
+        assert err != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("select_min", [True, False])
+def test_kstream_signed_zeros_on_the_card(dev, gen, select_min):
+    """+0 and -0 among the extracts: the candidates keep each key's zero,
+    and kStream orders them as kTopK (lax.top_k: -0 before +0)."""
+    x = 5 + gen.standard_normal((8, 65536)).astype(np.float32)
+    x[:, [3, 5, 600, 9000]] = [0.0, -0.0, -0.0, 0.0]
+    if not select_min:
+        x = -x
+    keys = torch.as_tensor(x, device=dev)
+    v, i = select_k(keys, 64, select_min, method=SelectMethod.kStream)
+    tv, ti = select_k(keys, 64, select_min, method=SelectMethod.kTopK)
+    np.testing.assert_array_equal(n(i), n(ti))
+    _same_bits(v, tv)
+    kv, ki = ss.stream_extract(keys if select_min else -keys)
+    pv, pi = ss.stream_extract(torch.as_tensor(x if select_min else -x))
+    np.testing.assert_array_equal(n(ki), n(pi))
+    _same_bits(kv, pv)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", _B5_KINDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

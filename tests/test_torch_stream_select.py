@@ -76,11 +76,26 @@ def _rows(kind, rng, batch=6, length=8192):
         return x
     if kind == "ragged":
         return rng.standard_normal((batch, 10000)).astype(np.float32)
+    if kind.startswith("ties_"):
+        # C keys at one value in every sub-chunk, the rest above it: the
+        # counts on each side of the kernel's 32-survivor list.
+        x = 5 + rng.random((batch, length)).astype(np.float32)
+        subs = x.reshape(batch, -1, 512)
+        for r in range(batch):
+            for s in range(subs.shape[1]):
+                subs[r, s, rng.permutation(512)[:int(kind[5:])]] = 1.0
+        return x
+    if kind == "zeros":
+        x = rng.standard_normal((batch, length)).astype(np.float32)
+        x[rng.random((batch, length)) < 0.02] = 0.0
+        x[rng.random((batch, length)) < 0.02] = -0.0
+        return x
     raise ValueError(kind)
 
 
 @pytest.mark.parametrize("kind", ["gauss", "int_ties", "starved", "nan",
-                                  "inf_heavy", "ragged"])
+                                  "inf_heavy", "ragged", "ties_8", "ties_9",
+                                  "ties_32", "ties_33", "ties_512", "zeros"])
 def test_plain_extract_matches_reference(rng, kind):
     x = _rows(kind, rng)
     v, i = ss.stream_extract(t(x))
@@ -89,6 +104,19 @@ def test_plain_extract_matches_reference(rng, kind):
     assert v.shape == (x.shape[0], ss.n_candidates(x.shape[1]))
     np.testing.assert_array_equal(n(v), jv)
     np.testing.assert_array_equal(n(i), ji)
+
+
+@pytest.mark.parametrize("first,second", [(0.0, -0.0), (-0.0, 0.0)])
+def test_plain_extract_writes_the_keys_own_zero(first, second):
+    """-0 and +0 tie, so the lower position comes first, and each extract
+    is the key at its position, sign included (the reference writes
+    ``jnp.min``'s zero for both)."""
+    x = np.full((1, 8192), 3.0, np.float32)
+    x[0, 3], x[0, 5] = first, second
+    v, i = (n(a) for a in ss.stream_extract(t(x)))
+    np.testing.assert_array_equal(i[0, :3], [3, 5, 0])
+    np.testing.assert_array_equal(np.signbit(v[0, :2]),
+                                  np.signbit([first, second]))
 
 
 def test_extract_signatures(rng):
@@ -291,3 +319,29 @@ def test_nan_signs_and_signed_zeros_follow_lax_top_k(dtype, select_min,
     pv, rv = n(v.float()), n(jv).astype(np.float32)
     np.testing.assert_array_equal(np.signbit(pv), np.signbit(rv))
     np.testing.assert_array_equal(pv, rv)
+
+
+@pytest.mark.parametrize("select_min", [True, False])
+def test_kstream_signed_zeros_follow_lax_top_k_not_the_reference_kstream(
+        rng, select_min):
+    """+0 at position 3 and -0 at 5 (mirrored for a max-selection) among
+    the k best, no NaN, and no row flagged by the audit, so the candidates
+    decide the answer: the port's kStream gives lax.top_k's order [5, 3]
+    (-0 below +0). The reference's kStream gives [3, 5]: its extract
+    writes ``jnp.min``'s zero for both (ROADMAP C.2)."""
+    x = (5 + rng.standard_normal((8, 65536))).astype(np.float32)
+    x[:, 3], x[:, 5] = 0.0, -0.0
+    if not select_min:
+        x = -x
+    keys = t(x) if select_min else -t(x)
+    cand_v, _ = ss.stream_extract(keys)
+    assert not sk._audit_failures(cand_v,
+                                  sk.stable_top_k(cand_v, 64)[0]).any()
+    v, i = select_k(t(x), 64, select_min, method=SelectMethod.kStream)
+    jv, ji = jselect_k(x, 64, select_min, method=JMethod.kTopK)
+    np.testing.assert_array_equal(n(i), n(ji))
+    np.testing.assert_array_equal(np.signbit(n(v)), np.signbit(n(jv)))
+    np.testing.assert_array_equal(n(v), n(jv))
+    assert (n(i)[:, :2] == [5, 3]).all()
+    _, ri = jselect_k(x, 64, select_min, method=JMethod.kStream)
+    assert (n(ri)[:, :2] == [3, 5]).all()

@@ -46,7 +46,11 @@ events (median) unless named ``_s``:
   decoded), likewise;
 * ``decode_search_ms``: the decode scan of those 1000 queries (the
   probes, the rotation, then 32 blocks of 32 lists decoded and scanned),
-  as ``search`` runs it when the cache would be too large.
+  as ``search`` runs it when the cache would be too large;
+* ``b5_ms``: kernel B5 (``stream_extract``) alone on 1024 x 262,144
+  Gaussian keys made on the card (the ``kAuto`` gate's high corner);
+* ``select_1024x262144_k256_ms``: ``select_k`` through ``kAuto`` on those
+  keys, k=256 (B5, the rank and the audit).
 """
 import inspect
 import json
@@ -65,6 +69,7 @@ from raft_tpu_torch.neighbors import ivf_flat, ivf_pq  # noqa: E402
 from raft_tpu_torch.ops import _build  # noqa: E402
 from raft_tpu_torch.ops import fused_knn as fk  # noqa: E402
 from raft_tpu_torch.ops import pq_scan as ps  # noqa: E402
+from raft_tpu_torch.ops import stream_select as ss  # noqa: E402
 
 
 def build_s(mod, X):
@@ -169,4 +174,8 @@ def decode_search():
 
 
 out["decode_search_ms"] = cs.time_ms(decode_search, 5)
+keys = torch.randn((1024, 262144), generator=g, device=dev)
+out["b5_ms"] = cs.time_ms(lambda: ss._stream_extract_cuda(keys), 11)
+out["select_1024x262144_k256_ms"] = cs.time_ms(lambda: select_k(keys, 256),
+                                               11)
 print(json.dumps(out), flush=True)
