@@ -70,7 +70,28 @@ no result line):
    without a synchronise), the whole kStream select, ``kTopK``'s stable
    sort and ``torch.topk`` (the library yardstick) timed beside B5's
    bound;
-8. the lifecycle path on the 1M indexes of phases 4 and 6, after their
+8. the serve phase (``raft_tpu_torch.serve``) on phase 4's IVF-Flat and
+   phase 6's IVF-PQ indexes and a brute-force ``Searcher`` over the same
+   rows, before anything mutates them, counters set to 0 before it and
+   read after each drive: ``warmup`` over ``BucketGrid.pow2(512, k_grid=(10,
+   100))`` with the ladder (1.0, 0.5, 0.25), twice (the second counts no
+   kernel build or load); bench/serve.py's stream (2000 requests of 1-32
+   rows, k in {10, 100}, seed 5; queries = rows + N(0, 1)) served one
+   ``search`` per request, then by a closed-loop ``BatchScheduler``
+   (``max_batch=512``, ``max_wait=0``) under a ``CompileCounter`` that
+   must read 0; brute-force and IVF-Flat served ids equal to the
+   per-request ids but at near-ties within ``norm_tol`` (counted), IVF-PQ
+   recall@10 of both drives within 0.01 of phase 6's, IVF-Flat served
+   recall@10 >= 0.995 against the brute-force answers, the batched IVF
+   drives launching B2 and B4; in each closed-loop drive, the first full
+   batch of each k (brute force: 512 rows over the 1M rows) keeps the
+   operands and the answer B1, B2 or B4 gave it, held against the plain
+   version on those operands (per-slot recall@k >= 0.999, distances
+   within ``norm_tol``); QPS of both drives, the closed loop's p50 / p99
+   (queueing: every request is submitted at once), padded waste, and the
+   hit rate and per-request p50 / p99 latency of a 30%-repeat open-loop
+   stream;
+9. the lifecycle path on the 1M indexes of phases 4 and 6, after their
    timings, counters set to 0 before it and read after each step:
    multi-part ``knn`` over 4 parts of 250,000 rows (ids and distances equal
    to phase 4's), ``delete`` of 100,000 seeded ids from both indexes (no
@@ -80,7 +101,13 @@ no result line):
    ``shrink_capacity`` (capacity before and after), and an ``upsert`` of
    1000 rows (exactly one epoch bump), with the delete, compact and search
    times;
-9. a ``kernels`` line, the card line, and the result line.
+10. mutations under serving, counters set to 0 before and read after: a
+    ``Searcher`` over the compacted IVF-Flat index of phase 9 with a
+    cached ``BatchScheduler``; ``Searcher.delete`` of 100,000 more seeded
+    live ids (one epoch bump, the cache emptied, no deleted id returned),
+    then ``Compactor(searcher).run_once(force=True)`` (ids identical to the
+    tombstoned search's), with the delete ms and compact s;
+11. a ``kernels`` line, the card line, and the result line.
 
 The data is made with numpy from a fixed seed: 1000 Gaussian blobs
 (centers uniform in [-10, 10], sigma 5), queries = database rows + N(0, 1).
@@ -136,6 +163,15 @@ B2_CASES = ((6, 300, 32, 9, 64, 10), (5, 129, 128, 7, 8, 256),
 N_PARTS = 4               # lifecycle: multi-part brute force
 N_DELETE = 100_000        # lifecycle: rows deleted from each index
 N_UPSERT = 1000           # lifecycle: rows upserted into each index
+# The serve phase: bench/serve.py's full stream (bench/serve.py:77-81) and
+# a grid whose full batch crosses the IVF engines' kernel gate (a probe
+# load n_queries * n_probes / n_lists >= 8 from 256 rows at 32 / 1024).
+SERVE_REQUESTS = 2000
+SERVE_MAX_ROWS = 32
+SERVE_K_GRID = (10, 100)
+SERVE_MAX_BATCH = 512
+SERVE_REPEAT = 0.3
+SERVE_LADDER = (1.0, 0.5, 0.25)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FP32 = 67e12
@@ -1388,20 +1424,418 @@ def select_phase(dev, b5_err: float):
     return entry
 
 
+def serve_stream(X, rng, repeat_frac):
+    """bench/serve.py's request stream (``_request_stream``,
+    bench/serve.py:38-50): SERVE_REQUESTS requests of 1-SERVE_MAX_ROWS
+    rows, k uniform over SERVE_K_GRID, a ``repeat_frac`` share of exact
+    repeats; each query is a database row plus N(0, 1), as ``make_data``
+    makes them. Returns ``[(float32 numpy queries, k)]``."""
+    import torch
+
+    plan = []
+    for _ in range(SERVE_REQUESTS):
+        if plan and rng.random() < repeat_frac:
+            plan.append(plan[rng.integers(0, len(plan))])
+        else:
+            n = int(rng.integers(1, SERVE_MAX_ROWS + 1))
+            k = int(SERVE_K_GRID[rng.integers(0, len(SERVE_K_GRID))])
+            plan.append((len(plan), rng.integers(0, N_ROWS, n),
+                         rng.standard_normal((n, DIM), dtype=np.float32), k))
+    fresh = [p for i, p in enumerate(plan) if p[0] == i]
+    rows = X[torch.as_tensor(np.concatenate([p[1] for p in fresh]),
+                             device=X.device)].cpu().numpy()
+    made, at = {}, 0
+    for i, r, noise, k in fresh:
+        made[i] = (rows[at:at + r.size] + noise, k)
+        at += r.size
+    return [made[p[0]] for p in plan]
+
+
+def _stacked(results, k):
+    """The first ``k`` ids and distances of every row of ``results``."""
+    return (np.concatenate([r.indices[:, :k] for r in results]),
+            np.concatenate([r.distances[:, :k] for r in results]))
+
+
+def _latency_ms(stats, q):
+    """Quantile ``q`` over every request's latency window of ``stats``."""
+    lat = np.concatenate([np.asarray(w) for w in stats._latency.values()])
+    return float(np.quantile(lat, q)) * 1e3
+
+
+# The kernel each served drive holds against its plain version on the
+# operands of one full batch per k: (module, launcher, plain version,
+# index of k among the launcher's arguments). Brute force's kept batch
+# must also be a whole SERVE_MAX_BATCH rows.
+SERVE_KERNELS = {
+    "brute_force": ("fused_knn", "_fused_knn_cuda", "_fused_knn_plain", 2),
+    "ivf_flat": ("fused_knn", "_fused_cells_knn_cuda",
+                 "_fused_cells_knn_plain", 4),
+    "ivf_pq": ("pq_scan", "_pq_fused_scan_cuda", "_pq_fused_scan_plain", 6),
+}
+
+
+class _Capture:
+    """Within the ``with`` block, keeps the operands and the answer of the
+    first launch of ``SERVE_KERNELS[name]``'s launcher for each k: the
+    batch's own operands and what the kernel gave it. The launcher still
+    counts its launch; the wrapper launches nothing."""
+
+    def __init__(self, name):
+        import importlib
+
+        mod, self.attr, self.plain, self.k_at = SERVE_KERNELS[name]
+        self.mod = importlib.import_module(f"raft_tpu_torch.ops.{mod}")
+        self.full = SERVE_MAX_BATCH if name == "brute_force" else None
+        self.calls = {}
+
+    def __enter__(self):
+        launch = self.orig = getattr(self.mod, self.attr)
+
+        def kept(*args):
+            out = launch(*args)
+            k = args[self.k_at]
+            if k not in self.calls and (self.full is None
+                                        or args[0].shape[0] == self.full):
+                self.calls[k] = (args, tuple(o.clone() for o in out))
+            return out
+
+        setattr(self.mod, self.attr, kept)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.attr, self.orig)
+
+
+def _recall_rows(found, truth, chunk=4096) -> float:
+    """:func:`recall` over row chunks (k=100 rows of a whole batch's cells
+    would make one (rows, k, k) comparison of gigabytes)."""
+    hits = sum(recall(found[s:s + chunk], truth[s:s + chunk])
+               * found[s:s + chunk].shape[0]
+               for s in range(0, found.shape[0], chunk))
+    return hits / found.shape[0]
+
+
+def serve_batch_checks(name, cap):
+    """Holds each kept served batch's kernel answer against the plain
+    version on the same operands: ids by per-slot recall@k >= RECALL_BF,
+    distances within REL_NORM_TOL of the operands' largest squared norms,
+    as the phase-5 and phase-6 entries do. One batch per k of
+    SERVE_K_GRID must have been kept."""
+    import torch
+
+    if sorted(cap.calls) != sorted(SERVE_K_GRID):
+        raise AssertionError(f"serve {name}: full served batches kept for "
+                             f"k {sorted(cap.calls)}, not {SERVE_K_GRID}")
+    plain = getattr(cap.mod, cap.plain)
+    for k, (args, (kd, ki)) in sorted(cap.calls.items()):
+        pd, pi = plain(*args)
+        if name == "ivf_pq":
+            qc, lo, hi = args[1], args[3], args[4]
+            table = torch.cat([lo[0], hi[0]], dim=1)
+            tol = REL_NORM_TOL * (
+                float(torch.max(torch.sum(qc ** 2, dim=-1)))
+                + float(torch.sum(torch.amax(table ** 2, dim=1))))
+        else:
+            tol = norm_tol(args[1] if name == "ivf_flat" else args[0],
+                           args[2] if name == "ivf_flat" else args[1])
+        if name == "brute_force":
+            rows = f"{args[0].shape[0]} rows x {args[1].shape[0]} db rows"
+            rec = _recall_rows(ki, pi)
+        else:
+            live = args[0] >= 0
+            rows = (f"{int(live.sum())} live cells x {args[1].shape[1]} "
+                    f"rows")
+            rec = _recall_rows(ki[live].reshape(-1, k),
+                               pi[live].reshape(-1, k))
+        err = max_err(kd, pd)
+        log(f"serve {name}: served batch k={k} ({rows}) vs plain: per-slot "
+            f"recall@{k} {rec:.6f} (bar {RECALL_BF}), max |d| err "
+            f"{err:.3e} (tol {tol:.3e})")
+        if rec < RECALL_BF or err > tol:
+            raise AssertionError(f"serve {name}: the served batch's kernel "
+                                 f"answer disagrees with its plain version "
+                                 f"at k={k}")
+
+
+def serve_drives(name, searcher, reqs, reqs_rep, tol, card):
+    """Step 3 of the serve phase for one Searcher: the per-request drive
+    and the closed-loop batched drive of ``reqs`` (both under one
+    CompileCounter, which must read 0; the closed loop keeps one full
+    batch per k for :func:`serve_batch_checks`), then the cache run of
+    ``reqs_rep``. Returns the answers of both drives, the near-tie count
+    and the launches of each drive."""
+    import torch
+
+    from raft_tpu_torch.serve import (BatchPolicy, BatchScheduler,
+                                      BucketGrid, CompileCounter,
+                                      ResultCache)
+
+    grid = BucketGrid.pow2(SERVE_MAX_BATCH, k_grid=SERVE_K_GRID)
+    policy = BatchPolicy(max_batch=SERVE_MAX_BATCH, max_wait=0.0,
+                         max_queue=2 * SERVE_REQUESTS)
+    rows = sum(q.shape[0] for q, _ in reqs)
+    sched = BatchScheduler(searcher, grid, policy)
+    torch.cuda.synchronize()
+    with CompileCounter() as counter:
+        before = _launches()
+        t0 = time.perf_counter()
+        per = [searcher.search(q, k) for q, k in reqs]
+        per_s = time.perf_counter() - t0
+        per_launches = _step(before)
+        before = _launches()
+        with _Capture(name) as cap:
+            t0 = time.perf_counter()
+            tickets = [sched.submit(q, k) for q, k in reqs]
+            sched.run_until_idle()
+            served_s = time.perf_counter() - t0
+        served_launches = _step(before)
+    served = [t.result() for t in tickets]
+    snap = sched.stats.snapshot()["buckets"]
+    padded = sum(b["padded_slots"] for b in snap.values())
+    batched = sum(b["batched_rows"] for b in snap.values())
+    batches = sum(b["batches"] for b in snap.values())
+    if counter.count:
+        raise AssertionError(f"serve {name}: {counter.count} kernel builds "
+                             f"or loads in steady state")
+    serve_batch_checks(name, cap)
+    for a, b in zip(per, served):
+        if a.indices.shape != b.indices.shape or not (
+                np.isfinite(a.distances).all()
+                and np.isfinite(b.distances).all()):
+            raise AssertionError(f"serve {name}: answers not finite (q, k)")
+    ties = None
+    if name != "ivf_pq":
+        # Ids may differ only at near-ties: where the two distances lie
+        # within tol of each other.
+        ties = 0
+        for a, b in zip(per, served):
+            diff = a.indices != b.indices
+            err = np.abs(a.distances - b.distances)
+            if err.max() > tol:
+                raise AssertionError(f"serve {name}: served distances "
+                                     f"differ by {err.max()} > {tol}")
+            ties += int(diff.sum())
+
+    cached = BatchScheduler(searcher, grid, policy,
+                            cache=ResultCache(capacity=4096))
+    for q, k in reqs_rep:
+        cached.submit(q, k)
+        cached.flush()
+    hit = cached.cache.snapshot()["hit_rate"]
+    open_p50 = _latency_ms(cached.stats, 0.5)
+    open_p99 = _latency_ms(cached.stats, 0.99)
+    log(f"serve {name} [{card}]: per-request {rows / per_s:.1f} QPS "
+        f"({per_s:.3f} s, launches {per_launches}); served (closed loop, "
+        f"max_batch {SERVE_MAX_BATCH}) {rows / served_s:.1f} QPS "
+        f"({served_s:.3f} s, {batches} batches, launches {served_launches}),"
+        f" queueing p50 {_latency_ms(sched.stats, 0.5):.3f} ms / p99 "
+        f"{_latency_ms(sched.stats, 0.99):.3f} ms (all submitted at once), "
+        f"padded waste {100.0 * padded / max(1, padded + batched):.2f}%; "
+        f"{SERVE_REPEAT:.0%}-repeat open-loop stream: cache hit rate "
+        f"{hit:.4f}, latency p50 {open_p50:.3f} ms / p99 {open_p99:.3f} ms"
+        + ("" if ties is None else
+           f"; served ids = per-request ids but {ties} near-tie slots "
+           f"(tol {tol:.3e})"))
+    return {"per": per, "served": served, "ties": ties,
+            "per_launches": per_launches,
+            "served_launches": served_launches}
+
+
+def serve_phase(dev, X, card, flat, pq, pq_recall):
+    """The serve phase, steps 1-3 (module docstring, phase 8) on phase 4's
+    and phase 6's indexes and a brute-force Searcher over ``X``. Returns
+    the launches of the phase."""
+    import torch
+
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
+    from raft_tpu_torch.serve import BucketGrid, Searcher, warmup
+
+    searchers = {
+        "brute_force": Searcher.brute_force(X),
+        "ivf_flat": Searcher.ivf_flat(flat, ivf_flat.SearchParams(
+            n_probes=N_PROBES)),
+        "ivf_pq": Searcher.ivf_pq(pq, ivf_pq.SearchParams(
+            n_probes=N_PROBES)),
+    }
+    grid = BucketGrid.pow2(SERVE_MAX_BATCH, k_grid=SERVE_K_GRID)
+    _zero_counters()
+    torch.cuda.synchronize()
+    for name, s in searchers.items():
+        t0 = time.perf_counter()
+        first = warmup(s, grid, degrade_ladder=SERVE_LADDER)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        second = warmup(s, grid, degrade_ladder=SERVE_LADDER)
+        log(f"serve {name} warmup [{card}]: {first_s:.3f} s, report {first}; "
+            f"second warmup compile_events {second['compile_events']}")
+        if second["compile_events"]:
+            raise AssertionError(f"serve {name}: the second warmup built or "
+                                 f"loaded a kernel")
+    warm = _launches()
+
+    rng = np.random.default_rng(SEED)
+    reqs = serve_stream(X, rng, 0.0)
+    reqs_rep = serve_stream(X, rng, SERVE_REPEAT)
+    qmax = max(float(np.max(np.sum(q * q, axis=1))) for q, _ in reqs)
+    ymax = float(torch.max(torch.sum(X * X, dim=1)))
+    tol = REL_NORM_TOL * (qmax + ymax)
+    out = {name: serve_drives(name, s, reqs, reqs_rep, tol, card)
+           for name, s in searchers.items()}
+
+    truth, _ = _stacked(out["brute_force"]["per"], K)
+    truth = torch.as_tensor(truth)
+    rec = {}
+    for name in ("ivf_flat", "ivf_pq"):
+        for drive in ("per", "served"):
+            ids, _ = _stacked(out[name][drive], K)
+            rec[name, drive] = recall(torch.as_tensor(ids), truth)
+    pq_diff = float(np.mean(np.concatenate(
+        [(a.indices != b.indices).ravel() for a, b in zip(
+            out["ivf_pq"]["per"], out["ivf_pq"]["served"])])))
+    log(f"serve recall@{K} against the brute-force answers: IVF-Flat "
+        f"per-request {rec['ivf_flat', 'per']:.6f}, served "
+        f"{rec['ivf_flat', 'served']:.6f} (bar {RECALL_IVF}); IVF-PQ "
+        f"per-request {rec['ivf_pq', 'per']:.6f}, served "
+        f"{rec['ivf_pq', 'served']:.6f} (phase 6: {pq_recall:.6f}, bar "
+        f"+-{PQ_TIER_GAP}); IVF-PQ ids differing served vs per-request: "
+        f"{pq_diff:.4%}")
+    if rec["ivf_flat", "served"] < RECALL_IVF:
+        raise AssertionError("served IVF-Flat recall below its bar")
+    if any(abs(rec["ivf_pq", d] - pq_recall) > PQ_TIER_GAP
+           for d in ("per", "served")):
+        raise AssertionError("IVF-PQ serve recall off phase 6's")
+    if (out["brute_force"]["per_launches"]["fused_knn"] < SERVE_REQUESTS
+            or out["brute_force"]["served_launches"]["fused_knn"] < 1
+            or out["ivf_flat"]["served_launches"]["fused_cells_knn"] < 1
+            or out["ivf_pq"]["served_launches"]["pq_fused_scan"] < 1):
+        raise AssertionError("a kernel of the serve path did not launch")
+    total = _launches()
+    log(f"serve launches: warmup {warm}, whole phase {total}")
+    serve_engine_mix(X, searchers, reqs, card)
+    return total
+
+
+def serve_engine_mix(X, searchers, reqs, card):
+    """Where a per-request search spends its time, after the serve phase's
+    counted drives: at 16 and 32 rows (k=10) each IVF entry point's auto
+    engine (the plain-torch scan; the kernel gate wants 256 rows at 32 /
+    1024 probes) against the kernel engine forced with engine="bucketed"
+    (B2 / B4), and brute force's whole ``knn`` against B1 alone and its
+    ``expects_finite`` pass over the database. Medians by CUDA events."""
+    import dataclasses
+
+    import torch
+
+    from raft_tpu_torch.core.error import expects_finite
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
+    from raft_tpu_torch.ops import fused_knn as fk
+
+    q = torch.as_tensor(np.concatenate([r for r, _ in reqs])[:32],
+                        device=X.device)
+    for rows in (16, 32):
+        qq = q[:rows].contiguous()
+        line = []
+        for name, mod in (("ivf_flat", ivf_flat), ("ivf_pq", ivf_pq)):
+            s = searchers[name]
+            sp = s._params
+            forced = dataclasses.replace(sp, engine="bucketed")
+            auto_ms = time_ms(lambda: mod.search(sp, s._index, qq, K), 5)
+            kern_ms = time_ms(lambda: mod.search(forced, s._index, qq, K), 5)
+            line.append(f"{name} auto (scan) {auto_ms:.3f} ms, bucketed "
+                        f"({'B2' if name == 'ivf_flat' else 'B4'}) "
+                        f"{kern_ms:.3f} ms")
+        db = searchers["brute_force"]._db
+        whole = time_ms(lambda: searchers["brute_force"]._dispatch(
+            qq, K, None), 5)
+        b1 = time_ms(lambda: fk._fused_knn_cuda(qq, db, K, True, False,
+                                                False), 5)
+        fin = time_ms(lambda: expects_finite("db", db), 5)
+        log(f"serve engine mix at {rows} rows, k={K} [{card}]: "
+            + "; ".join(line) + f"; brute force knn {whole:.3f} ms (B1 "
+            f"alone {b1:.3f} ms, expects_finite over the db {fin:.3f} ms)")
+
+
+def serve_mutations(dev, Q, index, card):
+    """The serve phase, step 4 (module docstring, phase 10): delete and
+    compact under a serving Searcher over the lifecycle phase's compacted
+    IVF-Flat index. Returns the launches of the step."""
+    import torch
+
+    from raft_tpu_torch.lifecycle import Compactor
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.serve import (BatchPolicy, BatchScheduler,
+                                      BucketGrid, ResultCache, Searcher)
+
+    s = Searcher.ivf_flat(index, ivf_flat.SearchParams(n_probes=N_PROBES))
+    sched = BatchScheduler(
+        s, BucketGrid.pow2(SERVE_MAX_BATCH, k_grid=SERVE_K_GRID),
+        BatchPolicy(max_batch=SERVE_MAX_BATCH, max_wait=0.0),
+        cache=ResultCache(capacity=4096))
+    Qh = Q[:N_SUB].cpu().numpy()
+    _zero_counters()
+    torch.cuda.synchronize()
+    for i in range(0, N_SUB, 20):
+        sched.submit(Qh[i:i + 20], K)
+    sched.flush()
+    filled = len(sched.cache)
+    slot = torch.arange(index.indices.shape[1], device=dev)
+    live = slot[None, :] < index.list_sizes[:, None]
+    if index.deleted is not None:
+        live &= ~index.deleted
+    ids = index.indices[live].cpu().numpy()
+    dels = np.random.default_rng(SEED + 4).choice(ids, N_DELETE,
+                                                  replace=False)
+    e0 = s.epoch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = s.delete(dels)
+    torch.cuda.synchronize()
+    delete_ms = (time.perf_counter() - t0) * 1e3
+    if got != N_DELETE or s.epoch != e0 + 1 or len(sched.cache):
+        raise AssertionError(f"Searcher.delete: {got} tombstoned, epoch "
+                             f"{e0} -> {s.epoch}, cache {len(sched.cache)}")
+    tomb = s.search(Q, K)
+    tickets = [sched.submit(Qh[i:i + 20], K) for i in range(0, N_SUB, 20)]
+    sched.flush()
+    served = np.concatenate([t.result().indices for t in tickets])
+    if np.isin(tomb.indices, dels).any() or np.isin(served, dels).any():
+        raise AssertionError("a deleted id was returned after "
+                             "Searcher.delete")
+    n_tomb = s._index.n_deleted
+    t0 = time.perf_counter()
+    rep = Compactor(s).run_once(force=True)
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    after = s.search(Q, K)
+    if (rep is None or rep.reclaimed_slots != n_tomb
+            or s.epoch != e0 + 2 or s.tombstone_frac != 0.0):
+        raise AssertionError(f"Compactor report {rep}, epoch {s.epoch}")
+    if not np.array_equal(after.indices, tomb.indices):
+        raise AssertionError("compacted ids differ from the tombstoned ones")
+    launches = _launches()
+    log(f"serve mutations [{card}]: cache held {filled} answers, emptied by "
+        f"the delete; Searcher.delete of {N_DELETE} ids {delete_ms:.3f} ms "
+        f"(epoch {e0} -> {e0 + 1}), no deleted id returned ({Q.shape[0]} "
+        f"queries searched, {N_SUB} served); Compactor.run_once(force=True) "
+        f"{compact_s:.3f} s, {rep.reclaimed_slots} slots reclaimed, ids "
+        f"identical to the tombstoned search's; launches {launches}")
+    if launches["fused_cells_knn"] < 2:
+        raise AssertionError("the searches after delete did not launch B2")
+    return launches
+
+
 def lifecycle_phase(dev, X, Q, bf, flat, pq, flat_ms, pq_ms, pq_recall):
     """Phase 8: multi-part knn, delete, compact and upsert on the 1M
     indexes, with the counters set to 0 before and read after each step.
-    Returns the launches of the phase."""
+    Returns the launches of the phase and the compacted, upserted
+    IVF-Flat index."""
     import torch
 
     from raft_tpu_torch import lifecycle as lc
     from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
 
     bf_d, bf_i = bf
-    # Phase 6 left IVF-PQ's reconstruction cache in place, which routes
-    # search to the recon tier; this path searches the compressed tier
-    # (B4), as the main path does.
-    pq._recon = None
     _zero_counters()
     torch.cuda.synchronize()
     steps = {}
@@ -1509,7 +1943,7 @@ def lifecycle_phase(dev, X, Q, bf, flat, pq, flat_ms, pq_ms, pq_recall):
         index = compacted[name]
         before = _launches()
         e0 = index.epoch
-        index = lc.upsert(index, vecs, up)
+        index = compacted[name] = lc.upsert(index, vecs, up)
         torch.cuda.synchronize()
         steps[f"upsert_{name}"] = _step(before)
         _, ui = module.search(params, index, vecs, 1)
@@ -1525,8 +1959,8 @@ def lifecycle_phase(dev, X, Q, bf, flat, pq, flat_ms, pq_ms, pq_recall):
             or steps["tombstoned_search"]["pq_fused_scan"] < 1):
         raise AssertionError(f"a kernel of the lifecycle path did not "
                              f"launch: {steps}")
-    return {k: sum(st[k] for st in steps.values())
-            for k in steps["multipart_knn"]}
+    return ({k: sum(st[k] for st in steps.values())
+             for k in steps["multipart_knn"]}, compacted["ivf_flat"])
 
 
 def main() -> int:
@@ -1574,29 +2008,40 @@ def main() -> int:
     b3 = b3_entry(dev, pq["index"], pq["probes_sub"], pq["rotq_sub"])
 
     b5 = select_phase(dev, b5_err)
-    lc = lifecycle_phase(dev, X, Q, mp["bf"], mp["index"], pq["index"],
-                         mp["search_ms"], pq["search_ms"], pq["recall"])
+    # Phase 6 left IVF-PQ's reconstruction cache in place, which routes
+    # search to the recon tier; the serve and lifecycle phases search the
+    # compressed tier (B4), as the main path does.
+    pq["index"]._recon = None
+    sv = serve_phase(dev, X, card, mp["index"], pq["index"], pq["recall"])
+    lc, flat_compacted = lifecycle_phase(
+        dev, X, Q, mp["bf"], mp["index"], pq["index"], mp["search_ms"],
+        pq["search_ms"], pq["recall"])
+    sm = serve_mutations(dev, Q, flat_compacted, card)
 
     kernels = [
         dict(name="fused_knn", route="cuda",
              source="raft_tpu_torch/csrc/knn_gemm.cuh",
              replaces="raft_tpu/ops/fused_knn.py:179",
              launches=mp["launches"]["fused_knn"]
-             + pq["launches"]["fused_knn"] + lc["fused_knn"], **b1),
+             + pq["launches"]["fused_knn"] + sv["fused_knn"]
+             + lc["fused_knn"] + sm["fused_knn"], **b1),
         dict(name="fused_cells_knn", route="cuda",
              source="raft_tpu_torch/csrc/cells_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:426",
              launches=mp["launches"]["fused_cells_knn"]
-             + lc["fused_cells_knn"], **b2),
+             + sv["fused_cells_knn"] + lc["fused_cells_knn"]
+             + sm["fused_cells_knn"], **b2),
         dict(name="fused_batch_knn", route="cuda",
              source="raft_tpu_torch/csrc/batch_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:277",
-             launches=pq["launches"]["fused_batch_knn"], **b3),
+             launches=pq["launches"]["fused_batch_knn"]
+             + sv["fused_batch_knn"] + lc["fused_batch_knn"]
+             + sm["fused_batch_knn"], **b3),
         dict(name="pq_fused_scan", route="cuda",
              source="raft_tpu_torch/csrc/pq_scan.cu",
              replaces="raft_tpu/ops/pq_scan.py:440",
-             launches=pq["launches"]["pq_fused_scan"] + lc["pq_fused_scan"],
-             **b4),
+             launches=pq["launches"]["pq_fused_scan"] + sv["pq_fused_scan"]
+             + lc["pq_fused_scan"] + sm["pq_fused_scan"], **b4),
         dict(name="stream_extract", route="cuda",
              source="raft_tpu_torch/csrc/stream_select.cu",
              replaces="raft_tpu/matrix/select_k.py:218", **b5),

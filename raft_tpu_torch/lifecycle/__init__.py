@@ -9,16 +9,19 @@ Port of ``raft_tpu/lifecycle`` (``delete.py`` and ``compact.py``):
 * :func:`upsert` tombstones and extends under one epoch bump;
 * :func:`compact` builds a copy-on-write successor at ``epoch + 1`` that
   reclaims the tombstoned slots and, for IVF-Flat, can split overfull
-  lists and recluster drifted ones (relabelled by kernel B1 on ``cuda``).
+  lists and recluster drifted ones (relabelled by kernel B1 on ``cuda``);
+* :class:`Compactor` runs those passes over a serving ``Searcher``
+  (``raft_tpu_torch/serve``) at a tombstone fraction or a drift signal,
+  publishing each successor with one reference swap.
 
-The sharded indexes, the background ``Compactor`` (it drives a serving
-``Searcher``), the write-ahead log and elastic membership wait for the
-serving and sharding slices.
+The sharded indexes, the write-ahead log and elastic membership wait for
+the sharding and durability slices (ROADMAP A.4, A.5).
 """
 
 from raft_tpu_torch.lifecycle.compact import (
     CompactionPolicy,
     CompactionReport,
+    Compactor,
     compact,
 )
 from raft_tpu_torch.lifecycle.delete import (
@@ -29,4 +32,4 @@ from raft_tpu_torch.lifecycle.delete import (
 )
 
 __all__ = ["delete", "upsert", "enable_tombstones", "tombstone_frac",
-           "compact", "CompactionPolicy", "CompactionReport"]
+           "compact", "CompactionPolicy", "CompactionReport", "Compactor"]

@@ -22,16 +22,23 @@ and cannot move lists without the source vectors, so IVF-PQ compaction
 reclaims only, and drops the decode caches whose slot layout moved.
 
 ``shrink_capacity=False`` (the default) keeps the list capacity; True fits
-it to the fullest list. The sharded placement balancer and the background
-``Compactor`` wait for the sharding and serving slices.
+it to the fullest list. The sharded placement balancer waits for the
+sharding slice.
+
+:class:`Compactor` drives passes over a serving ``Searcher``
+(``serve/searcher.py``): it fires at the policy's tombstone fraction or
+on a drift signal and publishes through ``Searcher.compact``, by hand
+(:meth:`Compactor.run_once`) or from a background loop on its injected
+``sleep``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import logging
+import threading
+import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -39,29 +46,32 @@ import torch
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
 from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.logger import logger
 from raft_tpu_torch.core.resources import as_float
 from raft_tpu_torch.core.sentinels import worst_value
 from raft_tpu_torch.lifecycle.delete import _check_index
 from raft_tpu_torch.neighbors import ivf_flat as _flat
 from raft_tpu_torch.neighbors import ivf_pq as _pq
 
-logger = logging.getLogger("raft_tpu_torch")
-
 
 @dataclass(frozen=True)
 class CompactionPolicy:
-    """Knobs of one pass. ``shrink_capacity``: fit the list capacity to the
-    fullest list. ``split_above`` / ``drift_threshold`` /
-    ``min_split_rows``: the IVF-Flat model pass (None = off). The
-    reference's ``trigger_frac`` comes with its only reader, the
-    ``Compactor``."""
+    """Knobs of one pass. ``trigger_frac``: :class:`Compactor` runs a pass
+    once this fraction of stored slots is tombstoned. ``shrink_capacity``:
+    fit the list capacity to the fullest list. ``split_above`` /
+    ``drift_threshold`` / ``min_split_rows``: the IVF-Flat model pass
+    (None = off). The reference's ``balance_placement`` balances sharded
+    list placements and comes with the sharding slice."""
 
+    trigger_frac: float = 0.25
     shrink_capacity: bool = False
     split_above: Optional[float] = None
     drift_threshold: Optional[float] = None
     min_split_rows: int = 16
 
     def __post_init__(self):
+        expects(0.0 < self.trigger_frac <= 1.0,
+                "trigger_frac must be in (0, 1], got %s", self.trigger_frac)
         expects(self.split_above is None or self.split_above > 1.0,
                 "split_above must be > 1 (a multiple of the mean load)")
         expects(self.drift_threshold is None or self.drift_threshold > 0,
@@ -268,3 +278,132 @@ def compact(index, policy: Optional[CompactionPolicy] = None, mesh=None):
         epoch=new.epoch,
     )
     return new, report
+
+
+class Compactor:
+    """Threshold-triggered compaction loop over a
+    :class:`~raft_tpu_torch.serve.searcher.Searcher`.
+
+    Deterministic surface first: tests (and schedulers that own their
+    cadence) call :meth:`run_once`; :meth:`start` spawns the optional
+    daemon loop (injectable ``sleep`` so the loop is still testable).
+    ``pre_publish`` runs after the successor index is built but before
+    the swap, so an injected fault there proves the no-partial-publish
+    contract: the serving index and its epoch are untouched.
+
+    The loop's passes issue CUDA work from their own thread on PyTorch's
+    default stream, beside the serving thread's; the publish stays one
+    reference swap, so in-flight batches keep their dispatch-time index.
+    """
+
+    def __init__(self, searcher, policy: Optional[CompactionPolicy] = None,
+                 interval: float = 5.0,
+                 sleep: Callable[[float], None] = time.sleep,
+                 pre_publish: Optional[Callable[[], None]] = None,
+                 drift_signal: Optional[Callable[[], bool]] = None):
+        self.searcher = searcher
+        self.policy = policy or CompactionPolicy()
+        self.interval = interval
+        self._sleep = sleep
+        self._pre_publish = pre_publish
+        # Query-aware drift feed (typically a recall probe's drift flag):
+        # forces a pass even below the tombstone trigger. EDGE-triggered:
+        # one forced pass per drift episode — a level trigger would
+        # rebuild the whole index every ``interval`` for as long as the
+        # flag stays tripped; the flag must clear and re-trip to force
+        # another.
+        self._drift_signal = drift_signal
+        self._drift_armed = True
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.passes = 0
+        self.skipped = 0
+        self.failures = 0
+        # Scrape surface: the last published report, the last failure
+        # repr, and the last trigger evaluation (host values only).
+        self.last_report: Optional[CompactionReport] = None
+        self.last_error: Optional[str] = None
+        self.last_should_run = False
+        self.last_trigger_frac = 0.0
+
+    def should_run(self) -> bool:
+        """Tombstone fraction at or past the policy trigger, or the
+        ``drift_signal`` tripped (once per episode). Records the
+        evaluation (``last_should_run`` / ``last_trigger_frac``)."""
+        from raft_tpu_torch.lifecycle.delete import tombstone_frac
+
+        index = getattr(self.searcher, "_index", None)
+        frac = (tombstone_frac(index)
+                if index is not None and getattr(index, "n_deleted", 0)
+                else 0.0)
+        raw_drift = (self._drift_signal is not None
+                     and bool(self._drift_signal()))
+        if not raw_drift:
+            self._drift_armed = True        # episode over: re-arm
+        drifted = raw_drift and self._drift_armed
+        self.last_trigger_frac = frac
+        self.last_should_run = (index is not None
+                                and (drifted
+                                     or frac >= self.policy.trigger_frac))
+        if self.last_should_run and drifted:
+            self._drift_armed = False       # one forced pass per episode
+        return self.last_should_run
+
+    def run_once(self, force: bool = False) -> Optional[CompactionReport]:
+        """One trigger check + (maybe) one pass; returns the report or
+        None when below the trigger (``force`` skips the check). A
+        raising pass counts ``failures`` and records ``last_error``
+        before re-raising (the daemon loop additionally survives it)."""
+        if not force and not self.should_run():
+            self.skipped += 1
+            return None
+        try:
+            report = self.searcher.compact(self.policy,
+                                           pre_publish=self._pre_publish)
+        except Exception as err:
+            self.failures += 1
+            self.last_error = repr(err)
+            raise
+        if report is not None:
+            self.passes += 1
+            self.last_report = report
+            self.last_error = None
+        return report
+
+    def start(self) -> None:
+        """Spawn the background loop (daemon; idempotent)."""
+        if self._thread is not None:
+            return
+        self._stop.clear()
+
+        def loop():
+            while not self._stop.is_set():
+                try:
+                    self.run_once()
+                except Exception:
+                    # A failed pass published nothing — the daemon must
+                    # survive to retry, not die silently while tombstones
+                    # accumulate. run_once already counted ``failures``
+                    # and stamped ``last_error``.
+                    logger.warning("compaction pass failed; daemon "
+                                   "continues", exc_info=True)
+                self._sleep(self.interval)
+
+        self._thread = threading.Thread(target=loop, daemon=True,
+                                        name="raft-tpu-torch-compactor")
+        self._thread.start()
+
+    def stop(self, timeout: Optional[float] = 5.0) -> None:
+        """Signal and join the background loop (idempotent). If the loop
+        is mid-pass past ``timeout``, the handle is kept so a later
+        ``start()`` cannot spawn a second concurrent loop."""
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=timeout)
+            if self._thread.is_alive():
+                logger.warning(
+                    "compactor loop still mid-pass after %.1fs join "
+                    "timeout; keeping the handle (call stop() again)",
+                    -1.0 if timeout is None else timeout)
+                return
+            self._thread = None

@@ -6,6 +6,11 @@ seconds). Libraries go into ``build/raft_tpu_torch/`` at the repository
 root, named by a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is loaded as is. Nothing here runs at import
 time; a failed build raises :class:`~raft_tpu_torch.core.error.CudaError`.
+
+Listeners (:func:`add_listener`) hear of every ``nvcc`` run and every first
+load of a library: the serving layer's ``CompileCounter`` counts them, so
+"no kernel build or library load in steady state" is observed, not
+assumed.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 from raft_tpu_torch.core.error import CudaError
 
@@ -34,6 +39,35 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
 #: Seconds each library took to build in this process (absent if cached).
 BUILD_SECONDS: Dict[str, float] = {}
+_LISTENERS: List[Callable[[str, str], None]] = []
+
+
+def add_listener(fn: Callable[[str, str], None]) -> Callable[[], None]:
+    """Call ``fn(event, name)`` for each ``nvcc`` run (event "build") and
+    each first load of a library (event "load"). Returns an idempotent
+    unsubscribe callable."""
+    _LISTENERS.append(fn)
+
+    def remove() -> None:
+        try:
+            _LISTENERS.remove(fn)
+        except ValueError:
+            pass
+
+    return remove
+
+
+def _notify(event: str, name: str) -> None:
+    for fn in list(_LISTENERS):
+        fn(event, name)
+
+
+def enable_compilation_cache() -> str:
+    """The port's persistent build cache: the directory the kernel
+    libraries are built into and loaded from, so a process reuses every
+    library an earlier one built from the same sources. Returns
+    :data:`BUILD_DIR`."""
+    return str(BUILD_DIR)
 
 
 def nvcc_path() -> str:
@@ -78,6 +112,7 @@ def build_all(names=None) -> Dict[str, Path]:
             os.unlink(tmp)
             raise CudaError(f"cannot run nvcc for {n}: {e}") from e
         procs[n] = (proc, tmp, time.perf_counter())
+        _notify("build", n)
     failed = []
     for n, (proc, tmp, t0) in procs.items():
         out, _ = proc.communicate()
@@ -100,6 +135,7 @@ def load_library(name: str) -> ctypes.CDLL:
         path = build_all([name])[name]
         lib = ctypes.CDLL(str(path))
         _LOADED[name] = lib
+        _notify("load", name)
     return lib
 
 

@@ -1,0 +1,41 @@
+"""Online query-serving runtime above ``neighbors/`` on one host.
+
+Port of ``raft_tpu/serve``: shape bucketing with warm-up of the closed
+set of batch shapes (``bucketing``), dynamic micro-batching with
+bounded-queue admission control, deadlines and the degradation ladder
+(``scheduler``), an exact-query LRU result cache keyed by index epoch
+(``cache``), a uniform searcher facade threading RetryPolicy and the
+index lifecycle (``searcher``), the hedge policy and its counters
+(``hedge``), and per-bucket serving stats with kernel-build counting
+(``stats``). The sharded deployment and the circuit-breaker shard
+re-admission (``RecoveryProber``, which needs ``ShardHealth``) wait for
+the sharding slice (ROADMAP A.4).
+"""
+
+from raft_tpu_torch.serve.bucketing import (
+    DEFAULT_K_GRID,
+    BucketGrid,
+    pad_queries,
+    warmup,
+)
+from raft_tpu_torch.serve.cache import ResultCache
+from raft_tpu_torch.serve.hedge import HedgePolicy, HedgeStats
+from raft_tpu_torch.serve.scheduler import (
+    BatchPolicy,
+    BatchScheduler,
+    DegradePolicy,
+    Overloaded,
+    Ticket,
+)
+from raft_tpu_torch.serve.searcher import Searcher, SearchResult
+from raft_tpu_torch.serve.stats import CompileCounter, ServeStats
+
+__all__ = [
+    "BucketGrid", "DEFAULT_K_GRID", "pad_queries", "warmup",
+    "ResultCache",
+    "HedgePolicy", "HedgeStats",
+    "BatchPolicy", "BatchScheduler", "DegradePolicy", "Overloaded",
+    "Ticket",
+    "Searcher", "SearchResult",
+    "CompileCounter", "ServeStats",
+]

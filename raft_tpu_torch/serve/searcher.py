@@ -1,0 +1,417 @@
+"""Uniform search facade for the serving runtime.
+
+Port of ``raft_tpu/serve/searcher.py`` for one host. The serving runtime
+needs one object that hides which index family sits underneath, because
+the scheduler (serve/scheduler.py) batches requests against an opaque
+``search(q, k)``. :class:`Searcher` is that facade over
+``brute_force.knn``, ``ivf_flat.search`` and ``ivf_pq.search``:
+
+* ``device`` — every search runs on the device of the database or index
+  (or an explicit ``device=``, which must match it); numpy queries move
+  there, and nothing carries on elsewhere when that device is missing;
+* ``RetryPolicy`` — transient host-side failures retry with the
+  deterministic backoff of ``core/retry.py``;
+* ``epoch`` — the cache-invalidation key (serve/cache.py): bumped by
+  every mutation (extend / delete / upsert / compact), so cached results
+  can never outlive the index state they were computed against.
+
+Write side (raft_tpu_torch/lifecycle): ``delete`` tombstones rows
+(exact over the survivors at once), ``upsert`` replaces rows under one
+epoch bump, ``compact`` publishes a copy-on-write successor index by
+swapping one reference — in-flight batches keep searching their
+dispatch-time snapshot. Mutations work on a shallow copy of the served
+index and publish it with one reference swap; an ``extend`` that fits
+the list capacity writes its rows in place, into slots past the served
+snapshot's fill line, which that snapshot never reads. Mutations
+serialize on an internal lock; searches never take it.
+
+What needs a mesh waits for the sharding slice (ROADMAP A.4): ``mesh``,
+``health``, hedged dispatch (``hedge``, ``dispatch_hook``) and
+``shadow_probe`` raise
+:class:`~raft_tpu_torch.core.error.LogicError`; so does ``wal``, which
+comes with the durability slice (A.5).
+"""
+
+from __future__ import annotations
+
+import copy
+import threading
+import time
+from dataclasses import dataclass
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.resources import as_float, as_tensor, resolve_device
+from raft_tpu_torch.core.retry import RetryPolicy, with_retry
+
+_KINDS = ("brute_force", "ivf_flat", "ivf_pq")
+
+
+@dataclass(frozen=True)
+class SearchResult:
+    """One request's answer: host arrays.
+
+    ``coverage`` is all-ones on a single host (the sharded degraded
+    serves of A.4 report the fraction of candidate rows searched).
+    ``degraded`` and ``hedged`` stay False until then. The
+    degradation-ladder fields: ``quality`` is the served-quality class
+    ("full" — the configured n_probes; "reduced" — a middle ladder rung;
+    "brownout" — the deepest rung), ``degrade_reason`` names what forced
+    the rung ("queue_pressure" / "deadline_budget"; None at full
+    quality).
+    """
+
+    distances: np.ndarray   # (n_queries, k)
+    indices: np.ndarray     # (n_queries, k)
+    coverage: np.ndarray    # (n_queries,)
+    degraded: bool = False
+    hedged: bool = False
+    quality: str = "full"
+    degrade_reason: Optional[str] = None
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """``a`` and ``b`` name one device (``cuda`` is the current card)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == (
+        cur if b.index is None else b.index)
+
+
+class Searcher:
+    """One serving endpoint over a brute-force / IVF-Flat / IVF-PQ index
+    on one device. Build with the classmethods:
+
+    >>> s = Searcher.brute_force(db)                             # doctest: +SKIP
+    >>> s = Searcher.ivf_flat(index, sp)                         # doctest: +SKIP
+    >>> res = s.search(queries, k=10)                            # doctest: +SKIP
+    """
+
+    def __init__(self, kind: str, *, mesh=None, db=None, index=None,
+                 search_params=None, merge_engine: str = "auto",
+                 health=None, retry: Optional[RetryPolicy] = None,
+                 wal=None, writable: bool = True,
+                 hedge=None, dispatch_hook=None,
+                 sleep: Callable[[float], None] = time.sleep,
+                 monotonic: Callable[[], float] = time.monotonic,
+                 device=None):
+        expects(kind in _KINDS, "kind must be one of %s, got %r", _KINDS,
+                kind)
+        expects((db is not None) == (kind == "brute_force"),
+                "brute_force takes db; IVF kinds take index")
+        if kind != "brute_force":
+            expects(index is not None and search_params is not None,
+                    "IVF searchers need index + search_params")
+        expects(mesh is None, "sharded (mesh) searchers wait for the "
+                "sharding slice (ROADMAP A.4)")
+        expects(health is None, "ShardHealth applies to sharded searchers, "
+                "which wait for the sharding slice (ROADMAP A.4)")
+        expects(wal is None, "a MutationLog waits for the durability slice "
+                "(ROADMAP A.5)")
+        expects(hedge is None and dispatch_hook is None,
+                "hedged replica dispatch and its dispatch hook re-route "
+                "sharded searches and wait for the sharding slice "
+                "(ROADMAP A.4)")
+        self.kind = kind
+        self.mesh = None
+        self.merge_engine = merge_engine
+        self.health = None
+        self.retry = retry
+        self.writable = writable
+        from raft_tpu_torch.serve.hedge import HedgeStats
+
+        self.hedge_stats = HedgeStats()
+        self._sleep = sleep
+        self._monotonic = monotonic
+        self._params = search_params
+        self._base_epoch = 0
+        if kind == "brute_force":
+            # Placed once: the scheduler searches per batch, and a
+            # host-to-device copy of the database per request would
+            # dominate serving latency. A tensor stays where it is.
+            db = as_float(db, device=device)
+            dev = db.device
+        else:
+            dev = index.centers.device
+        expects(device is None or _same_device(resolve_device(device), dev),
+                "device %s differs from the %s's device %s", device,
+                "database" if kind == "brute_force" else "index", dev)
+        self.device = dev
+        self._db = db
+        self._index = index
+        # Serializes mutations (extend/delete/upsert/compact) against
+        # each other — a compaction racing an extend would publish a
+        # successor missing the extend's rows.  Searches never take it.
+        self._lock = threading.Lock()
+        self._invalidation_hooks: List[Callable[[], None]] = []
+
+    # -- constructors ------------------------------------------------------
+    @classmethod
+    def brute_force(cls, db, mesh=None, **kw) -> "Searcher":
+        """Exact kNN endpoint (``brute_force.knn``)."""
+        return cls("brute_force", mesh=mesh, db=db, **kw)
+
+    @classmethod
+    def ivf_flat(cls, index, search_params, mesh=None, **kw) -> "Searcher":
+        """IVF-Flat endpoint over a built ``ivf_flat.Index``."""
+        return cls("ivf_flat", mesh=mesh, index=index,
+                   search_params=search_params, **kw)
+
+    @classmethod
+    def ivf_pq(cls, index, search_params, mesh=None, **kw) -> "Searcher":
+        """IVF-PQ endpoint over a built ``ivf_pq.Index``."""
+        return cls("ivf_pq", mesh=mesh, index=index,
+                   search_params=search_params, **kw)
+
+    # -- identity ----------------------------------------------------------
+    @property
+    def dim(self) -> int:
+        """Query dimensionality (what warmup's dummy queries must have)."""
+        if self.kind == "brute_force":
+            return int(self._db.shape[1])
+        return int(self._index.centers.shape[1])
+
+    @property
+    def epoch(self) -> int:
+        """Monotonic index-content version — the cache-invalidation key.
+        IVF indexes carry their own counter, bumped by every extend even
+        when called outside this facade; brute-force extends count in
+        ``_base_epoch``."""
+        return self._base_epoch + int(getattr(self._index, "epoch", 0))
+
+    def add_invalidation_hook(
+            self, hook: Callable[[], None]) -> Callable[[], None]:
+        """Run ``hook()`` after every mutation (the scheduler registers
+        its ResultCache.invalidate here). Returns an idempotent
+        unsubscribe callable — a Searcher outlives its schedulers, so
+        an unremovable hook would retain every retired cache forever."""
+        with self._lock:
+            self._invalidation_hooks.append(hook)
+
+        def remove() -> None:
+            with self._lock:
+                try:
+                    self._invalidation_hooks.remove(hook)
+                except ValueError:
+                    pass
+
+        return remove
+
+    def _published(self) -> None:
+        """Invoke the invalidation hooks OUTSIDE the mutation lock (a
+        hook may take its own lock; holding ours across foreign code
+        invites lock-order inversions)."""
+        with self._lock:
+            hooks = list(self._invalidation_hooks)
+        for hook in hooks:
+            hook()
+
+    def _require_writable(self) -> None:
+        expects(self.writable,
+                "read-only endpoint — mutations are rejected")
+
+    # -- serving -----------------------------------------------------------
+    def _queries(self, queries) -> torch.Tensor:
+        """The queries as a tensor on this searcher's device: numpy moves
+        there; a tensor must already be there."""
+        q = as_tensor(queries, device=self.device)
+        expects(q.device == self.device,
+                "queries on %s, searcher on %s", q.device, self.device)
+        return q
+
+    def _dispatch(self, q: torch.Tensor, k: int, params):
+        if self.kind == "brute_force":
+            from raft_tpu_torch.neighbors import brute_force
+
+            return brute_force.knn(self._db, q, k)
+        if self.kind == "ivf_flat":
+            from raft_tpu_torch.neighbors import ivf_flat
+
+            return ivf_flat.search(params, self._index, q, k)
+        from raft_tpu_torch.neighbors import ivf_pq
+
+        return ivf_pq.search(params, self._index, q, k)
+
+    def search(self, queries, k: int,
+               degraded: Optional[bool] = None,
+               span=None, valid_rows: Optional[int] = None,
+               n_probes: Optional[int] = None
+               ) -> SearchResult:
+        """One synchronous search, already shaped (the scheduler owns
+        bucketing/padding). Retries under ``self.retry`` when set.
+        ``degraded`` and ``valid_rows`` steer sharded searches (A.4) and
+        change nothing on one host.
+
+        ``n_probes`` overrides the configured probe count for THIS call
+        (IVF kinds) — the degradation ladder's knob
+        (serve/scheduler.DegradePolicy). Warm its rungs ahead of traffic
+        with ``serve.bucketing.warmup(degrade_ladder=...)``.
+
+        ``span`` (an :class:`raft_tpu_torch.obs.trace.Span`) attaches the
+        two device-boundary child spans — ``device_dispatch`` (fenced with
+        a CUDA synchronise on a card, so the measured interval is device
+        time, not enqueue time) and ``device_get`` (the copy of the
+        distances and ids to the host). With no recording span the fence
+        is SKIPPED: tracing off must not serialize the dispatch."""
+        from raft_tpu_torch.obs.trace import NULL_SPAN
+
+        sp = span if span is not None else NULL_SPAN
+        q = self._queries(queries)
+        expects(q.ndim == 2, "queries must be (n, dim), got %s",
+                tuple(q.shape))
+        expects(q.shape[1] == self.dim, "query dim %s != index dim %s",
+                q.shape[1], self.dim)
+        expects(k >= 1, "k must be >= 1, got %s", k)
+        params = self._params
+        if n_probes is not None and self.kind != "brute_force":
+            import dataclasses
+
+            params = dataclasses.replace(self._params,
+                                         n_probes=int(n_probes))
+
+        def attempt():
+            return self._dispatch(q, k, params)
+
+        with sp.child("device_dispatch", kind=self.kind,
+                      engine=self.merge_engine, sharded=False) as dd:
+            if self.retry is not None:
+                out = with_retry(attempt, self.retry, sleep=self._sleep,
+                                 monotonic=self._monotonic)
+            else:
+                out = attempt()
+            if dd.recording and self.device.type == "cuda":
+                # Fence so the span closes when the DEVICE finishes, not
+                # when the launches were enqueued.
+                torch.cuda.synchronize(self.device)
+        with sp.child("device_get"):
+            d, i = (t.cpu().numpy() for t in out)
+        return SearchResult(d, i, np.ones(q.shape[0], np.float32))
+
+    def shadow_probe(self, rank: int, queries, k: int) -> float:
+        """Probe a dead or suspect shard off the hot path: a sharded
+        searcher's tool, which waits for the sharding slice (ROADMAP
+        A.4)."""
+        expects(False, "shadow_probe needs a sharded searcher with "
+                "ShardHealth (ROADMAP A.4)")
+
+    # -- lifecycle ---------------------------------------------------------
+    def extend(self, new_vectors, new_indices=None) -> None:
+        """Grow the underlying index and bump the epoch (invalidating
+        every cached result written against the old contents)."""
+        self._require_writable()
+        with self._lock:
+            self._extend_locked(new_vectors, new_indices)
+        self._published()
+
+    def _mutable_snapshot(self):
+        """Shallow copy of the served index for a mutate-then-swap
+        publish: the lifecycle functions replace the COPY's fields, the
+        served object stays internally consistent for lock-free readers,
+        and one reference assignment commits the whole mutation."""
+        return copy.copy(self._index)
+
+    def _extend_locked(self, new_vectors, new_indices=None) -> None:
+        if self.kind == "brute_force":
+            X = as_float(new_vectors, device=self.device)
+            expects(X.device == self.device, "new_vectors on %s, searcher "
+                    "on %s", X.device, self.device)
+            expects(X.ndim == 2 and X.shape[1] == self.dim,
+                    "new_vectors must be (n, %s), got shape %s", self.dim,
+                    tuple(X.shape))
+            self._db = torch.cat([self._db, X.to(self._db.dtype)], dim=0)
+            self._base_epoch += 1
+            return
+        from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
+
+        mod = ivf_flat if self.kind == "ivf_flat" else ivf_pq
+        # extend bumps the Index's own .epoch (the counter this facade's
+        # ``epoch`` property reads) — no _base_epoch bump, or every
+        # extend would count twice.
+        tmp = self._mutable_snapshot()
+        mod.extend(tmp, new_vectors, new_indices)
+        self._index = tmp
+
+    def delete(self, ids) -> int:
+        """Tombstone rows by stored id (raft_tpu_torch/lifecycle): exact
+        over the survivors at once. Returns how many slots were newly
+        tombstoned; bumps the epoch (invalidating cached results) only
+        when that count is non-zero. IVF endpoints only — the brute-force
+        database has no id-stable delete."""
+        expects(self.kind != "brute_force",
+                "delete needs an IVF index (brute-force rows are "
+                "positional; rebuild the endpoint instead)")
+        self._require_writable()
+        from raft_tpu_torch.lifecycle import delete as _delete
+
+        with self._lock:
+            tmp = self._mutable_snapshot()
+            n = _delete(tmp, ids)
+            if n:
+                self._index = tmp     # snapshot-swap publish
+        if n:
+            self._published()
+        return n
+
+    def upsert(self, new_vectors, new_indices) -> None:
+        """Replace-or-insert rows by explicit id under ONE epoch bump
+        (tombstone + extend; raft_tpu_torch/lifecycle.upsert) — no reader
+        observes the half-applied state as a committed epoch."""
+        expects(self.kind != "brute_force",
+                "upsert needs an IVF index (brute-force rows are "
+                "positional; rebuild the endpoint instead)")
+        self._require_writable()
+        from raft_tpu_torch.lifecycle import upsert as _upsert
+
+        with self._lock:
+            tmp = self._mutable_snapshot()
+            _upsert(tmp, new_vectors, new_indices)
+            self._index = tmp
+        self._published()
+
+    def compact(self, policy=None, pre_publish=None):
+        """Run one compaction pass (raft_tpu_torch/lifecycle/compact.py)
+        and publish its copy-on-write successor index by swapping ONE
+        reference under the mutation lock — in-flight batches keep
+        searching their dispatch-time snapshot, whose cache entries die
+        with the old epoch. Returns the
+        :class:`~raft_tpu_torch.lifecycle.compact.CompactionReport`, or
+        None when there was nothing to do. ``pre_publish`` runs after the
+        successor is built, before the swap (a fault there publishes
+        nothing)."""
+        expects(self.kind != "brute_force",
+                "compact applies to IVF indexes (brute-force holds no "
+                "tombstones)")
+        self._require_writable()
+        from raft_tpu_torch.lifecycle import CompactionPolicy
+        from raft_tpu_torch.lifecycle import compact as _compact
+
+        policy = policy or CompactionPolicy()
+        with self._lock:
+            new, report = _compact(self._index, policy)
+            if report is None:
+                return None
+            if pre_publish is not None:
+                pre_publish()
+            self._index = new
+        self._published()
+        return report
+
+    @property
+    def tombstone_frac(self) -> float:
+        """Fraction of stored slots tombstoned (the Compactor trigger
+        statistic); 0.0 for brute-force endpoints."""
+        if self.kind == "brute_force":
+            return 0.0
+        from raft_tpu_torch.lifecycle import tombstone_frac as _frac
+
+        return _frac(self._index)
+
+    def __repr__(self) -> str:
+        return ("Searcher(kind=%r, sharded=%s, epoch=%s, engine=%r)"
+                % (self.kind, False, self.epoch, self.merge_engine))

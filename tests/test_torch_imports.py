@@ -34,7 +34,10 @@ def test_module_list_covers_the_slice():
                  "neighbors.refine", "cluster.kmeans_balanced",
                  "matrix.select_k", "distance.fused_l2_nn",
                  "ops.stream_select", "comms.topk_merge", "lifecycle.delete",
-                 "lifecycle.compact"):
+                 "lifecycle.compact", "core.retry", "core.logger",
+                 "obs.trace", "serve.bucketing", "serve.cache",
+                 "serve.hedge", "serve.scheduler", "serve.searcher",
+                 "serve.stats"):
         assert f"raft_tpu_torch.{name}" in _MODULES
 
 

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from raft_tpu_torch import lifecycle as lc
+from raft_tpu_torch import serve
 from raft_tpu_torch.core.error import LogicError
 from raft_tpu_torch.matrix.select_k import SelectMethod, select_k
 from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
@@ -941,3 +942,96 @@ def test_lifecycle_and_multipart_knn_on_the_card(dev, gen):
     nd, ni = ivf_flat.search(sp, new, Q, 10)
     np.testing.assert_array_equal(n(ni), n(ti))
     np.testing.assert_array_equal(n(nd), n(td))
+
+
+def _serve_pq_index(gen):
+    """A maker of one small IVF-PQ index from integer arrays (identity
+    rotation) on a given device: every product of the compressed tier is
+    exact."""
+    L, cap, d, J = 16, 96, 16, 8
+    sizes = gen.integers(40, cap + 1, L).astype(np.int32)
+    indices = np.full((L, cap), -1, np.int32)
+    base = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    for l in range(L):
+        indices[l, :sizes[l]] = base[l] + np.arange(sizes[l])
+    codes = gen.integers(0, 256, (L, cap, J)).astype(np.int32)
+    arrays = (int_data(gen, (L, d), hi=4), np.eye(d, dtype=np.float32),
+              gen.integers(-2, 3, (J, 256, d // J)).astype(np.float32),
+              n(ivf_pq.pack_codes(torch.as_tensor(codes), 8)), indices,
+              sizes)
+    return lambda dev_: ivf_pq.index_from_numpy(*arrays, 8, J, 0, 0,
+                                                device=dev_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ivf_flat", "ivf_pq"])
+def test_searcher_on_the_card_equals_cpu(dev, gen, kind):
+    """One Searcher on the card (B2 / B4 through engine="bucketed") and
+    one on the CPU (their plain versions) over the same integer index
+    give the same ids and distances, through the BatchScheduler too."""
+    if kind == "ivf_flat":
+        X = int_data(gen, (6000, 16))
+        index = ivf_flat.build(ivf_flat.IndexParams(n_lists=16,
+                                                    kmeans_n_iters=4), X)
+        index.centers = torch.round(index.centers)
+        cpu = ivf_flat.index_from_numpy(n(index.centers), n(index.data),
+                                        n(index.indices),
+                                        n(index.list_sizes), 0, device="cpu")
+        sp = ivf_flat.SearchParams(n_probes=8, engine="bucketed")
+        s, c = serve.Searcher.ivf_flat(index, sp), serve.Searcher.ivf_flat(
+            cpu, sp)
+        counter = fk.fused_cells_knn
+    else:
+        make = _serve_pq_index(gen)
+        sp = ivf_pq.SearchParams(n_probes=8, engine="bucketed")
+        s = serve.Searcher.ivf_pq(make(dev), sp)
+        c = serve.Searcher.ivf_pq(make("cpu"), sp)
+        counter = ps.pq_fused_scan
+    assert s.device.type == "cuda" and c.device.type == "cpu"
+    Q = int_data(gen, (300, 16), hi=4 if kind == "ivf_pq" else 8)
+    before = counter.launches
+    for rows in (1, 7, 64, 300):
+        for k in (1, 10):
+            a, b = s.search(Q[:rows], k), c.search(Q[:rows], k)
+            np.testing.assert_array_equal(a.indices, b.indices)
+            np.testing.assert_array_equal(a.distances, b.distances)
+    assert counter.launches == before + 8
+    grid = serve.BucketGrid.pow2(64, k_grid=(10,))
+    out = []
+    for searcher in (s, c):
+        sched = serve.BatchScheduler(searcher, grid,
+                                     serve.BatchPolicy(max_batch=64,
+                                                       max_wait=0.0))
+        tks = [sched.submit(Q[i:i + 1 + i % 9], 10) for i in range(0, 200, 7)]
+        sched.run_until_idle()
+        out.append([(tk.result().indices, tk.result().distances)
+                    for tk in tks])
+    for (ai, ad), (bi, bd) in zip(*out):
+        np.testing.assert_array_equal(ai, bi)
+        np.testing.assert_array_equal(ad, bd)
+
+
+@pytest.mark.cuda
+def test_serving_builds_and_loads_nothing_in_steady_state(dev, gen):
+    """After one warm-up, a second warm-up and a drive over the grid count
+    no kernel build or library load, and the drive's full batches launch
+    B2 (a probe load of 64 x 16 / 16 >= 8)."""
+    X = int_data(gen, (6000, 16))
+    index = ivf_flat.build(ivf_flat.IndexParams(n_lists=16,
+                                                kmeans_n_iters=4), X)
+    s = serve.Searcher.ivf_flat(index, ivf_flat.SearchParams(n_probes=16))
+    grid = serve.BucketGrid.pow2(64, k_grid=(10, 100))
+    serve.warmup(s, grid, degrade_ladder=(1.0, 0.5, 0.25))
+    second = serve.warmup(s, grid, degrade_ladder=(1.0, 0.5, 0.25))
+    assert second["compile_events"] == 0 and second["degrade_rungs"] == 2
+    stats = serve.ServeStats()
+    sched = serve.BatchScheduler(s, grid, serve.BatchPolicy(
+        max_batch=64, max_wait=0.0), stats=stats)
+    b2 = fk.fused_cells_knn.launches
+    with serve.CompileCounter(stats) as counter:
+        tks = [sched.submit(int_data(gen, (1 + i % 13, 16)), (10, 100)[i % 2])
+               for i in range(60)]
+        sched.run_until_idle()
+    assert all(tk.done for tk in tks)
+    assert counter.count == 0 and stats.snapshot()["compile_events"] == 0
+    assert fk.fused_cells_knn.launches > b2
