@@ -51,8 +51,17 @@ def as_tensor(x, handle: Optional[Resources] = None,
     return torch.as_tensor(np.asarray(x), device=dev)
 
 
+def as_vectors(x, handle: Optional[Resources] = None,
+               device: DeviceLike = None) -> torch.Tensor:
+    """:func:`as_tensor` for vectors a caller hands an entry point:
+    float64 maps to float32, as the reference's ``jnp.asarray`` maps it
+    with x64 off; every other dtype (f32, f16, bf16, int8, uint8) stays."""
+    t = as_tensor(x, handle, device)
+    return t.float() if t.dtype == torch.float64 else t
+
+
 def as_float(x, handle: Optional[Resources] = None,
              device: DeviceLike = None) -> torch.Tensor:
-    """:func:`as_tensor`, with non-floating inputs mapped to float32."""
-    t = as_tensor(x, handle, device)
+    """:func:`as_vectors`, with non-floating inputs mapped to float32."""
+    t = as_vectors(x, handle, device)
     return t if t.is_floating_point() else t.float()

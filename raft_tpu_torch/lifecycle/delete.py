@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.core.error import expects, expects_finite
-from raft_tpu_torch.core.resources import as_tensor
+from raft_tpu_torch.core.resources import as_vectors
 from raft_tpu_torch.neighbors import ivf_flat as _flat
 from raft_tpu_torch.neighbors import ivf_pq as _pq
 
@@ -123,7 +123,7 @@ def upsert(index, new_vectors, new_indices, mesh=None):
     _check_index(index, mesh)
     dev = index.centers.device
     ids = _id_tensor(new_indices, dev)
-    X = as_tensor(new_vectors, device=dev).to(dev)
+    X = as_vectors(new_vectors, device=dev).to(dev)
     expects(X.ndim == 2 and X.shape[0] == ids.numel(),
             "upsert needs (n, dim) vectors with one id per row, got %s rows "
             "/ %s ids", tuple(X.shape), ids.numel())

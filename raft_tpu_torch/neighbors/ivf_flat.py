@@ -46,7 +46,8 @@ import torch
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
 from raft_tpu_torch.core.error import expects, expects_finite
-from raft_tpu_torch.core.resources import as_float, as_tensor, resolve_device
+from raft_tpu_torch.core.resources import (as_float, as_tensor, as_vectors,
+                                           resolve_device)
 from raft_tpu_torch.core.sentinels import PAD_ID, worst_value
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
 from raft_tpu_torch.distance.pairwise import gram, row_norms_sq
@@ -197,7 +198,7 @@ def _coarse_probe(Q, centers, n_probes: int, inner_is_l2: bool):
 def build(params: IndexParams, dataset, handle=None) -> Index:
     """Train centers (balanced k-means on a subsample) and fill the lists."""
     expects(params.idx_dtype == torch.int32, "only int32 ids are ported")
-    X = as_tensor(dataset, handle)
+    X = as_vectors(dataset, handle)
     expects(X.ndim == 2, "dataset must be (n_rows, dim)")
     n = X.shape[0]
     expects(n >= params.n_lists, "need at least n_lists rows")
@@ -295,7 +296,7 @@ def extend(index: Index, new_vectors, new_indices=None,
     lists have room. Tombstoned slots are not reclaimed. Rejects
     non-finite vectors."""
     dev = handle.device if handle is not None else index.centers.device
-    X = as_tensor(new_vectors, device=dev)
+    X = as_vectors(new_vectors, device=dev)
     expects(X.ndim == 2 and X.shape[1] == index.dim, "dim mismatch")
     expects_finite("ivf_flat.extend", X)
     return _extend(index, X, new_indices)

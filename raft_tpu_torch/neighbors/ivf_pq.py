@@ -47,7 +47,8 @@ import torch
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
 from raft_tpu_torch.core.error import expects, expects_finite
-from raft_tpu_torch.core.resources import as_float, as_tensor, resolve_device
+from raft_tpu_torch.core.resources import (as_float, as_tensor, as_vectors,
+                                           resolve_device)
 from raft_tpu_torch.core.sentinels import PAD_ID, worst_value
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
 from raft_tpu_torch.distance.pairwise import gram
@@ -642,7 +643,7 @@ def build(params: IndexParams, dataset, handle=None) -> Index:
     rotation -> rotated residuals -> codebooks -> extend with the
     dataset."""
     expects(params.idx_dtype == torch.int32, "only int32 ids are ported")
-    X = as_tensor(dataset, handle)
+    X = as_vectors(dataset, handle)
     expects(X.ndim == 2, "dataset must be (n_rows, dim)")
     n, dim = X.shape
     expects(n >= params.n_lists, "need at least n_lists rows")
@@ -789,7 +790,7 @@ def _extend(index: Index, new_vectors, new_indices, dev) -> Index:
     # The retained dataset stays valid only for a default-numbered append
     # onto a same-dtype source.
     if index._source is not None:
-        raw = as_tensor(new_vectors, device=dev)
+        raw = as_vectors(new_vectors, device=dev)
         if (default_ids and index._source.shape[0] == default_base
                 and raw.dtype == index._source.dtype):
             index._source = torch.cat([index._source, raw])

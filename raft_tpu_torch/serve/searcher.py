@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.core.error import expects
-from raft_tpu_torch.core.resources import as_float, as_tensor, resolve_device
+from raft_tpu_torch.core.resources import as_float, as_vectors, resolve_device
 from raft_tpu_torch.core.retry import RetryPolicy, with_retry
 
 _KINDS = ("brute_force", "ivf_flat", "ivf_pq")
@@ -220,7 +220,7 @@ class Searcher:
     def _queries(self, queries) -> torch.Tensor:
         """The queries as a tensor on this searcher's device: numpy moves
         there; a tensor must already be there."""
-        q = as_tensor(queries, device=self.device)
+        q = as_vectors(queries, device=self.device)
         expects(q.device == self.device,
                 "queries on %s, searcher on %s", q.device, self.device)
         return q
