@@ -393,11 +393,16 @@ def _probe_scan(queries, data, data_sq_norms, indices, list_sizes, k: int,
     return best_d, best_i
 
 
-def _chunked_over_queries(fn, Q, probe_ids, per_q_bytes: int,
+def _chunked_over_queries(fn, Q, probe_ids, per_q_bytes: int, k: int,
+                          id_dtype: torch.dtype,
                           budget: int = 64 * 1024 * 1024):
     """Run ``fn(Q_chunk, probe_ids_chunk)`` over query chunks sized so the
-    per-probe gather stays under ``budget`` bytes."""
+    per-probe gather stays under ``budget`` bytes. No queries give (0, k)
+    results: distances in the queries' dtype, ids in ``id_dtype``."""
     nq = Q.shape[0]
+    if nq == 0:
+        return (Q.new_zeros((0, k)),
+                torch.zeros((0, k), dtype=id_dtype, device=Q.device))
     chunk = max(1, min(nq, budget // max(per_q_bytes, 1)))
     outs = [fn(Q[s:s + chunk], probe_ids[s:s + chunk])
             for s in range(0, nq, chunk)]
@@ -709,4 +714,4 @@ def search(params: SearchParams, index: Index, queries, k: int,
         lambda q_, p_: _probe_scan(q_, dataf, norms, index.indices,
                                    index.list_sizes, k, inner_is_l2, sqrt,
                                    p_, index.deleted),
-        Q, probe_ids, dataf.shape[1] * index.dim * 4)
+        Q, probe_ids, dataf.shape[1] * index.dim * 4, k, index.indices.dtype)

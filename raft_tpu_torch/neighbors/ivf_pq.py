@@ -989,7 +989,7 @@ def _search(params: SearchParams, index: Index, Q: torch.Tensor, k: int,
             lut_dtype, index.pq_dim, index.pq_bits, internal_dtype,
             pq_centers=index.pq_centers, centers_rot=centers_rot,
             deleted=index.deleted),
-        rotq, probe_ids, per_q))
+        rotq, probe_ids, per_q, k, index.indices.dtype))
 
 
 def _probe_concentration(Q, centers) -> float:

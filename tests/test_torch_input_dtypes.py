@@ -10,6 +10,9 @@ distance is exact: ids bit for bit, distances equal (IVF-Flat within rtol
 1e-6, the tolerance of its own parity tests). Builds draw different random
 numbers in the two packages, so a float64 build is held to the port's own
 float32 build bit for bit, and its stored dtypes to the reference's.
+
+An empty query batch gives (0, k) results in both packages: float32
+distances and ids in the index's id dtype.
 """
 
 import dataclasses
@@ -258,3 +261,33 @@ def test_brute_force_searcher_float64_db(flat_arrays, pq_arrays):
     assert s._db.dtype == torch.float32
     _same_result(s.search(_Q, 10), js.search(_Q, 10))
 
+
+# ---------------------------------------------------------------------------
+# C.2: empty query batches
+
+
+@pytest.mark.parametrize("kind", ["flat", "pq"])
+@pytest.mark.parametrize("engine", ["auto", "scan"])
+@pytest.mark.parametrize("k", [1, 10])
+def test_ivf_search_zero_queries(flat_arrays, pq_arrays, kind, engine, k):
+    p, j = (_flat_pair(flat_arrays) if kind == "flat"
+            else _pq_pair(pq_arrays))
+    mod, jmod = (ivf_flat, jivf) if kind == "flat" else (ivf_pq, jpq)
+    q = np.zeros((0, DIM), np.float32)
+    sp = dict(n_probes=3, engine=engine)
+    d, i = mod.search(mod.SearchParams(**sp), p, t(q), k)
+    jd, ji = jmod.search(jmod.SearchParams(**sp), j, q, k)
+    assert tuple(d.shape) == tuple(i.shape) == jd.shape == ji.shape == (0, k)
+    assert (n(d).dtype, n(i).dtype) == (n(jd).dtype, n(ji).dtype)
+    assert i.dtype == p.indices.dtype
+
+
+@pytest.mark.parametrize("kind", ["ivf_flat", "ivf_pq"])
+@pytest.mark.parametrize("k", [1, 10])
+def test_ivf_searcher_zero_queries(flat_arrays, pq_arrays, kind, k):
+    s, js = _searchers(kind, flat_arrays, pq_arrays)
+    q = np.zeros((0, DIM), np.float32)
+    res, jres = s.search(q, k), js.search(q, k)
+    assert res.indices.shape == res.distances.shape == (0, k)
+    _same_result(res, jres)
+    assert res.coverage.shape == np.asarray(jres.coverage).shape == (0,)
