@@ -53,14 +53,20 @@ def merge_parts(keys, vals, k: Optional[int] = None, select_min: bool = True,
     ``(n_parts, n_queries, kk)``, reduced to the global top-``k`` (default
     ``kk``). Ties go to the lower part-major concatenated position, so the
     result is the concat + select_k output. ``translations`` offsets each
-    part's ids."""
+    part's ids, in the ids' own dtype: int64 ids take offsets past
+    2^31."""
     expects(keys.ndim == 3 and vals.shape == keys.shape,
             "keys/vals must be (n_parts, n_queries, k)")
     n_parts, n_queries, kk = keys.shape
     if k is None:
         k = kk
     if translations is not None:
-        off = torch.as_tensor(list(translations), dtype=vals.dtype,
+        translations = [int(x) for x in translations]
+        info = torch.iinfo(vals.dtype)
+        expects(all(info.min <= x <= info.max for x in translations),
+                "translations %s do not fit the %s ids; widen them first "
+                "(idx_dtype=torch.int64)", translations, vals.dtype)
+        off = torch.as_tensor(translations, dtype=vals.dtype,
                               device=vals.device).reshape(n_parts, 1, 1)
         vals = vals + off
     return _sorted_select(

@@ -1,8 +1,8 @@
 """Distance metric vocabulary.
 
 Port of ``raft_tpu/distance/distance_types.py``: the ``DistanceType`` enum
-(same numeric values as the reference), the pylibraft metric-name map and
-the selection-polarity helpers.
+(same numeric values as the reference), the pylibraft metric-name map with
+its aliases, ``SUPPORTED_DISTANCES`` and the selection-polarity helpers.
 """
 
 from __future__ import annotations
@@ -78,6 +78,13 @@ DISTANCE_TYPES = {
     "sqeuclidean_expanded": DistanceType.L2Expanded,
     "euclidean_expanded": DistanceType.L2SqrtExpanded,
 }
+
+# The metric names pylibraft's pairwise_distance documents as supported.
+SUPPORTED_DISTANCES = [
+    "euclidean", "l1", "cityblock", "l2", "inner_product", "chebyshev",
+    "minkowski", "canberra", "kl_divergence", "correlation", "russellrao",
+    "hellinger", "lp", "hamming", "jensenshannon", "cosine", "sqeuclidean",
+]
 
 
 def resolve_metric(metric) -> DistanceType:

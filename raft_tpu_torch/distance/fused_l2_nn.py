@@ -1,6 +1,7 @@
 """Fused L2 nearest-neighbor: pairwise L2 + row-wise arg-min in one pass.
 
-Port of ``raft_tpu/distance/fused_l2_nn.py``, the k-means inner loop. It is
+Port of ``raft_tpu/distance/fused_l2_nn.py``: ``fused_l2_nn_min_reduce``,
+the k-means inner loop, and ``fused_l2_nn_argmin``, its arg-min alone. It is
 the fused kNN of ``ops/fused_knn.py`` with k=1 on every device: kernel B1
 on ``cuda`` (as the reference routes to its Pallas kernel on ``tpu``), its
 plain version on the CPU. The kernel's output is (m, 1), so no query
@@ -54,3 +55,12 @@ def _min_reduce(x, y, sqrt: bool = False, bf16: Optional[str] = None
     d1, i1 = fused_knn(x, y, 1, metric="l2", sqrt=sqrt,
                        bf16=bf16 is not None, qsplit=bf16 == "split")
     return d1[:, 0], i1[:, 0]
+
+
+def fused_l2_nn_argmin(x, y, sqrt: bool = False, handle=None
+                       ) -> torch.Tensor:
+    """The arg-min of :func:`fused_l2_nn_min_reduce` alone: for each row of
+    ``x``, the int32 index of its L2-nearest row of ``y`` (ties to the
+    lowest index)."""
+    _, idx = fused_l2_nn_min_reduce(x, y, sqrt=sqrt, handle=handle)
+    return idx

@@ -45,13 +45,18 @@ def _id_tensor(ids, device) -> torch.Tensor:
 def _prepare_ids(index, ids) -> Optional[torch.Tensor]:
     """The delete ids as a tensor of the index's id dtype and device, or
     None for an empty batch. Ids must be >= 0, so none matches the
-    ``PAD_ID`` of an empty slot."""
+    ``PAD_ID`` of an empty slot. An id past the range of the index's id
+    dtype cannot be stored in it, and is dropped rather than wrapped onto
+    another id."""
     t = _id_tensor(ids, index.indices.device)
     if t.numel() == 0:
         return None
     lo = int(t.min())
     expects(lo >= 0, "ids must be >= 0 (got %s)", lo)
-    return t.to(index.indices.dtype)
+    dtype = index.indices.dtype
+    if t.dtype.itemsize > dtype.itemsize:
+        t = t[t <= torch.iinfo(dtype).max]
+    return t.to(dtype)
 
 
 def _tombstone(indices, list_sizes, deleted, del_ids
@@ -132,6 +137,7 @@ def upsert(index, new_vectors, new_indices, mesh=None):
     expects(torch.unique(ids).numel() == ids.numel(),
             "upsert ids must be unique within the batch")
     expects_finite("lifecycle.upsert", X)
+    _flat.expects_ids_fit("lifecycle.upsert", ids, index.indices.dtype)
     if ids.numel() == 0:
         return index
     del_ids = _prepare_ids(index, ids)

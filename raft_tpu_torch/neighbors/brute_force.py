@@ -1,7 +1,7 @@
 """Exact brute-force k-nearest-neighbor search.
 
-Port of ``raft_tpu/neighbors/brute_force.py`` for the L2 and inner-product
-metrics, with one database part. Two engines:
+Port of ``raft_tpu/neighbors/brute_force.py``. The L2 family and the
+inner product take one of two engines:
 
 * ``"scan"``: :func:`_tiled_knn_l2`, the reference's ``lax.scan`` over
   database tiles in plain PyTorch (a full-f32 gram per tile, then a stable
@@ -10,10 +10,15 @@ metrics, with one database part. Two engines:
   the reference's ``method="pallas"``.
 
 ``"auto"`` takes the kernel on ``cuda`` for n >= 8192 and k <= 128, the
-same rule as the reference's ``_use_pallas`` on ``tpu``. A database of
-several parts is searched part by part and merged by
-:func:`knn_merge_parts` (``comms/topk_merge.merge_parts``). int64 ids and
-the other metrics come in a later slice and raise here.
+same rule as the reference's ``_use_pallas`` on ``tpu``. Every other
+metric takes the reference's generic path: a pairwise tile
+(``distance/pairwise.distance``) per 8192 database rows, ``select_k`` per
+tile and a running merge, in the polarity of ``value_form_select_min``.
+
+A database of several parts is searched part by part and merged by
+:func:`knn_merge_parts` (``comms/topk_merge.merge_parts``). Ids are int32
+or int64 (``idx_dtype``): the engines give int32 positions within a part,
+widened before the part offsets are added, so ids past 2^31 need int64.
 """
 
 from __future__ import annotations
@@ -24,12 +29,13 @@ import torch
 
 from raft_tpu_torch.comms.topk_merge import merge_parts
 from raft_tpu_torch.core.error import expects, expects_finite
+from raft_tpu_torch.core.mdarray import validate_idx_dtype
 from raft_tpu_torch.core.resources import as_float, as_tensor
 from raft_tpu_torch.core.sentinels import PAD_ID, worst_value
 from raft_tpu_torch.distance.distance_types import (
     DistanceType, resolve_metric, value_form_select_min)
-from raft_tpu_torch.distance.pairwise import gram, row_norms_sq
-from raft_tpu_torch.matrix.select_k import stable_top_k
+from raft_tpu_torch.distance.pairwise import distance, gram, row_norms_sq
+from raft_tpu_torch.matrix.select_k import select_k, stable_top_k
 from raft_tpu_torch.ops.fused_knn import fused_knn, fused_knn_supported
 
 _TILE_DB = 8192
@@ -86,26 +92,55 @@ def tiled_brute_force_knn(
     method: str = "auto",
     handle=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """kNN by the L2 family or inner product. ``method``: "auto", "scan"
-    (the tiled engine) or "kernel" (B1; on CPU tensors its plain version).
-    Returns ``(distances (m, k), int32 indices (m, k))``. Rejects
-    non-finite inputs."""
+    """kNN of ``queries`` against one database part for any metric.
+    ``method`` picks the L2 / inner-product engine: "auto", "scan" (the
+    tiled engine) or "kernel" (B1; on CPU tensors its plain version); the
+    other metrics take the generic path whatever it says. Returns
+    ``(distances (m, k), int32 indices (m, k))``. Rejects non-finite
+    inputs."""
     queries = as_float(queries, handle)
     db = as_float(db, handle, queries.device)
     expects_finite("brute_force.knn", queries, db)
-    return _knn_one_part(queries, db, k, metric, tile_db, method)
+    return _knn_one_part(queries, db, k, resolve_metric(metric), metric_arg,
+                         tile_db, method)
 
 
-def _knn_one_part(queries, db, k: int, metric: DistanceType, tile_db: int,
+def _tiled_knn_generic(queries, db, k: int, metric: DistanceType,
+                       metric_arg: float, tile_db: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The generic path: a pairwise tile per ``tile_db`` database rows,
+    ``select_k`` per tile and a running merge (ties to the lower id)."""
+    select_min = value_form_select_min(metric)
+    n = db.shape[0]
+    if n <= tile_db:
+        return select_k(distance(queries, db, metric, metric_arg), k,
+                        select_min=select_min)
+    best_d = best_i = None
+    for start in range(0, n, tile_db):
+        tile = db[start:start + tile_db]
+        sd, si = select_k(distance(queries, tile, metric, metric_arg),
+                          min(k, tile.shape[0]), select_min=select_min)
+        si = si + start
+        if best_d is None:
+            best_d, best_i = sd, si
+            continue
+        best_d, pos = select_k(torch.cat([best_d, sd], dim=1), k,
+                               select_min=select_min)
+        best_i = torch.gather(torch.cat([best_i, si], dim=1), 1, pos.long())
+    return best_d, best_i
+
+
+def _knn_one_part(queries, db, k: int, metric: DistanceType,
+                  metric_arg: float, tile_db: int,
                   method: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`tiled_brute_force_knn` on checked float tensors."""
     expects(queries.shape[1] == db.shape[1], "dim mismatch")
     expects(method in ("auto", "scan", "kernel"),
             f"unknown method {method!r} (auto|scan|kernel)")
-    expects(metric in _L2_IP_METRICS,
-            "metric %s is not ported yet (L2 family and InnerProduct only)",
-            getattr(metric, "name", metric))
     k = min(k, db.shape[0])
+    if metric not in _L2_IP_METRICS:
+        return _tiled_knn_generic(queries, db, k, metric, metric_arg,
+                                  tile_db)
     is_l2 = metric != DistanceType.InnerProduct
     sqrt = metric in (DistanceType.L2SqrtExpanded,
                       DistanceType.L2SqrtUnexpanded)
@@ -142,30 +177,43 @@ def knn(
     global_id_offset: int = 0,
     handle=None,
     method: str = "auto",
+    idx_dtype=torch.int32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact kNN over one database part or a list of parts. Parts are
-    searched one by one and merged; part p's ids start at
-    ``global_id_offset`` plus the rows of the parts before it. Returns
-    ``(distances (n_queries, k), int32 indices (n_queries, k))``."""
+    """Exact kNN over one database part or a list of parts, for any
+    metric. Parts are searched one by one and merged; part p's ids start
+    at ``global_id_offset`` plus the rows of the parts before it.
+    ``idx_dtype`` is ``torch.int32`` or ``torch.int64``; positions are
+    widened to it before the offsets are added, so ids past 2^31 need
+    int64. Returns ``(distances (n_queries, k), indices (n_queries, k))``
+    in ``idx_dtype``."""
     metric = resolve_metric(metric)
+    idx_dtype = validate_idx_dtype(idx_dtype)
     parts = list(index) if isinstance(index, (list, tuple)) else [index]
     expects(len(parts) >= 1, "index must contain at least one part")
+    queries = as_float(queries, handle)
+    parts = [as_float(p, handle, queries.device) for p in parts]
+    info = torch.iinfo(idx_dtype)
+    n_total = sum(p.shape[0] for p in parts)
+    expects(info.min <= global_id_offset
+            and global_id_offset + n_total - 1 <= info.max,
+            "ids from %s to %s do not fit %s; pass idx_dtype=torch.int64",
+            global_id_offset, global_id_offset + n_total - 1, idx_dtype)
+    expects_finite("brute_force.knn", queries, *parts)
     if len(parts) == 1:
-        d, i = tiled_brute_force_knn(queries, parts[0], k, metric, metric_arg,
-                                     method=method, handle=handle)
+        d, i = _knn_one_part(queries, parts[0], k, metric, metric_arg,
+                             _TILE_DB, method)
+        i = i.to(idx_dtype)
         if global_id_offset:
             i = i + global_id_offset
         return d, i
 
-    queries = as_float(queries, handle)
-    parts = [as_float(p, handle, queries.device) for p in parts]
-    expects_finite("brute_force.knn", queries, *parts)
     select_min = value_form_select_min(metric)
     all_d, all_i, offsets = [], [], []
     base = global_id_offset
     for p in parts:
         pd, pi = _knn_one_part(queries, p, min(k, p.shape[0]), metric,
-                               _TILE_DB, method)
+                               metric_arg, _TILE_DB, method)
+        pi = pi.to(idx_dtype)
         kk = pd.shape[1]
         if kk < k:
             # A short part pads to k. The merge adds ``base`` to every id,

@@ -29,14 +29,20 @@ valid iff ``j < list_sizes[l]`` and it is not tombstoned in ``deleted``.
     card B3 holds k <= 256 and raises past it;
   - the scan engine (:func:`_probe_scan`): per probe rank, gather each
     query's list, score it, and merge into a running top-k, for what the
-    other engines do not take (tiny probe loads, "scan").
+    other engines do not take (tiny probe loads, "scan");
 
-save/load and int64 ids come in a later slice.
+* ids are int32 or int64 (``IndexParams.idx_dtype``). The kernels return
+  int32 slots within a list; the engines translate them through
+  ``indices``, in its dtype;
+* ``save`` / ``load`` write and read the reference's npz layout
+  (``SERIALIZATION_VERSION`` 3), so a file from either package loads in
+  the other.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -46,9 +52,12 @@ import torch
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
 from raft_tpu_torch.core.error import expects, expects_finite
+from raft_tpu_torch.core.mdarray import validate_idx_dtype
 from raft_tpu_torch.core.resources import (as_float, as_tensor, as_vectors,
                                            resolve_device)
+from raft_tpu_torch.core.retry import DEFAULT_IO_RETRY, with_retry
 from raft_tpu_torch.core.sentinels import PAD_ID, worst_value
+from raft_tpu_torch.core.serialize import from_numpy, to_numpy
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
 from raft_tpu_torch.distance.pairwise import gram, row_norms_sq
 from raft_tpu_torch.matrix.select_k import select_k, stable_top_k
@@ -92,7 +101,7 @@ class Index:
     metric: DistanceType
     centers: torch.Tensor       # (n_lists, dim)
     data: torch.Tensor          # (n_lists, cap, dim)
-    indices: torch.Tensor       # (n_lists, cap) int32 global row ids
+    indices: torch.Tensor       # (n_lists, cap) int32 / int64 row ids
     list_sizes: torch.Tensor    # (n_lists,) int32
     adaptive_centers: bool = False
     conservative_memory_allocation: bool = False
@@ -134,15 +143,16 @@ class Index:
 
 def index_from_numpy(centers, data, indices, list_sizes, metric,
                      deleted=None, device=None) -> Index:
-    """A port ``Index`` from the arrays of a raft_tpu ``Index`` (as numpy),
-    on ``device`` (``cuda`` by default)."""
+    """A port ``Index`` from the arrays of a raft_tpu ``Index`` (as numpy;
+    int32 or int64 ids; bf16 as 2-byte void arrays), on ``device``
+    (``cuda`` by default). The arrays are copied."""
     dev = resolve_device(device)
 
     def t(a, dtype=None):
-        return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+        return from_numpy(np.array(a), dev).to(dtype)
 
     ind = np.asarray(indices)
-    expects(ind.dtype == np.int32, "only int32 ids are ported")
+    validate_idx_dtype(ind.dtype)
     del_t = None if deleted is None else t(deleted, torch.bool)
     return Index(metric=resolve_metric(metric), centers=t(centers),
                  data=t(data), indices=t(ind),
@@ -196,8 +206,9 @@ def _coarse_probe(Q, centers, n_probes: int, inner_is_l2: bool):
 
 
 def build(params: IndexParams, dataset, handle=None) -> Index:
-    """Train centers (balanced k-means on a subsample) and fill the lists."""
-    expects(params.idx_dtype == torch.int32, "only int32 ids are ported")
+    """Train centers (balanced k-means on a subsample) and fill the lists
+    (ids ``0..n-1`` in ``params.idx_dtype``)."""
+    idx_dtype = validate_idx_dtype(params.idx_dtype)
     X = as_vectors(dataset, handle)
     expects(X.ndim == 2, "dataset must be (n_rows, dim)")
     n = X.shape[0]
@@ -209,7 +220,7 @@ def build(params: IndexParams, dataset, handle=None) -> Index:
         centers=centers,
         data=torch.zeros((params.n_lists, 1, X.shape[1]), dtype=X.dtype,
                          device=X.device),
-        indices=torch.full((params.n_lists, 1), PAD_ID, dtype=torch.int32,
+        indices=torch.full((params.n_lists, 1), PAD_ID, dtype=idx_dtype,
                            device=X.device),
         list_sizes=torch.zeros((params.n_lists,), dtype=torch.int32,
                                device=X.device),
@@ -217,7 +228,7 @@ def build(params: IndexParams, dataset, handle=None) -> Index:
         conservative_memory_allocation=params.conservative_memory_allocation,
     )
     if params.add_data_on_build:
-        index = _extend(index, X, torch.arange(n, dtype=torch.int32,
+        index = _extend(index, X, torch.arange(n, dtype=idx_dtype,
                                                device=X.device))
     return index
 
@@ -294,12 +305,27 @@ def extend(index: Index, new_vectors, new_indices=None,
     """Append vectors (ids default to ``max id + 1`` onwards). The index
     is mutated and returned; its storage is written in place when the
     lists have room. Tombstoned slots are not reclaimed. Rejects
-    non-finite vectors."""
+    non-finite vectors, and ids the index's id dtype cannot hold."""
     dev = handle.device if handle is not None else index.centers.device
     X = as_vectors(new_vectors, device=dev)
     expects(X.ndim == 2 and X.shape[1] == index.dim, "dim mismatch")
     expects_finite("ivf_flat.extend", X)
+    if new_indices is not None:
+        new_indices = as_tensor(new_indices, device=dev)
+        expects_ids_fit("ivf_flat.extend", new_indices, index.indices.dtype)
     return _extend(index, X, new_indices)
+
+
+def expects_ids_fit(name: str, ids: torch.Tensor, dtype: torch.dtype) -> None:
+    """Raise :class:`LogicError` when integer ``ids`` hold a value that
+    ``dtype`` (the index's id dtype) cannot: a cast would wrap it."""
+    if ids.numel() == 0 or ids.dtype.itemsize <= dtype.itemsize:
+        return
+    info = torch.iinfo(dtype)
+    lo, hi = int(ids.min()), int(ids.max())
+    expects(info.min <= lo and hi <= info.max,
+            "%s: ids in [%s, %s] do not fit the index's %s ids (build with "
+            "idx_dtype=torch.int64)", name, lo, hi, dtype)
 
 
 def _extend(index: Index, X: torch.Tensor, new_indices=None) -> Index:
@@ -666,7 +692,8 @@ def _cells_scan_probes(Q, probe_ids, data, indices, list_sizes, k: int,
 def search(params: SearchParams, index: Index, queries, k: int,
            handle=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Probe the ``n_probes`` nearest centers, then scan the probed lists.
-    Returns ``(distances (q, k), int32 neighbors (q, k))``; fewer than k
+    Returns ``(distances (q, k), neighbors (q, k))``, the neighbors in the
+    index's id dtype; fewer than k
     valid candidates leave (worst, -1) slots."""
     dev = handle.device if handle is not None else index.centers.device
     Q = as_float(queries, device=dev)
@@ -715,3 +742,79 @@ def search(params: SearchParams, index: Index, queries, k: int,
                                    index.list_sizes, k, inner_is_l2, sqrt,
                                    p_, index.deleted),
         Q, probe_ids, dataf.shape[1] * index.dim * 4, k, index.indices.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Serialization: the reference's npz layout (one .npy payload per array).
+
+SERIALIZATION_VERSION = 3
+
+
+def _npz_name(filename) -> str:
+    """``filename`` with the ``.npz`` suffix ``np.savez`` adds."""
+    name = os.fspath(filename)
+    return name if name.endswith(".npz") else name + ".npz"
+
+
+def read_npz(filename, retry=None) -> dict:
+    """Every array of an ``.npz`` file (suffix added when missing), read
+    under ``with_retry`` (``retry`` or ``DEFAULT_IO_RETRY``)."""
+    name = _npz_name(filename)
+
+    def read():
+        with np.load(name, allow_pickle=False) as z:
+            return {k: z[k] for k in z.files}
+
+    return with_retry(read, retry or DEFAULT_IO_RETRY)
+
+
+def write_npz(filename, payload: dict, retry=None) -> None:
+    """``np.savez`` of ``payload`` under ``with_retry``."""
+    with_retry(lambda: np.savez(os.fspath(filename), **payload),
+               retry or DEFAULT_IO_RETRY)
+
+
+def save(filename, index: Index, retry=None) -> None:
+    """Write ``index`` to ``filename`` (``.npz`` added) in the reference's
+    layout: the version, metric and flags as scalars, then ``centers``,
+    ``data``, ``indices`` and ``list_sizes``, and ``deleted`` only when a
+    slot is tombstoned. The write runs under ``with_retry`` (``retry`` or
+    ``DEFAULT_IO_RETRY``)."""
+    payload = dict(
+        version=np.int64(SERIALIZATION_VERSION),
+        metric=np.int64(index.metric.value),
+        adaptive_centers=np.bool_(index.adaptive_centers),
+        conservative=np.bool_(index.conservative_memory_allocation),
+        centers=to_numpy(index.centers),
+        data=to_numpy(index.data),
+        indices=to_numpy(index.indices),
+        list_sizes=to_numpy(index.list_sizes),
+    )
+    if index.n_deleted:
+        # Tombstones are index content: a reload must not resurrect them.
+        payload["deleted"] = to_numpy(index.deleted)
+    write_npz(filename, payload, retry)
+
+
+def load(filename, retry=None, device=None) -> Index:
+    """Read an index written by :func:`save` (or by the reference) onto
+    ``device`` (``cuda`` by default; raises without a card). The read runs
+    under ``with_retry``. The index has epoch 0 and no search caches."""
+    dev = resolve_device(device)
+    z = read_npz(filename, retry)
+    version = int(z["version"])
+    expects(version == SERIALIZATION_VERSION,
+            "serialization version mismatch: %s", version)
+    validate_idx_dtype(z["indices"].dtype)
+    deleted = z.get("deleted")
+    return Index(
+        metric=DistanceType(int(z["metric"])),
+        centers=from_numpy(z["centers"], dev),
+        data=from_numpy(z["data"], dev),
+        indices=from_numpy(z["indices"], dev),
+        list_sizes=from_numpy(z["list_sizes"], dev),
+        adaptive_centers=bool(z["adaptive_centers"]),
+        conservative_memory_allocation=bool(z["conservative"]),
+        deleted=None if deleted is None else from_numpy(deleted, dev),
+        n_deleted=0 if deleted is None else int(deleted.sum()),
+    )

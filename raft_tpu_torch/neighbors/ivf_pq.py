@@ -28,9 +28,12 @@ tombstoned in ``deleted``.
     (q, pq_dim, book) LUT and a gather over the codes, with the lut and
     internal dtypes of ``SearchParams``;
 * ``search_refined`` (and ``SearchParams.min_recall``) over-retrieve and
-  re-rank exactly with ``neighbors/refine.py``.
-
-``save``/``load`` and int64 ids come in a later slice.
+  re-rank exactly with ``neighbors/refine.py``;
+* ids are int32 or int64 (``IndexParams.idx_dtype``), translated from the
+  kernels' int32 slots through ``indices``;
+* ``save`` / ``load`` write and read the reference's npz layout
+  (``SERIALIZATION_VERSION`` 4, bit-packed codes). A loaded index holds no
+  retained dataset, so ``search_refined`` needs the dataset passed.
 """
 
 from __future__ import annotations
@@ -47,9 +50,11 @@ import torch
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
 from raft_tpu_torch.core.error import expects, expects_finite
+from raft_tpu_torch.core.mdarray import validate_idx_dtype
 from raft_tpu_torch.core.resources import (as_float, as_tensor, as_vectors,
                                            resolve_device)
 from raft_tpu_torch.core.sentinels import PAD_ID, worst_value
+from raft_tpu_torch.core.serialize import from_numpy, to_numpy
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
 from raft_tpu_torch.distance.pairwise import gram
 from raft_tpu_torch.matrix.select_k import select_k, stable_top_k
@@ -58,7 +63,7 @@ from raft_tpu_torch.neighbors.ivf_flat import (
     _auto_id_base, _bucketed_probe_scan, _chunked_over_queries,
     _invert_probe_map, _invert_probe_map_cells, _pack_lists, _pad_deleted,
     _pick_engine, _route_candidates, _route_candidates_cells,
-    _track_next_id)
+    _track_next_id, expects_ids_fit, read_npz, write_npz)
 from raft_tpu_torch.ops.fused_knn import fused_batch_knn
 from raft_tpu_torch.ops.pq_scan import (_SC, book_tables, permute_subspaces,
                                         pq_fused_scan)
@@ -183,7 +188,7 @@ class Index:
     rotation_matrix: torch.Tensor  # (rot_dim, dim)
     pq_centers: torch.Tensor
     pq_codes: torch.Tensor         # (n_lists, cap, packed_row_bytes) uint8
-    indices: torch.Tensor          # (n_lists, cap) int32
+    indices: torch.Tensor          # (n_lists, cap) int32 / int64
     list_sizes: torch.Tensor       # (n_lists,) int32
     pq_bits: int = 8
     pq_dim: int = 0
@@ -311,14 +316,14 @@ def index_from_numpy(centers, rotation_matrix, pq_centers, pq_codes,
                      codebook_kind, metric, deleted=None,
                      device=None) -> Index:
     """A port ``Index`` from the arrays of a raft_tpu IVF-PQ ``Index`` (as
-    numpy), on ``device`` (``cuda`` by default)."""
+    numpy; int32 or int64 ids), on ``device`` (``cuda`` by default)."""
     dev = resolve_device(device)
 
     def t(a, dtype=None):
         return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
 
     ind = np.asarray(indices)
-    expects(ind.dtype == np.int32, "only int32 ids are ported")
+    validate_idx_dtype(ind.dtype)
     del_t = None if deleted is None else t(deleted, torch.bool)
     kind = codebook_kind if isinstance(codebook_kind, CodebookGen) \
         else CodebookGen(int(getattr(codebook_kind, "value", codebook_kind)))
@@ -641,8 +646,8 @@ def _residuals(X, labels, centers, rot, pq_dim: int) -> torch.Tensor:
 def build(params: IndexParams, dataset, handle=None) -> Index:
     """Train the index: trainset -> balanced k-means coarse centers ->
     rotation -> rotated residuals -> codebooks -> extend with the
-    dataset."""
-    expects(params.idx_dtype == torch.int32, "only int32 ids are ported")
+    dataset (ids ``0..n-1`` in ``params.idx_dtype``)."""
+    idx_dtype = validate_idx_dtype(params.idx_dtype)
     X = as_vectors(dataset, handle)
     expects(X.ndim == 2, "dataset must be (n_rows, dim)")
     n, dim = X.shape
@@ -718,14 +723,14 @@ def build(params: IndexParams, dataset, handle=None) -> Index:
         pq_codes=torch.zeros((params.n_lists, 1,
                               packed_row_bytes(pq_dim, params.pq_bits)),
                              dtype=torch.uint8, device=dev),
-        indices=torch.full((params.n_lists, 1), PAD_ID, dtype=torch.int32,
+        indices=torch.full((params.n_lists, 1), PAD_ID, dtype=idx_dtype,
                            device=dev),
         list_sizes=torch.zeros((params.n_lists,), dtype=torch.int32,
                                device=dev),
         pq_bits=params.pq_bits, pq_dim=pq_dim,
         conservative_memory_allocation=params.conservative_memory_allocation)
     if params.add_data_on_build:
-        index = _extend(index, X, torch.arange(n, dtype=torch.int32,
+        index = _extend(index, X, torch.arange(n, dtype=idx_dtype,
                                                device=dev), dev)
         if params.retain_dataset:
             index._source = X
@@ -763,11 +768,15 @@ def extend(index: Index, new_vectors, new_indices=None,
     index is mutated and returned: an empty index is packed in bulk,
     otherwise rows go in place at each list's fill offset (capacity grows
     to the next power of two on overflow). Bumps ``epoch`` and drops the
-    search caches. Rejects non-finite vectors."""
+    search caches. Rejects non-finite vectors, and ids the index's id
+    dtype cannot hold."""
     dev = handle.device if handle is not None else index.centers.device
     X = as_float(new_vectors, device=dev)
     expects(X.ndim == 2 and X.shape[1] == index.dim, "dim mismatch")
     expects_finite("ivf_pq.extend", X)
+    if new_indices is not None:
+        new_indices = as_tensor(new_indices, device=dev)
+        expects_ids_fit("ivf_pq.extend", new_indices, index.indices.dtype)
     return _extend(index, new_vectors, new_indices, dev)
 
 
@@ -911,9 +920,10 @@ def _finish(index: Index, best_d, best_i):
 
 def search(params: SearchParams, index: Index, queries, k: int,
            handle=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Approximate search. Returns ``(distances (q, k), int32 neighbors
-    (q, k))``; L2 metrics report approximate squared (or sqrt'ed)
-    distances from the PQ scores. Rejects non-finite queries."""
+    """Approximate search. Returns ``(distances (q, k), neighbors (q, k))``,
+    the neighbors in the index's id dtype; L2 metrics report approximate
+    squared (or sqrt'ed) distances from the PQ scores. Rejects non-finite
+    queries."""
     dev = handle.device if handle is not None else index.centers.device
     Q = as_float(queries, device=dev)
     expects(Q.ndim == 2 and Q.shape[1] == index.dim, "query dim mismatch")
@@ -1076,3 +1086,69 @@ def _search_refined(params: SearchParams, index: Index, dataset,
     else:
         _, i = _search(params, index, Q, pool, handle)
     return refine(dataset, Q, i, k, metric=index.metric)
+
+
+# ---------------------------------------------------------------------------
+# Serialization: the reference's npz layout. Version 4 is the bit-packed
+# code layout; version 3 files held unpacked codes.
+
+SERIALIZATION_VERSION = 4
+
+
+def save(filename, index: Index, retry=None) -> None:
+    """Write ``index`` to ``filename`` (``.npz`` added) in the reference's
+    layout: version, metric, codebook kind, pq_bits, pq_dim and the
+    allocation flag as scalars, then ``centers``, ``rotation_matrix``,
+    ``pq_centers``, the bit-packed ``pq_codes``, ``indices`` and
+    ``list_sizes``, and ``deleted`` only when a slot is tombstoned. The
+    write runs under ``with_retry`` (``retry`` or ``DEFAULT_IO_RETRY``).
+    Search caches and the retained dataset are not written."""
+    payload = dict(
+        version=np.int64(SERIALIZATION_VERSION),
+        metric=np.int64(index.metric.value),
+        codebook_kind=np.int64(index.codebook_kind.value),
+        pq_bits=np.int64(index.pq_bits),
+        pq_dim=np.int64(index.pq_dim),
+        conservative=np.bool_(index.conservative_memory_allocation),
+        centers=to_numpy(index.centers),
+        rotation_matrix=to_numpy(index.rotation_matrix),
+        pq_centers=to_numpy(index.pq_centers),
+        pq_codes=to_numpy(index.pq_codes),
+        indices=to_numpy(index.indices),
+        list_sizes=to_numpy(index.list_sizes),
+    )
+    if index.n_deleted:
+        payload["deleted"] = to_numpy(index.deleted)
+    write_npz(filename, payload, retry)
+
+
+def load(filename, retry=None, device=None) -> Index:
+    """Read an index written by :func:`save` (or by the reference) onto
+    ``device`` (``cuda`` by default; raises without a card). The read runs
+    under ``with_retry``. The index has epoch 0, no search caches and no
+    retained dataset."""
+    dev = resolve_device(device)
+    z = read_npz(filename, retry)
+    version = int(z["version"])
+    expects(version == SERIALIZATION_VERSION,
+            "serialization version mismatch: %s%s", version,
+            " (v3 unpacked-codes indexes predate the bit-packed layout; "
+            "rebuild or re-save from a v3-era checkout)"
+            if version == 3 else "")
+    validate_idx_dtype(z["indices"].dtype)
+    deleted = z.get("deleted")
+    return Index(
+        metric=DistanceType(int(z["metric"])),
+        codebook_kind=CodebookGen(int(z["codebook_kind"])),
+        centers=from_numpy(z["centers"], dev),
+        rotation_matrix=from_numpy(z["rotation_matrix"], dev),
+        pq_centers=from_numpy(z["pq_centers"], dev),
+        pq_codes=from_numpy(z["pq_codes"], dev),
+        indices=from_numpy(z["indices"], dev),
+        list_sizes=from_numpy(z["list_sizes"], dev),
+        pq_bits=int(z["pq_bits"]),
+        pq_dim=int(z["pq_dim"]),
+        conservative_memory_allocation=bool(z["conservative"]),
+        deleted=None if deleted is None else from_numpy(deleted, dev),
+        n_deleted=0 if deleted is None else int(deleted.sum()),
+    )

@@ -3,6 +3,9 @@
 Port of ``raft_tpu/neighbors/refine.py::refine``: the candidates are
 gathered into a dense (n_queries, n_cand, d) block, scored exactly against
 their query and the best k kept. Candidate id -1 (padding) is skipped.
+Candidate ids are rows of the dataset: int64 ids stay int64 (the
+reference casts every candidate matrix to int32), any other integer
+dtype becomes int32.
 """
 
 from __future__ import annotations
@@ -45,11 +48,14 @@ def refine(dataset, queries, candidates, k: int,
            metric: Union[str, DistanceType] = DistanceType.L2Expanded,
            handle=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Re-rank ``candidates`` (n_queries, n_cand) by exact distance and
-    keep the best k. Returns ``(distances (n_queries, k), int32 ids)``."""
+    keep the best k. Returns ``(distances (n_queries, k), ids)``: int64
+    for int64 candidates, else int32."""
     metric = resolve_metric(metric)
     Q = as_float(queries, handle)
     X = as_float(dataset, handle, Q.device)
-    cand = as_tensor(candidates, handle, Q.device).to(torch.int32)
+    cand = as_tensor(candidates, handle, Q.device)
+    if cand.dtype != torch.int64:
+        cand = cand.to(torch.int32)
     expects(cand.ndim == 2, "candidates must be (n_queries, n_candidates)")
     expects(k <= cand.shape[1], "k must be <= n_candidates")
     select_min = value_form_select_min(metric)

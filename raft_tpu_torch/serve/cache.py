@@ -4,7 +4,9 @@ Port of ``raft_tpu/serve/cache.py``, unchanged: production query streams
 are heavily repeated (trending queries, retried RPCs, A/B replays), and an
 exact-match cache answers those without touching the card.
 
-Correctness contract: the key is ``(index epoch, query bytes, k)``. The
+Correctness contract: the key is ``(index epoch, query bytes, k)``, with
+the index's id dtype beside them (an int32 index and its int64 copy can
+stand at the same epoch; neither's answer may serve the other). The
 epoch, threaded from ``Index.epoch`` (bumped by every mutation:
 ``extend``, ``lifecycle.delete``, ``lifecycle.upsert`` and each
 compaction publish) through ``Searcher.epoch``, makes stale hits
@@ -32,10 +34,12 @@ from raft_tpu_torch.core.error import expects
 CacheKey = Tuple[int, int, bytes, bytes]
 
 
-def _key(epoch: int, queries: np.ndarray, k: int) -> CacheKey:
+def _key(epoch: int, queries: np.ndarray, k: int, id_dtype=None) -> CacheKey:
     # Shape/dtype ride in the key via a header: two float32 queries of
-    # different shapes may share tobytes() (e.g. (1,4) vs (4,1)).
-    header = ("%s|%s" % (queries.shape, queries.dtype.str)).encode()
+    # different shapes may share tobytes() (e.g. (1,4) vs (4,1)). So does
+    # the id dtype of the answer.
+    header = ("%s|%s|%s" % (queries.shape, queries.dtype.str,
+                            id_dtype)).encode()
     return (int(epoch), int(k), header, queries.tobytes())
 
 
@@ -58,10 +62,10 @@ class ResultCache:
         self.evictions = 0
         self.invalidations = 0
 
-    def get(self, epoch: int, queries: np.ndarray, k: int):
-        """The cached result for this exact request, or None. Counts a
-        hit or a miss either way."""
-        key = _key(epoch, np.asarray(queries), k)
+    def get(self, epoch: int, queries: np.ndarray, k: int, id_dtype=None):
+        """The cached result for this exact request (and id dtype), or
+        None. Counts a hit or a miss either way."""
+        key = _key(epoch, np.asarray(queries), k, id_dtype)
         with self._lock:
             entry = self._entries.get(key)
             if entry is None:
@@ -71,8 +75,9 @@ class ResultCache:
             self.hits += 1
             return entry
 
-    def put(self, epoch: int, queries: np.ndarray, k: int, result) -> None:
-        key = _key(epoch, np.asarray(queries), k)
+    def put(self, epoch: int, queries: np.ndarray, k: int, result,
+            id_dtype=None) -> None:
+        key = _key(epoch, np.asarray(queries), k, id_dtype)
         with self._lock:
             self._entries[key] = result
             self._entries.move_to_end(key)

@@ -281,7 +281,8 @@ class BatchScheduler:
 
         if self.cache is not None:
             with root.child("cache_lookup"):
-                hit = self.cache.get(self.searcher.epoch, q, k)
+                hit = self.cache.get(self.searcher.epoch, q, k,
+                                     self._id_dtype())
             if hit is not None:
                 self.stats.count(bucket, "requests")
                 self.stats.count(bucket, "cache_hits")
@@ -336,6 +337,11 @@ class BatchScheduler:
         if self.cache is not None:
             self.stats.count(bucket, "cache_misses")
         return ticket
+
+    def _id_dtype(self):
+        """The searcher's id dtype, a part of the cache key (None for a
+        searcher without one, such as a test double)."""
+        return getattr(self.searcher, "id_dtype", None)
 
     def pending(self) -> int:
         with self._lock:   # len() is GIL-atomic, but the lock keeps the
@@ -492,6 +498,7 @@ class BatchScheduler:
         # epoch would be a permanently-stale hit. Under the captured
         # (old) epoch the entry is unreachable by construction.
         epoch = self.searcher.epoch
+        id_dtype = self._id_dtype()
         try:
             # valid_rows: routed (placement="list") searchers must not
             # route / meter the bucket's zero-pad rows as traffic.
@@ -549,7 +556,7 @@ class BatchScheduler:
                 # are never cached: a hit after the shard recovers / the
                 # pressure lifts would replay the hole or the quality
                 # loss at full health.
-                self.cache.put(epoch, r.queries, r.k, out)
+                self.cache.put(epoch, r.queries, r.k, out, id_dtype)
             rbucket = (self.grid.bucket_for(r.rows, r.k)
                        or (r.rows, r.k))
             if res.degraded:

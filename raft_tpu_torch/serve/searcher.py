@@ -178,6 +178,15 @@ class Searcher:
         return int(self._index.centers.shape[1])
 
     @property
+    def id_dtype(self) -> torch.dtype:
+        """The dtype of the ids this endpoint answers with (int32 for
+        brute force; the index's for IVF kinds), part of the result
+        cache's key."""
+        if self.kind == "brute_force":
+            return torch.int32
+        return self._index.indices.dtype
+
+    @property
     def epoch(self) -> int:
         """Monotonic index-content version — the cache-invalidation key.
         IVF indexes carry their own counter, bumped by every extend even

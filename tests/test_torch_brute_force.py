@@ -13,6 +13,7 @@ import pytest
 from raft_tpu.distance.distance_types import DistanceType as JDistance
 from raft_tpu.distance.fused_l2_nn import \
     fused_l2_nn_min_reduce as jfused_l2_nn
+from raft_tpu.distance.pairwise import distance as jdistance
 from raft_tpu.neighbors import brute_force as jbf
 from raft_tpu_torch.core.error import LogicError
 from raft_tpu_torch.distance.distance_types import DistanceType
@@ -77,13 +78,21 @@ def test_fused_l2_knn_and_offset(rng):
 
 
 def test_unported_paths_raise(rng):
-    db = t(gauss(rng, (10, 4)))
+    # L1 and cosine answer now, as the reference does; Precomputed is the
+    # one metric neither package searches.
+    x = int_data(rng, (10, 4))
+    db = t(x)
+    for metric in (DistanceType.L1, DistanceType.CosineExpanded):
+        d, i = brute_force.knn([db, db], db, 2, metric=metric)
+        jd, ji = jbf.knn([x, x], x, 2, metric=JDistance(metric.value))
+        np.testing.assert_array_equal(n(i), n(ji))
+        np.testing.assert_array_equal(n(d), n(jd))
+    np.testing.assert_array_equal(n(distance(db, db, metric="cosine")),
+                                  n(jdistance(x, x, JDistance.CosineExpanded)))
     with pytest.raises(LogicError):
-        brute_force.knn(db, db, 2, metric=DistanceType.L1)
-    with pytest.raises(LogicError):      # multi-part: the metric still
-        brute_force.knn([db, db], db, 2, metric=DistanceType.L1)
+        brute_force.knn(db, db, 2, metric=DistanceType.Precomputed)
     with pytest.raises(LogicError):
-        distance(db, db, metric="cosine")
+        distance(db, db, metric=DistanceType.Precomputed)
 
 
 @pytest.mark.parametrize("metric", _METRICS)

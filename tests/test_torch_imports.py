@@ -29,7 +29,8 @@ _MODULES = sorted(
 
 
 def test_module_list_covers_the_slice():
-    for name in ("core.resources", "ops.fused_knn", "ops._build",
+    for name in ("core.resources", "core.mdarray", "core.serialize",
+                 "ops.fused_knn", "ops._build",
                  "ops.pq_scan", "neighbors.ivf_flat", "neighbors.ivf_pq",
                  "neighbors.refine", "cluster.kmeans_balanced",
                  "matrix.select_k", "distance.fused_l2_nn",

@@ -15,8 +15,6 @@ An empty query batch gives (0, k) results in both packages: float32
 distances and ids in the index's id dtype.
 """
 
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
