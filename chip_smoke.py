@@ -107,7 +107,32 @@ no result line):
     live ids (one epoch bump, the cache emptied, no deleted id returned),
     then ``Compactor(searcher).run_once(force=True)`` (ids identical to the
     tombstoned search's), with the delete ms and compact s;
-11. a ``kernels`` line, the card line, and the result line.
+11. the full entry-point surface, counters set to 0 before it and read
+    after each step: (a) persistence: ``lifecycle.delete`` of 10,000 more
+    seeded live ids from the IVF-Flat index phase 10 leaves and the IVF-PQ
+    index phase 9 leaves (so the ``deleted`` key is written), ``save`` of
+    each into a temporary directory (its free space checked first),
+    ``load`` onto the card, 10,000 queries at 32 probes through both (ids
+    and distances bit for bit, B2 / B4 launched on both, no deleted id
+    returned), a second ``save`` of the loaded index holding the same
+    arrays, with the file bytes, save s, load s and search ms; (b) int64
+    ids: ``brute_force.knn`` over phase 9's 4 parts with
+    ``idx_dtype=torch.int64`` and ``global_id_offset=2**32`` (ids = phase
+    4's + 2^32, distances equal), IVF-Flat and IVF-PQ built with int64 ids
+    and no rows, extended with ids ``2**33 + arange(1M)`` (recall@10
+    against brute force: IVF-Flat >= 0.995, IVF-PQ within 0.01 of phase
+    6's), a widened copy of phase 4's IVF-Flat index from
+    ``index_from_numpy`` (ids = the index's own + 2^33, bit for bit), an
+    ``upsert`` of 1000 rows and a ``compact`` keeping int64 ids past 2^33,
+    and 200 of bench/serve.py's requests through a ``Searcher`` over it
+    (ids = the per-call search's); (c) metrics at full width:
+    ``brute_force.knn`` with cosine, correlation, l1, linf and canberra, 1000
+    queries against the 1M rows, k=10, timed, and held on 100 of them
+    against a float64 search (recall@10 >= 0.999 with near-ties within
+    the tolerance counted as hits, distances within the tolerance), then
+    ``pairwise_distance`` for all 20 metrics at 1000 x 1000 against float64
+    numpy on the host;
+12. a ``kernels`` line, the card line, and the result line.
 
 The data is made with numpy from a fixed seed: 1000 Gaussian blobs
 (centers uniform in [-10, 10], sigma 5), queries = database rows + N(0, 1).
@@ -172,6 +197,20 @@ SERVE_K_GRID = (10, 100)
 SERVE_MAX_BATCH = 512
 SERVE_REPEAT = 0.3
 SERVE_LADDER = (1.0, 0.5, 0.25)
+# Phase 11: ids deleted before the saves, the id bases of the int64 steps,
+# the upserted rows, the served requests, and the metric searches. A
+# search's f32 distance is held to the float64 one within METRIC_RTOL of
+# max(1, |d|); a found id outside the float64 top-k counts as a hit when
+# its float64 distance is within that of the k-th (a near-tie).
+N_DELETE_MORE = 10_000
+ID_BASE_BF = 1 << 32
+ID_BASE_IVF = 1 << 33
+N_SERVE_INT64 = 200
+METRIC_SEARCH = ("cosine", "correlation", "l1", "linf", "canberra")
+N_METRIC_QUERIES = 1000
+N_METRIC_CHECK = 100
+METRIC_RTOL = 1e-5
+N_PAIRWISE = 1000
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FP32 = 67e12
@@ -1759,7 +1798,8 @@ def serve_engine_mix(X, searchers, reqs, card):
 def serve_mutations(dev, Q, index, card):
     """The serve phase, step 4 (module docstring, phase 10): delete and
     compact under a serving Searcher over the lifecycle phase's compacted
-    IVF-Flat index. Returns the launches of the step."""
+    IVF-Flat index. Returns the launches of the step and the index the
+    Searcher serves after it."""
     import torch
 
     from raft_tpu_torch.lifecycle import Compactor
@@ -1822,14 +1862,14 @@ def serve_mutations(dev, Q, index, card):
         f"identical to the tombstoned search's; launches {launches}")
     if launches["fused_cells_knn"] < 2:
         raise AssertionError("the searches after delete did not launch B2")
-    return launches
+    return launches, s._index
 
 
 def lifecycle_phase(dev, X, Q, bf, flat, pq, flat_ms, pq_ms, pq_recall):
-    """Phase 8: multi-part knn, delete, compact and upsert on the 1M
+    """Phase 9: multi-part knn, delete, compact and upsert on the 1M
     indexes, with the counters set to 0 before and read after each step.
     Returns the launches of the phase and the compacted, upserted
-    IVF-Flat index."""
+    indexes by name."""
     import torch
 
     from raft_tpu_torch import lifecycle as lc
@@ -1960,7 +2000,424 @@ def lifecycle_phase(dev, X, Q, bf, flat, pq, flat_ms, pq_ms, pq_recall):
         raise AssertionError(f"a kernel of the lifecycle path did not "
                              f"launch: {steps}")
     return ({k: sum(st[k] for st in steps.values())
-             for k in steps["multipart_knn"]}, compacted["ivf_flat"])
+             for k in steps["multipart_knn"]}, compacted)
+
+
+def _live_ids(index):
+    """The ids of an IVF index's live slots (below the fill line, not
+    tombstoned)."""
+    import torch
+
+    slot = torch.arange(index.indices.shape[1], device=index.indices.device)
+    live = slot[None, :] < index.list_sizes[:, None]
+    if index.deleted is not None:
+        live &= ~index.deleted
+    return index.indices[live]
+
+
+def _saved_bytes(index) -> int:
+    """Bytes of the arrays ``save`` writes for an IVF index."""
+    names = ("centers", "data", "rotation_matrix", "pq_centers", "pq_codes",
+             "indices", "list_sizes", "deleted")
+    return sum(t.numel() * t.element_size()
+               for t in (getattr(index, f, None) for f in names)
+               if t is not None)
+
+
+def _same_npz(a_path, b_path) -> bool:
+    """Two npz files hold the same keys, dtypes and arrays."""
+    with np.load(a_path) as a, np.load(b_path) as b:
+        if sorted(a.files) != sorted(b.files):
+            return False
+        for f in a.files:
+            x, y = a[f], b[f]           # each access reads the file
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                return False
+        return True
+
+
+def persistence_step(dev, Q, indexes, card):
+    """Phase 11 (a): delete, save, load and search both IVF indexes.
+    Returns the launches of the step."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from raft_tpu_torch import lifecycle as lc
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
+
+    mods = {"ivf_flat": ivf_flat, "ivf_pq": ivf_pq}
+    kernels = {"ivf_flat": "fused_cells_knn", "ivf_pq": "pq_fused_scan"}
+    rng = np.random.default_rng(SEED + 5)
+    dels = {}
+    for name, index in indexes.items():
+        dels[name] = rng.choice(_live_ids(index).cpu().numpy(),
+                                N_DELETE_MORE, replace=False)
+        got = lc.delete(index, dels[name])
+        if got != N_DELETE_MORE:
+            raise AssertionError(f"{name}: delete tombstoned {got} of "
+                                 f"{N_DELETE_MORE}")
+    need = 2 * sum(_saved_bytes(i) for i in indexes.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        free = shutil.disk_usage(tmp).free
+        if free < need + (1 << 30):
+            raise AssertionError(
+                f"the temporary directory {tmp} has {free} bytes free; the "
+                f"saves need {need} and 1 GiB to spare: point TMPDIR at a "
+                f"larger disk")
+        for name, index in indexes.items():
+            mod = mods[name]
+            sp = mod.SearchParams(n_probes=N_PROBES)
+            path = os.path.join(tmp, name)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mod.save(path, index)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = mod.load(path)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            if loaded.centers.device.type != dev.type \
+                    or loaded.n_deleted != index.n_deleted:
+                raise AssertionError(f"{name}: the loaded index is on "
+                                     f"{loaded.centers.device} with "
+                                     f"{loaded.n_deleted} tombstones")
+            before = _launches()
+            d0, i0 = mod.search(sp, index, Q, K)
+            d1, i1 = mod.search(sp, loaded, Q, K)
+            torch.cuda.synchronize()
+            step = _step(before)
+            if step[kernels[name]] < 2:
+                raise AssertionError(f"{name}: {kernels[name]} did not "
+                                     f"launch on both indexes: {step}")
+            if not (torch.equal(i0, i1) and torch.equal(d0, d1)):
+                raise AssertionError(f"{name}: the loaded index searches "
+                                     f"differently from the saved one")
+            if np.isin(i1.cpu().numpy(), dels[name]).any():
+                raise AssertionError(f"{name}: a deleted id came back "
+                                     f"after the load")
+            ms = time_ms(lambda: mod.search(sp, loaded, Q, K), reps=3)
+            mod.save(path + "_again", loaded)
+            if not _same_npz(path + ".npz", path + "_again.npz"):
+                raise AssertionError(f"{name}: a save of the loaded index "
+                                     f"holds other arrays")
+            nbytes = os.path.getsize(path + ".npz")
+            os.remove(path + ".npz")
+            os.remove(path + "_again.npz")
+            log(f"persistence {name} [{card}]: file {nbytes} bytes (cap "
+                f"{index.indices.shape[1]}, {index.n_deleted} tombstones), "
+                f"save {save_s:.3f} s, load {load_s:.3f} s; search after "
+                f"the load {ms:.3f} ms per {Q.shape[0]} queries, ids and "
+                f"distances bit for bit the saved index's, no deleted id; "
+                f"a second save holds the same arrays; launches {step}")
+    return _launches()
+
+
+def int64_step(dev, X, Q, bf, flat4, pq_recall, card):
+    """Phase 11 (b): int64 ids through brute force, both IVF builds, a
+    widened copy of phase 4's index, upsert + compact and a Searcher."""
+    import torch
+
+    from raft_tpu_torch import lifecycle as lc
+    from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
+    from raft_tpu_torch.serve import Searcher
+
+    bf_d, bf_i = bf
+    steps = {}
+    before = _launches()
+    part = N_ROWS // N_PARTS
+    d, i = brute_force.knn([X[s:s + part] for s in range(0, N_ROWS, part)],
+                           Q, K, idx_dtype=torch.int64,
+                           global_id_offset=ID_BASE_BF)
+    steps["brute_force"] = _step(before)
+    if not (i.dtype == torch.int64 and torch.equal(i - ID_BASE_BF,
+                                                   bf_i.long())
+            and torch.equal(d, bf_d)):
+        raise AssertionError("int64 multi-part knn != phase 4's ids + 2^32")
+
+    ids = ID_BASE_IVF + torch.arange(N_ROWS, dtype=torch.int64, device=dev)
+    truth = bf_i.long() + ID_BASE_IVF
+    sp = ivf_flat.SearchParams(n_probes=N_PROBES)
+    spq = ivf_pq.SearchParams(n_probes=N_PROBES)
+    built, rec, build_s = {}, {}, {}
+    for name, mod, params in (
+            ("ivf_flat", ivf_flat, sp), ("ivf_pq", ivf_pq, spq)):
+        before = _launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = mod.build(mod.IndexParams(
+            n_lists=N_LISTS, idx_dtype=torch.int64,
+            add_data_on_build=False), X)
+        index = mod.extend(index, X, ids)
+        torch.cuda.synchronize()
+        build_s[name] = time.perf_counter() - t0
+        _, fi = mod.search(params, index, Q, K)
+        steps[f"build_search_{name}"] = _step(before)
+        if fi.dtype != torch.int64 or int(fi[fi >= 0].min()) < ID_BASE_IVF:
+            raise AssertionError(f"{name}: int64 ids lost: {fi.dtype}")
+        built[name], rec[name] = index, recall(fi, truth)
+    log(f"int64 [{card}]: multi-part knn ids = phase 4's + 2^32; builds "
+        f"with ids 2^33 + arange({N_ROWS}): IVF-Flat {build_s['ivf_flat']:.3f} s "
+        f"recall@{K} {rec['ivf_flat']:.6f} (bar {RECALL_IVF}), IVF-PQ "
+        f"{build_s['ivf_pq']:.3f} s recall@{K} {rec['ivf_pq']:.6f} (phase "
+        f"6: {pq_recall:.6f}, bar +-{PQ_TIER_GAP})")
+    if rec["ivf_flat"] < RECALL_IVF \
+            or abs(rec["ivf_pq"] - pq_recall) > PQ_TIER_GAP:
+        raise AssertionError("int64 build recall out of bounds")
+
+    # The widened copy: phase 4's index (with phase 9's tombstones) with
+    # every id + 2^33, through index_from_numpy; B2 is deterministic.
+    ind = flat4.indices.cpu().numpy()
+    wide = ivf_flat.index_from_numpy(
+        flat4.centers.cpu().numpy(), flat4.data.cpu().numpy(),
+        np.where(ind >= 0, ind.astype(np.int64) + ID_BASE_IVF, -1),
+        flat4.list_sizes.cpu().numpy(), flat4.metric,
+        deleted=(None if flat4.deleted is None
+                 else flat4.deleted.cpu().numpy()), device=dev)
+    before = _launches()
+    _, ni = ivf_flat.search(sp, flat4, Q, K)
+    _, wi = ivf_flat.search(sp, wide, Q, K)
+    steps["widened_copy"] = _step(before)
+    if not torch.equal(wi, torch.where(ni >= 0, ni.long() + ID_BASE_IVF,
+                                       -1)):
+        raise AssertionError("the widened copy's ids != phase 4's + 2^33")
+    del wide
+
+    flat = built["ivf_flat"]
+    half = N_UPSERT // 2
+    up = torch.cat([ids[:2 * half:2],
+                    ID_BASE_IVF + N_ROWS + torch.arange(half, device=dev)])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    rows = torch.arange(0, 2 * half, 2, device=dev).repeat(2)
+    vecs = X[rows] + 0.5 * torch.randn((up.shape[0], DIM), generator=gen,
+                                       device=dev)
+    before = _launches()
+    e0 = flat.epoch
+    flat = lc.upsert(flat, vecs, up)
+    new, rep = lc.compact(flat)
+    steps["upsert_compact"] = _step(before)
+    live = _live_ids(new)
+    if (new.indices.dtype != torch.int64 or int(live.min()) < ID_BASE_IVF
+            or not bool(torch.isin(up, live).all())
+            or rep.reclaimed_slots != half or new.epoch != e0 + 2):
+        raise AssertionError(f"int64 upsert + compact: {rep}, ids "
+                             f"{new.indices.dtype}, min live "
+                             f"{int(live.min())}")
+
+    s = Searcher.ivf_flat(new, sp)
+    reqs = serve_stream(X, np.random.default_rng(SEED + 6),
+                        0.0)[:N_SERVE_INT64]
+    before = _launches()
+    for q, k in reqs:
+        res = s.search(q, k)
+        _, ci = ivf_flat.search(sp, new, torch.as_tensor(q, device=dev), k)
+        if res.indices.dtype != np.int64 \
+                or not np.array_equal(res.indices, ci.cpu().numpy()):
+            raise AssertionError("the int64 Searcher's ids differ from the "
+                                 "per-call search's")
+    steps["serve"] = _step(before)
+    log(f"int64 [{card}]: widened copy of phase 4's index ids = its own + "
+        f"2^33; upsert of {up.shape[0]} rows ({half} new ids from 2^33 + "
+        f"{N_ROWS}) and compact ({rep.reclaimed_slots} reclaimed) keep int64 "
+        f"ids >= 2^33; "
+        f"{len(reqs)} requests through a Searcher equal the per-call "
+        f"search; launches per step {steps}")
+    if steps["brute_force"]["fused_knn"] < N_PARTS \
+            or steps["widened_copy"]["fused_cells_knn"] < 2 \
+            or steps["build_search_ivf_pq"]["pq_fused_scan"] < 1:
+        raise AssertionError(f"a kernel of the int64 steps did not launch: "
+                             f"{steps}")
+    return _launches()
+
+
+def _f64_dist(q, y, metric: str):
+    """(a, b) float64 distances between the rows of ``q`` and ``y`` for
+    the metric searches, in plain torch on the card (100 queries against
+    1M rows would take minutes in numpy on the host)."""
+    import torch
+
+    q, y = q.double(), y.double()
+    if metric == "l1":
+        return torch.cdist(q, y, p=1.0)
+    if metric == "linf":
+        return torch.cdist(q, y, p=float("inf"))
+    if metric == "canberra":
+        out = torch.empty((q.shape[0], y.shape[0]), dtype=torch.float64,
+                          device=q.device)
+        step = max(1, (1 << 24) // (q.shape[0] * q.shape[1]))
+        for s in range(0, y.shape[0], step):
+            yb = y[None, s:s + step]
+            den = q.abs()[:, None] + yb.abs()
+            num = (q[:, None] - yb).abs()
+            out[:, s:s + step] = torch.where(
+                den > 0, num / torch.where(den > 0, den, 1.0), 0.0).sum(-1)
+        return out
+    if metric == "correlation":
+        q = q - q.mean(dim=1, keepdim=True)
+        y = y - y.mean(dim=1, keepdim=True)
+    qn = q / q.norm(dim=1, keepdim=True)
+    yn = y / y.norm(dim=1, keepdim=True)
+    return 1.0 - qn @ yn.T
+
+
+def metric_search_step(dev, X, Q, card):
+    """Phase 11 (c): brute-force kNN by five more metrics at full width,
+    held on N_METRIC_CHECK queries against a float64 search. Returns the
+    per-metric seconds."""
+    import torch
+
+    from raft_tpu_torch.neighbors import brute_force
+
+    Qm = Q[:N_METRIC_QUERIES]
+    Qc = Q[:N_METRIC_CHECK]
+    secs = {}
+    for metric in METRIC_SEARCH:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, i = brute_force.knn(X, Qm, K, metric=metric)
+        torch.cuda.synchronize()
+        secs[metric] = time.perf_counter() - t0
+        exact = _f64_dist(Qc, X, metric)
+        ref_d, ref_i = torch.topk(exact, K, dim=1, largest=False)
+        found = torch.gather(exact, 1, i[:N_METRIC_CHECK].long())
+        tol = METRIC_RTOL * torch.clamp_min(found.abs(), 1.0)
+        kth = ref_d[:, -1:]
+        hit = (torch.isin(i[:N_METRIC_CHECK].long(), ref_i)
+               | (found <= kth + METRIC_RTOL * torch.clamp_min(kth, 1.0)))
+        rec = float(hit.double().mean())
+        excess = float(torch.max((d[:N_METRIC_CHECK].double() - found).abs()
+                                 - tol))
+        err = float(torch.max((d[:N_METRIC_CHECK].double() - found).abs()))
+        n_ties = int((hit & ~torch.isin(i[:N_METRIC_CHECK].long(),
+                                        ref_i)).sum())
+        log(f"metric {metric} [{card}]: {Qm.shape[0]} queries x {N_ROWS} "
+            f"rows, k={K}: {secs[metric]:.3f} s; on {N_METRIC_CHECK} "
+            f"queries against float64: recall@{K} {rec:.6f} (bar "
+            f"{RECALL_BF}, {n_ties} near-tie hits), max |d - d64| {err:.3e} "
+            f"(tol {METRIC_RTOL} x max(1, |d64|))")
+        if rec < RECALL_BF or excess > 0:
+            raise AssertionError(f"metric {metric}: the search disagrees "
+                                 f"with float64")
+    return secs
+
+
+def _np_f64(x, y, metric, p):
+    """float64 numpy distances of ``pairwise_distance``'s metrics, written
+    from their definitions, a block of rows of x at a time."""
+    from raft_tpu_torch.distance.distance_types import DistanceType as M
+
+    x, y = x.astype(np.float64), y.astype(np.float64)
+    k = x.shape[1]
+    if metric == M.Haversine:
+        dlat = x[:, None, 0] - y[None, :, 0]
+        dlon = x[:, None, 1] - y[None, :, 1]
+        a = (np.sin(dlat / 2) ** 2 + np.cos(x[:, None, 0])
+             * np.cos(y[None, :, 0]) * np.sin(dlon / 2) ** 2)
+        return 2 * np.arcsin(np.sqrt(a))
+    xx, yy = (x * x).sum(1), (y * y).sum(1)
+    g = x @ y.T
+    # In float64 the expanded square of the L2 family cancels ~1e-13 of it.
+    l2 = np.maximum(xx[:, None] + yy[None] - 2 * g, 0)
+    gram_based = {
+        M.L2Expanded: lambda: l2, M.L2Unexpanded: lambda: l2,
+        M.L2SqrtExpanded: lambda: np.sqrt(l2),
+        M.L2SqrtUnexpanded: lambda: np.sqrt(l2),
+        M.InnerProduct: lambda: g,
+        M.CosineExpanded: lambda: 1 - g / np.sqrt(np.outer(xx, yy)),
+        M.CorrelationExpanded: lambda: 1 - np.corrcoef(x, y)[
+            :x.shape[0], x.shape[0]:],
+        M.HellingerExpanded: lambda: np.sqrt(np.maximum(
+            1 - np.sqrt(x) @ np.sqrt(y).T, 0)),
+        M.RusselRaoExpanded: lambda: (k - g) / k,
+        M.JaccardExpanded: lambda: 1 - g / (xx[:, None] + yy[None] - g),
+        M.DiceExpanded: lambda: 1 - 2 * g / (xx[:, None] + yy[None]),
+    }
+    if metric in gram_based:
+        return gram_based[metric]()
+    out = np.empty((x.shape[0], y.shape[0]))
+    for s in range(0, x.shape[0], 50):
+        a, b = x[s:s + 50, None], y[None]
+        diff = np.abs(a - b)
+        if metric == M.L1:
+            r = diff.sum(-1)
+        elif metric == M.Linf:
+            r = diff.max(-1)
+        elif metric == M.LpUnexpanded:
+            r = (diff ** p).sum(-1) ** (1 / p)
+        elif metric == M.Canberra:
+            r = (diff / (np.abs(a) + np.abs(b))).sum(-1)
+        elif metric == M.BrayCurtis:
+            r = diff.sum(-1) / np.abs(a + b).sum(-1)
+        elif metric == M.HammingUnexpanded:
+            r = (a != b).mean(-1)
+        elif metric == M.KLDivergence:
+            r = 0.5 * (a * np.log(a / b)).sum(-1)
+        elif metric == M.JensenShannon:
+            m = (a + b) / 2
+            r = np.sqrt(0.5 * (a * np.log(a / m) + b * np.log(b / m))
+                        .sum(-1))
+        else:
+            raise AssertionError(f"no float64 reference for {metric!r}")
+        out[s:s + 50] = r
+    return out
+
+
+def pairwise_step(dev, card):
+    """Phase 11 (c), second half: ``pairwise_distance`` for every metric
+    at N_PAIRWISE x N_PAIRWISE against float64 numpy on the host."""
+    import torch
+
+    from raft_tpu_torch.distance.distance_types import DistanceType as M
+    from raft_tpu_torch.distance.pairwise import pairwise_distance
+
+    rng = np.random.default_rng(SEED + 7)
+    gx = rng.standard_normal((N_PAIRWISE, DIM)).astype(np.float32)
+    gy = rng.standard_normal((N_PAIRWISE, DIM)).astype(np.float32)
+    px, py = (np.abs(a) + 1e-3 for a in (gx, gy))
+    px, py = px / px.sum(1, keepdims=True), py / py.sum(1, keepdims=True)
+    hx, hy = (rng.uniform(-1.5, 1.5, (N_PAIRWISE, 2)).astype(np.float32)
+              for _ in range(2))
+    worst = {}
+    t0 = time.perf_counter()
+    for metric in (m for m in M if m != M.Precomputed):
+        x, y = ((px, py) if metric in (M.HellingerExpanded, M.KLDivergence,
+                                       M.JensenShannon)
+                else (hx, hy) if metric == M.Haversine else (gx, gy))
+        got = pairwise_distance(torch.as_tensor(x, device=dev),
+                                torch.as_tensor(y, device=dev),
+                                metric=metric, p=3.0).cpu().numpy()
+        want = _np_f64(x, y, metric, 3.0)
+        err = float(np.max(np.abs(got - want)))
+        scale = max(1.0, float(np.max(np.abs(want))))
+        worst[metric.name] = err / scale
+        if not np.isfinite(got).all() or err > METRIC_RTOL * scale:
+            raise AssertionError(f"pairwise {metric.name}: max err {err:.3e}"
+                                 f" against float64 (scale {scale:.3e})")
+    log(f"pairwise_distance [{card}]: all {len(worst)} metrics at "
+        f"{N_PAIRWISE} x {N_PAIRWISE} within {METRIC_RTOL} x max(1, |d64|) "
+        f"of float64 numpy ({time.perf_counter() - t0:.3f} s with the "
+        f"references); worst relative error "
+        f"{max(worst.values()):.3e} ({max(worst, key=worst.get)})")
+
+
+def surface_phase(dev, X, Q, bf, flat4, flat10, pq9, pq_recall, card):
+    """Phase 11: persistence, int64 ids and the metrics, with the
+    counters set to 0 before it. Returns the launches of the phase."""
+    import torch
+
+    _zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    persistence_step(dev, Q, {"ivf_flat": flat10, "ivf_pq": pq9}, card)
+    int64_step(dev, X, Q, bf, flat4, pq_recall, card)
+    metric_search_step(dev, X, Q, card)
+    pairwise_step(dev, card)
+    launches = _launches()
+    log(f"phase 11: {time.perf_counter() - t0:.3f} s, launches {launches}")
+    return launches
 
 
 def main() -> int:
@@ -2013,10 +2470,12 @@ def main() -> int:
     # compressed tier (B4), as the main path does.
     pq["index"]._recon = None
     sv = serve_phase(dev, X, card, mp["index"], pq["index"], pq["recall"])
-    lc, flat_compacted = lifecycle_phase(
+    lc, compacted = lifecycle_phase(
         dev, X, Q, mp["bf"], mp["index"], pq["index"], mp["search_ms"],
         pq["search_ms"], pq["recall"])
-    sm = serve_mutations(dev, Q, flat_compacted, card)
+    sm, flat_served = serve_mutations(dev, Q, compacted["ivf_flat"], card)
+    sf = surface_phase(dev, X, Q, mp["bf"], mp["index"], flat_served,
+                       compacted["ivf_pq"], pq["recall"], card)
 
     kernels = [
         dict(name="fused_knn", route="cuda",
@@ -2024,24 +2483,25 @@ def main() -> int:
              replaces="raft_tpu/ops/fused_knn.py:179",
              launches=mp["launches"]["fused_knn"]
              + pq["launches"]["fused_knn"] + sv["fused_knn"]
-             + lc["fused_knn"] + sm["fused_knn"], **b1),
+             + lc["fused_knn"] + sm["fused_knn"] + sf["fused_knn"], **b1),
         dict(name="fused_cells_knn", route="cuda",
              source="raft_tpu_torch/csrc/cells_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:426",
              launches=mp["launches"]["fused_cells_knn"]
              + sv["fused_cells_knn"] + lc["fused_cells_knn"]
-             + sm["fused_cells_knn"], **b2),
+             + sm["fused_cells_knn"] + sf["fused_cells_knn"], **b2),
         dict(name="fused_batch_knn", route="cuda",
              source="raft_tpu_torch/csrc/batch_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:277",
              launches=pq["launches"]["fused_batch_knn"]
              + sv["fused_batch_knn"] + lc["fused_batch_knn"]
-             + sm["fused_batch_knn"], **b3),
+             + sm["fused_batch_knn"] + sf["fused_batch_knn"], **b3),
         dict(name="pq_fused_scan", route="cuda",
              source="raft_tpu_torch/csrc/pq_scan.cu",
              replaces="raft_tpu/ops/pq_scan.py:440",
              launches=pq["launches"]["pq_fused_scan"] + sv["pq_fused_scan"]
-             + lc["pq_fused_scan"] + sm["pq_fused_scan"], **b4),
+             + lc["pq_fused_scan"] + sm["pq_fused_scan"]
+             + sf["pq_fused_scan"], **b4),
         dict(name="stream_extract", route="cuda",
              source="raft_tpu_torch/csrc/stream_select.cu",
              replaces="raft_tpu/matrix/select_k.py:218", **b5),

@@ -1,40 +1,31 @@
-"""Typed array validation.
+"""Neighbor-id dtypes.
 
-Port of the validation half of ``raft_tpu/core/mdarray.py``: the checks
-the reference's public API makes up front on dtype, rank and extents
-(its ``device_matrix_view`` / ``device_vector_view`` contracts), and the
-neighbor-id dtype knob. The owning container is ``torch.Tensor``.
-
-The reference's int64 ids need JAX's global x64 switch. A torch tensor
-holds int64 as it is, so the port has no such condition.
+Port of ``raft_tpu/core/mdarray.py::validate_idx_dtype``, the id-dtype
+knob of the kNN surface, with the range check an id dtype implies. The
+reference's int64 ids need JAX's global x64 switch; a torch tensor holds
+int64 as it is, so the port has no such condition. The rest of the
+reference module (``ArraySpec``, the ``make_*`` factories, the view
+checks) has no caller in the port yet.
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import numpy as np
 import torch
 
 from raft_tpu_torch.core.error import expects
-from raft_tpu_torch.core.resources import as_tensor
 
 _ID_DTYPES = (torch.int32, torch.int64)
 
 
-def torch_dtype(dtype) -> torch.dtype:
-    """A ``torch.dtype`` from a torch dtype, a numpy dtype or a name."""
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
-
-
 def validate_idx_dtype(dtype) -> torch.dtype:
     """The neighbor-id dtype knob (the reference's ``IdxT``): int32 (the
-    default) or int64, as a ``torch.dtype``; anything else raises
+    default) or int64, given as a torch dtype, a numpy dtype or a name;
+    returned as a ``torch.dtype``. Anything else raises
     :class:`~raft_tpu_torch.core.error.LogicError`."""
     try:
-        dt = torch_dtype(dtype)
+        dt = (dtype if isinstance(dtype, torch.dtype)
+              else torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype)
     except TypeError:
         dt = None
     expects(dt in _ID_DTYPES,
@@ -42,34 +33,14 @@ def validate_idx_dtype(dtype) -> torch.dtype:
     return dt
 
 
-def _check(t: torch.Tensor, name: str, dtype, ndim: int, shape) -> None:
-    if dtype is not None:
-        want = torch_dtype(dtype)
-        expects(t.dtype == want, "%s: expected dtype %s, got %s", name,
-                want, t.dtype)
-    expects(t.ndim == ndim, "%s: expected rank %s, got %s", name, ndim,
-            t.ndim)
-    for i, (want, got) in enumerate(zip(shape, t.shape)):
-        if want is not None:
-            expects(want == got, "%s: extent %s expected %s, got %s", name,
-                    i, want, got)
-
-
-def check_matrix(x, name: str = "matrix", dtype=None,
-                 rows: Optional[int] = None, cols: Optional[int] = None,
-                 handle=None, device=None) -> torch.Tensor:
-    """Validate a rank-2 input (the ``device_matrix_view`` contract) and
-    return it as a tensor (:func:`~raft_tpu_torch.core.resources.as_tensor`
-    placement)."""
-    t = as_tensor(x, handle, device)
-    _check(t, name, dtype, 2, (rows, cols))
-    return t
-
-
-def check_vector(x, name: str = "vector", dtype=None,
-                 size: Optional[int] = None, handle=None,
-                 device=None) -> torch.Tensor:
-    """Validate a rank-1 input (the ``device_vector_view`` contract)."""
-    t = as_tensor(x, handle, device)
-    _check(t, name, dtype, 1, (size,))
-    return t
+def expects_ids_fit(name: str, ids: torch.Tensor, dtype: torch.dtype) -> None:
+    """Raise :class:`~raft_tpu_torch.core.error.LogicError` when integer
+    ``ids`` hold a value that ``dtype`` (an index's id dtype) cannot: a
+    cast would wrap it onto another id."""
+    if ids.numel() == 0 or ids.dtype.itemsize <= dtype.itemsize:
+        return
+    info = torch.iinfo(dtype)
+    lo, hi = int(ids.min()), int(ids.max())
+    expects(info.min <= lo and hi <= info.max,
+            "%s: ids in [%s, %s] do not fit the index's %s ids (build with "
+            "idx_dtype=torch.int64)", name, lo, hi, dtype)

@@ -1,19 +1,25 @@
-"""Binary serialization of arrays and scalars to streams.
+"""Binary serialization of arrays and scalars to streams and files.
 
 Port of ``raft_tpu/core/serialize.py``, in numpy alone: arrays as ``.npy``
 payloads, scalars as packed little-endian values (the reference's
 ``serialize_mdspan`` / ``serialize_scalar`` wire convention), so a stream
 written by either package reads in the other. Tensors are written through
-:func:`to_numpy`, which copies them to the host first.
+:func:`to_numpy`, which copies them to the host first. The IVF indexes'
+``save`` / ``load`` keep their arrays in one ``.npz`` file, read and
+written here under ``core/retry.with_retry`` (:func:`read_npz`,
+:func:`write_npz`), as the reference's are.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from typing import BinaryIO
 
 import numpy as np
 import torch
+
+from raft_tpu_torch.core.retry import DEFAULT_IO_RETRY, with_retry
 
 _SCALAR_FMT = {
     np.dtype(np.int8): "<b",
@@ -89,3 +95,24 @@ def deserialize_scalar(stream: BinaryIO, dtype):
     dt = np.dtype(dtype)
     fmt = _SCALAR_FMT[dt]
     return dt.type(struct.unpack(fmt, stream.read(struct.calcsize(fmt)))[0])
+
+
+def read_npz(filename, retry=None) -> dict:
+    """Every array of an ``.npz`` file, the suffix added when missing
+    (``np.savez`` adds it), read under ``with_retry`` (``retry`` or
+    ``DEFAULT_IO_RETRY``)."""
+    name = os.fspath(filename)
+    if not name.endswith(".npz"):
+        name += ".npz"
+
+    def read():
+        with np.load(name, allow_pickle=False) as z:
+            return {k: z[k] for k in z.files}
+
+    return with_retry(read, retry or DEFAULT_IO_RETRY)
+
+
+def write_npz(filename, payload: dict, retry=None) -> None:
+    """``np.savez`` of ``payload`` under ``with_retry``."""
+    with_retry(lambda: np.savez(os.fspath(filename), **payload),
+               retry or DEFAULT_IO_RETRY)

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.core.error import expects, expects_finite
+from raft_tpu_torch.core.mdarray import expects_ids_fit
 from raft_tpu_torch.core.resources import as_vectors
 from raft_tpu_torch.neighbors import ivf_flat as _flat
 from raft_tpu_torch.neighbors import ivf_pq as _pq
@@ -137,7 +138,7 @@ def upsert(index, new_vectors, new_indices, mesh=None):
     expects(torch.unique(ids).numel() == ids.numel(),
             "upsert ids must be unique within the batch")
     expects_finite("lifecycle.upsert", X)
-    _flat.expects_ids_fit("lifecycle.upsert", ids, index.indices.dtype)
+    expects_ids_fit("lifecycle.upsert", ids, index.indices.dtype)
     if ids.numel() == 0:
         return index
     del_ids = _prepare_ids(index, ids)

@@ -42,7 +42,6 @@ valid iff ``j < list_sizes[l]`` and it is not tombstoned in ``deleted``.
 from __future__ import annotations
 
 import logging
-import os
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -52,12 +51,12 @@ import torch
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
 from raft_tpu_torch.core.error import expects, expects_finite
-from raft_tpu_torch.core.mdarray import validate_idx_dtype
+from raft_tpu_torch.core.mdarray import expects_ids_fit, validate_idx_dtype
 from raft_tpu_torch.core.resources import (as_float, as_tensor, as_vectors,
                                            resolve_device)
-from raft_tpu_torch.core.retry import DEFAULT_IO_RETRY, with_retry
 from raft_tpu_torch.core.sentinels import PAD_ID, worst_value
-from raft_tpu_torch.core.serialize import from_numpy, to_numpy
+from raft_tpu_torch.core.serialize import (from_numpy, read_npz, to_numpy,
+                                           write_npz)
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
 from raft_tpu_torch.distance.pairwise import gram, row_norms_sq
 from raft_tpu_torch.matrix.select_k import select_k, stable_top_k
@@ -314,18 +313,6 @@ def extend(index: Index, new_vectors, new_indices=None,
         new_indices = as_tensor(new_indices, device=dev)
         expects_ids_fit("ivf_flat.extend", new_indices, index.indices.dtype)
     return _extend(index, X, new_indices)
-
-
-def expects_ids_fit(name: str, ids: torch.Tensor, dtype: torch.dtype) -> None:
-    """Raise :class:`LogicError` when integer ``ids`` hold a value that
-    ``dtype`` (the index's id dtype) cannot: a cast would wrap it."""
-    if ids.numel() == 0 or ids.dtype.itemsize <= dtype.itemsize:
-        return
-    info = torch.iinfo(dtype)
-    lo, hi = int(ids.min()), int(ids.max())
-    expects(info.min <= lo and hi <= info.max,
-            "%s: ids in [%s, %s] do not fit the index's %s ids (build with "
-            "idx_dtype=torch.int64)", name, lo, hi, dtype)
 
 
 def _extend(index: Index, X: torch.Tensor, new_indices=None) -> Index:
@@ -748,30 +735,6 @@ def search(params: SearchParams, index: Index, queries, k: int,
 # Serialization: the reference's npz layout (one .npy payload per array).
 
 SERIALIZATION_VERSION = 3
-
-
-def _npz_name(filename) -> str:
-    """``filename`` with the ``.npz`` suffix ``np.savez`` adds."""
-    name = os.fspath(filename)
-    return name if name.endswith(".npz") else name + ".npz"
-
-
-def read_npz(filename, retry=None) -> dict:
-    """Every array of an ``.npz`` file (suffix added when missing), read
-    under ``with_retry`` (``retry`` or ``DEFAULT_IO_RETRY``)."""
-    name = _npz_name(filename)
-
-    def read():
-        with np.load(name, allow_pickle=False) as z:
-            return {k: z[k] for k in z.files}
-
-    return with_retry(read, retry or DEFAULT_IO_RETRY)
-
-
-def write_npz(filename, payload: dict, retry=None) -> None:
-    """``np.savez`` of ``payload`` under ``with_retry``."""
-    with_retry(lambda: np.savez(os.fspath(filename), **payload),
-               retry or DEFAULT_IO_RETRY)
 
 
 def save(filename, index: Index, retry=None) -> None:

@@ -50,11 +50,12 @@ import torch
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
 from raft_tpu_torch.core.error import expects, expects_finite
-from raft_tpu_torch.core.mdarray import validate_idx_dtype
+from raft_tpu_torch.core.mdarray import expects_ids_fit, validate_idx_dtype
 from raft_tpu_torch.core.resources import (as_float, as_tensor, as_vectors,
                                            resolve_device)
 from raft_tpu_torch.core.sentinels import PAD_ID, worst_value
-from raft_tpu_torch.core.serialize import from_numpy, to_numpy
+from raft_tpu_torch.core.serialize import (from_numpy, read_npz, to_numpy,
+                                           write_npz)
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
 from raft_tpu_torch.distance.pairwise import gram
 from raft_tpu_torch.matrix.select_k import select_k, stable_top_k
@@ -63,7 +64,7 @@ from raft_tpu_torch.neighbors.ivf_flat import (
     _auto_id_base, _bucketed_probe_scan, _chunked_over_queries,
     _invert_probe_map, _invert_probe_map_cells, _pack_lists, _pad_deleted,
     _pick_engine, _route_candidates, _route_candidates_cells,
-    _track_next_id, expects_ids_fit, read_npz, write_npz)
+    _track_next_id)
 from raft_tpu_torch.ops.fused_knn import fused_batch_knn
 from raft_tpu_torch.ops.pq_scan import (_SC, book_tables, permute_subspaces,
                                         pq_fused_scan)

@@ -23,6 +23,7 @@ from raft_tpu_torch import lifecycle as lc
 from raft_tpu_torch import serve
 from raft_tpu_torch.comms.topk_merge import merge_parts
 from raft_tpu_torch.core.error import LogicError
+from raft_tpu_torch.core.mdarray import validate_idx_dtype
 from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
 from raft_tpu_torch.neighbors.refine import refine
 from test_torch_common import int_data, n, recall, t
@@ -188,6 +189,20 @@ def test_int64_parity_x64_subprocess():
 _RNG = np.random.default_rng(4)
 _X = int_data(_RNG, (700, 16))
 _Q = int_data(_RNG, (20, 16))
+
+
+@pytest.mark.parametrize("dtype,want", [
+    (torch.int32, torch.int32), (torch.int64, torch.int64),
+    ("int64", torch.int64), (np.int32, torch.int32),
+    (np.dtype("int64"), torch.int64), (torch.int16, None),
+    (np.uint32, None), ("float32", None), ("not-a-dtype", None),
+    (None, None)])
+def test_validate_idx_dtype(dtype, want):
+    if want is None:
+        with pytest.raises(LogicError, match="idx_dtype"):
+            validate_idx_dtype(dtype)
+    else:
+        assert validate_idx_dtype(dtype) == want
 
 
 @pytest.mark.parametrize("parts", [1, 3])

@@ -1035,3 +1035,81 @@ def test_serving_builds_and_loads_nothing_in_steady_state(dev, gen):
     assert all(tk.done for tk in tks)
     assert counter.count == 0 and stats.snapshot()["compile_events"] == 0
     assert fk.fused_cells_knn.launches > b2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ivf_flat", "ivf_pq"])
+def test_save_and_load_on_the_card(dev, gen, tmp_path, kind):
+    """An index saved from the card loads onto the card (the default
+    device) with every array intact, and searches bit for bit as the saved
+    one through B2 / B4; a tombstone survives the round trip."""
+    if kind == "ivf_flat":
+        mod, counter = ivf_flat, fk.fused_cells_knn
+        X = int_data(gen, (6000, 16))
+        index = ivf_flat.build(ivf_flat.IndexParams(n_lists=16,
+                                                    kmeans_n_iters=4), X)
+        fields = ("centers", "data", "indices", "list_sizes", "deleted")
+    else:
+        mod, counter = ivf_pq, ps.pq_fused_scan
+        index = _serve_pq_index(gen)(dev)
+        fields = ("centers", "rotation_matrix", "pq_centers", "pq_codes",
+                  "indices", "list_sizes", "deleted")
+    assert lc.delete(index, np.arange(0, 600, 3)) == 200
+    mod.save(str(tmp_path / "idx"), index)
+    back = mod.load(str(tmp_path / "idx"))
+    assert back.centers.device.type == "cuda"
+    assert back.n_deleted == index.n_deleted and back.epoch == 0
+    for f in fields:
+        assert torch.equal(getattr(back, f), getattr(index, f)), f
+    sp = mod.SearchParams(n_probes=8, engine="bucketed")
+    Q = int_data(gen, (300, 16), hi=4)
+    before = counter.launches
+    d, i = mod.search(sp, index, Q, 10)
+    bd, bi = mod.search(sp, back, Q, 10)
+    assert counter.launches == before + 2
+    assert torch.equal(bi, i) and torch.equal(bd, d)
+    assert not np.isin(n(bi), np.arange(0, 600, 3)).any()
+
+
+@pytest.mark.cuda
+def test_int64_ivf_flat_on_the_card_equals_cpu(dev, gen):
+    """An int64 IVF-Flat index with ids past 2^33 searches through B2 on
+    the card as its CPU copy does on the plain version."""
+    big = 1 << 33
+    X = int_data(gen, (6000, 16))
+    index = ivf_flat.build(ivf_flat.IndexParams(
+        n_lists=16, kmeans_n_iters=4, idx_dtype=torch.int64,
+        add_data_on_build=False), X)
+    index.centers = torch.round(index.centers)
+    index = ivf_flat.extend(index, X, big + np.arange(6000))
+    cpu = ivf_flat.index_from_numpy(n(index.centers), n(index.data),
+                                    n(index.indices), n(index.list_sizes), 0,
+                                    device="cpu")
+    assert index.indices.dtype == cpu.indices.dtype == torch.int64
+    Q = int_data(gen, (300, 16))
+    before = fk.fused_cells_knn.launches
+    d, i = ivf_flat.search(ivf_flat.SearchParams(n_probes=8), index, Q, 10)
+    assert fk.fused_cells_knn.launches == before + 1
+    cd, ci = ivf_flat.search(ivf_flat.SearchParams(n_probes=8,
+                                                   engine="bucketed"),
+                             cpu, torch.as_tensor(Q), 10)
+    assert i.dtype == torch.int64 and int(i.min()) >= big
+    np.testing.assert_array_equal(n(i), n(ci))
+    np.testing.assert_array_equal(n(d), n(cd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l1", "braycurtis"])
+def test_unexpanded_metric_on_the_card_equals_cpu(dev, gen, metric):
+    """An unexpanded metric's kNN (cdist for L1, the blocked core for
+    Bray-Curtis) over several database tiles on the card equals the CPU's
+    bit for bit on integer data: both are sums of integers and at most one
+    division, exact in any order."""
+    X = int_data(gen, (20000, 24))
+    Q = int_data(gen, (200, 24))
+    d, i = brute_force.knn(X, Q, 10, metric=metric)
+    cd, ci = brute_force.knn(torch.as_tensor(X), torch.as_tensor(Q), 10,
+                             metric=metric)
+    assert d.device.type == "cuda"
+    np.testing.assert_array_equal(n(i), n(ci))
+    np.testing.assert_array_equal(n(d), n(cd))
