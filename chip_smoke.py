@@ -2159,7 +2159,8 @@ def int64_step(dev, X, Q, bf, flat4, pq_recall, card):
             raise AssertionError(f"{name}: int64 ids lost: {fi.dtype}")
         built[name], rec[name] = index, recall(fi, truth)
     log(f"int64 [{card}]: multi-part knn ids = phase 4's + 2^32; builds "
-        f"with ids 2^33 + arange({N_ROWS}): IVF-Flat {build_s['ivf_flat']:.3f} s "
+        f"with ids 2^33 + arange({N_ROWS}): IVF-Flat "
+        f"{build_s['ivf_flat']:.3f} s "
         f"recall@{K} {rec['ivf_flat']:.6f} (bar {RECALL_IVF}), IVF-PQ "
         f"{build_s['ivf_pq']:.3f} s recall@{K} {rec['ivf_pq']:.6f} (phase "
         f"6: {pq_recall:.6f}, bar +-{PQ_TIER_GAP})")

@@ -1,8 +1,9 @@
 """Exact-query LRU result cache for the serving runtime.
 
-Port of ``raft_tpu/serve/cache.py``, unchanged: production query streams
-are heavily repeated (trending queries, retried RPCs, A/B replays), and an
-exact-match cache answers those without touching the card.
+Port of ``raft_tpu/serve/cache.py``, with the id dtype in the key:
+production query streams are heavily repeated (trending queries, retried
+RPCs, A/B replays), and an exact-match cache answers those without
+touching the card.
 
 Correctness contract: the key is ``(index epoch, query bytes, k)``, with
 the index's id dtype beside them (an int32 index and its int64 copy can
