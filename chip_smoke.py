@@ -132,7 +132,22 @@ no result line):
     the tolerance counted as hits, distances within the tolerance), then
     ``pairwise_distance`` for all 20 metrics at 1000 x 1000 against float64
     numpy on the host;
-12. a ``kernels`` line, the card line, and the result line.
+12. sharding (``raft_tpu_torch.parallel``), counters set to 0 before
+    each step and read after it: (a) a NCCL world of one in this process:
+    ``sharded_knn`` and ``sharded_ivf_flat_search`` over an index built
+    with phase 4's centers, distances bit for bit with phase 4's and ids
+    too but for the order of exact ties; (b) a gloo world of 4 ranks on
+    the one card (``torch.multiprocessing`` spawn, every shard on
+    ``cuda:0``, the kernels built here first): ``sharded_knn`` on every
+    merge engine (ids = phase 4's but at near-ties within ``norm_tol``),
+    row-placed IVF-Flat on phase 4's centers (likewise against phase 4's
+    search) and with ``train_distributed`` (1024 lists, 20 iterations:
+    recall@10 >= 0.99 against brute force at 32 probes), and degraded
+    serving with rank 3 dead (brute force and IVF-Flat equal to a 3-rank
+    search over the survivors, bit for bit; coverage 0.75 for brute force
+    and the recomputed live share of the probed rows for IVF-Flat); every
+    rank's answers identical; the ranks' launches and wall times;
+13. a ``kernels`` line, the card line, and the result line.
 
 The data is made with numpy from a fixed seed: 1000 Gaussian blobs
 (centers uniform in [-10, 10], sigma 5), queries = database rows + N(0, 1).
@@ -211,6 +226,16 @@ N_METRIC_QUERIES = 1000
 N_METRIC_CHECK = 100
 METRIC_RTOL = 1e-5
 N_PAIRWISE = 1000
+
+# The sharded phase (12): a world of one on NCCL in this process, then a
+# gloo world of 4 ranks on the one card (one process each, every shard on
+# cuda:0), each rank's shard N_ROWS / 4 rows.
+N_RANKS = 4
+SHARD_ENGINES = ("allgather", "ring", "ring_bf16", "pipelined",
+                 "pipelined_bf16")
+RECALL_DIST = 0.99        # train_distributed IVF-Flat against brute force
+DEAD_RANK = 3             # the shard marked dead in the degraded checks
+RANKS_TIMEOUT = 600       # seconds the parent waits for the 4 ranks
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FP32 = 67e12
@@ -628,8 +653,11 @@ def main_path(dev, X, Q):
         f"{N_QUERIES / search_ms * 1e3:.1f} QPS (n_probes={N_PROBES}, "
         f"k={K})")
     log(f"IVF-Flat build: {build_s:.3f} s (n_lists={N_LISTS}, first call)")
+    # Phase 12 holds the sharded paths to these answers and these centers
+    # (later phases mutate the index).
     return {"bf": (bf_d, bf_i), "index": index, "launches": launches,
-            "search_ms": search_ms}
+            "search_ms": search_ms, "iv": (iv_d, iv_i),
+            "centers": index.centers.clone()}
 
 
 def b1_entry(dev, X, Q, bf):
@@ -2421,6 +2449,363 @@ def surface_phase(dev, X, Q, bf, flat4, flat10, pq9, pq_recall, card):
     return launches
 
 
+def _canonical(d, i):
+    """Each row's (distance, id) pairs in lexicographic order: the merge
+    orders exact distance ties by id, a single-card engine by slot."""
+    import torch
+
+    by_id = torch.argsort(i, dim=1, stable=True)
+    d1, i1 = torch.gather(d, 1, by_id), torch.gather(i, 1, by_id)
+    order = torch.argsort(d1, dim=1, stable=True)
+    return torch.gather(d1, 1, order), torch.gather(i1, 1, order)
+
+
+def same_up_to_exact_ties(what, d, i, ref_d, ref_i) -> int:
+    """Distances bit for bit and ids equal once exact distance ties are
+    put in id order. Returns how many rows differ before that."""
+    import torch
+
+    if not torch.equal(d, ref_d):
+        raise AssertionError(f"{what}: distances differ from the reference")
+    cd, ci = _canonical(d, i.long())
+    rd, ri = _canonical(ref_d, ref_i.long())
+    if not torch.equal(ci, ri):
+        raise AssertionError(f"{what}: ids differ beyond exact ties")
+    return int((i.long() != ref_i.long()).any(dim=1).sum())
+
+
+def near_tie_check(what, d, i, ref_d, ref_i, X, Q, tol) -> int:
+    """Ids equal to the reference's but at near-ties: every distance
+    within ``tol`` of the reference's at its slot, and every id that
+    differs is a row at its reported distance (recomputed) within
+    ``tol``. Returns the number of differing slots."""
+    import torch
+
+    err = max_err(d, ref_d)
+    if err > tol:
+        raise AssertionError(f"{what}: distance off the reference by {err}")
+    diff = i.long() != ref_i.long()
+    rows, cols = torch.nonzero(diff, as_tuple=True)
+    if rows.numel():
+        ids = i.long()[rows, cols]
+        if bool((ids < 0).any()):
+            raise AssertionError(f"{what}: a padding id where the reference "
+                                 "has a row")
+        true = torch.sum((Q[rows] - X[ids]) ** 2, dim=1)
+        off = float(torch.max(torch.abs(true - d[rows, cols])))
+        if off > tol:
+            raise AssertionError(f"{what}: a differing id is not at its "
+                                 f"reported distance ({off} > {tol})")
+    return int(diff.sum())
+
+
+def sharded_world_of_one(dev, X, Q, bf, iv, centers, card):
+    """Phase 12 (a): sharded brute force and IVF-Flat over a NCCL world
+    of one in this process; both must be phase 4's answers. Returns the
+    launches of the step."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from raft_tpu_torch import parallel
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=f"file://{tmp}/store", rank=0, world_size=1)
+        try:
+            mesh = parallel.make_mesh(device=dev)
+            _zero_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d, i = parallel.sharded_knn(mesh, X, Q, K)
+            torch.cuda.synchronize()
+            bf_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            index = parallel.sharded_ivf_flat_build(
+                mesh, ivf_flat.IndexParams(n_lists=N_LISTS), X,
+                centers=centers)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            d2, i2 = parallel.sharded_ivf_flat_search(
+                mesh, ivf_flat.SearchParams(n_probes=N_PROBES), index, Q, K)
+            torch.cuda.synchronize()
+            search_s = time.perf_counter() - t0
+            launches = _launches()
+        finally:
+            dist.destroy_process_group()
+    rows_bf = same_up_to_exact_ties("world of one, brute force", d, i, *bf)
+    rows_iv = same_up_to_exact_ties("world of one, IVF-Flat", d2, i2, *iv)
+    log(f"sharded world of one (NCCL) [{card}]: brute force {bf_s:.3f} s, "
+        f"IVF-Flat build (phase 4's centers) {build_s:.3f} s, search "
+        f"{search_s:.3f} s; distances bit for bit with phase 4's, ids too "
+        f"up to the order of exact ties (rows reordered: brute force "
+        f"{rows_bf}, IVF-Flat {rows_iv}); launches {launches}")
+    if launches["fused_knn"] < 1 or launches["fused_cells_knn"] < 1:
+        raise AssertionError(f"world of one: B1 / B2 not launched "
+                             f"({launches})")
+    return launches
+
+
+def _rank_work(rank, data_dir, cfg):
+    """Phase 12 (b) on one rank: every merge engine of sharded brute
+    force, IVF-Flat built on phase 4's centers and with train_distributed,
+    degraded serving with DEAD_RANK dead, and the survivors' 3-rank
+    search on the same engines. Rank 0 returns the answers, every rank
+    its digests, wall times and launches."""
+    import hashlib
+
+    import torch
+
+    from raft_tpu_torch import parallel
+    from raft_tpu_torch.comms.comms import Comms
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    dev = torch.device(cfg["device"])
+    k, n_lists, n_ranks, dead = (cfg["k"], cfg["n_lists"], cfg["n_ranks"],
+                                 cfg["dead"])
+    X = np.load(f"{data_dir}/X.npy", mmap_mode="c")
+    Q = torch.as_tensor(np.load(f"{data_dir}/Q.npy"), device=dev)
+    centers = torch.as_tensor(np.load(f"{data_dir}/centers.npy"),
+                              device=dev)
+    mesh = parallel.make_mesh(device=dev)
+    shard = parallel.shard_database(mesh, X)
+    sp = ivf_flat.SearchParams(n_probes=cfg["n_probes"])
+    params = ivf_flat.IndexParams(n_lists=n_lists)
+    out, ms = {}, {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(name, fn, reps=1):
+        """``fn()`` ``reps`` times: the wall ms of the first call and the
+        median of the others; the last answer."""
+        times = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            res = fn()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = times[0]
+        if reps > 1:
+            ms[name + "_steady"] = float(np.median(times[1:]))
+        return res
+
+    def keep(name, res):
+        out[name] = tuple(t.cpu().numpy() for t in res)
+
+    _zero_counters()
+    # The first call loads the libraries and warms the allocator.
+    parallel.sharded_knn(mesh, shard, Q, k)
+    for engine in SHARD_ENGINES:
+        keep(f"bf_{engine}", timed(
+            f"bf_{engine}", lambda: parallel.sharded_knn(
+                mesh, shard, Q, k, merge_engine=engine), reps=3))
+    index = timed("ivf_build", lambda: parallel.sharded_ivf_flat_build(
+        mesh, params, shard, centers=centers))
+    keep("ivf", timed("ivf_search", lambda: parallel.sharded_ivf_flat_search(
+        mesh, sp, index, Q, k), reps=3))
+    dist_index = timed("dist_build", lambda: parallel.sharded_ivf_flat_build(
+        mesh, ivf_flat.IndexParams(n_lists=n_lists, kmeans_n_iters=20),
+        shard, train_distributed=True))
+    keep("dist_ivf", timed("dist_search",
+                           lambda: parallel.sharded_ivf_flat_search(
+                               mesh, sp, dist_index, Q, k), reps=3))
+    del dist_index
+    live = np.ones(n_ranks, bool)
+    live[dead] = False
+    # The degraded searches and the survivors' run the same engines, so
+    # each live rank launches the same kernels on the same operands.
+    keep("bf_degraded", timed("bf_degraded", lambda: parallel.sharded_knn(
+        mesh, shard, Q, k, merge_engine="ring", live_mask=live)))
+    keep("ivf_degraded", timed(
+        "ivf_degraded", lambda: parallel.sharded_ivf_flat_search(
+            mesh, sp, index, Q, k, merge_engine="pipelined",
+            live_mask=live)))
+    launches = _launches()
+    sub = Comms(mesh).comm_split(0 if rank != dead else 1)
+    if rank != dead:
+        m3 = sub.mesh
+        rows = X[:X.shape[0] // n_ranks * (n_ranks - 1)]
+        keep("bf_survivors", parallel.sharded_knn(m3, rows, Q, k,
+                                                  merge_engine="ring"))
+        index3 = parallel.sharded_ivf_flat_build(m3, params, rows,
+                                                 centers=centers)
+        keep("ivf_survivors", parallel.sharded_ivf_flat_search(
+            m3, sp, index3, Q, k, merge_engine="pipelined"))
+    digests = {k: hashlib.sha256(b"".join(a.tobytes() for a in v))
+               .hexdigest() for k, v in out.items()}
+    return {"launches": launches, "ms": ms, "digests": digests,
+            "out": out if rank == 0 else None}
+
+
+def _sharded_rank(rank, data_dir, init, cfg, results) -> None:
+    """One rank of the gloo world: joins it, works, reports (the error
+    text on failure), leaves."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        if cfg["device"].startswith("cuda"):
+            torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=init, rank=rank,
+                                world_size=cfg["n_ranks"])
+        results.put((rank, _rank_work(rank, data_dir, cfg)))
+    except Exception:
+        results.put((rank, {"error": traceback.format_exc()}))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def sharded_ranks(dev, X, Q, bf, iv, centers, card):
+    """Phase 12 (b): the 4-rank gloo world on the one card. Returns the
+    ranks' launches, summed."""
+    import multiprocessing as mp
+    import queue
+    import tempfile
+
+    import torch
+
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        np.save(f"{tmp}/X.npy", X.cpu().numpy())
+        np.save(f"{tmp}/Q.npy", Q.cpu().numpy())
+        np.save(f"{tmp}/centers.npy", centers.cpu().numpy())
+        cfg = dict(device=str(dev), k=K, n_lists=N_LISTS,
+                   n_probes=N_PROBES, n_ranks=N_RANKS, dead=DEAD_RANK)
+        ctx = mp.get_context("spawn")
+        results = ctx.Queue()
+        procs = [ctx.Process(target=_sharded_rank,
+                             args=(r, tmp, f"file://{tmp}/store", cfg,
+                                   results))
+                 for r in range(N_RANKS)]
+        for p in procs:
+            p.start()
+        got = {}
+        try:
+            # A rank that fails leaves the others waiting in a collective:
+            # its error ends the wait.
+            while len(got) < N_RANKS and not any("error" in v
+                                                 for v in got.values()):
+                rank, res = results.get(timeout=RANKS_TIMEOUT)
+                got[rank] = res
+        except queue.Empty:
+            missing = sorted(set(range(N_RANKS)) - set(got))
+            raise AssertionError(f"phase 12: ranks {missing} did not "
+                                 f"answer in {RANKS_TIMEOUT} s")
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
+        wall = time.perf_counter() - t0
+    errors = [f"rank {r}:\n{res['error']}" for r, res in sorted(got.items())
+              if "error" in res]
+    if errors:
+        raise AssertionError("phase 12 rank failed:\n" + "\n".join(errors))
+    for r in range(1, N_RANKS):
+        for key, digest in got[r]["digests"].items():
+            if digest != got[0]["digests"].get(key):
+                raise AssertionError(f"phase 12: rank {r}'s {key} differs "
+                                     "from rank 0's")
+    out = {k: tuple(torch.as_tensor(a, device=dev) for a in v)
+           for k, v in got[0]["out"].items()}
+    tol = norm_tol(Q, X)
+    for engine in SHARD_ENGINES:
+        d, i = out[f"bf_{engine}"]
+        n_diff = near_tie_check(f"4 ranks, brute force, {engine}", d, i,
+                                *bf, X, Q, tol)
+        same = (torch.equal(d, out["bf_allgather"][0])
+                and torch.equal(i, out["bf_allgather"][1]))
+        log(f"4 ranks, brute force, {engine}: ids = phase 4's but "
+            f"{n_diff} near-tie slots (tol {tol:.3e}); bit for bit with "
+            f"allgather: {same}")
+    n_diff = near_tie_check("4 ranks, IVF-Flat", *out["ivf"], *iv, X, Q, tol)
+    log(f"4 ranks, IVF-Flat on phase 4's centers: ids = phase 4's but "
+        f"{n_diff} near-tie slots")
+    rec = recall(out["dist_ivf"][1], bf[1])
+    log(f"4 ranks, IVF-Flat train_distributed ({N_LISTS} lists, 20 "
+        f"iterations): recall@{K} {rec:.6f} against brute force at "
+        f"{N_PROBES} probes (bar {RECALL_DIST})")
+    if rec < RECALL_DIST:
+        raise AssertionError(f"train_distributed recall {rec} < "
+                             f"{RECALL_DIST}")
+    for kind in ("bf", "ivf"):
+        d, i, cov = out[f"{kind}_degraded"]
+        sd, si = out[f"{kind}_survivors"]
+        if not (torch.equal(d, sd) and torch.equal(i, si)):
+            raise AssertionError(f"degraded {kind} != the survivors' "
+                                 "3-rank search")
+    cov_bf = out["bf_degraded"][2]
+    if not bool((cov_bf == 0.75).all()):
+        raise AssertionError("degraded brute-force coverage != 0.75")
+    # The IVF coverage, recomputed: probed rows on the live ranks over
+    # all probed rows, from the lists' members.
+    labels = kmeans_labels(centers, X)
+    live_rows = torch.arange(X.shape[0], device=dev) < (
+        X.shape[0] // N_RANKS * (N_RANKS - 1))
+    all_l = torch.bincount(labels, minlength=N_LISTS).float()
+    live_l = torch.bincount(labels[live_rows], minlength=N_LISTS).float()
+    probes = ivf_flat._coarse_probe(Q, centers, N_PROBES, True).long()
+    want = live_l[probes].sum(1) / all_l[probes].sum(1)
+    cov_iv = out["ivf_degraded"][2]
+    cov_err = float(torch.max(torch.abs(cov_iv - want)))
+    if cov_err > 1e-6:
+        raise AssertionError(f"degraded IVF coverage off by {cov_err}")
+    ms = {k: max(got[r]["ms"][k] for r in got) for k in got[0]["ms"]}
+    launches = {k: sum(got[r]["launches"][k] for r in got)
+                for k in got[0]["launches"]}
+    log(f"4 ranks, degraded (rank {DEAD_RANK} dead): brute force and "
+        f"IVF-Flat = the survivors' 3-rank search bit for bit; coverage "
+        f"brute force 0.75, IVF-Flat mean {float(cov_iv.mean()):.6f} "
+        f"(recomputed, max err {cov_err:.1e})")
+    log(f"4 ranks [{card}]: wall ms (slowest rank; first call, and the "
+        f"median of 2 more where _steady) "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
+    log(f"4 ranks: launches per rank "
+        f"{[got[r]['launches'] for r in range(N_RANKS)]}; phase 12 (b) "
+        f"wall {wall:.1f} s with the spawn")
+    if launches["fused_knn"] < N_RANKS or launches["fused_cells_knn"] < \
+            N_RANKS:
+        raise AssertionError(f"4 ranks: B1 / B2 not launched on every "
+                             f"rank ({launches})")
+    return launches
+
+
+def kmeans_labels(centers, X):
+    """Each row's nearest center (the lists of an IVF-Flat build)."""
+    from raft_tpu_torch.cluster import kmeans_balanced
+    from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
+
+    return kmeans_balanced._predict(KMeansBalancedParams(), centers,
+                                    X).long()
+
+
+def sharded_phase(dev, X, Q, mp_out, card):
+    """Phase 12: sharding, with the counters set to 0 before each step
+    and read after it. Returns the launches of the phase."""
+    t0 = time.perf_counter()
+    a = sharded_world_of_one(dev, X, Q, mp_out["bf"], mp_out["iv"],
+                             mp_out["centers"], card)
+    b = sharded_ranks(dev, X, Q, mp_out["bf"], mp_out["iv"],
+                      mp_out["centers"], card)
+    launches = {k: a[k] + b[k] for k in a}
+    log(f"phase 12: {time.perf_counter() - t0:.3f} s, launches {launches} "
+        f"(world of one {a}, 4 ranks {b})")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2477,6 +2862,7 @@ def main() -> int:
     sm, flat_served = serve_mutations(dev, Q, compacted["ivf_flat"], card)
     sf = surface_phase(dev, X, Q, mp["bf"], mp["index"], flat_served,
                        compacted["ivf_pq"], pq["recall"], card)
+    sh = sharded_phase(dev, X, Q, mp, card)
 
     kernels = [
         dict(name="fused_knn", route="cuda",
@@ -2484,13 +2870,15 @@ def main() -> int:
              replaces="raft_tpu/ops/fused_knn.py:179",
              launches=mp["launches"]["fused_knn"]
              + pq["launches"]["fused_knn"] + sv["fused_knn"]
-             + lc["fused_knn"] + sm["fused_knn"] + sf["fused_knn"], **b1),
+             + lc["fused_knn"] + sm["fused_knn"] + sf["fused_knn"]
+             + sh["fused_knn"], **b1),
         dict(name="fused_cells_knn", route="cuda",
              source="raft_tpu_torch/csrc/cells_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:426",
              launches=mp["launches"]["fused_cells_knn"]
              + sv["fused_cells_knn"] + lc["fused_cells_knn"]
-             + sm["fused_cells_knn"] + sf["fused_cells_knn"], **b2),
+             + sm["fused_cells_knn"] + sf["fused_cells_knn"]
+             + sh["fused_cells_knn"], **b2),
         dict(name="fused_batch_knn", route="cuda",
              source="raft_tpu_torch/csrc/batch_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:277",

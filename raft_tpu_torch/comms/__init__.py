@@ -1,2 +1,43 @@
-"""Top-k merging: the single-host merge core (the collectives wait for the
-sharding slice)."""
+"""Collective communication over ``torch.distributed`` and the top-k merge
+engines of sharded search.
+
+Port of ``raft_tpu/comms``: the :class:`Comms` facade and its self-tests
+(``comms_test``), the shard liveness registry (``health``) and the merge
+engines with the single-host merge core (``topk_merge``).
+"""
+
+from raft_tpu_torch.comms.comms import (
+    Comms,
+    DatatypeT,
+    Mesh,
+    OpT,
+    StatusT,
+    build_comms,
+    inject_comms_on_handle,
+    make_mesh,
+)
+from raft_tpu_torch.comms.health import (
+    LatencyPolicy,
+    ShardHealth,
+    checked_sync,
+)
+from raft_tpu_torch.comms.topk_merge import (
+    MERGE_ENGINES,
+    PIPELINED_ENGINES,
+    merge_comm_bytes,
+    merge_parts,
+    pipeline_chunk_bounds,
+    resolve_merge_engine,
+    resolve_pipeline_chunks,
+    topk_merge,
+    topk_merge_pipelined,
+)
+
+__all__ = [
+    "Comms", "DatatypeT", "Mesh", "OpT", "StatusT", "build_comms",
+    "inject_comms_on_handle", "make_mesh", "LatencyPolicy", "ShardHealth",
+    "checked_sync",
+    "MERGE_ENGINES", "PIPELINED_ENGINES", "merge_comm_bytes",
+    "merge_parts", "pipeline_chunk_bounds", "resolve_merge_engine",
+    "resolve_pipeline_chunks", "topk_merge", "topk_merge_pipelined",
+]

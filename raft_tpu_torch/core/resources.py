@@ -14,7 +14,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from raft_tpu_torch.core.error import CudaError
+from raft_tpu_torch.core.error import CudaError, expects
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -33,6 +33,18 @@ class Resources:
 
     def __init__(self, device: DeviceLike = None):
         self.device = resolve_device(device)
+        self._comms = None
+
+    # The injected communicator (``comms.inject_comms_on_handle``).
+    def set_comms(self, comms) -> None:
+        self._comms = comms
+
+    def get_comms(self):
+        expects(self._comms is not None, "no communicator injected on handle")
+        return self._comms
+
+    def comms_initialized(self) -> bool:
+        return self._comms is not None
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"Resources(device={self.device})"

@@ -14,8 +14,9 @@ Port of ``raft_tpu/lifecycle`` (``delete.py`` and ``compact.py``):
   (``raft_tpu_torch/serve``) at a tombstone fraction or a drift signal,
   publishing each successor with one reference swap.
 
-The sharded indexes, the write-ahead log and elastic membership wait for
-the sharding and durability slices (ROADMAP A.4, A.5).
+``delete`` and ``upsert`` also take a row-placed sharded IVF-Flat index
+with its ``mesh``. Sharded compaction waits for ROADMAP A.4b; the
+write-ahead log and elastic membership for the durability slice (A.5).
 """
 
 from raft_tpu_torch.lifecycle.compact import (

@@ -22,8 +22,8 @@ and cannot move lists without the source vectors, so IVF-PQ compaction
 reclaims only, and drops the decode caches whose slot layout moved.
 
 ``shrink_capacity=False`` (the default) keeps the list capacity; True fits
-it to the fullest list. The sharded placement balancer waits for the
-sharding slice.
+it to the fullest list. Sharded compaction and the placement balancer
+wait for ROADMAP A.4b.
 
 :class:`Compactor` drives passes over a serving ``Searcher``
 (``serve/searcher.py``): it fires at the policy's tombstone fraction or
@@ -61,7 +61,7 @@ class CompactionPolicy:
     fit the list capacity to the fullest list. ``split_above`` /
     ``drift_threshold`` / ``min_split_rows``: the IVF-Flat model pass
     (None = off). The reference's ``balance_placement`` balances sharded
-    list placements and comes with the sharding slice."""
+    list placements and comes with list placement (ROADMAP A.4b)."""
 
     trigger_frac: float = 0.25
     shrink_capacity: bool = False
@@ -255,7 +255,7 @@ def compact(index, policy: Optional[CompactionPolicy] = None, mesh=None):
     tombstones, no model pass, no shrink). The input index is never
     written."""
     policy = policy or CompactionPolicy()
-    _check_index(index, mesh)
+    _check_index(index, mesh, sharded_ok=False)
     wants_model = (policy.split_above is not None
                    or policy.drift_threshold is not None)
     if (index.n_deleted == 0 and not wants_model

@@ -1,4 +1,4 @@
-"""Tombstone delete and upsert for the single-host IVF indexes.
+"""Tombstone delete and upsert for the IVF indexes.
 
 Port of ``raft_tpu/lifecycle/delete.py``. A delete writes the per-slot
 boolean mask ``Index.deleted``; the IVF-Flat and IVF-PQ engines fold it into
@@ -12,6 +12,11 @@ newly tombstoned (a delete that hits nothing changes nothing);
 the one bump, after validating every input, so no epoch shows half an
 upsert. The mask is replaced, never written in place, so a tensor read off
 the index before a delete keeps its contents.
+
+A row-placed :class:`~raft_tpu_torch.parallel.ivf.ShardedIvfFlat` takes
+``mesh=``: the calls are then collective (the same ids on every rank),
+each rank tombstones its own shard, and the count is summed over the
+ranks, so every rank bumps its epoch together.
 """
 
 from __future__ import annotations
@@ -26,15 +31,32 @@ from raft_tpu_torch.core.mdarray import expects_ids_fit
 from raft_tpu_torch.core.resources import as_vectors
 from raft_tpu_torch.neighbors import ivf_flat as _flat
 from raft_tpu_torch.neighbors import ivf_pq as _pq
+from raft_tpu_torch.parallel.ivf import ShardedIvfFlat
 
 _INDEX_KINDS = (_flat.Index, _pq.Index)
 
 
-def _check_index(index, mesh) -> None:
-    expects(mesh is None, "sharded indexes wait for the sharding slice")
+def _check_index(index, mesh, sharded_ok: bool = True) -> None:
+    if isinstance(index, ShardedIvfFlat):
+        expects(sharded_ok, "compaction of a sharded index waits for the "
+                "sharding slice's second part (ROADMAP A.4b)")
+        expects(mesh is not None and mesh.size == index.n_dev,
+                "a sharded index needs the mesh it is sharded over")
+        return
+    expects(mesh is None, "mesh= is for the indexes of the sharding slice "
+            "(parallel.ShardedIvfFlat); this index is single-host")
     expects(isinstance(index, _INDEX_KINDS),
             "lifecycle ops support ivf_flat/ivf_pq indexes, got %s",
             type(index).__name__)
+
+
+def _global_count(index, mesh, n: int) -> int:
+    """``n`` summed over the ranks of a sharded index's mesh."""
+    if not isinstance(index, ShardedIvfFlat):
+        return n
+    from raft_tpu_torch.comms.comms import Comms
+
+    return int(Comms(mesh).allreduce(torch.tensor([n]))[0])
 
 
 def _id_tensor(ids, device) -> torch.Tensor:
@@ -80,6 +102,8 @@ def _blank_mask(index) -> torch.Tensor:
 def _drop_derived(index) -> None:
     """Drop the caches that bake the validity mask in (the compressed-scan
     operands) or were measured on the old occupancy."""
+    if isinstance(index, ShardedIvfFlat):
+        return
     if isinstance(index, _pq.Index):
         index._scan_ops = None
         index._scan_ops_i8 = None
@@ -97,7 +121,7 @@ def enable_tombstones(index, mesh=None) -> None:
 def tombstone_frac(index) -> float:
     """Fraction of stored slots that are tombstoned, the compaction
     trigger statistic."""
-    size = int(torch.sum(index.list_sizes))
+    size = index.size
     return index.n_deleted / size if size else 0.0
 
 
@@ -112,6 +136,7 @@ def delete(index, ids, mesh=None) -> int:
         return 0
     mask = index.deleted if index.deleted is not None else _blank_mask(index)
     new_mask, n = _tombstone(index.indices, index.list_sizes, mask, del_ids)
+    n = _global_count(index, mesh, n)
     if n == 0:
         return 0
     index.deleted = new_mask
@@ -121,11 +146,14 @@ def delete(index, ids, mesh=None) -> int:
     return n
 
 
-def upsert(index, new_vectors, new_indices, mesh=None):
+def upsert(index, new_vectors, new_indices, mesh=None, *,
+           donate: bool = True):
     """Replace or insert rows by explicit id: tombstone the live slots
     holding these ids, then extend with the new rows, under the one epoch
     bump of the extend. Ids must be unique within the batch. Every input
-    is checked before the mask is written. Returns the index."""
+    is checked before the mask is written. A sharded index's rows divide
+    the mesh size, and ``donate=False`` writes its extend into copies.
+    Returns the index."""
     _check_index(index, mesh)
     dev = index.centers.device
     ids = _id_tensor(new_indices, dev)
@@ -139,14 +167,22 @@ def upsert(index, new_vectors, new_indices, mesh=None):
             "upsert ids must be unique within the batch")
     expects_finite("lifecycle.upsert", X)
     expects_ids_fit("lifecycle.upsert", ids, index.indices.dtype)
+    sharded = isinstance(index, ShardedIvfFlat)
+    expects(not sharded or X.shape[0] % index.n_dev == 0,
+            "sharded upsert rows (%s) must divide the mesh axis (pad "
+            "first)", X.shape[0])
     if ids.numel() == 0:
         return index
     del_ids = _prepare_ids(index, ids)
     mask = index.deleted if index.deleted is not None else _blank_mask(index)
     new_mask, n = _tombstone(index.indices, index.list_sizes, mask, del_ids)
     index.deleted = new_mask
-    index.n_deleted += n
+    index.n_deleted += _global_count(index, mesh, n)
     _drop_derived(index)
+    if sharded:
+        from raft_tpu_torch.parallel.ivf import sharded_ivf_flat_extend
+
+        return sharded_ivf_flat_extend(mesh, index, X, ids, donate=donate)
     if isinstance(index, _pq.Index):
         return _pq._extend(index, X, ids, dev)
     return _flat._extend(index, X, ids)

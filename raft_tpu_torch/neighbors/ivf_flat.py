@@ -194,13 +194,16 @@ def _train_centers(params: IndexParams, Xf: torch.Tensor) -> torch.Tensor:
 
 
 def _coarse_probe(Q, centers, n_probes: int, inner_is_l2: bool):
-    """The ``n_probes`` best centers of each query (int32 list ids)."""
+    """The ``n_probes`` best centers of each query (int32 list ids). As in
+    the reference, bf16 / f16 centers have their norms summed in their
+    own dtype and then promoted, and the product runs in f32."""
+    cf = centers.float()
     if inner_is_l2:
-        cd = (row_norms_sq(Q)[:, None] + row_norms_sq(centers)[None, :]
-              - 2.0 * gram(Q, centers))
+        cd = (row_norms_sq(Q)[:, None] + row_norms_sq(centers).float()[None, :]
+              - 2.0 * gram(Q, cf))
         _, probe_ids = select_k(cd, n_probes, select_min=True)
     else:
-        _, probe_ids = select_k(gram(Q, centers), n_probes, select_min=False)
+        _, probe_ids = select_k(gram(Q, cf), n_probes, select_min=False)
     return probe_ids
 
 
@@ -722,7 +725,9 @@ def search(params: SearchParams, index: Index, queries, k: int,
                                     index.list_sizes, probe_ids, k,
                                     inner_is_l2, sqrt, cap_q, qsplit,
                                     index.deleted)
-    dataf = as_float(index.data)
+    # f32 scoring over every store dtype, as the reference's f32 einsum
+    # promotes bf16 / f16 / 8-bit rows.
+    dataf = index.data.float()
     norms = row_norms_sq(dataf) if inner_is_l2 else None
     return _chunked_over_queries(
         lambda q_, p_: _probe_scan(q_, dataf, norms, index.indices,

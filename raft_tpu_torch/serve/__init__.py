@@ -1,4 +1,4 @@
-"""Online query-serving runtime above ``neighbors/`` on one host.
+"""Online query-serving runtime above ``neighbors/`` and ``parallel/``.
 
 Port of ``raft_tpu/serve``: shape bucketing with warm-up of the closed
 set of batch shapes (``bucketing``), dynamic micro-batching with
@@ -7,9 +7,10 @@ bounded-queue admission control, deadlines and the degradation ladder
 (``cache``), a uniform searcher facade threading RetryPolicy and the
 index lifecycle (``searcher``), the hedge policy and its counters
 (``hedge``), and per-bucket serving stats with kernel-build counting
-(``stats``). The sharded deployment and the circuit-breaker shard
-re-admission (``RecoveryProber``, which needs ``ShardHealth``) wait for
-the sharding slice (ROADMAP A.4).
+(``stats``). A ``Searcher`` also serves a row-sharded brute-force or
+IVF-Flat deployment (``mesh=``, ``health=``). A ``BatchScheduler`` over
+it, hedged dispatch and the circuit-breaker shard re-admission
+(``RecoveryProber``) wait for ROADMAP A.4b.
 """
 
 from raft_tpu_torch.serve.bucketing import (

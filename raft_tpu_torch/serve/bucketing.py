@@ -147,9 +147,10 @@ def warmup(searcher, grid: BucketGrid, include_degraded: bool = False,
     key, so a brownout meets warm caches too. Ignored for searchers
     without an ``n_probes`` parameter (brute force).
 
-    ``include_degraded=True`` warms the liveness-operand search served
-    while a shard is dead, which needs a sharded searcher with a health
-    registry (ROADMAP A.4): here it raises."""
+    ``include_degraded=True`` also runs each shape's degraded search (the
+    ``live_mask`` path served while a shard is dead), which needs a
+    sharded searcher with a health registry. Over a sharded searcher the
+    call is collective, like its searches: every rank runs it."""
     from raft_tpu_torch.core.logger import logger
     from raft_tpu_torch.ops._build import enable_compilation_cache
     from raft_tpu_torch.serve.stats import CompileCounter
@@ -179,6 +180,8 @@ def warmup(searcher, grid: BucketGrid, include_degraded: bool = False,
         for qb, kb in shapes:
             dummy = np.zeros((qb, dim), np.float32)
             searcher.search(dummy, kb, degraded=False)
+            if include_degraded:
+                searcher.search(dummy, kb, degraded=True)
             for npr in rung_probes:
                 # One extra search per ladder rung per shape: brownout
                 # serving then meets warm plan caches.

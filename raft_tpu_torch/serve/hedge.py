@@ -6,7 +6,7 @@ re-issued to a replica and the first result wins. The policy and its
 counters are host logic and carry over as they are; every ``Searcher``
 holds a :class:`HedgeStats`. The hedged dispatch itself re-routes a
 routed (list-placed) sharded index around SUSPECT shards, so it arrives
-with the sharding slice (ROADMAP A.4): until then a ``Searcher`` given a
+with list placement (ROADMAP A.4b): until then a ``Searcher`` given a
 :class:`HedgePolicy` raises.
 
 Determinism: the hedge is *reactive*, measured on the Searcher's

@@ -206,6 +206,10 @@ class BatchScheduler:
                  tracer: Optional[Tracer] = None,
                  probe=None,
                  degrade: Optional[DegradePolicy] = None):
+        expects(getattr(searcher, "mesh", None) is None,
+                "a BatchScheduler over a sharded Searcher needs a front "
+                "rank that broadcasts each batch to the others; it waits "
+                "for ROADMAP A.4b")
         expects(policy.max_batch <= grid.max_batch,
                 "policy.max_batch=%s exceeds the bucket grid's largest "
                 "query bucket %s — full batches would run out-of-grid "

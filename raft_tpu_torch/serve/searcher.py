@@ -1,14 +1,23 @@
 """Uniform search facade for the serving runtime.
 
-Port of ``raft_tpu/serve/searcher.py`` for one host. The serving runtime
-needs one object that hides which index family sits underneath, because
+Port of ``raft_tpu/serve/searcher.py``. The serving runtime needs one
+object that hides which index family and which deployment (one device,
+or sharded over a ``torch.distributed`` mesh) sits underneath, because
 the scheduler (serve/scheduler.py) batches requests against an opaque
 ``search(q, k)``. :class:`Searcher` is that facade over
-``brute_force.knn``, ``ivf_flat.search`` and ``ivf_pq.search``:
+``brute_force.knn``, ``ivf_flat.search`` and ``ivf_pq.search``, and with
+``mesh=`` over ``parallel.sharded_knn`` and
+``parallel.sharded_ivf_flat_search`` (a row-placed ``ShardedIvfFlat``):
 
 * ``device`` — every search runs on the device of the database or index
-  (or an explicit ``device=``, which must match it); numpy queries move
-  there, and nothing carries on elsewhere when that device is missing;
+  (or an explicit ``device=``, which must match it), or the mesh's;
+  numpy queries move there, and nothing carries on elsewhere when that
+  device is missing;
+* ``merge_engine`` — the top-k merge engine of every sharded search
+  (comms/topk_merge.py);
+* ``ShardHealth`` — when a rank is dead, sharded searches pass its
+  ``live_mask`` (rank 0's, broadcast) and serve DEGRADED: exact over the
+  survivors, with the per-query ``coverage`` in the result;
 * ``RetryPolicy`` — transient host-side failures retry with the
   deterministic backoff of ``core/retry.py``;
 * ``epoch`` — the cache-invalidation key (serve/cache.py): bumped by
@@ -25,9 +34,11 @@ the list capacity writes its rows in place, into slots past the served
 snapshot's fill line, which that snapshot never reads. Mutations
 serialize on an internal lock; searches never take it.
 
-What needs a mesh waits for the sharding slice (ROADMAP A.4): ``mesh``,
-``health``, hedged dispatch (``hedge``, ``dispatch_hook``) and
-``shadow_probe`` raise
+A sharded searcher is collective: every rank of the mesh builds it with
+the same arguments and makes the same calls in the same order. Its
+``extend``, ``delete`` and ``upsert`` are the sharded ones; ``compact``
+raises. Sharded IVF-PQ, the list placement's hedged dispatch (``hedge``,
+``dispatch_hook``) and ``shadow_probe`` wait for ROADMAP A.4b and raise
 :class:`~raft_tpu_torch.core.error.LogicError`; so does ``wal``, which
 comes with the durability slice (A.5).
 """
@@ -54,10 +65,11 @@ _KINDS = ("brute_force", "ivf_flat", "ivf_pq")
 class SearchResult:
     """One request's answer: host arrays.
 
-    ``coverage`` is all-ones on a single host (the sharded degraded
-    serves of A.4 report the fraction of candidate rows searched).
-    ``degraded`` and ``hedged`` stay False until then. The
-    degradation-ladder fields: ``quality`` is the served-quality class
+    ``coverage`` is all-ones on healthy serves; under degraded sharded
+    serving it is the per-query fraction of candidate rows searched, and
+    ``degraded`` flags that a live mask was applied. ``hedged`` stays
+    False (hedging waits for ROADMAP A.4b). The degradation-ladder
+    fields: ``quality`` is the served-quality class
     ("full" — the configured n_probes; "reduced" — a middle ladder rung;
     "brownout" — the deepest rung), ``degrade_reason`` names what forced
     the rung ("queue_pressure" / "deadline_budget"; None at full
@@ -85,10 +97,10 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
 
 
 class Searcher:
-    """One serving endpoint over a brute-force / IVF-Flat / IVF-PQ index
-    on one device. Build with the classmethods:
+    """One serving endpoint over a brute-force / IVF-Flat / IVF-PQ index,
+    on one device or sharded over a mesh. Build with the classmethods:
 
-    >>> s = Searcher.brute_force(db)                             # doctest: +SKIP
+    >>> s = Searcher.brute_force(db, mesh=mesh, health=health)   # doctest: +SKIP
     >>> s = Searcher.ivf_flat(index, sp)                         # doctest: +SKIP
     >>> res = s.search(queries, k=10)                            # doctest: +SKIP
     """
@@ -108,20 +120,30 @@ class Searcher:
         if kind != "brute_force":
             expects(index is not None and search_params is not None,
                     "IVF searchers need index + search_params")
-        expects(mesh is None, "sharded (mesh) searchers wait for the "
-                "sharding slice (ROADMAP A.4)")
-        expects(health is None, "ShardHealth applies to sharded searchers, "
-                "which wait for the sharding slice (ROADMAP A.4)")
+        expects(health is None or mesh is not None,
+                "ShardHealth only applies to sharded (mesh) searchers "
+                "(ROADMAP A.4)")
         expects(wal is None, "a MutationLog waits for the durability slice "
                 "(ROADMAP A.5)")
         expects(hedge is None and dispatch_hook is None,
                 "hedged replica dispatch and its dispatch hook re-route "
-                "sharded searches and wait for the sharding slice "
-                "(ROADMAP A.4)")
+                "list-placed sharded searches and wait for ROADMAP A.4b")
+        if mesh is not None:
+            from raft_tpu_torch.parallel.ivf import ShardedIvfFlat
+            from raft_tpu_torch.parallel.knn import _check_mesh
+
+            _check_mesh(mesh)
+            expects(kind != "ivf_pq", "sharded IVF-PQ waits for ROADMAP "
+                    "A.4b")
+            expects(kind != "ivf_flat" or isinstance(index, ShardedIvfFlat),
+                    "a sharded IVF-Flat searcher takes a ShardedIvfFlat")
+            expects(health is None or health.n_ranks == mesh.size,
+                    "ShardHealth over %s ranks, mesh of %s",
+                    getattr(health, "n_ranks", None), mesh.size)
         self.kind = kind
-        self.mesh = None
+        self.mesh = mesh
         self.merge_engine = merge_engine
-        self.health = None
+        self.health = health
         self.retry = retry
         self.writable = writable
         from raft_tpu_torch.serve.hedge import HedgeStats
@@ -131,7 +153,14 @@ class Searcher:
         self._monotonic = monotonic
         self._params = search_params
         self._base_epoch = 0
-        if kind == "brute_force":
+        if mesh is not None:
+            # Sharded: this rank's shard, placed once on the mesh's device.
+            dev = mesh.device
+            if kind == "brute_force":
+                from raft_tpu_torch.parallel.knn import shard_database
+
+                db = shard_database(mesh, db)
+        elif kind == "brute_force":
             # Placed once: the scheduler searches per batch, and a
             # host-to-device copy of the database per request would
             # dominate serving latency. A tensor stays where it is.
@@ -234,7 +263,34 @@ class Searcher:
                 "queries on %s, searcher on %s", q.device, self.device)
         return q
 
-    def _dispatch(self, q: torch.Tensor, k: int, params):
+    def _resolve_live(self, degraded: Optional[bool]):
+        """The live mask to pass, or None for the healthy search.
+        ``degraded=True`` forces the masked search while every rank is
+        live; None masks once the registry reports a dead rank. Every rank
+        holds its own registry, so rank 0's mask decides for all (one
+        broadcast a search): the ranks take the same path."""
+        if self.health is None or degraded is False:
+            return None
+        from raft_tpu_torch.comms.comms import Comms
+
+        live = Comms(self.mesh).bcast(
+            torch.as_tensor(self.health.live_mask)).numpy()
+        if degraded or not live.all():
+            return live
+        return None
+
+    def _dispatch(self, q: torch.Tensor, k: int, params, live=None):
+        if self.mesh is not None:
+            from raft_tpu_torch.parallel import (sharded_ivf_flat_search,
+                                                 sharded_knn)
+
+            if self.kind == "brute_force":
+                return sharded_knn(self.mesh, self._db, q, k,
+                                   merge_engine=self.merge_engine,
+                                   live_mask=live)
+            return sharded_ivf_flat_search(self.mesh, params, self._index, q,
+                                           k, merge_engine=self.merge_engine,
+                                           live_mask=live)
         if self.kind == "brute_force":
             from raft_tpu_torch.neighbors import brute_force
 
@@ -253,9 +309,12 @@ class Searcher:
                n_probes: Optional[int] = None
                ) -> SearchResult:
         """One synchronous search, already shaped (the scheduler owns
-        bucketing/padding). Retries under ``self.retry`` when set.
-        ``degraded`` and ``valid_rows`` steer sharded searches (A.4) and
-        change nothing on one host.
+        bucketing/padding). Retries under ``self.retry`` when set. On a
+        sharded searcher with a ``ShardHealth``, ``degraded=None`` serves
+        the healthy search while every rank is live and the masked one
+        (exact over the survivors, with ``coverage``) once a rank is dead;
+        True / False force either. ``valid_rows`` steers the list
+        placement's router (ROADMAP A.4b) and changes nothing here.
 
         ``n_probes`` overrides the configured probe count for THIS call
         (IVF kinds) — the degradation ladder's knob
@@ -284,11 +343,14 @@ class Searcher:
             params = dataclasses.replace(self._params,
                                          n_probes=int(n_probes))
 
+        live = self._resolve_live(degraded)
+
         def attempt():
-            return self._dispatch(q, k, params)
+            return self._dispatch(q, k, params, live)
 
         with sp.child("device_dispatch", kind=self.kind,
-                      engine=self.merge_engine, sharded=False) as dd:
+                      engine=self.merge_engine,
+                      sharded=self.mesh is not None) as dd:
             if self.retry is not None:
                 out = with_retry(attempt, self.retry, sleep=self._sleep,
                                  monotonic=self._monotonic)
@@ -299,15 +361,18 @@ class Searcher:
                 # when the launches were enqueued.
                 torch.cuda.synchronize(self.device)
         with sp.child("device_get"):
-            d, i = (t.cpu().numpy() for t in out)
+            host = [t.cpu().numpy() for t in out]
+        if len(host) == 3:
+            d, i, cov = host
+            return SearchResult(d, i, cov, degraded=True)
+        d, i = host
         return SearchResult(d, i, np.ones(q.shape[0], np.float32))
 
     def shadow_probe(self, rank: int, queries, k: int) -> float:
-        """Probe a dead or suspect shard off the hot path: a sharded
-        searcher's tool, which waits for the sharding slice (ROADMAP
-        A.4)."""
-        expects(False, "shadow_probe needs a sharded searcher with "
-                "ShardHealth (ROADMAP A.4)")
+        """Probe a dead or suspect shard off the hot path, the recovery
+        prober's tool: waits for ROADMAP A.4b."""
+        expects(False, "shadow_probe and the recovery prober wait for "
+                "ROADMAP A.4b")
 
     # -- lifecycle ---------------------------------------------------------
     def extend(self, new_vectors, new_indices=None) -> None:
@@ -333,8 +398,32 @@ class Searcher:
             expects(X.ndim == 2 and X.shape[1] == self.dim,
                     "new_vectors must be (n, %s), got shape %s", self.dim,
                     tuple(X.shape))
-            self._db = torch.cat([self._db, X.to(self._db.dtype)], dim=0)
+            if self.mesh is None:
+                self._db = torch.cat([self._db, X.to(self._db.dtype)], dim=0)
+            else:
+                # The rows are re-dealt over the ranks, as the reference
+                # re-shards the grown database: gather, append, re-shard.
+                from raft_tpu_torch.comms.comms import Comms
+                from raft_tpu_torch.parallel.knn import shard_database
+
+                rows = self._db.rows
+                full = torch.cat([Comms(self.mesh).allgather(rows),
+                                  X.to(rows.dtype)], dim=0)
+                expects(full.shape[0] % self.mesh.size == 0,
+                        "extend would leave %s total rows, not divisible "
+                        "by the %s-way mesh; pad the increment upstream",
+                        full.shape[0], self.mesh.size)
+                self._db = shard_database(self.mesh, full)
             self._base_epoch += 1
+            return
+        if self.mesh is not None:
+            from raft_tpu_torch.parallel.ivf import sharded_ivf_flat_extend
+
+            # Copy-on-write: readers may hold the current tensors.
+            tmp = self._mutable_snapshot()
+            sharded_ivf_flat_extend(self.mesh, tmp, new_vectors, new_indices,
+                                    donate=False)
+            self._index = tmp
             return
         from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
 
@@ -360,7 +449,7 @@ class Searcher:
 
         with self._lock:
             tmp = self._mutable_snapshot()
-            n = _delete(tmp, ids)
+            n = _delete(tmp, ids, mesh=self.mesh)
             if n:
                 self._index = tmp     # snapshot-swap publish
         if n:
@@ -379,7 +468,8 @@ class Searcher:
 
         with self._lock:
             tmp = self._mutable_snapshot()
-            _upsert(tmp, new_vectors, new_indices)
+            _upsert(tmp, new_vectors, new_indices, mesh=self.mesh,
+                    donate=False)
             self._index = tmp
         self._published()
 
@@ -402,7 +492,7 @@ class Searcher:
 
         policy = policy or CompactionPolicy()
         with self._lock:
-            new, report = _compact(self._index, policy)
+            new, report = _compact(self._index, policy, mesh=self.mesh)
             if report is None:
                 return None
             if pre_publish is not None:
@@ -423,4 +513,5 @@ class Searcher:
 
     def __repr__(self) -> str:
         return ("Searcher(kind=%r, sharded=%s, epoch=%s, engine=%r)"
-                % (self.kind, False, self.epoch, self.merge_engine))
+                % (self.kind, self.mesh is not None, self.epoch,
+                   self.merge_engine))

@@ -1,7 +1,7 @@
 """Power-of-two alignment / rounding helpers.
 
-Port of ``raft_tpu/util/pow2.py`` (``raft::ceildiv``, ``round_up_safe`` and
-the ``next_pow2`` list-capacity growth policy).
+Port of ``raft_tpu/util/pow2.py`` (``raft::ceildiv``, ``round_up_safe``,
+``is_pow2`` and the ``next_pow2`` list-capacity growth policy).
 """
 
 from __future__ import annotations
@@ -21,3 +21,8 @@ def next_pow2(v: int) -> int:
     """Smallest power of two >= v (v <= 0 gives 1): the amortized
     list-capacity growth policy of the IVF packers."""
     return 1 << max(int(v) - 1, 0).bit_length()
+
+
+def is_pow2(v: int) -> bool:
+    """True for a positive power of two."""
+    return v > 0 and (v & (v - 1)) == 0

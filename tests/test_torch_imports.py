@@ -38,7 +38,9 @@ def test_module_list_covers_the_slice():
                  "lifecycle.compact", "core.retry", "core.logger",
                  "obs.trace", "serve.bucketing", "serve.cache",
                  "serve.hedge", "serve.scheduler", "serve.searcher",
-                 "serve.stats"):
+                 "serve.stats", "util.telemetry", "comms.comms",
+                 "comms.comms_test", "comms.health", "parallel.degraded",
+                 "parallel.knn", "parallel.kmeans", "parallel.ivf"):
         assert f"raft_tpu_torch.{name}" in _MODULES
 
 

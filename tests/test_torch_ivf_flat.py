@@ -211,3 +211,49 @@ def test_auto_engine_on_cpu_is_the_scan(int_case):
     np.testing.assert_array_equal(n(i), n(ji))
     assert idx.metric == DistanceType.L2Expanded
     assert i.dtype == torch.int32
+
+
+def _jax_array(x: torch.Tensor):
+    """A port tensor as the reference's array, bf16 bits included."""
+    if x.dtype == torch.bfloat16:
+        return jnp.asarray(x.view(torch.int16).numpy().view(jnp.bfloat16))
+    return jnp.asarray(x.numpy())
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("engine", ["scan", "bucketed"])
+def test_low_precision_index_searches_as_the_reference(int_case, dtype,
+                                                       engine):
+    """ROADMAP C.1: a bf16 / f16 build keeps bf16 / f16 centers, as the
+    reference's does, and the port searches it: the coarse probe sums the
+    center norms in the centers' dtype, then promotes, with the product in
+    f32, as the reference's scan engine does. The reference's index
+    searched in both packages, and the port's own build searched in both,
+    give the same ids and distances. The reference's packed-cells engine
+    probes inside one jitted program, where XLA drops the bf16 / f16
+    rounding of the center norms' products (ROADMAP C.2), so both port
+    engines are held to its scan engine."""
+    X, Q = int_case
+    jsp = jivf.SearchParams(n_probes=4, engine="scan")
+    sp = ivf_flat.SearchParams(n_probes=4, engine=engine)
+    jidx = jivf.build(jivf.IndexParams(n_lists=12, kmeans_n_iters=5),
+                      jnp.asarray(X).astype(dtype))
+    assert jidx.centers.dtype == dtype and jidx.data.dtype == dtype
+    idx = _port_index(jidx)
+    assert idx.centers.dtype == getattr(torch, dtype)
+    d, i = ivf_flat.search(sp, idx, t(Q), 10)
+    jd, ji = jivf.search(jsp, jidx, Q, 10)
+    np.testing.assert_array_equal(n(i), n(ji))
+    np.testing.assert_allclose(n(d), n(jd), rtol=1e-6, atol=0)
+
+    own = ivf_flat.build(ivf_flat.IndexParams(n_lists=12, kmeans_n_iters=5),
+                         t(X).to(getattr(torch, dtype)))
+    assert own.centers.dtype == own.data.dtype == getattr(torch, dtype)
+    d, i = ivf_flat.search(sp, own, t(Q), 10)
+    jown = dataclasses.replace(
+        jidx, centers=_jax_array(own.centers), data=_jax_array(own.data),
+        indices=jnp.asarray(n(own.indices)),
+        list_sizes=jnp.asarray(n(own.list_sizes)))
+    jd, ji = jivf.search(jsp, jown, Q, 10)
+    np.testing.assert_array_equal(n(i), n(ji))
+    np.testing.assert_allclose(n(d), n(jd), rtol=1e-6, atol=0)

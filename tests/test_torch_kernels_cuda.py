@@ -1113,3 +1113,88 @@ def test_unexpanded_metric_on_the_card_equals_cpu(dev, gen, metric):
     assert d.device.type == "cuda"
     np.testing.assert_array_equal(n(i), n(ci))
     np.testing.assert_array_equal(n(d), n(cd))
+
+
+# ---------------------------------------------------------------------------
+# Sharding: a world of one on NCCL (the chip machine has one card).
+
+
+@pytest.fixture
+def nccl_mesh(dev, tmp_path):
+    import torch.distributed as dist
+
+    from raft_tpu_torch import parallel
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield parallel.make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def _by_distance_then_id(d, i):
+    """Each row's (distance, id) pairs in lexicographic order: the merge
+    orders exact ties by id, a single-card engine by candidate slot."""
+    d, i = np.asarray(d), np.asarray(i)
+    order = np.lexsort((i, d), axis=1)
+    return (np.take_along_axis(d, order, 1), np.take_along_axis(i, order, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["allgather", "ring", "ring_bf16",
+                                    "pipelined", "pipelined_bf16"])
+def test_sharded_knn_world_of_one_equals_the_single_card_search(
+        nccl_mesh, dev, gen, engine):
+    from raft_tpu_torch import parallel
+
+    X, Q = _on(dev, int_data(gen, (20000, 32)), int_data(gen, (300, 32)))
+    before = fk.fused_knn.launches
+    d, i = parallel.sharded_knn(nccl_mesh, X, Q, 10, merge_engine=engine,
+                                pipeline_chunks=3)
+    assert fk.fused_knn.launches > before
+    bd, bi = brute_force.knn(X, Q, 10)
+    np.testing.assert_array_equal(n(i), n(bi))
+    np.testing.assert_array_equal(n(d), n(bd))
+    d, i, cov = parallel.sharded_knn(nccl_mesh, X, Q, 10,
+                                     merge_engine=engine, live_mask=[True])
+    np.testing.assert_array_equal(n(i), n(bi))
+    assert bool((cov == 1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["auto", "bucketed"])
+def test_sharded_ivf_flat_world_of_one_equals_the_single_card_search(
+        nccl_mesh, dev, gen, engine):
+    """The same centers, the same rows: the sharded index is the
+    single-card one, and its search (B2 through "bucketed", and at this
+    probe load through "auto") gives the same (distance, id) pairs."""
+    from raft_tpu_torch import parallel
+    from raft_tpu_torch.comms import ShardHealth
+
+    X, Q = _on(dev, int_data(gen, (8192, 16)), int_data(gen, (512, 16)))
+    centers = X[::512][:16].clone()
+    single = ivf_flat.Index(
+        metric=ivf_flat.IndexParams().metric, centers=centers,
+        data=torch.zeros((16, 1, 16), device=dev),
+        indices=torch.full((16, 1), -1, dtype=torch.int32, device=dev),
+        list_sizes=torch.zeros(16, dtype=torch.int32, device=dev))
+    single = ivf_flat.extend(single, X)
+    sharded = parallel.sharded_ivf_flat_build(
+        nccl_mesh, ivf_flat.IndexParams(n_lists=16), X, centers=centers)
+    assert sharded.data.shape == single.data.shape
+    sp = ivf_flat.SearchParams(n_probes=5, engine=engine)
+    before = fk.fused_cells_knn.launches
+    d, i = parallel.sharded_ivf_flat_search(nccl_mesh, sp, sharded, Q, 10)
+    assert fk.fused_cells_knn.launches > before
+    sd, si = ivf_flat.search(sp, single, Q, 10)
+    want = _by_distance_then_id(n(sd), n(si))
+    got = _by_distance_then_id(n(d), n(i))
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    res = serve.Searcher.ivf_flat(sharded, sp, mesh=nccl_mesh,
+                                  health=ShardHealth(1)).search(
+        Q, 10, degraded=True)
+    assert res.degraded and (res.coverage == 1).all()
+    np.testing.assert_array_equal(
+        _by_distance_then_id(res.distances, res.indices)[1], want[1])
