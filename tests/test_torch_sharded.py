@@ -310,6 +310,8 @@ def test_sharded_ivf_flat_trains_on_rank_0(world, rng):
 
 
 def _ref_searcher(kind, X, centers, Q, k, dead, steps, n_probes=4):
+    from raft_tpu.serve import BucketGrid, warmup
+
     mesh = _mesh(4)
     health = JShardHealth(4)
     for r in dead:
@@ -331,6 +333,10 @@ def _ref_searcher(kind, X, centers, Q, k, dead, steps, n_probes=4):
             s.extend(step[1])
         elif step[0] == "delete":
             outs.append(s.delete(step[1]))
+        elif step[0] == "warmup":
+            rep = warmup(s, BucketGrid.pow2(step[1], k_grid=(k,)),
+                         include_degraded=True)
+            outs.append([rep["shapes"], rep["degraded"]])
         else:
             s.upsert(step[1], step[2])
         outs.append(s.epoch)
@@ -364,12 +370,13 @@ def test_sharded_searcher_healthy_and_degraded(world, rng, kind, dead):
 
 
 def test_sharded_searcher_mutations(world, rng):
-    """Sharded Searcher delete / upsert / extend against the reference's,
-    served degraded: epochs, counts and results."""
+    """Sharded Searcher warmup (with the degraded searches), delete and
+    upsert against the reference's, served degraded: epochs, counts and
+    results."""
     X = int_data(rng, (256, 8))
     centers = X[::16][:16]
     Q = int_data(rng, (12, 8))
-    steps = [("delete", [1, 2, 3, 200]), ("search", None),
+    steps = [("warmup", 8), ("delete", [1, 2, 3, 200]), ("search", None),
              ("upsert", int_data(rng, (4, 8)), np.array([2, 7, 300, 301])),
              ("search", None), ("delete", [1000]), ("search", True)]
     ref = _ref_searcher("ivf_flat", X, centers, Q, 8, (1,), steps)

@@ -293,11 +293,13 @@ def case_searcher(n: int, kind: str, X, centers, Q, k: int, dead, steps,
     """A sharded Searcher (brute force or IVF-Flat) with a ShardHealth
     whose ``dead`` ranks are marked dead on rank 0 only (the mask is
     rank 0's). Runs ``steps``: ("search", degraded), ("extend", rows),
-    ("delete", ids), ("upsert", rows, ids). Returns each search's
-    (distances, ids, coverage, degraded) and the epochs."""
+    ("delete", ids), ("upsert", rows, ids), ("warmup", max_batch) with
+    the degraded searches. Returns each search's (distances, ids,
+    coverage, degraded), each warmup's (shapes, degraded) and the
+    epochs."""
     from raft_tpu_torch.comms.health import ShardHealth
     from raft_tpu_torch.neighbors import ivf_flat
-    from raft_tpu_torch.serve import Searcher
+    from raft_tpu_torch.serve import BucketGrid, Searcher, warmup
 
     mesh = sub_mesh(n)
     if mesh is None:
@@ -322,6 +324,10 @@ def case_searcher(n: int, kind: str, X, centers, Q, k: int, dead, steps,
             s.extend(step[1])
         elif step[0] == "delete":
             outs.append(s.delete(step[1]))
+        elif step[0] == "warmup":
+            rep = warmup(s, BucketGrid.pow2(step[1], k_grid=(k,)),
+                         include_degraded=True)
+            outs.append([rep["shapes"], rep["degraded"]])
         else:
             s.upsert(step[1], step[2])
         outs.append(s.epoch)
