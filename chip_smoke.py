@@ -156,6 +156,7 @@ The script imports neither JAX nor raft_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1544,16 +1545,18 @@ SERVE_KERNELS = {
 
 class _Capture:
     """Within the ``with`` block, keeps the operands and the answer of the
-    first launch of ``SERVE_KERNELS[name]``'s launcher for each k: the
-    batch's own operands and what the kernel gave it. The launcher still
-    counts its launch; the wrapper launches nothing."""
+    first launch of ``SERVE_KERNELS[name]``'s launcher for each k (of
+    ``full`` query rows when given): the call's own operands and what the
+    kernel gave it. The launcher still counts its launch; the wrapper
+    launches nothing."""
 
-    def __init__(self, name):
+    def __init__(self, name, full=None):
         import importlib
 
         mod, self.attr, self.plain, self.k_at = SERVE_KERNELS[name]
         self.mod = importlib.import_module(f"raft_tpu_torch.ops.{mod}")
-        self.full = SERVE_MAX_BATCH if name == "brute_force" else None
+        self.name = name
+        self.full = full
         self.calls = {}
 
     def __enter__(self):
@@ -1651,7 +1654,8 @@ def serve_drives(name, searcher, reqs, reqs_rep, tol, card):
         per_s = time.perf_counter() - t0
         per_launches = _step(before)
         before = _launches()
-        with _Capture(name) as cap:
+        with _Capture(name, SERVE_MAX_BATCH if name == "brute_force"
+                      else None) as cap:
             t0 = time.perf_counter()
             tickets = [sched.submit(q, k) for q, k in reqs]
             sched.run_until_idle()
@@ -2599,20 +2603,37 @@ def _rank_work(rank, data_dir, cfg):
     def keep(name, res):
         out[name] = tuple(t.cpu().numpy() for t in res)
 
+    caps = {}
+
+    def capture(tag, name):
+        """Rank 0 keeps the block's first launch per k of
+        ``SERVE_KERNELS[name]`` for :func:`rank_plain_checks`."""
+        if rank != 0:
+            return contextlib.nullcontext()
+        caps[tag] = _Capture(name)
+        return caps[tag]
+
     _zero_counters()
     # The first call loads the libraries and warms the allocator.
-    parallel.sharded_knn(mesh, shard, Q, k)
+    with capture("B1 on the shard", "brute_force"):
+        parallel.sharded_knn(mesh, shard, Q, k)
     for engine in SHARD_ENGINES:
         keep(f"bf_{engine}", timed(
             f"bf_{engine}", lambda: parallel.sharded_knn(
                 mesh, shard, Q, k, merge_engine=engine), reps=3))
     index = timed("ivf_build", lambda: parallel.sharded_ivf_flat_build(
         mesh, params, shard, centers=centers))
-    keep("ivf", timed("ivf_search", lambda: parallel.sharded_ivf_flat_search(
-        mesh, sp, index, Q, k), reps=3))
-    dist_index = timed("dist_build", lambda: parallel.sharded_ivf_flat_build(
-        mesh, ivf_flat.IndexParams(n_lists=n_lists, kmeans_n_iters=20),
-        shard, train_distributed=True))
+    with capture("B2 on the rank's list slices", "ivf_flat"):
+        keep("ivf", timed(
+            "ivf_search", lambda: parallel.sharded_ivf_flat_search(
+                mesh, sp, index, Q, k), reps=3))
+    with capture("B1 k-means assignment in train_distributed",
+                 "brute_force"):
+        dist_index = timed(
+            "dist_build", lambda: parallel.sharded_ivf_flat_build(
+                mesh, ivf_flat.IndexParams(n_lists=n_lists,
+                                           kmeans_n_iters=20),
+                shard, train_distributed=True))
     keep("dist_ivf", timed("dist_search",
                            lambda: parallel.sharded_ivf_flat_search(
                                mesh, sp, dist_index, Q, k), reps=3))
@@ -2641,7 +2662,36 @@ def _rank_work(rank, data_dir, cfg):
     digests = {k: hashlib.sha256(b"".join(a.tobytes() for a in v))
                .hexdigest() for k, v in out.items()}
     return {"launches": launches, "ms": ms, "digests": digests,
-            "out": out if rank == 0 else None}
+            "out": out if rank == 0 else None,
+            "plain": rank_plain_checks(caps) if rank == 0 else None}
+
+
+def rank_plain_checks(caps):
+    """Each launch a rank kept (:class:`_Capture`) against its plain
+    version on the same operands, at the phase-5 tolerances: ids by
+    per-slot recall@k (the arg-min agreement at k=1), distances within
+    :func:`norm_tol` of the operands. Returns ``(what, shape, recall,
+    max |d| err, tol)`` per launch; the parent holds them to the bars."""
+    rows = []
+    for tag, cap in caps.items():
+        if not cap.calls:
+            raise AssertionError(f"{tag}: no launch kept")
+        plain = getattr(cap.mod, cap.plain)
+        for k, (args, (kd, ki)) in sorted(cap.calls.items()):
+            pd, pi = plain(*args)
+            if cap.name == "ivf_flat":
+                live = args[0] >= 0
+                shape = (f"{int(live.sum())} live cells x "
+                         f"{args[1].shape[1]} rows")
+                rec = _recall_rows(ki[live].reshape(-1, k),
+                                   pi[live].reshape(-1, k))
+                tol = norm_tol(args[1], args[2])
+            else:
+                shape = f"{args[0].shape[0]} x {args[1].shape[0]} rows"
+                rec = _recall_rows(ki, pi)
+                tol = norm_tol(args[0], args[1])
+            rows.append((f"{tag}, k={k}", shape, rec, max_err(kd, pd), tol))
+    return rows
 
 
 def _sharded_rank(rank, data_dir, init, cfg, results) -> None:
@@ -2719,6 +2769,17 @@ def sharded_ranks(dev, X, Q, bf, iv, centers, card):
             if digest != got[0]["digests"].get(key):
                 raise AssertionError(f"phase 12: rank {r}'s {key} differs "
                                      "from rank 0's")
+    kept = got[0]["plain"]
+    if len(kept) != 3:
+        raise AssertionError(f"phase 12: rank 0 kept {len(kept)} kernel "
+                             "launches, not B1 k=10, B1 k=1 and B2")
+    for what, shape, rec, err, tol in kept:
+        log(f"4 ranks, rank 0's {what} ({shape}) vs plain: per-slot "
+            f"recall {rec:.6f} (bar {RECALL_BF}), max |d| err {err:.3e} "
+            f"(tol {tol:.3e})")
+        if rec < RECALL_BF or err > tol:
+            raise AssertionError(f"phase 12: rank 0's {what} disagrees "
+                                 "with its plain version")
     out = {k: tuple(torch.as_tensor(a, device=dev) for a in v)
            for k, v in got[0]["out"].items()}
     tol = norm_tol(Q, X)

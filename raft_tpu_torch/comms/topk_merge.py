@@ -182,24 +182,12 @@ def pipeline_chunk_bounds(n_items: int, n_chunks: int):
 
 def merge_comm_bytes(engine: str, n_queries: int, k: int, kk: int,
                      n_dev: int, idx_bytes: int = 4,
-                     chunk_kks: Optional[Sequence[int]] = None,
-                     participants: Optional[int] = None) -> int:
+                     chunk_kks: Optional[Sequence[int]] = None) -> int:
     """Estimated collective bytes RECEIVED per rank for one merge of
     ``kk``-wide candidates. The bf16 engine adds its re-rank (one
     allreduce of the survivor row at the guard width, counted as
     ``2 q cap 4`` bytes). ``chunk_kks`` lists the per-chunk widths of a
-    pipelined dispatch, whose estimate sums the per-chunk rings.
-    ``participants`` prices a merge where only that many ranks contribute
-    candidates, capped at the full group's volume."""
-    if participants is not None:
-        p = min(n_dev, max(int(participants), 1))
-        full = merge_comm_bytes(engine, n_queries, k, kk, n_dev,
-                                idx_bytes, chunk_kks=chunk_kks)
-        if p >= n_dev:
-            return full
-        return min(full, merge_comm_bytes(engine, n_queries, k, kk, p,
-                                          idx_bytes,
-                                          chunk_kks=chunk_kks))
+    pipelined dispatch, whose estimate sums the per-chunk rings."""
     engine = resolve_merge_engine(engine, n_queries, k, n_dev)
     if n_dev <= 1:
         return 0
@@ -241,15 +229,13 @@ class MergeDispatchStats(SuppressibleStats):
 
     def record(self, engine: str, n_queries: int, k: int, kk: int,
                n_dev: int, idx_bytes: int = 4,
-               chunk_kks: Optional[Sequence[int]] = None,
-               participants: Optional[int] = None) -> None:
+               chunk_kks: Optional[Sequence[int]] = None) -> None:
         """One LOGICAL merge dispatch (see :func:`merge_comm_bytes` for
-        ``chunk_kks`` and ``participants``)."""
+        ``chunk_kks``)."""
         if self._suppressed():
             return
         est = merge_comm_bytes(engine, n_queries, k, kk, n_dev, idx_bytes,
-                               chunk_kks=chunk_kks,
-                               participants=participants)
+                               chunk_kks=chunk_kks)
         with self._lock:
             self._dispatches[engine] = self._dispatches.get(engine, 0) + 1
             self._bytes[engine] = self._bytes.get(engine, 0) + est

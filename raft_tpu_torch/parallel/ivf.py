@@ -184,6 +184,20 @@ def sharded_ivf_flat_search(mesh: Mesh, params: "_flat.SearchParams",
     of probed rows searched; with every shard live the first two outputs
     are those of ``live_mask=None``."""
     comms = _check_index(mesh, index)
+    live = (None if live_mask is None
+            else check_live_mask(live_mask, comms))
+    return _sharded_ivf_flat_search(mesh, params, index, queries, k,
+                                    merge_engine, live, pipeline_chunks)
+
+
+def _sharded_ivf_flat_search(mesh: Mesh, params: "_flat.SearchParams",
+                             index: ShardedIvfFlat, queries, k: int,
+                             merge_engine: str, live, pipeline_chunks: int):
+    """:func:`sharded_ivf_flat_search` with ``live`` already agreed across
+    the ranks (:func:`check_live_mask`'s output, or None): the sharded
+    Searcher agrees it once to decide the degraded path and passes it
+    here."""
+    comms = _check_index(mesh, index)
     Q = as_float(queries, device=mesh.device)
     expects(Q.device == mesh.device, "queries on %s, mesh on %s", Q.device,
             mesh.device)
@@ -201,7 +215,6 @@ def sharded_ivf_flat_search(mesh: Mesh, params: "_flat.SearchParams",
     use_cells = _flat._cells_eligible(params.engine, k, params.bucket_cap,
                                       cap, index.dim, Q.shape[0], n_probes,
                                       n_lists, Q.device)
-    live = None if live_mask is None else check_live_mask(live_mask, comms)
     alive = None if live is None else bool(live[mesh.rank])
     engine = resolve_merge_engine(merge_engine, Q.shape[0], k, n_dev,
                                   n_probes=n_probes)

@@ -28,7 +28,7 @@ from raft_tpu_torch.comms.topk_merge import (merge_dispatch_stats,
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.resources import as_float
 from raft_tpu_torch.distance.distance_types import DistanceType
-from raft_tpu_torch.neighbors.brute_force import _knn_one_part
+from raft_tpu_torch.neighbors.brute_force import _TILE_DB, _knn_one_part
 from raft_tpu_torch.parallel.degraded import (check_live_mask,
                                               expects_finite_all,
                                               scan_merge_dispatch)
@@ -78,7 +78,7 @@ def shard_database(mesh: Mesh, db) -> RowShard:
 
 
 def sharded_knn(mesh: Mesh, db, queries, k: int, sqrt: bool = False,
-                tile_db: int = 8192, merge_engine: str = "auto",
+                merge_engine: str = "auto",
                 live_mask=None, pipeline_chunks: int = 0):
     """Exact L2 kNN with the database rows sharded over the mesh.
 
@@ -97,6 +97,18 @@ def sharded_knn(mesh: Mesh, db, queries, k: int, sqrt: bool = False,
     (float32 (q,)) gives the fraction of rows searched. With every shard
     live the first two outputs are those of ``live_mask=None``. Rejects
     non-finite inputs on every rank when any rank holds one."""
+    _check_mesh(mesh)
+    live = (None if live_mask is None
+            else check_live_mask(live_mask, Comms(mesh)))
+    return _sharded_knn(mesh, db, queries, k, sqrt, merge_engine, live,
+                        pipeline_chunks)
+
+
+def _sharded_knn(mesh: Mesh, db, queries, k: int, sqrt: bool,
+                 merge_engine: str, live, pipeline_chunks: int):
+    """:func:`sharded_knn` with ``live`` already agreed across the ranks
+    (:func:`check_live_mask`'s output, or None): the sharded Searcher
+    agrees it once to decide the degraded path and passes it here."""
     shard_db = shard_database(mesh, db)
     comms = Comms(mesh)
     Q = as_float(queries, device=mesh.device)
@@ -109,7 +121,6 @@ def sharded_knn(mesh: Mesh, db, queries, k: int, sqrt: bool = False,
     n_dev = mesh.size
     shard = rows.shape[0]
     kk = min(k, shard)
-    tile = min(tile_db, shard)
     engine = resolve_merge_engine(merge_engine, Q.shape[0], k, n_dev)
     chunks = tuple(pipeline_chunk_bounds(
         shard, resolve_pipeline_chunks(engine, shard, n_dev,
@@ -118,7 +129,6 @@ def sharded_knn(mesh: Mesh, db, queries, k: int, sqrt: bool = False,
         engine, Q.shape[0], k, kk, n_dev,
         chunk_kks=([min(k, hi - lo) for lo, hi in chunks]
                    if len(chunks) > 1 else None))
-    live = None if live_mask is None else check_live_mask(live_mask, comms)
     alive = None if live is None else bool(live[mesh.rank])
     metric = (DistanceType.L2SqrtExpanded if sqrt
               else DistanceType.L2Expanded)
@@ -127,7 +137,7 @@ def sharded_knn(mesh: Mesh, db, queries, k: int, sqrt: bool = False,
         # One row range of the shard: B1 on the card, the tiled scan on
         # the CPU; ids offset to global rows.
         d_c, i_c = _knn_one_part(Q, rows[lo:hi], kk_c, metric, 2.0,
-                                 min(tile, hi - lo), "auto")
+                                 _TILE_DB, "auto")
         return d_c, i_c + (shard_db.offset + lo)
 
     out_d, out_i = scan_merge_dispatch(

@@ -19,7 +19,8 @@ the scheduler (serve/scheduler.py) batches requests against an opaque
   ``live_mask`` (rank 0's, broadcast) and serve DEGRADED: exact over the
   survivors, with the per-query ``coverage`` in the result;
 * ``RetryPolicy`` — transient host-side failures retry with the
-  deterministic backoff of ``core/retry.py``;
+  deterministic backoff of ``core/retry.py`` (single-device only: a
+  sharded retry waits for ROADMAP A.4b);
 * ``epoch`` — the cache-invalidation key (serve/cache.py): bumped by
   every mutation (extend / delete / upsert / compact), so cached results
   can never outlive the index state they were computed against.
@@ -135,6 +136,11 @@ class Searcher:
             _check_mesh(mesh)
             expects(kind != "ivf_pq", "sharded IVF-PQ waits for ROADMAP "
                     "A.4b")
+            # A sharded search is a sequence of collectives: a rank that
+            # retried alone would re-enter the first of them while the
+            # others wait in a later one.
+            expects(retry is None, "a sharded retry needs the ranks to "
+                    "agree on a failure and waits for ROADMAP A.4b")
             expects(kind != "ivf_flat" or isinstance(index, ShardedIvfFlat),
                     "a sharded IVF-Flat searcher takes a ShardedIvfFlat")
             expects(health is None or health.n_ranks == mesh.size,
@@ -268,29 +274,30 @@ class Searcher:
         ``degraded=True`` forces the masked search while every rank is
         live; None masks once the registry reports a dead rank. Every rank
         holds its own registry, so rank 0's mask decides for all (one
-        broadcast a search): the ranks take the same path."""
+        broadcast a search, :func:`check_live_mask`): the ranks take the
+        same path."""
         if self.health is None or degraded is False:
             return None
         from raft_tpu_torch.comms.comms import Comms
+        from raft_tpu_torch.parallel.degraded import check_live_mask
 
-        live = Comms(self.mesh).bcast(
-            torch.as_tensor(self.health.live_mask)).numpy()
+        live = check_live_mask(self.health.live_mask, Comms(self.mesh))
         if degraded or not live.all():
             return live
         return None
 
     def _dispatch(self, q: torch.Tensor, k: int, params, live=None):
         if self.mesh is not None:
-            from raft_tpu_torch.parallel import (sharded_ivf_flat_search,
-                                                 sharded_knn)
+            # ``live`` is already agreed (_resolve_live): the bodies
+            # skip the entry points' second broadcast of it.
+            from raft_tpu_torch.parallel.ivf import _sharded_ivf_flat_search
+            from raft_tpu_torch.parallel.knn import _sharded_knn
 
             if self.kind == "brute_force":
-                return sharded_knn(self.mesh, self._db, q, k,
-                                   merge_engine=self.merge_engine,
-                                   live_mask=live)
-            return sharded_ivf_flat_search(self.mesh, params, self._index, q,
-                                           k, merge_engine=self.merge_engine,
-                                           live_mask=live)
+                return _sharded_knn(self.mesh, self._db, q, k, False,
+                                    self.merge_engine, live, 0)
+            return _sharded_ivf_flat_search(self.mesh, params, self._index,
+                                            q, k, self.merge_engine, live, 0)
         if self.kind == "brute_force":
             from raft_tpu_torch.neighbors import brute_force
 

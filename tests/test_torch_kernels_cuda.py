@@ -22,6 +22,7 @@ from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
 from raft_tpu_torch.ops import fused_knn as fk
 from raft_tpu_torch.ops import pq_scan as ps
 from raft_tpu_torch.ops import stream_select as ss
+from chip_smoke import same_up_to_exact_ties
 from test_torch_common import int_data, n
 
 _TIERS = [(False, False), (True, False), (True, True)]
@@ -1133,14 +1134,6 @@ def nccl_mesh(dev, tmp_path):
         dist.destroy_process_group()
 
 
-def _by_distance_then_id(d, i):
-    """Each row's (distance, id) pairs in lexicographic order: the merge
-    orders exact ties by id, a single-card engine by candidate slot."""
-    d, i = np.asarray(d), np.asarray(i)
-    order = np.lexsort((i, d), axis=1)
-    return (np.take_along_axis(d, order, 1), np.take_along_axis(i, order, 1))
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("engine", ["allgather", "ring", "ring_bf16",
                                     "pipelined", "pipelined_bf16"])
@@ -1188,13 +1181,13 @@ def test_sharded_ivf_flat_world_of_one_equals_the_single_card_search(
     d, i = parallel.sharded_ivf_flat_search(nccl_mesh, sp, sharded, Q, 10)
     assert fk.fused_cells_knn.launches > before
     sd, si = ivf_flat.search(sp, single, Q, 10)
-    want = _by_distance_then_id(n(sd), n(si))
-    got = _by_distance_then_id(n(d), n(i))
-    np.testing.assert_array_equal(got[0], want[0])
-    np.testing.assert_array_equal(got[1], want[1])
+    # The merge orders exact distance ties by id, a single-card engine by
+    # candidate slot.
+    same_up_to_exact_ties("sharded IVF-Flat", d, i, sd, si)
     res = serve.Searcher.ivf_flat(sharded, sp, mesh=nccl_mesh,
                                   health=ShardHealth(1)).search(
         Q, 10, degraded=True)
     assert res.degraded and (res.coverage == 1).all()
-    np.testing.assert_array_equal(
-        _by_distance_then_id(res.distances, res.indices)[1], want[1])
+    same_up_to_exact_ties("degraded sharded Searcher",
+                          torch.as_tensor(res.distances),
+                          torch.as_tensor(res.indices), sd.cpu(), si.cpu())

@@ -194,9 +194,7 @@ def test_merge_comm_bytes_matches_the_reference():
         for q, k, n, _ in _GRID:
             for kk in (1, 5, k):
                 for idx_bytes in (4, 8):
-                    for extra in ({}, {"chunk_kks": (kk, kk, 1)},
-                                  {"participants": 3},
-                                  {"participants": 1}):
+                    for extra in ({}, {"chunk_kks": (kk, kk, 1)}):
                         assert tm.merge_comm_bytes(
                             engine, q, k, kk, n, idx_bytes, **extra) == \
                             jtm.merge_comm_bytes(engine, q, k, kk, n,

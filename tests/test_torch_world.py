@@ -338,6 +338,7 @@ def case_refusals(n: int):
     """The LogicErrors of what waits for the next part of the slice."""
     from raft_tpu_torch import lifecycle, parallel, serve
     from raft_tpu_torch.core.error import LogicError
+    from raft_tpu_torch.core.retry import RetryPolicy
     from raft_tpu_torch.neighbors import ivf_flat
 
     mesh = sub_mesh(n)
@@ -356,6 +357,8 @@ def case_refusals(n: int):
                 hedge=serve.HedgePolicy()),
             lambda: serve.Searcher.brute_force(X, mesh=mesh,
                                                dispatch_hook=print),
+            lambda: serve.Searcher.brute_force(X, mesh=mesh,
+                                               retry=RetryPolicy()),
             lambda: serve.Searcher.brute_force(X, mesh=mesh).shadow_probe(
                 0, X[:2], 3),
             lambda: serve.BatchScheduler(
