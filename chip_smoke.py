@@ -147,7 +147,29 @@ no result line):
     search over the survivors, bit for bit; coverage 0.75 for brute force
     and the recomputed live share of the probed rows for IVF-Flat); every
     rank's answers identical; the ranks' launches and wall times;
-13. a ``kernels`` line, the card line, and the result line.
+13. sharding, part 2 (the list placement and sharded IVF-PQ), counters
+    set to 0 before each step and read after it: (a) in a NCCL world of
+    one, ``sharded_ivf_pq_build`` on both placements over phase 6's
+    model, whose searches give phase 6's compressed-tier answers, and the
+    list-placed IVF-Flat on phase 4's centers giving phase 4's (distances
+    bit for bit, ids too but for the order of exact ties); (b) in phase
+    12's world of 4 ranks: the list-placed IVF-Flat (B2 per rank on the
+    routed groups) on the allgather, ring and pipelined engines (ids =
+    phase 4's but at near-ties within ``norm_tol``), IVF-PQ row- and
+    list-placed (B4 per rank; ids = phase 6's but at near-ties), the 32
+    most probed lists replicated and a search with rank 3 dead (no query
+    routed to it, replicas serving its lists, coverage = the recomputed
+    share of probed rows on live copies, the fully covered queries'
+    answers the healthy ones), a migration to ``assign_lists`` over the
+    observed loads (the same answers), 10,000 rows extended into and
+    100,000 ids deleted from the replicated IVF-Flat and IVF-PQ indexes
+    (each id counted once, none answered again), and a sharded
+    ``Searcher`` over each new index kind with a dispatch hook (the direct
+    searches' answers); rank 0's first routed B2, first B4 on each
+    placement and first B1 k=1 of its encode held against their plain
+    versions; build times, the slowest rank's wall times, the mean
+    fan-out, the list pack's bytes and the launches per rank logged;
+14. a ``kernels`` line, the card line, and the result line.
 
 The data is made with numpy from a fixed seed: 1000 Gaussian blobs
 (centers uniform in [-10, 10], sigma 5), queries = database rows + N(0, 1).
@@ -237,6 +259,12 @@ SHARD_ENGINES = ("allgather", "ring", "ring_bf16", "pipelined",
 RECALL_DIST = 0.99        # train_distributed IVF-Flat against brute force
 DEAD_RANK = 3             # the shard marked dead in the degraded checks
 RANKS_TIMEOUT = 600       # seconds the parent waits for the 4 ranks
+# The routed phase (13) in phase 12's world: the list placement and
+# sharded IVF-PQ on phase 4's rows and centers and phase 6's model.
+ROUTED_ENGINES = ("allgather", "ring", "pipelined")
+N_HOT = 32                # the most probed lists, replicated
+N_EXTEND_13 = 10_000      # rows extended into the replicated indexes
+N_DELETE_13 = 100_000     # ids then deleted from them
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FP32 = 67e12
@@ -980,7 +1008,8 @@ def pq_path(dev, X, Q, bf_i):
     total = {k: sum(st[k] for st in steps.values())
              for k in steps["build"]}
     return {"index": index, "launches": total, "search_ms": search_ms,
-            "probes_sub": probes, "rotq_sub": rotq, "recall": rec}
+            "probes_sub": probes, "rotq_sub": rotq, "recall": rec,
+            "compressed": (cd, ci)}
 
 
 def b4_entry(dev, Q, index, search_ms):
@@ -1586,6 +1615,17 @@ def _recall_rows(found, truth, chunk=4096) -> float:
     return hits / found.shape[0]
 
 
+def b4_tol(qc, lo, hi) -> float:
+    """B4's distance tolerance on its operands (phase 5): REL_NORM_TOL of
+    the largest query residual's squared norm plus the codeword table's
+    largest squared entries."""
+    import torch
+
+    table = torch.cat([lo[0], hi[0]], dim=1)
+    return REL_NORM_TOL * (float(torch.max(torch.sum(qc ** 2, dim=-1)))
+                           + float(torch.sum(torch.amax(table ** 2, dim=1))))
+
+
 def serve_batch_checks(name, cap):
     """Holds each kept served batch's kernel answer against the plain
     version on the same operands: ids by per-slot recall@k >= RECALL_BF,
@@ -1601,11 +1641,7 @@ def serve_batch_checks(name, cap):
     for k, (args, (kd, ki)) in sorted(cap.calls.items()):
         pd, pi = plain(*args)
         if name == "ivf_pq":
-            qc, lo, hi = args[1], args[3], args[4]
-            table = torch.cat([lo[0], hi[0]], dim=1)
-            tol = REL_NORM_TOL * (
-                float(torch.max(torch.sum(qc ** 2, dim=-1)))
-                + float(torch.sum(torch.amax(table ** 2, dim=1))))
+            tol = b4_tol(args[1], args[3], args[4])
         else:
             tol = norm_tol(args[1] if name == "ivf_flat" else args[0],
                            args[2] if name == "ivf_flat" else args[1])
@@ -2554,14 +2590,65 @@ def sharded_world_of_one(dev, X, Q, bf, iv, centers, card):
     return launches
 
 
+class _RankRecorder:
+    """One rank's bookkeeping in a sharded phase: its answers (sent home
+    by rank 0, digested by every rank), wall times, and rank 0's kept
+    kernel launches (:class:`_Capture`)."""
+
+    def __init__(self, rank, dev):
+        self.rank, self.dev = rank, dev
+        self.out, self.ms, self.caps = {}, {}, {}
+
+    def sync(self):
+        import torch
+
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(self, name, fn, reps=1):
+        """``fn()`` ``reps`` times: the wall ms of the first call and the
+        median of the others; the last answer."""
+        times = []
+        for _ in range(reps):
+            self.sync()
+            t0 = time.perf_counter()
+            res = fn()
+            self.sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        self.ms[name] = times[0]
+        if reps > 1:
+            self.ms[name + "_steady"] = float(np.median(times[1:]))
+        return res
+
+    def keep(self, name, res):
+        self.out[name] = tuple(np.asarray(t.cpu() if hasattr(t, "cpu")
+                                          else t) for t in res)
+
+    def capture(self, tag, name):
+        """Rank 0 keeps the block's first launch per k of
+        ``SERVE_KERNELS[name]`` for :func:`rank_plain_checks`."""
+        if self.rank != 0:
+            return contextlib.nullcontext()
+        self.caps[tag] = _Capture(name)
+        return self.caps[tag]
+
+    def result(self, launches, **extra):
+        import hashlib
+
+        digests = {k: hashlib.sha256(b"".join(a.tobytes() for a in v))
+                   .hexdigest() for k, v in self.out.items()}
+        return dict(launches=launches, ms=self.ms, digests=digests,
+                    out=self.out if self.rank == 0 else None,
+                    plain=(rank_plain_checks(self.caps) if self.rank == 0
+                           else None), **extra)
+
+
 def _rank_work(rank, data_dir, cfg):
     """Phase 12 (b) on one rank: every merge engine of sharded brute
     force, IVF-Flat built on phase 4's centers and with train_distributed,
     degraded serving with DEAD_RANK dead, and the survivors' 3-rank
     search on the same engines. Rank 0 returns the answers, every rank
     its digests, wall times and launches."""
-    import hashlib
-
     import torch
 
     from raft_tpu_torch import parallel
@@ -2579,39 +2666,8 @@ def _rank_work(rank, data_dir, cfg):
     shard = parallel.shard_database(mesh, X)
     sp = ivf_flat.SearchParams(n_probes=cfg["n_probes"])
     params = ivf_flat.IndexParams(n_lists=n_lists)
-    out, ms = {}, {}
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-
-    def timed(name, fn, reps=1):
-        """``fn()`` ``reps`` times: the wall ms of the first call and the
-        median of the others; the last answer."""
-        times = []
-        for _ in range(reps):
-            sync()
-            t0 = time.perf_counter()
-            res = fn()
-            sync()
-            times.append((time.perf_counter() - t0) * 1e3)
-        ms[name] = times[0]
-        if reps > 1:
-            ms[name + "_steady"] = float(np.median(times[1:]))
-        return res
-
-    def keep(name, res):
-        out[name] = tuple(t.cpu().numpy() for t in res)
-
-    caps = {}
-
-    def capture(tag, name):
-        """Rank 0 keeps the block's first launch per k of
-        ``SERVE_KERNELS[name]`` for :func:`rank_plain_checks`."""
-        if rank != 0:
-            return contextlib.nullcontext()
-        caps[tag] = _Capture(name)
-        return caps[tag]
+    rec = _RankRecorder(rank, dev)
+    timed, keep, capture = rec.timed, rec.keep, rec.capture
 
     _zero_counters()
     # The first call loads the libraries and warms the allocator.
@@ -2659,11 +2715,7 @@ def _rank_work(rank, data_dir, cfg):
                                                  centers=centers)
         keep("ivf_survivors", parallel.sharded_ivf_flat_search(
             m3, sp, index3, Q, k, merge_engine="pipelined"))
-    digests = {k: hashlib.sha256(b"".join(a.tobytes() for a in v))
-               .hexdigest() for k, v in out.items()}
-    return {"launches": launches, "ms": ms, "digests": digests,
-            "out": out if rank == 0 else None,
-            "plain": rank_plain_checks(caps) if rank == 0 else None}
+    return rec.result(launches)
 
 
 def rank_plain_checks(caps):
@@ -2679,13 +2731,15 @@ def rank_plain_checks(caps):
         plain = getattr(cap.mod, cap.plain)
         for k, (args, (kd, ki)) in sorted(cap.calls.items()):
             pd, pi = plain(*args)
-            if cap.name == "ivf_flat":
+            if cap.name in ("ivf_flat", "ivf_pq"):
                 live = args[0] >= 0
                 shape = (f"{int(live.sum())} live cells x "
                          f"{args[1].shape[1]} rows")
                 rec = _recall_rows(ki[live].reshape(-1, k),
                                    pi[live].reshape(-1, k))
-                tol = norm_tol(args[1], args[2])
+                tol = (b4_tol(args[1], args[3], args[4])
+                       if cap.name == "ivf_pq" else norm_tol(args[1],
+                                                             args[2]))
             else:
                 shape = f"{args[0].shape[0]} x {args[1].shape[0]} rows"
                 rec = _recall_rows(ki, pi)
@@ -2707,7 +2761,11 @@ def _sharded_rank(rank, data_dir, init, cfg, results) -> None:
             torch.cuda.set_device(0)
         dist.init_process_group("gloo", init_method=init, rank=rank,
                                 world_size=cfg["n_ranks"])
-        results.put((rank, _rank_work(rank, data_dir, cfg)))
+        p12 = _rank_work(rank, data_dir, cfg)
+        if cfg["device"].startswith("cuda"):
+            torch.cuda.empty_cache()
+        results.put((rank, {"p12": p12,
+                            "p13": _rank_work_routed(rank, data_dir, cfg)}))
     except Exception:
         results.put((rank, {"error": traceback.format_exc()}))
     finally:
@@ -2715,24 +2773,27 @@ def _sharded_rank(rank, data_dir, init, cfg, results) -> None:
             dist.destroy_process_group()
 
 
-def sharded_ranks(dev, X, Q, bf, iv, centers, card):
-    """Phase 12 (b): the 4-rank gloo world on the one card. Returns the
-    ranks' launches, summed."""
+def spawn_ranks(dev, X, Q, centers, model):
+    """The 4-rank gloo world on the one card, which runs phase 12 (b) and
+    phase 13 (b) in turn: X, Q, phase 4's centers and phase 6's IVF-PQ
+    model go to a temporary directory once. Returns each rank's results
+    and the wall seconds with the spawn."""
     import multiprocessing as mp
     import queue
     import tempfile
-
-    import torch
-
-    from raft_tpu_torch.neighbors import ivf_flat
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         np.save(f"{tmp}/X.npy", X.cpu().numpy())
         np.save(f"{tmp}/Q.npy", Q.cpu().numpy())
         np.save(f"{tmp}/centers.npy", centers.cpu().numpy())
+        for name in ("centers", "rotation_matrix", "pq_centers"):
+            np.save(f"{tmp}/pq_{name}.npy",
+                    getattr(model, name).cpu().numpy())
         cfg = dict(device=str(dev), k=K, n_lists=N_LISTS,
-                   n_probes=N_PROBES, n_ranks=N_RANKS, dead=DEAD_RANK)
+                   n_probes=N_PROBES, n_ranks=N_RANKS, dead=DEAD_RANK,
+                   pq_bits=model.pq_bits, pq_dim=model.pq_dim,
+                   pq_metric=model.metric.value, seed=SEED)
         ctx = mp.get_context("spawn")
         results = ctx.Queue()
         procs = [ctx.Process(target=_sharded_rank,
@@ -2751,7 +2812,7 @@ def sharded_ranks(dev, X, Q, bf, iv, centers, card):
                 got[rank] = res
         except queue.Empty:
             missing = sorted(set(range(N_RANKS)) - set(got))
-            raise AssertionError(f"phase 12: ranks {missing} did not "
+            raise AssertionError(f"phases 12-13: ranks {missing} did not "
                                  f"answer in {RANKS_TIMEOUT} s")
         finally:
             for p in procs:
@@ -2763,7 +2824,19 @@ def sharded_ranks(dev, X, Q, bf, iv, centers, card):
     errors = [f"rank {r}:\n{res['error']}" for r, res in sorted(got.items())
               if "error" in res]
     if errors:
-        raise AssertionError("phase 12 rank failed:\n" + "\n".join(errors))
+        raise AssertionError("phases 12-13 rank failed:\n"
+                             + "\n".join(errors))
+    return got, wall
+
+
+def sharded_ranks(dev, X, Q, bf, iv, centers, got, wall, card):
+    """Phase 12 (b)'s checks of the 4 ranks' results. Returns the ranks'
+    launches, summed."""
+    import torch
+
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    got = {r: res["p12"] for r, res in got.items()}
     for r in range(1, N_RANKS):
         for key, digest in got[r]["digests"].items():
             if digest != got[0]["digests"].get(key):
@@ -2835,12 +2908,359 @@ def sharded_ranks(dev, X, Q, bf, iv, centers, card):
         f"median of 2 more where _steady) "
         + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
     log(f"4 ranks: launches per rank "
-        f"{[got[r]['launches'] for r in range(N_RANKS)]}; phase 12 (b) "
-        f"wall {wall:.1f} s with the spawn")
+        f"{[got[r]['launches'] for r in range(N_RANKS)]}; phases 12 (b) "
+        f"and 13 (b) wall {wall:.1f} s with the spawn")
     if launches["fused_knn"] < N_RANKS or launches["fused_cells_knn"] < \
             N_RANKS:
         raise AssertionError(f"4 ranks: B1 / B2 not launched on every "
                              f"rank ({launches})")
+    return launches
+
+
+def tie_check(what, d, i, ref_d, ref_i, tol) -> int:
+    """Ids equal to the reference's but at near-ties, for scores that
+    cannot be recomputed from the rows (IVF-PQ's): every distance within
+    ``tol`` of the reference's at its slot, and every id that differs is
+    in the reference's row or at the reference's k-th distance within
+    ``tol``. Returns the number of differing slots."""
+    import torch
+
+    err = max_err(d, ref_d)
+    if err > tol:
+        raise AssertionError(f"{what}: distance off the reference by {err}")
+    il, ril = i.long(), ref_i.long()
+    diff = il != ril
+    member = (il[:, :, None] == ril[:, None, :]).any(dim=2)
+    boundary = torch.abs(d - ref_d[:, -1:]) <= tol
+    bad = diff & ~member & ~boundary
+    if bool(bad.any()):
+        raise AssertionError(f"{what}: {int(bad.sum())} ids off the "
+                             "reference's row and not at its k-th distance")
+    return int(diff.sum())
+
+
+def routed_world_of_one(dev, X, Q, mp_out, pq_out, card):
+    """Phase 13 (a): sharded IVF-PQ on both placements over phase 6's
+    model, and the list-placed IVF-Flat on phase 4's centers, over a NCCL
+    world of one in this process: phase 6's compressed-tier answers and
+    phase 4's answers, distances bit for bit and ids too but for the
+    order of exact ties. Returns the launches of the step."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from raft_tpu_torch import parallel
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
+
+    secs, out = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=f"file://{tmp}/store", rank=0, world_size=1)
+        try:
+            mesh = parallel.make_mesh(device=dev)
+            _zero_counters()
+            for placement in ("row", "list"):
+                index = timed(f"pq {placement} build",
+                              lambda: parallel.sharded_ivf_pq_build(
+                                  mesh, ivf_pq.IndexParams(n_lists=N_LISTS),
+                                  X, model=pq_out["index"],
+                                  placement=placement))
+                out[f"IVF-PQ {placement}"] = timed(
+                    f"pq {placement} search",
+                    lambda: parallel.sharded_ivf_pq_search(
+                        mesh, ivf_pq.SearchParams(n_probes=N_PROBES), index,
+                        Q, K))
+                del index
+            index = timed("flat list build",
+                          lambda: parallel.sharded_ivf_flat_build(
+                              mesh, ivf_flat.IndexParams(n_lists=N_LISTS), X,
+                              centers=mp_out["centers"], placement="list"))
+            out["IVF-Flat list"] = timed(
+                "flat list search", lambda: parallel.sharded_ivf_flat_search(
+                    mesh, ivf_flat.SearchParams(n_probes=N_PROBES), index,
+                    Q, K))
+            del index
+            launches = _launches()
+        finally:
+            dist.destroy_process_group()
+    rows = {what: same_up_to_exact_ties(
+        f"world of one, {what}", *res,
+        *(pq_out["compressed"] if what.startswith("IVF-PQ")
+          else mp_out["iv"])) for what, res in out.items()}
+    log(f"routed world of one (NCCL) [{card}]: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items())
+        + f"; IVF-PQ row and list = phase 6's compressed tier, IVF-Flat list "
+        f"= phase 4's: distances bit for bit, ids too up to the order of "
+        f"exact ties (rows reordered: {rows}); launches {launches}")
+    if launches["fused_knn"] < 1 or launches["pq_fused_scan"] < 2 \
+            or launches["fused_cells_knn"] < 1:
+        raise AssertionError(f"routed world of one: B1 / B2 / B4 not "
+                             f"launched ({launches})")
+    return launches
+
+
+def _rank_work_routed(rank, data_dir, cfg):
+    """Phase 13 (b) on one rank: the list-placed IVF-Flat (B2 per rank)
+    on three merge engines, sharded IVF-PQ on both placements (B4 per
+    rank, B1 k=1 in the encode), the hottest lists replicated and a
+    degraded search with DEAD_RANK dead, a migration to ``assign_lists``
+    over the observed loads, extend + delete on the replicated indexes,
+    and a sharded Searcher over each index kind with a dispatch hook.
+    Rank 0 returns the answers, every rank its digests, wall times and
+    launches."""
+    import torch
+
+    from raft_tpu_torch import lifecycle, parallel
+    from raft_tpu_torch.comms.health import ShardHealth
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
+    from raft_tpu_torch.parallel.routing import assign_lists, routing_stats
+    from raft_tpu_torch.serve import Searcher
+
+    t_start = time.perf_counter()
+    dev = torch.device(cfg["device"])
+    k, n_lists, n_ranks, dead = (cfg["k"], cfg["n_lists"], cfg["n_ranks"],
+                                 cfg["dead"])
+    X = np.load(f"{data_dir}/X.npy", mmap_mode="c")
+    Q = torch.as_tensor(np.load(f"{data_dir}/Q.npy"), device=dev)
+    centers = torch.as_tensor(np.load(f"{data_dir}/centers.npy"),
+                              device=dev)
+    J, bits = cfg["pq_dim"], cfg["pq_bits"]
+    model = ivf_pq.index_from_numpy(
+        *(np.load(f"{data_dir}/pq_{name}.npy") for name in
+          ("centers", "rotation_matrix", "pq_centers")),
+        np.zeros((n_lists, 1, ivf_pq.packed_row_bytes(J, bits)), np.uint8),
+        np.full((n_lists, 1), -1, np.int32), np.zeros(n_lists, np.int32),
+        bits, J, 0, cfg["pq_metric"], device=dev)
+    mesh = parallel.make_mesh(device=dev)
+    shard = parallel.shard_database(mesh, X)
+    sp = ivf_flat.SearchParams(n_probes=cfg["n_probes"])
+    spq = ivf_pq.SearchParams(n_probes=cfg["n_probes"])
+    rec = _RankRecorder(rank, dev)
+    timed, keep, capture = rec.timed, rec.keep, rec.capture
+    pq_params = ivf_pq.IndexParams(n_lists=n_lists, pq_dim=J, pq_bits=bits)
+
+    _zero_counters()
+    routing_stats.reset()
+    with capture("B1 k=1 in the rank's encode_rows", "brute_force"):
+        pq_row = timed("pq_row_build", lambda: parallel.sharded_ivf_pq_build(
+            mesh, pq_params, shard, model=model))
+    pq_list = timed("pq_list_build", lambda: parallel.sharded_ivf_pq_build(
+        mesh, pq_params, shard, model=model, placement="list"))
+    flat = timed("flat_list_build", lambda: parallel.sharded_ivf_flat_build(
+        mesh, ivf_flat.IndexParams(n_lists=n_lists), shard, centers=centers,
+        placement="list"))
+    pack = {"IVF-Flat": flat.pack_bytes, "IVF-PQ": pq_list.pack_bytes}
+
+    def flat_search(index, engine="allgather", **kw):
+        return parallel.sharded_ivf_flat_search(mesh, sp, index, Q, k,
+                                                merge_engine=engine, **kw)
+
+    for engine in ROUTED_ENGINES:
+        with (capture("B2 on the routed group", "ivf_flat")
+              if engine == "allgather" else contextlib.nullcontext()):
+            keep(f"flat_{engine}", timed(f"flat_list_{engine}",
+                                         lambda: flat_search(flat, engine),
+                                         reps=3))
+    fanout = routing_stats.snapshot()["fanout_mean"]
+    for name, index in (("row", pq_row), ("list", pq_list)):
+        with capture(f"B4 on the {name}-placed codes", "ivf_pq"):
+            keep(f"pq_{name}", timed(f"pq_{name}_search",
+                                     lambda: parallel.sharded_ivf_pq_search(
+                                         mesh, spq, index, Q, k), reps=3))
+
+    # Replicas of the most probed lists, then rank DEAD_RANK dead.
+    hot = np.argsort(-routing_stats.list_loads(flat.placement_map),
+                     kind="stable")[:N_HOT]
+    hot_pq = np.argsort(-routing_stats.list_loads(pq_list.placement_map),
+                        kind="stable")[:N_HOT]
+    loads = routing_stats.list_loads(flat.placement_map)
+    rep = timed("replicate", lambda: parallel.sharded_replicate_lists(
+        mesh, flat, hot))
+    live = np.ones(n_ranks, bool)
+    live[dead] = False
+    routing_stats.reset()
+    keep("flat_degraded", timed("flat_list_degraded",
+                                lambda: flat_search(rep, live_mask=live)))
+    snap = routing_stats.snapshot()
+    pm = rep.placement_map
+    placement = (pm.owner, pm.replica_owner)
+
+    # A migration to the balance of the observed loads.
+    new_owner = assign_lists(loads, n_ranks)
+    mig, n_migrated = timed("migrate", lambda: parallel.sharded_migrate_lists(
+        mesh, rep, new_owner))
+    del rep
+    keep("flat_migrated", timed("flat_list_migrated",
+                                lambda: flat_search(mig)))
+
+    # Mutations with replicas present: every rank draws the same rows and
+    # ids from the seed.
+    rng = np.random.default_rng(cfg["seed"] + 13)
+    new = (X[np.sort(rng.choice(X.shape[0], N_EXTEND_13, replace=False))]
+           + rng.standard_normal((N_EXTEND_13, X.shape[1]))
+           .astype(np.float32))
+    del_ids = rng.choice(X.shape[0] + N_EXTEND_13, N_DELETE_13,
+                         replace=False)
+    pq_rep = timed("pq_replicate", lambda: parallel.sharded_replicate_lists(
+        mesh, pq_list, hot_pq))
+    mutated = {}
+    for name, index, extend, search in (
+            ("flat", mig, parallel.sharded_ivf_flat_extend, flat_search),
+            ("pq", pq_rep, parallel.sharded_ivf_pq_extend,
+             lambda index: parallel.sharded_ivf_pq_search(mesh, spq, index,
+                                                          Q, k))):
+        timed(f"{name}_extend", lambda: extend(mesh, index, new))
+        n_del = timed(f"{name}_delete", lambda: lifecycle.delete(
+            index, del_ids, mesh=mesh))
+        d, i = search(index)
+        keep(f"{name}_mutated", (d, i))
+        mutated[name] = (n_del, int(np.isin(i.cpu().numpy(), del_ids).sum()),
+                         index.size, index.n_deleted)
+    del mig, pq_rep
+
+    # A sharded Searcher over each index kind, with a dispatch hook.
+    hooks = {}
+    for name, make, index, params, engine in (
+            ("flat_list", Searcher.ivf_flat, flat, sp, "allgather"),
+            ("pq_row", Searcher.ivf_pq, pq_row, spq, "auto"),
+            ("pq_list", Searcher.ivf_pq, pq_list, spq, "auto")):
+        seen = []
+        s = make(index, params, mesh=mesh, health=ShardHealth(n_ranks),
+                 merge_engine=engine, dispatch_hook=seen.append)
+        res = timed(f"searcher_{name}", lambda: s.search(Q, k))
+        keep(f"searcher_{name}", (res.distances, res.indices))
+        hooks[name] = [len(r) for r in seen]
+    launches = _launches()
+    return rec.result(
+        launches, pack=pack, fanout=fanout, snap=snap, placement=placement, n_migrated=n_migrated,
+        mutated=mutated, hooks=hooks,
+        wall_s=time.perf_counter() - t_start)
+
+
+def routed_ranks(dev, X, Q, mp_out, pq_out, got, card):
+    """Phase 13 (b)'s checks of the 4 ranks' results. Returns the ranks'
+    launches, summed."""
+    import torch
+
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    got = {r: res["p13"] for r, res in got.items()}
+    for r in range(1, N_RANKS):
+        for key, digest in got[r]["digests"].items():
+            if digest != got[0]["digests"].get(key):
+                raise AssertionError(f"phase 13: rank {r}'s {key} differs "
+                                     "from rank 0's")
+    kept = got[0]["plain"]
+    if len(kept) != 4:
+        raise AssertionError(f"phase 13: rank 0 kept {len(kept)} kernel "
+                             "launches, not B1 k=1, B2 and B4 (row, list)")
+    for what, shape, rec, err, tol in kept:
+        log(f"phase 13, rank 0's {what} ({shape}) vs plain: per-slot "
+            f"recall {rec:.6f} (bar {RECALL_BF}), max |d| err {err:.3e} "
+            f"(tol {tol:.3e})")
+        if rec < RECALL_BF or err > tol:
+            raise AssertionError(f"phase 13: rank 0's {what} disagrees "
+                                 "with its plain version")
+    out = {k: tuple(torch.as_tensor(a, device=dev) for a in v)
+           for k, v in got[0]["out"].items()}
+    tol = norm_tol(Q, X)
+    for engine in ROUTED_ENGINES:
+        n_diff = near_tie_check(f"4 ranks, routed IVF-Flat, {engine}",
+                                *out[f"flat_{engine}"], *mp_out["iv"], X, Q,
+                                tol)
+        log(f"4 ranks, list-placed IVF-Flat, {engine}: ids = phase 4's but "
+            f"{n_diff} near-tie slots (tol {tol:.3e})")
+    for name in ("row", "list"):
+        n_diff = tie_check(f"4 ranks, IVF-PQ {name}", *out[f"pq_{name}"],
+                           *pq_out["compressed"], tol)
+        log(f"4 ranks, {name}-placed IVF-PQ: ids = phase 6's compressed "
+            f"tier but {n_diff} near-tie slots (tol {tol:.3e})")
+
+    # Degraded with replicas: recompute the coverage from the lists'
+    # members, and the answers of fully covered queries.
+    owner, rep_owner = (np.asarray(a) for a in got[0]["placement"])
+    reach = torch.as_tensor((owner != DEAD_RANK)
+                            | ((rep_owner >= 0) & (rep_owner != DEAD_RANK)),
+                            device=dev)
+    labels = kmeans_labels(mp_out["centers"], X)
+    sizes = torch.bincount(labels, minlength=N_LISTS).float()
+    probes = ivf_flat._coarse_probe(Q, mp_out["centers"], N_PROBES,
+                                    True).long()
+    want = (sizes[probes] * reach[probes]).sum(1) / sizes[probes].sum(1)
+    d, i, cov = out["flat_degraded"]
+    cov_err = float(torch.max(torch.abs(cov - want)))
+    full = cov == 1
+    hd, hi = out["flat_allgather"]
+    lost = ~reach[labels[torch.clamp_min(i.long(), 0)]] & (i >= 0)
+    snap = got[0]["snap"]
+    n_rep = int(((rep_owner >= 0) & (owner == DEAD_RANK)).sum())
+    log(f"4 ranks, {N_HOT} hottest lists replicated ({n_rep} of them owned "
+        f"by rank {DEAD_RANK}), rank {DEAD_RANK} dead: coverage mean "
+        f"{float(cov.mean()):.6f} (recomputed, max err {cov_err:.1e}), "
+        f"{int(full.sum())} queries fully covered, replica hits "
+        f"{snap['replica_hits']}, queries routed to rank {DEAD_RANK}: "
+        f"{snap['shard_queries'].get(DEAD_RANK, 0)}")
+    if cov_err > 1e-6 or bool(lost.any()) \
+            or snap["shard_queries"].get(DEAD_RANK, 0) \
+            or (n_rep and not snap["replica_hits"]):
+        raise AssertionError("phase 13: the degraded routed search does "
+                             "not follow the replicas and the live ranks")
+    n_diff = near_tie_check("4 ranks, degraded, fully covered queries",
+                            d[full], i[full], hd[full], hi[full], X, Q[full],
+                            tol)
+    log(f"4 ranks, degraded: the fully covered queries' ids = the healthy "
+        f"search's but {n_diff} near-tie slots")
+    n_diff = near_tie_check("4 ranks, migrated", *out["flat_migrated"],
+                            hd, hi, X, Q, tol)
+    same = all(torch.equal(a, b) for a, b in zip(out["flat_migrated"],
+                                                 out["flat_allgather"]))
+    log(f"4 ranks, migration of {got[0]['n_migrated']} lists to "
+        f"assign_lists over the observed loads: ids = the pre-migration "
+        f"search's but {n_diff} near-tie slots (bit for bit: {same})")
+    for name, (n_del, back, size, n_deleted) in got[0]["mutated"].items():
+        log(f"4 ranks, {name} with replicas: extend {N_EXTEND_13} rows, "
+            f"delete {N_DELETE_13} ids counted {n_del} (size {size}, "
+            f"deleted {n_deleted}); deleted ids in the answers: {back}")
+        if n_del != N_DELETE_13 or back or n_deleted != N_DELETE_13 \
+                or size != N_ROWS + N_EXTEND_13:
+            raise AssertionError(f"phase 13: {name} mutations off")
+    for name, direct in (("flat_list", "flat_allgather"),
+                         ("pq_row", "pq_row"), ("pq_list", "pq_list")):
+        sd, si = out[f"searcher_{name}"]
+        if not (torch.equal(sd, out[direct][0])
+                and torch.equal(si.long(), out[direct][1].long())):
+            raise AssertionError(f"phase 13: the {name} Searcher differs "
+                                 "from the direct search")
+    hooks = got[0]["hooks"]
+    log(f"4 ranks, Searchers = the direct searches; dispatch hook "
+        f"participants per dispatch {hooks}")
+    if not hooks["flat_list"] or not hooks["pq_list"] or hooks["pq_row"]:
+        raise AssertionError("phase 13: the dispatch hook saw the wrong "
+                             "dispatches")
+    ms = {k: max(got[r]["ms"][k] for r in got) for k in got[0]["ms"]}
+    launches = {k: sum(got[r]["launches"][k] for r in got)
+                for k in got[0]["launches"]}
+    log(f"phase 13, 4 ranks [{card}]: wall ms (slowest rank; first call, "
+        f"and the median of 2 more where _steady) "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
+    log(f"phase 13, 4 ranks: mean fan-out {got[0]['fanout']:.3f} ranks per "
+        f"query; list pack bytes moved (all ranks) {got[0]['pack']}; "
+        f"launches per rank {[got[r]['launches'] for r in range(N_RANKS)]}")
+    if launches["fused_knn"] < N_RANKS or launches["fused_cells_knn"] < \
+            N_RANKS or launches["pq_fused_scan"] < 2 * N_RANKS:
+        raise AssertionError(f"phase 13: B1 / B2 / B4 not launched on "
+                             f"every rank ({launches})")
     return launches
 
 
@@ -2853,18 +3273,29 @@ def kmeans_labels(centers, X):
                                     X).long()
 
 
-def sharded_phase(dev, X, Q, mp_out, card):
-    """Phase 12: sharding, with the counters set to 0 before each step
-    and read after it. Returns the launches of the phase."""
+def sharded_phase(dev, X, Q, mp_out, pq_out, card):
+    """Phases 12 and 13: sharding, with the counters set to 0 before each
+    step and read after it; one spawned world of 4 ranks runs both
+    phases' (b) steps. Returns the launches of each phase."""
     t0 = time.perf_counter()
-    a = sharded_world_of_one(dev, X, Q, mp_out["bf"], mp_out["iv"],
-                             mp_out["centers"], card)
-    b = sharded_ranks(dev, X, Q, mp_out["bf"], mp_out["iv"],
-                      mp_out["centers"], card)
-    launches = {k: a[k] + b[k] for k in a}
-    log(f"phase 12: {time.perf_counter() - t0:.3f} s, launches {launches} "
-        f"(world of one {a}, 4 ranks {b})")
-    return launches
+    a12 = sharded_world_of_one(dev, X, Q, mp_out["bf"], mp_out["iv"],
+                               mp_out["centers"], card)
+    t1 = time.perf_counter()
+    a13 = routed_world_of_one(dev, X, Q, mp_out, pq_out, card)
+    a13_s = time.perf_counter() - t1
+    got, wall = spawn_ranks(dev, X, Q, mp_out["centers"], pq_out["index"])
+    b12 = sharded_ranks(dev, X, Q, mp_out["bf"], mp_out["iv"],
+                        mp_out["centers"], got, wall, card)
+    b13 = routed_ranks(dev, X, Q, mp_out, pq_out, got, card)
+    p12 = {k: a12[k] + b12[k] for k in a12}
+    p13 = {k: a13[k] + b13[k] for k in a13}
+    ranks13 = max(res["p13"]["wall_s"] for res in got.values())
+    log(f"phase 12: launches {p12} (world of one {a12}, 4 ranks {b12})")
+    log(f"phase 13: {a13_s + ranks13:.3f} s (world of one {a13_s:.3f} s, "
+        f"4 ranks {ranks13:.3f} s, the slowest rank), launches {p13} "
+        f"(world of one {a13}, 4 ranks {b13}); phases 12-13 "
+        f"{time.perf_counter() - t0:.3f} s")
+    return p12, p13
 
 
 def main() -> int:
@@ -2923,7 +3354,7 @@ def main() -> int:
     sm, flat_served = serve_mutations(dev, Q, compacted["ivf_flat"], card)
     sf = surface_phase(dev, X, Q, mp["bf"], mp["index"], flat_served,
                        compacted["ivf_pq"], pq["recall"], card)
-    sh = sharded_phase(dev, X, Q, mp, card)
+    sh, rt = sharded_phase(dev, X, Q, mp, pq, card)
 
     kernels = [
         dict(name="fused_knn", route="cuda",
@@ -2932,26 +3363,28 @@ def main() -> int:
              launches=mp["launches"]["fused_knn"]
              + pq["launches"]["fused_knn"] + sv["fused_knn"]
              + lc["fused_knn"] + sm["fused_knn"] + sf["fused_knn"]
-             + sh["fused_knn"], **b1),
+             + sh["fused_knn"] + rt["fused_knn"], **b1),
         dict(name="fused_cells_knn", route="cuda",
              source="raft_tpu_torch/csrc/cells_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:426",
              launches=mp["launches"]["fused_cells_knn"]
              + sv["fused_cells_knn"] + lc["fused_cells_knn"]
              + sm["fused_cells_knn"] + sf["fused_cells_knn"]
-             + sh["fused_cells_knn"], **b2),
+             + sh["fused_cells_knn"] + rt["fused_cells_knn"], **b2),
         dict(name="fused_batch_knn", route="cuda",
              source="raft_tpu_torch/csrc/batch_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:277",
              launches=pq["launches"]["fused_batch_knn"]
              + sv["fused_batch_knn"] + lc["fused_batch_knn"]
-             + sm["fused_batch_knn"] + sf["fused_batch_knn"], **b3),
+             + sm["fused_batch_knn"] + sf["fused_batch_knn"]
+             + sh["fused_batch_knn"] + rt["fused_batch_knn"], **b3),
         dict(name="pq_fused_scan", route="cuda",
              source="raft_tpu_torch/csrc/pq_scan.cu",
              replaces="raft_tpu/ops/pq_scan.py:440",
              launches=pq["launches"]["pq_fused_scan"] + sv["pq_fused_scan"]
              + lc["pq_fused_scan"] + sm["pq_fused_scan"]
-             + sf["pq_fused_scan"], **b4),
+             + sf["pq_fused_scan"] + sh["pq_fused_scan"]
+             + rt["pq_fused_scan"], **b4),
         dict(name="stream_extract", route="cuda",
              source="raft_tpu_torch/csrc/stream_select.cu",
              replaces="raft_tpu/matrix/select_k.py:218", **b5),

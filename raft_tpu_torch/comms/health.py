@@ -317,17 +317,17 @@ class ShardHealth:
         :attr:`suspect_mask`.
 
         Row-sharded searches consume it as a collective-side operand
-        (dead shards' candidates neutralize to merge sentinels). The
-        routed ``placement="list"`` searches, which take it as a routing
-        input, wait for ROADMAP A.4b."""
+        (dead shards' candidates neutralize to merge sentinels); the
+        routed ``placement="list"`` searches take it as a routing input
+        (a dead rank receives no queries)."""
         with self._lock:
             return self._live.copy()
 
     @property
     def suspect_mask(self) -> np.ndarray:
         """Copy of the per-rank suspicion mask (bool (n_ranks,)): the
-        routing input that steers a suspect primary onto its replica once
-        list placement arrives (ROADMAP A.4b)."""
+        routing input that steers a suspect primary onto its replica
+        under the list placement (``parallel.routing.plan_route``)."""
         with self._lock:
             return self._suspect.copy()
 

@@ -182,12 +182,27 @@ def pipeline_chunk_bounds(n_items: int, n_chunks: int):
 
 def merge_comm_bytes(engine: str, n_queries: int, k: int, kk: int,
                      n_dev: int, idx_bytes: int = 4,
-                     chunk_kks: Optional[Sequence[int]] = None) -> int:
+                     chunk_kks: Optional[Sequence[int]] = None,
+                     participants: Optional[int] = None) -> int:
     """Estimated collective bytes RECEIVED per rank for one merge of
     ``kk``-wide candidates. The bf16 engine adds its re-rank (one
     allreduce of the survivor row at the guard width, counted as
     ``2 q cap 4`` bytes). ``chunk_kks`` lists the per-chunk widths of a
-    pipelined dispatch, whose estimate sums the per-chunk rings."""
+    pipelined dispatch, whose estimate sums the per-chunk rings.
+
+    ``participants`` accounts a routed dispatch (list placement): only
+    that many ranks contribute real candidates, so the estimate is the
+    same merge over ``participants`` ranks (0 or 1 gives 0 bytes),
+    capped at the full-mesh volume, since the routed merge can always
+    run the full collective with sentinel payloads."""
+    if participants is not None:
+        p = min(n_dev, max(int(participants), 1))
+        full = merge_comm_bytes(engine, n_queries, k, kk, n_dev,
+                                idx_bytes, chunk_kks=chunk_kks)
+        if p >= n_dev:
+            return full
+        return min(full, merge_comm_bytes(engine, n_queries, k, kk, p,
+                                          idx_bytes, chunk_kks=chunk_kks))
     engine = resolve_merge_engine(engine, n_queries, k, n_dev)
     if n_dev <= 1:
         return 0
@@ -229,13 +244,15 @@ class MergeDispatchStats(SuppressibleStats):
 
     def record(self, engine: str, n_queries: int, k: int, kk: int,
                n_dev: int, idx_bytes: int = 4,
-               chunk_kks: Optional[Sequence[int]] = None) -> None:
+               chunk_kks: Optional[Sequence[int]] = None,
+               participants: Optional[int] = None) -> None:
         """One LOGICAL merge dispatch (see :func:`merge_comm_bytes` for
-        ``chunk_kks``)."""
+        ``chunk_kks`` and ``participants``)."""
         if self._suppressed():
             return
         est = merge_comm_bytes(engine, n_queries, k, kk, n_dev, idx_bytes,
-                               chunk_kks=chunk_kks)
+                               chunk_kks=chunk_kks,
+                               participants=participants)
         with self._lock:
             self._dispatches[engine] = self._dispatches.get(engine, 0) + 1
             self._bytes[engine] = self._bytes.get(engine, 0) + est

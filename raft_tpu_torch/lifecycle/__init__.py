@@ -14,9 +14,10 @@ Port of ``raft_tpu/lifecycle`` (``delete.py`` and ``compact.py``):
   (``raft_tpu_torch/serve``) at a tombstone fraction or a drift signal,
   publishing each successor with one reference swap.
 
-``delete`` and ``upsert`` also take a row-placed sharded IVF-Flat index
-with its ``mesh``. Sharded compaction waits for ROADMAP A.4b; the
-write-ahead log and elastic membership for the durability slice (A.5).
+``delete`` and ``upsert`` also take a sharded IVF-Flat or IVF-PQ index
+(row or list placement) with its ``mesh``. Sharded compaction waits for
+ROADMAP A.4c; the write-ahead log and elastic membership for the
+durability slice (A.5).
 """
 
 from raft_tpu_torch.lifecycle.compact import (

@@ -23,7 +23,7 @@ reclaims only, and drops the decode caches whose slot layout moved.
 
 ``shrink_capacity=False`` (the default) keeps the list capacity; True fits
 it to the fullest list. Sharded compaction and the placement balancer
-wait for ROADMAP A.4b.
+(``balance_placement``) wait for ROADMAP A.4c and raise.
 
 :class:`Compactor` drives passes over a serving ``Searcher``
 (``serve/searcher.py``): it fires at the policy's tombstone fraction or
@@ -60,16 +60,19 @@ class CompactionPolicy:
     once this fraction of stored slots is tombstoned. ``shrink_capacity``:
     fit the list capacity to the fullest list. ``split_above`` /
     ``drift_threshold`` / ``min_split_rows``: the IVF-Flat model pass
-    (None = off). The reference's ``balance_placement`` balances sharded
-    list placements and comes with list placement (ROADMAP A.4b)."""
+    (None = off). ``balance_placement``, the balancer of sharded list
+    placements, waits for ROADMAP A.4c: setting it raises."""
 
     trigger_frac: float = 0.25
     shrink_capacity: bool = False
     split_above: Optional[float] = None
     drift_threshold: Optional[float] = None
     min_split_rows: int = 16
+    balance_placement: Optional[float] = None
 
     def __post_init__(self):
+        expects(self.balance_placement is None, "the placement balancer "
+                "(balance_placement) waits for ROADMAP A.4c")
         expects(0.0 < self.trigger_frac <= 1.0,
                 "trigger_frac must be in (0, 1], got %s", self.trigger_frac)
         expects(self.split_above is None or self.split_above > 1.0,

@@ -13,10 +13,14 @@ the one bump, after validating every input, so no epoch shows half an
 upsert. The mask is replaced, never written in place, so a tensor read off
 the index before a delete keeps its contents.
 
-A row-placed :class:`~raft_tpu_torch.parallel.ivf.ShardedIvfFlat` takes
-``mesh=``: the calls are then collective (the same ids on every rank),
-each rank tombstones its own shard, and the count is summed over the
-ranks, so every rank bumps its epoch together.
+A sharded index (:class:`~raft_tpu_torch.parallel.ivf.ShardedIvfFlat`,
+:class:`~raft_tpu_torch.parallel.ivf.ShardedIvfPq`, either placement)
+takes ``mesh=``: the calls are then collective (the same ids on every
+rank), each rank tombstones its own part, and the count is summed over
+the ranks, so every rank bumps its epoch together. Under a list
+placement with replicas both copies of a row are masked (they must stay
+identical) and the row counts once: only slots of primary copies are
+counted (``parallel.ivf.routed_primary_mask``).
 """
 
 from __future__ import annotations
@@ -31,20 +35,23 @@ from raft_tpu_torch.core.mdarray import expects_ids_fit
 from raft_tpu_torch.core.resources import as_vectors
 from raft_tpu_torch.neighbors import ivf_flat as _flat
 from raft_tpu_torch.neighbors import ivf_pq as _pq
-from raft_tpu_torch.parallel.ivf import ShardedIvfFlat
+from raft_tpu_torch.parallel.ivf import (ShardedIvfFlat, ShardedIvfPq,
+                                         routed_primary_mask)
 
 _INDEX_KINDS = (_flat.Index, _pq.Index)
+_SHARDED = (ShardedIvfFlat, ShardedIvfPq)
 
 
 def _check_index(index, mesh, sharded_ok: bool = True) -> None:
-    if isinstance(index, ShardedIvfFlat):
+    if isinstance(index, _SHARDED):
         expects(sharded_ok, "compaction of a sharded index waits for the "
-                "sharding slice's second part (ROADMAP A.4b)")
+                "sharding slice's third part (ROADMAP A.4c)")
         expects(mesh is not None and mesh.size == index.n_dev,
                 "a sharded index needs the mesh it is sharded over")
         return
     expects(mesh is None, "mesh= is for the indexes of the sharding slice "
-            "(parallel.ShardedIvfFlat); this index is single-host")
+            "(parallel.ShardedIvfFlat / ShardedIvfPq); this index is "
+            "single-host")
     expects(isinstance(index, _INDEX_KINDS),
             "lifecycle ops support ivf_flat/ivf_pq indexes, got %s",
             type(index).__name__)
@@ -52,7 +59,7 @@ def _check_index(index, mesh, sharded_ok: bool = True) -> None:
 
 def _global_count(index, mesh, n: int) -> int:
     """``n`` summed over the ranks of a sharded index's mesh."""
-    if not isinstance(index, ShardedIvfFlat):
+    if not isinstance(index, _SHARDED):
         return n
     from raft_tpu_torch.comms.comms import Comms
 
@@ -82,16 +89,26 @@ def _prepare_ids(index, ids) -> Optional[torch.Tensor]:
     return t.to(dtype)
 
 
-def _tombstone(indices, list_sizes, deleted, del_ids
+def _tombstone(indices, list_sizes, deleted, del_ids, primary=None
                ) -> Tuple[torch.Tensor, int]:
     """Slots whose id is in ``del_ids``, below their list's fill line and
     not yet deleted become tombstones. Returns ``(new mask, newly deleted
-    count)``; the input mask is not written."""
+    count)``, the count over the lists where ``primary`` (per list) is
+    set when it is given; the input mask is not written."""
     hit = torch.isin(indices, del_ids)
     slot = torch.arange(indices.shape[-1], device=indices.device)
     valid = slot < list_sizes[..., None]
     newly = hit & valid & ~deleted
-    return deleted | newly, int(newly.sum())
+    counted = newly if primary is None else newly & primary[:, None]
+    return deleted | newly, int(counted.sum())
+
+
+def _primary(index, mesh):
+    """The per-slot primary-copy mask of a replicated list placement, or
+    None (count every slot)."""
+    if isinstance(index, _SHARDED):
+        return routed_primary_mask(mesh, index)
+    return None
 
 
 def _blank_mask(index) -> torch.Tensor:
@@ -102,6 +119,9 @@ def _blank_mask(index) -> torch.Tensor:
 def _drop_derived(index) -> None:
     """Drop the caches that bake the validity mask in (the compressed-scan
     operands) or were measured on the old occupancy."""
+    if isinstance(index, ShardedIvfPq):
+        index._scan_cache = None
+        return
     if isinstance(index, ShardedIvfFlat):
         return
     if isinstance(index, _pq.Index):
@@ -135,7 +155,8 @@ def delete(index, ids, mesh=None) -> int:
     if del_ids is None:
         return 0
     mask = index.deleted if index.deleted is not None else _blank_mask(index)
-    new_mask, n = _tombstone(index.indices, index.list_sizes, mask, del_ids)
+    new_mask, n = _tombstone(index.indices, index.list_sizes, mask, del_ids,
+                             _primary(index, mesh))
     n = _global_count(index, mesh, n)
     if n == 0:
         return 0
@@ -151,9 +172,9 @@ def upsert(index, new_vectors, new_indices, mesh=None, *,
     """Replace or insert rows by explicit id: tombstone the live slots
     holding these ids, then extend with the new rows, under the one epoch
     bump of the extend. Ids must be unique within the batch. Every input
-    is checked before the mask is written. A sharded index's rows divide
-    the mesh size, and ``donate=False`` writes its extend into copies.
-    Returns the index."""
+    is checked before the mask is written. A row-placed sharded index's
+    rows divide the mesh size, and ``donate=False`` writes a sharded
+    extend into copies. Returns the index."""
     _check_index(index, mesh)
     dev = index.centers.device
     ids = _id_tensor(new_indices, dev)
@@ -167,22 +188,30 @@ def upsert(index, new_vectors, new_indices, mesh=None, *,
             "upsert ids must be unique within the batch")
     expects_finite("lifecycle.upsert", X)
     expects_ids_fit("lifecycle.upsert", ids, index.indices.dtype)
-    sharded = isinstance(index, ShardedIvfFlat)
-    expects(not sharded or X.shape[0] % index.n_dev == 0,
+    sharded = isinstance(index, _SHARDED)
+    # The list placement deals rows by list ownership (any count); only
+    # the row placement's contiguous deal needs the divisibility.
+    expects(not sharded or index.placement == "list"
+            or X.shape[0] % index.n_dev == 0,
             "sharded upsert rows (%s) must divide the mesh axis (pad "
             "first)", X.shape[0])
     if ids.numel() == 0:
         return index
     del_ids = _prepare_ids(index, ids)
     mask = index.deleted if index.deleted is not None else _blank_mask(index)
-    new_mask, n = _tombstone(index.indices, index.list_sizes, mask, del_ids)
+    new_mask, n = _tombstone(index.indices, index.list_sizes, mask, del_ids,
+                             _primary(index, mesh))
     index.deleted = new_mask
     index.n_deleted += _global_count(index, mesh, n)
     _drop_derived(index)
-    if sharded:
+    if isinstance(index, ShardedIvfFlat):
         from raft_tpu_torch.parallel.ivf import sharded_ivf_flat_extend
 
         return sharded_ivf_flat_extend(mesh, index, X, ids, donate=donate)
+    if isinstance(index, ShardedIvfPq):
+        from raft_tpu_torch.parallel.ivf import sharded_ivf_pq_extend
+
+        return sharded_ivf_pq_extend(mesh, index, X, ids, donate=donate)
     if isinstance(index, _pq.Index):
         return _pq._extend(index, X, ids, dev)
     return _flat._extend(index, X, ids)

@@ -7,10 +7,11 @@ bounded-queue admission control, deadlines and the degradation ladder
 (``cache``), a uniform searcher facade threading RetryPolicy and the
 index lifecycle (``searcher``), the hedge policy and its counters
 (``hedge``), and per-bucket serving stats with kernel-build counting
-(``stats``). A ``Searcher`` also serves a row-sharded brute-force or
-IVF-Flat deployment (``mesh=``, ``health=``). A ``BatchScheduler`` over
-it, hedged dispatch and the circuit-breaker shard re-admission
-(``RecoveryProber``) wait for ROADMAP A.4b.
+(``stats``). A ``Searcher`` also serves a sharded brute-force, IVF-Flat
+or IVF-PQ deployment on either placement (``mesh=``, ``health=``,
+``dispatch_hook=``). A ``BatchScheduler`` over it, hedged dispatch and
+the circuit-breaker shard re-admission (``recovery.RecoveryProber``) wait
+for ROADMAP A.4c and raise.
 """
 
 from raft_tpu_torch.serve.bucketing import (

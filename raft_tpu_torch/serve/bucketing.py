@@ -22,6 +22,8 @@ tracked per bucket as ``padded_slots`` in ``serve/stats.py``.
 
 from __future__ import annotations
 
+import dataclasses
+
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional, Tuple
@@ -150,7 +152,16 @@ def warmup(searcher, grid: BucketGrid, include_degraded: bool = False,
     ``include_degraded=True`` also runs each shape's degraded search (the
     ``live_mask`` path served while a shard is dead), which needs a
     sharded searcher with a health registry. Over a sharded searcher the
-    call is collective, like its searches: every rank runs it."""
+    call is collective, like its searches: every rank runs it.
+
+    A routed (``placement="list"``) searcher also runs, per shape (and
+    per ladder rung), the routed dispatch at every (query-group,
+    local-probe-width) bucket of ``parallel.routing.route_shapes``
+    (:func:`~raft_tpu_torch.parallel.ivf.sharded_routed_warmup`), so
+    however queries cluster they meet shapes already run; the report's
+    ``routed_shapes`` counts them. Warmup's dispatches record no merge or
+    routing telemetry (their all-zeros queries would pour fake probe load
+    onto a few lists)."""
     from raft_tpu_torch.core.logger import logger
     from raft_tpu_torch.ops._build import enable_compilation_cache
     from raft_tpu_torch.serve.stats import CompileCounter
@@ -176,7 +187,15 @@ def warmup(searcher, grid: BucketGrid, include_degraded: bool = False,
         vals = {max(int(min_probes), int(int(base_np) * float(f)))
                 for f in degrade_ladder}
         rung_probes = tuple(sorted(v for v in vals if v < int(base_np)))
-    with CompileCounter() as counter:
+    routed = (getattr(searcher, "mesh", None) is not None
+              and getattr(getattr(searcher, "_index", None), "placement",
+                          "row") == "list")
+    routed_shapes = 0
+    from raft_tpu_torch.comms.topk_merge import merge_dispatch_stats
+    from raft_tpu_torch.parallel.routing import routing_stats
+
+    with CompileCounter() as counter, merge_dispatch_stats.suppress(), \
+            routing_stats.suppress():
         for qb, kb in shapes:
             dummy = np.zeros((qb, dim), np.float32)
             searcher.search(dummy, kb, degraded=False)
@@ -186,10 +205,20 @@ def warmup(searcher, grid: BucketGrid, include_degraded: bool = False,
                 # One extra search per ladder rung per shape: brownout
                 # serving then meets warm plan caches.
                 searcher.search(dummy, kb, degraded=False, n_probes=npr)
-    logger.debug("serve warmup: %s bucket shapes, %s kernel builds/loads, "
-                 "build cache at %s", len(shapes), counter.count,
-                 effective_dir)
+            if routed:
+                from raft_tpu_torch.parallel.ivf import sharded_routed_warmup
+
+                for npr in (None,) + rung_probes:
+                    params = (searcher._params if npr is None else
+                              dataclasses.replace(searcher._params,
+                                                  n_probes=npr))
+                    routed_shapes += sharded_routed_warmup(
+                        searcher.mesh, params, searcher._index, qb, kb,
+                        merge_engine=searcher.merge_engine)
+    logger.debug("serve warmup: %s bucket shapes (+%s routed plan shapes), "
+                 "%s kernel builds/loads, build cache at %s", len(shapes),
+                 routed_shapes, counter.count, effective_dir)
     return {"shapes": len(shapes), "degraded": bool(include_degraded),
-            "routed_shapes": 0,
+            "routed_shapes": routed_shapes,
             "degrade_rungs": len(rung_probes),
             "compile_events": counter.count, "cache_dir": effective_dir}

@@ -5,9 +5,10 @@ request that outlives a high quantile of its latency distribution is
 re-issued to a replica and the first result wins. The policy and its
 counters are host logic and carry over as they are; every ``Searcher``
 holds a :class:`HedgeStats`. The hedged dispatch itself re-routes a
-routed (list-placed) sharded index around SUSPECT shards, so it arrives
-with list placement (ROADMAP A.4b): until then a ``Searcher`` given a
-:class:`HedgePolicy` raises.
+routed (list-placed) sharded index around SUSPECT shards; under SPMD the
+decision to hedge is a per-rank timing decision that the ranks must
+agree on before any of them re-dispatches, so it waits for ROADMAP A.4c:
+until then a ``Searcher`` given a :class:`HedgePolicy` raises.
 
 Determinism: the hedge is *reactive*, measured on the Searcher's
 INJECTED clock, so replayed request streams hedge identically; no wall

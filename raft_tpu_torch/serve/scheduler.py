@@ -209,7 +209,7 @@ class BatchScheduler:
         expects(getattr(searcher, "mesh", None) is None,
                 "a BatchScheduler over a sharded Searcher needs a front "
                 "rank that broadcasts each batch to the others; it waits "
-                "for ROADMAP A.4b")
+                "for ROADMAP A.4c")
         expects(policy.max_batch <= grid.max_batch,
                 "policy.max_batch=%s exceeds the bucket grid's largest "
                 "query bucket %s — full batches would run out-of-grid "

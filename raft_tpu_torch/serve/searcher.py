@@ -6,8 +6,9 @@ or sharded over a ``torch.distributed`` mesh) sits underneath, because
 the scheduler (serve/scheduler.py) batches requests against an opaque
 ``search(q, k)``. :class:`Searcher` is that facade over
 ``brute_force.knn``, ``ivf_flat.search`` and ``ivf_pq.search``, and with
-``mesh=`` over ``parallel.sharded_knn`` and
-``parallel.sharded_ivf_flat_search`` (a row-placed ``ShardedIvfFlat``):
+``mesh=`` over ``parallel.sharded_knn``, ``parallel.sharded_ivf_flat_search``
+(a ``ShardedIvfFlat``) and ``parallel.sharded_ivf_pq_search`` (a
+``ShardedIvfPq``), on either placement:
 
 * ``device`` — every search runs on the device of the database or index
   (or an explicit ``device=``, which must match it), or the mesh's;
@@ -17,10 +18,16 @@ the scheduler (serve/scheduler.py) batches requests against an opaque
   (comms/topk_merge.py);
 * ``ShardHealth`` — when a rank is dead, sharded searches pass its
   ``live_mask`` (rank 0's, broadcast) and serve DEGRADED: exact over the
-  survivors, with the per-query ``coverage`` in the result;
+  survivors, with the per-query ``coverage`` in the result. A
+  list-placed (routed) index takes liveness as a routing input, steers
+  replicated lists off SUSPECT ranks (rank 0's ``suspect_mask``), and
+  feeds each dispatch's wall time back to every participating rank
+  (``ShardHealth.observe_latency``);
+* ``dispatch_hook`` — called after each routed dispatch with its
+  participating ranks (the chaos seam);
 * ``RetryPolicy`` — transient host-side failures retry with the
   deterministic backoff of ``core/retry.py`` (single-device only: a
-  sharded retry waits for ROADMAP A.4b);
+  sharded retry waits for ROADMAP A.4c);
 * ``epoch`` — the cache-invalidation key (serve/cache.py): bumped by
   every mutation (extend / delete / upsert / compact), so cached results
   can never outlive the index state they were computed against.
@@ -38,10 +45,9 @@ serialize on an internal lock; searches never take it.
 A sharded searcher is collective: every rank of the mesh builds it with
 the same arguments and makes the same calls in the same order. Its
 ``extend``, ``delete`` and ``upsert`` are the sharded ones; ``compact``
-raises. Sharded IVF-PQ, the list placement's hedged dispatch (``hedge``,
-``dispatch_hook``) and ``shadow_probe`` wait for ROADMAP A.4b and raise
-:class:`~raft_tpu_torch.core.error.LogicError`; so does ``wal``, which
-comes with the durability slice (A.5).
+raises. The hedged dispatch (``hedge``) and ``shadow_probe`` wait for
+ROADMAP A.4c and raise :class:`~raft_tpu_torch.core.error.LogicError`;
+so does ``wal``, which comes with the durability slice (A.5).
 """
 
 from __future__ import annotations
@@ -69,7 +75,7 @@ class SearchResult:
     ``coverage`` is all-ones on healthy serves; under degraded sharded
     serving it is the per-query fraction of candidate rows searched, and
     ``degraded`` flags that a live mask was applied. ``hedged`` stays
-    False (hedging waits for ROADMAP A.4b). The degradation-ladder
+    False (hedging waits for ROADMAP A.4c). The degradation-ladder
     fields: ``quality`` is the served-quality class
     ("full" — the configured n_probes; "reduced" — a middle ladder rung;
     "brownout" — the deepest rung), ``degrade_reason`` names what forced
@@ -126,23 +132,27 @@ class Searcher:
                 "(ROADMAP A.4)")
         expects(wal is None, "a MutationLog waits for the durability slice "
                 "(ROADMAP A.5)")
-        expects(hedge is None and dispatch_hook is None,
-                "hedged replica dispatch and its dispatch hook re-route "
-                "list-placed sharded searches and wait for ROADMAP A.4b")
+        expects(hedge is None, "hedged replica dispatch is a per-rank "
+                "timing decision the ranks must agree on before any "
+                "re-dispatches; it waits for ROADMAP A.4c")
+        expects(dispatch_hook is None or mesh is not None,
+                "dispatch_hook observes the routed dispatches of a sharded "
+                "searcher (ROADMAP A.4)")
         if mesh is not None:
-            from raft_tpu_torch.parallel.ivf import ShardedIvfFlat
+            from raft_tpu_torch.parallel.ivf import (ShardedIvfFlat,
+                                                     ShardedIvfPq)
             from raft_tpu_torch.parallel.knn import _check_mesh
 
             _check_mesh(mesh)
-            expects(kind != "ivf_pq", "sharded IVF-PQ waits for ROADMAP "
-                    "A.4b")
             # A sharded search is a sequence of collectives: a rank that
             # retried alone would re-enter the first of them while the
             # others wait in a later one.
             expects(retry is None, "a sharded retry needs the ranks to "
-                    "agree on a failure and waits for ROADMAP A.4b")
+                    "agree on a failure and waits for ROADMAP A.4c")
             expects(kind != "ivf_flat" or isinstance(index, ShardedIvfFlat),
                     "a sharded IVF-Flat searcher takes a ShardedIvfFlat")
+            expects(kind != "ivf_pq" or isinstance(index, ShardedIvfPq),
+                    "a sharded IVF-PQ searcher takes a ShardedIvfPq")
             expects(health is None or health.n_ranks == mesh.size,
                     "ShardHealth over %s ranks, mesh of %s",
                     getattr(health, "n_ranks", None), mesh.size)
@@ -152,6 +162,7 @@ class Searcher:
         self.health = health
         self.retry = retry
         self.writable = writable
+        self._dispatch_hook = dispatch_hook
         from raft_tpu_torch.serve.hedge import HedgeStats
 
         self.hedge_stats = HedgeStats()
@@ -286,18 +297,27 @@ class Searcher:
             return live
         return None
 
-    def _dispatch(self, q: torch.Tensor, k: int, params, live=None):
+    def _is_routed(self) -> bool:
+        return (self.mesh is not None
+                and getattr(self._index, "placement", "row") == "list")
+
+    def _dispatch(self, q: torch.Tensor, k: int, params, live=None,
+                  valid_rows=None, suspect=None, plan_cb=None):
         if self.mesh is not None:
             # ``live`` is already agreed (_resolve_live): the bodies
             # skip the entry points' second broadcast of it.
-            from raft_tpu_torch.parallel.ivf import _sharded_ivf_flat_search
+            from raft_tpu_torch.parallel.ivf import (_sharded_ivf_flat_search,
+                                                     _sharded_ivf_pq_search)
             from raft_tpu_torch.parallel.knn import _sharded_knn
 
             if self.kind == "brute_force":
                 return _sharded_knn(self.mesh, self._db, q, k, False,
                                     self.merge_engine, live, 0)
-            return _sharded_ivf_flat_search(self.mesh, params, self._index,
-                                            q, k, self.merge_engine, live, 0)
+            body = (_sharded_ivf_flat_search if self.kind == "ivf_flat"
+                    else _sharded_ivf_pq_search)
+            return body(self.mesh, params, self._index, q, k,
+                        self.merge_engine, live, 0, valid_rows=valid_rows,
+                        suspect=suspect, plan_cb=plan_cb)
         if self.kind == "brute_force":
             from raft_tpu_torch.neighbors import brute_force
 
@@ -320,8 +340,15 @@ class Searcher:
         sharded searcher with a ``ShardHealth``, ``degraded=None`` serves
         the healthy search while every rank is live and the masked one
         (exact over the survivors, with ``coverage``) once a rank is dead;
-        True / False force either. ``valid_rows`` steers the list
-        placement's router (ROADMAP A.4b) and changes nothing here.
+        True / False force either. ``valid_rows`` marks the real rows
+        of a zero-padded batch: the list placement's router routes the
+        others nowhere.
+
+        A routed (list-placed) searcher with a ``ShardHealth`` routes
+        replicated lists off SUSPECT ranks (rank 0's mask: rank 0 plans)
+        and, after each dispatch, hands the plan's participating ranks to
+        ``dispatch_hook`` and the dispatch's wall time to
+        ``health.observe_latency`` of each of them.
 
         ``n_probes`` overrides the configured probe count for THIS call
         (IVF kinds) — the degradation ladder's knob
@@ -351,18 +378,32 @@ class Searcher:
                                          n_probes=int(n_probes))
 
         live = self._resolve_live(degraded)
+        routed = self._is_routed()
+        suspect = None
+        if routed and self.health is not None:
+            sus = self.health.suspect_mask
+            if sus.any():
+                suspect = sus
+        track = routed and (self.health is not None
+                            or self._dispatch_hook is not None)
+        plan_box: list = []
 
         def attempt():
-            return self._dispatch(q, k, params, live)
+            return self._dispatch(q, k, params, live, valid_rows=valid_rows,
+                                  suspect=suspect,
+                                  plan_cb=plan_box.append if track else None)
 
         with sp.child("device_dispatch", kind=self.kind,
                       engine=self.merge_engine,
                       sharded=self.mesh is not None) as dd:
+            t0 = self._monotonic()
             if self.retry is not None:
                 out = with_retry(attempt, self.retry, sleep=self._sleep,
                                  monotonic=self._monotonic)
             else:
                 out = attempt()
+            if track and plan_box:
+                self._after_dispatch(plan_box[-1], t0)
             if dd.recording and self.device.type == "cuda":
                 # Fence so the span closes when the DEVICE finishes, not
                 # when the launches were enqueued.
@@ -375,11 +416,28 @@ class Searcher:
         d, i = host
         return SearchResult(d, i, np.ones(q.shape[0], np.float32))
 
+    def _after_dispatch(self, plan, t0: float):
+        """Health plumbing of one routed dispatch: the plan's
+        participating ranks go to ``dispatch_hook`` (a scripted straggler
+        advances the injected clock here), then the elapsed time to
+        ``health.observe_latency`` of each (the SUSPECT feed). Returns
+        ``(participant ranks, elapsed seconds)``."""
+        from raft_tpu_torch.parallel.routing import participant_ranks
+
+        ranks = participant_ranks(plan)
+        if self._dispatch_hook is not None:
+            self._dispatch_hook(ranks)
+        elapsed = self._monotonic() - t0
+        if self.health is not None:
+            for r in ranks:
+                self.health.observe_latency(int(r), elapsed)
+        return ranks, elapsed
+
     def shadow_probe(self, rank: int, queries, k: int) -> float:
         """Probe a dead or suspect shard off the hot path, the recovery
-        prober's tool: waits for ROADMAP A.4b."""
+        prober's tool: waits for ROADMAP A.4c."""
         expects(False, "shadow_probe and the recovery prober wait for "
-                "ROADMAP A.4b")
+                "ROADMAP A.4c")
 
     # -- lifecycle ---------------------------------------------------------
     def extend(self, new_vectors, new_indices=None) -> None:
@@ -424,12 +482,14 @@ class Searcher:
             self._base_epoch += 1
             return
         if self.mesh is not None:
-            from raft_tpu_torch.parallel.ivf import sharded_ivf_flat_extend
+            from raft_tpu_torch.parallel.ivf import (sharded_ivf_flat_extend,
+                                                     sharded_ivf_pq_extend)
 
+            extend = (sharded_ivf_flat_extend if self.kind == "ivf_flat"
+                      else sharded_ivf_pq_extend)
             # Copy-on-write: readers may hold the current tensors.
             tmp = self._mutable_snapshot()
-            sharded_ivf_flat_extend(self.mesh, tmp, new_vectors, new_indices,
-                                    donate=False)
+            extend(self.mesh, tmp, new_vectors, new_indices, donate=False)
             self._index = tmp
             return
         from raft_tpu_torch.neighbors import ivf_flat, ivf_pq

@@ -1191,3 +1191,70 @@ def test_sharded_ivf_flat_world_of_one_equals_the_single_card_search(
     same_up_to_exact_ties("degraded sharded Searcher",
                           torch.as_tensor(res.distances),
                           torch.as_tensor(res.indices), sd.cpu(), si.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["auto", "bucketed"])
+def test_routed_ivf_flat_world_of_one_equals_the_single_card_search(
+        nccl_mesh, dev, gen, engine):
+    """The list placement over one rank: its lists are the single-card
+    ones in other slots, and the routed search (B2 over the routed group
+    and its local slots) gives the single-card (distance, id) pairs."""
+    from raft_tpu_torch import parallel
+
+    X, Q = _on(dev, int_data(gen, (8192, 16)), int_data(gen, (512, 16)))
+    centers = X[::512][:16].clone()
+    single = ivf_flat.Index(
+        metric=ivf_flat.IndexParams().metric, centers=centers,
+        data=torch.zeros((16, 1, 16), device=dev),
+        indices=torch.full((16, 1), -1, dtype=torch.int32, device=dev),
+        list_sizes=torch.zeros(16, dtype=torch.int32, device=dev))
+    single = ivf_flat.extend(single, X)
+    routed = parallel.sharded_ivf_flat_build(
+        nccl_mesh, ivf_flat.IndexParams(n_lists=16), X, centers=centers,
+        placement="list")
+    assert routed.placement == "list" and routed.pack_bytes == 0
+    sp = ivf_flat.SearchParams(n_probes=5, engine=engine)
+    before = fk.fused_cells_knn.launches
+    d, i = parallel.sharded_ivf_flat_search(nccl_mesh, sp, routed, Q, 10)
+    assert fk.fused_cells_knn.launches > before
+    sd, si = ivf_flat.search(sp, single, Q, 10)
+    same_up_to_exact_ties("routed IVF-Flat", d, i, sd, si)
+    res = serve.Searcher.ivf_flat(routed, sp, mesh=nccl_mesh).search(Q, 10)
+    same_up_to_exact_ties("routed Searcher", torch.as_tensor(res.distances),
+                          torch.as_tensor(res.indices), sd.cpu(), si.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["row", "list"])
+@pytest.mark.parametrize("engine", ["auto", "scan"])
+def test_sharded_ivf_pq_world_of_one_equals_the_single_card_search(
+        nccl_mesh, dev, gen, placement, engine):
+    """The same trained model, the same rows: the sharded IVF-PQ's search
+    (B4 per rank through "auto" at this probe load, the LUT scan through
+    "scan") gives the single-card index's (distance, id) pairs, and its
+    encode launches B1 k=1."""
+    import copy
+
+    from raft_tpu_torch import parallel
+
+    X, Q = _on(dev, int_data(gen, (8192, 16), hi=4),
+               int_data(gen, (512, 16), hi=4))
+    params = ivf_pq.IndexParams(n_lists=16, pq_dim=8, kmeans_n_iters=4,
+                                add_data_on_build=False)
+    model = ivf_pq.build(params, X)
+    single = ivf_pq.extend(copy.copy(model), X)
+    before = fk.fused_knn.launches
+    sharded = parallel.sharded_ivf_pq_build(nccl_mesh, params, X,
+                                            model=model, placement=placement)
+    assert fk.fused_knn.launches > before
+    sp = ivf_pq.SearchParams(n_probes=5, engine=engine)
+    before = ps.pq_fused_scan.launches
+    d, i = parallel.sharded_ivf_pq_search(nccl_mesh, sp, sharded, Q, 10)
+    assert (ps.pq_fused_scan.launches > before) == (engine == "auto")
+    sd, si = ivf_pq.search(sp, single, Q, 10)
+    same_up_to_exact_ties(f"sharded IVF-PQ ({placement})", d, i, sd, si)
+    res = serve.Searcher.ivf_pq(sharded, sp, mesh=nccl_mesh).search(Q, 10)
+    same_up_to_exact_ties("sharded IVF-PQ Searcher",
+                          torch.as_tensor(res.distances),
+                          torch.as_tensor(res.indices), sd.cpu(), si.cpu())

@@ -404,5 +404,7 @@ def test_slice_as_a_whole(world, rng):
 
 
 def test_what_waits_for_a_4b_raises(world):
+    """What was left of A.4b after its data plane (ROADMAP A.4c) raises
+    and names A.4c."""
     msgs = world.run(case_refusals, 2)[0]
-    assert all(m is not None and "A.4b" in m for m in msgs), msgs
+    assert all(m is not None and "A.4c" in m for m in msgs), msgs

@@ -194,7 +194,11 @@ def test_merge_comm_bytes_matches_the_reference():
         for q, k, n, _ in _GRID:
             for kk in (1, 5, k):
                 for idx_bytes in (4, 8):
-                    for extra in ({}, {"chunk_kks": (kk, kk, 1)}):
+                    for extra in ({}, {"chunk_kks": (kk, kk, 1)},
+                                  {"participants": 1},
+                                  {"participants": 3},
+                                  {"participants": 2,
+                                   "chunk_kks": (kk, 1)}):
                         assert tm.merge_comm_bytes(
                             engine, q, k, kk, n, idx_bytes, **extra) == \
                             jtm.merge_comm_bytes(engine, q, k, kk, n,
@@ -209,6 +213,7 @@ def test_merge_dispatch_stats_match_the_reference():
         for c in calls:
             stats.record(*c)
         stats.record("pipelined", 300, 10, 10, 4, chunk_kks=(10, 10, 5))
+        stats.record("allgather", 64, 10, 10, 4, participants=2)
         with stats.suppress():
             stats.record("ring", 1, 1, 1, 4)
     assert ours.snapshot() == theirs.snapshot()

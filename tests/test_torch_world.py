@@ -215,7 +215,8 @@ def case_kmeans(n: int, what: str, X, centroids, n_iters: int):
 
 
 def _flat_build(mesh, X, n_lists: int, centers, idx_dtype=torch.int32,
-                train_distributed: bool = False, kmeans_n_iters: int = 20):
+                train_distributed: bool = False, kmeans_n_iters: int = 20,
+                placement: str = "row"):
     from raft_tpu_torch import parallel
     from raft_tpu_torch.neighbors import ivf_flat
 
@@ -223,7 +224,173 @@ def _flat_build(mesh, X, n_lists: int, centers, idx_dtype=torch.int32,
                                   kmeans_n_iters=kmeans_n_iters)
     return parallel.sharded_ivf_flat_build(
         mesh, params, X, centers=None if centers is None
-        else torch.as_tensor(centers), train_distributed=train_distributed)
+        else torch.as_tensor(centers), train_distributed=train_distributed,
+        placement=placement)
+
+
+def _pq_build(mesh, X, model, placement: str):
+    """A sharded IVF-PQ over the model arrays ``model`` (the keyword
+    arguments of ``ivf_pq.index_from_numpy``)."""
+    from raft_tpu_torch import parallel
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    m = ivf_pq.index_from_numpy(**model, device="cpu")
+    params = ivf_pq.IndexParams(n_lists=m.n_lists, pq_dim=m.pq_dim,
+                                pq_bits=m.pq_bits)
+    return parallel.sharded_ivf_pq_build(mesh, params, X, model=m,
+                                         placement=placement)
+
+
+def _sharded_index(mesh, kind: str, X, model, n_lists: int, placement: str):
+    """kind "flat" (``model`` = the centers) or "pq" (the model arrays)."""
+    if kind == "flat":
+        return _flat_build(mesh, X, n_lists, model, placement=placement)
+    return _pq_build(mesh, X, model, placement)
+
+
+def _search_params(kind: str, engine: str, n_probes: int):
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
+
+    mod = ivf_flat if kind == "flat" else ivf_pq
+    return mod.SearchParams(n_probes=n_probes, engine=engine)
+
+
+def _placement_arrays(index):
+    pm = index.placement_map
+    return (pm.owner, pm.slot, pm.replica_owner, pm.replica_slot,
+            pm.n_slots)
+
+
+def case_sharded_steps(n: int, kind: str, X, model, Q, k: int, steps,
+                       n_lists: int = 8, placement: str = "list"):
+    """Build a sharded IVF-Flat ("flat") or IVF-PQ ("pq") index, then run
+    ``steps`` in order:
+
+    * ("search", engine, n_probes, merge_engine, live, chunks[, valid]);
+    * ("suspect", n_probes, masks): every rank passes ITS OWN suspect
+      mask ``masks[rank]``; the answer and the plan every rank followed;
+    * ("extend", rows, ids), ("delete", ids), ("upsert", rows, ids);
+    * ("replicate", list_ids, live), ("migrate", new_owner, live) (the
+      successor replaces the index; migrate reports its count);
+    * ("placement",), ("stats",) (routing and merge telemetry, reset
+      before the build and by ("reset",)), ("warmup", n_queries, n_probes).
+
+    Each step appends its output and the index's (size, n_deleted,
+    epoch)."""
+    from raft_tpu_torch import lifecycle, parallel
+    from raft_tpu_torch.comms.topk_merge import merge_dispatch_stats
+    from raft_tpu_torch.parallel.routing import routing_stats
+
+    mesh = sub_mesh(n)
+    if mesh is None:
+        return None
+    routing_stats.reset()
+    merge_dispatch_stats.reset()
+    index = _sharded_index(mesh, kind, X, model, n_lists, placement)
+    search = (parallel.sharded_ivf_flat_search if kind == "flat"
+              else parallel.sharded_ivf_pq_search)
+    extend = (parallel.sharded_ivf_flat_extend if kind == "flat"
+              else parallel.sharded_ivf_pq_extend)
+    outs = []
+    for step in steps:
+        op = step[0]
+        if op == "search":
+            _, engine, n_probes, merge_engine, live, chunks = step[:6]
+            valid = step[6] if len(step) > 6 else None
+            outs.append(np_out(search(
+                mesh, _search_params(kind, engine, n_probes), index, Q, k,
+                merge_engine=merge_engine, live_mask=live,
+                pipeline_chunks=chunks, valid_rows=valid)))
+        elif op == "suspect":
+            plans = []
+            out = search(mesh, _search_params(kind, "auto", step[1]), index,
+                         Q, k, merge_engine="allgather",
+                         suspect_mask=np.asarray(step[2][mesh.rank]),
+                         plan_cb=plans.append)
+            outs.append((np_out(out), plans[0].q_rows,
+                         plans[0].probe_slots, plans[0].suspect_avoided))
+        elif op == "extend":
+            extend(mesh, index, step[1], step[2])
+            outs.append(index.indices.shape[1])
+        elif op == "delete":
+            outs.append(lifecycle.delete(index, step[1], mesh=mesh))
+        elif op == "upsert":
+            lifecycle.upsert(index, step[1], step[2], mesh=mesh)
+            outs.append(index.indices.shape[1])
+        elif op == "replicate":
+            index = parallel.sharded_replicate_lists(mesh, index, step[1],
+                                                     live_mask=step[2])
+            outs.append(_placement_arrays(index))
+        elif op == "migrate":
+            index, moved = parallel.sharded_migrate_lists(
+                mesh, index, step[1], live_mask=step[2])
+            outs.append(moved)
+        elif op == "placement":
+            outs.append(_placement_arrays(index))
+        elif op == "reset":
+            routing_stats.reset()
+            merge_dispatch_stats.reset()
+            outs.append(None)
+        elif op == "stats":
+            snap = routing_stats.snapshot()
+            outs.append((snap, merge_dispatch_stats.snapshot(),
+                         routing_stats.list_loads(index.placement_map)))
+        else:
+            outs.append(parallel.sharded_routed_warmup(
+                mesh, _search_params(kind, "auto", step[2]), index, step[1],
+                k))
+        outs.append((index.size, index.n_deleted, index.epoch))
+    return outs
+
+
+def case_routed_searcher(n: int, kind: str, X, model, Q, k: int, dead,
+                         suspect, steps, n_probes: int = 3,
+                         placement: str = "list"):
+    """A sharded Searcher over a sharded index, with a ShardHealth
+    whose ``dead`` / ``suspect`` ranks are marked on rank 0 only, and a
+    dispatch hook that records each dispatch's participating ranks. Runs
+    ``steps`` like :func:`case_searcher` (plus ("replicate", list_ids)
+    through the index); returns the outputs, the epochs and the hook's
+    records."""
+    from raft_tpu_torch import parallel
+    from raft_tpu_torch.comms.health import ShardHealth
+    from raft_tpu_torch.serve import BucketGrid, Searcher, warmup
+
+    mesh = sub_mesh(n)
+    if mesh is None:
+        return None
+    health = ShardHealth(n)
+    if mesh.rank == 0:
+        for r in dead:
+            health.mark_dead(r)
+        for r in suspect:
+            health.mark_suspect(r)
+    seen = []
+    index = _sharded_index(mesh, kind, X, model, 8, placement)
+    make = Searcher.ivf_flat if kind == "flat" else Searcher.ivf_pq
+    s = make(index, _search_params(kind, "auto", n_probes), mesh=mesh,
+             health=health, dispatch_hook=lambda r: seen.append(list(r)))
+    outs = []
+    for step in steps:
+        if step[0] == "search":
+            res = s.search(Q, k, degraded=step[1])
+            outs.append((res.distances, res.indices, res.coverage,
+                         res.degraded))
+        elif step[0] == "extend":
+            s.extend(step[1])
+        elif step[0] == "delete":
+            outs.append(s.delete(step[1]))
+        elif step[0] == "warmup":
+            rep = warmup(s, BucketGrid.pow2(step[1], k_grid=(k,)))
+            outs.append([rep["shapes"], rep["routed_shapes"]])
+        elif step[0] == "replicate":
+            s._index = parallel.sharded_replicate_lists(mesh, s._index,
+                                                        step[1])
+        else:
+            s.upsert(step[1], step[2])
+        outs.append(s.epoch)
+    lat = [bool(np.isfinite(health.latency_ewma(r))) for r in range(n)]
+    return outs, seen, lat
 
 
 def case_ivf_flat(n: int, X, centers, Q, k: int, steps, n_lists: int = 16,
@@ -335,11 +502,13 @@ def case_searcher(n: int, kind: str, X, centers, Q, k: int, dead, steps,
 
 
 def case_refusals(n: int):
-    """The LogicErrors of what waits for the next part of the slice."""
+    """The LogicErrors of what waits for the sharding slice's third part
+    (ROADMAP A.4c)."""
     from raft_tpu_torch import lifecycle, parallel, serve
     from raft_tpu_torch.core.error import LogicError
     from raft_tpu_torch.core.retry import RetryPolicy
     from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.serve.recovery import RecoveryProber
 
     mesh = sub_mesh(n)
     if mesh is None:
@@ -348,15 +517,14 @@ def case_refusals(n: int):
     index = _flat_build(mesh, X, 4, X[:4])
     msgs = []
     for fn in (
-            lambda: parallel.sharded_ivf_flat_build(
-                mesh, ivf_flat.IndexParams(n_lists=4), X,
-                placement="list"),
-            lambda: serve.Searcher.ivf_pq(object(), object(), mesh=mesh),
+            lambda: parallel.sharded_ivf_save("index", index),
+            lambda: parallel.sharded_ivf_load(mesh, "index"),
+            lambda: parallel.verify_sharded_manifest("index"),
+            lambda: lifecycle.CompactionPolicy(balance_placement=1.5),
+            lambda: RecoveryProber(None, None, X[:2]),
             lambda: serve.Searcher.ivf_flat(
                 index, ivf_flat.SearchParams(), mesh=mesh,
                 hedge=serve.HedgePolicy()),
-            lambda: serve.Searcher.brute_force(X, mesh=mesh,
-                                               dispatch_hook=print),
             lambda: serve.Searcher.brute_force(X, mesh=mesh,
                                                retry=RetryPolicy()),
             lambda: serve.Searcher.brute_force(X, mesh=mesh).shadow_probe(
