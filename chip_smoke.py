@@ -169,7 +169,31 @@ no result line):
     placement and first B1 k=1 of its encode held against their plain
     versions; build times, the slowest rank's wall times, the mean
     fan-out, the list pack's bytes and the launches per rank logged;
-14. a ``kernels`` line, the card line, and the result line.
+14. sharding, part 3 (the operations layer), counters set to 0 before
+    each step and read after it: (a) in a NCCL world of one, the
+    list-placed IVF-Flat on phase 4's centers and IVF-PQ on both
+    placements over phase 6's model, 100,000 seeded ids deleted, each
+    saved and loaded through a temporary directory (answers bit for bit,
+    file bytes, save / load s and GB/s), the IVF-Flat compacted with
+    ``shrink_capacity`` (the tombstoned answers); (b) in phase 12's world
+    of 4 ranks: the list-placed IVF-Flat with its 32 most probed lists
+    replicated and 100,000 ids deleted, and IVF-PQ on both placements,
+    saved and loaded (answers bit for bit, bytes, s, GB/s); a snapshot
+    torn on rank 2 (every rank raises, under a deadline, no manifest
+    written); a ``shrink_capacity`` compaction of the loaded IVF-Flat (the
+    tombstoned answers, each deleted id counted once); a
+    ``balance_placement`` pass after traffic skewed onto rank 0's quarter
+    of the lists (one probe a query, at the list's center; lists
+    migrated, the same answers); a ``BatchScheduler``
+    on rank 0 serving bench/serve.py's stream over sharded brute force and
+    the balanced IVF-Flat while ranks 1-3 follow (ids = one unbatched
+    sharded search's but at near-ties; rows/s); a delay scripted on rank 1,
+    whose lists are replicated, on the injected clock (the hedge fires and
+    wins, coverage 1); a ``RecoveryProber`` re-admitting rank 1, marked
+    dead, after 3 clean probes; a transient fault on rank 2 retried by
+    every rank (the fault-free answer); rank 0's first B1, B2 and B4 of
+    the phase held against their plain versions;
+15. a ``kernels`` line, the card line, and the result line.
 
 The data is made with numpy from a fixed seed: 1000 Gaussian blobs
 (centers uniform in [-10, 10], sigma 5), queries = database rows + N(0, 1).
@@ -265,6 +289,15 @@ ROUTED_ENGINES = ("allgather", "ring", "pipelined")
 N_HOT = 32                # the most probed lists, replicated
 N_EXTEND_13 = 10_000      # rows extended into the replicated indexes
 N_DELETE_13 = 100_000     # ids then deleted from them
+# The operations phase (14), in phase 12's world and a NCCL world of one.
+N_DELETE_14 = 100_000     # ids deleted, saved with, then compacted away
+N_SKEW_14 = 2_000         # skewed queries, onto rank 0's quarter of lists
+BALANCE_14 = 1.5          # the balance pass's trigger (x the mean load)
+VICTIM_14 = 1             # the straggling rank, its lists replicated
+SERVICE_14 = 0.001        # seconds a dispatch costs on the injected clock
+N_WARM_14, N_HEDGE_14 = 16, 40   # searches before and after the delay
+CLEAN_14 = 3              # the recovery breaker's clean_threshold
+DEADLINE_14 = 120         # seconds the torn save may take on a rank
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FP32 = 67e12
@@ -2764,8 +2797,11 @@ def _sharded_rank(rank, data_dir, init, cfg, results) -> None:
         p12 = _rank_work(rank, data_dir, cfg)
         if cfg["device"].startswith("cuda"):
             torch.cuda.empty_cache()
-        results.put((rank, {"p12": p12,
-                            "p13": _rank_work_routed(rank, data_dir, cfg)}))
+        p13 = _rank_work_routed(rank, data_dir, cfg)
+        if cfg["device"].startswith("cuda"):
+            torch.cuda.empty_cache()
+        results.put((rank, {"p12": p12, "p13": p13,
+                            "p14": _rank_work_ops(rank, data_dir, cfg)}))
     except Exception:
         results.put((rank, {"error": traceback.format_exc()}))
     finally:
@@ -2773,11 +2809,13 @@ def _sharded_rank(rank, data_dir, init, cfg, results) -> None:
             dist.destroy_process_group()
 
 
-def spawn_ranks(dev, X, Q, centers, model):
-    """The 4-rank gloo world on the one card, which runs phase 12 (b) and
-    phase 13 (b) in turn: X, Q, phase 4's centers and phase 6's IVF-PQ
-    model go to a temporary directory once. Returns each rank's results
-    and the wall seconds with the spawn."""
+def spawn_ranks(dev, X, Q, centers, model, stream):
+    """The 4-rank gloo world on the one card, which runs phases 12 (b),
+    13 (b) and 14 (b) in turn: X, Q, phase 4's centers, phase 6's IVF-PQ
+    model and phase 14's request stream go to a temporary directory once.
+    Returns each rank's results and the wall seconds with the spawn. A
+    rank that raises, or ends without answering, fails the phases at
+    once; RANKS_TIMEOUT bounds the wait."""
     import multiprocessing as mp
     import queue
     import tempfile
@@ -2790,6 +2828,10 @@ def spawn_ranks(dev, X, Q, centers, model):
         for name in ("centers", "rotation_matrix", "pq_centers"):
             np.save(f"{tmp}/pq_{name}.npy",
                     getattr(model, name).cpu().numpy())
+        np.savez(f"{tmp}/stream.npz",
+                 q=np.concatenate([q for q, _ in stream]),
+                 rows=np.asarray([q.shape[0] for q, _ in stream]),
+                 k=np.asarray([k for _, k in stream]))
         cfg = dict(device=str(dev), k=K, n_lists=N_LISTS,
                    n_probes=N_PROBES, n_ranks=N_RANKS, dead=DEAD_RANK,
                    pq_bits=model.pq_bits, pq_dim=model.pq_dim,
@@ -2805,15 +2847,21 @@ def spawn_ranks(dev, X, Q, centers, model):
         got = {}
         try:
             # A rank that fails leaves the others waiting in a collective:
-            # its error ends the wait.
+            # its error, or its end without an answer, ends the wait.
             while len(got) < N_RANKS and not any("error" in v
                                                  for v in got.values()):
-                rank, res = results.get(timeout=RANKS_TIMEOUT)
-                got[rank] = res
-        except queue.Empty:
-            missing = sorted(set(range(N_RANKS)) - set(got))
-            raise AssertionError(f"phases 12-13: ranks {missing} did not "
-                                 f"answer in {RANKS_TIMEOUT} s")
+                try:
+                    rank, res = results.get(timeout=5)
+                    got[rank] = res
+                except queue.Empty:
+                    gone = [r for r, p in enumerate(procs)
+                            if r not in got and p.exitcode is not None]
+                    if gone or time.perf_counter() - t0 > RANKS_TIMEOUT:
+                        missing = sorted(set(range(N_RANKS)) - set(got))
+                        raise AssertionError(
+                            f"phases 12-14: ranks {missing} did not answer "
+                            f"(ended: {gone}; {time.perf_counter() - t0:.0f}"
+                            f" s of {RANKS_TIMEOUT} s)")
         finally:
             for p in procs:
                 p.join(timeout=30)
@@ -2824,7 +2872,7 @@ def spawn_ranks(dev, X, Q, centers, model):
     errors = [f"rank {r}:\n{res['error']}" for r, res in sorted(got.items())
               if "error" in res]
     if errors:
-        raise AssertionError("phases 12-13 rank failed:\n"
+        raise AssertionError("phases 12-14 rank failed:\n"
                              + "\n".join(errors))
     return got, wall
 
@@ -3010,6 +3058,19 @@ def routed_world_of_one(dev, X, Q, mp_out, pq_out, card):
     return launches
 
 
+def _rank_pq_model(data_dir, cfg, dev):
+    """Phase 6's IVF-PQ model (no rows), from the files of the world."""
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    n_lists, J, bits = cfg["n_lists"], cfg["pq_dim"], cfg["pq_bits"]
+    return ivf_pq.index_from_numpy(
+        *(np.load(f"{data_dir}/pq_{name}.npy") for name in
+          ("centers", "rotation_matrix", "pq_centers")),
+        np.zeros((n_lists, 1, ivf_pq.packed_row_bytes(J, bits)), np.uint8),
+        np.full((n_lists, 1), -1, np.int32), np.zeros(n_lists, np.int32),
+        bits, J, 0, cfg["pq_metric"], device=dev)
+
+
 def _rank_work_routed(rank, data_dir, cfg):
     """Phase 13 (b) on one rank: the list-placed IVF-Flat (B2 per rank)
     on three merge engines, sharded IVF-PQ on both placements (B4 per
@@ -3036,12 +3097,7 @@ def _rank_work_routed(rank, data_dir, cfg):
     centers = torch.as_tensor(np.load(f"{data_dir}/centers.npy"),
                               device=dev)
     J, bits = cfg["pq_dim"], cfg["pq_bits"]
-    model = ivf_pq.index_from_numpy(
-        *(np.load(f"{data_dir}/pq_{name}.npy") for name in
-          ("centers", "rotation_matrix", "pq_centers")),
-        np.zeros((n_lists, 1, ivf_pq.packed_row_bytes(J, bits)), np.uint8),
-        np.full((n_lists, 1), -1, np.int32), np.zeros(n_lists, np.int32),
-        bits, J, 0, cfg["pq_metric"], device=dev)
+    model = _rank_pq_model(data_dir, cfg, dev)
     mesh = parallel.make_mesh(device=dev)
     shard = parallel.shard_database(mesh, X)
     sp = ivf_flat.SearchParams(n_probes=cfg["n_probes"])
@@ -3264,6 +3320,581 @@ def routed_ranks(dev, X, Q, mp_out, pq_out, got, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the operations layer of sharding.
+
+
+class _Clock14:
+    """The injected clock of the hedge, recovery and retry steps: a sleep
+    advances it."""
+
+    def __init__(self):
+        self.now, self.sleeps = 0.0, []
+
+    def monotonic(self):
+        return self.now
+
+    def sleep(self, seconds):
+        self.sleeps.append(seconds)
+        self.now += seconds
+
+
+class _Straggler14:
+    """A dispatch hook: every dispatch costs SERVICE_14 on the clock, and
+    while ``slow`` one whose participants include VICTIM_14 costs 10 x
+    that more."""
+
+    def __init__(self, clock):
+        self.clock, self.slow = clock, False
+
+    def __call__(self, ranks):
+        self.clock.sleep(SERVICE_14)
+        if self.slow and VICTIM_14 in {int(r) for r in
+                                       np.asarray(ranks).reshape(-1)}:
+            self.clock.sleep(10 * SERVICE_14)
+
+
+class _TornWrite14:
+    """``FileIO.write_bytes`` that writes 64 bytes of its first payload,
+    then raises: a power loss mid-write."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __call__(self, f, data):
+        self.calls += 1
+        if self.calls == 1:
+            f.write(bytes(data)[:64])
+            f.flush()
+            raise OSError("torn write (scripted)")
+        f.write(data)
+
+
+def _save_load(mesh, rec, name, index, base):
+    """``index`` saved at ``base`` and loaded back, both timed (``rec``).
+    Returns the loaded index and the snapshot's bytes on disk."""
+    import os
+
+    from raft_tpu_torch import parallel
+
+    rec.timed(f"{name}_save",
+              lambda: parallel.sharded_ivf_save(mesh, base, index))
+    loaded = rec.timed(f"{name}_load",
+                       lambda: parallel.sharded_ivf_load(mesh, base))
+    names = ["model", "manifest"] + [f"shard{r}" for r in range(mesh.size)]
+    return loaded, sum(os.path.getsize(f"{base}.{n}.npz") for n in names)
+
+
+def _drop_snapshot(comms, base):
+    """Every rank done with the files at ``base``: rank 0 removes them."""
+    import glob
+    import os
+
+    comms.barrier()
+    if comms.get_rank() == 0:
+        for path in glob.glob(f"{glob.escape(base)}.*"):
+            os.remove(path)
+
+
+def _rank_queries14(centers, owner, rank, j, rng):
+    """8 queries about the center of rank ``rank``'s ``j``-th list: at one
+    probe, a dispatch whose participants are exactly that rank."""
+    import torch
+
+    lists = np.flatnonzero(owner == rank)
+    c = centers[int(lists[j % len(lists)])]
+    noise = 0.01 * rng.standard_normal((8, c.shape[0])).astype(np.float32)
+    return c[None, :] + torch.as_tensor(noise, device=c.device)
+
+
+def _rank_work_ops(rank, data_dir, cfg):
+    """Phase 14 (b) on one rank (the module docstring). Rank 0 returns the
+    answers, every rank its digests, wall times, launches and outcomes."""
+    import dataclasses
+    import faulthandler
+    import os
+
+    import torch
+
+    from raft_tpu_torch import lifecycle, parallel, serve
+    from raft_tpu_torch.comms.comms import Comms
+    from raft_tpu_torch.comms.health import LatencyPolicy, ShardHealth
+    from raft_tpu_torch.core.retry import RetryPolicy
+    from raft_tpu_torch.lifecycle.compact import _owner_imbalance
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
+    from raft_tpu_torch.parallel.routing import routing_stats
+    from raft_tpu_torch.util.atomic_io import FileIO
+
+    t_start = time.perf_counter()
+    dev = torch.device(cfg["device"])
+    k, n_lists, n_ranks = cfg["k"], cfg["n_lists"], cfg["n_ranks"]
+    X = np.load(f"{data_dir}/X.npy", mmap_mode="c")
+    Q = torch.as_tensor(np.load(f"{data_dir}/Q.npy"), device=dev)
+    centers = torch.as_tensor(np.load(f"{data_dir}/centers.npy"),
+                              device=dev)
+    model = _rank_pq_model(data_dir, cfg, dev)
+    mesh = parallel.make_mesh(device=dev)
+    comms = Comms(mesh)
+    shard = parallel.shard_database(mesh, X)
+    sp = ivf_flat.SearchParams(n_probes=cfg["n_probes"])
+    spq = ivf_pq.SearchParams(n_probes=cfg["n_probes"])
+    rec = _RankRecorder(rank, dev)
+    timed, keep, capture = rec.timed, rec.keep, rec.capture
+    snap = f"{data_dir}/snap14"
+    if rank == 0:
+        os.makedirs(snap, exist_ok=True)
+
+    def fsearch(index, q=Q):
+        return parallel.sharded_ivf_flat_search(mesh, sp, index, q, k,
+                                                merge_engine="allgather")
+
+    def psearch(index):
+        return parallel.sharded_ivf_pq_search(mesh, spq, index, Q, k,
+                                              merge_engine="allgather")
+
+    _zero_counters()
+    routing_stats.reset()
+    flat = parallel.sharded_ivf_flat_build(
+        mesh, ivf_flat.IndexParams(n_lists=n_lists), shard, centers=centers,
+        placement="list")
+    pq_params = ivf_pq.IndexParams(n_lists=n_lists, pq_dim=cfg["pq_dim"],
+                                   pq_bits=cfg["pq_bits"])
+    pqs = {p: parallel.sharded_ivf_pq_build(mesh, pq_params, shard,
+                                            model=model, placement=p)
+           for p in ("row", "list")}
+    # The most probed lists replicated, then the tombstones.
+    fsearch(flat)
+    hot = np.argsort(-routing_stats.list_loads(flat.placement_map),
+                     kind="stable")[:N_HOT]
+    flat = parallel.sharded_replicate_lists(mesh, flat, hot)
+    rng = np.random.default_rng(cfg["seed"] + 14)
+    del_ids = rng.choice(N_ROWS, N_DELETE_14, replace=False)
+    indexes = {"flat": flat, "pq_row": pqs["row"], "pq_list": pqs["list"]}
+    del flat, pqs
+    n_del = {name: lifecycle.delete(index, del_ids, mesh=mesh)
+             for name, index in indexes.items()}
+    tomb = fsearch(indexes["flat"])
+    keep("flat_tomb", tomb)
+
+    # Save and load: the loaded index answers as the saved one.
+    io, loaded = {}, None
+    for name, cap in (("flat", ("B2 on the loaded IVF-Flat", "ivf_flat")),
+                      ("pq_row", ("B4 on the loaded row-placed IVF-PQ",
+                                  "ivf_pq")),
+                      ("pq_list", None)):
+        index = indexes.pop(name)
+        search = fsearch if name == "flat" else psearch
+        before = tomb if name == "flat" else search(index)
+        base = f"{snap}/{name}"
+        comms.barrier()
+        back, nbytes = _save_load(mesh, rec, name, index, base)
+        with (capture(*cap) if cap else contextlib.nullcontext()):
+            after = search(back)
+        keep(f"{name}_loaded", after)
+        io[name] = (nbytes, all(torch.equal(a, b)
+                                for a, b in zip(before, after)),
+                    n_del[name], back.n_deleted, back.size)
+        if name == "flat":
+            loaded = back
+        elif name == "pq_row":
+            torn_src = back
+        _drop_snapshot(comms, base)
+        del index
+
+    # A snapshot torn on rank 2: every rank raises; a hang fails the
+    # rank after DEADLINE_14 seconds (its stacks printed, the process
+    # ended), which fails the phase.
+    faulthandler.dump_traceback_later(DEADLINE_14, exit=True)
+    base = f"{snap}/torn"
+    t0 = time.perf_counter()
+    try:
+        parallel.sharded_ivf_save(
+            mesh, base, torn_src, file_io=(FileIO(write_bytes=_TornWrite14())
+                                           if rank == 2 else FileIO()))
+        torn = None
+    except OSError as e:
+        torn = (type(e).__name__, str(e))
+    torn_s = time.perf_counter() - t0
+    faulthandler.cancel_dump_traceback_later()
+    comms.barrier()
+    torn_files = sorted(f for f in os.listdir(snap) if f.startswith("torn"))
+    _drop_snapshot(comms, base)
+    del torn_src
+
+    # Compaction of the loaded IVF-Flat, the capacity shrunk.
+    new, report = timed("compact", lambda: lifecycle.compact(
+        loaded, lifecycle.CompactionPolicy(shrink_capacity=True),
+        mesh=mesh))
+    keep("flat_compacted", fsearch(new))
+    compaction = (dataclasses.astuple(report), loaded.indices.shape[1],
+                  new.indices.shape[1])
+    del loaded
+
+    # The balancer: traffic skewed onto rank 0's quarter of the lists,
+    # one probe a query at a list's own center, so every probe lands on
+    # rank 0 (imbalance n_ranks whatever the placement; wider probes
+    # spill onto the neighbouring lists of every rank, and the imbalance
+    # then hovered around BALANCE_14 from one build to the next).
+    quarter = np.flatnonzero(new.placement_map.owner == 0)
+    picks = torch.as_tensor(rng.choice(quarter, N_SKEW_14), device=dev)
+    routing_stats.reset()
+    parallel.sharded_ivf_flat_search(
+        mesh, ivf_flat.SearchParams(n_probes=1), new, centers[picks], k,
+        merge_engine="allgather")
+    loads = routing_stats.list_loads(new.placement_map)
+    bal, brep = timed("balance", lambda: lifecycle.compact(
+        new, lifecycle.CompactionPolicy(balance_placement=BALANCE_14),
+        mesh=mesh))
+    keep("flat_balanced", fsearch(bal))
+    balance = (None if brep is None else dataclasses.astuple(brep),
+               _owner_imbalance(new.placement_map.owner, loads, n_ranks),
+               _owner_imbalance(bal.placement_map.owner, loads, n_ranks),
+               len(quarter))
+    del new
+
+    # A BatchScheduler on rank 0, the other ranks following, over sharded
+    # brute force and the balanced IVF-Flat; then one unbatched sharded
+    # search per k over all of that k's rows.
+    st = np.load(f"{data_dir}/stream.npz")
+    reqs = list(zip(np.split(st["q"], np.cumsum(st["rows"])[:-1]),
+                    st["k"].tolist()))
+    served = {}
+    for name, searcher in (
+            ("bf", serve.Searcher.brute_force(shard, mesh=mesh)),
+            ("flat", serve.Searcher.ivf_flat(bal, sp, mesh=mesh))):
+        if rank == 0:
+            sched = serve.BatchScheduler(
+                searcher, serve.BucketGrid.pow2(SERVE_MAX_BATCH,
+                                                k_grid=SERVE_K_GRID),
+                serve.BatchPolicy(max_batch=SERVE_MAX_BATCH, max_wait=0.0,
+                                  max_queue=2 * len(reqs)))
+            with (capture("B1 in the scheduler's sharded brute force",
+                          "brute_force") if name == "bf"
+                  else contextlib.nullcontext()):
+                rec.sync()
+                t0 = time.perf_counter()
+                tickets = [sched.submit(q, kk) for q, kk in reqs]
+                sched.run_until_idle()
+                rec.sync()
+                sec = time.perf_counter() - t0
+            sched.close()
+            results = [t.result() for t in tickets]
+            by_k = {kk: _stacked([r for r, (_, kr) in zip(results, reqs)
+                                  if kr == kk], kk) for kk in SERVE_K_GRID}
+            served[name] = (sec, sum(
+                b["batches"] for b in sched.stats.snapshot()
+                ["buckets"].values()), by_k)
+        else:
+            served[name] = serve.BatchScheduler.follow(searcher)
+        for kk in SERVE_K_GRID:
+            qk = np.concatenate([q for q, kq in reqs if kq == kk])
+            r = searcher.search(qk, kk)
+            keep(f"direct_{name}_{kk}", (r.distances, r.indices))
+        del searcher
+
+    # A hedge: rank VICTIM_14's lists replicated, a delay scripted on it.
+    hindex = parallel.sharded_replicate_lists(
+        mesh, bal, np.flatnonzero(bal.placement_map.owner == VICTIM_14))
+    del bal
+    clock = _Clock14()
+    hook = _Straggler14(clock)
+    health = ShardHealth(n_ranks, latency=LatencyPolicy(
+        alpha=0.25, window=8, quantile=0.9, multiplier=3.0, min_samples=4))
+    hs = serve.Searcher.ivf_flat(
+        hindex, ivf_flat.SearchParams(n_probes=1), mesh=mesh, health=health,
+        hedge=serve.HedgePolicy(quantile=0.9, multiplier=2.0,
+                                min_samples=4),
+        dispatch_hook=hook, monotonic=clock.monotonic)
+    owner = hindex.placement_map.owner
+    qrng = np.random.default_rng(cfg["seed"] + 140)
+    for i in range(N_WARM_14):
+        hs.search(_rank_queries14(centers, owner, i % n_ranks,
+                                  i // n_ranks, qrng), k)
+    hook.slow = True
+    lats, cov, n_hedged = [], 1.0, 0
+    for i in range(N_HEDGE_14):
+        t0 = clock.now
+        out = hs.search(_rank_queries14(centers, owner, i % n_ranks,
+                                        i // n_ranks, qrng), k)
+        lats.append(clock.now - t0)
+        cov = min(cov, float(out.coverage.min()))
+        n_hedged += int(out.hedged)
+    hedge = (hs.hedge_stats.snapshot(), cov, n_hedged,
+             health.suspect_mask.tolist(), sorted(lats)[-2:])
+
+    # Recovery: the straggler is well again but marked dead.
+    hook.slow = False
+    health.mark_dead(VICTIM_14)
+    prober = serve.RecoveryProber(
+        hs, health, _rank_queries14(centers, owner, VICTIM_14, 0,
+                                    qrng).cpu().numpy(), k,
+        clean_threshold=CLEAN_14, budget=5 * SERVICE_14)
+    steps = [prober.step() for _ in range(CLEAN_14)]
+    recovery = (steps, health.state(VICTIM_14), prober.snapshot())
+    prober.close()
+    del hs, hindex
+
+    # A transient fault on rank 2 (its result lost once) under retry.
+    rs = serve.Searcher.brute_force(
+        shard, mesh=mesh, retry=RetryPolicy(max_attempts=3, base_delay=0.01),
+        sleep=clock.sleep, monotonic=clock.monotonic)
+    want = rs.search(Q[:1000], k)
+    lost = {"n": 1 if rank == 2 else 0}
+    real = rs._dispatch
+
+    def flaky(*a, **kw):
+        out = real(*a, **kw)
+        if lost["n"]:
+            lost["n"] -= 1
+            raise OSError("result lost (scripted)")
+        return out
+
+    rs._dispatch = flaky
+    n_sleeps = len(clock.sleeps)
+    got = rs.search(Q[:1000], k)
+    retry = (bool(np.array_equal(got.indices, want.indices)
+                  and np.array_equal(got.distances, want.distances)),
+             clock.sleeps[n_sleeps:])
+    launches = _launches()
+    return rec.result(
+        launches, io=io, torn=(torn, torn_files, torn_s),
+        compaction=compaction, balance=balance,
+        served={n: (v if isinstance(v, int) else v[:2])
+                for n, v in served.items()},
+        served_by_k={n: v[2] for n, v in served.items()
+                     if not isinstance(v, int)},
+        hedge=hedge, recovery=recovery, retry=retry,
+        wall_s=time.perf_counter() - t_start)
+
+
+def ops_world_of_one(dev, X, Q, mp_out, pq_out, card):
+    """Phase 14 (a): over a NCCL world of one in this process, the
+    list-placed IVF-Flat on phase 4's centers and IVF-PQ on both
+    placements over phase 6's model, 100,000 seeded ids deleted from
+    each, saved and loaded through a temporary directory (the same
+    answers, bit for bit), and the loaded IVF-Flat compacted with
+    ``shrink_capacity`` (the tombstoned answers). Returns the launches of
+    the step."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from raft_tpu_torch import lifecycle, parallel
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
+
+    secs, out, io = {}, {}, {}
+    rec = _RankRecorder(0, dev)
+    rng = np.random.default_rng(SEED + 14)
+    del_ids = rng.choice(N_ROWS, N_DELETE_14, replace=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=f"file://{tmp}/store", rank=0, world_size=1)
+        try:
+            mesh = parallel.make_mesh(device=dev)
+            sp = ivf_flat.SearchParams(n_probes=N_PROBES)
+            spq = ivf_pq.SearchParams(n_probes=N_PROBES)
+            _zero_counters()
+            indexes = {"flat": parallel.sharded_ivf_flat_build(
+                mesh, ivf_flat.IndexParams(n_lists=N_LISTS), X,
+                centers=mp_out["centers"], placement="list")}
+            for p in ("row", "list"):
+                indexes[f"pq_{p}"] = parallel.sharded_ivf_pq_build(
+                    mesh, ivf_pq.IndexParams(n_lists=N_LISTS), X,
+                    model=pq_out["index"], placement=p)
+            loaded = None
+            for name in ("flat", "pq_row", "pq_list"):
+                index = indexes.pop(name)
+
+                def search(ix, name=name):
+                    if name == "flat":
+                        return parallel.sharded_ivf_flat_search(
+                            mesh, sp, ix, Q, K)
+                    return parallel.sharded_ivf_pq_search(mesh, spq, ix, Q,
+                                                          K)
+
+                n_del = lifecycle.delete(index, del_ids, mesh=mesh)
+                before = search(index)
+                back, nbytes = _save_load(mesh, rec, name, index,
+                                          f"{tmp}/{name}")
+                after = search(back)
+                io[name] = (nbytes, n_del)
+                if not all(torch.equal(a, b) for a, b in zip(before, after)):
+                    raise AssertionError(f"phase 14, world of one: the "
+                                         f"loaded {name} answers otherwise")
+                if name == "flat":
+                    loaded, out["tomb"] = back, before
+                del index, back
+            t0 = time.perf_counter()
+            new, report = lifecycle.compact(
+                loaded, lifecycle.CompactionPolicy(shrink_capacity=True),
+                mesh=mesh)
+            torch.cuda.synchronize()
+            secs["compact"] = time.perf_counter() - t0
+            out["compacted"] = parallel.sharded_ivf_flat_search(
+                mesh, sp, new, Q, K)
+            compaction = (dataclasses.astuple(report),
+                          loaded.indices.shape[1], new.indices.shape[1])
+            del loaded, new
+            launches = _launches()
+        finally:
+            dist.destroy_process_group()
+    rows = same_up_to_exact_ties("world of one, compacted IVF-Flat",
+                                 *out["compacted"], *out["tomb"])
+    rep, cap0, cap1 = compaction
+    if rep[0] != N_DELETE_14 or rep[1] != N_ROWS - N_DELETE_14 \
+            or cap1 >= cap0:
+        raise AssertionError(f"phase 14, world of one: compaction report "
+                             f"{rep}, capacity {cap0} -> {cap1}")
+    ms = rec.ms
+    parts = []
+    for name, (b, n) in io.items():
+        save_s, load_s = ms[f"{name}_save"] / 1e3, ms[f"{name}_load"] / 1e3
+        parts.append(f"{name} {b / 1e9:.3f} GB ({n} ids deleted): save "
+                     f"{save_s:.3f} s ({b / save_s / 1e9:.3f} GB/s), load "
+                     f"{load_s:.3f} s ({b / load_s / 1e9:.3f} GB/s)")
+    log(f"ops world of one (NCCL) [{card}]: " + "; ".join(parts)
+        + f"; searches after load bit for bit; compaction "
+        f"{secs['compact']:.3f} s (capacity {cap0} -> {cap1}, reclaimed "
+        f"{rep[0]}), its answers = the tombstoned ones up to exact ties "
+        f"(rows reordered {rows}); launches {launches}")
+    if launches["fused_cells_knn"] < 1 or launches["pq_fused_scan"] < 2:
+        raise AssertionError(f"ops world of one: B2 / B4 not launched "
+                             f"({launches})")
+    return launches
+
+
+def ops_ranks(dev, X, Q, got, stream, card):
+    """Phase 14 (b)'s checks of the 4 ranks' results. Returns the ranks'
+    launches, summed."""
+    import torch
+
+    got = {r: res["p14"] for r, res in got.items()}
+    for r in range(1, N_RANKS):
+        for key, digest in got[r]["digests"].items():
+            if digest != got[0]["digests"].get(key):
+                raise AssertionError(f"phase 14: rank {r}'s {key} differs "
+                                     "from rank 0's")
+    kept = got[0]["plain"]
+    if len(kept) != 2 + len(SERVE_K_GRID):
+        raise AssertionError(f"phase 14: rank 0 kept {len(kept)} kernel "
+                             "launches, not B2, B4 and B1 per k")
+    for what, shape, rec, err, tol in kept:
+        log(f"phase 14, rank 0's {what} ({shape}) vs plain: per-slot "
+            f"recall {rec:.6f} (bar {RECALL_BF}), max |d| err {err:.3e} "
+            f"(tol {tol:.3e})")
+        if rec < RECALL_BF or err > tol:
+            raise AssertionError(f"phase 14: rank 0's {what} disagrees "
+                                 "with its plain version")
+    ms = {k: max(got[r]["ms"][k] for r in got) for k in got[0]["ms"]}
+    g0 = got[0]
+    parts = []
+    for name, (nbytes, same, n_del, n_del_loaded, size) in g0["io"].items():
+        save_s, load_s = ms[f"{name}_save"] / 1e3, ms[f"{name}_load"] / 1e3
+        parts.append(f"{name} {nbytes / 1e9:.3f} GB: save {save_s:.3f} s "
+                     f"({nbytes / save_s / 1e9:.3f} GB/s), load {load_s:.3f}"
+                     f" s ({nbytes / load_s / 1e9:.3f} GB/s)")
+        if not same or n_del != N_DELETE_14 or n_del_loaded != N_DELETE_14 \
+                or size != N_ROWS:
+            raise AssertionError(f"phase 14: {name} save / load off "
+                                 f"(same {same}, deleted {n_del} / "
+                                 f"{n_del_loaded}, size {size})")
+    log(f"phase 14, 4 ranks [{card}]: snapshots (slowest rank) "
+        + "; ".join(parts) + "; every loaded index answers bit for bit")
+    torns = [got[r]["torn"] for r in range(N_RANKS)]
+    first = torns[0][0]
+    if first is None or any(t[0] != first for t in torns) \
+            or any("torn.manifest.npz" in t[1] for t in torns):
+        raise AssertionError(f"phase 14: the torn save did not raise alike "
+                             f"on every rank ({torns})")
+    log(f"phase 14: torn save on rank 2 raised on every rank {first} in "
+        f"{max(t[2] for t in torns):.3f} s (deadline {DEADLINE_14} s); "
+        f"left {torns[0][1]}")
+    out = {k: tuple(torch.as_tensor(a, device=dev) for a in v)
+           for k, v in g0["out"].items()}
+    rep, cap0, cap1 = g0["compaction"]
+    rows = same_up_to_exact_ties("phase 14, compacted IVF-Flat",
+                                 *out["flat_compacted"], *out["flat_tomb"])
+    if rep[0] != N_DELETE_14 or rep[1] != N_ROWS - N_DELETE_14 \
+            or cap1 >= cap0:
+        raise AssertionError(f"phase 14: compaction report {rep}, capacity "
+                             f"{cap0} -> {cap1}")
+    log(f"phase 14: compaction (shrink_capacity) {ms['compact'] / 1e3:.3f} "
+        f"s, reclaimed {rep[0]} (each id once), capacity {cap0} -> {cap1}, "
+        f"answers = the tombstoned ones up to exact ties (rows reordered "
+        f"{rows})")
+    brep, imb0, imb1, n_quarter = g0["balance"]
+    if brep is None or brep[9] <= 0:
+        raise AssertionError(f"phase 14: the balance pass migrated nothing "
+                             f"({brep}, imbalance {imb0})")
+    rows = same_up_to_exact_ties("phase 14, balanced IVF-Flat",
+                                 *out["flat_balanced"],
+                                 *out["flat_compacted"])
+    same = all(torch.equal(a, b) for a, b in zip(out["flat_balanced"],
+                                                 out["flat_compacted"]))
+    log(f"phase 14: balance pass {ms['balance'] / 1e3:.3f} s after "
+        f"{N_SKEW_14} queries onto rank 0's {n_quarter} lists: "
+        f"{brep[9]} lists migrated, imbalance {imb0:.3f} -> {imb1:.3f}; "
+        f"answers bit for bit: {same} (rows reordered {rows})")
+    tol = norm_tol(Q, X)
+    for name in ("bf", "flat"):
+        sec, batches = g0["served"][name]
+        followed = [got[r]["served"][name] for r in range(1, N_RANKS)]
+        if followed != [batches] * (N_RANKS - 1):
+            raise AssertionError(f"phase 14: followers served {followed} "
+                                 f"batches, the front rank {batches}")
+        n_rows, n_diff = 0, 0
+        for kk in SERVE_K_GRID:
+            ids, d = g0["served_by_k"][name][kk]
+            rd, ri = out[f"direct_{name}_{kk}"]
+            qk = torch.as_tensor(np.concatenate(
+                [q for q, kq in stream if kq == kk]), device=dev)
+            n_diff += near_tie_check(
+                f"phase 14, scheduler {name} k={kk}",
+                torch.as_tensor(d, device=dev),
+                torch.as_tensor(ids, device=dev), rd, ri, X, qk, tol)
+            n_rows += ids.shape[0]
+        log(f"phase 14, BatchScheduler on rank 0 over sharded {name} "
+            f"[{card}]: {SERVE_REQUESTS} requests, {n_rows} rows in "
+            f"{sec:.3f} s ({n_rows / sec:.1f} rows/s), {batches} batches, "
+            f"ranks 1-3 followed each; ids = one unbatched sharded "
+            f"search's but {n_diff} near-tie slots (tol {tol:.3e})")
+    snap, cov, n_hedged, suspect, worst = g0["hedge"]
+    if snap["fired"] < 1 or snap["won"] < 1 or cov != 1.0 \
+            or not suspect[VICTIM_14]:
+        raise AssertionError(f"phase 14: hedge {snap}, coverage {cov}, "
+                             f"suspect {suspect}")
+    if any(got[r]["hedge"][0] != snap for r in got):
+        raise AssertionError("phase 14: the ranks' hedge counters differ")
+    log(f"phase 14: straggler rank {VICTIM_14} (lists replicated, 10 x "
+        f"{SERVICE_14} s scripted): hedge {snap}, {n_hedged} of "
+        f"{N_HEDGE_14} answers hedged, coverage {cov}, suspect {suspect}, "
+        f"two slowest latencies {worst} s on the injected clock")
+    steps, state, psnap = g0["recovery"]
+    if steps[-1] != [VICTIM_14] or any(steps[:-1]) or state != "live":
+        raise AssertionError(f"phase 14: recovery {steps}, {state}")
+    log(f"phase 14: RecoveryProber re-admitted rank {VICTIM_14} after "
+        f"{CLEAN_14} clean probes ({steps}; {psnap['probes_sent']} probes)")
+    retries = [got[r]["retry"] for r in range(N_RANKS)]
+    if not all(ok and sl == retries[0][1] and sl for ok, sl in retries):
+        raise AssertionError(f"phase 14: retry {retries}")
+    log(f"phase 14: a transient fault on rank 2, retried by every rank "
+        f"(backoff {retries[0][1]}), answers the fault-free search")
+    log(f"phase 14, 4 ranks [{card}]: wall ms (slowest rank) "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
+    launches = {k: sum(got[r]["launches"][k] for r in got)
+                for k in got[0]["launches"]}
+    log(f"phase 14, 4 ranks: launches per rank "
+        f"{[got[r]['launches'] for r in range(N_RANKS)]}")
+    if launches["fused_knn"] < N_RANKS or launches["fused_cells_knn"] < \
+            N_RANKS or launches["pq_fused_scan"] < 2 * N_RANKS:
+        raise AssertionError(f"phase 14: B1 / B2 / B4 not launched on "
+                             f"every rank ({launches})")
+    return launches
+
+
 def kmeans_labels(centers, X):
     """Each row's nearest center (the lists of an IVF-Flat build)."""
     from raft_tpu_torch.cluster import kmeans_balanced
@@ -3274,28 +3905,39 @@ def kmeans_labels(centers, X):
 
 
 def sharded_phase(dev, X, Q, mp_out, pq_out, card):
-    """Phases 12 and 13: sharding, with the counters set to 0 before each
-    step and read after it; one spawned world of 4 ranks runs both
-    phases' (b) steps. Returns the launches of each phase."""
+    """Phases 12, 13 and 14: sharding, with the counters set to 0 before
+    each step and read after it; one spawned world of 4 ranks runs the
+    three phases' (b) steps. Returns the launches of each phase."""
     t0 = time.perf_counter()
     a12 = sharded_world_of_one(dev, X, Q, mp_out["bf"], mp_out["iv"],
                                mp_out["centers"], card)
     t1 = time.perf_counter()
     a13 = routed_world_of_one(dev, X, Q, mp_out, pq_out, card)
     a13_s = time.perf_counter() - t1
-    got, wall = spawn_ranks(dev, X, Q, mp_out["centers"], pq_out["index"])
+    t1 = time.perf_counter()
+    a14 = ops_world_of_one(dev, X, Q, mp_out, pq_out, card)
+    a14_s = time.perf_counter() - t1
+    stream = serve_stream(X, np.random.default_rng(SEED + 14), 0.0)
+    got, wall = spawn_ranks(dev, X, Q, mp_out["centers"], pq_out["index"],
+                            stream)
     b12 = sharded_ranks(dev, X, Q, mp_out["bf"], mp_out["iv"],
                         mp_out["centers"], got, wall, card)
     b13 = routed_ranks(dev, X, Q, mp_out, pq_out, got, card)
+    b14 = ops_ranks(dev, X, Q, got, stream, card)
     p12 = {k: a12[k] + b12[k] for k in a12}
     p13 = {k: a13[k] + b13[k] for k in a13}
+    p14 = {k: a14[k] + b14[k] for k in a14}
     ranks13 = max(res["p13"]["wall_s"] for res in got.values())
+    ranks14 = max(res["p14"]["wall_s"] for res in got.values())
     log(f"phase 12: launches {p12} (world of one {a12}, 4 ranks {b12})")
     log(f"phase 13: {a13_s + ranks13:.3f} s (world of one {a13_s:.3f} s, "
         f"4 ranks {ranks13:.3f} s, the slowest rank), launches {p13} "
-        f"(world of one {a13}, 4 ranks {b13}); phases 12-13 "
+        f"(world of one {a13}, 4 ranks {b13})")
+    log(f"phase 14: {a14_s + ranks14:.3f} s (world of one {a14_s:.3f} s, "
+        f"4 ranks {ranks14:.3f} s, the slowest rank), launches {p14} "
+        f"(world of one {a14}, 4 ranks {b14}); phases 12-14 "
         f"{time.perf_counter() - t0:.3f} s")
-    return p12, p13
+    return p12, p13, p14
 
 
 def main() -> int:
@@ -3354,7 +3996,7 @@ def main() -> int:
     sm, flat_served = serve_mutations(dev, Q, compacted["ivf_flat"], card)
     sf = surface_phase(dev, X, Q, mp["bf"], mp["index"], flat_served,
                        compacted["ivf_pq"], pq["recall"], card)
-    sh, rt = sharded_phase(dev, X, Q, mp, pq, card)
+    sh, rt, ops = sharded_phase(dev, X, Q, mp, pq, card)
 
     kernels = [
         dict(name="fused_knn", route="cuda",
@@ -3363,28 +4005,31 @@ def main() -> int:
              launches=mp["launches"]["fused_knn"]
              + pq["launches"]["fused_knn"] + sv["fused_knn"]
              + lc["fused_knn"] + sm["fused_knn"] + sf["fused_knn"]
-             + sh["fused_knn"] + rt["fused_knn"], **b1),
+             + sh["fused_knn"] + rt["fused_knn"] + ops["fused_knn"],
+             **b1),
         dict(name="fused_cells_knn", route="cuda",
              source="raft_tpu_torch/csrc/cells_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:426",
              launches=mp["launches"]["fused_cells_knn"]
              + sv["fused_cells_knn"] + lc["fused_cells_knn"]
              + sm["fused_cells_knn"] + sf["fused_cells_knn"]
-             + sh["fused_cells_knn"] + rt["fused_cells_knn"], **b2),
+             + sh["fused_cells_knn"] + rt["fused_cells_knn"]
+             + ops["fused_cells_knn"], **b2),
         dict(name="fused_batch_knn", route="cuda",
              source="raft_tpu_torch/csrc/batch_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:277",
              launches=pq["launches"]["fused_batch_knn"]
              + sv["fused_batch_knn"] + lc["fused_batch_knn"]
              + sm["fused_batch_knn"] + sf["fused_batch_knn"]
-             + sh["fused_batch_knn"] + rt["fused_batch_knn"], **b3),
+             + sh["fused_batch_knn"] + rt["fused_batch_knn"]
+             + ops["fused_batch_knn"], **b3),
         dict(name="pq_fused_scan", route="cuda",
              source="raft_tpu_torch/csrc/pq_scan.cu",
              replaces="raft_tpu/ops/pq_scan.py:440",
              launches=pq["launches"]["pq_fused_scan"] + sv["pq_fused_scan"]
              + lc["pq_fused_scan"] + sm["pq_fused_scan"]
              + sf["pq_fused_scan"] + sh["pq_fused_scan"]
-             + rt["pq_fused_scan"], **b4),
+             + rt["pq_fused_scan"] + ops["pq_fused_scan"], **b4),
         dict(name="stream_extract", route="cuda",
              source="raft_tpu_torch/csrc/stream_select.cu",
              replaces="raft_tpu/matrix/select_k.py:218", **b5),

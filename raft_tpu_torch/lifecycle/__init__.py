@@ -1,5 +1,5 @@
-"""Mutable index lifecycle for the single-host IVF indexes: tombstone
-delete, upsert and compaction.
+"""Mutable index lifecycle for the IVF indexes: tombstone delete, upsert
+and compaction.
 
 Port of ``raft_tpu/lifecycle`` (``delete.py`` and ``compact.py``):
 
@@ -14,10 +14,11 @@ Port of ``raft_tpu/lifecycle`` (``delete.py`` and ``compact.py``):
   (``raft_tpu_torch/serve``) at a tombstone fraction or a drift signal,
   publishing each successor with one reference swap.
 
-``delete`` and ``upsert`` also take a sharded IVF-Flat or IVF-PQ index
-(row or list placement) with its ``mesh``. Sharded compaction waits for
-ROADMAP A.4c; the write-ahead log and elastic membership for the
-durability slice (A.5).
+``delete``, ``upsert`` and ``compact`` also take a sharded IVF-Flat or
+IVF-PQ index (row or list placement) with its ``mesh``; ``compact`` with
+``balance_placement`` re-balances a list placement by observed load. The
+write-ahead log and elastic membership wait for the durability slice
+(ROADMAP A.5).
 """
 
 from raft_tpu_torch.lifecycle.compact import (

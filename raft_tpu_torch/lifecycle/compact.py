@@ -1,7 +1,6 @@
 """Compaction: reclaim tombstones, split hot lists, recluster drifted ones.
 
-Port of ``raft_tpu/lifecycle/compact.py`` for the single-host indexes. A
-pass:
+Port of ``raft_tpu/lifecycle/compact.py``. A pass:
 
 1. reclaims tombstoned slots: live rows repack per list in their relative
    order, so pure reclamation leaves search results bit-identical;
@@ -22,14 +21,30 @@ and cannot move lists without the source vectors, so IVF-PQ compaction
 reclaims only, and drops the decode caches whose slot layout moved.
 
 ``shrink_capacity=False`` (the default) keeps the list capacity; True fits
-it to the fullest list. Sharded compaction and the placement balancer
-(``balance_placement``) wait for ROADMAP A.4c and raise.
+it to the fullest list.
+
+A sharded index (``ShardedIvfFlat`` / ``ShardedIvfPq``, with ``mesh=``)
+compacts collectively: each rank repacks its own lists at one common
+capacity (the current one, or with ``shrink_capacity`` the MAX allreduce
+of every rank's fullest list), and the model pass is ignored (it would
+move rows between ranks' lists). With ``balance_placement`` a pass over
+a list-placed index doubles as the placement balancer: rank 0 weighs the
+lists by its observed probe loads (``routing_stats``; the stored sizes
+before any traffic), and when the hottest rank's load is past the
+trigger and ``assign_lists`` lowers it, the pass migrates lists to rank
+0's assignment (``sharded_migrate_lists``), under the one epoch bump of
+the pass. It is deferred while a rank is dead.
 
 :class:`Compactor` drives passes over a serving ``Searcher``
-(``serve/searcher.py``): it fires at the policy's tombstone fraction or
-on a drift signal and publishes through ``Searcher.compact``, by hand
+(``serve/searcher.py``): it fires at the policy's tombstone fraction, on
+a drift signal or (balance policies) on a placement imbalance, and
+publishes through ``Searcher.compact``, by hand
 (:meth:`Compactor.run_once`) or from a background loop on its injected
-``sleep``.
+``sleep``. Over a sharded searcher every rank runs the same passes: rank
+0's trigger evaluation is broadcast, and the daemon's passes go through
+the command channel of the ``BatchScheduler`` front rank
+(``serve/scheduler.py``), so they never issue collectives out of order
+with the batches.
 """
 
 from __future__ import annotations
@@ -45,13 +60,19 @@ import torch
 
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
+from raft_tpu_torch.comms.agree import root_value
+from raft_tpu_torch.comms.comms import Comms, OpT
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.logger import logger
 from raft_tpu_torch.core.resources import as_float
 from raft_tpu_torch.core.sentinels import worst_value
-from raft_tpu_torch.lifecycle.delete import _check_index
+from raft_tpu_torch.lifecycle.delete import _check_index, _is_sharded
 from raft_tpu_torch.neighbors import ivf_flat as _flat
 from raft_tpu_torch.neighbors import ivf_pq as _pq
+from raft_tpu_torch.parallel.ivf import (ShardedIvfPq, _agreed_live,
+                                         _routed_sizes_h,
+                                         sharded_migrate_lists)
+from raft_tpu_torch.parallel.routing import assign_lists, routing_stats
 
 
 @dataclass(frozen=True)
@@ -60,8 +81,11 @@ class CompactionPolicy:
     once this fraction of stored slots is tombstoned. ``shrink_capacity``:
     fit the list capacity to the fullest list. ``split_above`` /
     ``drift_threshold`` / ``min_split_rows``: the IVF-Flat model pass
-    (None = off). ``balance_placement``, the balancer of sharded list
-    placements, waits for ROADMAP A.4c: setting it raises."""
+    (None = off). ``balance_placement``: list-placed sharded indexes
+    only; when the hottest rank's probe load (observed per-list traffic
+    from ``parallel.routing.routing_stats``, the stored row counts before
+    any traffic) exceeds this multiple of the mean rank load, the pass
+    migrates lists to a re-balanced owner assignment (None = off)."""
 
     trigger_frac: float = 0.25
     shrink_capacity: bool = False
@@ -71,14 +95,16 @@ class CompactionPolicy:
     balance_placement: Optional[float] = None
 
     def __post_init__(self):
-        expects(self.balance_placement is None, "the placement balancer "
-                "(balance_placement) waits for ROADMAP A.4c")
         expects(0.0 < self.trigger_frac <= 1.0,
                 "trigger_frac must be in (0, 1], got %s", self.trigger_frac)
         expects(self.split_above is None or self.split_above > 1.0,
                 "split_above must be > 1 (a multiple of the mean load)")
         expects(self.drift_threshold is None or self.drift_threshold > 0,
                 "drift_threshold must be > 0")
+        expects(self.balance_placement is None
+                or self.balance_placement >= 1.0,
+                "balance_placement must be >= 1 (a multiple of the mean "
+                "shard load)")
 
 
 @dataclass(frozen=True)
@@ -94,6 +120,8 @@ class CompactionReport:
     cap_before: int
     cap_after: int
     epoch: int            # the successor index's epoch
+    # The placement balancer's migrations (list-placed sharded indexes).
+    lists_migrated: int = 0
 
 
 def _median(x: torch.Tensor) -> torch.Tensor:
@@ -233,11 +261,16 @@ def _compact_flat(index, policy: CompactionPolicy):
     return new, n_split, n_recl, cap, new_cap
 
 
-def _compact_pq(index, policy: CompactionPolicy):
+def _warn_model_pass(policy: CompactionPolicy, what: str) -> None:
     if policy.split_above is not None or policy.drift_threshold is not None:
-        logger.debug("split/recluster are IVF-Flat passes (PQ codes are "
-                     "residuals against their list's center); ignored for "
-                     "IVF-PQ")
+        logger.trace("split/recluster are IVF-Flat single-host passes (PQ "
+                     "codes are residuals against their list's center and "
+                     "cannot move lists without re-encoding) — ignored for "
+                     "%s", what)
+
+
+def _compact_pq(index, policy: CompactionPolicy):
+    _warn_model_pass(policy, "IVF-PQ")
     live = _live_slots(index)
     cap = index.pq_codes.shape[1]
     min_cap = 0 if policy.shrink_capacity else cap
@@ -252,26 +285,136 @@ def _compact_pq(index, policy: CompactionPolicy):
     return new, cap, new_cap
 
 
-def compact(index, policy: Optional[CompactionPolicy] = None, mesh=None):
+def _compact_sharded(mesh, index, policy: CompactionPolicy):
+    """This rank's reclamation at the capacity common to every rank (the
+    current one; with ``shrink_capacity`` the MAX allreduce of every
+    rank's fullest live list). Returns ``(successor, cap, new cap)``."""
+    _warn_model_pass(policy, "sharded indexes")
+    is_pq = isinstance(index, ShardedIvfPq)
+    store = index.pq_codes if is_pq else index.data
+    n_slots, cap = index.indices.shape
+    live = _live_slots(index)
+    common = cap
+    if policy.shrink_capacity:
+        most = Comms(mesh).allreduce(live.sum(1).max().reshape(1).cpu(),
+                                     OpT.MAX)
+        common = max(int(most[0]), 1)
+    st, idx, sizes, new_cap = _repack(
+        store.reshape((-1,) + tuple(store.shape[2:])),
+        _reclaim_labels(live, n_slots), index.indices.reshape(-1), n_slots,
+        common)
+    fields = dict(indices=idx, list_sizes=sizes, deleted=None, n_deleted=0,
+                  n_rows=index.n_rows - index.n_deleted,
+                  epoch=index.epoch + 1, _route_sizes=None)
+    if is_pq:
+        fields.update(pq_codes=st, _scan_cache=None)
+    else:
+        fields.update(data=st)
+    return dataclasses.replace(index, **fields), cap, new_cap
+
+
+def _balance_weights(index, sizes) -> np.ndarray:
+    """Per-list migration weights: this placement generation's observed
+    probe loads when the router has seen traffic, else the stored row
+    counts ``sizes`` (the build-time packing criterion)."""
+    loads = routing_stats.list_loads(index.placement_map).astype(np.float64)
+    if loads.sum() == 0:
+        loads = np.asarray(sizes, np.float64)
+    return loads
+
+
+def _owner_imbalance(owner, loads, n_dev: int) -> float:
+    """The hottest rank's load as a multiple of the mean rank load under
+    an owner assignment."""
+    shard = np.zeros(n_dev, np.float64)
+    np.add.at(shard, owner, np.asarray(loads, np.float64))
+    mean = float(shard.mean())
+    return float(shard.max()) / mean if mean > 0 else 1.0
+
+
+def _placement_imbalance(index, loads) -> float:
+    pm = index.placement_map
+    return _owner_imbalance(pm.owner, loads, pm.n_dev)
+
+
+def _balance_owner(mesh, index, policy: CompactionPolicy, live_mask):
+    """The placement balancer's verdict, the same on every rank
+    (collective): rank 0's re-balanced owner assignment when its loads
+    put the hottest rank past ``policy.balance_placement`` and
+    ``assign_lists`` lowers that (the improvement guard: a load the
+    packing cannot balance below the trigger would otherwise migrate on
+    every tick), else None. Deferred (None) while rank 0's ``live_mask``
+    shows a dead rank: assigning lists onto it would trade load for
+    coverage."""
+    comms = Comms(mesh)
+    pm = index.placement_map
+    live = _agreed_live(comms, live_mask, pm.n_dev)
+    if not live.all():
+        logger.trace("placement balance deferred: %s dead shard(s)",
+                     int((~live).sum()))
+        return None
+    sizes = _routed_sizes_h(comms, index)
+    owner = None
+    if mesh.rank == 0:
+        loads = _balance_weights(index, sizes)
+        cur = _owner_imbalance(pm.owner, loads, pm.n_dev)
+        if cur >= policy.balance_placement:
+            cand = assign_lists(loads, pm.n_dev,
+                                centers=index.centers.float().cpu().numpy())
+            if _owner_imbalance(cand, loads, pm.n_dev) < cur:
+                owner = cand
+    return root_value(comms, owner)
+
+
+def compact(index, policy: Optional[CompactionPolicy] = None, mesh=None,
+            live_mask=None):
     """Run one compaction pass: returns ``(successor at epoch + 1,
     report)``, or ``(index, None)`` when there is nothing to do (no
-    tombstones, no model pass, no shrink). The input index is never
-    written."""
+    tombstones, no model pass, no shrink, no re-balance). The input index
+    is never written.
+
+    A sharded index takes its ``mesh`` (collective: the same arguments on
+    every rank). With ``balance_placement`` over a list placement the
+    pass also migrates lists to rank 0's re-balanced assignment, under
+    the same single epoch bump, so routed results are unchanged;
+    ``live_mask`` (rank 0's is used; ``Searcher.compact`` passes its
+    health's) defers the re-balance while a rank is dead."""
     policy = policy or CompactionPolicy()
-    _check_index(index, mesh, sharded_ok=False)
+    _check_index(index, mesh)
     wants_model = (policy.split_above is not None
                    or policy.drift_threshold is not None)
+    bal_owner = None
+    if (policy.balance_placement is not None and _is_sharded(index)
+            and index.placement == "list"):
+        bal_owner = _balance_owner(mesh, index, policy, live_mask)
     if (index.n_deleted == 0 and not wants_model
-            and not policy.shrink_capacity):
+            and not policy.shrink_capacity and bal_owner is None):
         return index, None
-    n_split = n_recl = 0
-    if isinstance(index, _pq.Index):
+    n_split = n_recl = n_migrated = 0
+    if _is_sharded(index):
+        if (bal_owner is not None and index.n_deleted == 0
+                and not policy.shrink_capacity):
+            # Balance only: a repack would rebuild the same tensors for
+            # the migration to rewrite.
+            new, cap = index, index.indices.shape[-1]
+            new_cap = cap
+        else:
+            new, cap, new_cap = _compact_sharded(mesh, index, policy)
+        if bal_owner is not None:
+            new, n_migrated = sharded_migrate_lists(mesh, new, bal_owner,
+                                                    live_mask=live_mask)
+            # One published epoch bump for the whole pass.
+            new = dataclasses.replace(new, epoch=index.epoch + 1)
+        live_rows = new.size
+    elif isinstance(index, _pq.Index):
         new, cap, new_cap = _compact_pq(index, policy)
+        live_rows = int(torch.sum(new.list_sizes))
     else:
         new, n_split, n_recl, cap, new_cap = _compact_flat(index, policy)
+        live_rows = int(torch.sum(new.list_sizes))
     report = CompactionReport(
         reclaimed_slots=index.n_deleted,
-        live_rows=int(torch.sum(new.list_sizes)),
+        live_rows=live_rows,
         lists_split=n_split,
         lists_reclustered=n_recl,
         n_lists_before=index.n_lists,
@@ -279,6 +422,7 @@ def compact(index, policy: Optional[CompactionPolicy] = None, mesh=None):
         cap_before=cap,
         cap_after=new_cap,
         epoch=new.epoch,
+        lists_migrated=n_migrated,
     )
     return new, report
 
@@ -297,6 +441,8 @@ class Compactor:
     The loop's passes issue CUDA work from their own thread on PyTorch's
     default stream, beside the serving thread's; the publish stays one
     reference swap, so in-flight batches keep their dispatch-time index.
+    Over a sharded searcher the passes are collective (see
+    :meth:`run_once` and :meth:`start`).
     """
 
     def __init__(self, searcher, policy: Optional[CompactionPolicy] = None,
@@ -317,6 +463,9 @@ class Compactor:
         # another.
         self._drift_signal = drift_signal
         self._drift_armed = True
+        # balance_placement is edge-triggered like drift: one fired
+        # evaluation per imbalance episode, re-armed when it clears.
+        self._balance_armed = True
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.passes = 0
@@ -329,13 +478,18 @@ class Compactor:
         self.last_should_run = False
         self.last_trigger_frac = 0.0
 
-    def should_run(self) -> bool:
-        """Tombstone fraction at or past the policy trigger, or the
-        ``drift_signal`` tripped (once per episode). Records the
-        evaluation (``last_should_run`` / ``last_trigger_frac``)."""
+    def _mesh(self):
+        """The sharded searcher's mesh, or None."""
+        index = getattr(self.searcher, "_index", None)
+        mesh = getattr(self.searcher, "mesh", None)
+        return mesh if mesh is not None and _is_sharded(index) else None
+
+    def _evaluate(self, index, sizes) -> None:
+        """The trigger evaluation of :meth:`should_run` on this process's
+        signals; ``sizes`` (the routed list sizes) when a balance policy
+        watches a list placement, else None."""
         from raft_tpu_torch.lifecycle.delete import tombstone_frac
 
-        index = getattr(self.searcher, "_index", None)
         frac = (tombstone_frac(index)
                 if index is not None and getattr(index, "n_deleted", 0)
                 else 0.0)
@@ -344,19 +498,78 @@ class Compactor:
         if not raw_drift:
             self._drift_armed = True        # episode over: re-arm
         drifted = raw_drift and self._drift_armed
+        raw_imbal = False
+        if sizes is not None:
+            health = getattr(self.searcher, "health", None)
+            # compact() would defer the migration while a rank is dead;
+            # not firing keeps the edge armed for when it recovers.
+            if health is None or health.all_live():
+                raw_imbal = (_placement_imbalance(
+                    index, _balance_weights(index, sizes))
+                    >= self.policy.balance_placement)
+        if not raw_imbal:
+            self._balance_armed = True
+        imbalanced = raw_imbal and self._balance_armed
         self.last_trigger_frac = frac
         self.last_should_run = (index is not None
-                                and (drifted
+                                and (drifted or imbalanced
                                      or frac >= self.policy.trigger_frac))
         if self.last_should_run and drifted:
             self._drift_armed = False       # one forced pass per episode
+        if self.last_should_run and imbalanced:
+            self._balance_armed = False     # one evaluation per episode
+
+    def should_run(self) -> bool:
+        """Tombstone fraction at or past the policy trigger, the
+        ``drift_signal`` tripped, or (``balance_placement`` over a
+        list-placed index) the observed probe load past the imbalance
+        trigger; the last two once per episode (edge-triggered: the flag
+        must clear to re-arm). Records the evaluation
+        (``last_should_run`` / ``last_trigger_frac``). Over a sharded
+        searcher it is collective: rank 0 evaluates and broadcasts its
+        verdict and trigger state, which every rank adopts."""
+        index = getattr(self.searcher, "_index", None)
+        mesh = self._mesh()
+        if mesh is None:     # a list placement is always sharded
+            self._evaluate(index, None)
+            return self.last_should_run
+        comms = Comms(mesh)
+        sizes = (_routed_sizes_h(comms, index)
+                 if self.policy.balance_placement is not None
+                 and index.placement == "list" else None)
+        state = torch.zeros(4, dtype=torch.float64)
+        if mesh.rank == 0:
+            self._evaluate(index, sizes)
+            state = torch.tensor([self.last_should_run, self._drift_armed,
+                                  self._balance_armed,
+                                  self.last_trigger_frac],
+                                 dtype=torch.float64)
+        run, drift_armed, balance_armed, frac = comms.bcast(state).tolist()
+        self.last_should_run = bool(run)
+        self._drift_armed, self._balance_armed = (bool(drift_armed),
+                                                  bool(balance_armed))
+        self.last_trigger_frac = frac
         return self.last_should_run
+
+    def _front(self):
+        """The ``BatchScheduler`` front rank serving this sharded
+        searcher on this process (rank 0), or None."""
+        return (getattr(self.searcher, "_front", None)
+                if self._mesh() is not None else None)
 
     def run_once(self, force: bool = False) -> Optional[CompactionReport]:
         """One trigger check + (maybe) one pass; returns the report or
         None when below the trigger (``force`` skips the check). A
         raising pass counts ``failures`` and records ``last_error``
-        before re-raising (the daemon loop additionally survives it)."""
+        before re-raising (the daemon loop additionally survives it).
+
+        Over a sharded searcher it is collective. When a front rank's
+        ``BatchScheduler`` serves it, call it on rank 0 only, from the
+        thread that pumps: the scheduler's command channel brings the
+        followers (``BatchScheduler.follow``) into the pass."""
+        front = self._front()
+        if front is not None:
+            front._command_pass(self, force)
         if not force and not self.should_run():
             self.skipped += 1
             return None
@@ -374,22 +587,39 @@ class Compactor:
         return report
 
     def start(self) -> None:
-        """Spawn the background loop (daemon; idempotent)."""
+        """Spawn the background loop (daemon; idempotent). Over a sharded
+        searcher the loop needs the ``BatchScheduler`` front rank: on rank
+        0 each tick posts a pass that the scheduler's next ``pump`` runs
+        (so its collectives never interleave with a batch's); the other
+        ranks run no loop, their ``BatchScheduler.follow`` joins each
+        pass."""
         if self._thread is not None:
             return
+        mesh = self._mesh()
+        front = self._front()
+        if mesh is not None:
+            expects(mesh.rank != 0 or front is not None,
+                    "a Compactor daemon over a sharded searcher runs its "
+                    "passes through the command channel of a "
+                    "BatchScheduler on rank 0: build it first")
+            if mesh.rank != 0:
+                return
         self._stop.clear()
 
         def loop():
             while not self._stop.is_set():
-                try:
-                    self.run_once()
-                except Exception:
-                    # A failed pass published nothing — the daemon must
-                    # survive to retry, not die silently while tombstones
-                    # accumulate. run_once already counted ``failures``
-                    # and stamped ``last_error``.
-                    logger.warning("compaction pass failed; daemon "
-                                   "continues", exc_info=True)
+                if front is not None:
+                    front._post_pass(self)
+                else:
+                    try:
+                        self.run_once()
+                    except Exception:
+                        # A failed pass published nothing — the daemon
+                        # must survive to retry, not die silently while
+                        # tombstones accumulate. run_once already counted
+                        # ``failures`` and stamped ``last_error``.
+                        logger.warning("compaction pass failed; daemon "
+                                       "continues", exc_info=True)
                 self._sleep(self.interval)
 
         self._thread = threading.Thread(target=loop, daemon=True,

@@ -42,10 +42,8 @@ _INDEX_KINDS = (_flat.Index, _pq.Index)
 _SHARDED = (ShardedIvfFlat, ShardedIvfPq)
 
 
-def _check_index(index, mesh, sharded_ok: bool = True) -> None:
+def _check_index(index, mesh) -> None:
     if isinstance(index, _SHARDED):
-        expects(sharded_ok, "compaction of a sharded index waits for the "
-                "sharding slice's third part (ROADMAP A.4c)")
         expects(mesh is not None and mesh.size == index.n_dev,
                 "a sharded index needs the mesh it is sharded over")
         return
@@ -55,6 +53,10 @@ def _check_index(index, mesh, sharded_ok: bool = True) -> None:
     expects(isinstance(index, _INDEX_KINDS),
             "lifecycle ops support ivf_flat/ivf_pq indexes, got %s",
             type(index).__name__)
+
+
+def _is_sharded(index) -> bool:
+    return isinstance(index, _SHARDED)
 
 
 def _global_count(index, mesh, n: int) -> int:

@@ -8,8 +8,8 @@ its own device, and gets the same replicated result with global ids.
 
 Sharded brute force, k-means, IVF-Flat and IVF-PQ on the row placement
 and on the list placement with its router (``routing``), list migration
-and replication, and the routed warmup. Sharded save / load wait for
-ROADMAP A.4c and raise.
+and replication, the routed warmup, and crash-safe snapshots
+(``sharded_ivf_save`` / ``sharded_ivf_load`` with a CRC manifest).
 """
 
 from raft_tpu_torch.comms.comms import Mesh, make_mesh

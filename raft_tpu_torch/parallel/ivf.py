@@ -33,12 +33,14 @@ takes a ``live_mask`` for degraded serving (rank 0's is used): the row
 placement neutralizes dead ranks' candidates, the list placement routes
 around them; either returns a per-query ``coverage``.
 
-Sharded save / load wait for ROADMAP A.4c.
+Snapshots: :func:`sharded_ivf_save` / :func:`sharded_ivf_load`, crash-safe
+(``util/atomic_io``, a manifest written last), in the reference's file set.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import types
 from dataclasses import dataclass
 from typing import Optional
@@ -48,14 +50,16 @@ import torch
 
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
+from raft_tpu_torch.comms.agree import agreed, root_value
 from raft_tpu_torch.comms.comms import Comms, Mesh, OpT
 from raft_tpu_torch.comms.topk_merge import (merge_dispatch_stats,
                                              pipeline_chunk_bounds,
                                              resolve_merge_engine,
                                              resolve_pipeline_chunks)
-from raft_tpu_torch.core.error import expects, expects_finite, fail
+from raft_tpu_torch.core.error import expects, expects_finite
 from raft_tpu_torch.core.mdarray import expects_ids_fit, validate_idx_dtype
 from raft_tpu_torch.core.resources import as_float, as_tensor
+from raft_tpu_torch.core.retry import with_retry
 from raft_tpu_torch.core.sentinels import PAD_ID, worst_value
 from raft_tpu_torch.distance.distance_types import DistanceType
 from raft_tpu_torch.distance.pairwise import gram, row_norms_sq
@@ -72,9 +76,9 @@ from raft_tpu_torch.parallel.routing import (ListPlacement, RoutePlan,
                                              assign_lists, build_placement,
                                              empty_plan, plan_route,
                                              route_shapes, routing_stats)
+from raft_tpu_torch.util.atomic_io import (DEFAULT_IO, FileIO, atomic_savez,
+                                          crc32)
 from raft_tpu_torch.util.pow2 import ceildiv, next_pow2
-
-_WAITS = "waits for ROADMAP A.4c"
 
 
 @dataclass
@@ -1277,20 +1281,251 @@ def sharded_replicate_lists(mesh: Mesh, index, list_ids, live_mask=None):
 
 
 # ---------------------------------------------------------------------------
-# Persistence waits for part 3.
+# Persistence: crash-safe snapshots of a sharded index. The file set is
+# the reference's, key for key: ``<base>.model.npz`` (the replicated
+# model), ``<base>.shard{r}.npz`` (rank r's list tensors) and
+# ``<base>.manifest.npz`` (file names, sizes, CRC32s and the epoch),
+# written last. Every file goes through ``util/atomic_io`` (tmp + fsync +
+# rename). The ranks share one file system; every decision made from one
+# rank's files or errors is agreed before the next collective.
 
 
-def sharded_ivf_save(basename: str, index, *, retry=None) -> None:
-    """Per-rank files plus a manifest: waits for ROADMAP A.4c (it needs
-    ``util/atomic_io``)."""
-    fail("sharded save " + _WAITS)
+SHARDED_SERIALIZATION_VERSION = 1
 
 
-def sharded_ivf_load(mesh: Mesh, basename: str, *, retry=None):
-    """See :func:`sharded_ivf_save`."""
-    fail("sharded load " + _WAITS)
+def _manifest_path(basename: str) -> str:
+    return f"{basename}.manifest.npz"
+
+
+def _io(fn, retry):
+    """``fn()``, retried on transient errors under ``retry`` when set."""
+    return with_retry(fn, retry) if retry is not None else fn()
+
+
+def _model_arrays(mesh: Mesh, index) -> dict:
+    """The model file's arrays, the reference's keys and dtypes."""
+    is_pq = isinstance(index, ShardedIvfPq)
+    model = dict(
+        version=np.int64(SHARDED_SERIALIZATION_VERSION),
+        kind=np.str_("pq" if is_pq else "flat"),
+        metric=np.int64(index.metric.value),
+        axis=np.str_(mesh.axis),
+        n_shards=np.int64(index.n_dev),
+        centers=index.centers.cpu().numpy())
+    if is_pq:
+        model.update(
+            codebook_kind=np.int64(index.codebook_kind.value),
+            rotation_matrix=index.rotation_matrix.cpu().numpy(),
+            pq_centers=index.pq_centers.cpu().numpy(),
+            pq_bits=np.int64(index.pq_bits),
+            pq_dim=np.int64(index.pq_dim))
+    pm = index.placement_map
+    if pm is not None:
+        # Optional keys: a row-placed file set stays byte-compatible with
+        # version 1.
+        model.update(
+            placement_owner=pm.owner, placement_slot=pm.slot,
+            placement_replica_owner=pm.replica_owner,
+            placement_replica_slot=pm.replica_slot,
+            placement_n_slots=np.int64(pm.n_slots))
+    return model
+
+
+def sharded_ivf_save(mesh: Mesh, basename: str, index, *, retry=None,
+                     file_io: FileIO = DEFAULT_IO) -> None:
+    """Save a :class:`ShardedIvfFlat` or :class:`ShardedIvfPq` (either
+    placement) crash-safely, collective: rank r writes
+    ``<base>.shard{r}.npz`` (its list tensors, with its tombstone mask
+    when the index holds any), rank 0 writes ``<base>.model.npz``; one
+    allgather of every file's CRC32 and size, and rank 0 writes
+    ``<base>.manifest.npz`` last, the snapshot's commit point, with every
+    file's CRC (the reference's single-process layout). A kill at any
+    byte leaves the previous snapshot or a file set that fails
+    :func:`verify_sharded_manifest`. A failed write on any rank (after
+    ``retry``, a ``RetryPolicy`` for each file write) raises the same
+    error on every rank, and no manifest is written. ``file_io`` is the
+    fault seam. The reference takes no mesh: its controller sees every
+    shard."""
+    comms = _check_index(mesh, index)
+    rank = mesh.rank
+
+    def write(path, payload):
+        return _io(lambda: atomic_savez(path, file_io, **payload), retry)
+
+    is_pq = isinstance(index, ShardedIvfPq)
+    store = index.pq_codes if is_pq else index.data
+    shard = dict(store=store.cpu().numpy(),
+                 indices=index.indices.cpu().numpy(),
+                 list_sizes=index.list_sizes.cpu().numpy())
+    if index.n_deleted:
+        # Tombstones are index content; a mask-free file set stays
+        # byte-compatible with version 1.
+        shard["deleted"] = index.deleted.cpu().numpy()
+    meta = np.full(4, -1, np.int64)        # model crc, size; shard crc, size
+    with agreed(comms):
+        if rank == 0:
+            m = write(f"{basename}.model.npz", _model_arrays(mesh, index))
+            meta[:2] = m["crc"], m["size"]
+        s = write(f"{basename}.shard{rank}.npz", shard)
+        meta[2:] = s["crc"], s["size"]
+    table = comms.allgather(torch.as_tensor(meta).reshape(1, 4)).numpy()
+    with agreed(comms):
+        if rank == 0:
+            names = [os.path.basename(f"{basename}.model.npz")] + [
+                os.path.basename(f"{basename}.shard{s}.npz")
+                for s in range(index.n_dev)]
+            write(_manifest_path(basename), dict(
+                version=np.int64(SHARDED_SERIALIZATION_VERSION),
+                n_shards=np.int64(index.n_dev),
+                epoch=np.int64(index.epoch),
+                files=np.array(names),
+                crc=np.concatenate([table[:1, 0], table[:, 2]]),
+                size=np.concatenate([table[:1, 1], table[:, 3]])))
 
 
 def verify_sharded_manifest(basename: str) -> Optional[int]:
-    """See :func:`sharded_ivf_save`."""
-    fail("verify_sharded_manifest " + _WAITS)
+    """Check a snapshot's manifest against the files on disk (not
+    collective): returns the saved epoch, or None when there is no
+    manifest (a save from before manifests: loadable, with a file
+    existence check only). Raises ``LogicError`` on any mismatch (a
+    missing file, size drift, CRC drift), before anything is loaded."""
+    mpath = _manifest_path(basename)
+    if not os.path.exists(mpath):
+        return None
+    with np.load(mpath) as m:
+        version = int(m["version"])
+        expects(version == SHARDED_SERIALIZATION_VERSION,
+                f"sharded manifest version mismatch: {version}")
+        names = [str(n) for n in m["files"]]
+        crcs = m["crc"].astype(np.int64)
+        lens = m["size"].astype(np.int64)
+        epoch = int(m["epoch"])
+    base_dir = os.path.dirname(basename)
+    for name, crc, size in zip(names, crcs, lens):
+        path = os.path.join(base_dir, name)
+        expects(os.path.exists(path),
+                "torn snapshot %r: manifest lists %r but the file is "
+                "missing (kill mid-save?)", basename, name)
+        if crc < 0:
+            continue                   # written by another process
+        with open(path, "rb") as f:
+            data = f.read()
+        expects(len(data) == int(size),
+                "torn snapshot %r: %r is %s bytes, manifest says %s",
+                basename, name, len(data), int(size))
+        expects(crc32(data) == int(crc),
+                "torn snapshot %r: %r fails its manifest CRC — file "
+                "content does not match what the save committed",
+                basename, name)
+    return epoch
+
+
+def _load_model(mesh: Mesh, basename: str, load_npz) -> dict:
+    """Rank 0's part of a load: the whole file set verified, the model
+    read and checked against the mesh, every shard file present."""
+    verify_sharded_manifest(basename)
+    with load_npz(f"{basename}.model.npz") as m:
+        version = int(m["version"])
+        expects(version == SHARDED_SERIALIZATION_VERSION,
+                f"sharded serialization version mismatch: {version}")
+        n_shards = int(m["n_shards"])
+        expects(mesh.size == n_shards,
+                f"index has {n_shards} shards but the mesh has "
+                f"{mesh.size} ranks")
+        model = {k: m[k] for k in m.files}
+    for s in range(n_shards):
+        expects(os.path.exists(f"{basename}.shard{s}.npz"),
+                "sharded snapshot %r is missing shard file %d/%d "
+                "(torn save?)", basename, s, n_shards)
+    return model
+
+
+def _check_shard(rank: int, arrays: dict, ref: dict) -> None:
+    """This rank's shard arrays against shard 0's keys, dtypes and
+    shapes: a cast would silently narrow (int64 ids from a mixed re-save
+    onto int32)."""
+    expects(set(arrays) == set(ref), "shard %s holds %s, shard0 %s", rank,
+            sorted(arrays), sorted(ref))
+    for key, (dtype, shape) in ref.items():
+        a = arrays[key]
+        expects(str(a.dtype) == dtype,
+                f"shard {rank} {key} dtype {a.dtype} != shard0's {dtype}")
+        expects(tuple(a.shape) == shape,
+                f"shard {rank} {key} shape {a.shape} != shard0's {shape}")
+    validate_idx_dtype(arrays["indices"].dtype)
+
+
+def sharded_ivf_load(mesh: Mesh, basename: str, *, retry=None):
+    """Load a snapshot written by :func:`sharded_ivf_save` onto ``mesh``
+    (collective; the shard count must equal the mesh size). Rank 0
+    verifies the manifest (every file's existence, size and CRC32), the
+    version and the shard count, and reads the model; its verdict is
+    agreed, so every rank raises the same ``LogicError`` or goes on to
+    read only its own shard file. Every shard's dtypes and shapes must be
+    shard 0's (agreed the same way). A list placement is re-dealt from
+    the saved owners and checked against the saved slots; the tombstone
+    count and the row count come from the primary copies. ``retry``
+    retries each file read on transient errors."""
+    _check_mesh(mesh)
+    comms = Comms(mesh)
+    rank, dev = mesh.rank, mesh.device
+
+    def load_npz(path):
+        return _io(lambda: np.load(path), retry)
+
+    model = arrays = None
+    with agreed(comms):
+        if rank == 0:
+            model = _load_model(mesh, basename, load_npz)
+    model = root_value(comms, model)
+    with agreed(comms):
+        with load_npz(f"{basename}.shard{rank}.npz") as z:
+            arrays = {k: z[k] for k in z.files}
+    ref = root_value(comms, {k: (str(a.dtype), tuple(a.shape))
+                             for k, a in arrays.items()}
+                     if rank == 0 else None)
+    with agreed(comms):
+        _check_shard(rank, arrays, ref)
+    n_shards = int(model["n_shards"])
+    pm = None
+    if "placement_owner" in model:
+        pm = build_placement(
+            model["placement_owner"], n_shards,
+            min_slots=int(model["placement_n_slots"]),
+            replica_owner=model["placement_replica_owner"],
+            replica_slot=model["placement_replica_slot"])
+        # Every placement producer deals slots in ascending list id per
+        # owner; a drifted deal would route probes into the wrong slot.
+        expects(bool(np.array_equal(pm.slot, model["placement_slot"])),
+                "saved placement slots do not match the deterministic "
+                "re-deal — file corrupt or writer/reader version skew")
+    t = {k: torch.as_tensor(a).to(dev) for k, a in arrays.items()}
+    primary = torch.ones(t["list_sizes"].shape[0], dtype=torch.bool,
+                         device=dev)
+    if pm is not None:
+        s2l = pm.slot_to_list[rank]
+        primary = torch.as_tensor(
+            (s2l >= 0) & (pm.owner[np.maximum(s2l, 0)] == rank), device=dev)
+    deleted = t.get("deleted")
+    # Rows and tombstones over every rank, one logical copy each.
+    counts = torch.stack([
+        t["list_sizes"].long()[primary].sum(),
+        (deleted[primary].sum() if deleted is not None
+         else torch.zeros((), dtype=torch.long, device=dev)).long()])
+    n_rows, n_del = (int(v) for v in comms.allreduce(counts.cpu()))
+    top = comms.allreduce(torch.max(t["indices"]).reshape(1).long().cpu(),
+                          OpT.MAX)
+    common = dict(
+        metric=DistanceType(int(model["metric"])),
+        centers=torch.as_tensor(model["centers"]).to(dev),
+        indices=t["indices"], list_sizes=t["list_sizes"], n_dev=n_shards,
+        n_rows=n_rows, deleted=deleted, n_deleted=n_del,
+        _next_id=int(top[0]) + 1, placement_map=pm)
+    if str(model["kind"]) == "pq":
+        return ShardedIvfPq(
+            codebook_kind=_pq.CodebookGen(int(model["codebook_kind"])),
+            rotation_matrix=torch.as_tensor(model["rotation_matrix"]).to(dev),
+            pq_centers=torch.as_tensor(model["pq_centers"]).to(dev),
+            pq_codes=t["store"], pq_bits=int(model["pq_bits"]),
+            pq_dim=int(model["pq_dim"]), **common)
+    return ShardedIvfFlat(data=t["store"], **common)

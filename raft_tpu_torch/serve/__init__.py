@@ -9,9 +9,11 @@ index lifecycle (``searcher``), the hedge policy and its counters
 (``hedge``), and per-bucket serving stats with kernel-build counting
 (``stats``). A ``Searcher`` also serves a sharded brute-force, IVF-Flat
 or IVF-PQ deployment on either placement (``mesh=``, ``health=``,
-``dispatch_hook=``). A ``BatchScheduler`` over it, hedged dispatch and
-the circuit-breaker shard re-admission (``recovery.RecoveryProber``) wait
-for ROADMAP A.4c and raise.
+``dispatch_hook=``, ``hedge=``, an agreed ``retry=``), a
+``BatchScheduler`` on rank 0 fronts it (the other ranks run
+``BatchScheduler.follow``), and the circuit breaker
+(``recovery.RecoveryProber``) re-admits a recovered shard after clean
+shadow probes.
 """
 
 from raft_tpu_torch.serve.bucketing import (
@@ -22,6 +24,7 @@ from raft_tpu_torch.serve.bucketing import (
 )
 from raft_tpu_torch.serve.cache import ResultCache
 from raft_tpu_torch.serve.hedge import HedgePolicy, HedgeStats
+from raft_tpu_torch.serve.recovery import RecoveryProber
 from raft_tpu_torch.serve.scheduler import (
     BatchPolicy,
     BatchScheduler,
@@ -35,7 +38,7 @@ from raft_tpu_torch.serve.stats import CompileCounter, ServeStats
 __all__ = [
     "BucketGrid", "DEFAULT_K_GRID", "pad_queries", "warmup",
     "ResultCache",
-    "HedgePolicy", "HedgeStats",
+    "HedgePolicy", "HedgeStats", "RecoveryProber",
     "BatchPolicy", "BatchScheduler", "DegradePolicy", "Overloaded",
     "Ticket",
     "Searcher", "SearchResult",

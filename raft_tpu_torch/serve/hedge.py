@@ -4,11 +4,12 @@ Port of ``raft_tpu/serve/hedge.py``: "The Tail at Scale" playbook, a
 request that outlives a high quantile of its latency distribution is
 re-issued to a replica and the first result wins. The policy and its
 counters are host logic and carry over as they are; every ``Searcher``
-holds a :class:`HedgeStats`. The hedged dispatch itself re-routes a
-routed (list-placed) sharded index around SUSPECT shards; under SPMD the
-decision to hedge is a per-rank timing decision that the ranks must
-agree on before any of them re-dispatches, so it waits for ROADMAP A.4c:
-until then a ``Searcher`` given a :class:`HedgePolicy` raises.
+holds a :class:`HedgeStats`. The hedged dispatch itself
+(``Searcher._maybe_hedge``) re-routes a routed (list-placed) sharded
+index around SUSPECT shards; under SPMD the decision to hedge is a timing
+decision, so rank 0's clock, budget and suspect mask decide for every
+rank (one broadcast before the re-dispatch), and rank 0's clock picks the
+answer (one after it).
 
 Determinism: the hedge is *reactive*, measured on the Searcher's
 INJECTED clock, so replayed request streams hedge identically; no wall

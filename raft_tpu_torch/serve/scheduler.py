@@ -21,6 +21,19 @@ Disciplines:
   under queue or deadline pressure the degradation ladder shrinks
   ``n_probes`` (:class:`DegradePolicy`), and a missed deadline is a
   counter, never an exception. Reduced answers are never cached.
+
+Over a sharded ``Searcher`` (SPMD, one process per rank) the scheduler
+runs on rank 0, the front rank, unchanged: bucketing, cache, shedding,
+the degrade ladder and stats are rank 0's alone. Each batch it
+dispatches is first broadcast as one command (the padded queries, ``k``,
+``valid_rows``, ``n_probes``, ``degraded``), and every other rank runs
+:meth:`BatchScheduler.follow`, which receives the commands and makes the
+same ``Searcher.search`` call, so every rank makes the searcher's
+collective calls in the same order; ``close`` sends the stop command.
+A ``Compactor`` over the searcher sends its passes through the same
+channel. This is the SPMD form of the reference's scheduler, whose one
+controller drives every device: ``follow`` is the one call that the
+reference does not have.
 """
 
 from __future__ import annotations
@@ -33,6 +46,8 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+import torch
+
 from raft_tpu_torch.core.error import RaftError, expects
 from raft_tpu_torch.core.logger import logger
 from raft_tpu_torch.obs.trace import NULL_SPAN, NULL_TRACER, Tracer
@@ -40,6 +55,16 @@ from raft_tpu_torch.serve.bucketing import BucketGrid, pad_queries
 from raft_tpu_torch.serve.cache import ResultCache
 from raft_tpu_torch.serve.searcher import SearchResult, Searcher
 from raft_tpu_torch.serve.stats import ServeStats
+
+
+# The front rank's commands: a header of int64s, then for a search the
+# padded float32 queries.
+_STOP, _SEARCH, _COMPACT = 0, 1, 2
+_HEAD = 8       # op, rows, dim, k, valid_rows, n_probes, degraded, force
+
+
+def _tri(flag: Optional[bool]) -> int:
+    return -1 if flag is None else int(bool(flag))
 
 
 class Overloaded(RaftError):
@@ -196,6 +221,9 @@ class BatchScheduler:
     selection are mutex-guarded, so request threads may submit while
     one pump thread runs — the ``max_queue`` bound stays exact; the
     searcher call itself runs outside the lock.
+
+    Over a sharded searcher this is the front rank (build it on rank 0;
+    the other ranks call :meth:`follow`).
     """
 
     def __init__(self, searcher: Searcher, grid: BucketGrid,
@@ -206,16 +234,24 @@ class BatchScheduler:
                  tracer: Optional[Tracer] = None,
                  probe=None,
                  degrade: Optional[DegradePolicy] = None):
-        expects(getattr(searcher, "mesh", None) is None,
-                "a BatchScheduler over a sharded Searcher needs a front "
-                "rank that broadcasts each batch to the others; it waits "
-                "for ROADMAP A.4c")
-        expects(policy.max_batch <= grid.max_batch,
-                "policy.max_batch=%s exceeds the bucket grid's largest "
-                "query bucket %s — full batches would run out-of-grid "
-                "shapes", policy.max_batch, grid.max_batch)
-        expects(probe is None, "the shadow recall probe waits for the "
-                "operations slice (ROADMAP A.5)")
+        mesh = getattr(searcher, "mesh", None)
+        from raft_tpu_torch.comms.agree import agreed
+        from raft_tpu_torch.comms.comms import Comms
+
+        # A sharded front rank's checks are agreed with the followers'
+        # ``follow`` (its first collective), so a refused scheduler raises
+        # on every rank instead of leaving them waiting.
+        with agreed(None if mesh is None else Comms(mesh)):
+            expects(mesh is None or mesh.rank == 0,
+                    "a BatchScheduler over a sharded Searcher runs on rank "
+                    "0, the front rank; rank %s calls BatchScheduler.follow",
+                    None if mesh is None else mesh.rank)
+            expects(policy.max_batch <= grid.max_batch,
+                    "policy.max_batch=%s exceeds the bucket grid's largest "
+                    "query bucket %s — full batches would run out-of-grid "
+                    "shapes", policy.max_batch, grid.max_batch)
+            expects(probe is None, "the shadow recall probe waits for the "
+                    "operations slice (ROADMAP A.5)")
         self.searcher = searcher
         self.grid = grid
         self.policy = policy
@@ -236,6 +272,102 @@ class BatchScheduler:
         self._seq = itertools.count()
         self._unhook = (searcher.add_invalidation_hook(cache.invalidate)
                         if cache is not None else None)
+        # The front rank's command channel (sharded searchers): the
+        # followers' broadcasts, and one pending Compactor pass.
+        self._comms = None if mesh is None else Comms(mesh)
+        self._pass = None
+        if mesh is not None:
+            searcher._front = self
+
+    # -- the front rank's command channel ----------------------------------
+    def _command(self, op: int, queries=None, k: int = 0,
+                 valid_rows: int = 0, n_probes=None, degraded=None,
+                 force: bool = False) -> None:
+        """Broadcast one command to the followers (collective with their
+        :meth:`follow`); a search command carries its queries."""
+        rows, dim = (0, 0) if queries is None else queries.shape
+        self._comms.bcast(torch.tensor(
+            [op, rows, dim, k, valid_rows,
+             -1 if n_probes is None else int(n_probes), _tri(degraded),
+             int(force)], dtype=torch.int64))
+        if queries is not None:
+            self._comms.bcast(torch.as_tensor(queries, dtype=torch.float32))
+
+    def _command_pass(self, compactor, force: bool) -> None:
+        """Bring the followers into a Compactor pass (called by
+        ``Compactor.run_once`` on rank 0): the command, then its policy."""
+        from raft_tpu_torch.comms.agree import root_value
+
+        self._command(_COMPACT, force=force)
+        root_value(self._comms, compactor.policy)
+
+    def _post_pass(self, compactor) -> None:
+        """A Compactor daemon's tick (another thread): the next ``pump``
+        runs the pass, between batches. One pass pends at most."""
+        with self._lock:
+            self._pass = compactor
+
+    def _run_posted_pass(self) -> None:
+        with self._lock:
+            comp, self._pass = self._pass, None
+        if comp is None:
+            return
+        try:
+            comp.run_once()
+        except Exception:
+            # run_once counted the failure; the pass published nothing.
+            logger.warning("compaction pass failed; serving continues",
+                           exc_info=True)
+
+    @staticmethod
+    def follow(searcher: Searcher) -> int:
+        """The other ranks' half of a scheduler over a sharded
+        ``searcher`` (call on ranks 1..n-1 while rank 0 runs the
+        ``BatchScheduler``): receive each command of the front rank and
+        make the same call, until the front rank closes. A search that
+        raises (the same error on every rank: the searcher agrees its
+        failures) is logged and the loop goes on, as the front rank's
+        ticket fails. A Compactor pass runs this rank's Compactor on rank
+        0's policy (its trigger is rank 0's). The first collective is the
+        front rank's constructor checks: a refused scheduler raises here
+        too. Returns the number of batches served."""
+        from raft_tpu_torch.comms.agree import raise_agreed, root_value
+        from raft_tpu_torch.comms.comms import Comms
+
+        mesh = getattr(searcher, "mesh", None)
+        expects(mesh is not None and mesh.rank != 0,
+                "follow runs on ranks 1..n-1 of a sharded searcher's mesh")
+        comms = Comms(mesh)
+        raise_agreed(comms, None)      # the front rank's constructor checks
+        served, compactor = 0, None
+        while True:
+            op, rows, dim, k, valid, n_probes, degraded, force = (
+                int(v) for v in comms.bcast(torch.zeros(_HEAD,
+                                                        dtype=torch.int64)))
+            if op == _STOP:
+                return served
+            if op == _COMPACT:
+                policy = root_value(comms)
+                if compactor is None or compactor.policy != policy:
+                    from raft_tpu_torch.lifecycle.compact import Compactor
+
+                    compactor = Compactor(searcher, policy)
+                try:
+                    compactor.run_once(force=bool(force))
+                except Exception:
+                    logger.warning("compaction pass failed; serving "
+                                   "continues", exc_info=True)
+                continue
+            q = comms.bcast(torch.zeros((rows, dim), dtype=torch.float32))
+            try:
+                searcher.search(q.to(searcher.device), k,
+                                degraded=None if degraded < 0
+                                else bool(degraded),
+                                valid_rows=valid,
+                                n_probes=None if n_probes < 0 else n_probes)
+            except Exception as err:
+                logger.warning("serve batch %sx%s failed: %r", rows, k, err)
+            served += 1
 
     # -- admission ---------------------------------------------------------
     def submit(self, queries, k: int,
@@ -373,7 +505,10 @@ class BatchScheduler:
     def pump(self, force: bool = False) -> int:
         """One scheduling pass at ``clock()``'s now: dispatch every ripe
         k-bucket group (``force=True`` dispatches everything queued).
-        Returns the number of requests completed."""
+        Returns the number of requests completed. A front rank first runs
+        a Compactor pass its daemon posted."""
+        if self._comms is not None:
+            self._run_posted_pass()
         now = self._clock()
         plan: List[tuple] = []               # (batch, k_bucket, rows)
         with self._lock:                     # select under the lock …
@@ -425,11 +560,17 @@ class BatchScheduler:
     def close(self) -> None:
         """Drain, then detach from the searcher (unregisters the cache
         invalidation hook — a retired scheduler must not keep its cache
-        alive through the long-lived Searcher). Idempotent."""
+        alive through the long-lived Searcher; a front rank stops its
+        followers). Idempotent."""
         self.run_until_idle()
         if self._unhook is not None:
             self._unhook()
             self._unhook = None
+        if self._comms is not None:
+            # The followers leave their loop.
+            self._command(_STOP)
+            self._comms = None
+            self.searcher._front = None
 
     # -- dispatch ----------------------------------------------------------
     def _pick_rung(self, batch: List[_Pending], bucket) -> tuple:
@@ -508,6 +649,8 @@ class BatchScheduler:
             # route / meter the bucket's zero-pad rows as traffic.
             # n_probes: the ladder's rung (None = full depth) — a value
             # from the closed, pre-warmed set (DegradePolicy docstring).
+            if self._comms is not None:
+                self._command(_SEARCH, padded, kb, rows, n_probes)
             res = self.searcher.search(padded, kb, span=bspan,
                                        valid_rows=rows, n_probes=n_probes)
         except Exception as err:   # complete, never wedge the queue

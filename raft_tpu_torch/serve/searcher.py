@@ -25,9 +25,12 @@ the scheduler (serve/scheduler.py) batches requests against an opaque
   (``ShardHealth.observe_latency``);
 * ``dispatch_hook`` — called after each routed dispatch with its
   participating ranks (the chaos seam);
+* ``HedgePolicy`` — a routed dispatch that outlives its per-bucket
+  budget while a participant has newly gone SUSPECT is re-dispatched
+  around it, and the faster answer by the injected clock serves
+  (``SearchResult.hedged``);
 * ``RetryPolicy`` — transient host-side failures retry with the
-  deterministic backoff of ``core/retry.py`` (single-device only: a
-  sharded retry waits for ROADMAP A.4c);
+  deterministic backoff of ``core/retry.py``;
 * ``epoch`` — the cache-invalidation key (serve/cache.py): bumped by
   every mutation (extend / delete / upsert / compact), so cached results
   can never outlive the index state they were computed against.
@@ -44,10 +47,15 @@ serialize on an internal lock; searches never take it.
 
 A sharded searcher is collective: every rank of the mesh builds it with
 the same arguments and makes the same calls in the same order. Its
-``extend``, ``delete`` and ``upsert`` are the sharded ones; ``compact``
-raises. The hedged dispatch (``hedge``) and ``shadow_probe`` wait for
-ROADMAP A.4c and raise :class:`~raft_tpu_torch.core.error.LogicError`;
-so does ``wal``, which comes with the durability slice (A.5).
+``extend``, ``delete``, ``upsert`` and ``compact`` are the sharded ones.
+Every decision that one rank makes from its own clock or errors is
+agreed before a collective depends on it (``comms/agree.py``): a failed
+attempt is agreed after its collectives, so every rank retries together
+or raises the same error; rank 0's clock and suspect mask decide a hedge
+and pick its answer; ``shadow_probe`` returns rank 0's elapsed time; a
+``pre_publish`` fault on any rank publishes nothing on every rank.
+``wal`` raises :class:`~raft_tpu_torch.core.error.LogicError`: it comes
+with the durability slice (ROADMAP A.5).
 """
 
 from __future__ import annotations
@@ -74,8 +82,8 @@ class SearchResult:
 
     ``coverage`` is all-ones on healthy serves; under degraded sharded
     serving it is the per-query fraction of candidate rows searched, and
-    ``degraded`` flags that a live mask was applied. ``hedged`` stays
-    False (hedging waits for ROADMAP A.4c). The degradation-ladder
+    ``degraded`` flags that a live mask was applied. ``hedged`` flags
+    that the answer came from a hedged re-dispatch. The degradation-ladder
     fields: ``quality`` is the served-quality class
     ("full" — the configured n_probes; "reduced" — a middle ladder rung;
     "brownout" — the deepest rung), ``degrade_reason`` names what forced
@@ -132,9 +140,9 @@ class Searcher:
                 "(ROADMAP A.4)")
         expects(wal is None, "a MutationLog waits for the durability slice "
                 "(ROADMAP A.5)")
-        expects(hedge is None, "hedged replica dispatch is a per-rank "
-                "timing decision the ranks must agree on before any "
-                "re-dispatches; it waits for ROADMAP A.4c")
+        expects(hedge is None or health is not None,
+                "hedging needs a sharded searcher with a ShardHealth "
+                "(ROADMAP A.4): the hedge re-routes around SUSPECT shards")
         expects(dispatch_hook is None or mesh is not None,
                 "dispatch_hook observes the routed dispatches of a sharded "
                 "searcher (ROADMAP A.4)")
@@ -144,11 +152,6 @@ class Searcher:
             from raft_tpu_torch.parallel.knn import _check_mesh
 
             _check_mesh(mesh)
-            # A sharded search is a sequence of collectives: a rank that
-            # retried alone would re-enter the first of them while the
-            # others wait in a later one.
-            expects(retry is None, "a sharded retry needs the ranks to "
-                    "agree on a failure and waits for ROADMAP A.4c")
             expects(kind != "ivf_flat" or isinstance(index, ShardedIvfFlat),
                     "a sharded IVF-Flat searcher takes a ShardedIvfFlat")
             expects(kind != "ivf_pq" or isinstance(index, ShardedIvfPq),
@@ -164,8 +167,18 @@ class Searcher:
         self.writable = writable
         self._dispatch_hook = dispatch_hook
         from raft_tpu_torch.serve.hedge import HedgeStats
+        from raft_tpu_torch.serve.stats import ServeStats
 
+        self.hedge = hedge
         self.hedge_stats = HedgeStats()
+        # Per-dispatch-shape latency windows, the hedge budget's evidence
+        # (apart from a scheduler's ServeStats, whose windows include
+        # queueing).
+        self._dispatch_stats = ServeStats()
+        # The BatchScheduler front rank serving this sharded searcher on
+        # this process, if any (its command channel carries the
+        # Compactor daemon's passes).
+        self._front = None
         self._sleep = sleep
         self._monotonic = monotonic
         self._params = search_params
@@ -348,7 +361,14 @@ class Searcher:
         replicated lists off SUSPECT ranks (rank 0's mask: rank 0 plans)
         and, after each dispatch, hands the plan's participating ranks to
         ``dispatch_hook`` and the dispatch's wall time to
-        ``health.observe_latency`` of each of them.
+        ``health.observe_latency`` of each of them; with a ``hedge``
+        policy, a dispatch that outlived its budget is hedged
+        (:meth:`_maybe_hedge`).
+
+        On a sharded searcher ``retry`` is agreed: after each attempt the
+        ranks agree on its outcome (``comms/agree.with_agreed_retry``),
+        so they retry together under the same backoff or all raise the
+        original exception type.
 
         ``n_probes`` overrides the configured probe count for THIS call
         (IVF kinds) — the degradation ladder's knob
@@ -393,17 +413,31 @@ class Searcher:
                                   suspect=suspect,
                                   plan_cb=plan_box.append if track else None)
 
+        hedged = False
         with sp.child("device_dispatch", kind=self.kind,
                       engine=self.merge_engine,
                       sharded=self.mesh is not None) as dd:
             t0 = self._monotonic()
-            if self.retry is not None:
+            if self.retry is not None and self.mesh is not None:
+                from raft_tpu_torch.comms.agree import with_agreed_retry
+                from raft_tpu_torch.comms.comms import Comms
+
+                out = with_agreed_retry(attempt, self.retry,
+                                        Comms(self.mesh), sleep=self._sleep,
+                                        monotonic=self._monotonic)
+            elif self.retry is not None:
                 out = with_retry(attempt, self.retry, sleep=self._sleep,
                                  monotonic=self._monotonic)
             else:
                 out = attempt()
             if track and plan_box:
-                self._after_dispatch(plan_box[-1], t0)
+                ranks, elapsed = self._after_dispatch(plan_box[-1], t0)
+                if self.hedge is not None and self.health is not None:
+                    out, hedged, elapsed = self._maybe_hedge(
+                        out, q, k, live, params, valid_rows, suspect, ranks,
+                        elapsed)
+                self._dispatch_stats.observe_latency(
+                    (int(q.shape[0]), int(k)), elapsed)
             if dd.recording and self.device.type == "cuda":
                 # Fence so the span closes when the DEVICE finishes, not
                 # when the launches were enqueued.
@@ -412,9 +446,10 @@ class Searcher:
             host = [t.cpu().numpy() for t in out]
         if len(host) == 3:
             d, i, cov = host
-            return SearchResult(d, i, cov, degraded=True)
+            return SearchResult(d, i, cov, degraded=True, hedged=hedged)
         d, i = host
-        return SearchResult(d, i, np.ones(q.shape[0], np.float32))
+        return SearchResult(d, i, np.ones(q.shape[0], np.float32),
+                            hedged=hedged)
 
     def _after_dispatch(self, plan, t0: float):
         """Health plumbing of one routed dispatch: the plan's
@@ -433,11 +468,107 @@ class Searcher:
                 self.health.observe_latency(int(r), elapsed)
         return ranks, elapsed
 
+    def _maybe_hedge(self, out, q, k: int, live, params, valid_rows,
+                     suspect, ranks, elapsed: float):
+        """The hedge decision for one completed routed dispatch: when the
+        elapsed time outlived the per-bucket budget AND a participant has
+        newly gone suspect, re-dispatch with the fresh suspect mask
+        (every replicated list steers onto its healthy copy) and serve
+        the faster answer by the clock. Collective: rank 0's clock,
+        budget and suspect mask decide, and rank 0's clock picks the
+        answer (two broadcasts), so ``hedged`` and ``hedge_stats`` are
+        the same on every rank. Returns ``(result, hedged, elapsed of the
+        served answer)``, the elapsed time rank 0's."""
+        from raft_tpu_torch.comms.comms import Comms
+
+        comms = Comms(self.mesh)
+        n = self.health.n_ranks
+        head = torch.zeros(2 + n, dtype=torch.float64)
+        if comms.get_rank() == 0:
+            budget = self.hedge.budget(self._dispatch_stats.latency_quantile(
+                (int(q.shape[0]), int(k)), self.hedge.quantile,
+                min_samples=self.hedge.min_samples))
+            now = self.health.suspect_mask
+            code = 0                       # within budget
+            if budget is not None and elapsed > budget:
+                prev = (np.asarray(suspect, bool) if suspect is not None
+                        else np.zeros(n, bool))
+                # Over budget: hedge only with a NEW suspect participant
+                # to steer around; else re-planning repeats the route.
+                code = 2 if any(now[int(r)] and not prev[int(r)]
+                                for r in ranks) else 1
+            head = torch.as_tensor(np.concatenate(
+                [[code, elapsed], now.astype(np.float64)]))
+        head = comms.bcast(head).numpy()
+        code, elapsed = int(head[0]), float(head[1])
+        if code == 0:
+            return out, False, elapsed
+        if code == 1:
+            self.hedge_stats.record(suppressed=True)
+            return out, False, elapsed
+        self.hedge_stats.record(fired=True)
+        plan_box: list = []
+        t1 = self._monotonic()
+        out2 = self._dispatch(q, k, params, live, valid_rows=valid_rows,
+                              suspect=head[2:] > 0.5,
+                              plan_cb=plan_box.append)
+        elapsed2 = elapsed
+        if plan_box:
+            _, elapsed2 = self._after_dispatch(plan_box[-1], t1)
+        won, elapsed2 = (float(v) for v in comms.bcast(torch.tensor(
+            [float(elapsed2 < elapsed), elapsed2], dtype=torch.float64)))
+        if won:
+            self.hedge_stats.record(won=True)
+            return out2, True, elapsed2
+        return out, True, elapsed
+
     def shadow_probe(self, rank: int, queries, k: int) -> float:
-        """Probe a dead or suspect shard off the hot path, the recovery
-        prober's tool: waits for ROADMAP A.4c."""
-        expects(False, "shadow_probe and the recovery prober wait for "
-                "ROADMAP A.4c")
+        """One off-the-hot-path probe of a dead or suspect rank, the
+        recovery prober's tool: the degraded search with ``rank`` forced
+        live in (rank 0's) live mask, under suppressed merge and routing
+        telemetry (shadow traffic must not skew the serving scrapes or the
+        placement balancer's loads). Its latency does not feed
+        ``health.observe_latency``: the candidate's slowness is the
+        prober's verdict to make. ``dispatch_hook`` sees the plan's
+        participants and the probed rank. Collective: a failure on any
+        rank raises the same error on every rank, and the return value is
+        rank 0's elapsed seconds on its injected clock."""
+        expects(self.health is not None and self.mesh is not None,
+                "shadow_probe needs a sharded searcher with a ShardHealth "
+                "(ROADMAP A.4)")
+        from raft_tpu_torch.comms.agree import agreed
+        from raft_tpu_torch.comms.comms import Comms
+        from raft_tpu_torch.comms.topk_merge import merge_dispatch_stats
+        from raft_tpu_torch.parallel.degraded import check_live_mask
+        from raft_tpu_torch.parallel.routing import (participant_ranks,
+                                                     routing_stats)
+
+        comms = Comms(self.mesh)
+        q = self._queries(queries)
+        expects(q.ndim == 2 and q.shape[1] == self.dim,
+                "probe queries must be (n, %s), got %s", self.dim,
+                tuple(q.shape))
+        live = check_live_mask(self.health.live_mask, comms)
+        live[int(rank)] = True
+        plan_box: list = []
+        t0 = self._monotonic()
+        with agreed(comms):
+            with merge_dispatch_stats.suppress(), routing_stats.suppress():
+                self._dispatch(q, k, self._params, live,
+                               plan_cb=plan_box.append if self._is_routed()
+                               else None)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            if self._dispatch_hook is not None:
+                ranks = (participant_ranks(plan_box[-1]) if plan_box
+                         else np.arange(self.health.n_ranks))
+                # The probed rank always counts: a delay scripted against
+                # it must slow the probe even when the plan routed every
+                # query elsewhere, or a vacuous probe would read clean.
+                self._dispatch_hook(np.union1d(ranks, [int(rank)]))
+        elapsed = self._monotonic() - t0
+        return float(comms.bcast(torch.tensor([elapsed],
+                                              dtype=torch.float64))[0])
 
     # -- lifecycle ---------------------------------------------------------
     def extend(self, new_vectors, new_indices=None) -> None:
@@ -549,7 +680,8 @@ class Searcher:
         :class:`~raft_tpu_torch.lifecycle.compact.CompactionReport`, or
         None when there was nothing to do. ``pre_publish`` runs after the
         successor is built, before the swap (a fault there publishes
-        nothing)."""
+        nothing; on a sharded searcher, nothing on any rank). The
+        health's live mask gates the placement balancer."""
         expects(self.kind != "brute_force",
                 "compact applies to IVF indexes (brute-force holds no "
                 "tombstones)")
@@ -559,11 +691,21 @@ class Searcher:
 
         policy = policy or CompactionPolicy()
         with self._lock:
-            new, report = _compact(self._index, policy, mesh=self.mesh)
+            # Liveness gates the placement balancer (a re-balance must not
+            # assign lists onto a dead rank).
+            live = (self.health.live_mask if self.health is not None
+                    else None)
+            new, report = _compact(self._index, policy, mesh=self.mesh,
+                                   live_mask=live)
             if report is None:
                 return None
-            if pre_publish is not None:
-                pre_publish()
+            from raft_tpu_torch.comms.agree import agreed
+            from raft_tpu_torch.comms.comms import Comms
+
+            # A fault on any rank publishes nothing on every rank.
+            with agreed(None if self.mesh is None else Comms(self.mesh)):
+                if pre_publish is not None:
+                    pre_publish()
             self._index = new
         self._published()
         return report

@@ -40,7 +40,8 @@ def test_module_list_covers_the_slice():
                  "serve.hedge", "serve.scheduler", "serve.searcher",
                  "serve.stats", "util.telemetry", "comms.comms",
                  "comms.comms_test", "comms.health", "parallel.degraded",
-                 "parallel.knn", "parallel.kmeans", "parallel.ivf"):
+                 "parallel.knn", "parallel.kmeans", "parallel.ivf",
+                 "util.atomic_io", "comms.agree", "serve.recovery"):
         assert f"raft_tpu_torch.{name}" in _MODULES
 
 

@@ -1258,3 +1258,50 @@ def test_sharded_ivf_pq_world_of_one_equals_the_single_card_search(
     same_up_to_exact_ties("sharded IVF-PQ Searcher",
                           torch.as_tensor(res.distances),
                           torch.as_tensor(res.indices), sd.cpu(), si.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["row", "list"])
+@pytest.mark.parametrize("kind", ["flat", "pq"])
+def test_sharded_save_load_and_compact_world_of_one(
+        nccl_mesh, dev, gen, tmp_path, kind, placement):
+    """A sharded index with tombstones saved and loaded over a NCCL world
+    of one answers as before, bit for bit (B2 / B4 on the loaded
+    tensors), and a shrink_capacity compaction of the loaded index
+    answers as the tombstoned one."""
+    from raft_tpu_torch import parallel
+
+    X, Q = _on(dev, int_data(gen, (8192, 16), hi=4),
+               int_data(gen, (512, 16), hi=4))
+    if kind == "flat":
+        index = parallel.sharded_ivf_flat_build(
+            nccl_mesh, ivf_flat.IndexParams(n_lists=16), X,
+            centers=X[::512][:16].clone(), placement=placement)
+        sp = ivf_flat.SearchParams(n_probes=5, engine="bucketed")
+        search, kernel = parallel.sharded_ivf_flat_search, fk.fused_cells_knn
+    else:
+        params = ivf_pq.IndexParams(n_lists=16, pq_dim=8, kmeans_n_iters=4,
+                                    add_data_on_build=False)
+        index = parallel.sharded_ivf_pq_build(
+            nccl_mesh, params, X, model=ivf_pq.build(params, X),
+            placement=placement)
+        sp = ivf_pq.SearchParams(n_probes=5, engine="bucketed")
+        search, kernel = parallel.sharded_ivf_pq_search, ps.pq_fused_scan
+    assert lc.delete(index, np.arange(0, 8192, 3), mesh=nccl_mesh) == 2731
+    before = kernel.launches
+    d0, i0 = search(nccl_mesh, sp, index, Q, 10)
+    base = str(tmp_path / "snap")
+    parallel.sharded_ivf_save(nccl_mesh, base, index)
+    assert parallel.verify_sharded_manifest(base) == index.epoch
+    loaded = parallel.sharded_ivf_load(nccl_mesh, base)
+    assert loaded.indices.is_cuda and loaded.n_deleted == 2731
+    d1, i1 = search(nccl_mesh, sp, loaded, Q, 10)
+    np.testing.assert_array_equal(n(i1), n(i0))
+    np.testing.assert_array_equal(n(d1), n(d0))
+    new, report = lc.compact(loaded, lc.CompactionPolicy(
+        shrink_capacity=True), mesh=nccl_mesh)
+    assert report.reclaimed_slots == 2731 and report.live_rows == 8192 - 2731
+    assert new.indices.shape[1] < loaded.indices.shape[1]
+    d2, i2 = search(nccl_mesh, sp, new, Q, 10)
+    same_up_to_exact_ties(f"compacted {kind} ({placement})", d2, i2, d0, i0)
+    assert kernel.launches >= before + 3

@@ -13,6 +13,8 @@ bar for both tiers), ties included. The port's pipelined engines are held
 to the reference's ``allgather`` result (ROADMAP C.4).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -124,6 +126,19 @@ def ref_steps(n_dev, kind, X, model, Q, k, steps, placement="list"):
                          jmerge_stats.snapshot(),
                          jpar.routing_stats.list_loads(
                              index.placement_map)))
+        elif op == "compact":
+            index, report = jlc.compact(
+                index, jlc.CompactionPolicy(**step[1]), mesh=mesh,
+                live_mask=step[2])
+            outs.append(None if report is None
+                        else dataclasses.astuple(report))
+        elif op == "save":
+            jpar.sharded_ivf_save(step[1], index)
+            outs.append(jpar.verify_sharded_manifest(step[1]))
+        elif op == "load":
+            index = jpar.sharded_ivf_load(mesh, step[1])
+            outs.append(None if index.placement_map is None
+                        else _placement_arrays(index))
         else:
             outs.append(jpar.sharded_routed_warmup(
                 mesh, _ref_params(kind, "auto", step[2]), index, step[1],

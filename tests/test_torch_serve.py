@@ -119,7 +119,7 @@ def _same_result(res, jres, rtol=0.0):
 
 
 def test_exports_match_reference():
-    assert set(serve.__all__) == set(jserve.__all__) - {"RecoveryProber"}
+    assert set(serve.__all__) == set(jserve.__all__)
     assert all(hasattr(serve, name) for name in serve.__all__)
     assert "Compactor" in lc.__all__ and lc.Compactor is not None
 

@@ -10,6 +10,7 @@ gives the mesh of ranks ``[0, n)`` (None on the other ranks), which lets
 one world of 4 run the 1-, 2-, 3- and 4-rank cases.
 """
 
+import dataclasses
 import multiprocessing as mp
 import queue
 import traceback
@@ -273,7 +274,11 @@ def case_sharded_steps(n: int, kind: str, X, model, Q, k: int, steps,
     * ("replicate", list_ids, live), ("migrate", new_owner, live) (the
       successor replaces the index; migrate reports its count);
     * ("placement",), ("stats",) (routing and merge telemetry, reset
-      before the build and by ("reset",)), ("warmup", n_queries, n_probes).
+      before the build and by ("reset",)), ("warmup", n_queries, n_probes);
+    * ("compact", policy keywords, live): a compaction pass (its report
+      as a tuple, or None), the successor replaces the index;
+    * ("save", basename) (the manifest's epoch), ("load", basename) (the
+      loaded index replaces the index; its placement arrays or None).
 
     Each step appends its output and the index's (size, n_deleted,
     epoch)."""
@@ -335,6 +340,19 @@ def case_sharded_steps(n: int, kind: str, X, model, Q, k: int, steps,
             snap = routing_stats.snapshot()
             outs.append((snap, merge_dispatch_stats.snapshot(),
                          routing_stats.list_loads(index.placement_map)))
+        elif op == "compact":
+            index, report = lifecycle.compact(
+                index, lifecycle.CompactionPolicy(**step[1]), mesh=mesh,
+                live_mask=step[2])
+            outs.append(None if report is None
+                        else dataclasses.astuple(report))
+        elif op == "save":
+            parallel.sharded_ivf_save(mesh, step[1], index)
+            outs.append(parallel.verify_sharded_manifest(step[1]))
+        elif op == "load":
+            index = parallel.sharded_ivf_load(mesh, step[1])
+            outs.append(None if index.placement_map is None
+                        else _placement_arrays(index))
         else:
             outs.append(parallel.sharded_routed_warmup(
                 mesh, _search_params(kind, "auto", step[2]), index, step[1],
@@ -501,10 +519,12 @@ def case_searcher(n: int, kind: str, X, centers, Q, k: int, dead, steps,
     return outs
 
 
-def case_refusals(n: int):
-    """The LogicErrors of what waits for the sharding slice's third part
-    (ROADMAP A.4c)."""
+def case_refusals(n: int, base: str):
+    """Every arm that waited for the sharding slice's third part (ROADMAP
+    A.4c), driven once on a sharded mesh: the LogicError each raises, or
+    None (none should raise now)."""
     from raft_tpu_torch import lifecycle, parallel, serve
+    from raft_tpu_torch.comms.health import ShardHealth
     from raft_tpu_torch.core.error import LogicError
     from raft_tpu_torch.core.retry import RetryPolicy
     from raft_tpu_torch.neighbors import ivf_flat
@@ -515,23 +535,31 @@ def case_refusals(n: int):
         return None
     X = np.arange(64 * 4, dtype=np.float32).reshape(64, 4) % 7
     index = _flat_build(mesh, X, 4, X[:4])
+    bf = serve.Searcher.brute_force(X, mesh=mesh, health=ShardHealth(n))
+
+    def schedule():
+        if mesh.rank:
+            serve.BatchScheduler.follow(bf)
+            return
+        sched = serve.BatchScheduler(bf, serve.BucketGrid.pow2(4),
+                                     serve.BatchPolicy(max_batch=4))
+        sched.submit(X[:2], 3)
+        sched.close()
+
     msgs = []
     for fn in (
-            lambda: parallel.sharded_ivf_save("index", index),
-            lambda: parallel.sharded_ivf_load(mesh, "index"),
-            lambda: parallel.verify_sharded_manifest("index"),
+            lambda: parallel.sharded_ivf_save(mesh, base, index),
+            lambda: parallel.sharded_ivf_load(mesh, base),
+            lambda: parallel.verify_sharded_manifest(base),
             lambda: lifecycle.CompactionPolicy(balance_placement=1.5),
-            lambda: RecoveryProber(None, None, X[:2]),
+            lambda: RecoveryProber(bf, bf.health, X[:2]).step(),
             lambda: serve.Searcher.ivf_flat(
                 index, ivf_flat.SearchParams(), mesh=mesh,
-                hedge=serve.HedgePolicy()),
-            lambda: serve.Searcher.brute_force(X, mesh=mesh,
-                                               retry=RetryPolicy()),
-            lambda: serve.Searcher.brute_force(X, mesh=mesh).shadow_probe(
-                0, X[:2], 3),
-            lambda: serve.BatchScheduler(
-                serve.Searcher.brute_force(X, mesh=mesh),
-                serve.BucketGrid.pow2(4)),
+                health=ShardHealth(n), hedge=serve.HedgePolicy()),
+            lambda: serve.Searcher.brute_force(
+                X, mesh=mesh, retry=RetryPolicy()).search(X[:2], 3),
+            lambda: bf.shadow_probe(0, X[:2], 3),
+            schedule,
             lambda: lifecycle.compact(index, mesh=mesh)):
         try:
             fn()
@@ -539,6 +567,422 @@ def case_refusals(n: int):
         except LogicError as e:
             msgs.append(str(e))
     return msgs
+
+
+# ---------------------------------------------------------------------------
+# The operations layer (ROADMAP A.4c): snapshots, compaction, agreed retry,
+# hedging, recovery, the scheduler's front rank.
+
+
+class InjectedFault(OSError):
+    """A scripted transient fault (an OSError, so it retries)."""
+
+
+class FakeClock:
+    """An injected clock whose sleeps advance it (and are recorded)."""
+
+    def __init__(self):
+        self.now = 0.0
+        self.sleeps = []
+
+    def __call__(self):
+        return self.now
+
+    def monotonic(self):
+        return self.now
+
+    def sleep(self, s):
+        self.sleeps.append(s)
+        self.now += s
+
+    def advance(self, dt):
+        self.now += dt
+
+
+class StragglerHook:
+    """A dispatch hook: every dispatch costs ``service`` on the clock, and
+    a scripted delay ``(victim, seconds, at)`` adds ``seconds`` to the
+    calls (indexes in ``at``; None = every call) whose participants
+    include ``victim``."""
+
+    def __init__(self, clock, service):
+        self.clock, self.service = clock, service
+        self.calls = 0
+        self.fault = None
+
+    def __call__(self, ranks):
+        self.clock.sleep(self.service)
+        idx, self.calls = self.calls, self.calls + 1
+        if self.fault is not None:
+            victim, seconds, at = self.fault
+            if (at is None or idx in at) and victim in {
+                    int(r) for r in np.asarray(ranks).reshape(-1)}:
+                self.clock.sleep(seconds)
+
+
+class TornWrite:
+    """``FileIO.write_bytes`` that writes the first ``offset`` bytes of
+    its ``at``-th call's payload and raises (a power loss mid-write);
+    with ``offset`` None that call raises before writing."""
+
+    def __init__(self, at: int, offset=None):
+        self.at, self.offset, self.calls = at, offset, 0
+
+    def __call__(self, f, data):
+        idx, self.calls = self.calls, self.calls + 1
+        if idx == self.at:
+            if self.offset is not None:
+                f.write(bytes(data)[:self.offset])
+                f.flush()
+            raise InjectedFault(f"torn write at call {idx}")
+        f.write(data)
+
+
+def _error(fn):
+    """``(type name, text)`` of what ``fn()`` raises, or None."""
+    try:
+        fn()
+    except Exception as e:       # noqa: BLE001 - the outcome is the case
+        return type(e).__name__, str(e)
+    return None
+
+
+def case_snapshot_faults(n: int, base: str, fault: str):
+    """A row-placed IVF-Flat saved at ``base`` on ranks [0, n), then one
+    fault and a load: "version" (model version 42), "shards" (a load
+    onto ranks [0, 2)), "missing" (shard 3 removed, manifest kept),
+    "missing_legacy" (and the manifest removed), "dtype" (shard 2's ids
+    re-saved as int64, manifest removed), "size" / "crc" (shard 2 grown
+    by a byte / a byte flipped), "torn" (rank 2's writes torn at byte 64
+    on a fresh base), "rename" (rank 3's rename dropped), "retry" (rank
+    1's first write fails, ``retry=`` rides it out). Returns each rank's
+    (type, text) of the error, or for "retry" the loaded index's size."""
+    import os
+
+    import torch.distributed as dist
+
+    from raft_tpu_torch import parallel
+    from raft_tpu_torch.comms.comms import Comms
+    from raft_tpu_torch.core.retry import RetryPolicy
+    from raft_tpu_torch.util.atomic_io import FileIO
+
+    mesh = sub_mesh(n)
+    if mesh is None:
+        return None
+    X = np.arange(256 * 8, dtype=np.float32).reshape(256, 8) % 13
+    index = _flat_build(mesh, X, 8, X[::32][:8])
+    rank = mesh.rank
+    if fault in ("torn", "rename", "retry"):
+        io = FileIO()
+        if fault == "torn" and rank == 2:
+            io = FileIO(write_bytes=TornWrite(0, offset=64))
+        elif fault == "rename" and rank == 3:
+            def drop(src, dst):
+                raise InjectedFault("rename dropped")
+            io = FileIO(replace=drop)
+        elif fault == "retry" and rank == 1:
+            io = FileIO(write_bytes=TornWrite(0))
+        retry = (RetryPolicy(max_attempts=3, base_delay=0.0)
+                 if fault == "retry" else None)
+        err = _error(lambda: parallel.sharded_ivf_save(
+            mesh, base, index, retry=retry, file_io=io))
+        if fault == "retry":
+            assert err is None, err
+            return parallel.sharded_ivf_load(mesh, base).size
+        Comms(mesh).barrier()
+        left = sorted(os.path.basename(f) for f in os.listdir(
+            os.path.dirname(base)))
+        return err, left, _error(lambda: parallel.sharded_ivf_load(mesh,
+                                                                   base))
+    parallel.sharded_ivf_save(mesh, base, index)
+    if rank == 0:
+        if fault == "version":
+            with np.load(f"{base}.model.npz") as z:
+                payload = {k: z[k] for k in z.files}
+            payload["version"] = np.int64(42)
+            np.savez(f"{base}.model.npz", **payload)
+            os.remove(f"{base}.manifest.npz")
+        elif fault.startswith("missing"):
+            os.remove(f"{base}.shard3.npz")
+            if fault == "missing_legacy":
+                os.remove(f"{base}.manifest.npz")
+        elif fault == "dtype":
+            with np.load(f"{base}.shard2.npz") as z:
+                payload = {k: z[k] for k in z.files}
+            payload["indices"] = payload["indices"].astype(np.int64)
+            np.savez(f"{base}.shard2.npz", **payload)
+            os.remove(f"{base}.manifest.npz")
+        elif fault in ("size", "crc"):
+            path = f"{base}.shard2.npz"
+            raw = bytearray(open(path, "rb").read())
+            if fault == "size":
+                raw += b"\x00"
+            else:
+                raw[len(raw) // 2] ^= 0xFF
+            open(path, "wb").write(bytes(raw))
+    Comms(mesh).barrier()
+    if fault == "shards":
+        m2 = sub_mesh(2) if rank < 2 else None
+        if m2 is None:
+            dist.barrier(group=mesh.group)
+            return None
+        err = _error(lambda: parallel.sharded_ivf_load(m2, base))
+        dist.barrier(group=mesh.group)
+        return err
+    return _error(lambda: parallel.sharded_ivf_load(mesh, base))
+
+
+def _list_index(mesh, X, centers, k_owner=None, replicate=()):
+    """A list-placed IVF-Flat on ``centers`` (8 lists), its lists moved to
+    ``k_owner`` (an owner array) and ``replicate`` lists replicated."""
+    from raft_tpu_torch import parallel
+
+    index = _flat_build(mesh, X, len(centers), centers, placement="list")
+    if k_owner is not None:
+        index, _ = parallel.sharded_migrate_lists(mesh, index, k_owner)
+    if len(replicate):
+        index = parallel.sharded_replicate_lists(mesh, index, replicate)
+    return index
+
+
+def case_compactor(n: int, X, centers, Q, k: int, del_ids):
+    """The Compactor over a sharded routed Searcher: every list on rank 0,
+    one search of traffic, a balance-only policy fires from its own
+    trigger (report, and None on the next tick: edge-armed); then
+    ``del_ids`` deleted and a pass whose ``pre_publish`` fails on rank 2
+    only (every rank raises, no rank publishes), then a clean pass.
+    Returns the reports, the errors, epochs and the searches."""
+    from raft_tpu_torch import lifecycle
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.parallel.routing import routing_stats
+    from raft_tpu_torch.serve import Searcher
+
+    mesh = sub_mesh(n)
+    if mesh is None:
+        return None
+    index = _list_index(mesh, X, centers, np.zeros(len(centers), np.int64))
+    s = Searcher.ivf_flat(index, ivf_flat.SearchParams(n_probes=3),
+                          mesh=mesh)
+    routing_stats.reset()
+    before = s.search(Q, k)
+    comp = lifecycle.Compactor(s, lifecycle.CompactionPolicy(
+        balance_placement=1.5))
+    rep = comp.run_once()
+    again = comp.run_once()
+    after = s.search(Q, k)
+    owners = s._index.placement_map.owner
+    n_del = s.delete(del_ids)
+
+    def boom():
+        if mesh.rank == 2:
+            raise InjectedFault("pre_publish fault")
+
+    epoch = s.epoch
+    faulted = _error(lambda: s.compact(lifecycle.CompactionPolicy(
+        shrink_capacity=True), pre_publish=boom))
+    kept = s.epoch == epoch and s._index.n_deleted == len(del_ids)
+    rep2 = s.compact(lifecycle.CompactionPolicy(shrink_capacity=True))
+    compacted = s.search(Q, k)
+    return (dataclasses.astuple(rep), again, comp.last_should_run, owners,
+            (before.distances, before.indices),
+            (after.distances, after.indices), n_del, faulted, kept,
+            dataclasses.astuple(rep2),
+            (compacted.distances, compacted.indices), s.epoch)
+
+
+def case_retry(n: int, X, Q, k: int, fails: int, attempts: int):
+    """A sharded brute-force Searcher with ``RetryPolicy(attempts)``
+    whose rank 2 loses its result ``fails`` times (its dispatch runs, then
+    raises). Returns the answer or the error, and every rank's sleeps."""
+    from raft_tpu_torch.core.retry import RetryPolicy
+    from raft_tpu_torch.serve import Searcher
+
+    mesh = sub_mesh(n)
+    if mesh is None:
+        return None
+    clock = FakeClock()
+    s = Searcher.brute_force(X, mesh=mesh, retry=RetryPolicy(
+        max_attempts=attempts, base_delay=0.01), sleep=clock.sleep,
+        monotonic=clock.monotonic)
+    left = {"n": fails if mesh.rank == 2 else 0}
+    real = s._dispatch
+
+    def flaky(*a, **kw):
+        out = real(*a, **kw)
+        if left["n"]:
+            left["n"] -= 1
+            raise InjectedFault("result lost")
+        return out
+
+    s._dispatch = flaky
+    try:
+        res = s.search(Q, k)
+        return (res.distances, res.indices), clock.sleeps
+    except Exception as e:       # noqa: BLE001 - the outcome is the case
+        return (type(e).__name__, str(e)), clock.sleeps
+
+
+def _straggler_searcher(mesh, X, centers, victim, service, hedged):
+    from raft_tpu_torch import parallel
+    from raft_tpu_torch.comms.health import LatencyPolicy, ShardHealth
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.serve import HedgePolicy, Searcher
+
+    base = _list_index(mesh, X, centers)
+    pm = base.placement_map
+    index = parallel.sharded_replicate_lists(
+        mesh, base, np.flatnonzero(pm.owner == victim))
+    clock = FakeClock()
+    hook = StragglerHook(clock, service)
+    kw = dict(mesh=mesh, dispatch_hook=hook, monotonic=clock.monotonic)
+    health = None
+    if hedged:
+        health = ShardHealth(mesh.size, latency=LatencyPolicy(
+            alpha=0.25, window=8, quantile=0.9, multiplier=3.0,
+            min_samples=4))
+        kw.update(health=health, hedge=HedgePolicy(
+            quantile=0.9, multiplier=2.0, min_samples=4))
+    s = Searcher.ivf_flat(index, ivf_flat.SearchParams(n_probes=1), **kw)
+    return s, health, clock, hook
+
+
+def case_straggler(n: int, X, centers, victim: int, service: float,
+                   warm, stream, k: int, hedged: bool):
+    """The reference's hedged-straggler stream: ``warm`` searches, then a
+    delay of 10 x ``service`` scripted on every dispatch that touches
+    ``victim`` (whose lists are replicated), then ``stream``. Returns the
+    latencies on the injected clock, each answer's ids and hedged flag,
+    the minimum coverage, the hedge counters and the health's view."""
+    mesh = sub_mesh(n)
+    if mesh is None:
+        return None
+    s, health, clock, hook = _straggler_searcher(mesh, X, centers, victim,
+                                                 service, hedged)
+    for q in warm:
+        s.search(q, k)
+    hook.fault = (victim, 10 * service, None)
+    lats, hedged_flags, ids, cov = [], [], [], 1.0
+    for q in stream:
+        t0 = clock.monotonic()
+        out = s.search(q, k)
+        lats.append(clock.monotonic() - t0)
+        hedged_flags.append(out.hedged)
+        ids.append(out.indices)
+        cov = min(cov, float(out.coverage.min()))
+    view = None if health is None else (health.suspect_mask,
+                                        health.live_mask)
+    return (np.asarray(lats), hedged_flags, ids, cov,
+            s.hedge_stats.snapshot(), view)
+
+
+def case_recovery(n: int, X, centers, victim: int, service: float, probe_q,
+                  k: int):
+    """The reference's breaker on the routed searcher: ``victim`` dead, a
+    slow probe scripted at the second probe; five steps of a
+    RecoveryProber (clean_threshold 3, budget 5 x ``service``). Returns
+    each step's re-admissions and breaker state, the snapshot, the
+    health's state and whether a latency was recorded for the victim."""
+    from raft_tpu_torch.serve import RecoveryProber
+
+    mesh = sub_mesh(n)
+    if mesh is None:
+        return None
+    s, health, clock, hook = _straggler_searcher(mesh, X, centers, victim,
+                                                 service, True)
+    health.mark_dead(victim)
+    prober = RecoveryProber(s, health, probe_q, k, clean_threshold=3,
+                            budget=5 * service)
+    hook.fault = (victim, 10 * service, (1,))
+    steps = []
+    for _ in range(5):
+        steps.append((prober.step(), prober.state(victim)))
+    snap = prober.snapshot()
+    prober.close()
+    return (steps, snap, health.state(victim),
+            bool(np.isnan(health.latency_ewma(victim))))
+
+
+def drive_stream(mod, searcher, reqs, clock):
+    """One request stream through ``mod``'s BatchScheduler (either
+    package): submits with deadlines and priorities, pumps as the clock
+    advances, sheds at a small queue bound. Returns the events, each
+    ticket's answer (or error name), the stats and cache snapshots."""
+    sched = mod.BatchScheduler(
+        searcher, mod.BucketGrid.pow2(8, k_grid=(5, 10)),
+        mod.BatchPolicy(max_batch=8, max_wait=0.01, max_queue=3),
+        cache=mod.ResultCache(16), stats=mod.ServeStats(), clock=clock)
+    tickets, events = [], []
+    for i, (q, k) in enumerate(reqs):
+        deadline = clock() + 0.03 if i % 4 == 0 else None
+        try:
+            tickets.append(sched.submit(q, k, deadline=deadline,
+                                        priority=i % 3))
+            events.append("ok")
+        except Exception as err:         # noqa: BLE001 - the outcome
+            events.append(type(err).__name__)
+        clock.advance(0.004)
+        if i % 4 == 3:
+            events.append(sched.pump())
+    sched.run_until_idle()
+    results = []
+    for tk in tickets:
+        try:
+            r = tk.result()
+            results.append((np.asarray(r.distances), np.asarray(r.indices),
+                            np.asarray(r.coverage), r.degraded, r.hedged,
+                            r.quality))
+        except Exception as err:         # noqa: BLE001 - the outcome
+            results.append(type(err).__name__)
+    sched.close()
+    return (events, results, sched.stats.snapshot(), sched.cache.snapshot())
+
+
+def case_scheduler(n: int, kind: str, X, centers, reqs, del_ids):
+    """A BatchScheduler on rank 0 over a sharded Searcher (brute force or
+    list-placed IVF-Flat), the other ranks following: rank 0 returns
+    :func:`drive_stream`'s outputs and each request's unbatched sharded
+    answer, the followers their batch counts. IVF-Flat then deletes
+    ``del_ids`` and runs a Compactor daemon whose pass goes through the
+    command channel: rank 0 returns its pass count, every rank its epoch
+    and tombstone count."""
+    import threading
+
+    from raft_tpu_torch import lifecycle, serve
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    mesh = sub_mesh(n)
+    if mesh is None:
+        return None
+    if kind == "brute_force":
+        s = serve.Searcher.brute_force(X, mesh=mesh)
+    else:
+        s = serve.Searcher.ivf_flat(_list_index(mesh, X, centers),
+                                    ivf_flat.SearchParams(n_probes=3),
+                                    mesh=mesh)
+    if mesh.rank:
+        out = serve.BatchScheduler.follow(s)
+    else:
+        out = drive_stream(serve, s, reqs, FakeClock())
+    direct = [s.search(q, k).indices for q, k in reqs]
+    if kind == "brute_force":
+        return out, direct
+    s.delete(del_ids)
+    gate = threading.Event()
+    comp = lifecycle.Compactor(s, lifecycle.CompactionPolicy(
+        trigger_frac=0.01), sleep=lambda _t: gate.wait(10))
+    if mesh.rank:
+        serve.BatchScheduler.follow(s)
+    else:
+        sched = serve.BatchScheduler(s, serve.BucketGrid.pow2(8),
+                                     serve.BatchPolicy(max_batch=8))
+        comp.start()
+        while sched._pass is None:
+            gate.wait(0.01)
+        sched.pump()
+        gate.set()
+        comp.stop()
+        sched.close()
+    return out, direct, comp.passes, s.epoch, s._index.n_deleted
 
 
 def case_finite_everywhere(n: int, X):
