@@ -193,7 +193,34 @@ no result line):
     dead, after 3 clean probes; a transient fault on rank 2 retried by
     every rank (the fault-free answer); rank 0's first B1, B2 and B4 of
     the phase held against their plain versions;
-15. a ``kernels`` line, the card line, and the result line.
+15. durability and operations, counters set to 0 before each step and
+    read after it: (a) in a NCCL world of one, the row-placed IVF-PQ
+    (B4) on phase 6's model under a fsynced one-part ``MutationLog``
+    with a base snapshot: extend 10,000 rows (ids from 1,000,000 up),
+    delete 100,000 seeded ids, upsert 10,000, a ``shrink_capacity``
+    compaction, the searcher dropped and ``recover``ed (the head epoch;
+    the 10,000 queries' answers = the live ones up to exact ties); (b)
+    in phase 12's world of 4 ranks, the list-placed IVF-Flat with its 32
+    most probed lists replicated under a 4-part log (``snapshot_every``
+    4, a base snapshot; free disk checked first, the log's directory
+    removed at the end): the same stream, then a delete torn mid-frame
+    on rank 0 (every rank raises, none publishes, ``recover`` lands on
+    epoch 4, the stream resumes); a ``Follower`` over a second recovery
+    refuses a delete, catches up to the primary's answers, and a
+    ``PromotionManager`` promotes it on rank 0's scripted death (on
+    every rank) at its next poll, its next delete landing at head + 1;
+    ``leave_shard(3)`` then ``join_shard(3)`` warmed on the serve grid
+    (lists moved, no dispatch reaching rank 3 after the leave, the
+    pre-resize answers, a recover replaying both ``migrate`` records to
+    the same placement, owner for owner); a ``BatchScheduler`` on rank 0
+    with ``RecallProbe(rate=0.05, seed=5)`` serving bench/serve.py's
+    stream, its truth searches through the command channel (recall >=
+    0.995, equal to the script's own count against a full-probe
+    search); one ``MetricsRegistry`` scrape whose counters equal the
+    script's (records, snapshots, 2 resizes, 1 promotion, samples
+    scanned); append and fsync p50 / p99 ms; rank 0's first B1 k=1 and
+    B2 (and (a)'s B4) held against their plain versions;
+16. a ``kernels`` line, the card line, and the result line.
 
 The data is made with numpy from a fixed seed: 1000 Gaussian blobs
 (centers uniform in [-10, 10], sigma 5), queries = database rows + N(0, 1).
@@ -298,6 +325,16 @@ SERVICE_14 = 0.001        # seconds a dispatch costs on the injected clock
 N_WARM_14, N_HEDGE_14 = 16, 40   # searches before and after the delay
 CLEAN_14 = 3              # the recovery breaker's clean_threshold
 DEADLINE_14 = 120         # seconds the torn save may take on a rank
+# The durability phase (15), in phase 12's world and a NCCL world of one.
+N_EXTEND_15 = 10_000      # rows extended, ids from N_ROWS up
+N_DELETE_15 = 100_000     # seeded ids deleted
+N_UPSERT_15 = 10_000      # surviving ids upserted with new rows
+N_DELETE_LATE_15 = 1_000  # ids of the torn delete, and of the promoted one
+SNAP_EVERY_15 = 4         # the 4-rank log's snapshot cadence
+N_CHECK_15 = 2_000        # queries of the recovered / resized answers
+PRIMARY_15 = 0            # the rank whose death promotes the follower
+LEAVER_15 = 3             # the shard drained, then joined back
+PROBE_RATE_15, PROBE_SEED_15 = 0.05, 5
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FP32 = 67e12
@@ -2800,8 +2837,11 @@ def _sharded_rank(rank, data_dir, init, cfg, results) -> None:
         p13 = _rank_work_routed(rank, data_dir, cfg)
         if cfg["device"].startswith("cuda"):
             torch.cuda.empty_cache()
-        results.put((rank, {"p12": p12, "p13": p13,
-                            "p14": _rank_work_ops(rank, data_dir, cfg)}))
+        p14 = _rank_work_ops(rank, data_dir, cfg)
+        if cfg["device"].startswith("cuda"):
+            torch.cuda.empty_cache()
+        results.put((rank, {"p12": p12, "p13": p13, "p14": p14,
+                            "p15": _rank_work_durable(rank, data_dir, cfg)}))
     except Exception:
         results.put((rank, {"error": traceback.format_exc()}))
     finally:
@@ -2811,8 +2851,9 @@ def _sharded_rank(rank, data_dir, init, cfg, results) -> None:
 
 def spawn_ranks(dev, X, Q, centers, model, stream):
     """The 4-rank gloo world on the one card, which runs phases 12 (b),
-    13 (b) and 14 (b) in turn: X, Q, phase 4's centers, phase 6's IVF-PQ
-    model and phase 14's request stream go to a temporary directory once.
+    13 (b), 14 (b) and 15 (b) in turn: X, Q, phase 4's centers, phase 6's
+    IVF-PQ model and the request stream of phases 14 and 15 go to a
+    temporary directory once.
     Returns each rank's results and the wall seconds with the spawn. A
     rank that raises, or ends without answering, fails the phases at
     once; RANKS_TIMEOUT bounds the wait."""
@@ -2859,7 +2900,7 @@ def spawn_ranks(dev, X, Q, centers, model, stream):
                     if gone or time.perf_counter() - t0 > RANKS_TIMEOUT:
                         missing = sorted(set(range(N_RANKS)) - set(got))
                         raise AssertionError(
-                            f"phases 12-14: ranks {missing} did not answer "
+                            f"phases 12-15: ranks {missing} did not answer "
                             f"(ended: {gone}; {time.perf_counter() - t0:.0f}"
                             f" s of {RANKS_TIMEOUT} s)")
         finally:
@@ -2872,7 +2913,7 @@ def spawn_ranks(dev, X, Q, centers, model, stream):
     errors = [f"rank {r}:\n{res['error']}" for r, res in sorted(got.items())
               if "error" in res]
     if errors:
-        raise AssertionError("phases 12-14 rank failed:\n"
+        raise AssertionError("phases 12-15 rank failed:\n"
                              + "\n".join(errors))
     return got, wall
 
@@ -3895,6 +3936,564 @@ def ops_ranks(dev, X, Q, got, stream, card):
     return launches
 
 
+def stream15(rows_of, n_rows, dim, seed):
+    """Phase 15's mutation stream (host numpy, the same on every rank from
+    the seed): N_EXTEND_15 database rows + N(0, 1) with ids from ``n_rows``
+    up, N_DELETE_15 seeded ids deleted, N_UPSERT_15 surviving ids upserted
+    with new rows, a ``shrink_capacity`` compaction; then the two later
+    deletes (the torn one, repeated after recovery, and the promoted
+    follower's first write), N_DELETE_LATE_15 ids each."""
+    rng = np.random.default_rng(seed)
+
+    def noisy(idx):
+        return (rows_of(idx) + rng.standard_normal((len(idx), dim))
+                .astype(np.float32))
+
+    ext = noisy(np.sort(rng.choice(n_rows, N_EXTEND_15, replace=False)))
+    dels = rng.choice(n_rows, N_DELETE_15, replace=False)
+    alive = np.setdiff1d(np.arange(n_rows), dels)
+    picked = rng.choice(alive, N_UPSERT_15 + 2 * N_DELETE_LATE_15,
+                        replace=False)
+    up_ids = np.sort(picked[:N_UPSERT_15])
+    late = picked[N_UPSERT_15:].reshape(2, N_DELETE_LATE_15)
+    return ([("extend", ext, np.arange(n_rows, n_rows + N_EXTEND_15)),
+             ("delete", dels), ("upsert", noisy(up_ids), up_ids),
+             ("compact",)], late)
+
+
+def apply15(searcher, step):
+    """One step of :func:`stream15` through a Searcher."""
+    from raft_tpu_torch import lifecycle
+
+    op = step[0]
+    if op == "extend":
+        searcher.extend(step[1], step[2])
+    elif op == "delete":
+        searcher.delete(step[1])
+    elif op == "upsert":
+        searcher.upsert(step[1], step[2])
+    else:
+        searcher.compact(lifecycle.CompactionPolicy(shrink_capacity=True))
+
+
+def _scraped(text, name) -> float:
+    """The value of the unlabelled series ``name`` in a scrape."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    raise AssertionError(f"{name} is not on the scrape")
+
+
+def durable_world_of_one(dev, X, Q, pq_out, card):
+    """Phase 15 (a): over a NCCL world of one in this process, the
+    row-placed sharded IVF-PQ on phase 6's model under a fsynced one-part
+    mutation log with a base snapshot, phase 15's stream through a sharded
+    Searcher (extend, delete, upsert, compaction), the searcher dropped,
+    ``recover``: the head epoch, and the answers to the 10,000 queries =
+    the live index's up to the order of exact ties (B4 on both; rank 0's
+    first B4 of the recovered search held against its plain version).
+    Returns the launches of the step."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from raft_tpu_torch import lifecycle, parallel, serve
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    steps, _ = stream15(lambda idx: X[torch.as_tensor(
+        idx, device=X.device)].cpu().numpy(), N_ROWS, DIM, SEED + 15)
+    secs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=f"file://{tmp}/store", rank=0, world_size=1)
+        try:
+            mesh = parallel.make_mesh(device=dev)
+            spq = ivf_pq.SearchParams(n_probes=N_PROBES)
+            _zero_counters()
+            index = parallel.sharded_ivf_pq_build(
+                mesh, ivf_pq.IndexParams(n_lists=N_LISTS), X,
+                model=pq_out["index"], placement="row")
+            need = 2 * _saved_bytes(index) + (1 << 30)
+            free = shutil.disk_usage(tmp).free
+            if free < need:
+                raise AssertionError(f"phase 15 (a): {free} bytes free in "
+                                     f"{tmp}, the log needs {need}")
+            root = f"{tmp}/wal"
+            wal = lifecycle.MutationLog(root, n_parts=1, snapshot_every=0,
+                                        mesh=mesh)
+            wal.snapshot(index, mesh)
+            s = serve.Searcher.ivf_pq(index, spq, mesh=mesh, wal=wal)
+            for step in steps:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                apply15(s, step)
+                torch.cuda.synchronize()
+                secs[step[0]] = time.perf_counter() - t0
+            head = wal.head_epoch()
+            live = s.search(Q, K)
+            wal.close()
+            del s, index
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec, wal2 = lifecycle.recover(mesh, root, n_parts=1)
+            torch.cuda.synchronize()
+            secs["recover"] = time.perf_counter() - t0
+            cap = _Capture("ivf_pq")
+            with cap:
+                got = serve.Searcher.ivf_pq(rec, spq, mesh=mesh).search(Q, K)
+            epoch, stats = int(rec.epoch), wal.stats
+            wal2.close()
+            plain = rank_plain_checks({"B4 on the recovered IVF-PQ": cap})
+            launches = _launches()
+            del rec
+        finally:
+            dist.destroy_process_group()
+    if epoch != head or head != len(steps):
+        raise AssertionError(f"phase 15 (a): recovered epoch {epoch}, log "
+                             f"head {head}, {len(steps)} mutations")
+    rows = same_up_to_exact_ties(
+        "phase 15 (a), recovered IVF-PQ", torch.as_tensor(got.distances),
+        torch.as_tensor(got.indices), torch.as_tensor(live.distances),
+        torch.as_tensor(live.indices))
+    for what, shape, rec_, err, tol in plain:
+        log(f"phase 15 (a), {what} ({shape}) vs plain: per-slot recall "
+            f"{rec_:.6f} (bar {RECALL_BF}), max |d| err {err:.3e} (tol "
+            f"{tol:.3e})")
+        if rec_ < RECALL_BF or err > tol:
+            raise AssertionError(f"phase 15 (a): {what} disagrees with its "
+                                 "plain version")
+    log(f"durable world of one (NCCL) [{card}]: row-placed IVF-PQ, "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items())
+        + f"; recovered to epoch {epoch} = the head ({stats.records} "
+        f"records, {stats.bytes} bytes, {stats.snapshots} snapshot); answers "
+        f"= the live index's up to exact ties (rows reordered {rows}); "
+        f"launches {launches}")
+    if launches["pq_fused_scan"] < 2 or launches["fused_knn"] < 1:
+        raise AssertionError(f"phase 15 (a): B4 / B1 not launched "
+                             f"({launches})")
+    return launches
+
+
+def _rank_work_durable(rank, data_dir, cfg):
+    """Phase 15 (b) on one rank (the module docstring). Rank 0 returns the
+    answers, every rank its digests, wall times, launches and outcomes."""
+    import dataclasses
+    import os
+    import shutil
+
+    import torch
+
+    from raft_tpu_torch import lifecycle, obs, parallel, serve
+    from raft_tpu_torch.comms.agree import agreed, root_value
+    from raft_tpu_torch.comms.comms import Comms, OpT
+    from raft_tpu_torch.comms.health import ShardHealth
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.parallel.routing import routing_stats
+    from raft_tpu_torch.serve.bucketing import pad_queries
+    from raft_tpu_torch.testing.chaos import ChaosMonkey, FaultSpec
+    from raft_tpu_torch.util.atomic_io import FileIO
+
+    t_start = time.perf_counter()
+    dev = torch.device(cfg["device"])
+    k, n_lists, n_ranks = cfg["k"], cfg["n_lists"], cfg["n_ranks"]
+    X = np.load(f"{data_dir}/X.npy", mmap_mode="c")
+    Q = torch.as_tensor(np.load(f"{data_dir}/Q.npy"), device=dev)
+    Qs = Q[:N_CHECK_15]
+    centers = torch.as_tensor(np.load(f"{data_dir}/centers.npy"),
+                              device=dev)
+    mesh = parallel.make_mesh(device=dev)
+    comms = Comms(mesh)
+    shard = parallel.shard_database(mesh, X)
+    sp = ivf_flat.SearchParams(n_probes=cfg["n_probes"])
+    rec = _RankRecorder(rank, dev)
+    timed, keep, capture = rec.timed, rec.keep, rec.capture
+    root = f"{data_dir}/wal15"
+    steps, late = stream15(lambda idx: np.asarray(X[idx]), X.shape[0],
+                           X.shape[1], cfg["seed"] + 15)
+    grid = serve.BucketGrid.pow2(SERVE_MAX_BATCH, k_grid=SERVE_K_GRID)
+
+    _zero_counters()
+    routing_stats.reset()
+    lifecycle.elastic_stats.reset()
+    index = parallel.sharded_ivf_flat_build(
+        mesh, ivf_flat.IndexParams(n_lists=n_lists), shard, centers=centers,
+        placement="list")
+    parallel.sharded_ivf_flat_search(mesh, sp, index, Q, k)
+    hot = np.argsort(-routing_stats.list_loads(index.placement_map),
+                     kind="stable")[:N_HOT]
+    index = parallel.sharded_replicate_lists(mesh, index, hot)
+    routing_stats.reset()
+
+    # The disk: the base snapshot and one cadence snapshot of at most the
+    # same size, 1 GiB to spare.
+    mine = sum(t.numel() * t.element_size() for t in (
+        index.data, index.indices, index.list_sizes))
+    total = int(comms.allreduce(torch.tensor([mine]), OpT.SUM)[0])
+    need = 2 * total + (1 << 30)
+    free = None
+    with agreed(comms):
+        if rank == 0:
+            os.makedirs(root, exist_ok=True)
+            free = shutil.disk_usage(root).free
+            if free < need:
+                raise AssertionError(f"phase 15: {free} bytes free under "
+                                     f"{root}, the log needs {need}")
+    free = root_value(comms, free)
+
+    # The primary: a fsynced 4-part log, a base snapshot, the stream; rank
+    # 0's appends timed.
+    wal_stats = lifecycle.WalStats()
+    chaos = ChaosMonkey(seed=cfg["seed"])
+    io = FileIO(write_bytes=chaos.wrap_write("wal"))
+    plog = lifecycle.MutationLog(root, n_parts=n_ranks,
+                                 snapshot_every=SNAP_EVERY_15, file_io=io,
+                                 stats=wal_stats, mesh=mesh)
+    append_ms = []
+
+    def time_appends(wal):
+        """Rank 0's ms of each successful append to ``wal``."""
+        real = wal.append
+
+        def timed_append(*a, **kw):
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            append_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        wal.append = timed_append
+        return wal
+
+    time_appends(plog)
+    timed("base_snapshot", lambda: plog.snapshot(index, mesh))
+    primary = serve.Searcher.ivf_flat(index, sp, mesh=mesh, wal=plog)
+    base_epoch = index.epoch            # the replication's publish
+    del index
+    appended = 0
+    for step in steps:
+        with (capture(f"B1 k=1 in the logged {step[0]}", "brute_force")
+              if step[0] == "extend" else contextlib.nullcontext()):
+            timed(step[0], lambda: apply15(primary, step))
+        appended += 1
+    live4 = primary.search(Qs, k)
+    keep("live4", (live4.distances, live4.indices))
+
+    # A torn append (rank 0 writes the log): every rank raises the same
+    # error, none publishes, and recovery lands on the last epoch.
+    # Byte 100 is inside the payload of any frame (the header is 40).
+    chaos.script("wal", [FaultSpec(kind="torn_write",
+                                   at=(chaos.calls("wal"),), offset=100)])
+    torn_epoch = primary.epoch
+    try:
+        primary.delete(late[0])
+        torn = None
+    except OSError as e:
+        torn = (type(e).__name__, str(e))
+    torn = (torn, primary.epoch, torn_epoch)
+    plog.close()
+    del primary
+    r1, log1 = timed("recover", lambda: lifecycle.recover(
+        mesh, root, n_parts=n_ranks, snapshot_every=SNAP_EVERY_15,
+        stats=wal_stats))
+    with capture("B2 on the recovered index", "ivf_flat"):
+        got = serve.Searcher.ivf_flat(r1, sp, mesh=mesh).search(Qs, k)
+    keep("recovered4", (got.distances, got.indices))
+    torn += (int(r1.epoch),)
+
+    # A follower over a second recovery; the primary resumes.
+    f_idx, flog = timed("follower_recover", lambda: lifecycle.recover(
+        mesh, root, n_parts=n_ranks, snapshot_every=0, stats=wal_stats))
+    fol = lifecycle.Follower(serve.Searcher.ivf_flat(f_idx, sp, mesh=mesh,
+                                                     wal=flog), flog)
+    del f_idx
+    try:
+        fol.searcher.delete(late[1])
+        refused = None
+    except Exception as e:          # noqa: BLE001 - the outcome
+        refused = (type(e).__name__, str(e))
+    primary = serve.Searcher.ivf_flat(r1, sp, mesh=mesh,
+                                      wal=time_appends(log1))
+    time_appends(flog)
+    del r1
+    timed("resume", lambda: primary.delete(late[0]))
+    appended += 1
+    lag = fol.poll()
+    applied = timed("catch_up", lambda: fol.catch_up())
+    p5 = primary.search(Qs, k)
+    f5 = fol.searcher.search(Qs, k)
+    keep("primary5", (p5.distances, p5.indices))
+    keep("follower5", (f5.distances, f5.indices))
+    health = ShardHealth(n_ranks)
+    mgr = lifecycle.PromotionManager(fol, health, PRIMARY_15)
+    log1.close()
+    del primary
+    health.mark_dead(PRIMARY_15)         # scripted, on every rank
+    t0 = time.perf_counter()
+    fol.poll()
+    promote_s = time.perf_counter() - t0
+    head = fol.log.head_epoch()
+    fs = fol.searcher
+    fs.delete(late[1])
+    appended += 1
+    follower = (refused, lag, applied, mgr.promoted, mgr.promotions, head,
+                fs.epoch)
+
+    # Elastic: leave, then join, LEAVER_15, each warmed on the serve grid.
+    before = fs.search(Qs, k)
+    keep("pre_resize", (before.distances, before.indices))
+    rep_leave = timed("leave", lambda: lifecycle.leave_shard(
+        fs, LEAVER_15, grid=grid))
+    appended += 1
+    routing_stats.reset()
+    mid = fs.search(Qs, k)
+    fanout = dict(routing_stats.snapshot()["shard_queries"])
+    keep("after_leave", (mid.distances, mid.indices))
+    rep_join = timed("join", lambda: lifecycle.join_shard(
+        fs, LEAVER_15, grid=grid))
+    appended += 1
+    after = fs.search(Qs, k)
+    keep("after_join", (after.distances, after.indices))
+    pm = fs._index.placement_map
+    # ``recover``'s three steps, timed apart: the log's open (rank 0's
+    # reads and manifest check), the snapshot's load, the replay.
+    log3 = timed("log_open", lambda: lifecycle.MutationLog(
+        root, n_parts=n_ranks, stats=wal_stats, mesh=mesh))
+    snap_epoch, base = log3.latest_snapshot()
+    r3 = timed("snapshot_load",
+               lambda: parallel.sharded_ivf_load(mesh, base))
+    r3.epoch = snap_epoch
+    r3 = timed("replay", lambda: lifecycle.replay(mesh, r3, log3))
+    pm3 = r3.placement_map
+    placement = (bool(np.array_equal(pm3.owner, pm.owner)
+                      and np.array_equal(pm3.replica_owner,
+                                         pm.replica_owner)),
+                 int(r3.epoch), fs.epoch)
+    got3 = serve.Searcher.ivf_flat(r3, sp, mesh=mesh).search(Qs, k)
+    keep("recovered_resized", (got3.distances, got3.indices))
+    log3.close()
+    del r3
+    elastic = (dataclasses.astuple(rep_leave),
+               dataclasses.astuple(rep_join), fanout)
+
+    # The recall probe behind a front rank serving bench/serve.py's stream.
+    st = np.load(f"{data_dir}/stream.npz")
+    reqs = list(zip(np.split(st["q"], np.cumsum(st["rows"])[:-1]),
+                    st["k"].tolist()))
+    reg = obs.MetricsRegistry()
+    probe_out = None
+    if rank == 0:
+        probe = obs.RecallProbe(fs, rate=PROBE_RATE_15, seed=PROBE_SEED_15,
+                                registry=reg)
+        sampled, real_offer = [], probe.offer
+
+        def offer(queries, kk, indices, bucket, epoch):
+            hit = real_offer(queries, kk, indices, bucket, epoch)
+            if hit:
+                sampled.append((queries, np.asarray(indices), bucket))
+            return hit
+
+        probe.offer = offer
+        sched = serve.BatchScheduler(
+            fs, grid, serve.BatchPolicy(max_batch=SERVE_MAX_BATCH,
+                                        max_wait=0.0,
+                                        max_queue=2 * len(reqs)),
+            probe=probe)
+        for cls, arg in ((obs.ServeStatsCollector, sched.stats),
+                         (obs.ShardHealthCollector, health),
+                         (obs.SearcherCollector, fs),
+                         (obs.HedgeCollector, fs),
+                         (obs.DegradeCollector, sched)):
+            cls(reg, arg)
+        obs.MergeDispatchCollector(reg)
+        obs.RoutingCollector(reg)
+        obs.ElasticCollector(reg)
+        obs.WalCollector(reg, wal_stats, followers=[fol], promotion=mgr)
+        rec.sync()
+        t0 = time.perf_counter()
+        tickets = [sched.submit(q, kk) for q, kk in reqs]
+        sched.run_until_idle()
+        rec.sync()
+        serve_s = time.perf_counter() - t0
+        fsync_ms = [s * 1e3 for s in wal_stats._pending_fsync_s]
+        t0 = time.perf_counter()
+        scored = probe.run_pending()
+        probe_s = time.perf_counter() - t0
+        text = reg.prometheus_text()
+        sched.close()
+        probe_out = dict(snap=probe.snapshot(), recall=probe.recall(),
+                         scored=scored, serve_s=serve_s, probe_s=probe_s,
+                         text=text, fsync_ms=fsync_ms,
+                         served=sum(1 for t in tickets if t.done))
+    else:
+        serve.BatchScheduler.follow(fs)
+    # The script's own recall: the same sampled rows against a full-probe
+    # search, outside the probe (every rank runs it on rank 0's samples).
+    samples = root_value(comms, [(q, b) for q, _, b in sampled]
+                         if rank == 0 else None)
+    full = ivf_flat.SearchParams(n_probes=n_lists)
+    truth = []
+    for q, (qb, kb) in samples:
+        _, ti = parallel.sharded_ivf_flat_search(
+            mesh, full, fs._index, pad_queries(q, qb), kb)
+        truth.append(ti[:q.shape[0]].cpu().numpy())
+    if rank == 0:
+        windows = {}
+        for (q, ids, bucket), t in zip(sampled, truth):
+            kq = ids.shape[1]
+            windows.setdefault(bucket, []).extend(
+                float(np.intersect1d(ids[r][ids[r] >= 0],
+                                     t[r, :kq][t[r, :kq] >= 0]).size) / kq
+                for r in range(q.shape[0]))
+        vals = [v for w in windows.values() for v in w[-512:]]
+        probe_out["own_recall"] = float(np.mean(vals)) if vals else \
+            float("nan")
+        probe_out["own_samples"] = len(vals)
+        probe_out["append_ms"] = append_ms
+        probe_out["record_bytes"] = wal_stats.bytes
+    comms.barrier()
+    if rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = _launches()
+    return rec.result(
+        launches, torn=torn, follower=follower, promote_s=promote_s,
+        placement=placement, elastic=elastic, probe=probe_out,
+        appended=appended, snapshots=wal_stats.snapshots,
+        base_epoch=base_epoch, free=free,
+        need=need, wall_s=time.perf_counter() - t_start)
+
+
+def durable_ranks(dev, got, card):
+    """Phase 15 (b)'s checks of the 4 ranks' results. Returns the ranks'
+    launches, summed."""
+    import torch
+
+    got = {r: res["p15"] for r, res in got.items()}
+    for r in range(1, N_RANKS):
+        for key, digest in got[r]["digests"].items():
+            if digest != got[0]["digests"].get(key):
+                raise AssertionError(f"phase 15: rank {r}'s {key} differs "
+                                     "from rank 0's")
+    g0 = got[0]
+    kept = g0["plain"]
+    if len(kept) != 2:
+        raise AssertionError(f"phase 15: rank 0 kept {len(kept)} kernel "
+                             "launches, not B1 k=1 and B2")
+    for what, shape, rec, err, tol in kept:
+        log(f"phase 15, rank 0's {what} ({shape}) vs plain: per-slot "
+            f"recall {rec:.6f} (bar {RECALL_BF}), max |d| err {err:.3e} "
+            f"(tol {tol:.3e})")
+        if rec < RECALL_BF or err > tol:
+            raise AssertionError(f"phase 15: rank 0's {what} disagrees "
+                                 "with its plain version")
+    out = {k: tuple(torch.as_tensor(a, device=dev) for a in v)
+           for k, v in g0["out"].items()}
+    ms = {k: max(got[r]["ms"][k] for r in got) for k in g0["ms"]}
+    base = g0["base_epoch"]
+    n_stream = base + 4                 # the epoch after the stream
+    torns = [got[r]["torn"] for r in range(N_RANKS)]
+    err0 = torns[0][0]
+    if err0 is None or err0[0] != "InjectedFault" or any(
+            t != (err0, n_stream, n_stream, n_stream) for t in torns):
+        raise AssertionError(f"phase 15: the torn append {torns}")
+    rows = same_up_to_exact_ties("phase 15, recovered after the torn "
+                                 "append", *out["recovered4"], *out["live4"])
+    log(f"phase 15, 4 ranks [{card}]: stream (slowest rank) "
+        + ", ".join(f"{s} {ms[s] / 1e3:.3f} s" for s in
+                    ("extend", "delete", "upsert", "compact"))
+        + f"; base snapshot {ms['base_snapshot'] / 1e3:.3f} s; a torn "
+        f"append on rank 0 raised on every rank {err0}, none published "
+        f"(epoch {n_stream}); recover {ms['recover'] / 1e3:.3f} s to "
+        f"epoch {n_stream}, answers = the live ones up to exact ties (rows "
+        f"reordered {rows})")
+    refused, lag, applied, promoted, promotions, head, f_epoch = \
+        g0["follower"]
+    if refused is None or "read-only" not in refused[1] or lag != 1 \
+            or applied != 1 or not promoted or promotions != 1 \
+            or f_epoch != head + 1 or head != n_stream + 1:
+        raise AssertionError(f"phase 15: follower {g0['follower']}")
+    if any(got[r]["follower"] != g0["follower"] for r in got):
+        raise AssertionError("phase 15: the ranks' followers differ")
+    rows = same_up_to_exact_ties("phase 15, follower after catch_up",
+                                 *out["follower5"], *out["primary5"])
+    log(f"phase 15: follower (second recover "
+        f"{ms['follower_recover'] / 1e3:.3f} s) refused a delete "
+        f"({refused[0]}), lag {lag}, catch_up {ms['catch_up'] / 1e3:.3f} s "
+        f"= the primary's answers (rows reordered {rows}); promoted on "
+        f"rank {PRIMARY_15}'s scripted death (every rank) at its next poll "
+        f"in {g0['promote_s']:.3f} s, its delete at epoch {f_epoch} = head "
+        f"+ 1")
+    rep_leave, rep_join, fanout = g0["elastic"]
+    if rep_leave[4] <= 0 or rep_join[4] <= 0 or fanout.get(LEAVER_15, 0):
+        raise AssertionError(f"phase 15: elastic {g0['elastic']}")
+    for key in ("after_leave", "after_join"):
+        same_up_to_exact_ties(f"phase 15, {key}", *out[key],
+                              *out["pre_resize"])
+    same_p, r_epoch, s_epoch = g0["placement"]
+    if not same_p or r_epoch != s_epoch:
+        raise AssertionError(f"phase 15: recover after the resizes "
+                             f"{g0['placement']}")
+    rows = same_up_to_exact_ties("phase 15, recovered after the resizes",
+                                 *out["recovered_resized"],
+                                 *out["after_join"])
+    replayed = s_epoch - n_stream       # over the cadence snapshot
+    rep_s = ms["replay"] / 1e3
+    log(f"phase 15: leave {LEAVER_15} ({rep_leave[4]} lists moved, "
+        f"{rep_leave[5]} shapes warmed) {ms['leave'] / 1e3:.3f} s, join "
+        f"({rep_join[4]} lists) {ms['join'] / 1e3:.3f} s; after the leave "
+        f"no dispatch reached rank {LEAVER_15} (queries per shard "
+        f"{fanout}); answers = the pre-resize ones up to exact ties; a "
+        f"recovery after both (log open {ms['log_open'] / 1e3:.3f} s, "
+        f"snapshot load {ms['snapshot_load'] / 1e3:.3f} s, replay of "
+        f"{replayed} records over the epoch-{n_stream} snapshot "
+        f"{rep_s:.3f} s = {replayed / rep_s:.1f} records/s) lands on epoch "
+        f"{r_epoch} with the same placement, owner for owner (rows "
+        f"reordered {rows})")
+    p = g0["probe"]
+    if not (p["recall"] >= RECALL_IVF) or abs(p["recall"] - p["own_recall"]) \
+            > 1e-12 or p["snap"]["scanned"] != p["scored"] \
+            or p["scored"] < 1 or p["served"] != SERVE_REQUESTS:
+        raise AssertionError(f"phase 15: recall probe {p['snap']}, recall "
+                             f"{p['recall']} vs own {p['own_recall']}")
+    log(f"phase 15: BatchScheduler on rank 0 with RecallProbe(rate="
+        f"{PROBE_RATE_15}, seed={PROBE_SEED_15}) served {SERVE_REQUESTS} "
+        f"requests in {p['serve_s']:.3f} s [{card}]; run_pending scored "
+        f"{p['scored']} samples ({p['own_samples']} query rows) through the "
+        f"command channel in {p['probe_s']:.3f} s: windowed recall "
+        f"{p['recall']:.6f} = the script's own {p['own_recall']:.6f} "
+        f"against a full-probe search (bar {RECALL_IVF})")
+    text = p["text"]
+    want = {"raft_wal_records_total": g0["appended"],
+            "raft_wal_snapshots_total": g0["snapshots"],
+            "raft_wal_promotions_total": 1,
+            "raft_recall_scanned_total": p["scored"]}
+    scraped = {name: _scraped(text, name) for name in want}
+    resizes = (_scraped(text, "raft_elastic_joins_total")
+               + _scraped(text, "raft_elastic_leaves_total"))
+    if scraped != {k: float(v) for k, v in want.items()} or resizes != 2:
+        raise AssertionError(f"phase 15: scrape {scraped}, resizes "
+                             f"{resizes}; the script counted {want}")
+    lat = np.asarray(p["append_ms"])
+    fs_ms = np.asarray(p["fsync_ms"])
+    log(f"phase 15: one scrape of {len(text.splitlines())} lines: "
+        f"{scraped}, resizes {resizes:.0f} = the script's counts; appends "
+        f"(rank 0, {lat.size}) p50 {np.quantile(lat, 0.5):.3f} ms, p99 "
+        f"{np.quantile(lat, 0.99):.3f} ms; fsync p50 "
+        f"{np.quantile(fs_ms, 0.5):.3f} ms, p99 {np.quantile(fs_ms, 0.99):.3f}"
+        f" ms; {p['record_bytes']} record bytes; disk {g0['free']} free, "
+        f"{g0['need']} needed")
+    launches = {k: sum(got[r]["launches"][k] for r in got)
+                for k in g0["launches"]}
+    log(f"phase 15, 4 ranks: launches per rank "
+        f"{[got[r]['launches'] for r in range(N_RANKS)]}")
+    if launches["fused_knn"] < N_RANKS or launches["fused_cells_knn"] < \
+            N_RANKS:
+        raise AssertionError(f"phase 15: B1 / B2 not launched on every "
+                             f"rank ({launches})")
+    return launches
+
+
 def kmeans_labels(centers, X):
     """Each row's nearest center (the lists of an IVF-Flat build)."""
     from raft_tpu_torch.cluster import kmeans_balanced
@@ -3905,9 +4504,10 @@ def kmeans_labels(centers, X):
 
 
 def sharded_phase(dev, X, Q, mp_out, pq_out, card):
-    """Phases 12, 13 and 14: sharding, with the counters set to 0 before
-    each step and read after it; one spawned world of 4 ranks runs the
-    three phases' (b) steps. Returns the launches of each phase."""
+    """Phases 12 to 15: sharding and durability, with the counters set to
+    0 before each step and read after it; one spawned world of 4 ranks
+    runs the four phases' (b) steps. Returns the launches of each
+    phase."""
     t0 = time.perf_counter()
     a12 = sharded_world_of_one(dev, X, Q, mp_out["bf"], mp_out["iv"],
                                mp_out["centers"], card)
@@ -3917,6 +4517,9 @@ def sharded_phase(dev, X, Q, mp_out, pq_out, card):
     t1 = time.perf_counter()
     a14 = ops_world_of_one(dev, X, Q, mp_out, pq_out, card)
     a14_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    a15 = durable_world_of_one(dev, X, Q, pq_out, card)
+    a15_s = time.perf_counter() - t1
     stream = serve_stream(X, np.random.default_rng(SEED + 14), 0.0)
     got, wall = spawn_ranks(dev, X, Q, mp_out["centers"], pq_out["index"],
                             stream)
@@ -3924,20 +4527,26 @@ def sharded_phase(dev, X, Q, mp_out, pq_out, card):
                         mp_out["centers"], got, wall, card)
     b13 = routed_ranks(dev, X, Q, mp_out, pq_out, got, card)
     b14 = ops_ranks(dev, X, Q, got, stream, card)
+    b15 = durable_ranks(dev, got, card)
     p12 = {k: a12[k] + b12[k] for k in a12}
     p13 = {k: a13[k] + b13[k] for k in a13}
     p14 = {k: a14[k] + b14[k] for k in a14}
+    p15 = {k: a15[k] + b15[k] for k in a15}
     ranks13 = max(res["p13"]["wall_s"] for res in got.values())
     ranks14 = max(res["p14"]["wall_s"] for res in got.values())
+    ranks15 = max(res["p15"]["wall_s"] for res in got.values())
     log(f"phase 12: launches {p12} (world of one {a12}, 4 ranks {b12})")
     log(f"phase 13: {a13_s + ranks13:.3f} s (world of one {a13_s:.3f} s, "
         f"4 ranks {ranks13:.3f} s, the slowest rank), launches {p13} "
         f"(world of one {a13}, 4 ranks {b13})")
     log(f"phase 14: {a14_s + ranks14:.3f} s (world of one {a14_s:.3f} s, "
         f"4 ranks {ranks14:.3f} s, the slowest rank), launches {p14} "
-        f"(world of one {a14}, 4 ranks {b14}); phases 12-14 "
+        f"(world of one {a14}, 4 ranks {b14})")
+    log(f"phase 15: {a15_s + ranks15:.3f} s (world of one {a15_s:.3f} s, "
+        f"4 ranks {ranks15:.3f} s, the slowest rank), launches {p15} "
+        f"(world of one {a15}, 4 ranks {b15}); phases 12-15 "
         f"{time.perf_counter() - t0:.3f} s")
-    return p12, p13, p14
+    return p12, p13, p14, p15
 
 
 def main() -> int:
@@ -3996,7 +4605,7 @@ def main() -> int:
     sm, flat_served = serve_mutations(dev, Q, compacted["ivf_flat"], card)
     sf = surface_phase(dev, X, Q, mp["bf"], mp["index"], flat_served,
                        compacted["ivf_pq"], pq["recall"], card)
-    sh, rt, ops = sharded_phase(dev, X, Q, mp, pq, card)
+    sh, rt, ops, du = sharded_phase(dev, X, Q, mp, pq, card)
 
     kernels = [
         dict(name="fused_knn", route="cuda",
@@ -4005,7 +4614,8 @@ def main() -> int:
              launches=mp["launches"]["fused_knn"]
              + pq["launches"]["fused_knn"] + sv["fused_knn"]
              + lc["fused_knn"] + sm["fused_knn"] + sf["fused_knn"]
-             + sh["fused_knn"] + rt["fused_knn"] + ops["fused_knn"],
+             + sh["fused_knn"] + rt["fused_knn"] + ops["fused_knn"]
+             + du["fused_knn"],
              **b1),
         dict(name="fused_cells_knn", route="cuda",
              source="raft_tpu_torch/csrc/cells_knn.cu",
@@ -4014,7 +4624,8 @@ def main() -> int:
              + sv["fused_cells_knn"] + lc["fused_cells_knn"]
              + sm["fused_cells_knn"] + sf["fused_cells_knn"]
              + sh["fused_cells_knn"] + rt["fused_cells_knn"]
-             + ops["fused_cells_knn"], **b2),
+             + ops["fused_cells_knn"]
+             + du["fused_cells_knn"], **b2),
         dict(name="fused_batch_knn", route="cuda",
              source="raft_tpu_torch/csrc/batch_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:277",
@@ -4022,14 +4633,16 @@ def main() -> int:
              + sv["fused_batch_knn"] + lc["fused_batch_knn"]
              + sm["fused_batch_knn"] + sf["fused_batch_knn"]
              + sh["fused_batch_knn"] + rt["fused_batch_knn"]
-             + ops["fused_batch_knn"], **b3),
+             + ops["fused_batch_knn"]
+             + du["fused_batch_knn"], **b3),
         dict(name="pq_fused_scan", route="cuda",
              source="raft_tpu_torch/csrc/pq_scan.cu",
              replaces="raft_tpu/ops/pq_scan.py:440",
              launches=pq["launches"]["pq_fused_scan"] + sv["pq_fused_scan"]
              + lc["pq_fused_scan"] + sm["pq_fused_scan"]
              + sf["pq_fused_scan"] + sh["pq_fused_scan"]
-             + rt["pq_fused_scan"] + ops["pq_fused_scan"], **b4),
+             + rt["pq_fused_scan"] + ops["pq_fused_scan"]
+             + du["pq_fused_scan"], **b4),
         dict(name="stream_extract", route="cuda",
              source="raft_tpu_torch/csrc/stream_select.cu",
              replaces="raft_tpu/matrix/select_k.py:218", **b5),

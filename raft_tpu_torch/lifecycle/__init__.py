@@ -16,9 +16,19 @@ Port of ``raft_tpu/lifecycle`` (``delete.py`` and ``compact.py``):
 
 ``delete``, ``upsert`` and ``compact`` also take a sharded IVF-Flat or
 IVF-PQ index (row or list placement) with its ``mesh``; ``compact`` with
-``balance_placement`` re-balances a list placement by observed load. The
-write-ahead log and elastic membership wait for the durability slice
-(ROADMAP A.5).
+``balance_placement`` re-balances a list placement by observed load.
+
+* :class:`MutationLog` / :func:`replay` / :func:`recover`: the durable
+  write-ahead log (``wal.py``): every committed mutation of a sharded
+  ``Searcher`` appends an epoch-stamped record before it publishes,
+  periodic snapshots ride ``sharded_ivf_save``, and a crash replays the
+  log tail over the newest snapshot;
+* :class:`Follower` / :class:`PromotionManager`: read-only endpoints
+  tailing the log; a primary loss promotes by catch-up, not rebuild;
+* :func:`join_shard` / :func:`leave_shard`: elastic serving-set
+  membership over a fixed mesh (``elastic.py``): whole-list migration
+  re-packs the placement, the new routed shapes warm, one published
+  epoch bump cuts over.
 """
 
 from raft_tpu_torch.lifecycle.compact import (
@@ -33,6 +43,31 @@ from raft_tpu_torch.lifecycle.delete import (
     tombstone_frac,
     upsert,
 )
+from raft_tpu_torch.lifecycle.elastic import (
+    ElasticReport,
+    ElasticStats,
+    elastic_stats,
+    join_shard,
+    leave_shard,
+    serving_shards,
+)
+from raft_tpu_torch.lifecycle.wal import (
+    Follower,
+    MutationLog,
+    PromotionManager,
+    WalCorruption,
+    WalRecord,
+    WalStats,
+    apply_record,
+    recover,
+    replay,
+)
 
-__all__ = ["delete", "upsert", "enable_tombstones", "tombstone_frac",
-           "compact", "CompactionPolicy", "CompactionReport", "Compactor"]
+__all__ = [
+    "delete", "upsert", "enable_tombstones", "tombstone_frac",
+    "compact", "CompactionPolicy", "CompactionReport", "Compactor",
+    "MutationLog", "WalRecord", "WalStats", "WalCorruption",
+    "apply_record", "replay", "recover", "Follower", "PromotionManager",
+    "ElasticReport", "ElasticStats", "elastic_stats",
+    "join_shard", "leave_shard", "serving_shards",
+]

@@ -31,9 +31,10 @@ dispatches is first broadcast as one command (the padded queries, ``k``,
 same ``Searcher.search`` call, so every rank makes the searcher's
 collective calls in the same order; ``close`` sends the stop command.
 A ``Compactor`` over the searcher sends its passes through the same
-channel. This is the SPMD form of the reference's scheduler, whose one
-controller drives every device: ``follow`` is the one call that the
-reference does not have.
+channel, and so does a ``RecallProbe`` its truth searches. This is the
+SPMD form of the reference's scheduler, whose one controller drives
+every device: ``follow`` is the one call that the reference does not
+have.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ from raft_tpu_torch.serve.stats import ServeStats
 
 # The front rank's commands: a header of int64s, then for a search the
 # padded float32 queries.
-_STOP, _SEARCH, _COMPACT = 0, 1, 2
+_STOP, _SEARCH, _COMPACT, _TRUTH = 0, 1, 2, 3
 _HEAD = 8       # op, rows, dim, k, valid_rows, n_probes, degraded, force
 
 
@@ -250,8 +251,6 @@ class BatchScheduler:
                     "policy.max_batch=%s exceeds the bucket grid's largest "
                     "query bucket %s — full batches would run out-of-grid "
                     "shapes", policy.max_batch, grid.max_batch)
-            expects(probe is None, "the shadow recall probe waits for the "
-                    "operations slice (ROADMAP A.5)")
         self.searcher = searcher
         self.grid = grid
         self.policy = policy
@@ -262,6 +261,9 @@ class BatchScheduler:
         # request). Inject the SAME clock into a recording tracer so span
         # timestamps and latency stats share a timeline.
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        # The shadow recall probe (obs/recall.py): a None probe is one
+        # is-None test per completion.
+        self.probe = probe
         self.degrade = degrade
         # The ladder rung the most recent dispatch served at (0 = full
         # quality) — the brownout gauge of a metrics scrape.
@@ -301,6 +303,11 @@ class BatchScheduler:
         self._command(_COMPACT, force=force)
         root_value(self._comms, compactor.policy)
 
+    def _command_truth(self, queries, k: int) -> None:
+        """Bring the followers into a recall probe's truth search (called
+        by ``RecallProbe.run_pending`` on rank 0, from the pump thread)."""
+        self._command(_TRUTH, queries, k)
+
     def _post_pass(self, compactor) -> None:
         """A Compactor daemon's tick (another thread): the next ``pump``
         runs the pass, between batches. One pass pends at most."""
@@ -328,7 +335,8 @@ class BatchScheduler:
         raises (the same error on every rank: the searcher agrees its
         failures) is logged and the loop goes on, as the front rank's
         ticket fails. A Compactor pass runs this rank's Compactor on rank
-        0's policy (its trigger is rank 0's). The first collective is the
+        0's policy (its trigger is rank 0's); a recall probe's truth search
+        runs the same search as rank 0's probe. The first collective is the
         front rank's constructor checks: a refused scheduler raises here
         too. Returns the number of batches served."""
         from raft_tpu_torch.comms.agree import raise_agreed, root_value
@@ -359,6 +367,16 @@ class BatchScheduler:
                                    "continues", exc_info=True)
                 continue
             q = comms.bcast(torch.zeros((rows, dim), dtype=torch.float32))
+            if op == _TRUTH:
+                from raft_tpu_torch.comms.topk_merge import \
+                    merge_dispatch_stats
+                from raft_tpu_torch.obs.recall import _truth_search
+                from raft_tpu_torch.parallel.routing import routing_stats
+
+                with merge_dispatch_stats.suppress(), \
+                        routing_stats.suppress():
+                    _truth_search(searcher, q.to(searcher.device), k)
+                continue
             try:
                 searcher.search(q.to(searcher.device), k,
                                 degraded=None if degraded < 0
@@ -712,6 +730,15 @@ class BatchScheduler:
             if r.deadline is not None and now > r.deadline:
                 self.stats.count(rbucket, "deadline_misses")
             self.stats.observe_latency(rbucket, now - r.t_submit)
+            if self.probe is not None and not res.degraded:
+                # Shadow recall sampling (obs/recall.py): enqueue only;
+                # the exact scan runs off the hot path in
+                # probe.run_pending(). Coverage-degraded answers are
+                # skipped (partial coverage would read as recall loss);
+                # reduced-probe answers are offered: their recall is the
+                # served-quality feedback the ladder wants.
+                self.probe.offer(r.queries, r.k, out.indices, rbucket,
+                                 epoch)
             r.ticket._complete(out)
         if rec:
             t_merge1 = self.tracer.now()

@@ -54,8 +54,17 @@ attempt is agreed after its collectives, so every rank retries together
 or raises the same error; rank 0's clock and suspect mask decide a hedge
 and pick its answer; ``shadow_probe`` returns rank 0's elapsed time; a
 ``pre_publish`` fault on any rank publishes nothing on every rank.
-``wal`` raises :class:`~raft_tpu_torch.core.error.LogicError`: it comes
-with the durability slice (ROADMAP A.5).
+
+Durability (raft_tpu_torch/lifecycle/wal.py): with a ``wal`` attached
+(sharded IVF kinds only), every mutation appends its record, fsynced,
+BEFORE the serving reference swaps (write-ahead order: a record exists
+iff the epoch it stamps was ever observable), and publishes run the
+log's snapshot cadence. On a sharded searcher the log's one writer is
+rank 0 and the append's outcome is agreed before any rank publishes: a
+failed append publishes nowhere. ``writable=False`` builds a read-only
+follower endpoint: searches serve, mutations raise until a
+``PromotionManager`` flips the flag. :meth:`publish_index` publishes an
+externally built successor (elastic resize, follower catch-up).
 """
 
 from __future__ import annotations
@@ -100,6 +109,17 @@ class SearchResult:
     degrade_reason: Optional[str] = None
 
 
+def _host(x) -> np.ndarray:
+    """A mutation's input as host numpy, as the log records it."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _np_dtype(dtype: torch.dtype):
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
 def _same_device(a: torch.device, b: torch.device) -> bool:
     """``a`` and ``b`` name one device (``cuda`` is the current card)."""
     if a.type != b.type:
@@ -138,8 +158,10 @@ class Searcher:
         expects(health is None or mesh is not None,
                 "ShardHealth only applies to sharded (mesh) searchers "
                 "(ROADMAP A.4)")
-        expects(wal is None, "a MutationLog waits for the durability slice "
-                "(ROADMAP A.5)")
+        expects(wal is None or (mesh is not None
+                                and kind != "brute_force"),
+                "a MutationLog records sharded IVF mutations (brute-"
+                "force rows are positional — nothing stable to replay)")
         expects(hedge is None or health is not None,
                 "hedging needs a sharded searcher with a ShardHealth "
                 "(ROADMAP A.4): the hedge re-routes around SUSPECT shards")
@@ -159,11 +181,16 @@ class Searcher:
             expects(health is None or health.n_ranks == mesh.size,
                     "ShardHealth over %s ranks, mesh of %s",
                     getattr(health, "n_ranks", None), mesh.size)
+            expects(wal is None or mesh.size == 1
+                    or getattr(wal, "mesh", None) is not None,
+                    "the MutationLog of a sharded searcher takes its mesh "
+                    "(MutationLog(..., mesh=mesh)): rank 0 writes it")
         self.kind = kind
         self.mesh = mesh
         self.merge_engine = merge_engine
         self.health = health
         self.retry = retry
+        self.wal = wal
         self.writable = writable
         self._dispatch_hook = dispatch_hook
         from raft_tpu_torch.serve.hedge import HedgeStats
@@ -271,7 +298,7 @@ class Searcher:
 
         return remove
 
-    def _published(self) -> None:
+    def _fire_hooks(self) -> None:
         """Invoke the invalidation hooks OUTSIDE the mutation lock (a
         hook may take its own lock; holding ours across foreign code
         invites lock-order inversions)."""
@@ -280,9 +307,52 @@ class Searcher:
         for hook in hooks:
             hook()
 
+    # -- durability --------------------------------------------------------
     def _require_writable(self) -> None:
         expects(self.writable,
-                "read-only endpoint — mutations are rejected")
+                "read-only follower endpoint — mutations are rejected "
+                "until promotion (lifecycle.wal.PromotionManager)")
+
+    def _wal_append(self, kind: str, new_index, payload: dict) -> None:
+        """Durably log one mutation at its POST-mutation epoch, with the
+        successor built but not yet published: the write-ahead order (a
+        crash after the append replays the mutation, a crash before it
+        loses a mutation no reader saw). Collective on a sharded
+        searcher: a failed append raises on every rank."""
+        if self.wal is not None:
+            self.wal.append(kind, int(new_index.epoch), payload)
+
+    def _published(self) -> None:
+        """Post-publish duties: invalidation hooks (outside the lock),
+        then the log's snapshot cadence (a snapshot rides the epoch the
+        swap just committed; collective, on agreed epochs)."""
+        self._fire_hooks()
+        if self.wal is not None:
+            self.wal.maybe_snapshot(self._index, self.mesh)
+
+    def publish_index(self, new_index, *, record=None,
+                      expect_base_epoch: Optional[int] = None) -> None:
+        """Publish an externally built copy-on-write successor under the
+        snapshot-swap contract (elastic join / leave cutover, follower
+        catch-up). ``record=(kind, payload)`` logs the mutation
+        write-ahead; ``expect_base_epoch`` asserts no concurrent mutation
+        slipped in while the successor was being built instead of
+        silently dropping it."""
+        with self._lock:
+            cur = int(getattr(self._index, "epoch", 0))
+            if expect_base_epoch is not None:
+                expects(cur == expect_base_epoch,
+                        "concurrent mutation during publish: index "
+                        "moved %s -> %s while the successor was built",
+                        expect_base_epoch, cur)
+            expects(int(new_index.epoch) > cur,
+                    "publish must advance the epoch (%s -> %s)", cur,
+                    int(new_index.epoch))
+            if record is not None:
+                kind, payload = record
+                self._wal_append(kind, new_index, payload)
+            self._index = new_index
+        self._published()
 
     # -- serving -----------------------------------------------------------
     def _queries(self, queries) -> torch.Tensor:
@@ -620,7 +690,23 @@ class Searcher:
                       else sharded_ivf_pq_extend)
             # Copy-on-write: readers may hold the current tensors.
             tmp = self._mutable_snapshot()
+            if self.wal is not None:
+                new_vectors = _host(new_vectors)
+                if new_indices is None:
+                    # Pin the auto-assigned ids so the record holds the
+                    # ids this extend assigns: replay after a compaction
+                    # (which drops tombstoned ids) would derive others.
+                    from raft_tpu_torch.neighbors.ivf_flat import \
+                        _auto_id_base
+
+                    base = _auto_id_base(tmp)
+                    new_indices = np.arange(
+                        base, base + new_vectors.shape[0],
+                        dtype=_np_dtype(tmp.indices.dtype))
             extend(self.mesh, tmp, new_vectors, new_indices, donate=False)
+            if self.wal is not None:
+                self._wal_append("extend", tmp, dict(
+                    vectors=new_vectors, ids=_host(new_indices)))
             self._index = tmp
             return
         from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
@@ -649,6 +735,9 @@ class Searcher:
             tmp = self._mutable_snapshot()
             n = _delete(tmp, ids, mesh=self.mesh)
             if n:
+                # Log only committed deletes: an all-miss delete bumps no
+                # epoch, so a record of it could never replay.
+                self._wal_append("delete", tmp, dict(ids=_host(ids)))
                 self._index = tmp     # snapshot-swap publish
         if n:
             self._published()
@@ -668,6 +757,8 @@ class Searcher:
             tmp = self._mutable_snapshot()
             _upsert(tmp, new_vectors, new_indices, mesh=self.mesh,
                     donate=False)
+            self._wal_append("upsert", tmp, dict(
+                vectors=_host(new_vectors), ids=_host(new_indices)))
             self._index = tmp
         self._published()
 
@@ -706,6 +797,22 @@ class Searcher:
             with agreed(None if self.mesh is None else Comms(self.mesh)):
                 if pre_publish is not None:
                     pre_publish()
+            if self.wal is not None:
+                from raft_tpu_torch.lifecycle.wal import _policy_payload
+
+                payload = _policy_payload(policy)
+                old_pm = getattr(self._index, "placement_map", None)
+                new_pm = getattr(new, "placement_map", None)
+                if new_pm is not None and new_pm is not old_pm:
+                    # The pass balanced the placement off process-local
+                    # traffic: record the OUTCOME, so replay migrates to
+                    # it (compact() used rank 0's live mask; the record
+                    # is rank 0's).
+                    payload["owner"] = np.asarray(new_pm.owner, np.int32)
+                    payload["live"] = (np.asarray(live, bool)
+                                       if live is not None else
+                                       np.ones(new_pm.n_dev, bool))
+                self._wal_append("compact", new, payload)
             self._index = new
         self._published()
         return report

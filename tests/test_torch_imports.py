@@ -41,7 +41,9 @@ def test_module_list_covers_the_slice():
                  "serve.stats", "util.telemetry", "comms.comms",
                  "comms.comms_test", "comms.health", "parallel.degraded",
                  "parallel.knn", "parallel.kmeans", "parallel.ivf",
-                 "util.atomic_io", "comms.agree", "serve.recovery"):
+                 "util.atomic_io", "comms.agree", "serve.recovery",
+                 "testing.chaos", "lifecycle.wal", "lifecycle.elastic",
+                 "obs.registry", "obs.recall"):
         assert f"raft_tpu_torch.{name}" in _MODULES
 
 

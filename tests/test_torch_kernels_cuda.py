@@ -1305,3 +1305,105 @@ def test_sharded_save_load_and_compact_world_of_one(
     d2, i2 = search(nccl_mesh, sp, new, Q, 10)
     same_up_to_exact_ties(f"compacted {kind} ({placement})", d2, i2, d0, i0)
     assert kernel.launches >= before + 3
+
+
+# ---------------------------------------------------------------------------
+# Durability and operations on the card: a world of one on NCCL.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["flat", "pq"])
+def test_wal_stream_and_recover_world_of_one(nccl_mesh, dev, gen, tmp_path,
+                                             kind):
+    """A logged mutation stream (extend, delete, upsert, a shrinking
+    compaction) through a sharded Searcher on the card, then ``recover``:
+    the recovered index lands on the head epoch and answers as the live
+    one (B2 / B4 on both; exact ties aside, the card's builds use
+    atomics)."""
+    from raft_tpu_torch import parallel
+
+    X, Q = _on(dev, int_data(gen, (8192, 16), hi=4),
+               int_data(gen, (512, 16), hi=4))
+    if kind == "flat":
+        index = parallel.sharded_ivf_flat_build(
+            nccl_mesh, ivf_flat.IndexParams(n_lists=16), X,
+            centers=X[::512][:16].clone(), placement="list")
+        sp = ivf_flat.SearchParams(n_probes=5, engine="bucketed")
+        kernel, make = fk.fused_cells_knn, serve.Searcher.ivf_flat
+    else:
+        params = ivf_pq.IndexParams(n_lists=16, pq_dim=8, kmeans_n_iters=4,
+                                    add_data_on_build=False)
+        index = parallel.sharded_ivf_pq_build(
+            nccl_mesh, params, X, model=ivf_pq.build(params, X),
+            placement="row")
+        sp = ivf_pq.SearchParams(n_probes=5, engine="bucketed")
+        kernel, make = ps.pq_fused_scan, serve.Searcher.ivf_pq
+    root = str(tmp_path / "log")
+    log = lc.MutationLog(root, n_parts=1, mesh=nccl_mesh)
+    log.snapshot(index, nccl_mesh)
+    s = make(index, sp, mesh=nccl_mesh, wal=log)
+    s.extend(int_data(gen, (1024, 16), hi=4))
+    assert s.delete(np.arange(0, 8192, 5)) > 0
+    s.upsert(int_data(gen, (256, 16), hi=4), np.arange(1, 1024, 4))
+    assert s.compact(lc.CompactionPolicy(shrink_capacity=True)) is not None
+    assert s.epoch == 4 and log.head_epoch() == 4
+    log.close()
+    before = kernel.launches
+    live = s.search(Q, 10)
+    rec, log2 = lc.recover(nccl_mesh, root, n_parts=1)
+    assert rec.epoch == 4 and rec.indices.is_cuda
+    got = make(rec, sp, mesh=nccl_mesh).search(Q, 10)
+    log2.close()
+    assert kernel.launches >= before + 2
+    same_up_to_exact_ties(f"recovered {kind}", torch.as_tensor(got.distances),
+                          torch.as_tensor(got.indices),
+                          torch.as_tensor(live.distances),
+                          torch.as_tensor(live.indices))
+
+
+@pytest.mark.cuda
+def test_recall_probe_over_b2_world_of_one(nccl_mesh, dev, gen):
+    """A front-rank scheduler over the routed IVF-Flat (B2) with a
+    sampling probe: the truth searches are full-probe B2 launches, and
+    the probe's recall equals the recall of its sampled answers against
+    the single-card full-probe search."""
+    from raft_tpu_torch import obs, parallel
+
+    X = torch.as_tensor(int_data(gen, (8192, 16)), device=dev)
+    centers = X[::512][:16].clone()
+    index = parallel.sharded_ivf_flat_build(
+        nccl_mesh, ivf_flat.IndexParams(n_lists=16), X, centers=centers,
+        placement="list")
+    s = serve.Searcher.ivf_flat(index, ivf_flat.SearchParams(
+        n_probes=2, engine="bucketed"), mesh=nccl_mesh)
+    probe = obs.RecallProbe(s, rate=0.5, seed=5)
+    sampled, real = [], probe.offer
+
+    def offer(queries, k, indices, bucket, epoch):
+        hit = real(queries, k, indices, bucket, epoch)
+        if hit:
+            sampled.append((queries, np.asarray(indices)))
+        return hit
+
+    probe.offer = offer
+    sched = serve.BatchScheduler(s, serve.BucketGrid.pow2(256,
+                                                          k_grid=(10,)),
+                                 serve.BatchPolicy(max_batch=256),
+                                 probe=probe)
+    for _ in range(8):
+        sched.submit(int_data(gen, (256, 16)), 10)
+        sched.run_until_idle()
+    before = fk.fused_cells_knn.launches
+    scored = probe.run_pending()
+    assert scored == len(sampled) > 0
+    assert fk.fused_cells_knn.launches >= before + scored
+    full = ivf_flat.SearchParams(n_probes=16, engine="bucketed")
+    hits = []
+    for q, ids in sampled:
+        _, truth = parallel.sharded_ivf_flat_search(nccl_mesh, full, index,
+                                                    q, 10)
+        truth = n(truth)
+        hits += [len(np.intersect1d(ids[r], truth[r])) / 10.0
+                 for r in range(q.shape[0])]
+    assert probe.recall() == pytest.approx(float(np.mean(hits)), abs=1e-12)
+    sched.close()

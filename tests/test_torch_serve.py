@@ -39,7 +39,7 @@ from raft_tpu.neighbors import ivf_flat as jivf
 from raft_tpu.neighbors import ivf_pq as jpq
 from raft_tpu.obs import trace as jtrace
 from raft_tpu_torch import lifecycle as lc
-from raft_tpu_torch import serve
+from raft_tpu_torch import obs, serve
 from raft_tpu_torch.core import retry
 from raft_tpu_torch.core.error import CudaError, LogicError
 from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
@@ -329,11 +329,17 @@ def test_searcher_device_rules():
 
 @pytest.mark.parametrize("kw,queue", [
     (dict(mesh=object()), "A.4"), (dict(health=object()), "A.4"),
-    (dict(wal=object()), "A.5"), (dict(hedge=serve.HedgePolicy()), "A.4"),
+    # A log on a brute-force searcher: the reference's own refusal.
+    pytest.param(dict(wal=object()), "records sharded IVF mutations",
+                 id="kw2-A.5"),
+    (dict(hedge=serve.HedgePolicy()), "A.4"),
     (dict(dispatch_hook=print), "A.4")])
 def test_waiting_features_raise(kw, queue):
     with pytest.raises(LogicError, match=queue):
         serve.Searcher.brute_force(t(_DB), **kw)
+    if "wal" in kw:
+        with pytest.raises(JLogicError, match=queue):
+            jserve.Searcher.brute_force(_DB, **kw)
 
 
 def test_sharded_only_paths_raise():
@@ -344,9 +350,12 @@ def test_sharded_only_paths_raise():
         serve.warmup(s, serve.BucketGrid.pow2(2), include_degraded=True)
     with pytest.raises(LogicError):
         s.delete([1])            # brute-force rows are positional
-    with pytest.raises(LogicError, match="A.5"):
-        serve.BatchScheduler(s, serve.BucketGrid.pow2(2), serve.BatchPolicy(
-            max_batch=2), probe=object())
+    # The shadow recall probe is accepted (obs/recall.py).
+    probe = obs.RecallProbe(s, rate=0.0)
+    sched = serve.BatchScheduler(s, serve.BucketGrid.pow2(2),
+                                 serve.BatchPolicy(max_batch=2), probe=probe)
+    assert sched.probe is probe
+    sched.close()
 
 
 # ---------------------------------------------------------------------------
