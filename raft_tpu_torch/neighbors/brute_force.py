@@ -153,15 +153,16 @@ def _knn_one_part(queries, db, k: int, metric: DistanceType,
                          min(tile_db, max(db.shape[0], 1)), is_l2)
 
 
-def knn_merge_parts(in_keys, in_values, select_min: bool = True,
+def knn_merge_parts(in_keys, in_values, n_samples: Optional[int] = None,
+                    select_min: bool = True,
                     translations: Optional[Sequence[int]] = None,
                     handle=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Merge per-part kNN results ``(n_parts, n_queries, k)`` into the
     global top-k; ``translations`` offsets each part's local ids. Ties go
     to the lower part, then the lower rank within it. Returns ``(keys
-    (n_queries, k), values (n_queries, k))``. The reference's
-    ``n_samples`` argument, which it does not read either, is not
-    taken."""
+    (n_queries, k), values (n_queries, k))``. ``n_samples`` is taken at
+    the reference's position, so positional calls line up, and is not
+    read, as there."""
     keys = as_tensor(in_keys, handle)
     vals = as_tensor(in_values, handle, keys.device)
     return merge_parts(keys, vals, select_min=select_min,

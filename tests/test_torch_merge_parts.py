@@ -63,6 +63,40 @@ def test_knn_merge_parts_matches_reference(rng, select_min):
     np.testing.assert_array_equal(n(d), n(jd))
 
 
+POSITIONAL_FORMS = [
+    (None,),                        # n_samples alone: still the minima
+    (20, False),                    # n_samples, select_min
+    (None, True, [0, 100, 200, 300]),   # ..., translations
+]
+
+
+@pytest.mark.parametrize("args", POSITIONAL_FORMS,
+                         ids=["n_samples", "select_max", "translations"])
+def test_knn_merge_parts_positional_forms(rng, args):
+    """``n_samples`` sits third, as in the reference, so positional calls
+    line up: ``(k, v, None)`` selects the smallest keys."""
+    keys, vals = _parts(rng, 4)
+    if args[1:2] == (False,):
+        keys = keys[:, :, ::-1].copy()
+    d, i = brute_force.knn_merge_parts(t(keys), t(vals), *args)
+    jd, ji = jbf.knn_merge_parts(keys, vals, *args)
+    np.testing.assert_array_equal(n(i), n(ji))
+    np.testing.assert_array_equal(n(d), n(jd))
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(n_samples=9), dict(select_min=False, n_samples=None),
+    dict(translations=[5, 6, 7, 8], select_min=True)])
+def test_knn_merge_parts_keyword_forms(rng, kwargs):
+    keys, vals = _parts(rng, 4)
+    if kwargs.get("select_min") is False:
+        keys = keys[:, :, ::-1].copy()
+    d, i = brute_force.knn_merge_parts(t(keys), t(vals), **kwargs)
+    jd, ji = jbf.knn_merge_parts(keys, vals, **kwargs)
+    np.testing.assert_array_equal(n(i), n(ji))
+    np.testing.assert_array_equal(n(d), n(jd))
+
+
 @pytest.mark.parametrize("sizes", [(100, 150), (60, 5, 90), (40, 40, 3, 77)])
 @pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
 @pytest.mark.parametrize("offset", [0, 17])
