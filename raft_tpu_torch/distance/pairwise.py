@@ -10,7 +10,7 @@ Port of ``raft_tpu/distance/pairwise.py``. Two families, as there:
   of x and of y, so the broadcast (rows, cols, k) block stays within
   ``_BLOCK_ELEMS`` elements whatever the operands' sizes. L1 and Linf are
   the p = 1 and p = inf norms of ``torch.cdist``, which reduces without
-  the broadcast.
+  the broadcast (in f32 for f16 / bf16 rows, which it does not take).
 
 Haversine is its own closed form on 2-column (lat, lon) rows. The
 reference leaves all of these to XLA, so stock torch ops serve them; each
@@ -218,7 +218,11 @@ def distance(x, y, metric=DistanceType.L2SqrtExpanded,
     if metric in expanded:
         return expanded[metric](x, y)
     if metric in (M.L1, M.Linf):
-        return torch.cdist(x, y, p=1.0 if metric == M.L1 else float("inf"))
+        # cdist takes f32 and f64 only: half-precision rows are reduced in
+        # f32 and the distances returned in their dtype.
+        out = torch.promote_types(x.dtype, y.dtype)
+        return torch.cdist(x.float(), y.float(),
+                           p=1.0 if metric == M.L1 else float("inf")).to(out)
     if metric in (M.L2Unexpanded, M.L2SqrtUnexpanded):
         d = _blockwise(_core_l2, x, y)
         return torch.sqrt(d) if metric == M.L2SqrtUnexpanded else d

@@ -16,6 +16,7 @@ Haversine 2-column (lat, lon) rows.
 
 import importlib
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -247,3 +248,53 @@ def test_fused_l2_nn_argmin(rng, sqrt):
     xg, yg = gauss(rng, (60, 8)), gauss(rng, (30, 8))
     np.testing.assert_array_equal(n(fused_l2_nn_argmin(t(xg), t(yg))),
                                   n(jargmin(xg, yg)))
+
+
+# ---------------------------------------------------------------------------
+# L1 and Linf on half-precision rows. The reference answers in the rows'
+# dtype; the port reduces in f32 and rounds once, so the two agree within
+# two units in the last place of that dtype (rtol 2 eps: 2^-9 for f16,
+# 2^-6 for bf16) on Gaussian data, and exactly on integer-valued data,
+# whose sums (at most 84 here) are exact in f16 and bf16 alike.
+
+HALF = {torch.float16: jnp.float16, torch.bfloat16: jnp.bfloat16}
+HALF_METRICS = [DistanceType.L1, DistanceType.Linf]
+
+
+def _half_close(got, want, dtype, exact):
+    assert got.dtype == dtype and str(want.dtype) == str(HALF[dtype].dtype)
+    a = n(got.float())
+    b = np.asarray(want.astype(jnp.float32))
+    if exact:
+        np.testing.assert_array_equal(a, b)
+    else:
+        np.testing.assert_allclose(a, b, rtol=2 * torch.finfo(dtype).eps)
+
+
+@pytest.mark.parametrize("kind", ["int", "gauss"])
+@pytest.mark.parametrize("dtype", list(HALF), ids=str)
+@pytest.mark.parametrize("metric", HALF_METRICS, ids=lambda m: m.name)
+def test_l1_linf_half_precision(rng, metric, dtype, kind):
+    x, y = _data(rng, metric, kind, 17, 23)
+    jx, jy = jnp.asarray(x).astype(HALF[dtype]), jnp.asarray(y).astype(
+        HALF[dtype])
+    got = distance(t(x).to(dtype), t(y).to(dtype), metric)
+    _half_close(got, jdistance(jx, jy, JDistance(metric.value)), dtype,
+                kind == "int")
+    name = "l1" if metric == DistanceType.L1 else "chebyshev"
+    got = pairwise_distance(t(x).to(dtype), t(y).to(dtype), metric=name)
+    _half_close(got, jpairwise(jx, jy, metric=name), dtype, kind == "int")
+
+
+@pytest.mark.parametrize("dtype", list(HALF), ids=str)
+@pytest.mark.parametrize("metric", ["l1", "chebyshev"])
+def test_knn_l1_linf_half_precision(rng, metric, dtype):
+    """Integer-valued rows: distances exact, ids bit for bit (ties to the
+    lowest id)."""
+    q, db = _data(rng, types.resolve_metric(metric), "int", 9, 120)
+    jq, jdb = (jnp.asarray(a).astype(HALF[dtype]) for a in (q, db))
+    d, i = brute_force.knn(t(db).to(dtype), t(q).to(dtype), 7, metric=metric)
+    jd, ji = jbf.knn(jdb, jq, 7, metric=metric)
+    np.testing.assert_array_equal(n(i), n(ji))
+    np.testing.assert_array_equal(n(d.float()),
+                                  np.asarray(jd.astype(jnp.float32)))
