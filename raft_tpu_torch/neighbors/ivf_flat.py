@@ -134,6 +134,11 @@ class Index:
     def size(self) -> int:
         return int(torch.sum(self.list_sizes))
 
+    @property
+    def live_size(self) -> int:
+        """Rows that answer queries: ``size`` minus tombstoned slots."""
+        return self.size - self.n_deleted
+
     def reset_search_cache(self) -> None:
         """Drop the memoized auto bucket capacity (measured from the first
         query batch of each shape)."""

@@ -281,6 +281,27 @@ class BatchScheduler:
         if mesh is not None:
             searcher._front = self
 
+    def replace_searcher(self, searcher: Searcher) -> Searcher:
+        """Swap the serving endpoint (a promoted follower's searcher takes
+        over the traffic). The cache's invalidation hook moves to the new
+        searcher and the cache is emptied: the two may number their epochs
+        differently, so no entry of the old one may answer for the new.
+        Returns the retired searcher. Single-host schedulers only: a
+        sharded one's followers keep their own searchers."""
+        expects(self._comms is None
+                and getattr(searcher, "mesh", None) is None,
+                "replace_searcher swaps single-host searchers; build a new "
+                "scheduler over a sharded one")
+        with self._lock:
+            old, self.searcher = self.searcher, searcher
+            if self._unhook is not None:
+                self._unhook()
+                self._unhook = searcher.add_invalidation_hook(
+                    self.cache.invalidate)
+        if self.cache is not None:
+            self.cache.invalidate()
+        return old
+
     # -- the front rank's command channel ----------------------------------
     def _command(self, op: int, queries=None, k: int = 0,
                  valid_rows: int = 0, n_probes=None, degraded=None,

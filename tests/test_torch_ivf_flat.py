@@ -95,6 +95,22 @@ def test_search_parity_with_deleted_mask(int_case, engine):
     assert set(n(i).ravel().tolist()) <= live | {-1}
 
 
+def test_live_size_matches_reference():
+    """``live_size`` is ``size - n_deleted`` in both packages: on a fresh
+    index, and after the same ids are deleted from each."""
+    from raft_tpu import lifecycle as jlc
+    from raft_tpu_torch import lifecycle as lc
+
+    jidx = _int_index()
+    idx = _port_index(jidx)
+    assert idx.live_size == idx.size == jidx.live_size == jidx.size
+    ids = np.arange(0, 1200, 7)
+    jidx = dataclasses.replace(jidx)
+    assert lc.delete(idx, t(ids)) == jlc.delete(jidx, ids) > 0
+    assert idx.size == jidx.size
+    assert idx.live_size == jidx.live_size == jidx.size - len(ids)
+
+
 def test_starved_search_pads_with_sentinels(int_case):
     """k beyond what the probed list holds: (worst, -1) slots, as the
     reference gives them."""

@@ -430,6 +430,44 @@ def test_scheduler_stream_equals_reference(kind):
             _same_result(r, jr, 1e-6 if kind == "ivf_flat" else 0.0)
 
 
+def test_replace_searcher_equals_reference():
+    """``replace_searcher`` returns the retired searcher, moves the cache's
+    invalidation hook to the new one and empties the cache, in both
+    packages: a repeated request after the swap is a miss, and a mutation
+    of the new searcher (not the old) invalidates what it cached."""
+    reqs = _stream(seed=17, n_req=6)
+
+    def drive(mod, first, second):
+        sched = mod.BatchScheduler(
+            first, mod.BucketGrid.pow2(8, k_grid=(5, 10)),
+            mod.BatchPolicy(max_batch=8, max_wait=0.0),
+            cache=mod.ResultCache(16), clock=Clock())
+        out = []
+        for q, k in reqs[:3] + reqs[:3]:
+            sched.submit(q, k)
+            sched.run_until_idle()
+        out.append(sched.cache.snapshot())
+        old = sched.replace_searcher(second)
+        out += [old is first, sched.searcher is second,
+                sched.cache.snapshot()]
+        tk = sched.submit(*reqs[0])
+        sched.run_until_idle()
+        out.append(sched.cache.snapshot())
+        first.delete(np.arange(3))             # the retired searcher
+        out.append(sched.cache.snapshot())
+        second.delete(np.arange(3))            # the serving one
+        out.append(sched.cache.snapshot())
+        sched.close()
+        return out, tk.result()
+
+    a, b = _flat_pair(n_probes=4), _flat_pair()
+    got, res = drive(serve, a[0], b[0])
+    want, jres = drive(jserve, a[1], b[1])
+    assert got == want
+    assert got[1] and got[2]
+    _same_result(res, jres, 1e-6)
+
+
 def test_scheduler_span_tree_equals_reference():
     """The traced scheduler's request trees (queue_wait, batch_assembly,
     the searcher's device_dispatch and device_get, result_merge) export
