@@ -17,3 +17,11 @@ This package imports neither ``jax`` nor ``raft_tpu``.
 """
 
 __version__ = "0.1.0"
+
+from raft_tpu_torch.core.resources import DeviceResources, Resources
+
+__all__ = [
+    "Resources",
+    "DeviceResources",
+    "__version__",
+]

@@ -18,6 +18,14 @@ def worst_value(select_min: bool) -> float:
     return float("inf") if select_min else float("-inf")
 
 
+def pad_id(dtype=None):
+    """``PAD_ID`` as a Python int, or a 0-d tensor of ``dtype`` (an index
+    array's int32 / int64)."""
+    if dtype is None:
+        return PAD_ID
+    return torch.tensor(PAD_ID, dtype=dtype)
+
+
 def dummy_key_val(dtype, select_min: bool):
     """Padding sentinel for a key dtype: +-inf for floats, the dtype's
     extreme value otherwise."""

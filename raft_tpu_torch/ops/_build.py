@@ -62,11 +62,16 @@ def _notify(event: str, name: str) -> None:
         fn(event, name)
 
 
-def enable_compilation_cache() -> str:
+def enable_compilation_cache(path=None) -> str:
     """The port's persistent build cache: the directory the kernel
     libraries are built into and loaded from, so a process reuses every
-    library an earlier one built from the same sources. Returns
-    :data:`BUILD_DIR`."""
+    library an earlier one built from the same sources. A ``path`` points
+    :data:`BUILD_DIR` there (made if missing) for every later build and
+    load. Returns the effective directory."""
+    global BUILD_DIR
+    if path is not None:
+        BUILD_DIR = Path(path)
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
     return str(BUILD_DIR)
 
 
