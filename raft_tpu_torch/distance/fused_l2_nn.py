@@ -19,15 +19,18 @@ from typing import Optional, Tuple
 import torch
 
 from raft_tpu_torch.core.error import expects, expects_finite
+from raft_tpu_torch.core.nvtx import traced
 from raft_tpu_torch.core.resources import as_float
-from raft_tpu_torch.ops.fused_knn import fused_knn
+from raft_tpu_torch.linalg.blas import DEFAULT_PRECISION, resolve_precision
 
 
+@traced
 def fused_l2_nn_min_reduce(
     x,
     y,
     sqrt: bool = False,
     tile_n: int = 2048,
+    precision=DEFAULT_PRECISION,
     bf16: Optional[str] = None,
     handle=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -35,7 +38,10 @@ def fused_l2_nn_min_reduce(
     ``(min_dist (m,), argmin (m,) int32)``, squared unless ``sqrt``. Ties
     go to the lowest index. ``tile_n`` is the reference's column-tile
     width; it is accepted for signature parity and ignored, since the
-    fused kNN tiles ``y`` itself and the result does not depend on it."""
+    fused kNN tiles ``y`` itself and the result does not depend on it.
+    ``precision`` takes the reference's names and is checked; the f32
+    tier computes at full f32 for each (``bf16`` picks the tier)."""
+    resolve_precision(precision)
     expects(bf16 in (None, "split", "full"),
             f"bf16 must be None, 'split' or 'full' (got {bf16!r})")
     x = as_float(x, handle)
@@ -52,6 +58,10 @@ def _min_reduce(x, y, sqrt: bool = False, bf16: Optional[str] = None
     """The arg-min of :func:`fused_l2_nn_min_reduce` on float tensors,
     without the entry point's checks (the k-means loop calls it on
     operands derived from checked inputs)."""
+    # Imported here: ops.fused_knn imports distance.pairwise, and with the
+    # distance package's exports a module-level import closes a cycle.
+    from raft_tpu_torch.ops.fused_knn import fused_knn
+
     d1, i1 = fused_knn(x, y, 1, metric="l2", sqrt=sqrt,
                        bf16=bf16 is not None, qsplit=bf16 == "split")
     return d1[:, 0], i1[:, 0]

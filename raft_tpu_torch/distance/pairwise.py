@@ -21,7 +21,8 @@ zero rows give NaN there too).
 This module owns the port's float32 matrix products (:func:`gram`). The
 reference computes them at ``Precision.HIGHEST`` (full f32); a TF32 tensor
 core product keeps about 3 decimal digits and would break parity, so TF32
-is switched off here for cuBLAS and cuDNN alike.
+is switched off for cuBLAS and cuDNN alike (``linalg/blas.py``, imported
+here).
 """
 
 from __future__ import annotations
@@ -31,12 +32,10 @@ import functools
 import torch
 
 from raft_tpu_torch.core.error import expects, fail
+from raft_tpu_torch.core.nvtx import traced
 from raft_tpu_torch.core.resources import as_float
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
-
-# Full-f32 products, the analog of the reference's Precision.HIGHEST.
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
+from raft_tpu_torch.linalg.blas import DEFAULT_PRECISION, resolve_precision
 
 # Element budget of one broadcast (rows, cols, k) block of the unexpanded
 # metrics (64 MB of f32, the reference's budget), and the widest column
@@ -196,11 +195,16 @@ def _blockwise(core, x, y) -> torch.Tensor:
 # Public API
 
 
+@traced
 def distance(x, y, metric=DistanceType.L2SqrtExpanded,
-             metric_arg: float = 2.0, handle=None) -> torch.Tensor:
+             metric_arg: float = 2.0, precision=DEFAULT_PRECISION,
+             handle=None) -> torch.Tensor:
     """The (m, n) distances between the rows of ``x`` and ``y``.
     ``metric_arg`` is the Minkowski p of LpUnexpanded. InnerProduct gives
-    raw similarities; Cosine and Correlation give ``1 - similarity``."""
+    raw similarities; Cosine and Correlation give ``1 - similarity``.
+    ``precision`` takes the reference's names (None, "default", "high",
+    "highest"); the port computes at full f32 for each."""
+    resolve_precision(precision)
     metric = resolve_metric(metric)
     x = as_float(x, handle)
     y = as_float(y, handle, x.device)
@@ -242,10 +246,12 @@ def distance(x, y, metric=DistanceType.L2SqrtExpanded,
     fail("unsupported metric %r", metric)
 
 
+@traced
 def pairwise_distance(x, y, metric: str = "euclidean", p: float = 2.0,
+                      precision=DEFAULT_PRECISION,
                       handle=None) -> torch.Tensor:
     """Runtime-metric pairwise distance, the pylibraft surface: ``metric``
     is a name of ``DISTANCE_TYPES`` (or a ``DistanceType``), ``p`` the
-    Minkowski exponent."""
+    Minkowski exponent, ``precision`` as in :func:`distance`."""
     return distance(x, y, metric=resolve_metric(metric), metric_arg=p,
-                    handle=handle)
+                    precision=precision, handle=handle)

@@ -24,12 +24,14 @@ import torch
 from raft_tpu.distance import distance_types as jtypes
 from raft_tpu.distance.distance_types import DistanceType as JDistance
 from raft_tpu.distance.fused_l2_nn import fused_l2_nn_argmin as jargmin
+from raft_tpu.distance.fused_l2_nn import fused_l2_nn_min_reduce as jfused
 from raft_tpu.distance.pairwise import distance as jdistance
 from raft_tpu.distance.pairwise import pairwise_distance as jpairwise
 from raft_tpu.neighbors import brute_force as jbf
 from raft_tpu_torch.distance import distance_types as types
 from raft_tpu_torch.distance.distance_types import DistanceType
-from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn_argmin
+from raft_tpu_torch.distance.fused_l2_nn import (fused_l2_nn_argmin,
+                                                 fused_l2_nn_min_reduce)
 from raft_tpu_torch.distance.pairwise import distance, pairwise_distance
 from raft_tpu_torch.neighbors import brute_force
 from test_torch_common import GAUSS_TOL, gauss, int_data, n, t
@@ -298,3 +300,35 @@ def test_knn_l1_linf_half_precision(rng, metric, dtype):
     np.testing.assert_array_equal(n(i), n(ji))
     np.testing.assert_array_equal(n(d.float()),
                                   np.asarray(jd.astype(jnp.float32)))
+
+
+# ---------------------------------------------------------------------------
+# ``precision`` at the reference's positions: fifth in distance and
+# pairwise_distance, fifth in fused_l2_nn_min_reduce (after tile_n), so
+# positional calls line up. The port computes at full f32 for every name.
+
+
+@pytest.mark.parametrize("precision", [None, "default", "high", "highest"])
+def test_precision_positional_calls_line_up(rng, precision):
+    x, y = int_data(rng, (9, 6)), int_data(rng, (13, 6))
+    M = DistanceType
+    got = distance(t(x), t(y), M.LpUnexpanded, P, precision)
+    _close(got, jdistance(x, y, JDistance.LpUnexpanded, P, precision), False)
+    got = pairwise_distance(t(x), t(y), "sqeuclidean", 2.0, precision)
+    _close(got, jpairwise(x, y, "sqeuclidean", 2.0, precision), True)
+    d, i = fused_l2_nn_min_reduce(t(x), t(y), True, 64, precision, None)
+    jd, ji = jfused(x, y, True, 64, precision, None)
+    np.testing.assert_array_equal(n(i), n(ji))
+    np.testing.assert_allclose(n(d), n(jd), rtol=1e-6)
+
+
+def test_precision_keyword_and_refusal(rng):
+    x = t(int_data(rng, (4, 3)))
+    _close(distance(x, x, precision="default"), distance(x, x), True)
+    _close(pairwise_distance(x, x, precision="high"),
+           pairwise_distance(x, x), True)
+    for call in (lambda: distance(x, x, DistanceType.L1, 2.0, "fastest"),
+                 lambda: pairwise_distance(x, x, "l1", 2.0, 1),
+                 lambda: fused_l2_nn_min_reduce(x, x, False, 2048, "HIGH")):
+        with pytest.raises(ValueError):
+            call()
