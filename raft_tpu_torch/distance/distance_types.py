@@ -2,7 +2,8 @@
 
 Port of ``raft_tpu/distance/distance_types.py``: the ``DistanceType`` enum
 (same numeric values as the reference), the pylibraft metric-name map with
-its aliases, ``SUPPORTED_DISTANCES`` and the selection-polarity helpers.
+its aliases, ``SUPPORTED_DISTANCES``, the selection-polarity helpers and
+the gram kernels' ``KernelType``.
 """
 
 from __future__ import annotations
@@ -100,3 +101,13 @@ def resolve_metric(metric) -> DistanceType:
                 f"{sorted(DISTANCE_TYPES)}"
             ) from None
     return DistanceType(metric)
+
+
+class KernelType(enum.IntEnum):
+    """Gram-matrix kernel functions (``kernels::KernelType``), with the
+    reference's values."""
+
+    LINEAR = 0
+    POLYNOMIAL = 1
+    RBF = 2
+    TANH = 3
