@@ -230,6 +230,7 @@ The script imports neither JAX nor raft_tpu.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
 import subprocess
 import sys
@@ -458,7 +459,7 @@ def check_kernels(dev) -> None:
     """Phase 3: both kernels against their plain versions on the card."""
     import torch
 
-    from raft_tpu_torch.ops import fused_knn as fk
+    fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(SEED)
@@ -607,7 +608,7 @@ def check_kernels_b3_b4(dev) -> None:
     """Phase 3 for B3 and B4: kernel against plain version on the card."""
     import torch
 
-    from raft_tpu_torch.ops import fused_knn as fk
+    fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
     from raft_tpu_torch.ops import pq_scan as ps
 
     rng = np.random.default_rng(SEED + 1)
@@ -704,7 +705,7 @@ def main_path(dev, X, Q):
     import torch
 
     from raft_tpu_torch.neighbors import brute_force, ivf_flat
-    from raft_tpu_torch.ops import fused_knn as fk
+    fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 
     _zero_counters()
     torch.cuda.synchronize()
@@ -763,7 +764,7 @@ def b1_entry(dev, X, Q, bf):
     """Phase 5 for B1 at the brute-force shape."""
     import torch
 
-    from raft_tpu_torch.ops import fused_knn as fk
+    fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 
     m, n, d = Q.shape[0], X.shape[0], X.shape[1]
     pd, pi = fk._fused_knn_plain(Q, X, K, True, False, False)
@@ -812,7 +813,7 @@ def b1_kmeans_shape(dev, X, centers):
     reach RECALL_BF and the distances agree within ``norm_tol``."""
     import torch
 
-    from raft_tpu_torch.ops import fused_knn as fk
+    fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 
     T = X[::2][:N_ROWS // 2].contiguous()
     C1024 = centers.contiguous()
@@ -865,7 +866,7 @@ def b2_entry(dev, Q, index, search_ms):
 
     from raft_tpu_torch.neighbors import ivf_flat
     from raft_tpu_torch.ops import _build
-    from raft_tpu_torch.ops import fused_knn as fk
+    fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 
     qrows = ivf_flat._CELL_QROWS
     probes = ivf_flat._coarse_probe(Q, index.centers, N_PROBES, True)
@@ -943,7 +944,7 @@ def b2_entry(dev, Q, index, search_ms):
 
 def _counted():
     """Every kernel wrapper with a launch counter, by kernel name."""
-    from raft_tpu_torch.ops import fused_knn as fk
+    fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
     from raft_tpu_torch.ops import pq_scan as ps
     from raft_tpu_torch.ops import stream_select as ss
 
@@ -1089,7 +1090,7 @@ def b4_entry(dev, Q, index, search_ms):
     from raft_tpu_torch.distance.pairwise import gram
     from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
     from raft_tpu_torch.ops import _build
-    from raft_tpu_torch.ops import fused_knn as fk
+    fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
     from raft_tpu_torch.ops import pq_scan as ps
 
     codesT, lo, hi, invalid, crot_p = index.compressed_scan_operands()
@@ -1233,7 +1234,7 @@ def _b3_check(what, args, live, tol):
     in both. Returns the max error and the recall."""
     import torch
 
-    from raft_tpu_torch.ops import fused_knn as fk
+    fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 
     kd, ki = fk._fused_batch_knn_cuda(*args)
     pd, pi = fk._fused_batch_knn_plain(*args)
@@ -1264,7 +1265,7 @@ def b3_entry(dev, index, probes, rotq):
 
     from raft_tpu_torch.neighbors import ivf_flat
     from raft_tpu_torch.ops import _build
-    from raft_tpu_torch.ops import fused_knn as fk
+    fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 
     recon = index.reconstructed()
     n_lists, cap, d = recon.shape
@@ -1334,7 +1335,7 @@ def decode_block(index, Qb, route, invalid, live):
     import torch
 
     from raft_tpu_torch.neighbors import ivf_pq
-    from raft_tpu_torch.ops import fused_knn as fk
+    fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 
     n_lists, cap, J = index.pq_codes.shape[0], index.pq_codes.shape[1], \
         index.pq_dim
@@ -1511,7 +1512,7 @@ def select_phase(dev, b5_err: float):
     3's)."""
     import torch
 
-    from raft_tpu_torch.matrix import select_k as sk
+    sk = importlib.import_module("raft_tpu_torch.matrix.select_k")
     from raft_tpu_torch.matrix.select_k import SelectMethod, select_k
     from raft_tpu_torch.ops import stream_select as ss
 
@@ -1906,7 +1907,7 @@ def serve_engine_mix(X, searchers, reqs, card):
 
     from raft_tpu_torch.core.error import expects_finite
     from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
-    from raft_tpu_torch.ops import fused_knn as fk
+    fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 
     q = torch.as_tensor(np.concatenate([r for r, _ in reqs])[:32],
                         device=X.device)

@@ -45,11 +45,19 @@ import torch
 
 from raft_tpu_torch.core.error import CudaError, LogicError, expects
 from raft_tpu_torch.distance.pairwise import gram
-from raft_tpu_torch.matrix.select_k import stable_top_k
 from raft_tpu_torch.ops import _build
 from raft_tpu_torch.ops._build import check_operands as _check_cuda
 from raft_tpu_torch.ops._build import ptr as _ptr
 from raft_tpu_torch.ops._build import stream as _stream
+
+def stable_top_k(values: torch.Tensor, k: int):
+    """``matrix.select_k.stable_top_k``, imported at the call: the matrix
+    package imports ``ops.stream_select``, whose package ``__init__``
+    imports this module, so a module-level import would close a cycle."""
+    from raft_tpu_torch.matrix.select_k import stable_top_k as top_k
+
+    return top_k(values, k)
+
 
 #: Widest top-k queue of the kernels (the reference warpsort cap).
 MAX_K = 256

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from raft_tpu_torch.ops import fused_knn as fk
+fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 from test_torch_common import int_data, n, t
 
 jfk = importlib.import_module("raft_tpu.ops.fused_knn")

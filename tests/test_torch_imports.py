@@ -2,6 +2,7 @@
 chip_smoke.py, imports jax or raft_tpu; entry points default to the card
 and raise without one; kernel wrappers raise rather than fall back."""
 
+import importlib
 import os
 import pkgutil
 import subprocess
@@ -17,7 +18,7 @@ from raft_tpu_torch.core.error import CudaError
 from raft_tpu_torch.core.resources import Resources, as_tensor, resolve_device
 from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
 from raft_tpu_torch.ops import _build
-from raft_tpu_torch.ops import fused_knn as fk
+fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 from raft_tpu_torch.ops import pq_scan as ps
 from raft_tpu_torch.ops import stream_select as ss
 
@@ -43,7 +44,13 @@ def test_module_list_covers_the_slice():
                  "parallel.knn", "parallel.kmeans", "parallel.ivf",
                  "util.atomic_io", "comms.agree", "serve.recovery",
                  "testing.chaos", "lifecycle.wal", "lifecycle.elastic",
-                 "obs.registry", "obs.recall"):
+                 "obs.registry", "obs.recall", "util.input_validation",
+                 "util.itertools", "core.kvp", "core.operators", "core.math",
+                 "core.nvtx", "core.interruptible", "core.checks",
+                 "core.temporary_buffer", "core.compilation_cache",
+                 "linalg.blas", "linalg.elementwise", "linalg.matrix_vector",
+                 "linalg.norm", "linalg.reduce", "linalg.decomp",
+                 "matrix.ops", "distance.kernels", "distance.masked_nn"):
         assert f"raft_tpu_torch.{name}" in _MODULES
 
 
@@ -61,6 +68,25 @@ def test_no_module_imports_jax_or_raft_tpu():
         " or m == 'raft_tpu' or m.startswith('raft_tpu.')]",
         "assert all(sys.modules[m] is None for m in bad), bad",
         "print('ok', len(sys.modules))",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_each_package_imports_first():
+    """Every package of the port imports in a fresh module table whatever
+    was imported before it (the package exports leave no import cycle)."""
+    packages = sorted(m.name for m in pkgutil.walk_packages(
+        raft_tpu_torch.__path__, prefix="raft_tpu_torch.") if m.ispkg)
+    code = "\n".join([
+        "import importlib, sys",
+        f"for name in {packages!r}:",
+        "    for mod in [m for m in sys.modules if m.startswith('raft_tpu_')]:",
+        "        del sys.modules[mod]",
+        "    importlib.import_module(name)",
+        "print('ok')",
     ])
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

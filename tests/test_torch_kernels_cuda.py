@@ -10,6 +10,7 @@ Integer-valued data keeps every distance exact, so kernel and plain
 version must agree bit for bit, ids and distances.
 """
 
+import importlib
 import numpy as np
 import pytest
 import torch
@@ -19,7 +20,7 @@ from raft_tpu_torch import serve
 from raft_tpu_torch.core.error import LogicError
 from raft_tpu_torch.matrix.select_k import SelectMethod, select_k
 from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
-from raft_tpu_torch.ops import fused_knn as fk
+fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 from raft_tpu_torch.ops import pq_scan as ps
 from raft_tpu_torch.ops import stream_select as ss
 from chip_smoke import same_up_to_exact_ties

@@ -10,6 +10,7 @@ Pallas sweep in interpret mode) and against ``kTopK``. Shapes stay small
 kernel on the CPU.
 """
 
+import importlib
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +20,7 @@ from raft_tpu.matrix.select_k import SelectMethod as JMethod
 from raft_tpu.matrix.select_k import extract_m_rows as jextract
 from raft_tpu.matrix.select_k import select_k as jselect_k
 from raft_tpu_torch.core.error import LogicError
-from raft_tpu_torch.matrix import select_k as sk
+sk = importlib.import_module("raft_tpu_torch.matrix.select_k")
 from raft_tpu_torch.matrix.select_k import SelectMethod, select_k
 from raft_tpu_torch.ops import stream_select as ss
 from test_torch_common import n, t

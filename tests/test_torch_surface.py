@@ -1,0 +1,143 @@
+"""The port's package surface against raft_tpu's.
+
+For every package of ``raft_tpu``, each name of its ``__all__`` resolves
+in the port's package of the same path, unless the module that defines it
+waits for a later slice of ROADMAP A.6: those names, modules and packages
+are listed below with that slice's letter, and the test asserts that they
+are still missing, so a slice that ports one must move it out of the list.
+The port's ``__all__`` holds the reference's less its pending names (the
+port's own additions, such as its mesh, may stand beside them).
+"""
+
+import importlib
+import pkgutil
+
+import pytest
+
+import raft_tpu
+
+# Packages of raft_tpu with no counterpart yet, by slice.
+PENDING_PACKAGES = {
+    "raft_tpu._native": "e",
+    "raft_tpu.label": "f",
+    "raft_tpu.stats": "f",
+    "raft_tpu.sparse": "g",
+    "raft_tpu.sparse.solver": "g",
+    "raft_tpu.solver": "h",
+    "raft_tpu.spectral": "h",
+    "raft_tpu.spatial": "i",
+    "raft_tpu.spatial.knn": "i",
+}
+
+# Modules of ported packages that wait for a slice (the reference's
+# linalg/lanczos.py re-exports sparse/solver/lanczos).
+PENDING_MODULES = {
+    "raft_tpu.linalg.lanczos": "g",
+    "raft_tpu.random.rng": "d",
+    "raft_tpu.random.make_blobs": "d",
+    "raft_tpu.random.make_regression": "d",
+    "raft_tpu.random.rmat": "d",
+    "raft_tpu.neighbors.ball_cover": "i",
+    "raft_tpu.neighbors.epsilon_neighborhood": "i",
+    "raft_tpu.cluster.single_linkage": "i",
+}
+
+_KMEANS_E = ("fit", "predict", "fit_predict", "transform", "cluster_cost",
+             "min_cluster_and_distance", "min_cluster_distance",
+             "update_centroids", "compute_new_centroids", "init_random",
+             "sample_centroids", "find_k", "InitMethod", "KMeansParams")
+_RANDOM_D = ("uniform", "uniformInt", "normal", "normalInt", "lognormal",
+             "laplace", "gumbel", "logistic", "exponential", "rayleigh",
+             "bernoulli", "scaled_bernoulli", "discrete", "rng_fill",
+             "sample_without_replacement", "permute",
+             "multi_variable_gaussian", "make_blobs", "make_regression",
+             "rmat_rectangular_gen")
+
+# Names of ported packages that wait for a slice, by package.
+PENDING_NAMES = {
+    "raft_tpu.cluster": {
+        **{name: "e" for name in _KMEANS_E},
+        "LinkageDistance": "i", "LinkageOutput": "i", "single_linkage": "i",
+    },
+    "raft_tpu.neighbors": {"BallCoverIndex": "i", "ball_cover": "i",
+                           "eps_neighbors_l2sq": "i"},
+    "raft_tpu.random": {name: "d" for name in _RANDOM_D},
+}
+
+# JAX plumbing with no counterpart by design (ROADMAP A): not in any
+# __all__, listed so the module walk below knows them.
+NOT_PORTED = {"raft_tpu.util.pallas_compat", "raft_tpu.util.shard_map_compat"}
+
+SLICES = set("defghij")
+
+_REF_MODULES = sorted(m.name for m in pkgutil.walk_packages(
+    raft_tpu.__path__, prefix="raft_tpu."))
+_REF_PACKAGES = ["raft_tpu"] + sorted(
+    m.name for m in pkgutil.walk_packages(raft_tpu.__path__,
+                                          prefix="raft_tpu.") if m.ispkg)
+
+
+def _port_name(ref: str) -> str:
+    return "raft_tpu_torch" + ref[len("raft_tpu"):]
+
+
+def _import(name):
+    try:
+        return importlib.import_module(name)
+    except ModuleNotFoundError as err:
+        if err.name is not None and name.startswith(err.name):
+            return None
+        raise
+
+
+def test_pending_lists_name_slices_still_to_come():
+    for table in (PENDING_PACKAGES, PENDING_MODULES):
+        assert set(table.values()) <= SLICES
+    for names in PENDING_NAMES.values():
+        assert set(names.values()) <= SLICES
+    for name in list(PENDING_PACKAGES) + list(PENDING_MODULES):
+        assert name in _REF_MODULES, name
+
+
+@pytest.mark.parametrize("ref_name", _REF_MODULES)
+def test_every_reference_module_has_a_port_or_a_slice(ref_name):
+    """Each module of raft_tpu exists in the port, or waits for the slice
+    listed (in a pending package or as a pending module)."""
+    pending = ref_name in PENDING_MODULES or any(
+        ref_name == p or ref_name.startswith(p + ".")
+        for p in PENDING_PACKAGES)
+    if ref_name in NOT_PORTED:
+        assert _import(_port_name(ref_name)) is None
+        return
+    port = _import(_port_name(ref_name))
+    if pending:
+        assert port is None, (
+            f"{_port_name(ref_name)} exists now: take {ref_name} out of "
+            "the pending lists")
+    else:
+        assert port is not None, f"{_port_name(ref_name)} is missing"
+
+
+@pytest.mark.parametrize("ref_name", _REF_PACKAGES)
+def test_package_all_resolves_in_the_port(ref_name):
+    if ref_name in PENDING_PACKAGES:
+        assert _import(_port_name(ref_name)) is None
+        return
+    ref = importlib.import_module(ref_name)
+    port = importlib.import_module(_port_name(ref_name))
+    names = list(getattr(ref, "__all__", []))
+    pending = PENDING_NAMES.get(ref_name, {})
+    assert set(pending) <= set(names)
+    for name in names:
+        if name in pending:
+            assert not hasattr(port, name), (
+                f"{_port_name(ref_name)}.{name} resolves now: take it out "
+                "of PENDING_NAMES")
+            continue
+        assert hasattr(port, name), f"{_port_name(ref_name)}.{name}"
+        ref_obj, obj = getattr(ref, name), getattr(port, name)
+        # A module stays a module, a class a class, a function a callable.
+        assert type(obj).__name__ == type(ref_obj).__name__ or (
+            callable(ref_obj) and callable(obj)), name
+    # The port may export more (its own mesh, for one), never less.
+    assert set(names) - set(pending) <= set(getattr(port, "__all__", []))

@@ -52,6 +52,7 @@ events (median) unless named ``_s``:
 * ``select_1024x262144_k256_ms``: ``select_k`` through ``kAuto`` on those
   keys, k=256 (B5, the rank and the audit).
 """
+import importlib
 import inspect
 import json
 import subprocess
@@ -67,7 +68,7 @@ from raft_tpu_torch.matrix.select_k import select_k  # noqa: E402
 from raft_tpu_torch.distance.pairwise import gram  # noqa: E402
 from raft_tpu_torch.neighbors import ivf_flat, ivf_pq  # noqa: E402
 from raft_tpu_torch.ops import _build  # noqa: E402
-from raft_tpu_torch.ops import fused_knn as fk  # noqa: E402
+fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 from raft_tpu_torch.ops import pq_scan as ps  # noqa: E402
 from raft_tpu_torch.ops import stream_select as ss  # noqa: E402
 

@@ -21,6 +21,7 @@ rate of a cuBLAS 8192^3 matrix product (TF32 off) as what this card
 reaches outside B1.
 """
 import ctypes
+import importlib
 import json
 import subprocess
 import sys
@@ -32,7 +33,7 @@ from tune_common import ROOT, build, card_line, parse, time_ms
 sys.path.insert(0, str(ROOT))
 
 from raft_tpu_torch.ops import _build  # noqa: E402
-from raft_tpu_torch.ops import fused_knn as fk  # noqa: E402
+fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 
 
 def use(path):

@@ -23,6 +23,7 @@ probes weight them). The script also prints ptxas' register and spill
 lines of the B2 scans and the card line.
 """
 import ctypes
+import importlib
 import json
 import sys
 
@@ -33,7 +34,7 @@ from tune_common import ROOT, build, card_line, parse, time_ms
 sys.path.insert(0, str(ROOT))
 
 from raft_tpu_torch.ops import _build  # noqa: E402
-from raft_tpu_torch.ops import fused_knn as fk  # noqa: E402
+fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 
 
 def use(path):

@@ -27,6 +27,7 @@ the recon shape at k = 10 with 32 query rows a CTA. The script prints
 ptxas' register and spill lines of the B3 scans and the card line.
 """
 import ctypes
+import importlib
 import json
 import re
 import sys
@@ -41,7 +42,7 @@ import chip_smoke as cs  # noqa: E402
 from raft_tpu_torch.distance.pairwise import gram  # noqa: E402
 from raft_tpu_torch.neighbors import ivf_flat, ivf_pq  # noqa: E402
 from raft_tpu_torch.ops import _build  # noqa: E402
-from raft_tpu_torch.ops import fused_knn as fk  # noqa: E402
+fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 
 
 def use(path, src):
