@@ -220,7 +220,30 @@ no result line):
     script's (records, snapshots, 2 resizes, 1 promotion, samples
     scanned); append and fsync p50 / p99 ms; rank 0's first B1 k=1 and
     B2 (and (a)'s B4) held against their plain versions;
-16. a ``kernels`` line, the card line, and the result line.
+16. the breadth modules (run after phase 7, while phase 4's index is as
+    phase 4 built it), counters set to 0 before its one search and read
+    after: (a) ``linalg.rsvd`` of rank 32 of X_r = (X V) V^T (V an
+    orthonormal 128 x 32, so X_r has rank 32 exactly), its singular
+    values and reconstruction against float64 ``eigvalsh`` of X_r^T X_r;
+    (b) ``svd_qr``, ``svd_eig``, ``lstsq_svd`` and ``lstsq_eig`` on X
+    with y = X w (singular values against float64, w recovered),
+    ``eig_dc`` / ``eig_sel_dc`` on X's 128 x 128 covariance, and
+    ``cholesky_rank_one_update`` at 1024 x 1024 against float64
+    ``cholesky(A + v v^T)``; (c) ``masked_l2_nn`` as IVF-Flat's probe
+    mask (y = phase 4's rows in list order, the groups its 1024 lists,
+    each query allowed the 32 lists its coarse step probes) against the
+    index's k=1 search with 32 probes (distances within ``norm_tol``,
+    ids but at near-ties; one B2 launch) and, on 100 queries, against
+    float64 on the card, with its time and tile; (g) its trace ranges
+    in a ``torch.profiler`` trace of one call; (d) the linear,
+    polynomial, tanh and RBF gram kernels at 10,000 x 10,000 over the
+    queries, 100 rows against float64; (e) ``reduce_rows_by_key`` of X
+    by IVF list, ``row_norm``, ``normalize`` and ``matrix.argmin`` at 1M
+    x 128 against float64; (f) ``synchronize`` on about 1 s of queued
+    matmuls, cancelled from a second thread 0.1 s in (raised within 4
+    polls, the stream still busy), then an uncancelled one that returns
+    with the stream idle;
+17. a ``kernels`` line, the card line, and the result line.
 
 The data is made with numpy from a fixed seed: 1000 Gaussian blobs
 (centers uniform in [-10, 10], sigma 5), queries = database rows + N(0, 1).
@@ -336,6 +359,26 @@ N_CHECK_15 = 2_000        # queries of the recovered / resized answers
 PRIMARY_15 = 0            # the rank whose death promotes the follower
 LEAVER_15 = 3             # the shard drained, then joined back
 PROBE_RATE_15, PROBE_SEED_15 = 0.05, 5
+# Phase 16: the breadth modules (linalg, matrix ops, gram kernels, masked
+# nearest neighbor, cancellation, trace ranges).
+RANK_16 = 32              # rsvd's rank, and the exact rank of its input
+N_CHECK_16 = 100          # rows held to float64 on the card
+CHOL_16 = 1024            # order of the Cholesky rank-one update
+SYNC_S_16 = 1.0           # seconds of matmuls queued before the cancel
+CANCEL_AFTER_16 = 0.1     # seconds from the sync's start to the cancel
+POLL_16 = 0.05            # synchronize's poll interval
+# Relative tolerances of phase 16, each with its reason in breadth_phase.
+SVAL_RTOL_16 = 1e-4       # rsvd / svd_qr singular values
+RECON_RTOL_16 = 1e-4      # rsvd's reconstruction (Frobenius)
+SVD_EIG_RTOL_16 = 1e-3    # svd_eig (squares the condition number)
+LSTSQ_RTOL_16 = 1e-4      # lstsq_svd's w
+LSTSQ_EIG_RTOL_16 = 1e-3  # lstsq_eig's w (normal equations)
+EIG_RTOL_16 = 1e-3        # eig_dc, of the largest (the reference's test)
+CHOL_RTOL_16 = 1e-4       # the updated factor, of its largest entry
+KEYSUM_RTOL_16 = 3e-5     # keyed sums, of each key's sum of |x|
+EIGVEC_RTOL_16 = 1e-3     # eig_dc's residual |C v - v w|, of |C|
+NORM_RTOL_16 = 1e-5       # row norms
+UNIT_ATOL_16 = 1e-6       # normalized rows (entries of at most 1)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FP32 = 67e12
@@ -4495,6 +4538,366 @@ def durable_ranks(dev, got, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the breadth modules
+
+
+def _rel(a, b) -> float:
+    """|a - b| / |b| (Frobenius), in float64."""
+    import torch
+
+    a, b = a.double(), b.double()
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def _timed(fn):
+    """``fn()`` and its seconds, the card synchronised on both sides."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def breadth_decomp(dev, X, card) -> dict:
+    """Phase 16 (a) and (b): rsvd of an exactly rank-32 corpus, both SVDs,
+    both least squares, the eigensolvers and the Cholesky rank-one update,
+    each against float64 on the card. Returns the step seconds."""
+    import torch
+
+    from raft_tpu_torch import linalg
+    from raft_tpu_torch.core.resources import DeviceResources
+    from raft_tpu_torch.linalg import decomp
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 16)
+    secs = {}
+    # (a) X_r = (X V) V^T with V orthonormal (128 x 32) has rank 32 up to
+    # f32 rounding: rsvd's 32 components hold all of it, and its 33rd
+    # singular value is rounding noise, so no check sits near a threshold.
+    V = torch.linalg.qr(torch.randn((DIM, RANK_16), generator=gen,
+                                    dtype=torch.float64, device=dev)).Q
+    Vf = V.float()
+    Xr = (X @ Vf) @ Vf.T
+    (u, sv, v), secs["rsvd"] = _timed(lambda: linalg.rsvd(
+        Xr, RANK_16, handle=DeviceResources(dev, seed=SEED)))
+    Xd = Xr.double()
+    true = torch.sqrt(torch.clamp_min(torch.linalg.eigvalsh(Xd.T @ Xd), 0)
+                      ).flip(0)
+    del Xd
+    s_err = float(torch.max(torch.abs(sv.double() - true[:RANK_16])
+                            / true[:RANK_16]))
+    recon = _rel((u * sv) @ v.T, Xr)
+    log(f"phase 16 (a): rsvd({N_ROWS} x {DIM}, k={RANK_16}) "
+        f"{secs['rsvd']:.3f} s; singular values off float64 eigvalsh by "
+        f"{s_err:.3e} (rel, bar {SVAL_RTOL_16}), reconstruction "
+        f"{recon:.3e} (bar {RECON_RTOL_16}), singular value {RANK_16 + 1} "
+        f"/ 1: {float(true[RANK_16] / true[0]):.3e} [{card}]")
+    if not (s_err <= SVAL_RTOL_16 and recon <= RECON_RTOL_16):
+        raise AssertionError("rsvd does not recover the rank-32 corpus")
+    del Xr, u, v
+
+    # (b) X is well conditioned (its columns: 1000 blob centers uniform in
+    # [-10, 10] plus N(0, 25) noise), so f32 recovers w far inside the
+    # bars; the normal equations (svd_eig, lstsq_eig) square the
+    # condition number and get a looser bar.
+    Xd = X.double()
+    true = torch.sqrt(torch.linalg.eigvalsh(Xd.T @ Xd).flip(0))
+    w = torch.randn(DIM, generator=gen, dtype=torch.float64, device=dev)
+    y = X @ w.float()
+    report, failed = [], []
+    for name, fn, bar in (("svd_qr", linalg.svd_qr, SVAL_RTOL_16),
+                          ("svd_eig", linalg.svd_eig, SVD_EIG_RTOL_16)):
+        (u, sv, v), secs[name] = _timed(lambda: fn(X))
+        s_err = float(torch.max(torch.abs(sv.double() - true) / true))
+        recon = _rel((u * sv) @ v.T, X)
+        report.append(f"{name} {secs[name]:.3f} s (singular values "
+                      f"{s_err:.3e}, reconstruction {recon:.3e}, bar {bar})")
+        if not (s_err <= bar and recon <= bar):
+            failed.append(name)
+        del u, v
+    for name, fn, bar in (("lstsq_svd", linalg.lstsq_svd, LSTSQ_RTOL_16),
+                          ("lstsq_eig", linalg.lstsq_eig,
+                           LSTSQ_EIG_RTOL_16)):
+        got, secs[name] = _timed(lambda: fn(X, y))
+        err = _rel(got, w)
+        report.append(f"{name} {secs[name]:.3f} s (w off by {err:.3e}, bar "
+                      f"{bar})")
+        if err > bar:
+            failed.append(name)
+    C = (X.T @ X) / N_ROWS
+    (ew, evec), secs["eig_dc"] = _timed(lambda: linalg.eig_dc(C))
+    ref = torch.linalg.eigvalsh(C.double())
+    e_err = float(torch.max(torch.abs(ew.double() - ref)) / ref[-1])
+    Cd, ed = C.double(), evec.double()
+    resid = float(torch.linalg.norm(Cd @ ed - ed * ew.double())
+                  / torch.linalg.norm(Cd))
+    top = decomp.eig_sel_dc(C, 8, smallest=False)
+    report.append(f"eig_dc {secs['eig_dc']:.4f} s (eigenvalues {e_err:.3e} "
+                  f"of the largest, bar {EIG_RTOL_16}; residual "
+                  f"{resid:.3e}, bar {EIGVEC_RTOL_16})")
+    if e_err > EIG_RTOL_16 or resid > EIGVEC_RTOL_16:
+        failed.append("eig_dc")
+    if not (torch.equal(top[0], ew[-8:]) and torch.equal(top[1],
+                                                          evec[:, -8:])):
+        failed.append("eig_sel_dc (not eig_dc's top 8)")
+    B = torch.randn((CHOL_16, CHOL_16), generator=gen, dtype=torch.float64,
+                    device=dev)
+    A = B @ B.T / CHOL_16 + torch.eye(CHOL_16, dtype=torch.float64,
+                                      device=dev)
+    vv = torch.randn(CHOL_16, generator=gen, dtype=torch.float64, device=dev)
+    L = torch.linalg.cholesky(A).float()
+    up, secs["cholesky_r1"] = _timed(
+        lambda: linalg.cholesky_rank_one_update(L, vv.float()))
+    ref = torch.linalg.cholesky(A + torch.outer(vv.float().double(),
+                                                vv.float().double()))
+    c_err = float(torch.max(torch.abs(up.double() - ref))
+                  / torch.max(torch.abs(ref)))
+    report.append(f"cholesky_rank_one_update {CHOL_16} x {CHOL_16} "
+                  f"{secs['cholesky_r1']:.3f} s (off float64 by {c_err:.3e} "
+                  f"of the largest entry, bar {CHOL_RTOL_16})")
+    if c_err > CHOL_RTOL_16:
+        failed.append("cholesky_rank_one_update")
+    log(f"phase 16 (b): {'; '.join(report)} [{card}]")
+    if failed:
+        raise AssertionError(f"off float64 beyond the bar: {failed}")
+    return secs
+
+
+def breadth_masked(dev, X, Q, index, card) -> dict:
+    """Phase 16 (c) and (g): ``masked_l2_nn`` as IVF-Flat's probe mask
+    over phase 4's index (rows in list order, groups = lists, each query
+    allowed the 32 lists its coarse step probes) against the index's own
+    k=1 search, 100 queries against float64, and its trace ranges in a
+    ``torch.profiler`` trace. Returns the search's launches and the
+    times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_tpu_torch.distance import masked_l2_nn
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    masked_mod = importlib.import_module("raft_tpu_torch.distance.masked_nn")
+    sizes = index.list_sizes.long()
+    cap = index.data.shape[1]
+    valid = torch.arange(cap, device=dev)[None, :] < sizes[:, None]
+    y = index.data[valid]                       # rows in list order
+    ids = index.indices[valid].long()
+    group_idxs = torch.cumsum(sizes, 0)
+    probes = ivf_flat._coarse_probe(Q, index.centers, N_PROBES, True)
+    adj = torch.zeros((Q.shape[0], index.n_lists), dtype=torch.bool,
+                      device=dev)
+    adj.scatter_(1, probes.long(), True)
+
+    _zero_counters()
+    sp = ivf_flat.SearchParams(n_probes=N_PROBES)
+    (sd, si), search_s = _timed(lambda: ivf_flat.search(sp, index, Q, 1))
+    launches = _launches()
+    (dm, im), first_s = _timed(lambda: masked_l2_nn(Q, y, adj, group_idxs))
+    ms = time_ms(lambda: masked_l2_nn(Q, y, adj, group_idxs), reps=3,
+                 warmup=0)
+    tile = masked_mod.tile_rows(Q.shape[0], y.shape[0])
+    got_i = torch.where(im >= 0, ids[im.long().clamp_min(0)], -1)
+    tol = norm_tol(Q, y)
+    n_diff = near_tie_check("masked_l2_nn against IVF-Flat k=1",
+                            dm[:, None], got_i[:, None], sd, si, X, Q, tol)
+
+    # 100 queries against float64 on the card.
+    q64, y64 = Q[:N_CHECK_16].double(), y.double()
+    d64 = torch.clamp_min((q64 * q64).sum(1)[:, None]
+                          + (y64 * y64).sum(1)[None, :]
+                          - 2.0 * (q64 @ y64.T), 0.0)
+    del y64
+    y_group = torch.searchsorted(group_idxs, torch.arange(
+        y.shape[0], device=dev), right=True)
+    d64.masked_fill_(~adj[:N_CHECK_16][:, y_group], float("inf"))
+    ref_d, ref_i = torch.min(d64, dim=1)
+    err = float(torch.max(torch.abs(dm[:N_CHECK_16].double() - ref_d)))
+    mine = d64.gather(1, im[:N_CHECK_16, None].long().clamp_min(0))[:, 0]
+    off = float(torch.max(torch.abs(mine - ref_d)))
+    n64 = int((im[:N_CHECK_16].long() != ref_i).sum())
+    log(f"phase 16 (c): masked_l2_nn {Q.shape[0]} x {y.shape[0]} "
+        f"({N_PROBES} of {index.n_lists} lists a query) {ms:.3f} ms by CUDA "
+        f"events (first "
+        f"call {first_s:.3f} s), tile {tile} rows of x "
+        f"({tile * y.shape[0]} entries); IVF-Flat k=1 search "
+        f"{search_s:.3f} s, launches {launches}; distances within "
+        f"norm_tol {tol:.4g} of the search's, {n_diff} ids differ at "
+        f"near-ties; {N_CHECK_16} rows against float64: distance off by "
+        f"{err:.4g}, {n64} ids differ, each within {off:.4g} [{card}]")
+    if err > tol or off > tol:
+        raise AssertionError("masked_l2_nn off float64")
+    if launches["fused_cells_knn"] < 1:
+        raise AssertionError("the k=1 IVF-Flat search did not launch B2")
+
+    # (g) The trace ranges of one call.
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        masked_l2_nn(Q, y, adj, group_idxs)
+        torch.cuda.synchronize()
+    keys = {e.key for e in prof.key_averages()}
+    want = {"raft_tpu_torch::masked_nn.masked_l2_nn",
+            "raft_tpu_torch::masked_nn.tile"}
+    ranges = sorted(k for k in keys if k.startswith("raft_tpu_torch::"))
+    log(f"phase 16 (g): trace ranges {ranges} in a torch.profiler trace "
+        f"of one masked_l2_nn call")
+    if not want <= keys:
+        raise AssertionError(f"trace ranges missing: {want - keys}")
+    return {"launches": launches, "masked_ms": ms, "search_s": search_s,
+            "tile": tile, "labels": (ids, sizes)}
+
+
+def breadth_gram_reduce(dev, X, Q, labels, card) -> dict:
+    """Phase 16 (d) and (e): the four gram kernels at 10,000 x 10,000 over
+    the queries, each held on 100 rows to float64; the keyed row sums of
+    X by IVF list, row norms, normalized rows and the row arg-min at 1M x
+    128, each against float64 on the card. Returns the times."""
+    import torch
+
+    from raft_tpu_torch import linalg, matrix
+    from raft_tpu_torch.distance import (KernelParams, KernelType,
+                                         kernel_factory)
+
+    secs = {}
+    qn = (Q.double() ** 2).sum(1)
+    gain = 1.0 / float(qn.max())      # keeps gain * x.y within [-1, 1]
+    base = norm_tol(Q, Q)             # an f32 gram entry's error bound
+    q64, a64 = Q[:N_CHECK_16].double(), Q.double()
+    g64 = q64 @ a64.T
+    d2 = torch.clamp_min(qn[:N_CHECK_16, None] + qn[None, :] - 2 * g64, 0)
+    # (params, float64 value, Lipschitz bound of the epilogue at this
+    # scale: |d f / d (x.y)|)
+    cases = {
+        "linear": (KernelParams(KernelType.LINEAR), g64, 1.0),
+        "polynomial": (KernelParams(KernelType.POLYNOMIAL, degree=3,
+                                    gamma=gain, coef0=1.0),
+                       (gain * g64 + 1.0) ** 3, 3 * 4 * gain),
+        "tanh": (KernelParams(KernelType.TANH, gamma=gain, coef0=0.0),
+                 torch.tanh(gain * g64), gain),
+        "rbf": (KernelParams(KernelType.RBF, gamma=gain),
+                torch.exp(-gain * d2), gain),
+    }
+    report = []
+    for name, (params, ref, lip) in cases.items():
+        k = kernel_factory(params)
+        out, secs[name] = _timed(lambda: k(Q, Q))
+        ms = time_ms(lambda: k(Q, Q), reps=3)
+        err = float(torch.max(torch.abs(out[:N_CHECK_16].double() - ref)))
+        tol = lip * base + 1e-6 * float(torch.max(torch.abs(ref)))
+        report.append(f"{name} {ms:.3f} ms (off float64 by {err:.3g}, "
+                      f"bar {tol:.3g})")
+        if tuple(out.shape) != (Q.shape[0], Q.shape[0]) or err > tol:
+            raise AssertionError(f"{name} gram kernel off float64")
+        del out
+    log(f"phase 16 (d): gram kernels at {Q.shape[0]} x {Q.shape[0]}: "
+        f"{'; '.join(report)} [{card}]")
+
+    ids, sizes = labels
+    lab = torch.empty(X.shape[0], dtype=torch.long, device=dev)
+    lab[ids] = torch.repeat_interleave(
+        torch.arange(sizes.shape[0], device=dev), sizes)
+    n_keys = sizes.shape[0]
+    sums, secs["reduce_rows_by_key"] = _timed(
+        lambda: linalg.reduce_rows_by_key(X, lab, n_keys))
+    Xd = X.double()
+    ref = torch.zeros((n_keys, DIM), dtype=torch.float64,
+                      device=dev).index_add_(0, lab, Xd)
+    absum = torch.zeros_like(ref).index_add_(0, lab, Xd.abs())
+    k_err = float(torch.max(torch.abs(sums.double() - ref)
+                            / absum.clamp_min(1e-30)))
+    rn, secs["row_norm"] = _timed(lambda: linalg.row_norm(X, linalg.L2Norm))
+    rn_ref = (Xd * Xd).sum(1)
+    n_err = float(torch.max(torch.abs(rn.double() - rn_ref) / rn_ref))
+    nz, secs["normalize"] = _timed(lambda: linalg.normalize(X))
+    z_err = float(torch.max(torch.abs(nz.double()
+                                      - Xd / torch.sqrt(rn_ref)[:, None])))
+    am, secs["argmin"] = _timed(lambda: matrix.argmin(X))
+    same = bool(torch.equal(am.long(), torch.argmin(Xd, dim=1)))
+    log(f"phase 16 (e): reduce_rows_by_key(X, IVF lists, {n_keys}) "
+        f"{secs['reduce_rows_by_key'] * 1e3:.3f} ms (off float64 by "
+        f"{k_err:.3e} of each key's sum of |x|, bar {KEYSUM_RTOL_16}); "
+        f"row_norm {secs['row_norm'] * 1e3:.3f} ms ({n_err:.3e}, bar "
+        f"{NORM_RTOL_16}); normalize {secs['normalize'] * 1e3:.3f} ms "
+        f"({z_err:.3e}, bar {UNIT_ATOL_16}); matrix.argmin "
+        f"{secs['argmin'] * 1e3:.3f} ms (equal to float64's: {same}) "
+        f"[{card}]")
+    if k_err > KEYSUM_RTOL_16 or n_err > NORM_RTOL_16 \
+            or z_err > UNIT_ATOL_16 or not same:
+        raise AssertionError("a row reduction is off float64")
+    return secs
+
+
+def breadth_cancel(dev, card) -> dict:
+    """Phase 16 (f): ``synchronize`` on about SYNC_S_16 seconds of queued
+    matmuls, cancelled from a second thread after CANCEL_AFTER_16 s,
+    raises within a few poll intervals while the stream still runs; a
+    second, uncancelled ``synchronize`` returns once the stream is
+    idle."""
+    import threading
+
+    import torch
+
+    from raft_tpu_torch.core import Interruptible, synchronize
+    from raft_tpu_torch.core.interruptible import InterruptedException
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    a = torch.randn((4096, 4096), generator=gen, device=dev)
+    one_ms = time_ms(lambda: a @ a, reps=3)
+    n_mm = int(np.ceil(SYNC_S_16 * 1e3 / one_ms))
+    main = threading.get_ident()
+    when = {}
+
+    def cancel():
+        time.sleep(CANCEL_AFTER_16)
+        when["cancel"] = time.perf_counter()
+        Interruptible.cancel_thread(main)
+
+    out = a
+    for _ in range(n_mm):
+        out = a @ a
+    t0 = time.perf_counter()
+    th = threading.Thread(target=cancel)
+    th.start()
+    try:
+        synchronize(out, poll_interval=POLL_16)
+    except InterruptedException:
+        when["raised"] = time.perf_counter()
+    th.join()
+    busy = not torch.cuda.current_stream().query()
+    if "raised" not in when:
+        raise AssertionError("synchronize was not interrupted")
+    latency = when["raised"] - when["cancel"]
+    synchronize(out, poll_interval=POLL_16)
+    idle = torch.cuda.current_stream().query()
+    rest = time.perf_counter() - when["raised"]
+    log(f"phase 16 (f): {n_mm} matmuls of 4096^2 ({one_ms:.3f} ms each) "
+        f"queued; cancelled {when['cancel'] - t0:.3f} s into synchronize, "
+        f"raised {latency * 1e3:.1f} ms later (poll {POLL_16 * 1e3:.0f} "
+        f"ms; stream still busy: {busy}); the second synchronize returned "
+        f"{rest:.3f} s after that, stream idle: {idle} [{card}]")
+    if latency > 4 * POLL_16 or not busy or not idle:
+        raise AssertionError("synchronize did not cancel within 4 polls "
+                             "of a busy stream, or returned before idle")
+    return {"cancel_ms": latency * 1e3}
+
+
+def breadth_phase(dev, X, Q, index, card) -> dict:
+    """Phase 16: the breadth modules at phase 4's sizes, before any phase
+    mutates phase 4's index. Returns its launches (the k=1 IVF-Flat
+    search's B2)."""
+    t0 = time.perf_counter()
+    secs = breadth_decomp(dev, X, card)
+    mk = breadth_masked(dev, X, Q, index, card)
+    secs.update(breadth_gram_reduce(dev, X, Q, mk["labels"], card))
+    secs.update(breadth_cancel(dev, card))
+    log(f"phase 16: {time.perf_counter() - t0:.3f} s, launches "
+        f"{mk['launches']} [{card}]")
+    return mk["launches"]
+
+
 def kmeans_labels(centers, X):
     """Each row's nearest center (the lists of an IVF-Flat build)."""
     from raft_tpu_torch.cluster import kmeans_balanced
@@ -4595,6 +4998,8 @@ def main() -> int:
     b3 = b3_entry(dev, pq["index"], pq["probes_sub"], pq["rotq_sub"])
 
     b5 = select_phase(dev, b5_err)
+    br = breadth_phase(dev, X, Q, mp["index"], card)
+    b5["launches"] += br["stream_extract"]
     # Phase 6 left IVF-PQ's reconstruction cache in place, which routes
     # search to the recon tier; the serve and lifecycle phases search the
     # compressed tier (B4), as the main path does.
@@ -4616,7 +5021,7 @@ def main() -> int:
              + pq["launches"]["fused_knn"] + sv["fused_knn"]
              + lc["fused_knn"] + sm["fused_knn"] + sf["fused_knn"]
              + sh["fused_knn"] + rt["fused_knn"] + ops["fused_knn"]
-             + du["fused_knn"],
+             + du["fused_knn"] + br["fused_knn"],
              **b1),
         dict(name="fused_cells_knn", route="cuda",
              source="raft_tpu_torch/csrc/cells_knn.cu",
@@ -4626,7 +5031,7 @@ def main() -> int:
              + sm["fused_cells_knn"] + sf["fused_cells_knn"]
              + sh["fused_cells_knn"] + rt["fused_cells_knn"]
              + ops["fused_cells_knn"]
-             + du["fused_cells_knn"], **b2),
+             + du["fused_cells_knn"] + br["fused_cells_knn"], **b2),
         dict(name="fused_batch_knn", route="cuda",
              source="raft_tpu_torch/csrc/batch_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:277",
@@ -4635,7 +5040,7 @@ def main() -> int:
              + sm["fused_batch_knn"] + sf["fused_batch_knn"]
              + sh["fused_batch_knn"] + rt["fused_batch_knn"]
              + ops["fused_batch_knn"]
-             + du["fused_batch_knn"], **b3),
+             + du["fused_batch_knn"] + br["fused_batch_knn"], **b3),
         dict(name="pq_fused_scan", route="cuda",
              source="raft_tpu_torch/csrc/pq_scan.cu",
              replaces="raft_tpu/ops/pq_scan.py:440",
@@ -4643,7 +5048,7 @@ def main() -> int:
              + lc["pq_fused_scan"] + sm["pq_fused_scan"]
              + sf["pq_fused_scan"] + sh["pq_fused_scan"]
              + rt["pq_fused_scan"] + ops["pq_fused_scan"]
-             + du["pq_fused_scan"], **b4),
+             + du["pq_fused_scan"] + br["pq_fused_scan"], **b4),
         dict(name="stream_extract", route="cuda",
              source="raft_tpu_torch/csrc/stream_select.cu",
              replaces="raft_tpu/matrix/select_k.py:218", **b5),

@@ -22,8 +22,9 @@ import torch
 from raft_tpu.distance.distance_types import DistanceType as JDistance
 from raft_tpu.neighbors import ivf_flat as jivf
 from raft_tpu_torch.neighbors import ivf_flat
-fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 from test_torch_common import GAUSS_TOL, gauss, int_data, n, t
+
+fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 
 jfk = importlib.import_module("raft_tpu.ops.fused_knn")
 

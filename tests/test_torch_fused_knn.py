@@ -17,9 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 from test_torch_common import GAUSS_TOL, gauss, int_data, n, t
 
+fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 jfk = importlib.import_module("raft_tpu.ops.fused_knn")
 
 BF16_TOL = dict(rtol=1e-5, atol=1e-3)

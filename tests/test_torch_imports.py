@@ -18,9 +18,10 @@ from raft_tpu_torch.core.error import CudaError
 from raft_tpu_torch.core.resources import Resources, as_tensor, resolve_device
 from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
 from raft_tpu_torch.ops import _build
-fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 from raft_tpu_torch.ops import pq_scan as ps
 from raft_tpu_torch.ops import stream_select as ss
+
+fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 
 ROOT = Path(__file__).resolve().parents[1]
 

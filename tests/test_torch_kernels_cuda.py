@@ -11,6 +11,7 @@ version must agree bit for bit, ids and distances.
 """
 
 import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -20,11 +21,12 @@ from raft_tpu_torch import serve
 from raft_tpu_torch.core.error import LogicError
 from raft_tpu_torch.matrix.select_k import SelectMethod, select_k
 from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
-fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 from raft_tpu_torch.ops import pq_scan as ps
 from raft_tpu_torch.ops import stream_select as ss
 from chip_smoke import same_up_to_exact_ties
 from test_torch_common import int_data, n
+
+fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 
 _TIERS = [(False, False), (True, False), (True, True)]
 
@@ -1408,3 +1410,24 @@ def test_recall_probe_over_b2_world_of_one(nccl_mesh, dev, gen):
                  for r in range(q.shape[0])]
     assert probe.recall() == pytest.approx(float(np.mean(hits)), abs=1e-12)
     sched.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("metric", ["l1", "chebyshev"])
+def test_l1_linf_half_precision_on_the_card(dev, gen, dtype, metric):
+    """L1 and Linf on f16 / bf16 rows answer on the card in the rows'
+    dtype, equal to the CPU's answer on integer-valued rows (every sum
+    exact in both dtypes): pairwise distances and kNN ids bit for bit."""
+    from raft_tpu_torch.distance import pairwise_distance
+
+    q, db = int_data(gen, (37, 24)), int_data(gen, (700, 24))
+    for x in (q, db):
+        x -= 3
+    qc, dbc = torch.as_tensor(q).to(dtype), torch.as_tensor(db).to(dtype)
+    got = pairwise_distance(qc.to(dev), dbc.to(dev), metric=metric)
+    assert got.dtype == dtype and got.device.type == "cuda"
+    assert torch.equal(got.cpu(), pairwise_distance(qc, dbc, metric=metric))
+    d, i = brute_force.knn(dbc.to(dev), qc.to(dev), 9, metric=metric)
+    cd, ci = brute_force.knn(dbc, qc, 9, metric=metric)
+    assert torch.equal(i.cpu(), ci) and torch.equal(d.cpu(), cd)

@@ -11,6 +11,7 @@ kernel on the CPU.
 """
 
 import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,10 +21,11 @@ from raft_tpu.matrix.select_k import SelectMethod as JMethod
 from raft_tpu.matrix.select_k import extract_m_rows as jextract
 from raft_tpu.matrix.select_k import select_k as jselect_k
 from raft_tpu_torch.core.error import LogicError
-sk = importlib.import_module("raft_tpu_torch.matrix.select_k")
 from raft_tpu_torch.matrix.select_k import SelectMethod, select_k
 from raft_tpu_torch.ops import stream_select as ss
 from test_torch_common import n, t
+
+sk = importlib.import_module("raft_tpu_torch.matrix.select_k")
 
 _DTYPES = {"f32": (torch.float32, jnp.float32),
            "bf16": (torch.bfloat16, jnp.bfloat16),

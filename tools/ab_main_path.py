@@ -68,9 +68,10 @@ from raft_tpu_torch.matrix.select_k import select_k  # noqa: E402
 from raft_tpu_torch.distance.pairwise import gram  # noqa: E402
 from raft_tpu_torch.neighbors import ivf_flat, ivf_pq  # noqa: E402
 from raft_tpu_torch.ops import _build  # noqa: E402
-fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 from raft_tpu_torch.ops import pq_scan as ps  # noqa: E402
 from raft_tpu_torch.ops import stream_select as ss  # noqa: E402
+
+fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 
 
 def build_s(mod, X):

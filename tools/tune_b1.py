@@ -33,6 +33,7 @@ from tune_common import ROOT, build, card_line, parse, time_ms
 sys.path.insert(0, str(ROOT))
 
 from raft_tpu_torch.ops import _build  # noqa: E402
+
 fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 
 

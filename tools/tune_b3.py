@@ -42,6 +42,7 @@ import chip_smoke as cs  # noqa: E402
 from raft_tpu_torch.distance.pairwise import gram  # noqa: E402
 from raft_tpu_torch.neighbors import ivf_flat, ivf_pq  # noqa: E402
 from raft_tpu_torch.ops import _build  # noqa: E402
+
 fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 
 
