@@ -31,12 +31,12 @@ from torch.overrides import TorchFunctionMode
 
 from raft_tpu_torch.core.error import RaftError
 
-#: The check kinds of :func:`checked` (the reference's checkify sets).
+#: The check kinds of :func:`checked` (the reference's checkify sets;
+#: :func:`check` raises at once, so user checks need no kind).
 FLOAT_CHECKS = frozenset({"nan"})
 INDEX_CHECKS = frozenset({"index"})
 DIV_CHECKS = frozenset({"div"})
-USER_CHECKS = frozenset({"user"})
-ALL_CHECKS = FLOAT_CHECKS | INDEX_CHECKS | DIV_CHECKS | USER_CHECKS
+ALL_CHECKS = FLOAT_CHECKS | INDEX_CHECKS | DIV_CHECKS
 
 
 class CheckError(RaftError):

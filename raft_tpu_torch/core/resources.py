@@ -76,8 +76,7 @@ class Resources:
             self._slots = {"device": resolve_device(device)}
         for name, value in overrides.items():
             if value is not None:
-                self._slots[name] = (resolve_device(value) if name == "device"
-                                     else value)
+                self._slots[name] = value
 
     # -- generic slot access ------------------------------------------------
     def has_resource(self, name: str) -> bool:

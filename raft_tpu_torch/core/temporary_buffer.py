@@ -23,8 +23,9 @@ class TemporaryDeviceBuffer:
                  device: DeviceLike = None):
         self._host = data
         self._writeback = writeback
-        self.value = torch.as_tensor(np.asarray(data),
-                                     device=resolve_device(device))
+        # A copy on every device, so that only writeback reaches ``data``.
+        self.value = torch.tensor(np.asarray(data),
+                                  device=resolve_device(device))
 
     def view(self) -> torch.Tensor:
         """The device-resident tensor."""

@@ -122,7 +122,7 @@ def test_errors_select_the_checks():
         checked(lambda x: x[torch.tensor(5)], errors=checks.FLOAT_CHECKS)(
             torch.arange(3.0))
     assert checks.ALL_CHECKS == (checks.FLOAT_CHECKS | checks.INDEX_CHECKS
-                                 | checks.DIV_CHECKS | checks.USER_CHECKS)
+                                 | checks.DIV_CHECKS)
 
 
 def test_debug_nan_guard_scopes_the_nan_check():

@@ -503,7 +503,12 @@ def test_temporary_buffers_match_reference(make):
 
 
 def test_writeback_of_an_in_place_change():
+    """The staged tensor is a copy: an in-place change reaches the host
+    array through writeback only."""
     host = np.zeros(3, np.float32)
+    with core.make_temporary_device_buffer(host, device="cpu") as b:
+        b.view().add_(5)
+    np.testing.assert_array_equal(host, [0, 0, 0])
     with core.make_writeback_temporary_device_buffer(host, device="cpu") as b:
         b.view().add_(5)
     np.testing.assert_array_equal(host, [5, 5, 5])
