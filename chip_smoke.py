@@ -4888,6 +4888,8 @@ def breadth_phase(dev, X, Q, index, card) -> dict:
     """Phase 16: the breadth modules at phase 4's sizes, before any phase
     mutates phase 4's index. Returns its launches (the k=1 IVF-Flat
     search's B2)."""
+    import torch
+
     t0 = time.perf_counter()
     secs = breadth_decomp(dev, X, card)
     mk = breadth_masked(dev, X, Q, index, card)
@@ -4895,6 +4897,9 @@ def breadth_phase(dev, X, Q, index, card) -> dict:
     secs.update(breadth_cancel(dev, card))
     log(f"phase 16: {time.perf_counter() - t0:.3f} s, launches "
         f"{mk['launches']} [{card}]")
+    # The spawned ranks of phases 12-15 share this card: hand back the
+    # phase's cached blocks (up to ~7 GB at its peak).
+    torch.cuda.empty_cache()
     return mk["launches"]
 
 
