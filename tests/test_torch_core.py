@@ -208,10 +208,14 @@ class TestValidation:
         assert jiv.is_row_major(jnp.zeros((3, 4)))
         assert not jiv.is_col_major(jnp.zeros((3, 4)))
 
-    def test_expects(self):
+    def test_expects_and_fail(self):
         core.expects(True)
         with pytest.raises(core.LogicError):
             core.expects(False, "nope")
+        with pytest.raises(core.LogicError, match="stop 3"):
+            core.fail("stop %s", 3)
+        with pytest.raises(jcore.LogicError):
+            jcore.fail("stop")
 
 
 class _CpuChecks:
@@ -330,6 +334,16 @@ def test_math_unary_match_reference(name):
     np.testing.assert_allclose(n(getattr(tmath, name)(t(x))),
                                np.asarray(getattr(jmath, name)(x)),
                                rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["acos", "asin", "atanh", "log"])
+def test_math_domain_limited_match_reference(name):
+    x = np.array([0.05, 0.3, 0.5, 0.75, 0.9], np.float32)
+    np.testing.assert_allclose(n(getattr(tmath, name)(t(x))),
+                               np.asarray(getattr(jmath, name)(x)),
+                               rtol=1e-6)
+    np.testing.assert_allclose(n(tmath.pow(t(x), t(x))),
+                               np.asarray(jmath.pow(x, x)), rtol=1e-6)
 
 
 def test_math_variadic_max_min_match_reference():

@@ -207,6 +207,7 @@ def test_norms_match_reference(mats, norm_type):
     a, _ = mats
     nt, jnt = getattr(linalg, norm_type), getattr(jl, norm_type)
     assert nt.value == jnt.value
+    _close(linalg.norm(t(a), nt, axis=0), jl.norm(a, jnt, axis=0))
     _close(linalg.row_norm(t(a), nt), jl.row_norm(a, jnt))
     _close(linalg.col_norm(t(a), nt), jl.col_norm(a, jnt))
     _close(linalg.row_norm(t(a), nt, fin_op=ops.sqrt_op),
