@@ -46,8 +46,10 @@ no result line):
 6. the IVF-PQ path on the same rows and queries, the counters again set to
    0 before it and read after each step: build with 1024 lists (pq_dim 64,
    pq_bits 8), the compressed search with 32 probes (through B4, recall@10
-   >= 0.80 against brute force), the LUT-scan engine and the recon tier
-   (``reconstructed()`` then ``engine="bucketed"``, ``bucket_cap=256``,
+   >= 0.80 against brute force), 100 candidates a query from the same
+   search for phase 17's ``refine_host``, the LUT-scan engine and the
+   recon tier (``reconstructed()`` then ``engine="bucketed"``,
+   ``bucket_cap=256``,
    through B3) on the first 1000 queries, each within 0.01 of the
    compressed tier's recall there, and the decode scan (B3), whose ids
    must equal the recon tier's (both searches also timed, median of 5);
@@ -243,7 +245,44 @@ no result line):
     matmuls, cancelled from a second thread 0.1 s in (raised within 4
     polls, the stream still busy), then an uncancelled one that returns
     with the stream idle;
-17. a ``kernels`` line, the card line, and the result line.
+17. ``random/``, Lloyd k-means, ``refine_host``, ``stats/`` and ``label/``
+    (after phase 16, on phase 4's rows and phase 6's candidates), counters
+    set to 0 before it and read after its last step: (a) the fourteen
+    draws of ``random.rng`` (``uniform`` ... ``rng_fill``), 10M values
+    each on the card, means and variances within 6 standard errors of the
+    distribution's (its excess kurtosis gives the variance's), supports
+    and dtypes kept, ``discrete``'s frequencies (a zero weight never
+    drawn); ``sample_without_replacement`` of 100,000 of 1M with half the
+    weights 4x (distinct, in range, the heavy share within 6 standard
+    errors of the Gumbel-top-k inclusion law), ``permute`` of 1M, and
+    ``multi_variable_gaussian`` (both methods) of 1M rows under a 128 x 128
+    covariance (every mean and covariance entry within 6 standard
+    errors); ``rmat_rectangular_gen`` at 2^20 x 2^20 with 16M edges
+    (int32 ids in range, each level's quadrant shares within 6 standard
+    errors of theta); (b) ``make_blobs`` of 1M x 128 around 1000 centers
+    uniform in [-10, 10] with std 1, Lloyd ``fit`` from
+    ``InitMethod.Array`` at those centers (max_iter 20; ARI >= 0.999
+    against the blobs' labels, inertia within 1e-5 of float64), its
+    first split-bf16 and its final f32 B1 launch held against the plain
+    version on their operands, a k-means++ fit at 100,000 x 128 x 64,
+    and, after the counters are read, B1 at 1M x 1000 x 128 (k=1) on both
+    tiers beside ``addmm`` + ``argmin`` and the FP32 bound; (c)
+    ``find_k`` on ``make_blobs(200,000 x 32, 8 centers, std 0.3)`` with
+    kmax 16 returns 8; (d) ``refine_host`` of phase 6's 100 IVF-PQ
+    candidates for each query to k=10 through the port's native library
+    (ids = the card's ``refine`` but at near-ties, distances within
+    ``norm_tol``), with its time and the library's build time; (e)
+    ``mean``, ``vars_``, ``stddev``, ``cov``, ``weighted_mean`` within
+    1e-5 of float64 (of each column's scale), ``minmax`` bit for bit,
+    ``histogram`` with at most 1e-5 of the entries across a bin edge,
+    ``silhouette_score`` on 20,000 rows and ``trustworthiness_score`` of
+    5,000 rows against their rank-32 projection held to float64, the
+    label metrics of (b)'s labels against the blobs' (contingency table
+    bit for bit, the rest within 1e-5 of float64 and of each other) and
+    ``r2_score`` of ``lstsq_svd`` on noise-free ``make_regression`` data
+    within 1e-5 of 1; (f) ``get_unique_labels``, ``make_monotonic`` and
+    ``merge_labels`` on (b)'s 1M labels against numpy;
+18. a ``kernels`` line, the card line, and the result line.
 
 The data is made with numpy from a fixed seed: 1000 Gaussian blobs
 (centers uniform in [-10, 10], sigma 5), queries = database rows + N(0, 1).
@@ -379,6 +418,32 @@ KEYSUM_RTOL_16 = 3e-5     # keyed sums, of each key's sum of |x|
 EIGVEC_RTOL_16 = 1e-3     # eig_dc's residual |C v - v w|, of |C|
 NORM_RTOL_16 = 1e-5       # row norms
 UNIT_ATOL_16 = 1e-6       # normalized rows (entries of at most 1)
+# Phase 17: random/, Lloyd k-means, refine_host, stats/ and label/.
+N_DRAWS_17 = 10_000_000   # values of each rng draw
+N_SWOR_17 = 1_000_000     # sample_without_replacement's population ...
+N_SAMPLE_17 = 100_000     # ... and its sample
+N_MVG_17 = 1_000_000      # multi_variable_gaussian rows (DIM wide)
+SE_17 = 6.0               # bar of every moment / frequency, in std errors
+RMAT_SCALE_17 = 20        # rmat_rectangular_gen: 2^20 x 2^20 ...
+RMAT_EDGES_17 = 16_000_000  # ... with 16M edges
+RMAT_THETA_17 = (0.57, 0.19, 0.19, 0.05)
+N_CLUSTERS_17 = 1000      # Lloyd k-means (B1 k=1 on every assignment)
+BLOB_STD_17 = 1.0
+MAX_ITER_17 = 20
+ARI_17 = 0.999
+N_PP_17, PP_K_17 = 100_000, 64    # the k-means++ fit
+FINDK_17 = (200_000, 32, 8, 0.3, 16)  # rows, dim, blobs, std, kmax
+N_CAND_17 = 100           # phase 6's candidates per query, refined to K
+N_SIL_17 = 20_000         # silhouette sample
+N_TRUST_17, TRUST_RANK_17, TRUST_K_17 = 5_000, 32, 10
+N_BINS_17 = 64
+# Relative tolerances of phase 17, each with its reason where it is used.
+INERTIA_RTOL_17 = 1e-5    # inertia against float64
+STAT_RTOL_17 = 1e-5       # f32 reductions over 1M rows against float64
+HIST_MOVED_17 = 1e-5      # share of entries binned across an edge
+METRIC_RTOL_17 = 1e-5     # silhouette, label metrics against float64
+TRUST_ATOL_17 = 1e-5      # trustworthiness against float64
+R2_ATOL_17 = 1e-5         # 1 - r2 of a noise-free least squares
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FP32 = 67e12
@@ -1052,6 +1117,10 @@ def pq_path(dev, X, Q, bf_i):
     search_ms = time_ms(lambda: ivf_pq.search(sp, index, Q, K), reps=5)
     log(f"IVF-PQ compressed search: {search_ms:.3f} ms per {N_QUERIES} "
         f"queries = {N_QUERIES / search_ms * 1e3:.1f} QPS")
+    # Phase 17 (d) re-ranks these candidates on the host.
+    before = _launches()
+    _, cand = ivf_pq.search(sp, index, Q, N_CAND_17)
+    steps["candidates"] = _step(before)
 
     Qs, truth = Q[:N_SUB], bf_i[:N_SUB]
     rec_c = recall(ci[:N_SUB], truth)
@@ -1115,6 +1184,7 @@ def pq_path(dev, X, Q, bf_i):
     log("decode scan ids equal to the recon tier's")
     if (steps["build"]["fused_knn"] < 1
             or steps["compressed"]["pq_fused_scan"] < 1
+            or steps["candidates"]["pq_fused_scan"] < 1
             or steps["recon"]["fused_batch_knn"] < 1
             or steps["decode_scan"]["fused_batch_knn"] < 1):
         raise AssertionError(f"a kernel of the IVF-PQ path did not launch: "
@@ -1123,7 +1193,7 @@ def pq_path(dev, X, Q, bf_i):
              for k in steps["build"]}
     return {"index": index, "launches": total, "search_ms": search_ms,
             "probes_sub": probes, "rotq_sub": rotq, "recall": rec,
-            "compressed": (cd, ci)}
+            "compressed": (cd, ci), "candidates": cand}
 
 
 def b4_entry(dev, Q, index, search_ms):
@@ -4903,6 +4973,673 @@ def breadth_phase(dev, X, Q, index, card) -> dict:
     return mk["launches"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: random/, Lloyd k-means, refine_host, stats/ and label/
+
+
+def _moments_17():
+    """Each draw of phase 17 (a): name, arguments, and the distribution's
+    mean, variance, excess kurtosis and support test."""
+    import math
+
+    import torch
+
+    def finite(x):
+        return bool(torch.isfinite(x).all())
+
+    def values(x):
+        return set(torch.unique(x).tolist())
+
+    g = 0.5772156649015329
+    s2 = 0.7 ** 2
+    w = np.array([0.1, 0.0, 0.4, 0.5])
+    wm = float((w * np.arange(4)).sum())
+    wv = float((w * (np.arange(4) - wm) ** 2).sum())
+    wk = float((w * (np.arange(4) - wm) ** 4).sum()) / wv ** 2 - 3
+    nv = 4.0 + 1 / 12           # a rounded N(3, 4): the normal plus U(-.5, .5)
+    nk = (3 * 16 + 6 * 4 / 12 + 1 / 80) / nv ** 2 - 3
+    bp = 0.37
+    return [
+        ("uniform", (-2.0, 3.0), 0.5, 25 / 12, -1.2,
+         lambda x: bool(x.min() >= -2.0) and bool(x.max() < 3.0)),
+        ("uniformInt", (5, 25), 14.5, 33.25, -6 * 401 / (5 * 399),
+         lambda x: x.dtype == torch.int32 and bool(x.min() >= 5)
+         and bool(x.max() < 25)),
+        ("normal", (1.5, 2.0), 1.5, 4.0, 0.0, finite),
+        ("normalInt", (3.0, 2.0), 3.0, nv, nk,
+         lambda x: x.dtype == torch.int32),
+        ("lognormal", (0.5, 0.7), math.exp(0.5 + s2 / 2),
+         (math.exp(s2) - 1) * math.exp(1.0 + s2),
+         math.exp(4 * s2) + 2 * math.exp(3 * s2) + 3 * math.exp(2 * s2) - 6,
+         lambda x: bool(x.min() > 0) and finite(x)),
+        ("laplace", (-0.3, 1.1), -0.3, 2 * 1.1 ** 2, 3.0, finite),
+        ("gumbel", (0.4, 1.3), 0.4 + 1.3 * g, math.pi ** 2 * 1.3 ** 2 / 6,
+         2.4, finite),
+        ("logistic", (0.2, 0.9), 0.2, 0.9 ** 2 * math.pi ** 2 / 3, 1.2,
+         finite),
+        ("exponential", (1.8,), 1 / 1.8, 1 / 1.8 ** 2, 6.0,
+         lambda x: bool(x.min() >= 0) and finite(x)),
+        ("rayleigh", (1.6,), 1.6 * math.sqrt(math.pi / 2),
+         (4 - math.pi) / 2 * 1.6 ** 2,
+         -(6 * math.pi ** 2 - 24 * math.pi + 16) / (4 - math.pi) ** 2,
+         lambda x: bool(x.min() > 0) and finite(x)),
+        ("bernoulli", (bp,), bp, bp * (1 - bp),
+         (1 - 6 * bp * (1 - bp)) / (bp * (1 - bp)),
+         lambda x: x.dtype == torch.bool),
+        # -scale where u > prob: P(+2) = 0.3.
+        ("scaled_bernoulli", (0.3, 2.0), 2.0 * (2 * 0.3 - 1),
+         4.0 * 4 * 0.3 * 0.7, (1 - 6 * 0.21) / 0.21,
+         lambda x: values(x) == {-2.0, 2.0}),
+        ("discrete", (w.astype(np.float32),), wm, wv, wk,
+         lambda x: values(x) == {0, 2, 3}),
+        ("rng_fill", (2.5,), 2.5, 0.0, 0.0,
+         lambda x: bool((x == 2.5).all())),
+    ]
+
+
+def draws_17(dev, card) -> dict:
+    """Phase 17 (a): every rng draw on the card, held to its
+    distribution. Returns the step seconds."""
+    import torch
+
+    from raft_tpu_torch import random as rnd
+    from raft_tpu_torch.random import RngState
+
+    secs = {}
+    state = RngState(SEED + 17)
+    failed, report = [], []
+    t0 = time.perf_counter()
+    for name, args, mean, var, exk, support in _moments_17():
+        x = getattr(rnd, name)(state, N_DRAWS_17, *args, device=dev)
+        xd = x.double()
+        m = float(xd.mean())
+        v = float(((xd - m) ** 2).mean())
+        # Standard errors of the sample mean and variance; rng_fill draws
+        # nothing, so its moments must be exact.
+        se_m = (var / N_DRAWS_17) ** 0.5
+        se_v = var * ((exk + 2) / N_DRAWS_17) ** 0.5
+        zm = abs(m - mean) / se_m if se_m else (0.0 if m == mean else 1e9)
+        zv = abs(v - var) / se_v if se_v else (0.0 if v == var else 1e9)
+        ok = support(x) and zm <= SE_17 and zv <= SE_17
+        report.append(f"{name} {zm:.2f}/{zv:.2f}")
+        if not ok:
+            failed.append((name, m, mean, v, var))
+    # The discrete draw's frequencies, zero weight never drawn.
+    w = np.array([0.1, 0.0, 0.4, 0.5])
+    freq = torch.bincount(rnd.discrete(state, N_DRAWS_17, w.astype(np.float32),
+                                       device=dev).long(), minlength=4)
+    freq = freq.double().cpu().numpy() / N_DRAWS_17
+    se = np.sqrt(w * (1 - w) / N_DRAWS_17)
+    if freq[1] != 0 or np.any(np.abs(freq - w) > SE_17 * se + 1e-12):
+        failed.append(("discrete frequencies", freq))
+    torch.cuda.synchronize()
+    secs["moments"] = time.perf_counter() - t0
+    log(f"phase 17 (a): {len(report)} draws of {N_DRAWS_17} on the card in "
+        f"{secs['moments']:.3f} s; |z| of mean / variance (bar {SE_17}): "
+        f"{', '.join(report)}; discrete frequencies {np.round(freq, 5)} "
+        f"[{card}]")
+
+    # sample_without_replacement: half the population at weight 4. The
+    # Gumbel-top-k inclusion probability is 1 - exp(-w a) for the a that
+    # makes the expected sample size N_SAMPLE_17.
+    t0 = time.perf_counter()
+    weights = torch.ones(N_SWOR_17, device=dev)
+    weights[N_SWOR_17 // 2:] = 4.0
+    _, idx = rnd.sample_without_replacement(state, N_SWOR_17, N_SAMPLE_17,
+                                            weights=weights)
+    distinct = int(torch.unique(idx).numel())
+    share = float((idx >= N_SWOR_17 // 2).double().mean())
+    lo, hi = 0.0, 1.0
+    for _ in range(100):
+        a = (lo + hi) / 2
+        got = 0.5 * (1 - np.exp(-a)) + 0.5 * (1 - np.exp(-4 * a))
+        lo, hi = (a, hi) if got < N_SAMPLE_17 / N_SWOR_17 else (lo, a)
+    p1, p4 = 1 - np.exp(-a), 1 - np.exp(-4 * a)
+    want = p4 / (p1 + p4)
+    se_share = (want * (1 - want) / N_SAMPLE_17) ** 0.5
+    perm = rnd.permute(state, N_SWOR_17, device=dev)
+    is_perm = torch.equal(torch.sort(perm.long()).values,
+                          torch.arange(N_SWOR_17, device=dev))
+    torch.cuda.synchronize()
+    secs["sample_permute"] = time.perf_counter() - t0
+    log(f"phase 17 (a): sample_without_replacement {N_SAMPLE_17} of "
+        f"{N_SWOR_17}: {distinct} distinct, in range "
+        f"{bool(idx.min() >= 0) and bool(idx.max() < N_SWOR_17)}, weight-4 "
+        f"share {share:.5f} (expected {want:.5f}, |z| "
+        f"{abs(share - want) / se_share:.2f}); permute({N_SWOR_17}) is a "
+        f"permutation: {is_perm}; {secs['sample_permute']:.3f} s [{card}]")
+    if (distinct != N_SAMPLE_17 or idx.dtype != torch.int32
+            or not bool(idx.min() >= 0) or not bool(idx.max() < N_SWOR_17)
+            or abs(share - want) > SE_17 * se_share or not is_perm):
+        failed.append(("sample_without_replacement / permute", distinct,
+                       share))
+
+    # multi_variable_gaussian: a 128 x 128 covariance A A^T / 128 + I; each
+    # entry of the sample covariance within SE_17 standard errors
+    # sqrt((S_ii S_jj + S_ij^2) / N) of the truth, the mean likewise.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    A = torch.randn((DIM, DIM), generator=gen, dtype=torch.float64,
+                    device=dev)
+    cov = (A @ A.T / DIM + torch.eye(DIM, dtype=torch.float64,
+                                     device=dev)).float()
+    mu = torch.randn(DIM, generator=gen, device=dev)
+    cd = cov.double()
+    se_cov = torch.sqrt((torch.outer(torch.diag(cd), torch.diag(cd))
+                         + cd ** 2) / N_MVG_17)
+    se_mu = torch.sqrt(torch.diag(cd) / N_MVG_17)
+    zs = {}
+    for method in ("cholesky", "jacobi"):
+        t0 = time.perf_counter()
+        x = rnd.multi_variable_gaussian(state, mu, cov, N_MVG_17,
+                                        method=method)
+        torch.cuda.synchronize()
+        secs[f"mvg_{method}"] = time.perf_counter() - t0
+        xd = x.double()
+        m = xd.mean(0)
+        c = (xd - m).T @ (xd - m) / (N_MVG_17 - 1)
+        zs[method] = (float(torch.max(torch.abs(m - mu.double()) / se_mu)),
+                      float(torch.max(torch.abs(c - cd) / se_cov)))
+        del x, xd
+        if zs[method][0] > SE_17 or zs[method][1] > SE_17:
+            failed.append((f"multi_variable_gaussian {method}", zs[method]))
+    log(f"phase 17 (a): multi_variable_gaussian {N_MVG_17} x {DIM}: max |z| "
+        f"of mean / covariance entries (bar {SE_17}): "
+        + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f} "
+                    f"({secs['mvg_' + k]:.3f} s)" for k, v in zs.items())
+        + f" [{card}]")
+
+    # rmat_rectangular_gen: every level's quadrant shares against theta.
+    t0 = time.perf_counter()
+    src, dst = rnd.rmat_rectangular_gen(state, list(RMAT_THETA_17),
+                                        RMAT_SCALE_17, RMAT_SCALE_17,
+                                        RMAT_EDGES_17, device=dev)
+    torch.cuda.synchronize()
+    secs["rmat"] = time.perf_counter() - t0
+    theta = np.asarray(RMAT_THETA_17) / sum(RMAT_THETA_17)
+    se = np.sqrt(theta * (1 - theta) / RMAT_EDGES_17)
+    worst = 0.0
+    s64, d64 = src.long(), dst.long()
+    for lvl in range(RMAT_SCALE_17):
+        sh = RMAT_SCALE_17 - 1 - lvl
+        quad = (((s64 >> sh) & 1) << 1) | ((d64 >> sh) & 1)
+        f = torch.bincount(quad, minlength=4).double().cpu().numpy()
+        worst = max(worst, float(np.max(np.abs(f / RMAT_EDGES_17 - theta)
+                                        / se)))
+    in_range = (src.dtype == torch.int32 and bool(src.min() >= 0)
+                and bool(src.max() < 1 << RMAT_SCALE_17)
+                and bool(dst.min() >= 0)
+                and bool(dst.max() < 1 << RMAT_SCALE_17))
+    log(f"phase 17 (a): rmat_rectangular_gen 2^{RMAT_SCALE_17} x "
+        f"2^{RMAT_SCALE_17}, {RMAT_EDGES_17} edges in {secs['rmat']:.3f} s: "
+        f"int32 ids in range {in_range}, max |z| of the {RMAT_SCALE_17} "
+        f"levels' quadrant shares {worst:.2f} (bar {SE_17}) [{card}]")
+    if worst > SE_17 or not in_range:
+        failed.append(("rmat", worst, in_range))
+    del src, dst, s64, d64
+    if failed:
+        raise AssertionError(f"phase 17 (a): off the distribution: {failed}")
+    return secs
+
+
+def _b1_capture():
+    """Wraps B1's launcher: keeps the operands and answers of the first
+    split-bf16 launch and of the last f32 launch. The launcher still
+    counts each launch."""
+    fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
+    calls = {}
+    launch = fk._fused_knn_cuda
+
+    def kept(*args):
+        out = launch(*args)
+        tier = "split-bf16" if args[4] else "f32"
+        if tier == "f32" or tier not in calls:
+            calls[tier] = (args, tuple(o.clone() for o in out))
+        return out
+
+    return fk, launch, kept, calls
+
+
+def lloyd_17(dev, card) -> dict:
+    """Phase 17 (b): Lloyd k-means at N_ROWS x DIM, N_CLUSTERS_17 clusters
+    from ``InitMethod.Array`` at the blobs' centers (B1 k=1 on every
+    assignment), a k-means++ fit, and B1 timed at the shape. Returns what
+    (e) and (f) use and the B1 figures."""
+    import torch
+
+    from raft_tpu_torch import random as rnd
+    from raft_tpu_torch import stats
+    from raft_tpu_torch.cluster import InitMethod, KMeansParams, kmeans
+    from raft_tpu_torch.random import RngState
+
+    centers = rnd.uniform(RngState(SEED + 170), (N_CLUSTERS_17, DIM), -10.0,
+                          10.0, device=dev)
+    X, truth = rnd.make_blobs(N_ROWS, DIM, centers=centers,
+                              cluster_std=BLOB_STD_17, seed=SEED + 17,
+                              device=dev)
+    cmin = torch.cdist(centers.double(), centers.double())
+    cmin.fill_diagonal_(float("inf"))
+    p = KMeansParams(n_clusters=N_CLUSTERS_17, init=InitMethod.Array,
+                     max_iter=MAX_ITER_17)
+    fk, launch, kept, calls = _b1_capture()
+    before = fk.fused_knn.launches
+    fk._fused_knn_cuda = kept
+    try:
+        (C, inertia, it), fit_s = _timed(
+            lambda: kmeans.fit(p, X, centroids_init=centers))
+    finally:
+        fk._fused_knn_cuda = launch
+    fit_launches = fk.fused_knn.launches - before
+    labels, pred_inertia = kmeans.predict(p, C, X)
+    ari = float(stats.adjusted_rand_index(truth, labels))
+    ref = float(torch.sum((X.double() - C.double()[labels.long()]) ** 2))
+    errs = (abs(float(inertia) - ref) / ref,
+            abs(float(pred_inertia) - ref) / ref)
+    log(f"phase 17 (b): make_blobs({N_ROWS} x {DIM}, {N_CLUSTERS_17} "
+        f"centers, std {BLOB_STD_17}; closest centers "
+        f"{float(cmin.min()):.2f} apart); fit from InitMethod.Array "
+        f"{fit_s:.3f} s, {it} iterations, {fit_launches} B1 launches; ARI "
+        f"against make_blobs' labels {ari:.6f} (bar {ARI_17}); inertia "
+        f"{float(inertia):.6e}, off float64 by {errs[0]:.3e} (fit) / "
+        f"{errs[1]:.3e} (predict) (bar {INERTIA_RTOL_17}) [{card}]")
+    if ari < ARI_17 or max(errs) > INERTIA_RTOL_17 or fit_launches < it + 1:
+        raise AssertionError("phase 17 (b): Lloyd k-means off its bars")
+
+    # The first in-loop launch (split-bf16) and the final f32 launch,
+    # held against the plain version on their own operands.
+    if set(calls) != {"split-bf16", "f32"}:
+        raise AssertionError(f"phase 17 (b): the fit launched B1 on the "
+                             f"tiers {sorted(calls)}, not both")
+    for tier in ("split-bf16", "f32"):
+        args, (kd, ki) = calls[tier]
+        pd, pi = fk._fused_knn_plain(*args)
+        torch.cuda.synchronize()
+        agree = float((ki == pi).float().mean())
+        err = max_err(kd, pd)
+        tol = norm_tol(args[0], args[1])
+        log(f"phase 17 (b): B1 {tier} launch of the fit ({args[0].shape[0]} "
+            f"x {args[1].shape[0]} x {args[0].shape[1]}, k=1) vs plain: "
+            f"arg-min agreement {agree:.6f} (bar {RECALL_BF}, "
+            f"{int((ki != pi).sum())} rows differ), max |d| err {err:.3e} "
+            f"(tol {tol:.3e})")
+        if agree < RECALL_BF or err > tol:
+            raise AssertionError(f"phase 17 (b): B1 {tier} disagrees with "
+                                 "its plain version")
+        del pd, pi
+    calls.clear()
+
+    pp = KMeansParams(n_clusters=PP_K_17, max_iter=MAX_ITER_17,
+                      rng_state=RngState(SEED + 17))
+    (Cp, pp_inertia, pp_it), pp_s = _timed(
+        lambda: kmeans.fit(pp, X[:N_PP_17]))
+    log(f"phase 17 (b): k-means++ fit {N_PP_17} x {DIM} x {PP_K_17}: "
+        f"{pp_s:.3f} s, {pp_it} iterations, inertia "
+        f"{float(pp_inertia):.6e} [{card}]")
+    if not (bool(torch.isfinite(Cp).all())
+            and 0 < float(pp_inertia) < float("inf") and pp_it >= 1):
+        raise AssertionError("phase 17 (b): the k-means++ fit failed")
+
+    return {"X": X, "truth": truth, "labels": labels, "C": C,
+            "fit_s": fit_s, "it": it, "fit_launches": fit_launches,
+            "pp_s": pp_s, "pp_it": pp_it}
+
+
+def b1_lloyd_17(X, C, fit, card) -> dict:
+    """Phase 17 (b), after the phase's launches are read: B1 at Lloyd's
+    shape on both tiers beside ``addmm`` + ``argmin``, with the FP32
+    bound."""
+    import torch
+
+    fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
+    m, n_c, d = X.shape[0], C.shape[0], X.shape[1]
+    Cc = C.contiguous()
+    b1 = {}
+    for tier, bf16 in (("f32", False), ("split-bf16", True)):
+        ms = time_ms(lambda: fk._fused_knn_cuda(X, Cc, 1, True, bf16, bf16),
+                     5)
+        # Split-bf16 makes two products per pair; both tiers run on FMA.
+        ops = 2.0 * m * n_c * d * (2 if bf16 else 1)
+        nbytes = 4.0 * (m * d + n_c * d) + 8.0 * m
+        bound = max(ops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+        b1[tier] = {"ms": ms, "bound_ms": bound}
+    cn = torch.sum(Cc * Cc, dim=1)
+    lib_ms = time_ms(lambda: torch.argmin(torch.addmm(cn, X, Cc.t(),
+                                                      alpha=-2.0), dim=1), 3)
+    log(f"phase 17 (b): B1 at Lloyd's shape m={m} n={n_c} d={d} k=1: f32 "
+        f"{b1['f32']['ms']:.3f} ms (FP32 bound "
+        f"{b1['f32']['bound_ms']:.3f} ms), split-bf16 "
+        f"{b1['split-bf16']['ms']:.3f} ms (FP32-FMA bound "
+        f"{b1['split-bf16']['bound_ms']:.3f} ms), library (addmm + argmin) "
+        f"{lib_ms:.3f} ms; fit {fit['fit_s']:.3f} s for {fit['it']} "
+        f"iterations ({fit['fit_launches']} B1 launches), k-means++ fit "
+        f"{fit['pp_s']:.3f} s for {fit['pp_it']} [{card}]")
+    return {"b1": b1, "lib_ms": lib_ms}
+
+
+def find_k_17(dev, card) -> float:
+    """Phase 17 (c): ``find_k`` on well-separated blobs finds their
+    number. Returns its seconds."""
+    from raft_tpu_torch import random as rnd
+    from raft_tpu_torch.cluster import kmeans
+
+    rows, dim, blobs, std, kmax = FINDK_17
+    Xf, _ = rnd.make_blobs(rows, dim, n_clusters=blobs, cluster_std=std,
+                           seed=SEED + 17, device=dev)
+    (k, inertia, it), secs = _timed(lambda: kmeans.find_k(Xf, kmax=kmax))
+    log(f"phase 17 (c): find_k(make_blobs({rows} x {dim}, {blobs} centers, "
+        f"std {std}), kmax={kmax}) = {k} in {secs:.3f} s (inertia "
+        f"{float(inertia):.4e}, {it} iterations) [{card}]")
+    if k != blobs:
+        raise AssertionError(f"phase 17 (c): find_k gave {k}, not {blobs}")
+    return secs
+
+
+def refine_17(dev, X, Q, cand, card) -> dict:
+    """Phase 17 (d): phase 6's IVF-PQ candidates re-ranked to K on the
+    host through the port's native library, against the card's
+    ``neighbors.refine`` on the same candidates."""
+    import torch
+
+    from raft_tpu_torch import _native
+
+    rf = importlib.import_module("raft_tpu_torch.neighbors.refine")
+    t0 = time.perf_counter()
+    _native.get_lib()
+    load_s = time.perf_counter() - t0
+    Xh, Qh, ch = X.cpu().numpy(), Q.cpu().numpy(), cand.cpu().numpy()
+    t0 = time.perf_counter()
+    hd, hi = rf.refine_host(Xh, Qh, ch, K)
+    host_s = time.perf_counter() - t0
+    (dd, di), card_s = _timed(lambda: rf.refine(X, Q, cand, K))
+    tol = norm_tol(Q, X)
+    diff = near_tie_check("phase 17 (d), refine_host",
+                          torch.as_tensor(hd, device=dev),
+                          torch.as_tensor(hi, device=dev), dd, di, X, Q, tol)
+    built = _native.BUILD_SECONDS
+    log(f"phase 17 (d): refine_host of {cand.shape[0]} x {cand.shape[1]} "
+        f"IVF-PQ candidates to k={K} on the host: {host_s:.3f} s (library "
+        f"{'built in %.3f s' % built if built is not None else 'cached'}, "
+        f"loaded in {load_s:.3f} s); the card's refine {card_s:.3f} s; ids "
+        f"equal but {diff} slots at near-ties, distances within {tol:.3e} "
+        f"[{card}]")
+    return {"host_s": host_s, "build_s": built, "card_s": card_s}
+
+
+def stats_17(dev, X, truth, labels, card) -> dict:
+    """Phase 17 (e): descriptive statistics at N_ROWS x DIM, silhouette,
+    trustworthiness, the label metrics and r2, each against float64 on
+    the card."""
+    import torch
+
+    from raft_tpu_torch import linalg
+    from raft_tpu_torch import random as rnd
+    from raft_tpu_torch import stats
+    from raft_tpu_torch.random import RngState
+
+    state = RngState(SEED + 171)
+    secs = {}
+    Xd = X.double()
+    scale = Xd.abs().mean(0)
+    failed, report = [], []
+
+    def held(name, err, bar):
+        report.append(f"{name} {err:.3e}")
+        if not err <= bar:
+            failed.append((name, err, bar))
+
+    # f32 reductions over 1M rows sum in blocks: each is held to float64
+    # within STAT_RTOL_17 of the column's scale (mean |x|, the variance,
+    # sqrt(var_i var_j) for a covariance entry).
+    t0 = time.perf_counter()
+    mu64 = Xd.mean(0)
+    var64 = Xd.var(0)
+    held("mean", float(torch.max((stats.mean(X).double() - mu64).abs()
+                                 / scale)), STAT_RTOL_17)
+    held("vars_", float(torch.max((stats.vars_(X).double() - var64).abs()
+                                  / var64)), STAT_RTOL_17)
+    held("stddev", float(torch.max((stats.stddev(X).double()
+                                    - var64.sqrt()).abs() / var64.sqrt())),
+         STAT_RTOL_17)
+    c64 = torch.cov(Xd.T)
+    norm = torch.sqrt(torch.outer(torch.diag(c64), torch.diag(c64)))
+    held("cov", float(torch.max((stats.cov(X).double() - c64).abs() / norm)),
+         STAT_RTOL_17)
+    lo, hi = stats.minmax(X)
+    if not (torch.equal(lo, Xd.amin(0).float())
+            and torch.equal(hi, Xd.amax(0).float())):
+        failed.append(("minmax", "not bit for bit"))
+    w = rnd.uniform(state, N_ROWS, 0.5, 2.0, device=dev)
+    wm64 = (Xd * w.double()[:, None]).sum(0) / w.double().sum()
+    held("weighted_mean", float(torch.max(
+        (stats.weighted_mean(X, w).double() - wm64).abs() / scale)),
+        STAT_RTOL_17)
+    h = stats.histogram(X, N_BINS_17)
+    lo64, hi64 = float(X.min()), float(X.max())
+    width = (hi64 - lo64) / N_BINS_17
+    bins64 = torch.clamp(torch.floor((Xd - lo64) / width), 0,
+                         N_BINS_17 - 1).long()
+    col = torch.arange(DIM, device=dev)
+    h64 = torch.bincount((bins64 * DIM + col).reshape(-1),
+                         minlength=N_BINS_17 * DIM).reshape(N_BINS_17, DIM)
+    del bins64
+    moved = int((h.long() - h64).abs().sum()) // 2
+    held("histogram (share moved)", moved / X.numel(), HIST_MOVED_17)
+    if not bool((h.long().sum(0) == N_ROWS).all()):
+        failed.append(("histogram", "columns do not sum to the rows"))
+    torch.cuda.synchronize()
+    secs["descriptive"] = time.perf_counter() - t0
+    del Xd
+
+    # Silhouette of the fit's labels on a sample, against float64 (the
+    # distances in float64 are the expanded form, exact to ~1e-12 here).
+    t0 = time.perf_counter()
+    _, idx = rnd.sample_without_replacement(state, N_ROWS, N_SIL_17,
+                                            device=dev)
+    Xs, ls = X[idx.long()], labels[idx.long()].long()
+    sil = float(stats.silhouette_score(Xs, ls, n_clusters=N_CLUSTERS_17))
+    secs["silhouette"] = time.perf_counter() - t0
+    S = Xs.double()
+    sn = (S * S).sum(1)
+    D = torch.clamp_min(sn[:, None] + sn[None, :] - 2 * S @ S.T, 0)
+    oh = torch.nn.functional.one_hot(ls, N_CLUSTERS_17).double()
+    sums, counts = D @ oh, oh.sum(0)
+    del D
+    own = oh.bool()
+    oc = counts[ls]
+    a = torch.where(oc > 1, (sums * oh).sum(1) / torch.clamp_min(oc - 1, 1),
+                    0.0)
+    other = torch.where(own | (counts[None, :] == 0), float("inf"),
+                        sums / torch.clamp_min(counts[None, :], 1))
+    b = other.amin(1)
+    sil64 = float(torch.where(oc > 1, (b - a) / torch.maximum(a, b),
+                              0.0).mean())
+    held("silhouette", abs(sil - sil64) / abs(sil64), METRIC_RTOL_17)
+    del sums, oh, other
+
+    # Trustworthiness of a rank-32 projection of 5,000 rows.
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    V = torch.linalg.qr(torch.randn((DIM, TRUST_RANK_17), generator=gen,
+                                    dtype=torch.float64, device=dev)).Q
+    Xt = X[idx[:N_TRUST_17].long()]
+    E = Xt @ V.float()
+    tw = float(stats.trustworthiness_score(Xt, E, TRUST_K_17))
+    secs["trustworthiness"] = time.perf_counter() - t0
+
+    def sq64(A):
+        An = (A * A).sum(1)
+        return torch.clamp_min(An[:, None] + An[None, :] - 2 * A @ A.T, 0)
+
+    nt, kk = N_TRUST_17, TRUST_K_17
+    emb = torch.argsort(sq64(E.double()), dim=1, stable=True)[:, :kk + 1]
+    order = torch.argsort(sq64(Xt.double()), dim=1, stable=True)
+    ranks = torch.empty_like(order)
+    ranks.scatter_(1, order, torch.arange(nt, device=dev)[None, :]
+                   .expand(nt, nt))
+    pen = float(torch.clamp_min(torch.gather(ranks, 1, emb) - kk, 0).sum())
+    tw64 = 1.0 - 2.0 / (nt * kk * (2.0 * nt - 3.0 * kk - 1.0)) * pen
+    held("trustworthiness (abs)", abs(tw - tw64), TRUST_ATOL_17)
+    del order, ranks
+
+    # The label metrics of the fit's labels against make_blobs' labels.
+    t0 = time.perf_counter()
+    kc = N_CLUSTERS_17
+    cm = stats.contingency_matrix(truth, labels)
+    cm64 = torch.bincount(truth.long() * kc + labels.long(),
+                          minlength=kc * kc).reshape(kc, kc)
+    if not torch.equal(cm.long(), cm64):
+        failed.append(("contingency_matrix", "not bit for bit"))
+    cmd = cm64.double()
+    nn_ = float(N_ROWS)
+    rows_, cols_ = cmd.sum(1), cmd.sum(0)
+    ri64 = float(((cmd ** 2).sum() - nn_) / 2 + nn_ * (nn_ - 1) / 2
+                 + ((cmd ** 2).sum() - (rows_ ** 2).sum()
+                    - (cols_ ** 2).sum() + nn_) / 2) / (nn_ * (nn_ - 1) / 2)
+    pij = cmd / nn_
+    outer = torch.outer(rows_, cols_) / nn_ ** 2
+    mi64 = float(torch.where(pij > 0, pij * torch.log(pij / outer), 0.0)
+                 .sum())
+
+    def h64_(c):
+        pr = c / nn_
+        return float(-torch.where(pr > 0, pr * torch.log(pr), 0.0).sum())
+
+    ht, hp = h64_(rows_), h64_(cols_)
+    got = {"rand_index": float(stats.rand_index(truth, labels)),
+           "mutual_info_score": float(stats.mutual_info_score(truth,
+                                                              labels)),
+           "entropy": float(stats.entropy(truth)),
+           "homogeneity_score": float(stats.homogeneity_score(truth,
+                                                              labels)),
+           "completeness_score": float(stats.completeness_score(truth,
+                                                                labels)),
+           "v_measure": float(stats.v_measure(truth, labels)),
+           "accuracy": float(stats.accuracy(labels, truth))}
+    want = {"rand_index": ri64, "mutual_info_score": mi64, "entropy": ht,
+            "homogeneity_score": mi64 / ht, "completeness_score": mi64 / hp,
+            "v_measure": 2 * mi64 / (ht + hp),
+            "accuracy": float((labels == truth).double().mean())}
+    for name in got:
+        held(name, abs(got[name] - want[name]) / abs(want[name]),
+             METRIC_RTOL_17)
+    hh, cc = got["homogeneity_score"], got["completeness_score"]
+    held("v_measure = 2hc / (h + c)",
+         abs(got["v_measure"] - 2 * hh * cc / (hh + cc)), 1e-6)
+    held("trace / n = accuracy", abs(float(torch.trace(cmd)) / nn_
+                                     - got["accuracy"]), 1e-6)
+    secs["label_metrics"] = time.perf_counter() - t0
+
+    # r2 of the least-squares fit of noise-free make_regression data.
+    t0 = time.perf_counter()
+    Xr, yr, _ = rnd.make_regression(N_ROWS, DIM, noise=0.0, seed=SEED + 17,
+                                    device=dev)
+    wr = linalg.lstsq_svd(Xr, yr)
+    r2 = float(stats.r2_score(yr, Xr @ wr))
+    secs["r2"] = time.perf_counter() - t0
+    held("1 - r2 (abs)", abs(1.0 - r2), R2_ATOL_17)
+    log(f"phase 17 (e): statistics against float64 (relative unless "
+        f"marked): {', '.join(report)}; silhouette {sil:.6f} on "
+        f"{N_SIL_17} rows, trustworthiness {tw:.6f} on {N_TRUST_17} rows "
+        f"(k={TRUST_K_17}) against their rank-{TRUST_RANK_17} projection, "
+        f"r2 {r2:.8f}; seconds "
+        f"{ {k: round(v, 3) for k, v in secs.items()} } [{card}]")
+    if failed:
+        raise AssertionError(f"phase 17 (e): off float64: {failed}")
+    return secs
+
+
+def labels_17(dev, labels, card) -> float:
+    """Phase 17 (f): ``make_monotonic`` and ``get_unique_labels`` of the
+    fit's labels, and ``merge_labels`` of two labelings, each against a
+    numpy computation on the host (the merge by union-find over the
+    classes the masked points join). Returns its seconds."""
+    import torch
+
+    from raft_tpu_torch import label
+    from raft_tpu_torch import random as rnd
+    from raft_tpu_torch.random import RngState
+
+    t0 = time.perf_counter()
+    lab = labels.to(torch.int32) * 3 + 7          # not already 0..k - 1
+    uniq = label.get_unique_labels(lab)
+    mapped, classes = label.make_monotonic(lab)
+    one_based, _ = label.make_monotonic(lab, zero_based=False)
+    a = labels.to(torch.int32)
+    b = (a // 3).to(torch.int32)
+    mask = rnd.bernoulli(RngState(SEED + 172), a.shape[0], 0.5, device=dev)
+    merged = label.merge_labels(a, b, mask)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+
+    lh, ah, bh, mh = (lab.cpu().numpy(), a.cpu().numpy(), b.cpu().numpy(),
+                      mask.cpu().numpy())
+    want_u = np.unique(lh)
+    want_m = np.searchsorted(want_u, lh).astype(np.int32)
+    # Union-find over the A classes (ids 0..) and B classes (ids off)
+    # that a masked point joins; a masked point then takes the least A
+    # label among the masked points of its component.
+    off = int(ah.max()) + 1
+    parent = list(range(off + int(bh.max()) + 1))
+
+    def find(x):
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    for u, v in set(zip(ah[mh].tolist(), (bh[mh] + off).tolist())):
+        parent[find(u)] = find(v)
+    roots = np.array([find(x) for x in range(len(parent))])
+    least = np.full(len(parent), np.iinfo(np.int64).max)
+    np.minimum.at(least, roots[ah[mh]], ah[mh])
+    want_merge = np.where(mh, least[roots[ah]], ah).astype(np.int32)
+    ok = (np.array_equal(uniq.cpu().numpy(), want_u)
+          and np.array_equal(classes.cpu().numpy(), want_u)
+          and np.array_equal(mapped.cpu().numpy(), want_m)
+          and np.array_equal(one_based.cpu().numpy(), want_m + 1)
+          and np.array_equal(merged.cpu().numpy(), want_merge))
+    log(f"phase 17 (f): get_unique_labels ({len(want_u)} classes), "
+        f"make_monotonic (both bases) and merge_labels ({int(mh.sum())} "
+        f"masked of {len(mh)}; {len(np.unique(want_merge))} merged labels) "
+        f"on {len(lh)} labels in {secs:.3f} s; equal to numpy: {ok} "
+        f"[{card}]")
+    if not ok:
+        raise AssertionError("phase 17 (f): a label utility differs from "
+                             "numpy")
+    return secs
+
+
+def slice17_phase(dev, X, Q, cand, card) -> dict:
+    """Phase 17: random/, Lloyd k-means, refine_host, stats/ and label/,
+    counters set to 0 before it and read after its last step (B1 is timed
+    at Lloyd's shape after that). Returns its launches and the B1
+    figures."""
+    import torch
+
+    _zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    secs = draws_17(dev, card)
+    torch.cuda.empty_cache()
+    ll = lloyd_17(dev, card)
+    secs["find_k"] = find_k_17(dev, card)
+    secs.update({f"refine_{k}": v for k, v in
+                 refine_17(dev, X, Q, cand, card).items() if v is not None})
+    secs.update(stats_17(dev, ll["X"], ll["truth"], ll["labels"], card))
+    secs["labels"] = labels_17(dev, ll["labels"], card)
+    launches = _launches()
+    total = time.perf_counter() - t0
+    log(f"phase 17: {total:.3f} s, launches {launches} [{card}]")
+    if launches["fused_knn"] < 1 or any(
+            v for k, v in launches.items() if k != "fused_knn"):
+        raise AssertionError(f"phase 17 must launch B1 and only B1: "
+                             f"{launches}")
+    timing = b1_lloyd_17(ll["X"], ll["C"], ll, card)
+    del ll["X"]
+    torch.cuda.empty_cache()
+    return {"launches": launches, "seconds": total,
+            "fit_launches": ll["fit_launches"], **timing}
+
+
 def kmeans_labels(centers, X):
     """Each row's nearest center (the lists of an IVF-Flat build)."""
     from raft_tpu_torch.cluster import kmeans_balanced
@@ -5005,6 +5742,7 @@ def main() -> int:
     b5 = select_phase(dev, b5_err)
     br = breadth_phase(dev, X, Q, mp["index"], card)
     b5["launches"] += br["stream_extract"]
+    p17 = slice17_phase(dev, X, Q, pq.pop("candidates"), card)
     # Phase 6 left IVF-PQ's reconstruction cache in place, which routes
     # search to the recon tier; the serve and lifecycle phases search the
     # compressed tier (B4), as the main path does.
@@ -5026,7 +5764,8 @@ def main() -> int:
              + pq["launches"]["fused_knn"] + sv["fused_knn"]
              + lc["fused_knn"] + sm["fused_knn"] + sf["fused_knn"]
              + sh["fused_knn"] + rt["fused_knn"] + ops["fused_knn"]
-             + du["fused_knn"] + br["fused_knn"],
+             + du["fused_knn"] + br["fused_knn"]
+             + p17["launches"]["fused_knn"],
              **b1),
         dict(name="fused_cells_knn", route="cuda",
              source="raft_tpu_torch/csrc/cells_knn.cu",

@@ -1,10 +1,34 @@
-"""Clustering: balanced hierarchical k-means and k-means++ seeding. Lloyd
-k-means and single linkage come in later slices."""
+"""Clustering: Lloyd k-means and balanced hierarchical k-means. Single
+linkage comes in a later slice."""
 
-from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
+from raft_tpu_torch.cluster.kmeans_types import (
+    InitMethod,
+    KMeansParams,
+    KMeansBalancedParams,
+)
 from raft_tpu_torch.cluster import kmeans
 from raft_tpu_torch.cluster import kmeans_balanced
-from raft_tpu_torch.cluster.kmeans import init_plus_plus
+from raft_tpu_torch.cluster.kmeans import (
+    fit,
+    predict,
+    fit_predict,
+    transform,
+    cluster_cost,
+    min_cluster_and_distance,
+    min_cluster_distance,
+    update_centroids,
+    compute_new_centroids,
+    init_plus_plus,
+    init_random,
+    sample_centroids,
+    find_k,
+)
 
-__all__ = ["KMeansBalancedParams", "kmeans", "kmeans_balanced",
-           "init_plus_plus"]
+__all__ = [
+    "InitMethod", "KMeansParams", "KMeansBalancedParams",
+    "kmeans", "kmeans_balanced",
+    "fit", "predict", "fit_predict", "transform", "cluster_cost",
+    "min_cluster_and_distance", "min_cluster_distance", "update_centroids",
+    "compute_new_centroids", "init_plus_plus", "init_random",
+    "sample_centroids", "find_k",
+]

@@ -1,17 +1,19 @@
 """Refinement: re-rank ANN candidates with exact distances.
 
-Port of ``raft_tpu/neighbors/refine.py::refine``: the candidates are
+Port of ``raft_tpu/neighbors/refine.py``. ``refine``: the candidates are
 gathered into a dense (n_queries, n_cand, d) block, scored exactly against
 their query and the best k kept. Candidate id -1 (padding) is skipped.
 Candidate ids are rows of the dataset: int64 ids stay int64 (the
 reference casts every candidate matrix to int32), any other integer
-dtype becomes int32.
+dtype becomes int32. ``refine_host`` re-ranks host numpy arrays on the
+port's native runtime (``raft_tpu_torch._native``), L2 metrics only.
 """
 
 from __future__ import annotations
 
 from typing import Tuple, Union
 
+import numpy as np
 import torch
 
 from raft_tpu_torch.core.error import expects
@@ -70,3 +72,30 @@ def refine(dataset, queries, candidates, k: int,
         dist.append(dd)
         idx.append(torch.gather(c, 1, pos.long()))
     return torch.cat(dist), torch.cat(idx)
+
+
+def refine_host(dataset, queries, candidates, k: int,
+                metric: Union[str, DistanceType] = DistanceType.L2Expanded,
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """Re-rank on the host: numpy (or host-copied) inputs through the
+    native runtime's threaded exact scan, for the L2 metrics only; the
+    Sqrt metrics take the square root of its squared distances. Returns
+    numpy ``(distances (q, k) float32, ids (q, k) int64)``."""
+    from raft_tpu_torch import _native
+
+    metric = resolve_metric(metric)
+    expects(metric in (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
+                       DistanceType.L2Unexpanded,
+                       DistanceType.L2SqrtUnexpanded),
+            f"refine_host supports L2 metrics, got {metric!r}")
+    d, i = _native.refine_host(_host(dataset), _host(queries),
+                               _host(candidates), k)
+    if metric in (DistanceType.L2SqrtExpanded,
+                  DistanceType.L2SqrtUnexpanded):
+        d = np.sqrt(d)
+    return d, i
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)

@@ -51,7 +51,12 @@ def test_module_list_covers_the_slice():
                  "core.temporary_buffer", "core.compilation_cache",
                  "linalg.blas", "linalg.elementwise", "linalg.matrix_vector",
                  "linalg.norm", "linalg.reduce", "linalg.decomp",
-                 "matrix.ops", "distance.kernels", "distance.masked_nn"):
+                 "matrix.ops", "distance.kernels", "distance.masked_nn",
+                 "random.rng", "random.make_blobs", "random.make_regression",
+                 "random.rmat", "cluster.kmeans", "cluster.kmeans_types",
+                 "stats.descriptive", "stats.classification",
+                 "stats.regression", "stats.cluster_metrics",
+                 "label.classlabels", "label.merge_labels", "_native"):
         assert f"raft_tpu_torch.{name}" in _MODULES
 
 

@@ -1431,3 +1431,43 @@ def test_l1_linf_half_precision_on_the_card(dev, gen, dtype, metric):
     d, i = brute_force.knn(dbc.to(dev), qc.to(dev), 9, metric=metric)
     cd, ci = brute_force.knn(dbc, qc, 9, metric=metric)
     assert torch.equal(i.cpu(), ci) and torch.equal(d.cpu(), cd)
+
+
+@pytest.mark.cuda
+def test_lloyd_fit_on_the_card_equals_the_cpu(dev, gen):
+    """Lloyd k-means from ``InitMethod.Array`` on the card (its loop on
+    B1's split-bf16 tier, the returned labels from an f32 B1 launch)
+    against the plain path on the CPU: labels equal except at near-ties
+    (the two centroids within the expanded form's rounding of a row),
+    centroids within 1e-4 of the data's scale, inertia within rtol 1e-5
+    plus that rounding over the rows."""
+    from raft_tpu_torch.cluster import InitMethod, KMeansParams, kmeans
+
+    k, d = 50, 64
+    centers = gen.uniform(-10, 10, (k, d)).astype(np.float32)
+    y = gen.permutation(np.arange(20_000) % k)
+    X = (centers[y] + gen.standard_normal((20_000, d))).astype(np.float32)
+    c0 = (centers + 0.5).astype(np.float32)
+    p = KMeansParams(n_clusters=k, init=InitMethod.Array, max_iter=20)
+    before = fk.fused_knn.launches
+    c, labels, inertia, it = kmeans.fit_predict(
+        p, torch.as_tensor(X, device=dev), centroids_init=c0)
+    assert fk.fused_knn.launches > before + it
+    pc, pl, pinertia, pit = kmeans.fit_predict(p, torch.as_tensor(X),
+                                               centroids_init=c0)
+    assert labels.device.type == "cuda" and labels.dtype == torch.int32
+    xn = float(np.max(np.sum(X.astype(np.float64) ** 2, axis=1)))
+    cn = float(torch.max(torch.sum(pc.double() ** 2, dim=1)))
+    tol = 2e-6 * (xn + cn)
+    diff = n(labels) != n(pl)
+    if diff.any():
+        Xd = torch.as_tensor(X[diff]).double()
+        d_card = torch.sum((Xd - pc.double()[torch.as_tensor(
+            n(labels)[diff]).long()]) ** 2, dim=1)
+        d_cpu = torch.sum((Xd - pc.double()[pl[torch.as_tensor(diff)]
+                                            .long()]) ** 2, dim=1)
+        assert float(torch.max(torch.abs(d_card - d_cpu))) <= tol
+    assert diff.mean() <= 1e-3
+    np.testing.assert_allclose(n(c), n(pc), rtol=0, atol=1e-4 * 10)
+    np.testing.assert_allclose(float(inertia), float(pinertia), rtol=1e-5,
+                               atol=tol * X.shape[0])
