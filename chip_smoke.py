@@ -912,6 +912,19 @@ def b1_entry(dev, X, Q, bf):
             else "bytes", "library_ms": lib_ms}
 
 
+def b1_k1_bound(m: int, n: int, d: int, bf16: bool):
+    """B1's bound at k=1 in ms, with what sets it: the function's 2*m*n*d
+    operations at the peak of the operand type (bf16 for the split tier,
+    whose two products per pair are the kernel's own choice), or the bytes
+    of the f32 rows, the centers and the (distance, id) out."""
+    ops = 2.0 * m * n * d
+    peak, name = (PEAK_BF16, "bf16") if bf16 else (PEAK_FP32, "FP32")
+    nbytes = 4.0 * (m * d + n * d) + 8.0 * m
+    if ops / peak >= nbytes / PEAK_BYTES:
+        return ops / peak * 1e3, f"operations, {name}"
+    return nbytes / PEAK_BYTES * 1e3, "bytes"
+
+
 def b1_kmeans_shape(dev, X, centers):
     """B1 at the k=1 assignment shapes of the IVF-Flat build, each held
     against its plain version: the trainset (half the rows) against the
@@ -947,23 +960,15 @@ def b1_kmeans_shape(dev, X, centers):
         del kd, ki, pd, pi
         ms = time_ms(lambda: fk._fused_knn_cuda(A, C, 1, True, bf16, bf16),
                      5)
-        # Split-bf16 makes two products per pair; every tier runs on FMA.
-        ops = 2.0 * m * n * d * (2 if bf16 else 1)
-        nbytes = 4.0 * (m * d + n * d) + 8.0 * m
-        fma = max(ops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+        bound, by = b1_k1_bound(m, n, d, bf16)
         # The library yardstick of a k=1 scan: one addmm of the expanded
         # L2 (f32) and its row arg-min.
         cn = torch.sum(C * C, dim=1)
         lib_ms = time_ms(lambda: torch.argmin(
             torch.addmm(cn, A, C.t(), alpha=-2.0), dim=1), 3)
-        line = (f"{tag}: kernel {ms:.3f} ms, FP32-FMA bound {fma:.3f} ms "
-                f"({ops / ms / 1e9:.1f} TFLOP/s), library (addmm + argmin) "
-                f"{lib_ms:.3f} ms")
-        if bf16:
-            tc = max(ops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
-            line += (f", bf16 tensor-core bound {tc:.3f} ms (the kernel "
-                     f"does not use tensor cores)")
-        log(line)
+        log(f"{tag}: kernel {ms:.3f} ms, bound {bound:.3f} ms ({by}; "
+            f"{2.0 * m * n * d / ms / 1e9:.1f} TFLOP/s), library (addmm + "
+            f"argmin) {lib_ms:.3f} ms")
 
 
 def b2_entry(dev, Q, index, search_ms):
@@ -5236,8 +5241,10 @@ def lloyd_17(dev, card) -> dict:
             abs(float(pred_inertia) - ref) / ref)
     log(f"phase 17 (b): make_blobs({N_ROWS} x {DIM}, {N_CLUSTERS_17} "
         f"centers, std {BLOB_STD_17}; closest centers "
-        f"{float(cmin.min()):.2f} apart); fit from InitMethod.Array "
-        f"{fit_s:.3f} s, {it} iterations, {fit_launches} B1 launches; ARI "
+        f"{float(cmin.min()):.2f} apart); fit from the true centers "
+        f"(InitMethod.Array) {fit_s:.3f} s, {it} iterations "
+        f"({fit_s / max(it, 1) * 1e3:.1f} ms an iteration, the final f32 "
+        f"assignment included), {fit_launches} B1 launches; ARI "
         f"against make_blobs' labels {ari:.6f} (bar {ARI_17}); inertia "
         f"{float(inertia):.6e}, off float64 by {errs[0]:.3e} (fit) / "
         f"{errs[1]:.3e} (predict) (bar {INERTIA_RTOL_17}) [{card}]")
@@ -5285,8 +5292,8 @@ def lloyd_17(dev, card) -> dict:
 
 def b1_lloyd_17(X, C, fit, card) -> dict:
     """Phase 17 (b), after the phase's launches are read: B1 at Lloyd's
-    shape on both tiers beside ``addmm`` + ``argmin``, with the FP32
-    bound."""
+    shape on both tiers beside ``addmm`` + ``argmin``, with each tier's
+    bound (:func:`b1_k1_bound`)."""
     import torch
 
     fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
@@ -5296,21 +5303,20 @@ def b1_lloyd_17(X, C, fit, card) -> dict:
     for tier, bf16 in (("f32", False), ("split-bf16", True)):
         ms = time_ms(lambda: fk._fused_knn_cuda(X, Cc, 1, True, bf16, bf16),
                      5)
-        # Split-bf16 makes two products per pair; both tiers run on FMA.
-        ops = 2.0 * m * n_c * d * (2 if bf16 else 1)
-        nbytes = 4.0 * (m * d + n_c * d) + 8.0 * m
-        bound = max(ops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
-        b1[tier] = {"ms": ms, "bound_ms": bound}
+        bound, by = b1_k1_bound(m, n_c, d, bf16)
+        b1[tier] = {"ms": ms, "bound_ms": bound, "bound_by": by}
     cn = torch.sum(Cc * Cc, dim=1)
     lib_ms = time_ms(lambda: torch.argmin(torch.addmm(cn, X, Cc.t(),
                                                       alpha=-2.0), dim=1), 3)
     log(f"phase 17 (b): B1 at Lloyd's shape m={m} n={n_c} d={d} k=1: f32 "
-        f"{b1['f32']['ms']:.3f} ms (FP32 bound "
-        f"{b1['f32']['bound_ms']:.3f} ms), split-bf16 "
-        f"{b1['split-bf16']['ms']:.3f} ms (FP32-FMA bound "
-        f"{b1['split-bf16']['bound_ms']:.3f} ms), library (addmm + argmin) "
-        f"{lib_ms:.3f} ms; fit {fit['fit_s']:.3f} s for {fit['it']} "
-        f"iterations ({fit['fit_launches']} B1 launches), k-means++ fit "
+        f"{b1['f32']['ms']:.3f} ms (bound {b1['f32']['bound_ms']:.3f} "
+        f"ms, {b1['f32']['bound_by']}), split-bf16 "
+        f"{b1['split-bf16']['ms']:.3f} ms (bound "
+        f"{b1['split-bf16']['bound_ms']:.3f} ms, "
+        f"{b1['split-bf16']['bound_by']}), library (addmm + argmin) "
+        f"{lib_ms:.3f} ms; fit from the true centers {fit['fit_s']:.3f} s "
+        f"for {fit['it']} iterations ({fit['fit_launches']} B1 launches), "
+        f"k-means++ fit "
         f"{fit['pp_s']:.3f} s for {fit['pp_it']} [{card}]")
     return {"b1": b1, "lib_ms": lib_ms}
 
@@ -5340,6 +5346,7 @@ def refine_17(dev, X, Q, cand, card) -> dict:
     import torch
 
     from raft_tpu_torch import _native
+    from raft_tpu_torch.ops import _build
 
     rf = importlib.import_module("raft_tpu_torch.neighbors.refine")
     t0 = time.perf_counter()
@@ -5354,7 +5361,7 @@ def refine_17(dev, X, Q, cand, card) -> dict:
     diff = near_tie_check("phase 17 (d), refine_host",
                           torch.as_tensor(hd, device=dev),
                           torch.as_tensor(hi, device=dev), dd, di, X, Q, tol)
-    built = _native.BUILD_SECONDS
+    built = _build.BUILD_SECONDS.get(_native.LIBRARY)
     log(f"phase 17 (d): refine_host of {cand.shape[0]} x {cand.shape[1]} "
         f"IVF-PQ candidates to k={K} on the host: {host_s:.3f} s (library "
         f"{'built in %.3f s' % built if built is not None else 'cached'}, "

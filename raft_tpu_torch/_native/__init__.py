@@ -6,9 +6,10 @@ host re-rank (``refine_host``), the host k-way merge of per-part top-k
 lists, a host top-k and the union-find agglomeration behind single
 linkage. At first use ``g++ -O3 -std=c++17 -fPIC -shared -pthread``
 compiles the source into the port's build directory
-(``ops/_build.BUILD_DIR``, under ``build/``), named by a hash of the
-source and the flags; a temporary file is renamed into place, so two
-processes never load a half-written library.
+(``ops/_build.BUILD_DIR``, under ``build/``) through ``ops/_build``'s
+own build machinery: named by a hash of the source and the flags, and a
+temporary file renamed into place, so two processes never load a
+half-written library.
 
 Unlike the reference's loader, nothing falls back: a failed build raises
 :class:`NativeBuildError` with the compiler's output, and every wrapper
@@ -24,61 +25,29 @@ reference package.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import tempfile
-import threading
-import time
 from pathlib import Path
-from typing import Optional
 
 import numpy as np
 
 from raft_tpu_torch.core.error import RaftError
+from raft_tpu_torch.ops import _build
 
 SOURCE = Path(__file__).resolve().parents[2] / "native" / "host_runtime.cpp"
+CXX = "g++"
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
-
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-#: Seconds the library took to build in this process (None if it was
-#: already built).
-BUILD_SECONDS: Optional[float] = None
+#: The library's name in ``ops/_build`` (its file is
+#: ``libraft_host-<hash>.so``, its build time ``BUILD_SECONDS["raft_host"]``).
+LIBRARY = "raft_host"
 
 
 class NativeBuildError(RaftError):
     """The host runtime failed to compile or load."""
 
 
-def library_path() -> Path:
-    """Where the library for this source and these flags lives."""
-    from raft_tpu_torch.ops import _build
-
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    return Path(_build.BUILD_DIR) / f"libraft_host-{h.hexdigest()[:16]}.so"
-
-
-def _compile(path: Path) -> None:
-    global BUILD_SECONDS
-    path.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-    os.close(fd)
-    cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", tmp, str(SOURCE)]
-    t0 = time.perf_counter()
-    try:
-        out = subprocess.run(cmd, capture_output=True, text=True,
-                             timeout=300)
-    except OSError as err:
-        os.unlink(tmp)
-        raise NativeBuildError(f"cannot run {cmd[0]}: {err}") from err
-    if out.returncode != 0:
-        os.unlink(tmp)
-        raise NativeBuildError(
-            f"{' '.join(cmd)} exited {out.returncode}:\n{out.stderr}")
-    os.replace(tmp, path)
-    BUILD_SECONDS = time.perf_counter() - t0
+def _job() -> _build.Job:
+    """The runtime's build: ``g++`` with :data:`CXX_FLAGS` on
+    :data:`SOURCE`."""
+    return [CXX, *CXX_FLAGS], [SOURCE], []
 
 
 def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -117,17 +86,7 @@ def get_lib() -> ctypes.CDLL:
     """The loaded library, compiled first if this source has no build
     yet. Raises :class:`NativeBuildError` when it cannot be built or
     loaded."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            path = library_path()
-            if not path.exists():
-                _compile(path)
-            try:
-                _lib = _configure(ctypes.CDLL(str(path)))
-            except OSError as err:
-                raise NativeBuildError(f"cannot load {path}: {err}") from err
-        return _lib
+    return _build.load_library(LIBRARY, _job(), NativeBuildError, _configure)
 
 
 def _ptr(arr: np.ndarray, ctype):

@@ -45,7 +45,8 @@ def ref_lib(tmp_path_factory):
 
 def test_library_builds_into_the_build_directory():
     tn.get_lib()
-    path = tn.library_path()
+    command, srcs, headers = tn._job()
+    path = _build.library_path(tn.LIBRARY, command, headers + srcs)
     assert path.exists() and path.parent == _build.BUILD_DIR
     assert path.name.startswith("libraft_host-") and path.suffix == ".so"
     assert tn.get_lib().raft_native_version() == 1
@@ -55,7 +56,7 @@ def test_failed_build_raises_with_the_compiler_output(monkeypatch, tmp_path):
     bad = tmp_path / "host_runtime.cpp"
     bad.write_text("this is not C++\n")
     monkeypatch.setattr(tn, "SOURCE", bad)
-    monkeypatch.setattr(tn, "_lib", None)
+    monkeypatch.setattr(_build, "_LOADED", {})
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(tn.NativeBuildError, match="error"):
         tn.get_lib()
@@ -65,9 +66,9 @@ def test_failed_build_raises_with_the_compiler_output(monkeypatch, tmp_path):
 
 
 def test_missing_compiler_raises(monkeypatch, tmp_path):
-    monkeypatch.setattr(tn, "_lib", None)
+    monkeypatch.setattr(_build, "_LOADED", {})
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    monkeypatch.setattr(tn, "CXX", str(tmp_path / "no-such-compiler"))
     with pytest.raises(tn.NativeBuildError, match="cannot run"):
         tn.get_lib()
 
