@@ -282,7 +282,43 @@ no result line):
     ``r2_score`` of ``lstsq_svd`` on noise-free ``make_regression`` data
     within 1e-5 of 1; (f) ``get_unique_labels``, ``make_monotonic`` and
     ``merge_labels`` on (b)'s 1M labels against numpy;
-18. a ``kernels`` line, the card line, and the result line.
+18. the sparse layer (after phase 17, on phase 4's rows), counters set
+    to 0 before it and read after its last step: (a)
+    ``sparse.neighbors.knn_graph`` of the 1M x 128 rows, k=15 (one B1
+    launch of k=16 per 131,072-query chunk): 15 edges a row, no self
+    edge, 1000 sampled rows' ids equal to an exact float64 kNN on the card
+    but at near-ties and distances within ``norm_tol``, the first
+    launch's first 4096 queries held against B1's plain version, and,
+    after the counters are read, B1 at the chunk shape beside ``addmm`` +
+    ``topk`` and its bound; (b) on that graph, ``symmetrize``,
+    ``coo_to_csr`` / ``csr_to_coo``, ``coo_sort``, ``max_duplicates``,
+    ``transpose``, ``add`` (A + A^T), ``degree``, both row
+    normalisations, both Laplacians, ``slice_csr`` of the middle 100,000
+    rows and ``remove_zeros`` after zeroing a seeded 1% of the values,
+    each against scipy.sparse in float64 on the host (structures bit for
+    bit, values within rtol 1e-5), ``spmv`` and ``spmm`` (16 columns)
+    likewise and bit for bit over two runs; (c) ``connected_components``
+    of the symmetrised graph against scipy's (each label its component's
+    smallest id; its steps printed against the cap of 64),
+    ``connect_components`` (every edge across components; 1000 sampled
+    rows against a float64 nearest other-component row) and ``mst`` over
+    both edge sets (n - C edges, C scipy's count of the union; weight
+    within 1e-5 of scipy's ``minimum_spanning_tree`` of the min-reduced
+    edges; the host union-find's time on its own line); (d) Lanczos on M
+    = D + 1e-3 A_hat (A_hat the graph's normalised adjacency, D a seeded
+    diagonal with 8 values planted at each end): the 8 largest and
+    smallest eigenvalues within 2e-3 of the planted, float64 residuals
+    within 1e-3 ||M||, two runs bit for bit; (e) TF-IDF-shaped rows
+    (100,000 x 50,000, row nnz 32-256, Zipf columns, unit-L2 rows, drawn
+    with ``random/`` on the card): ``brute_force_knn`` k=10 for
+    L2Expanded, CosineExpanded and InnerProduct (x-dense gram engine), L1
+    and JensenShannon (semiring), CosineExpanded with 4096 queries
+    against the first 20,000 rows (block-packed scan), and
+    ``pairwise_distance`` 2048 x 20,000 for L2Expanded and
+    HellingerExpanded, each call's engine asserted, 32 queries (kNN) or
+    256 rows (pairwise) held to float64 within 1e-4 (ids but at
+    near-ties), each call timed;
+19. a ``kernels`` line, the card line, and the result line.
 
 The data is made with numpy from a fixed seed: 1000 Gaussian blobs
 (centers uniform in [-10, 10], sigma 5), queries = database rows + N(0, 1).
@@ -444,6 +480,28 @@ HIST_MOVED_17 = 1e-5      # share of entries binned across an edge
 METRIC_RTOL_17 = 1e-5     # silhouette, label metrics against float64
 TRUST_ATOL_17 = 1e-5      # trustworthiness against float64
 R2_ATOL_17 = 1e-5         # 1 - r2 of a noise-free least squares
+
+# Phase 18: the sparse layer.
+ROWS_18 = N_ROWS          # rows of (a)-(c): the graph of phase 4's X
+K_18 = 15                 # kNN-graph degree (B1 with k = 16)
+N_SAMPLE_18 = 1000        # rows of (a) and (c) held to float64
+N_PLAIN_18 = 4096         # queries of the first B1 launch held to plain
+N_SLICE_18 = 100_000      # rows of slice_csr
+ZERO_FRAC_18 = 0.01       # values zeroed before remove_zeros
+SPMM_COLS_18 = 16
+VAL_RTOL_18 = 1e-5        # graph ops and the MST weight against scipy
+EIG_K_18 = 8              # eigenpairs at each end
+EIG_EPS_18 = 1e-3         # M = D + eps A_hat
+EIG_TOL_18 = 2e-3         # eigenvalues against the planted ones
+RESID_18 = 1e-3           # float64 residuals, of ||M||
+TFIDF_18 = (100_000, 50_000, 32, 256)  # rows, columns, row nnz bounds
+ZIPF_18 = 1.07            # column weights ~ rank^-1.07
+N_TFIDF_Q_18 = 2048       # queries of the x-dense and semiring calls
+N_BLOCKED_18 = (4096, 20_000)  # queries x rows of the blocked call
+K_TFIDF_18 = 10
+N_CHECK_18 = 32           # queries of each kNN call held to float64
+N_PAIR_ROWS_18 = 256      # rows of each pairwise call held to float64
+SPARSE_TOL_18 = 1e-4      # tests/test_sparse.py's tolerance
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FP32 = 67e12
@@ -5647,6 +5705,630 @@ def slice17_phase(dev, X, Q, cand, card) -> dict:
             "fit_launches": ll["fit_launches"], **timing}
 
 
+def _f64_l2_knn(X64, rows, k, labels=None):
+    """Exact float64 squared-L2 kNN of ``X64[rows]`` among the rows of
+    ``X64``, the row itself left out, or with ``labels`` only rows of
+    another label; on the card, 100 rows at a time."""
+    import torch
+
+    xn = torch.sum(X64 * X64, dim=1)
+    out_d, out_i = [], []
+    for s in range(0, rows.shape[0], 100):
+        r = rows[s:s + 100]
+        dd = xn[r][:, None] + xn[None, :] - 2.0 * (X64[r] @ X64.T)
+        if labels is None:
+            dd[torch.arange(r.shape[0], device=r.device), r] = float("inf")
+        else:
+            dd.masked_fill_(labels[None, :] == labels[r][:, None],
+                            float("inf"))
+        d, i = torch.topk(dd, k, dim=1, largest=False)
+        out_d.append(d)
+        out_i.append(i)
+    return torch.cat(out_d), torch.cat(out_i)
+
+
+def _ties_18(what, got_d, got_i, ref_d, ref_i, dist_of, tol) -> int:
+    """Distances within ``tol`` (a scalar, or one per slot) of the
+    reference's slot by slot; an id that differs must be at the
+    reference's distance for its slot by ``dist_of(slot rows, ids)``.
+    Returns the number of differing slots."""
+    import torch
+
+    got_d, ref_d = got_d.double(), ref_d.double()
+    off = torch.abs(got_d - ref_d) - tol
+    if float(off.max()) > 0:
+        raise AssertionError(f"{what}: a distance is off the float64 one by "
+                             f"{float(off.max())} past its tolerance")
+    diff = got_i.long() != ref_i.long()
+    rows, cols = torch.nonzero(diff, as_tuple=True)
+    if rows.numel():
+        ids = got_i.long()[rows, cols]
+        if bool((ids < 0).any()):
+            raise AssertionError(f"{what}: a padding id")
+        t = tol if not torch.is_tensor(tol) else tol[rows, cols]
+        bad = torch.abs(dist_of(rows, ids) - ref_d[rows, cols]) - t
+        if float(bad.max()) > 0:
+            raise AssertionError(f"{what}: a differing id is not at a "
+                                 "near-tie")
+    return int(diff.sum())
+
+
+def graph_18(dev, X, card) -> dict:
+    """Phase 18 (a): the kNN graph of X (B1 on every query chunk), held
+    to an exact float64 kNN on N_SAMPLE_18 rows, and the first launch's
+    first N_PLAIN_18 queries held to B1's plain version."""
+    import torch
+
+    from raft_tpu_torch.sparse import neighbors as sn
+
+    fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
+    n = X.shape[0]
+    launch = fk._fused_knn_cuda
+    kept = {}
+
+    def first(*args):
+        out = launch(*args)
+        if not kept:
+            kept["m"] = args[0].shape[0]
+            kept["args"] = (args[0][:N_PLAIN_18].clone(),) + args[1:]
+            kept["out"] = tuple(o[:N_PLAIN_18].clone() for o in out)
+        return out
+
+    before = fk.fused_knn.launches
+    fk._fused_knn_cuda = first
+    try:
+        g, secs = _timed(lambda: sn.knn_graph(X, K_18))
+    finally:
+        fk._fused_knn_cuda = launch
+    launches = fk.fused_knn.launches - before
+    chunks = -(-n // sn._KNN_GRAPH_CHUNK)
+    rows0 = torch.arange(n, dtype=torch.int32, device=dev)
+    if not (g.nnz == n * K_18 and g.shape == (n, n)
+            and torch.equal(g.rows, torch.repeat_interleave(rows0, K_18))
+            and bool((g.rows != g.cols).all())
+            and bool(((g.cols >= 0) & (g.cols < n)).all())
+            and launches == chunks):
+        raise AssertionError(f"phase 18 (a): the graph's structure is wrong "
+                             f"({g.nnz} edges, {launches} B1 launches)")
+
+    X64 = X.double()
+    s = torch.as_tensor(np.sort(np.random.default_rng(SEED + 180).choice(
+        n, N_SAMPLE_18, replace=False)), device=dev)
+    ref_d, ref_i = _f64_l2_knn(X64, s, K_18)
+    got_d = g.vals.view(n, K_18)[s].double() ** 2
+    got_i = g.cols.view(n, K_18)[s]
+    tol = norm_tol(X, X)
+    ties = _ties_18("phase 18 (a), knn_graph", got_d, got_i, ref_d, ref_i,
+                    lambda r, i: torch.sum((X64[s[r]] - X64[i]) ** 2, dim=1),
+                    tol)
+
+    args, (kd, ki) = kept["args"], kept["out"]
+    pd, pi = fk._fused_knn_plain(*args)
+    agree = float((ki == pi).float().mean())
+    err = max_err(kd, pd)
+    ptol = norm_tol(args[0], args[1])
+    log(f"phase 18 (a): knn_graph({n} x {X.shape[1]}, k={K_18}, "
+        f"L2SqrtExpanded) {secs:.3f} s, {chunks} chunks of "
+        f"{sn._KNN_GRAPH_CHUNK} queries, {launches} B1 launches (k "
+        f"{args[2]}); {N_SAMPLE_18} rows against float64: ids equal but "
+        f"{ties} slots at near-ties, distances within {tol:.3e}; the first "
+        f"launch's first {N_PLAIN_18} queries vs plain: id agreement "
+        f"{agree:.6f} (bar {RECALL_BF}), max |d| err {err:.3e} (tol "
+        f"{ptol:.3e}) [{card}]")
+    if agree < RECALL_BF or err > ptol:
+        raise AssertionError("phase 18 (a): B1 disagrees with its plain "
+                             "version")
+    del X64, pd, pi
+    return {"graph": g, "chunk": (kept["m"], args[2])}
+
+
+def _host_csr_18(indptr, indices, vals, shape):
+    import scipy.sparse as sp
+
+    return sp.csr_matrix((vals.double().cpu().numpy(),
+                          indices.cpu().numpy(), indptr.cpu().numpy()),
+                         shape=shape)
+
+
+def _same_18(what, got_rows, got_cols, got_vals, ref) -> None:
+    """A port result, as (row, col, value) entries in (row, col) order,
+    against a canonical scipy CSR: structure bit for bit, values within
+    VAL_RTOL_18."""
+    ref = ref.tocsr()
+    ref.sum_duplicates()
+    ref.sort_indices()
+    rows = np.repeat(np.arange(ref.shape[0], dtype=np.int64),
+                     np.diff(ref.indptr))
+    gr = got_rows.cpu().numpy().astype(np.int64)
+    gc = got_cols.cpu().numpy().astype(np.int64)
+    if not (np.array_equal(gr, rows) and np.array_equal(gc, ref.indices)):
+        raise AssertionError(f"phase 18 (b): {what}: structure differs "
+                             "from scipy's")
+    gv = got_vals.double().cpu().numpy()
+    err = np.abs(gv - ref.data) - VAL_RTOL_18 * np.abs(ref.data)
+    if err.size and float(err.max()) > 0:
+        raise AssertionError(f"phase 18 (b): {what}: values off scipy's by "
+                             f"{float(err.max())} past rtol {VAL_RTOL_18}")
+
+
+def graph_ops_18(dev, g, card) -> dict:
+    """Phase 18 (b): the sparse ops and linalg on the kNN graph, each
+    against scipy.sparse in float64 on the host; SpMV and SpMM twice, bit
+    for bit. Returns the symmetrised graph (COO and CSR) and scipy's."""
+    import scipy.sparse as sp
+    import torch
+
+    from raft_tpu_torch import random as rnd
+    from raft_tpu_torch.random import RngState
+    from raft_tpu_torch.sparse import COO, CSR
+    from raft_tpu_torch.sparse import convert as sc
+    from raft_tpu_torch.sparse import linalg as sl
+    from raft_tpu_torch.sparse import op as so
+
+    n = g.shape[0]
+    st = RngState(SEED + 181)
+    times = {}
+
+    def timed(name, fn):
+        out, times[name] = _timed(fn)
+        return out
+
+    S = timed("symmetrize", lambda: sl.symmetrize(g))
+    C = timed("coo_to_csr", lambda: sc.coo_to_csr(S))
+    back = timed("csr_to_coo", lambda: sc.csr_to_coo(C))
+    gs = timed("coo_sort", lambda: so.coo_sort(g))
+    both = COO(torch.cat([g.rows, g.cols]), torch.cat([g.cols, g.rows]),
+               torch.cat([g.vals, g.vals]), g.shape)
+    md = timed("max_duplicates", lambda: so.max_duplicates(both))
+    del both
+    G = sc.coo_to_csr(gs)
+    T = timed("transpose", lambda: sl.transpose(G))
+    A2 = timed("add", lambda: sl.add(G, T))
+    deg_g = timed("degree", lambda: sl.degree(g))
+    deg_s = sl.degree(S)
+    N1 = timed("row_normalize_l1", lambda: sl.row_normalize_l1(C))
+    Nm = timed("row_normalize_max", lambda: sl.row_normalize_max(C))
+    L = timed("laplacian", lambda: sl.laplacian(C))
+    Ln = timed("laplacian_normalized", lambda: sl.laplacian(C, True))
+    lo = (n - N_SLICE_18) // 2
+    SL = timed("slice_csr", lambda: so.slice_csr(C, lo, lo + N_SLICE_18))
+    zero = rnd.bernoulli(st, g.nnz, ZERO_FRAC_18, device=dev)
+    gz = COO(g.rows, g.cols, torch.where(zero, 0.0, g.vals), g.shape)
+    RZ = timed("remove_zeros", lambda: so.remove_zeros(gz))
+    x = rnd.uniform(st, (n,), device=dev)
+    B = rnd.uniform(st, (n, SPMM_COLS_18), device=dev)
+    y1 = timed("spmv", lambda: sl.spmv(C, x))
+    y2 = sl.spmv(C, x)
+    Y1 = timed("spmm", lambda: sl.spmm(C, B))
+    Y2 = sl.spmm(C, B)
+    if not (torch.equal(y1, y2) and torch.equal(Y1, Y2)):
+        raise AssertionError("phase 18 (b): spmv / spmm differ between two "
+                             "runs")
+
+    t0 = time.perf_counter()
+    A = sp.csr_matrix((g.vals.double().cpu().numpy(),
+                       (g.rows.cpu().numpy(), g.cols.cpu().numpy())),
+                      shape=(n, n))
+    Sref = ((A + A.T) * 0.5).tocsr()
+    Sref.sort_indices()
+    _same_18("symmetrize", S.rows, S.cols, S.vals, Sref)
+    _same_18("coo_to_csr", C.row_ids(), C.indices, C.vals, Sref)
+    if not (np.array_equal(C.indptr.cpu().numpy(), Sref.indptr)
+            and torch.equal(back.rows, S.rows)
+            and torch.equal(back.cols, S.cols)):
+        raise AssertionError("phase 18 (b): csr / coo round trip differs")
+    _same_18("coo_sort", gs.rows, gs.cols, gs.vals, A)
+    _same_18("max_duplicates", md.rows, md.cols, md.vals, A + A.T)
+    _same_18("transpose", T.row_ids(), T.indices, T.vals, A.T)
+    _same_18("add", A2.row_ids(), A2.indices, A2.vals, A + A.T)
+    counts = np.diff(Sref.indptr)
+    if not (bool((deg_g == K_18).all())
+            and np.array_equal(deg_s.cpu().numpy(), counts)):
+        raise AssertionError("phase 18 (b): degree differs")
+    rowsum = np.asarray(abs(Sref).sum(axis=1)).ravel()
+    rowmax = np.asarray(abs(Sref).max(axis=1).todense()).ravel()
+    _same_18("row_normalize_l1", N1.row_ids(), N1.indices, N1.vals,
+             sp.diags(1.0 / rowsum) @ Sref)
+    _same_18("row_normalize_max", Nm.row_ids(), Nm.indices, Nm.vals,
+             sp.diags(1.0 / rowmax) @ Sref)
+    deg = np.asarray(Sref.sum(axis=1)).ravel()
+    _same_18("laplacian", L.row_ids(), L.indices, L.vals,
+             sp.diags(deg) - Sref)
+    dinv = sp.diags(1.0 / np.sqrt(deg))
+    _same_18("laplacian (normalized)", Ln.row_ids(), Ln.indices, Ln.vals,
+             sp.identity(n) - dinv @ Sref @ dinv)
+    _same_18("slice_csr", SL.row_ids(), SL.indices, SL.vals,
+             Sref[lo:lo + N_SLICE_18])
+    zh = zero.cpu().numpy()
+    if not (torch.equal(RZ.rows.cpu(), g.rows.cpu()[~zero.cpu()])
+            and torch.equal(RZ.cols.cpu(), g.cols.cpu()[~zero.cpu()])
+            and torch.equal(RZ.vals.cpu(), g.vals.cpu()[~zero.cpu()])):
+        raise AssertionError("phase 18 (b): remove_zeros differs")
+    xh, Bh = x.double().cpu().numpy(), B.double().cpu().numpy()
+    for what, got, want in (("spmv", y1, Sref @ xh), ("spmm", Y1, Sref @ Bh)):
+        err = np.abs(got.double().cpu().numpy() - want) - VAL_RTOL_18 * \
+            np.abs(want)
+        if float(err.max()) > 0:
+            raise AssertionError(f"phase 18 (b): {what} off scipy's")
+    host_s = time.perf_counter() - t0
+    log(f"phase 18 (b): on the symmetrised graph ({S.nnz} entries from "
+        f"{g.nnz} directed edges): " + ", ".join(
+            f"{k} {v * 1e3:.1f} ms" for k, v in times.items())
+        + f"; remove_zeros dropped {int(zh.sum())}; every structure equal "
+        f"to scipy's, values within rtol {VAL_RTOL_18}, spmv / spmm bit for "
+        f"bit over two runs; scipy's checks {host_s:.1f} s on the host "
+        f"[{card}]")
+    return {"S": S, "C": C, "Sref": Sref}
+
+
+def components_18(dev, X, g, ops, card) -> None:
+    """Phase 18 (c): the components of the symmetrised graph against
+    scipy's, the cross-component edges held to a float64 nearest other
+    component on N_SAMPLE_18 rows, and the MST over both edge sets
+    against scipy's."""
+    import scipy.sparse as sp
+    import torch
+    from scipy.sparse.csgraph import connected_components as sp_cc
+    from scipy.sparse.csgraph import minimum_spanning_tree
+
+    from raft_tpu_torch.sparse import neighbors as sn
+
+    # The package exports the function mst, which shadows its module.
+    mst_mod = importlib.import_module("raft_tpu_torch.sparse.solver.mst")
+    n = X.shape[0]
+    S = ops["S"]
+    (lab, steps), cc_s = _timed(
+        lambda: sn._connected_components(S.rows, S.cols, n))
+    n_comp, sp_lab = sp_cc(ops["Sref"], directed=False)
+    least = np.full(n_comp, n, np.int64)
+    np.minimum.at(least, sp_lab, np.arange(n))
+    same = np.array_equal(lab.cpu().numpy(), least[sp_lab])
+    log(f"phase 18 (c): connected_components {cc_s:.3f} s: {n_comp} "
+        f"components (scipy's), {steps} steps of the cap of "
+        f"{sn._CC_MAX_STEPS}; labels = each scipy component's smallest id: "
+        f"{same} [{card}]")
+    if not same:
+        raise AssertionError("phase 18 (c): the components differ from "
+                             "scipy's")
+
+    link, link_s = _timed(lambda: sn.connect_components(X, lab))
+    if not (link.nnz == n and bool((lab[link.rows.long()]
+                                    != lab[link.cols.long()]).all())):
+        raise AssertionError("phase 18 (c): a linking edge stays inside its "
+                             "component")
+    X64 = X.double()
+    s = torch.as_tensor(np.sort(np.random.default_rng(SEED + 182).choice(
+        n, N_SAMPLE_18, replace=False)), device=dev)
+    ref_d, ref_i = _f64_l2_knn(X64, s, 1, labels=lab)
+    tol = norm_tol(X, X)
+    ties = _ties_18("phase 18 (c), connect_components",
+                    link.vals[s][:, None].double() ** 2,
+                    link.cols[s][:, None], ref_d, ref_i,
+                    lambda r, i: torch.sum((X64[s[r]] - X64[i]) ** 2, dim=1),
+                    tol)
+    del X64
+
+    rows = torch.cat([g.rows, link.rows])
+    cols = torch.cat([g.cols, link.cols])
+    w = torch.cat([g.vals, link.vals])
+    uf = {}
+    union_find = mst_mod._union_find
+
+    def timed_uf(*args):
+        t0 = time.perf_counter()
+        out = union_find(*args)
+        uf["s"] = time.perf_counter() - t0
+        uf["edges"] = len(args[0])
+        return out
+
+    mst_mod._union_find = timed_uf
+    try:
+        forest, mst_s = _timed(lambda: mst_mod.mst(rows, cols, w, n))
+    finally:
+        mst_mod._union_find = union_find
+    log(f"phase 18 (c): mst's host union-find {uf['s']:.3f} s over "
+        f"{uf['edges']} selected directed edges [{card}]")
+
+    t0 = time.perf_counter()
+    rh, ch = rows.cpu().numpy().astype(np.int64), cols.cpu().numpy()
+    wh = w.double().cpu().numpy()
+    lo, hi = np.minimum(rh, ch), np.maximum(rh, ch)
+    key = lo * n + hi
+    order = np.argsort(key, kind="stable")
+    key, wh = key[order], wh[order]
+    start = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+    wmin = np.minimum.reduceat(wh, start)
+    U = sp.csr_matrix((wmin, (key[start] // n, key[start] % n)),
+                      shape=(n, n))
+    n_union, _ = sp_cc(U, directed=False)
+    want = float(minimum_spanning_tree(U).sum())
+    got = float(forest.weights.double().sum())
+    scipy_s = time.perf_counter() - t0
+    log(f"phase 18 (c): connect_components {link_s:.3f} s ({N_SAMPLE_18} "
+        f"rows against float64: ids equal but {ties} at near-ties, "
+        f"distances within {tol:.3e}); mst over {rows.shape[0]} edges "
+        f"{mst_s:.3f} s: {forest.n_edges} edges (n - C = {n - n_union}), "
+        f"weight {got:.6f} against scipy's {want:.6f} (rel "
+        f"{abs(got - want) / want:.2e}, bar {VAL_RTOL_18}; scipy "
+        f"{scipy_s:.1f} s on the host) [{card}]")
+    if forest.n_edges != n - n_union or abs(got - want) > VAL_RTOL_18 * want:
+        raise AssertionError("phase 18 (c): the MST differs from scipy's")
+
+
+def lanczos_18(dev, C, card) -> None:
+    """Phase 18 (d): M = D + eps A_hat (A_hat the graph's normalised
+    adjacency, ||A_hat|| <= 1; D diagonal, its bulk in [0, 1] and 8
+    values planted at each end): the 8 largest and smallest eigenpairs
+    within EIG_TOL_18 of the planted values, float64 residuals, and two
+    runs bit for bit."""
+    import torch
+
+    from raft_tpu_torch import random as rnd
+    from raft_tpu_torch.random import RngState
+    from raft_tpu_torch.sparse import CSR
+    from raft_tpu_torch.sparse import linalg as sl
+    from raft_tpu_torch.sparse.solver import (lanczos_largest_eigenpairs,
+                                              lanczos_smallest_eigenpairs)
+
+    n = C.shape[0]
+    st = RngState(SEED + 183)
+    diag = rnd.uniform(st, (n,), 0.0, 1.0, device=dev)
+    _, pos = rnd.sample_without_replacement(st, n, 2 * EIG_K_18, device=dev)
+    planted = torch.cat([torch.arange(-9.0, -1.0), torch.arange(2.0, 10.0)])
+    diag[pos.long()] = planted.to(dev)
+    dinv = 1.0 / torch.sqrt(sl.spmv(C, torch.ones(n, device=dev)))
+    ahat = C.vals * dinv[C.row_ids().long()] * dinv[C.indices.long()]
+    ids = torch.arange(n + 1, dtype=torch.int32, device=dev)
+    M = sl.add(CSR(ids, ids[:n], diag, (n, n)),
+               CSR(C.indptr, C.indices, EIG_EPS_18 * ahat, (n, n)))
+    (wl, Ul), large_s = _timed(
+        lambda: lanczos_largest_eigenpairs(M, EIG_K_18, seed=SEED))
+    (ws, Us), small_s = _timed(
+        lambda: lanczos_smallest_eigenpairs(M, EIG_K_18, seed=SEED))
+    wl2, Ul2 = lanczos_largest_eigenpairs(M, EIG_K_18, seed=SEED)
+    repeat = torch.equal(wl, wl2) and torch.equal(Ul, Ul2)
+    want_l = torch.arange(9.0, 1.0, -1.0, dtype=torch.float64)
+    want_s = torch.arange(-9.0, -1.0, dtype=torch.float64)
+    err = max(float(torch.max(torch.abs(wl.double().cpu() - want_l))),
+              float(torch.max(torch.abs(ws.double().cpu() - want_s))))
+    M64 = CSR(M.indptr, M.indices, M.vals.double(), M.shape)
+    norm = 9.0 + EIG_EPS_18           # ||M|| <= max|D| + eps ||A_hat||
+    resid = max(float(torch.linalg.vector_norm(
+        sl.spmv(M64, U[:, j].double()) - float(w[j]) * U[:, j].double()))
+        for w, U in ((wl, Ul), (ws, Us)) for j in range(EIG_K_18))
+    log(f"phase 18 (d): Lanczos on M = D + {EIG_EPS_18} A_hat ({n} x {n}, "
+        f"{M.nnz} entries, ncv 64): largest 8 {large_s:.3f} s, smallest 8 "
+        f"{small_s:.3f} s; eigenvalues off the planted by at most {err:.2e} "
+        f"(bar {EIG_TOL_18}), float64 residuals at most {resid:.2e} (bar "
+        f"{RESID_18 * norm:.2e} = {RESID_18} ||M||); two runs bit for bit: "
+        f"{repeat} [{card}]")
+    if err > EIG_TOL_18 or resid > RESID_18 * norm or not repeat:
+        raise AssertionError("phase 18 (d): Lanczos off its bars")
+
+
+def tfidf_rows_18(st, rows, dev):
+    """A TF-IDF-shaped CSR: TFIDF_18's columns, each row's nnz lognormal
+    (mean about 100) clipped to [lo, hi], its columns drawn without
+    replacement with Zipf(ZIPF_18) weights (exponential keys over the
+    weights, the smallest kept), values tf x idf with rows scaled to unit
+    L2, all drawn with the port's random/ on the card."""
+    import torch
+
+    from raft_tpu_torch import random as rnd
+    from raft_tpu_torch.sparse import CSR
+
+    _, d, lo, hi = TFIDF_18
+    w = torch.arange(1, d + 1, dtype=torch.float32, device=dev) ** -ZIPF_18
+    p = w / torch.sum(w)
+    idf = torch.log(1.0 + 1.0 / (100.0 * p))
+    nnz = torch.clamp(torch.round(rnd.lognormal(st, (rows,), 4.5, 0.45,
+                                                device=dev)), lo, hi).long()
+    cols = []
+    slot = torch.arange(hi, device=dev)
+    for s in range(0, rows, 2048):
+        keys = rnd.exponential(st, (min(2048, rows - s), d),
+                               device=dev) / w[None, :]
+        top = torch.topk(keys, hi, dim=1, largest=False).indices
+        sel = torch.where(slot[None, :] < nnz[s:s + 2048, None], top, d)
+        sel = torch.sort(sel, dim=1).values
+        cols.append(sel[sel < d])
+        del keys
+    cols = torch.cat(cols).int()
+    tf = 1.0 + torch.floor(2.0 * rnd.exponential(st, (cols.shape[0],),
+                                                 device=dev))
+    vals = tf * idf[cols.long()]
+    rid = torch.repeat_interleave(torch.arange(rows, device=dev), nnz)
+    n2 = torch.zeros(rows, device=dev).index_add_(0, rid, vals * vals)
+    vals = vals / torch.sqrt(n2)[rid]
+    indptr = torch.cat([nnz.new_zeros(1), torch.cumsum(nnz, 0)]).int()
+    return CSR(indptr, cols, vals, (rows, d))
+
+
+def _f64_sparse_18(metric, Qd, Y):
+    """Float64 distances (s, n) from the dense query rows ``Qd`` (s, d) to
+    the CSR rows of ``Y``, on the card: each entry of Y meets the queries'
+    values at its column, and the metric's intersection terms add per
+    row (the rest follow from the rows' sums)."""
+    import torch
+
+    from raft_tpu_torch.distance.distance_types import DistanceType as M
+
+    n = Y.shape[0]
+    rid = Y.row_ids().long()
+    col = Y.indices.long()
+    v = Y.vals.double()
+    acc = torch.zeros((Qd.shape[0], n), dtype=torch.float64,
+                      device=Qd.device)
+    ln2 = float(np.log(2.0))
+    for s in range(0, v.shape[0], 1 << 21):
+        a, b = Qd[:, col[s:s + (1 << 21)]], v[s:s + (1 << 21)][None, :]
+        if metric == M.L1:
+            t = torch.where(a != 0, torch.abs(a - b) - a - b, 0.0)
+        elif metric == M.JensenShannon:
+            m = 0.5 * (a + b)
+            f = -a * (torch.log(m) - torch.log(a)) - b * (torch.log(m)
+                                                         - torch.log(b))
+            t = torch.where(a != 0, f - (a + b) * ln2, 0.0)
+        elif metric == M.HellingerExpanded:
+            t = torch.sqrt(a) * torch.sqrt(b)
+        else:
+            t = a * b
+        acc.index_add_(1, rid[s:s + (1 << 21)], t)
+    y1 = torch.zeros(n, dtype=torch.float64, device=v.device).index_add_(
+        0, rid, v)
+    y2 = torch.zeros(n, dtype=torch.float64, device=v.device).index_add_(
+        0, rid, v * v)
+    q1, q2 = Qd.sum(dim=1)[:, None], (Qd * Qd).sum(dim=1)[:, None]
+    if metric == M.L2Expanded:
+        return torch.clamp_min(q2 + y2[None, :] - 2.0 * acc, 0.0)
+    if metric == M.InnerProduct:
+        return acc
+    if metric == M.CosineExpanded:
+        return 1.0 - acc / (torch.sqrt(q2) * torch.sqrt(y2)[None, :])
+    if metric == M.L1:
+        return q1 + y1[None, :] + acc
+    if metric == M.JensenShannon:
+        return torch.sqrt(0.5 * (ln2 * (q1 + y1[None, :]) + acc))
+    if metric == M.HellingerExpanded:
+        # The squared distance (1 - g, clamped): the square root near 0
+        # would multiply f32's rounding past any fixed bar.
+        return torch.clamp_min(1.0 - acc, 0.0)
+    raise ValueError(metric)
+
+
+def tfidf_18(dev, card) -> None:
+    """Phase 18 (e): sparse kNN and pairwise distances on TF-IDF-shaped
+    rows through each engine, the route named, held to float64 on
+    N_CHECK_18 queries (kNN) or N_PAIR_ROWS_18 rows (pairwise)."""
+    import torch
+
+    from raft_tpu_torch.distance.distance_types import DistanceType as M
+    from raft_tpu_torch.random import RngState
+    from raft_tpu_torch.sparse import distance as sd
+    from raft_tpu_torch.sparse import neighbors as sn
+    from raft_tpu_torch.sparse import op as so
+
+    rows, d = TFIDF_18[0], TFIDF_18[1]
+    (Y, Q, Qb), gen_s = _timed(lambda: (
+        tfidf_rows_18(RngState(SEED + 184), rows, dev),
+        tfidf_rows_18(RngState(SEED + 185), N_TFIDF_Q_18, dev),
+        tfidf_rows_18(RngState(SEED + 186), N_BLOCKED_18[0], dev)))
+    Y20 = so.slice_csr(Y, 0, N_BLOCKED_18[1])
+    nnz = torch.diff(Y.indptr).float()
+    log(f"phase 18 (e): TF-IDF rows {rows} x {d}, {Y.nnz} entries (row nnz "
+        f"{int(nnz.min())}-{int(nnz.max())}, mean {float(nnz.mean()):.1f}), "
+        f"queries {N_TFIDF_Q_18} and {N_BLOCKED_18[0]}, made in "
+        f"{gen_s:.2f} s [{card}]")
+    calls = [("knn", M.L2Expanded, Y, Q, "xdense"),
+             ("knn", M.CosineExpanded, Y, Q, "xdense"),
+             ("knn", M.InnerProduct, Y, Q, "xdense"),
+             ("knn", M.L1, Y, Q, "semiring"),
+             ("knn", M.JensenShannon, Y, Q, "semiring"),
+             ("knn", M.CosineExpanded, Y20, Qb, "blocked"),
+             ("pairwise", M.L2Expanded, Y20, Q, "xdense"),
+             ("pairwise", M.HellingerExpanded, Y20, Q, "xdense")]
+    pick = np.random.default_rng(SEED + 187)
+    for kind, metric, db, q, engine in calls:
+        route = sd._route(q, db, metric, knn=kind == "knn")
+        if route != engine:
+            raise AssertionError(f"phase 18 (e): {kind} {metric.name} routes "
+                                 f"to {route}, not {engine}")
+        if kind == "knn":
+            (gd, gi), secs = _timed(lambda: sn.brute_force_knn(
+                db, q, K_TFIDF_18, metric=metric))
+            s = torch.as_tensor(np.sort(pick.choice(q.shape[0], N_CHECK_18,
+                                                    replace=False)),
+                                device=dev)
+        else:
+            got, secs = _timed(lambda: sd.pairwise_distance(q, db, metric))
+            s = torch.as_tensor(np.sort(pick.choice(
+                q.shape[0], N_PAIR_ROWS_18, replace=False)), device=dev)
+        Qd = q.to_dense()[s].double()
+        full = _f64_sparse_18(metric, Qd, db)
+        if kind == "knn":
+            largest = metric == M.InnerProduct
+            ref_d, ref_i = torch.topk(full, K_TFIDF_18, dim=1,
+                                      largest=largest)
+            tol = SPARSE_TOL_18 * (1.0 + torch.abs(ref_d))
+            ties = _ties_18(f"phase 18 (e), {metric.name} kNN", gd[s],
+                            gi[s], ref_d, ref_i,
+                            lambda r, i: full[r, i], tol)
+            note = f"ids equal but {ties} slots at near-ties"
+        else:
+            g = got[s].double()
+            if metric == M.HellingerExpanded:
+                g = g * g
+            err = torch.abs(g - full) - SPARSE_TOL_18 * (1.0 + torch.abs(full))
+            if float(err.max()) > 0:
+                raise AssertionError(f"phase 18 (e): pairwise {metric.name} "
+                                     "off float64")
+            note = f"max |err| {float(torch.abs(g - full).max()):.2e}"
+        log(f"phase 18 (e): {kind} {metric.name} {q.shape[0]} x "
+            f"{db.shape[0]} ({engine}) {secs:.3f} s; against float64 on "
+            f"{s.shape[0]} rows: {note} (tol {SPARSE_TOL_18} x (1 + |d|)) "
+            f"[{card}]")
+        del full
+
+
+def b1_graph_18(X, chunk, card) -> dict:
+    """Phase 18 (a), after the phase's launches are read: B1 at the kNN
+    graph's chunk shape beside ``addmm`` + ``topk`` over 2500-query
+    slices, and its FP32 bound."""
+    import torch
+
+    fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
+    m, k = chunk
+    n, d = X.shape
+    Qc = X[:m].contiguous()
+    ms = time_ms(lambda: fk._fused_knn_cuda(Qc, X, k, True, False, False),
+                 1, warmup=0)
+    yn = torch.sum(X * X, dim=1)
+
+    def library():
+        for s in range(0, m, 2500):
+            torch.topk(torch.addmm(yn, Qc[s:s + 2500], X.t(), alpha=-2.0),
+                       k, dim=1, largest=False)
+
+    lib_ms = time_ms(library, 1, warmup=0)
+    ops = 2.0 * m * n * d
+    nbytes = 4.0 * (m * d + n * d) + 8.0 * m * k
+    bound = max(ops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+    log(f"phase 18 (a): B1 at the kNN graph's chunk m={m} n={n} d={d} "
+        f"k={k}: {ms:.3f} ms ({ops / ms / 1e9:.1f} TFLOP/s), library "
+        f"(addmm + topk over {-(-m // 2500)} slices) {lib_ms:.3f} ms, bound "
+        f"{bound:.3f} ms (FP32 operations) [{card}]")
+    return {"b1_ms": ms, "lib_ms": lib_ms, "bound_ms": bound}
+
+
+def slice18_phase(dev, X, card) -> dict:
+    """Phase 18: the sparse layer, counters set to 0 before it and read
+    after its last step (B1 is timed at the graph's chunk shape after
+    that). Returns its launches, its seconds and the B1 figures."""
+    import torch
+
+    _zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Xr = X[:ROWS_18]
+    a = graph_18(dev, Xr, card)
+    b = graph_ops_18(dev, a["graph"], card)
+    components_18(dev, Xr, a["graph"], b, card)
+    del b["Sref"]
+    lanczos_18(dev, b["C"], card)
+    del a["graph"], b
+    torch.cuda.empty_cache()
+    tfidf_18(dev, card)
+    launches = _launches()
+    total = time.perf_counter() - t0
+    log(f"phase 18: {total:.3f} s, launches {launches} [{card}]")
+    if launches["fused_knn"] < 1 or any(
+            v for k, v in launches.items() if k != "fused_knn"):
+        raise AssertionError(f"phase 18 must launch B1 and only B1: "
+                             f"{launches}")
+    torch.cuda.empty_cache()
+    timing = b1_graph_18(Xr, a["chunk"], card)
+    return {"launches": launches, "seconds": total, **timing}
+
 def kmeans_labels(centers, X):
     """Each row's nearest center (the lists of an IVF-Flat build)."""
     from raft_tpu_torch.cluster import kmeans_balanced
@@ -5750,6 +6432,7 @@ def main() -> int:
     br = breadth_phase(dev, X, Q, mp["index"], card)
     b5["launches"] += br["stream_extract"]
     p17 = slice17_phase(dev, X, Q, pq.pop("candidates"), card)
+    p18 = slice18_phase(dev, X, card)
     # Phase 6 left IVF-PQ's reconstruction cache in place, which routes
     # search to the recon tier; the serve and lifecycle phases search the
     # compressed tier (B4), as the main path does.
@@ -5772,7 +6455,7 @@ def main() -> int:
              + lc["fused_knn"] + sm["fused_knn"] + sf["fused_knn"]
              + sh["fused_knn"] + rt["fused_knn"] + ops["fused_knn"]
              + du["fused_knn"] + br["fused_knn"]
-             + p17["launches"]["fused_knn"],
+             + p17["launches"]["fused_knn"] + p18["launches"]["fused_knn"],
              **b1),
         dict(name="fused_cells_knn", route="cuda",
              source="raft_tpu_torch/csrc/cells_knn.cu",

@@ -56,7 +56,11 @@ def test_module_list_covers_the_slice():
                  "random.rmat", "cluster.kmeans", "cluster.kmeans_types",
                  "stats.descriptive", "stats.classification",
                  "stats.regression", "stats.cluster_metrics",
-                 "label.classlabels", "label.merge_labels", "_native"):
+                 "label.classlabels", "label.merge_labels", "_native",
+                 "sparse.types", "sparse.convert", "sparse.op",
+                 "sparse.linalg", "sparse.distance", "sparse.neighbors",
+                 "sparse.solver.mst", "sparse.solver.lanczos",
+                 "linalg.lanczos"):
         assert f"raft_tpu_torch.{name}" in _MODULES
 
 

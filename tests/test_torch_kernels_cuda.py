@@ -1471,3 +1471,60 @@ def test_lloyd_fit_on_the_card_equals_the_cpu(dev, gen):
     np.testing.assert_allclose(n(c), n(pc), rtol=0, atol=1e-4 * 10)
     np.testing.assert_allclose(float(inertia), float(pinertia), rtol=1e-5,
                                atol=tol * X.shape[0])
+
+
+@pytest.mark.cuda
+def test_knn_graph_on_the_card_equals_the_cpu(dev, gen):
+    """``sparse.neighbors.knn_graph`` over 20,000 rows on the card (each
+    query chunk one B1 launch, k + 1 = 11) against the plain path on the
+    CPU: rows equal, ids equal except at near-ties, where the id the card
+    chose is at the CPU's distance within 2e-6 of the largest |x|^2 (the
+    expanded form's rounding, doubled)."""
+    from raft_tpu_torch.sparse import neighbors as sn
+
+    X = (gen.uniform(-10, 10, (40, 32))[gen.permutation(20_000) % 40]
+         + gen.standard_normal((20_000, 32))).astype(np.float32)
+    before = fk.fused_knn.launches
+    g = sn.knn_graph(torch.as_tensor(X, device=dev), 10)
+    assert fk.fused_knn.launches == before + 1
+    p = sn.knn_graph(torch.as_tensor(X), 10)
+    assert g.rows.device.type == "cuda" and g.cols.dtype == torch.int32
+    np.testing.assert_array_equal(n(g.rows), n(p.rows))
+    assert not (n(g.rows) == n(g.cols)).any()
+    xn = float(np.max(np.sum(X.astype(np.float64) ** 2, axis=1)))
+    tol = 2e-6 * 2 * xn
+    dg = n(g.vals).astype(np.float64) ** 2
+    dp = n(p.vals).astype(np.float64) ** 2
+    assert np.max(np.abs(dg - dp)) <= tol
+    diff = n(g.cols) != n(p.cols)
+    if diff.any():
+        r, c = n(g.rows)[diff], n(g.cols)[diff]
+        true = np.sum((X[r].astype(np.float64) - X[c]) ** 2, axis=1)
+        assert np.max(np.abs(true - dp[diff])) <= tol
+    assert diff.mean() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_sparse_row_sums_repeat_on_the_card(dev, gen):
+    """SpMV, SpMM and the row normalisation add each CSR row in a fixed
+    order: two runs on the card agree bit for bit, and with the CPU within
+    f32 rounding."""
+    from raft_tpu_torch.sparse import linalg as sl
+    from raft_tpu_torch.sparse.types import CSR
+
+    m, d, per = 50_000, 4096, 64
+    indptr = np.arange(0, m * per + 1, per, dtype=np.int32)
+    cols = gen.integers(0, d, m * per).astype(np.int32)
+    vals = gen.standard_normal(m * per).astype(np.float32)
+    x = gen.standard_normal(d).astype(np.float32)
+    b = gen.standard_normal((d, 16)).astype(np.float32)
+    a = CSR(*_on(dev, indptr, cols, vals), (m, d))
+    xd, bd = _on(dev, x, b)
+    for fn in (lambda: sl.spmv(a, xd), lambda: sl.spmm(a, bd),
+               lambda: sl.row_normalize_l1(a).vals):
+        first, second = fn(), fn()
+        assert torch.equal(first, second)
+    a_cpu = CSR(*(torch.as_tensor(v) for v in (indptr, cols, vals)), (m, d))
+    np.testing.assert_allclose(n(sl.spmv(a, xd)),
+                               n(sl.spmv(a_cpu, torch.as_tensor(x))),
+                               rtol=1e-5, atol=1e-4)

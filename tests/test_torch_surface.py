@@ -18,18 +18,14 @@ import raft_tpu
 
 # Packages of raft_tpu with no counterpart yet, by slice.
 PENDING_PACKAGES = {
-    "raft_tpu.sparse": "g",
-    "raft_tpu.sparse.solver": "g",
     "raft_tpu.solver": "h",
     "raft_tpu.spectral": "h",
     "raft_tpu.spatial": "i",
     "raft_tpu.spatial.knn": "i",
 }
 
-# Modules of ported packages that wait for a slice (the reference's
-# linalg/lanczos.py re-exports sparse/solver/lanczos).
+# Modules of ported packages that wait for a slice.
 PENDING_MODULES = {
-    "raft_tpu.linalg.lanczos": "g",
     "raft_tpu.neighbors.ball_cover": "i",
     "raft_tpu.neighbors.epsilon_neighborhood": "i",
     "raft_tpu.cluster.single_linkage": "i",
