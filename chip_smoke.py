@@ -318,7 +318,33 @@ no result line):
     HellingerExpanded, each call's engine asserted, 32 queries (kNN) or
     256 rows (pairwise) held to float64 within 1e-4 (ids but at
     near-ties), each call timed;
-19. a ``kernels`` line, the card line, and the result line.
+19. the last modules (after phase 18), counters set to 0 before it and
+    read after its last step: (a) ``LinearAssignmentProblem`` on 8 x
+    1024 x 1024 integer (in [0, 100)) and uniform float costs and
+    ``lap`` on each slice: slices bit for bit equal, permutations,
+    integer objectives equal to scipy's optimum, float ones within 4e-6
+    n span of it; (b) ``eps_neighbors_l2sq`` on 10,000 x 100,000 x 32
+    Gaussian rows at eps^2 = the median of 10,000 float64 pair
+    distances, against float64 on the card (entries may differ only
+    within 1e-5 of eps^2), degrees and their total; (c) ball cover on
+    1M terrain rows (x, y in [-1, 1), z noise 1e-3; L2SqrtUnexpanded)
+    and 1M (lat, lon) rows (Haversine): build, 10,000 queries at k=32
+    with 1000 held to float64 (ids but at near-ties; L2 squared within
+    ``norm_tol``, haversine within 1e-5), ``eps_nn`` of 1000 queries,
+    ``all_knn_query`` of 200,000 rows at k=16, and 64 queries 2000 above
+    the terrain at k=64, which take the dense scan through B5; (d)
+    ``single_linkage``: KNN_GRAPH on 200,000 x 32 rows in 16 blobs far
+    apart (ARI 1, heights = its MST's sorted weights, MST weight within
+    1e-5 of scipy's over the same edges; B1 in its kNN graph), PAIRWISE
+    on 4096 x 32 (heights within 1e-5 of scipy's linkage); (e)
+    ``partition`` of 2000 vertices in 8 bridged blobs (ARI >= 0.999,
+    residuals within 1e-3 ||L||, ``analyze_partition`` against float64;
+    B1 in Lloyd) and ``modularity_maximization`` of a 4096-vertex
+    planted partition (ARI >= 0.999, ``analyze_modularity`` against
+    float64); (f) every ``spatial.knn`` alias the port's object, its
+    ``brute_force_knn`` of 1000 queries = phase 4's but for exact-tie
+    order; the phase's seconds and peak device memory;
+20. a ``kernels`` line, the card line, and the result line.
 
 The data is made with numpy from a fixed seed: 1000 Gaussian blobs
 (centers uniform in [-10, 10], sigma 5), queries = database rows + N(0, 1).
@@ -502,6 +528,34 @@ K_TFIDF_18 = 10
 N_CHECK_18 = 32           # queries of each kNN call held to float64
 N_PAIR_ROWS_18 = 256      # rows of each pairwise call held to float64
 SPARSE_TOL_18 = 1e-4      # tests/test_sparse.py's tolerance
+
+# Phase 19: solver/, ball cover, the epsilon neighborhood, single linkage,
+# spectral/ and spatial.knn.
+LAP_19 = (8, 1024)        # batch x size of the assignment problems
+LAP_INT_19 = 100          # integer costs in [0, 100): n * eps_floor < 1
+LAP_EPS_19 = 4e-6         # float costs: within 4e-6 n span of scipy's
+EPS_SHAPE_19 = (10_000, 100_000, 32)  # eps_neighbors_l2sq: x, y rows, dim
+N_EPS_PAIRS_19 = 10_000   # pairs whose float64 median is eps^2
+EPS_BAND_19 = 1e-5        # relative band of eps^2 where adjacency may differ
+BC_ROWS_19 = 1_000_000    # ball cover: terrain (x, y, z) and (lat, lon) rows
+BC_Z_STD_19 = 1e-3        # the terrain's height noise; (x, y) in [-1, 1)^2
+BC_QUERIES_19 = 10_000
+BC_K_19 = 32
+BC_CHECK_19 = 1000        # queries held to float64
+BC_ALL_19 = (200_000, 16)  # all_knn_query rows and k
+BC_EPS_19 = (1000, 0.01)  # eps_nn queries and radius (~78 rows each)
+BC_FAR_19 = (64, 64, 2000.0)  # queries above the terrain, k, height
+HAV_TOL_19 = 1e-5         # haversine distances against float64
+SL_KNN_19 = (200_000, 32, 16, 15)  # single linkage: rows, dim, blobs, c
+SL_BOX_19 = 1000.0        # blob centers uniform in [-1000, 1000]
+SL_PAIR_19 = (4096, 32)   # the pairwise connectivity's rows, dim
+SL_RTOL_19 = 1e-5         # MST weight and heights against scipy
+SPEC_19 = (2000, 16, 8, 15)  # partition: rows (cut from 100,000), dim,
+                             # blobs, kNN degree
+SPEC_BRIDGES_19 = 300     # unit edges joining consecutive blobs
+SPEC_RESID_19 = 1e-3      # float64 residuals, of ||L||
+MOD_19 = (4096, 8, 0.05, 0.002)  # planted partition: n, blocks, p_in, p_out
+ARI_19 = 0.999
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FP32 = 67e12
@@ -6329,6 +6383,608 @@ def slice18_phase(dev, X, card) -> dict:
     timing = b1_graph_18(Xr, a["chunk"], card)
     return {"launches": launches, "seconds": total, **timing}
 
+def lap_19(dev, card) -> dict:
+    """Phase 19 (a): ``LinearAssignmentProblem`` on 8 x 1024 x 1024 costs
+    and ``lap`` on each slice, integer and uniform float costs: every
+    slice of the batch equals ``lap`` on it bit for bit, each result is a
+    permutation, integer objectives equal scipy's optimum (n * eps_floor
+    < 1 makes the auction exact) and float ones lie within 4e-6 n span of
+    it (both summed in float64)."""
+    import torch
+    from scipy.optimize import linear_sum_assignment
+
+    from raft_tpu_torch.solver import LinearAssignmentProblem, lap
+
+    B, n = LAP_19
+    rng = np.random.default_rng(SEED + 190)
+    out = {}
+    for kind in ("integer", "float"):
+        if kind == "integer":
+            ch = rng.integers(0, LAP_INT_19, (B, n, n)).astype(np.float32)
+        else:
+            ch = rng.random((B, n, n), dtype=np.float32)
+        C = torch.as_tensor(ch, device=dev)
+        p = LinearAssignmentProblem(n, B)
+        _, batch_s = _timed(lambda: p.solve(C))
+        lap_s, worst = 0.0, 0.0
+        for b in range(B):
+            (a, total), secs = _timed(lambda: lap(C[b]))
+            lap_s += secs
+            if not torch.equal(a, p.getAssignmentVector(b)):
+                raise AssertionError(f"phase 19 (a): {kind} slice {b}: the "
+                                     "batch differs from lap")
+            ah = a.cpu().numpy()
+            if not np.array_equal(np.sort(ah), np.arange(n)):
+                raise AssertionError(f"phase 19 (a): {kind} slice {b} is "
+                                     "not a permutation")
+            c64 = ch[b].astype(np.float64)
+            r, c = linear_sum_assignment(ch[b])
+            opt = float(c64[r, c].sum())
+            got = float(c64[np.arange(n), ah].sum())
+            bound = 0.0 if kind == "integer" else (
+                LAP_EPS_19 * n * max(float(np.abs(ch[b]).max()), 1.0))
+            if not opt <= got <= opt + bound:
+                raise AssertionError(f"phase 19 (a): {kind} slice {b}: "
+                                     f"objective {got} against scipy's {opt} "
+                                     f"(bound {bound})")
+            if abs(float(total) - got) > 1e-5 * abs(got):
+                raise AssertionError(f"phase 19 (a): {kind} slice {b}: the "
+                                     "returned total is off the sum")
+            worst = max(worst, got - opt)
+        log(f"phase 19 (a): {kind} costs {B} x {n} x {n}: the batch "
+            f"{batch_s:.3f} s, lap on each slice {lap_s:.3f} s in all; "
+            f"every slice = lap bit for bit, a permutation, objective over "
+            f"scipy's optimum by at most {worst:.3e} (bound "
+            f"{'0' if kind == 'integer' else f'{bound:.3e}'}) [{card}]")
+        out[kind] = batch_s + lap_s
+    return out
+
+
+def eps_19(dev, card) -> float:
+    """Phase 19 (b): ``eps_neighbors_l2sq`` on 10,000 x 100,000 x 32
+    Gaussian rows, eps^2 the median of 10,000 float64 pair distances:
+    the adjacency against float64 on the card (a pair may differ only
+    within 1e-5 relative of eps^2), the degrees their row sums and the
+    total last."""
+    import torch
+
+    from raft_tpu_torch.neighbors import eps_neighbors_l2sq
+
+    m, nn, d = EPS_SHAPE_19
+    rng = np.random.default_rng(SEED + 191)
+    xh = rng.standard_normal((m, d), dtype=np.float32)
+    yh = rng.standard_normal((nn, d), dtype=np.float32)
+    i = rng.integers(0, m, N_EPS_PAIRS_19)
+    j = rng.integers(0, nn, N_EPS_PAIRS_19)
+    pairs = ((xh[i].astype(np.float64) - yh[j]) ** 2).sum(1)
+    eps_sq = float(np.float32(np.median(pairs)))
+    x = torch.as_tensor(xh, device=dev)
+    y = torch.as_tensor(yh, device=dev)
+    (adj, vd), secs = _timed(lambda: eps_neighbors_l2sq(x, y, eps_sq))
+    x64, y64 = x.double(), y.double()
+    yn = torch.sum(y64 * y64, dim=1)
+    band = EPS_BAND_19 * eps_sq
+    differ = near = 0
+    deg64 = torch.zeros(m, dtype=torch.int64, device=dev)
+    for s in range(0, m, 1000):
+        xb = x64[s:s + 1000]
+        d64 = torch.sum(xb * xb, dim=1)[:, None] + yn[None, :] \
+            - 2.0 * (xb @ y64.T)
+        ref = d64 < eps_sq
+        deg64[s:s + 1000] = ref.sum(1)
+        diff = adj[s:s + 1000] != ref
+        close = torch.abs(d64 - eps_sq) <= band
+        if bool((diff & ~close).any()):
+            raise AssertionError("phase 19 (b): an adjacency entry differs "
+                                 "from float64 off the threshold's band")
+        differ += int(diff.sum())
+        near += int(close.sum())
+    deg = adj.sum(1)
+    if not (vd.dtype == torch.int32 and vd.shape == (m + 1,)
+            and torch.equal(vd[:m].long(), deg)
+            and int(vd[m]) == int(deg.sum())):
+        raise AssertionError("phase 19 (b): vd is not the row degrees and "
+                             "their total")
+    log(f"phase 19 (b): eps_neighbors_l2sq {m} x {nn} x {d} {secs:.3f} s, "
+        f"eps^2 {eps_sq:.4f}, {int(vd[m])} pairs within (float64 "
+        f"{int(deg64.sum())}); {differ} entries differ from float64, all "
+        f"inside the band of {EPS_BAND_19} x eps^2 that holds {near} "
+        f"pairs [{card}]")
+    return secs
+
+
+def _terrain_19(rng, rows):
+    """Terrain-like 3-D points: (x, y) uniform in [-1, 1)^2, z Gaussian
+    with std BC_Z_STD_19."""
+    xy = rng.uniform(-1.0, 1.0, (rows, 2))
+    z = BC_Z_STD_19 * rng.standard_normal((rows, 1))
+    return np.concatenate([xy, z], axis=1).astype(np.float32)
+
+
+def _lat_lon_19(rng, rows):
+    """Points uniform on the sphere as (lat, lon) radians."""
+    lat = np.arcsin(rng.uniform(-1.0, 1.0, rows))
+    lon = rng.uniform(-np.pi, np.pi, rows)
+    return np.stack([lat, lon], axis=1).astype(np.float32)
+
+
+def _f64_knn_19(X64, Q64, k, haversine=False):
+    """Exact float64 kNN of the rows of ``Q64`` among ``X64`` on the card,
+    100 queries at a time: squared L2 (unexpanded) or haversine."""
+    import torch
+
+    out_d, out_i = [], []
+    for s in range(0, Q64.shape[0], 100):
+        q = Q64[s:s + 100]
+        if haversine:
+            s0 = torch.sin(0.5 * (q[:, 0:1] - X64[None, :, 0]))
+            s1 = torch.sin(0.5 * (q[:, 1:2] - X64[None, :, 1]))
+            r = s0 * s0 + torch.cos(q[:, 0:1]) * torch.cos(X64[None, :, 0]) \
+                * s1 * s1
+            dd = 2.0 * torch.arcsin(torch.sqrt(r))
+        else:
+            dd = torch.zeros((q.shape[0], X64.shape[0]), dtype=torch.float64,
+                             device=q.device)
+            for c in range(q.shape[1]):
+                dd += (q[:, c:c + 1] - X64[None, :, c]) ** 2
+        d, i = torch.topk(dd, k, dim=1, largest=False)
+        out_d.append(d)
+        out_i.append(i)
+    return torch.cat(out_d), torch.cat(out_i)
+
+
+def _bc_check_19(what, d, i, X, Q, k, haversine=False, tol=None):
+    """BC_CHECK_19 sampled queries of a ball-cover answer against an exact
+    float64 kNN: distances slot by slot within ``tol`` (L2: compared
+    squared, the expanded form's rounding), ids equal but at near-ties.
+    Returns (differing slots, largest distance error)."""
+    import torch
+
+    n_q = Q.shape[0]
+    rng = np.random.default_rng(SEED + 192)
+    s = torch.as_tensor(np.sort(rng.choice(n_q, min(BC_CHECK_19, n_q),
+                                           replace=False)), device=Q.device)
+    X64, Q64 = X.double(), Q[s].double()
+    ref_d, ref_i = _f64_knn_19(X64, Q64, k, haversine)
+    got = d[s].double() if haversine else d[s].double() ** 2
+    if tol is None:
+        tol = norm_tol(Q, X)
+
+    def dist_of(rows, ids):
+        if haversine:
+            q, x = Q64[rows], X64[ids]
+            s0 = torch.sin(0.5 * (q[:, 0] - x[:, 0]))
+            s1 = torch.sin(0.5 * (q[:, 1] - x[:, 1]))
+            return 2.0 * torch.arcsin(torch.sqrt(
+                s0 * s0 + torch.cos(q[:, 0]) * torch.cos(x[:, 0]) * s1 * s1))
+        return torch.sum((Q64[rows] - X64[ids]) ** 2, dim=1)
+
+    ties = _ties_18(what, got, i[s], ref_d, ref_i, dist_of, tol)
+    return ties, float(torch.max(torch.abs(got - ref_d))), tol
+
+
+def ball_cover_19(dev, card) -> dict:
+    """Phase 19 (c): ball cover on 1M terrain rows (L2SqrtUnexpanded) and
+    1M (lat, lon) rows (Haversine): build, 10,000 queries at k=32, 1000
+    of them held to float64; ``all_knn_query`` of 200,000 terrain rows at
+    k=16; ``eps_nn`` of 1000 queries against float64 (a row may differ
+    only within the expanded form's rounding of eps^2); 64 queries 2000
+    above the terrain (1000 x its extent) at k=64, where every unprobed
+    landmark's ball reaches below the k-th distance, so the probes widen
+    to half the landmarks and the rest take the dense scan, whose select
+    (64 x 1M, k=64) is B5. Returns the seconds and the far queries' B5
+    launches."""
+    import torch
+
+    from raft_tpu_torch.distance.distance_types import DistanceType
+    from raft_tpu_torch.neighbors import ball_cover as bc
+    from raft_tpu_torch.ops import stream_select as ss
+
+    rng = np.random.default_rng(SEED + 193)
+    big = {"bytes": 0}
+    scan = bc._scan_probed
+
+    def recording(index, queries, probe_ids, k):
+        cap, p = index.groups.shape[1], probe_ids.shape[1]
+        batch = max(1, bc._QUERY_BYTES // bc._scan_bytes(p * cap, index.n))
+        rows = min(queries.shape[0], batch)
+        big["bytes"] = max(big["bytes"], rows * p * cap * index.n * 4)
+        return scan(index, queries, probe_ids, k)
+
+    out = {}
+    bc._scan_probed = recording
+    try:
+        X = torch.as_tensor(_terrain_19(rng, BC_ROWS_19), device=dev)
+        Q = torch.as_tensor(_terrain_19(rng, BC_QUERIES_19), device=dev)
+        index, b_s = _timed(lambda: bc.build_index(
+            X, DistanceType.L2SqrtUnexpanded, seed=SEED))
+        (d, i), q_s = _timed(lambda: bc.knn_query(index, Q, BC_K_19))
+        ties, err, tol = _bc_check_19("phase 19 (c), L2 knn_query", d, i, X,
+                                      Q, BC_K_19)
+        log(f"phase 19 (c): ball cover L2SqrtUnexpanded on {BC_ROWS_19} x 3 "
+            f"terrain rows: build {b_s:.3f} s ({index.n_landmarks} "
+            f"landmarks, cap {index.groups.shape[1]}), knn_query "
+            f"{BC_QUERIES_19} x k={BC_K_19} {q_s:.3f} s; {BC_CHECK_19} "
+            f"queries against float64: squared distances within "
+            f"{err:.3e} (tol {tol:.3e}), {ties} slots at near-ties [{card}]")
+        out.update(l2_build_s=b_s, l2_query_s=q_s,
+                   cap=index.groups.shape[1])
+
+        nq, eps = BC_EPS_19
+        (adj, vd), e_s = _timed(lambda: bc.eps_nn(index, Q[:nq], eps))
+        X64 = X.double()
+        band = norm_tol(Q[:nq], X)
+        differ = 0
+        for s in range(0, nq, 100):
+            q64 = Q[s:s + 100].double()
+            d64 = torch.zeros((q64.shape[0], X.shape[0]),
+                              dtype=torch.float64, device=dev)
+            for c in range(3):
+                d64 += (q64[:, c:c + 1] - X64[None, :, c]) ** 2
+            diff = adj[s:s + 100] != (d64 <= eps * eps)
+            if bool((diff & (torch.abs(d64 - eps * eps) > band)).any()):
+                raise AssertionError("phase 19 (c): eps_nn differs from "
+                                     "float64 off the threshold's band")
+            differ += int(diff.sum())
+        if not torch.equal(vd, adj.sum(1).int()):
+            raise AssertionError("phase 19 (c): eps_nn's degrees are not "
+                                 "its row sums")
+        log(f"phase 19 (c): eps_nn {nq} queries x {BC_ROWS_19} rows, eps "
+            f"{eps}: {e_s:.3f} s, {int(vd.sum())} pairs, {differ} differ "
+            f"from float64, all within {band:.3e} of eps^2 [{card}]")
+        del adj, vd
+
+        n_far, k_far, height = BC_FAR_19
+        Qf = np.concatenate([rng.uniform(-1.0, 1.0, (n_far, 2)),
+                             np.full((n_far, 1), height)], axis=1)
+        Qf = torch.as_tensor(Qf.astype(np.float32), device=dev)
+        before = ss.stream_extract.launches
+        dense = bc._dense
+        calls = {"dense_rows": 0}
+
+        def counting(index_, queries, k):
+            calls["dense_rows"] += queries.shape[0]
+            return dense(index_, queries, k)
+
+        bc._dense = counting
+        try:
+            (fd, fi), f_s = _timed(lambda: bc.knn_query(index, Qf, k_far))
+        finally:
+            bc._dense = dense
+        b5 = ss.stream_extract.launches - before
+        fties, ferr, ftol = _bc_check_19("phase 19 (c), far queries", fd, fi,
+                                         X, Qf, k_far)
+        log(f"phase 19 (c): {n_far} queries {height} above the terrain, "
+            f"k={k_far}: {f_s:.3f} s, {calls['dense_rows']} took the dense "
+            f"scan, {b5} B5 launches; against float64 squared distances "
+            f"within {ferr:.3e} (tol {ftol:.3e}), {fties} slots at "
+            f"near-ties [{card}]")
+        if calls["dense_rows"] != n_far or b5 < 1:
+            raise AssertionError("phase 19 (c): the far queries must all "
+                                 "take the dense scan through B5")
+        out.update(far_s=f_s, b5=b5)
+        del index
+
+        rows, k_all = BC_ALL_19
+        Xa = X[:rows].contiguous()
+        sub = bc.build_index(Xa, DistanceType.L2SqrtUnexpanded, seed=SEED)
+        (ad, ai), a_s = _timed(lambda: bc.all_knn_query(sub, k_all))
+        aties, aerr, atol = _bc_check_19("phase 19 (c), all_knn_query", ad,
+                                         ai, Xa, Xa, k_all)
+        log(f"phase 19 (c): all_knn_query {rows} x 3, k={k_all}: {a_s:.3f} "
+            f"s; {BC_CHECK_19} rows against float64 within {aerr:.3e} (tol "
+            f"{atol:.3e}), {aties} slots at near-ties [{card}]")
+        out["all_s"] = a_s
+        del sub, X, Q
+
+        H = torch.as_tensor(_lat_lon_19(rng, BC_ROWS_19), device=dev)
+        Qh = torch.as_tensor(_lat_lon_19(rng, BC_QUERIES_19), device=dev)
+        hindex, hb_s = _timed(lambda: bc.build_index(
+            H, DistanceType.Haversine, seed=SEED))
+        (hd, hi), hq_s = _timed(lambda: bc.knn_query(hindex, Qh, BC_K_19))
+        hties, herr, _ = _bc_check_19("phase 19 (c), haversine knn_query",
+                                      hd, hi, H, Qh, BC_K_19, haversine=True,
+                                      tol=HAV_TOL_19)
+        log(f"phase 19 (c): ball cover Haversine on {BC_ROWS_19} (lat, lon) "
+            f"rows: build {hb_s:.3f} s (cap {hindex.groups.shape[1]}), "
+            f"knn_query {BC_QUERIES_19} x k={BC_K_19} {hq_s:.3f} s; "
+            f"{BC_CHECK_19} queries against float64: distances within "
+            f"{herr:.3e} (tol {HAV_TOL_19}), {hties} slots at near-ties "
+            f"[{card}]")
+        out.update(hav_build_s=hb_s, hav_query_s=hq_s)
+    finally:
+        bc._scan_probed = scan
+    log(f"phase 19 (c): the largest widening gather {big['bytes']} bytes "
+        f"(the scan budget {bc._QUERY_BYTES}) [{card}]")
+    out["gather_bytes"] = big["bytes"]
+    return out
+
+
+def _ari_19(a, b) -> float:
+    from raft_tpu_torch.stats import adjusted_rand_index
+
+    return float(adjusted_rand_index(a, b))
+
+
+def linkage_19(dev, card) -> dict:
+    """Phase 19 (d): single linkage. KNN_GRAPH on 200,000 x 32 rows in 16
+    blobs whose centers lie further apart than four blob radii (checked),
+    so the 15 heaviest MST edges join blobs: labels = blobs (ARI 1), the
+    dendrogram's heights = the sorted weights of the MST it built, whose
+    weight is within 1e-5 of scipy's ``minimum_spanning_tree`` of the same
+    edges (min-reduced per pair). PAIRWISE on 4096 x 32 Gaussian rows:
+    heights within 1e-5 relative of scipy's single linkage."""
+    import importlib as _il
+
+    import scipy.sparse as sp
+    import torch
+    from scipy.cluster.hierarchy import linkage
+    from scipy.sparse.csgraph import minimum_spanning_tree
+
+    from raft_tpu_torch.cluster import LinkageDistance, single_linkage
+    from raft_tpu_torch.random import make_blobs
+
+    solver = _il.import_module("raft_tpu_torch.sparse.solver")
+    rows, dim, blobs, c = SL_KNN_19
+    X, y = make_blobs(rows, dim, blobs, cluster_std=1.0,
+                      center_box_min=-SL_BOX_19, center_box_max=SL_BOX_19,
+                      seed=SEED + 194, device=dev)
+    yl = y.long()
+    means = torch.zeros((blobs, dim), device=dev).index_add_(0, yl, X) \
+        / torch.bincount(yl, minlength=blobs)[:, None]
+    radius = float(torch.max(torch.linalg.vector_norm(X - means[yl], dim=1)))
+    gap = float(torch.pdist(means).min())
+    if gap <= 4.0 * radius:
+        raise AssertionError(f"phase 19 (d): blob centers {gap} apart, not "
+                             f"past four radii ({radius})")
+    kept = {}
+    real = solver.mst
+
+    def capturing(r, cc, w, n_vertices):
+        kept["edges"] = (r, cc, w)
+        kept["tree"] = real(r, cc, w, n_vertices)
+        return kept["tree"]
+
+    solver.mst = capturing
+    try:
+        out, k_s = _timed(lambda: single_linkage(
+            X, blobs, dist_type=LinkageDistance.KNN_GRAPH, c=c))
+    finally:
+        solver.mst = real
+    ari = _ari_19(y, out.labels)
+    tree = kept["tree"]
+    tw = tree.weights.double().cpu().numpy()
+    if not (tree.n_edges == rows - 1 and np.array_equal(
+            np.sort(out.distances), np.sort(tw))):
+        raise AssertionError("phase 19 (d): the dendrogram's heights are not "
+                             "its MST's sorted weights")
+    r, cc, w = (t.cpu().numpy() for t in kept["edges"])
+    lo, hi = np.minimum(r, cc).astype(np.int64), np.maximum(r, cc)
+    order = np.lexsort((w, hi, lo))
+    key = lo[order] * rows + hi[order]
+    first = np.ones(key.shape[0], bool)
+    first[1:] = key[1:] != key[:-1]
+    sel = order[first]
+    g = sp.csr_matrix((w[sel].astype(np.float64), (lo[sel], hi[sel])),
+                      shape=(rows, rows))
+    want = float(minimum_spanning_tree(g).sum())
+    got = float(tw.sum())
+    log(f"phase 19 (d): single_linkage KNN_GRAPH {rows} x {dim}, {blobs} "
+        f"blobs (centers {gap:.1f} apart, radius {radius:.1f}), c={c}: "
+        f"{k_s:.3f} s; ARI {ari:.6f}; {len(w)} edges, MST weight {got:.6f} "
+        f"against scipy's {want:.6f}; heights = the MST's weights [{card}]")
+    if ari != 1.0 or abs(got - want) > SL_RTOL_19 * abs(want):
+        raise AssertionError("phase 19 (d): the KNN_GRAPH linkage is off")
+
+    n_p, d_p = SL_PAIR_19
+    P = np.random.default_rng(SEED + 195).standard_normal(
+        (n_p, d_p), dtype=np.float32)
+    pout, p_s = _timed(lambda: single_linkage(
+        torch.as_tensor(P, device=dev), 1,
+        dist_type=LinkageDistance.PAIRWISE))
+    ref = linkage(P.astype(np.float64), method="single", metric="euclidean")
+    rel = float(np.max(np.abs(np.sort(pout.distances) - np.sort(ref[:, 2]))
+                       / np.sort(ref[:, 2])))
+    log(f"phase 19 (d): single_linkage PAIRWISE {n_p} x {d_p}: {p_s:.3f} s; "
+        f"heights within {rel:.3e} relative of scipy's (bar {SL_RTOL_19}) "
+        f"[{card}]")
+    if rel > SL_RTOL_19:
+        raise AssertionError("phase 19 (d): PAIRWISE heights off scipy's")
+    return {"knn_s": k_s, "pairwise_s": p_s}
+
+
+def _spectral_graph_19(dev):
+    """SPEC_19's blobs, their symmetrised kNN graph with unit weights and
+    SPEC_BRIDGES_19 seeded unit edges between consecutive blobs: a CSR
+    and the blob labels."""
+    import torch
+
+    from raft_tpu_torch.random import make_blobs
+    from raft_tpu_torch.sparse import convert, linalg as sl
+    from raft_tpu_torch.sparse import neighbors as sn
+    from raft_tpu_torch.sparse.types import COO
+
+    rows, dim, blobs, k = SPEC_19
+    X, y = make_blobs(rows, dim, blobs, cluster_std=1.0,
+                      center_box_min=-100.0, center_box_max=100.0,
+                      seed=SEED + 196, device=dev)
+    g = sn.knn_graph(X, k)
+    yh = y.cpu().numpy()
+    rng = np.random.default_rng(SEED + 197)
+    br = [rng.choice(np.where(yh == b)[0], SPEC_BRIDGES_19)
+          for b in range(blobs - 1)]
+    bc = [rng.choice(np.where(yh == b + 1)[0], SPEC_BRIDGES_19)
+          for b in range(blobs - 1)]
+    br = torch.as_tensor(np.concatenate(br).astype(np.int32), device=dev)
+    bc = torch.as_tensor(np.concatenate(bc).astype(np.int32), device=dev)
+    coo = COO(torch.cat([g.rows, br]), torch.cat([g.cols, bc]),
+              torch.ones(g.nnz + br.numel(), device=dev), (rows, rows))
+    return convert.coo_to_csr(sl.symmetrize(coo)), y
+
+
+def _host_sparse_19(a):
+    import scipy.sparse as sp
+
+    return sp.csr_matrix((a.vals.double().cpu().numpy(),
+                          a.indices.cpu().numpy(), a.indptr.cpu().numpy()),
+                         shape=a.shape)
+
+
+def spectral_19(dev, card) -> dict:
+    """Phase 19 (e): ``partition`` of 8 bridged blobs (SPEC_19; its 8
+    smallest Laplacian eigenvalues distinct and below half the 9th,
+    checked in float64): ARI >= 0.999, every Ritz pair's float64
+    residual within 1e-3 ||L||, ``analyze_partition`` against a float64
+    count; ``modularity_maximization`` of a 4096-vertex planted partition
+    with 8 blocks: ARI >= 0.999, ``analyze_modularity`` within 1e-5 of
+    float64."""
+    import torch
+
+    from raft_tpu_torch.sparse.types import csr_from_dense
+    from raft_tpu_torch.spectral import (analyze_modularity,
+                                         analyze_partition,
+                                         modularity_maximization, partition)
+
+    A, y = _spectral_graph_19(dev)
+    rows, _, blobs, _ = SPEC_19
+    Ah = _host_sparse_19(A)
+    Lh = np.diag(np.asarray(Ah.sum(1)).ravel()) - Ah.toarray()
+    lam = np.linalg.eigvalsh(Lh)
+    norm_l = float(lam[-1])
+    if not (np.all(np.diff(lam[:blobs]) > 1e-3 * norm_l)
+            and lam[blobs - 1] < 0.5 * lam[blobs]):
+        raise AssertionError(f"phase 19 (e): the graph's spectrum is not as "
+                             f"built: {lam[:blobs + 1]}")
+    (labels, w, U), p_s = _timed(lambda: partition(A, blobs))
+    ari = _ari_19(y, labels)
+    Ud, wd = U.double().cpu().numpy(), w.double().cpu().numpy()
+    resid = max(float(np.linalg.norm(Lh @ Ud[:, j] - wd[j] * Ud[:, j]))
+                for j in range(blobs)) / norm_l
+    lab = labels.cpu().numpy()
+    cut, cost = analyze_partition(A, labels, blobs)
+    coo = Ah.tocoo()
+    cross = lab[coo.row] != lab[coo.col]
+    cut64 = float(coo.data[cross].sum()) / 2.0
+    cost64 = sum(float(coo.data[cross & (lab[coo.row] == cl)].sum())
+                 / max(int((lab == cl).sum()), 1) for cl in range(blobs))
+    log(f"phase 19 (e): partition of {rows} vertices ({A.nnz} entries, "
+        f"{blobs} blobs bridged by {SPEC_BRIDGES_19} edges each): {p_s:.3f} "
+        f"s; ARI {ari:.6f}; eigenvalues {np.round(wd, 5).tolist()} (float64 "
+        f"{np.round(lam[:blobs], 5).tolist()}, the 9th {lam[blobs]:.4f}); "
+        f"residuals within {resid:.3e} ||L|| (bar {SPEC_RESID_19}); edge cut "
+        f"{cut:.4f} / float64 {cut64:.4f}, cost {cost:.6f} / {cost64:.6f} "
+        f"[{card}]")
+    if (ari < ARI_19 or resid > SPEC_RESID_19
+            or abs(cut - cut64) > 1e-5 * max(cut64, 1.0)
+            or abs(cost - cost64) > 1e-5 * max(cost64, 1.0)):
+        raise AssertionError("phase 19 (e): partition is off its bars")
+
+    n_m, blocks, p_in, p_out = MOD_19
+    rng = np.random.default_rng(SEED + 198)
+    truth = np.repeat(np.arange(blocks), n_m // blocks)
+    same = truth[:, None] == truth[None, :]
+    dense = np.triu(rng.random((n_m, n_m)) < np.where(same, p_in, p_out), 1)
+    dense = (dense | dense.T).astype(np.float32)
+    M = csr_from_dense(torch.as_tensor(dense, device=dev))
+    (mlab, mw, _), m_s = _timed(lambda: modularity_maximization(M, blocks))
+    mari = _ari_19(torch.as_tensor(truth, device=dev), mlab)
+    q = analyze_modularity(M, mlab)
+    ml = mlab.cpu().numpy()
+    d64 = dense.astype(np.float64)
+    deg = d64.sum(1)
+    two_m = deg.sum()
+    q64 = sum(float(d64[np.ix_(ml == c, ml == c)].sum()) / two_m
+              - (float(deg[ml == c].sum()) / two_m) ** 2
+              for c in np.unique(ml))
+    log(f"phase 19 (e): modularity_maximization of a {n_m}-vertex planted "
+        f"partition ({blocks} blocks, p_in {p_in}, p_out {p_out}): {m_s:.3f} "
+        f"s; ARI {mari:.6f}; modularity {q:.6f} (float64 {q64:.6f}); "
+        f"eigenvalues {np.round(mw.cpu().numpy(), 3).tolist()} [{card}]")
+    if mari < ARI_19 or abs(q - q64) > 1e-5:
+        raise AssertionError("phase 19 (e): modularity_maximization is off "
+                             "its bars")
+    return {"partition_s": p_s, "modularity_s": m_s}
+
+
+def spatial_19(dev, X, Q, bf, card) -> None:
+    """Phase 19 (f): every ``spatial.knn`` alias is the port's own object,
+    and its ``brute_force_knn`` of 1000 queries (B1) equals phase 4's
+    answer but for the order of exact ties."""
+    from raft_tpu_torch import neighbors, spatial
+    from raft_tpu_torch.neighbors import ball_cover, brute_force
+    from raft_tpu_torch.neighbors import epsilon_neighborhood as en
+
+    sk = spatial.knn
+    pairs = [(sk.brute_force_knn, brute_force.knn),
+             (sk.knn_merge_parts, brute_force.knn_merge_parts),
+             (sk.fused_l2_knn, brute_force.fused_l2_knn),
+             (sk.rbc_build_index, ball_cover.build_index),
+             (sk.rbc_knn_query, ball_cover.knn_query),
+             (sk.rbc_all_knn_query, ball_cover.all_knn_query),
+             (sk.rbc_eps_nn, ball_cover.eps_nn),
+             (sk.BallCoverIndex, ball_cover.BallCoverIndex),
+             (sk.epsUnexpL2SqNeighborhood, en.eps_neighbors_l2sq),
+             (sk.ivf_flat, neighbors.ivf_flat), (sk.ivf_pq, neighbors.ivf_pq)]
+    if not all(a is b for a, b in pairs) or set(sk.__all__) != {
+            "BallCoverIndex", "rbc_all_knn_query", "rbc_build_index",
+            "rbc_eps_nn", "rbc_knn_query", "fused_l2_knn", "brute_force_knn",
+            "knn_merge_parts", "epsUnexpL2SqNeighborhood", "ivf_flat",
+            "ivf_pq"}:
+        raise AssertionError("phase 19 (f): a spatial.knn alias is not the "
+                             "port's object")
+    (d, i), secs = _timed(lambda: sk.brute_force_knn(X, Q[:1000], k=K))
+    rows = same_up_to_exact_ties("phase 19 (f), spatial.knn.brute_force_knn",
+                                 d, i, bf[0][:1000], bf[1][:1000])
+    log(f"phase 19 (f): {len(pairs)} spatial.knn aliases are the port's "
+        f"objects; brute_force_knn of 1000 queries {secs:.3f} s = phase 4's "
+        f"answer ({rows} rows differ only in the order of exact ties) "
+        f"[{card}]")
+
+
+def slice19_phase(dev, X, Q, bf, card) -> dict:
+    """Phase 19: solver/, the epsilon neighborhood, ball cover, single
+    linkage, spectral/ and spatial.knn, counters set to 0 before it and
+    read after its last step. B1 must launch in (d) and (e) (the kNN
+    graph, Lloyd), B5 in (c)'s far queries; no other kernel. Returns its
+    launches, seconds, peak device memory and step figures."""
+    import torch
+
+    _zero_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    a = lap_19(dev, card)
+    b = eps_19(dev, card)
+    torch.cuda.empty_cache()
+    c = ball_cover_19(dev, card)
+    torch.cuda.empty_cache()
+    before = _launches()
+    d = linkage_19(dev, card)
+    d_launches = _step(before)
+    before = _launches()
+    e = spectral_19(dev, card)
+    e_launches = _step(before)
+    spatial_19(dev, X, Q, bf, card)
+    launches = _launches()
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"phase 19: {total:.3f} s (a {sum(a.values()):.3f}, b {b:.3f}, c "
+        f"{sum(v for k, v in c.items() if k.endswith('_s')):.3f}, d "
+        f"{sum(d.values()):.3f}, e {sum(e.values()):.3f}), peak device "
+        f"memory {peak:.2f} GiB, launches {launches} ((d) {d_launches}, "
+        f"(e) {e_launches}) [{card}]")
+    if (d_launches["fused_knn"] < 1 or e_launches["fused_knn"] < 1
+            or c["b5"] < 1 or any(v for k, v in launches.items()
+                                   if k not in ("fused_knn",
+                                                "stream_extract"))):
+        raise AssertionError(f"phase 19 must launch B1 in (d) and (e), B5 in "
+                             f"(c) and nothing else: {launches}")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "seconds": total, "peak_gib": peak,
+            "lap": a, "eps_s": b, "ball_cover": c, "linkage": d,
+            "spectral": e}
+
+
 def kmeans_labels(centers, X):
     """Each row's nearest center (the lists of an IVF-Flat build)."""
     from raft_tpu_torch.cluster import kmeans_balanced
@@ -6433,6 +7089,8 @@ def main() -> int:
     b5["launches"] += br["stream_extract"]
     p17 = slice17_phase(dev, X, Q, pq.pop("candidates"), card)
     p18 = slice18_phase(dev, X, card)
+    p19 = slice19_phase(dev, X, Q, mp["bf"], card)
+    b5["launches"] += p19["launches"]["stream_extract"]
     # Phase 6 left IVF-PQ's reconstruction cache in place, which routes
     # search to the recon tier; the serve and lifecycle phases search the
     # compressed tier (B4), as the main path does.
@@ -6455,8 +7113,8 @@ def main() -> int:
              + lc["fused_knn"] + sm["fused_knn"] + sf["fused_knn"]
              + sh["fused_knn"] + rt["fused_knn"] + ops["fused_knn"]
              + du["fused_knn"] + br["fused_knn"]
-             + p17["launches"]["fused_knn"] + p18["launches"]["fused_knn"],
-             **b1),
+             + p17["launches"]["fused_knn"] + p18["launches"]["fused_knn"]
+             + p19["launches"]["fused_knn"], **b1),
         dict(name="fused_cells_knn", route="cuda",
              source="raft_tpu_torch/csrc/cells_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:426",

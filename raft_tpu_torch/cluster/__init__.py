@@ -1,5 +1,5 @@
-"""Clustering: Lloyd k-means and balanced hierarchical k-means. Single
-linkage comes in a later slice."""
+"""Clustering: Lloyd k-means, balanced hierarchical k-means and single
+linkage."""
 
 from raft_tpu_torch.cluster.kmeans_types import (
     InitMethod,
@@ -8,6 +8,11 @@ from raft_tpu_torch.cluster.kmeans_types import (
 )
 from raft_tpu_torch.cluster import kmeans
 from raft_tpu_torch.cluster import kmeans_balanced
+from raft_tpu_torch.cluster.single_linkage import (
+    LinkageDistance,
+    LinkageOutput,
+    single_linkage,
+)
 from raft_tpu_torch.cluster.kmeans import (
     fit,
     predict,
@@ -31,4 +36,5 @@ __all__ = [
     "min_cluster_and_distance", "min_cluster_distance", "update_centroids",
     "compute_new_centroids", "init_plus_plus", "init_random",
     "sample_centroids", "find_k",
+    "LinkageDistance", "LinkageOutput", "single_linkage",
 ]

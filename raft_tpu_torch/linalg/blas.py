@@ -12,7 +12,8 @@ the port computes at full f32 for each of them and only checks the name.
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Iterator, Optional
 
 import torch
 
@@ -36,6 +37,19 @@ def resolve_precision(precision) -> str:
             "precision must be None, 'default', 'high' or 'highest' "
             "(got %r)", precision)
     return DEFAULT_PRECISION if precision is None else precision
+
+
+@contextlib.contextmanager
+def full_f32() -> Iterator[None]:
+    """Full-f32 products inside the block, whatever the process has set
+    (a caller may switch TF32 on after this module's import): the
+    float32 matmul precision is "highest" there and restored after."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 def _matmul(a, b, precision, preferred_element_type=None):

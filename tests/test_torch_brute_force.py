@@ -126,3 +126,36 @@ def test_fused_l2_nn_gaussian(rng, bf16):
     jd, ji = jfused_l2_nn(x, y, sqrt=True, bf16=bf16)
     np.testing.assert_allclose(n(d), n(jd), rtol=1e-4, atol=1e-4)
     assert (n(i) == n(ji)).mean() >= 0.98
+
+
+def test_spatial_knn_aliases(rng):
+    """The legacy ``spatial.knn`` names are the port's own objects (as
+    tests/test_compat_namespaces.py holds the reference's), and its
+    ``brute_force_knn`` answers as the reference's does."""
+    from raft_tpu import spatial as jspatial
+    from raft_tpu_torch import neighbors, spatial
+    from raft_tpu_torch.neighbors import ball_cover, epsilon_neighborhood
+
+    sk = spatial.knn
+    assert sk.brute_force_knn is neighbors.brute_force.knn
+    assert sk.knn_merge_parts is neighbors.brute_force.knn_merge_parts
+    assert sk.fused_l2_knn is neighbors.brute_force.fused_l2_knn
+    assert sk.rbc_build_index is ball_cover.build_index
+    assert sk.rbc_knn_query is ball_cover.knn_query
+    assert sk.rbc_all_knn_query is ball_cover.all_knn_query
+    assert sk.rbc_eps_nn is ball_cover.eps_nn
+    assert sk.BallCoverIndex is ball_cover.BallCoverIndex
+    assert (sk.epsUnexpL2SqNeighborhood
+            is epsilon_neighborhood.eps_neighbors_l2sq)
+    assert sk.ivf_pq is neighbors.ivf_pq and sk.ivf_flat is neighbors.ivf_flat
+    assert sorted(sk.__all__) == sorted(jspatial.knn.__all__)
+    assert spatial.__all__ == jspatial.__all__ == ["knn"]
+
+    db = rng.normal(size=(64, 8)).astype(np.float32)
+    q = rng.normal(size=(4, 8)).astype(np.float32)
+    d, i = sk.brute_force_knn(t(db), t(q), k=3)
+    truth = np.argsort(((q[:, None] - db[None]) ** 2).sum(-1), axis=1)[:, :3]
+    np.testing.assert_array_equal(n(i), truth)
+    jd, ji = jspatial.knn.brute_force_knn(db, q, k=3)
+    np.testing.assert_array_equal(n(i), n(ji))
+    np.testing.assert_allclose(n(d), n(jd), **GAUSS_TOL)

@@ -60,7 +60,10 @@ def test_module_list_covers_the_slice():
                  "sparse.types", "sparse.convert", "sparse.op",
                  "sparse.linalg", "sparse.distance", "sparse.neighbors",
                  "sparse.solver.mst", "sparse.solver.lanczos",
-                 "linalg.lanczos"):
+                 "linalg.lanczos", "solver", "solver.linear_assignment",
+                 "spectral", "spectral.partition", "neighbors.ball_cover",
+                 "neighbors.epsilon_neighborhood", "spatial", "spatial.knn",
+                 "cluster.single_linkage"):
         assert f"raft_tpu_torch.{name}" in _MODULES
 
 
@@ -133,6 +136,26 @@ def test_numpy_inputs_go_to_the_card_or_raise(rng):
     assert as_tensor(torch.ones(2)).device.type == "cpu"
     assert as_tensor(x, device="cpu").device.type == "cpu"
     assert Resources("cpu").device.type == "cpu"
+
+
+def test_last_modules_take_numpy_to_the_card_or_raise(rng):
+    """solver/, ball cover, the epsilon neighborhood and single linkage
+    move numpy inputs to ``cuda``, as every entry point does."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: nothing to refuse")
+    from raft_tpu_torch.cluster import single_linkage
+    from raft_tpu_torch.neighbors import ball_cover, eps_neighbors_l2sq
+    from raft_tpu_torch.solver import LinearAssignmentProblem, lap
+
+    x = rng.standard_normal((20, 3)).astype(np.float32)
+    c = rng.random((4, 4)).astype(np.float32)
+    for call in (lambda: lap(c), lambda: LinearAssignmentProblem(4).solve(c),
+                 lambda: eps_neighbors_l2sq(x, x, 1.0),
+                 lambda: ball_cover.build_index(x),
+                 lambda: single_linkage(x, 2)):
+        with pytest.raises(CudaError):
+            call()
+    assert lap(c, device="cpu")[0].device.type == "cpu"
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -1528,3 +1528,82 @@ def test_sparse_row_sums_repeat_on_the_card(dev, gen):
     np.testing.assert_allclose(n(sl.spmv(a, xd)),
                                n(sl.spmv(a_cpu, torch.as_tensor(x))),
                                rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ball_cover_fallback_launches_b5_and_equals_the_cpu(dev, gen):
+    """Queries far above a flat cloud of 131,072 rows leave every query
+    unresolved at half the landmarks, so ``knn_query`` takes the dense
+    scan, whose select (16 x 131,072, k=64) is B5 on the card. The same
+    index on the CPU (the same landmarks) gives the same answer bit for
+    bit: the distances are elementwise f32 operations in one order, and
+    B5's select equals the sort's, ties included."""
+    from raft_tpu_torch.distance.distance_types import DistanceType
+    from raft_tpu_torch.neighbors import ball_cover as bc
+
+    rows = 131_072
+    X = np.concatenate([gen.uniform(-1, 1, (rows, 2)),
+                        1e-3 * gen.standard_normal((rows, 1))],
+                       axis=1).astype(np.float32)
+    Q = np.concatenate([gen.uniform(-1, 1, (16, 2)), np.full((16, 1), 2000.0)],
+                       axis=1).astype(np.float32)
+    perm = gen.permutation(rows)[:362]
+    metric = DistanceType.L2SqrtUnexpanded
+    card = bc._build_from_landmarks(*_on(dev, X, perm), metric)
+    cpu = bc._build_from_landmarks(torch.as_tensor(X), torch.as_tensor(perm),
+                                   metric)
+    for f in ("groups", "group_indices", "group_sizes", "radii"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    before = ss.stream_extract.launches
+    d, i = bc.knn_query(card, torch.as_tensor(Q, device=dev), 64)
+    assert ss.stream_extract.launches > before
+    pd, pi = bc.knn_query(cpu, torch.as_tensor(Q), 64)
+    assert torch.equal(d.cpu(), pd) and torch.equal(i.cpu(), pi)
+
+
+@pytest.mark.cuda
+def test_eps_neighbors_l2sq_ignores_a_global_tf32_setting(dev, gen):
+    """With TF32 switched on for the whole process (which does change a
+    plain product here), ``eps_neighbors_l2sq`` returns what it returns
+    with it off: it asks for full-f32 products itself."""
+    from raft_tpu_torch.neighbors import eps_neighbors_l2sq
+
+    x, y = _on(dev, gen.standard_normal((2000, 64)).astype(np.float32),
+               gen.standard_normal((3000, 64)).astype(np.float32))
+    eps_sq = float(torch.median(torch.cdist(x[:100], y[:100]) ** 2))
+    want = eps_neighbors_l2sq(x, y, eps_sq)
+    full = x @ y.T
+    prev = torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = x @ y.T
+        got = eps_neighbors_l2sq(x, y, eps_sq)
+        assert torch.get_float32_matmul_precision() != "highest"
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert not torch.equal(tf32, full)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_lap_cuda_graph_equals_the_cpu(dev, gen):
+    """The auction's rounds replay as a CUDA graph on the card: the
+    assignments equal the CPU's eager rounds bit for bit, batched and
+    one problem at a time, and a round cap that leaves rows to the host
+    repair gives the CPU's permutation too."""
+    from raft_tpu_torch.solver import LinearAssignmentProblem, lap
+
+    costs = gen.random((3, 300, 300)).astype(np.float32)
+    costs[1] = gen.integers(0, 100, (300, 300))
+    p = LinearAssignmentProblem(300, 3)
+    p.solve(torch.as_tensor(costs, device=dev))
+    q = LinearAssignmentProblem(300, 3)
+    q.solve(torch.as_tensor(costs))
+    for b in range(3):
+        a, _ = lap(torch.as_tensor(costs[b], device=dev))
+        assert torch.equal(a.cpu(), q.getAssignmentVector(b))
+        assert torch.equal(p.getAssignmentVector(b).cpu(),
+                           q.getAssignmentVector(b))
+    capped = lap(torch.as_tensor(costs[0], device=dev), max_rounds=5)[0]
+    assert torch.equal(capped.cpu(), lap(torch.as_tensor(costs[0]),
+                                         max_rounds=5)[0])

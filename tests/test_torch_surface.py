@@ -16,29 +16,14 @@ import pytest
 
 import raft_tpu
 
-# Packages of raft_tpu with no counterpart yet, by slice.
-PENDING_PACKAGES = {
-    "raft_tpu.solver": "h",
-    "raft_tpu.spectral": "h",
-    "raft_tpu.spatial": "i",
-    "raft_tpu.spatial.knn": "i",
-}
+# Packages of raft_tpu with no counterpart yet, by slice (none left).
+PENDING_PACKAGES = {}
 
-# Modules of ported packages that wait for a slice.
-PENDING_MODULES = {
-    "raft_tpu.neighbors.ball_cover": "i",
-    "raft_tpu.neighbors.epsilon_neighborhood": "i",
-    "raft_tpu.cluster.single_linkage": "i",
-}
+# Modules of ported packages that wait for a slice (none left).
+PENDING_MODULES = {}
 
-# Names of ported packages that wait for a slice, by package.
-PENDING_NAMES = {
-    "raft_tpu.cluster": {
-        "LinkageDistance": "i", "LinkageOutput": "i", "single_linkage": "i",
-    },
-    "raft_tpu.neighbors": {"BallCoverIndex": "i", "ball_cover": "i",
-                           "eps_neighbors_l2sq": "i"},
-}
+# Names of ported packages that wait for a slice, by package (none left).
+PENDING_NAMES = {}
 
 # JAX plumbing with no counterpart by design (ROADMAP A): not in any
 # __all__, listed so the module walk below knows them.
@@ -49,7 +34,7 @@ NOT_PORTED = {"raft_tpu.util.pallas_compat", "raft_tpu.util.shard_map_compat"}
 # the port builds its copy under build/ instead.
 BUILT_LIBRARIES = {"raft_tpu._native.libraft_tpu_host"}
 
-SLICES = set("ghij")
+SLICES = set("j")
 
 _REF_MODULES = sorted(m.name for m in pkgutil.walk_packages(
     raft_tpu.__path__, prefix="raft_tpu."))
