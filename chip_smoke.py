@@ -329,15 +329,18 @@ no result line):
     within 1e-5 of eps^2), degrees and their total; (c) ball cover on
     1M terrain rows (x, y in [-1, 1), z noise 1e-3; L2SqrtUnexpanded)
     and 1M (lat, lon) rows (Haversine): build, 10,000 queries at k=32
-    with 1000 held to float64 (ids but at near-ties; L2 squared within
-    ``norm_tol``, haversine within 1e-5), ``eps_nn`` of 1000 queries,
-    ``all_knn_query`` of 200,000 rows at k=16, and 64 queries 2000 above
-    the terrain at k=64, which take the dense scan through B5; (d)
+    with 1000 held to float64 (L2 squared within the expanded form's
+    rounding, haversine within 1e-5; every id clearly inside the float64
+    k nearest present, a differing id only at a near-tie), ``eps_nn`` of
+    1000 queries, ``all_knn_query`` of 200,000 rows at k=16, and 64
+    queries 2000 above the terrain at k=64, which take the dense scan
+    through B5 (held bit for bit to the same index on the CPU, and their
+    distances to the k smallest of the same f32 distances); (d)
     ``single_linkage``: KNN_GRAPH on 200,000 x 32 rows in 16 blobs far
     apart (ARI 1, heights = its MST's sorted weights, MST weight within
     1e-5 of scipy's over the same edges; B1 in its kNN graph), PAIRWISE
     on 4096 x 32 (heights within 1e-5 of scipy's linkage); (e)
-    ``partition`` of 2000 vertices in 8 bridged blobs (ARI >= 0.999,
+    ``partition`` of 4000 vertices in 8 bridged blobs (ARI >= 0.999,
     residuals within 1e-3 ||L||, ``analyze_partition`` against float64;
     B1 in Lloyd) and ``modularity_maximization`` of a 4096-vertex
     planted partition (ARI >= 0.999, ``analyze_modularity`` against
@@ -354,6 +357,7 @@ The script imports neither JAX nor raft_tpu.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
 import json
 import subprocess
@@ -550,9 +554,9 @@ SL_KNN_19 = (200_000, 32, 16, 15)  # single linkage: rows, dim, blobs, c
 SL_BOX_19 = 1000.0        # blob centers uniform in [-1000, 1000]
 SL_PAIR_19 = (4096, 32)   # the pairwise connectivity's rows, dim
 SL_RTOL_19 = 1e-5         # MST weight and heights against scipy
-SPEC_19 = (2000, 16, 8, 15)  # partition: rows (cut from 100,000), dim,
+SPEC_19 = (4000, 16, 8, 15)  # partition: rows (cut from 100,000), dim,
                              # blobs, kNN degree
-SPEC_BRIDGES_19 = 300     # unit edges joining consecutive blobs
+SPEC_BRIDGES_19 = 600     # unit edges joining consecutive blobs
 SPEC_RESID_19 = 1e-3      # float64 residuals, of ||L||
 MOD_19 = (4096, 8, 0.05, 0.002)  # planted partition: n, blocks, p_in, p_out
 ARI_19 = 0.999
@@ -6533,11 +6537,26 @@ def _f64_knn_19(X64, Q64, k, haversine=False):
     return torch.cat(out_d), torch.cat(out_i)
 
 
+def _expanded_tol_19(Q, X) -> float:
+    """The rounding of ball cover's f32 expanded squared L2 |q|^2 + |x|^2
+    - 2 q.x on 3-D rows, at most seven roundings of 2^-24 relative to
+    the norms' sum (three in each sum of squares and of products, one in
+    the total): 7 * 2^-24 * (max |q|^2 + max |x|^2)."""
+    import torch
+
+    qn = float(torch.max(torch.sum(Q.double() ** 2, dim=-1)))
+    xn = float(torch.max(torch.sum(X.double() ** 2, dim=-1)))
+    return 7.0 * 2.0 ** -24 * (qn + xn)
+
+
 def _bc_check_19(what, d, i, X, Q, k, haversine=False, tol=None):
     """BC_CHECK_19 sampled queries of a ball-cover answer against an exact
     float64 kNN: distances slot by slot within ``tol`` (L2: compared
-    squared, the expanded form's rounding), ids equal but at near-ties.
-    Returns (differing slots, largest distance error)."""
+    squared, within :func:`_expanded_tol_19` by default); each returned
+    id at its returned distance within ``tol``, no id twice in a row;
+    every float64 neighbour more than ``tol`` inside the k-th distance
+    returned; a differing id only at a near-tie. Returns (differing
+    slots, largest distance error, tol)."""
     import torch
 
     n_q = Q.shape[0]
@@ -6548,7 +6567,7 @@ def _bc_check_19(what, d, i, X, Q, k, haversine=False, tol=None):
     ref_d, ref_i = _f64_knn_19(X64, Q64, k, haversine)
     got = d[s].double() if haversine else d[s].double() ** 2
     if tol is None:
-        tol = norm_tol(Q, X)
+        tol = _expanded_tol_19(Q, X)
 
     def dist_of(rows, ids):
         if haversine:
@@ -6560,6 +6579,19 @@ def _bc_check_19(what, d, i, X, Q, k, haversine=False, tol=None):
         return torch.sum((Q64[rows] - X64[ids]) ** 2, dim=1)
 
     ties = _ties_18(what, got, i[s], ref_d, ref_i, dist_of, tol)
+    gi = i[s].long()
+    rows = torch.arange(gi.shape[0], device=gi.device)[:, None].expand_as(gi)
+    own = dist_of(rows.reshape(-1), gi.reshape(-1)).reshape(gi.shape)
+    if float(torch.max(torch.abs(own - got))) > tol:
+        raise AssertionError(f"{what}: an id is not at its distance")
+    srt = torch.sort(gi, dim=1).values
+    if bool((srt[:, 1:] == srt[:, :-1]).any()):
+        raise AssertionError(f"{what}: an id twice in one answer")
+    inside = ref_d < ref_d[:, -1:] - tol
+    present = (ref_i.long()[:, :, None] == gi[:, None, :]).any(dim=2)
+    if bool((inside & ~present).any()):
+        raise AssertionError(f"{what}: a neighbour clearly inside the k "
+                             "nearest is missing")
     return ties, float(torch.max(torch.abs(got - ref_d))), tol
 
 
@@ -6613,7 +6645,7 @@ def ball_cover_19(dev, card) -> dict:
         nq, eps = BC_EPS_19
         (adj, vd), e_s = _timed(lambda: bc.eps_nn(index, Q[:nq], eps))
         X64 = X.double()
-        band = norm_tol(Q[:nq], X)
+        band = _expanded_tol_19(Q[:nq], X)
         differ = 0
         for s in range(0, nq, 100):
             q64 = Q[s:s + 100].double()
@@ -6652,16 +6684,38 @@ def ball_cover_19(dev, card) -> dict:
         finally:
             bc._dense = dense
         b5 = ss.stream_extract.launches - before
-        fties, ferr, ftol = _bc_check_19("phase 19 (c), far queries", fd, fi,
-                                         X, Qf, k_far)
-        log(f"phase 19 (c): {n_far} queries {height} above the terrain, "
-            f"k={k_far}: {f_s:.3f} s, {calls['dense_rows']} took the dense "
-            f"scan, {b5} B5 launches; against float64 squared distances "
-            f"within {ferr:.3e} (tol {ftol:.3e}), {fties} slots at "
-            f"near-ties [{card}]")
         if calls["dense_rows"] != n_far or b5 < 1:
             raise AssertionError("phase 19 (c): the far queries must all "
                                  "take the dense scan through B5")
+        # 2000 above the cloud, f32 squared distances (~4e6, a step of
+        # 0.25) cannot order rows whose true ones differ by less, so no
+        # float64 kNN can judge the answer. The same index on the CPU
+        # must give it bit for bit (B5's select against the sort's, ties
+        # included), and its distances must be the k smallest of the
+        # same f32 distances over every row.
+        cpu = dataclasses.replace(index, **{
+            f: getattr(index, f).cpu() for f in (
+                "X", "landmarks", "groups", "group_indices", "group_sizes",
+                "radii")})
+        (cd, ci), c_s = _timed(lambda: bc.knn_query(cpu, Qf.cpu(), k_far))
+        if not (torch.equal(fd.cpu(), cd) and torch.equal(fi.cpu(), ci)):
+            raise AssertionError("phase 19 (c): the far queries' answer "
+                                 "differs from the same index's on the CPU")
+        del cpu
+        dense_d = torch.topk(bc._dist(Qf, X, index.metric), k_far, dim=1,
+                             largest=False).values
+        if not torch.equal(fd, torch.sqrt(dense_d)):
+            raise AssertionError("phase 19 (c): the far queries' distances "
+                                 "are not the k smallest f32 ones")
+        own = torch.sqrt(bc._dist_rows(Qf, X[fi.long()], index.metric))
+        if not torch.equal(fd, own):
+            raise AssertionError("phase 19 (c): a far query's id is not at "
+                                 "its distance")
+        log(f"phase 19 (c): {n_far} queries {height} above the terrain, "
+            f"k={k_far}: {f_s:.3f} s, {calls['dense_rows']} took the dense "
+            f"scan, {b5} B5 launches; ids and distances = the same index's "
+            f"on the CPU ({c_s:.3f} s there), distances = the {k_far} "
+            f"smallest f32 ones [{card}]")
         out.update(far_s=f_s, b5=b5)
         del index
 

@@ -18,11 +18,11 @@ edge rule of the reference is kept (0/0 terms of Canberra, Bray-Curtis,
 Jaccard and Dice; ``_safe_log``; none in Cosine and Correlation, whose
 zero rows give NaN there too).
 
-This module owns the port's float32 matrix products (:func:`gram`). The
+This module owns the port's float32 distance products (:func:`gram`). The
 reference computes them at ``Precision.HIGHEST`` (full f32); a TF32 tensor
-core product keeps about 3 decimal digits and would break parity, so TF32
-is switched off for cuBLAS and cuDNN alike (``linalg/blas.py``, imported
-here).
+core product keeps about 3 decimal digits and would break parity, so each
+runs through ``linalg.blas.full_f32_matmul``, which holds full f32 for
+the product whatever TF32 setting the caller made.
 """
 
 from __future__ import annotations
@@ -35,7 +35,8 @@ from raft_tpu_torch.core.error import expects, fail
 from raft_tpu_torch.core.nvtx import traced
 from raft_tpu_torch.core.resources import as_float
 from raft_tpu_torch.distance.distance_types import DistanceType, resolve_metric
-from raft_tpu_torch.linalg.blas import DEFAULT_PRECISION, resolve_precision
+from raft_tpu_torch.linalg.blas import (DEFAULT_PRECISION, full_f32_matmul,
+                                       resolve_precision)
 
 # Element budget of one broadcast (rows, cols, k) block of the unexpanded
 # metrics (64 MB of f32, the reference's budget), and the widest column
@@ -45,8 +46,9 @@ _BLOCK_COLS = 8192
 
 
 def gram(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``x @ y^T`` over the last two axes, in full f32."""
-    return torch.matmul(x, y.transpose(-1, -2))
+    """``x @ y^T`` over the last two axes, in full f32
+    (``linalg.blas.full_f32_matmul``)."""
+    return full_f32_matmul(x, y.transpose(-1, -2))
 
 
 def row_norms_sq(x: torch.Tensor) -> torch.Tensor:
@@ -111,11 +113,13 @@ def _dice(x, y) -> torch.Tensor:
 
 
 def _haversine(x, y) -> torch.Tensor:
-    """Great-circle distance of (lat, lon) radian pairs, unit radius."""
-    expects(x.shape[1] == 2 and y.shape[1] == 2,
+    """Great-circle distance of (lat, lon) radian pairs, unit radius:
+    (..., m, 2) x (..., n, 2) -> (..., m, n), the leading axes
+    broadcast."""
+    expects(x.shape[-1] == 2 and y.shape[-1] == 2,
             "haversine requires 2-d points")
-    lat1, lon1 = x[:, 0][:, None], x[:, 1][:, None]
-    lat2, lon2 = y[:, 0][None, :], y[:, 1][None, :]
+    lat1, lon1 = x[..., 0][..., :, None], x[..., 1][..., :, None]
+    lat2, lon2 = y[..., 0][..., None, :], y[..., 1][..., None, :]
     sin_0 = torch.sin(0.5 * (lat1 - lat2))
     sin_1 = torch.sin(0.5 * (lon1 - lon2))
     rdist = sin_0 * sin_0 + torch.cos(lat1) * torch.cos(lat2) * sin_1 * sin_1

@@ -1,8 +1,11 @@
 """BLAS-level wrappers: gemm / gemv / dot / axpy / transpose.
 
 Port of ``raft_tpu/linalg/blas.py``. Products run through
-``torch.matmul`` (cuBLAS on the card) in full f32: TF32 stays off, as
-``distance/pairwise.py`` sets it for the whole port.
+``torch.matmul`` (cuBLAS on the card) in full f32. This module owns that
+choice for the port: importing it switches TF32 off for the process, and
+:func:`full_f32_matmul`, which these wrappers and
+``distance.pairwise.gram`` compute every product with, holds full f32
+for the product if a caller switched TF32 back on.
 
 ``precision`` takes the reference's names: None, ``"default"``,
 ``"high"`` or ``"highest"`` (:data:`DEFAULT_PRECISION`). The reference
@@ -12,8 +15,8 @@ the port computes at full f32 for each of them and only checks the name.
 
 from __future__ import annotations
 
-import contextlib
-from typing import Iterator, Optional
+import threading
+from typing import Optional
 
 import torch
 
@@ -24,9 +27,13 @@ from raft_tpu_torch.core.mdarray import as_array, torch_dtype
 DEFAULT_PRECISION = "highest"
 PRECISIONS = (None, "default", "high", "highest")
 
-# Full-f32 products (the same switch as distance/pairwise.py).
+# Full-f32 products by default, for the port's products outside
+# full_f32_matmul too.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# Serialises full_f32_matmul's switch and restore of the process-wide
+# setting between threads.
+_PRECISION_LOCK = threading.Lock()
 
 
 def resolve_precision(precision) -> str:
@@ -39,17 +46,24 @@ def resolve_precision(precision) -> str:
     return DEFAULT_PRECISION if precision is None else precision
 
 
-@contextlib.contextmanager
-def full_f32() -> Iterator[None]:
-    """Full-f32 products inside the block, whatever the process has set
-    (a caller may switch TF32 on after this module's import): the
-    float32 matmul precision is "highest" there and restored after."""
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prev)
+def full_f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul(a, b)`` in full f32 whatever the process has set.
+    The precision is a process-wide setting of PyTorch's: when a caller
+    has switched TF32 on, it is set to "highest" for this one product
+    (cuBLAS reads it when the product is issued) and restored, under a
+    lock, so two threads of the port do not undo each other's restore.
+    While it is switched, another thread's products run at full f32
+    too. With TF32 off, as this module's import leaves it, nothing is
+    switched."""
+    if not a.is_cuda or torch.get_float32_matmul_precision() == "highest":
+        return torch.matmul(a, b)
+    with _PRECISION_LOCK:
+        prev = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("highest")
+        try:
+            return torch.matmul(a, b)
+        finally:
+            torch.set_float32_matmul_precision(prev)
 
 
 def _matmul(a, b, precision, preferred_element_type=None):
@@ -57,7 +71,7 @@ def _matmul(a, b, precision, preferred_element_type=None):
     if preferred_element_type is not None:
         dt = torch_dtype(preferred_element_type)
         a, b = a.to(dt), b.to(dt)
-    return torch.matmul(a, b)
+    return full_f32_matmul(a, b)
 
 
 def gemm(a, b, alpha: float = 1.0, beta: float = 0.0,

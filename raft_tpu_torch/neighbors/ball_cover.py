@@ -49,6 +49,7 @@ from raft_tpu_torch.core.mdarray import as_array
 from raft_tpu_torch.core.nvtx import traced
 from raft_tpu_torch.core.resources import DeviceLike
 from raft_tpu_torch.distance.distance_types import DistanceType
+from raft_tpu_torch.distance.pairwise import _haversine
 from raft_tpu_torch.matrix.select_k import select_k
 
 _SUPPORTED = (
@@ -67,17 +68,12 @@ _QUERY_BYTES = 1 << 30
 def _dist_rows(q, db, metric: DistanceType) -> torch.Tensor:
     """Each query of ``q`` (b, d) against the rows ``db`` (b, r, d), or
     the rows (1, r, d) shared by all: (b, r) squared L2 or haversine
-    distances. L2 is the pairwise layer's expanded form |q|^2 + |y|^2 -
-    2 q.y, its sums taken coordinate by coordinate (d <= 3), so each
-    entry is the same whatever the batch it is computed in."""
+    distances. Haversine is the pairwise layer's. L2 is its expanded
+    form |q|^2 + |y|^2 - 2 q.y with the sums taken coordinate by
+    coordinate (d <= 3) in place of its gram product, so each entry is
+    the same whatever the batch it is computed in."""
     if metric == DistanceType.Haversine:
-        lat1, lon1 = q[:, 0][:, None], q[:, 1][:, None]
-        lat2, lon2 = db[..., 0], db[..., 1]
-        sin_0 = torch.sin(0.5 * (lat1 - lat2))
-        sin_1 = torch.sin(0.5 * (lon1 - lon2))
-        rdist = (sin_0 * sin_0
-                 + torch.cos(lat1) * torch.cos(lat2) * sin_1 * sin_1)
-        return 2.0 * torch.arcsin(torch.sqrt(rdist))
+        return _haversine(q[:, None, :], db)[:, 0, :]
     qn = q[:, 0] * q[:, 0]
     yn = db[..., 0] * db[..., 0]
     g = q[:, 0][:, None] * db[..., 0]

@@ -5,11 +5,11 @@ Port of ``raft_tpu/neighbors/epsilon_neighborhood.py`` (RAFT's
 dense boolean adjacency and the vertex degrees, as DBSCAN consumes them.
 
 The squared distances are ``|x|^2 + |y|^2 - 2 x.y`` in full f32, the
-reference's ``Precision.HIGHEST`` (``linalg.blas``'s "highest"): the
-product runs under ``linalg.blas.full_f32``, so a TF32 setting of the
-caller's does not reach it. Rows of x are taken in blocks of ``_BLOCK_ELEMS`` distances, so
-the temporaries stay bounded whatever m x n is; only the (m, n) adjacency
-is full size.
+reference's ``Precision.HIGHEST``: the product is ``linalg.blas.gemm`` at
+"highest", which holds full f32 whatever TF32 setting the caller made.
+Rows of x are taken in blocks of ``_BLOCK_ELEMS`` distances, so the
+temporaries stay bounded whatever m x n is; only the (m, n) adjacency is
+full size.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.mdarray import as_array
 from raft_tpu_torch.core.nvtx import traced
 from raft_tpu_torch.core.resources import DeviceLike
-from raft_tpu_torch.linalg.blas import full_f32
+from raft_tpu_torch.linalg.blas import gemm
 
 # Distances per block of x rows (256 MB of f32).
 _BLOCK_ELEMS = 1 << 26
@@ -50,12 +50,11 @@ def eps_neighbors_l2sq(x, y, eps_sq: float, device: DeviceLike = None
     yn = torch.sum(y * y, dim=1)
     adj = torch.empty((m, n), dtype=torch.bool, device=x.device)
     rows = max(1, _BLOCK_ELEMS // max(n, 1))
-    with full_f32():
-        for s in range(0, m, rows):
-            g = torch.matmul(x[s:s + rows], y.T)
-            d = torch.clamp_min(xn[s:s + rows, None] + yn[None, :] - 2.0 * g,
-                                0.0)
-            torch.lt(d, eps_sq, out=adj[s:s + rows])
+    for s in range(0, m, rows):
+        g = gemm(x[s:s + rows], y, trans_b=True, precision="highest")
+        d = torch.clamp_min(xn[s:s + rows, None] + yn[None, :] - 2.0 * g,
+                            0.0)
+        torch.lt(d, eps_sq, out=adj[s:s + rows])
     deg = torch.sum(adj, dim=1, dtype=torch.int32)
     vd = torch.cat([deg, torch.sum(deg, dim=0, keepdim=True,
                                    dtype=torch.int32)])

@@ -1586,6 +1586,31 @@ def test_eps_neighbors_l2sq_ignores_a_global_tf32_setting(dev, gen):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("product", ["gemm", "gemv", "gram"])
+def test_full_f32_products_ignore_a_global_tf32_setting(dev, gen, product):
+    """Every product of ``linalg.blas`` and ``distance.pairwise.gram`` is
+    the full-f32 one with TF32 switched on for the whole process, and
+    the caller's setting is back afterwards."""
+    from raft_tpu_torch.distance.pairwise import gram
+    from raft_tpu_torch.linalg import blas
+
+    x, y = _on(dev, gen.standard_normal((1000, 256)).astype(np.float32),
+               gen.standard_normal((1500, 256)).astype(np.float32))
+    fn = {"gemm": lambda: blas.gemm(x, y, trans_b=True),
+          "gemv": lambda: blas.gemv(y, x[0]),
+          "gram": lambda: gram(x, y)}[product]
+    want = fn()
+    prev = torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = fn()
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_lap_cuda_graph_equals_the_cpu(dev, gen):
     """The auction's rounds replay as a CUDA graph on the card: the
     assignments equal the CPU's eager rounds bit for bit, batched and

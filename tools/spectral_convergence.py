@@ -6,13 +6,13 @@ by graph size.
 For each n (default 2000 3000 4000 6000 8000) it builds ``chip_smoke``'s
 phase-19 (e) graph at that size: 8 Gaussian blobs in 16 dimensions, the
 symmetrised kNN graph (k=15, unit weights) and seeded unit edges between
-consecutive blobs, their number scaled with the blob size (300 at 2000
+consecutive blobs, their number scaled with the blob size (600 at 4000
 vertices) so the 8 smallest Laplacian eigenvalues keep their spread
 below the 9th. Then it runs ``spectral.partition`` (Lanczos with ncv =
 4k + 32 = 64, no restart, as the reference) and prints, beside the
-float64 spectrum, the largest float64 residual |L u - w u| / ||L|| of
-the 8 Ritz pairs and the ARI against the blobs. Phase 19 holds the
-residuals to 1e-3 ||L||.
+float64 spectrum and the host's seconds for it, the largest float64
+residual |L u - w u| / ||L|| of the 8 Ritz pairs and the ARI against
+the blobs. Phase 19 holds the residuals to 1e-3 ||L||.
 """
 
 import sys
@@ -40,7 +40,9 @@ def main() -> None:
         A, y = cs._spectral_graph_19(dev)
         Ah = cs._host_sparse_19(A)
         Lh = np.diag(np.asarray(Ah.sum(1)).ravel()) - Ah.toarray()
+        t0 = time.perf_counter()
         lam = np.linalg.eigvalsh(Lh)
+        eig_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         labels, w, U = partition(A, blobs)
         secs = time.perf_counter() - t0
@@ -50,7 +52,8 @@ def main() -> None:
         ari = float(adjusted_rand_index(y, labels))
         print(f"n {n}, {cs.SPEC_BRIDGES_19} bridges a pair: 8 smallest "
               f"{np.round(lam[:blobs], 4).tolist()}, the 9th {lam[blobs]:.4f}, "
-              f"||L|| {lam[-1]:.2f}; partition {secs:.3f} s, largest "
+              f"||L|| {lam[-1]:.2f} (host eigvalsh {eig_s:.2f} s); "
+              f"partition {secs:.3f} s, largest "
               f"residual {resid:.3e} ||L||, ARI {ari:.6f} [{dev}]",
               flush=True)
     cs.SPEC_19, cs.SPEC_BRIDGES_19 = (rows0, dim, blobs, k), bridges0
