@@ -347,11 +347,35 @@ no result line):
     float64); (f) every ``spatial.knn`` alias the port's object, its
     ``brute_force_knn`` of 1000 queries = phase 4's but for exact-tie
     order; the phase's seconds and peak device memory;
-20. a ``kernels`` line, the card line, and the result line.
+20. the facades (after phase 19, while phase 4's index is as phase 4
+    built it), counters set to 0 before each step and read after it,
+    through ``pylibraft_torch`` and ``raft_dask_torch`` calls alone: (a)
+    ``brute_force.knn`` of phase 4's queries (B1; ids and distances =
+    phase 4's bit for bit) and of 1000 numpy queries with no handle, which
+    land on the card; (b) ``ivf_flat.build`` with 1024 lists (B1) and
+    ``search`` with 32 probes (B2, recall@10 >= 0.995), and phase 4's
+    index wrapped as ``ivf_flat.Index`` answering as phase 4 did, bit for
+    bit; (c) ``ivf_pq.build`` (pq_dim 64, pq_bits 8; B1), the compressed
+    search with 32 probes (B4, recall@10 >= 0.80) and ``refine`` of its
+    100 candidates a query to k=10 (at least the search's recall); (d)
+    ``kmeans.fit`` from ``InitMethod.Array`` at 1M x 128 x 1000 blobs
+    (B1; ARI >= 0.999 against the blobs and against the port's own fit,
+    inertia and ``cluster_cost`` within 1e-5 of float64),
+    ``fused_l2_nn_argmin`` (B1; 100,000 rows against float64 but at
+    near-ties), ``pairwise_distance`` on five metrics at 1000 x 1000 from
+    numpy (within phase 11's bar of float64) and ``rmat`` of 1M edges into
+    a ``device_ndarray`` on the card (each level's quadrant shares within
+    6 standard errors of theta); (e) ``save`` / ``load`` of (b) and (c),
+    the loaded indexes searching bit for bit as the saved ones; (f) a
+    ``raft_dask_torch.Comms`` session that starts a NCCL world of one from
+    its coordinator address, and one over phase 12's 4 gloo ranks: the
+    seven self-tests True on every rank; the phase's seconds, launches and
+    peak device memory;
+21. a ``kernels`` line, the card line, and the result line.
 
 The data is made with numpy from a fixed seed: 1000 Gaussian blobs
 (centers uniform in [-10, 10], sigma 5), queries = database rows + N(0, 1).
-The script imports neither JAX nor raft_tpu.
+The script imports none of JAX, raft_tpu, pylibraft and raft_dask.
 """
 
 from __future__ import annotations
@@ -560,6 +584,25 @@ SPEC_BRIDGES_19 = 600     # unit edges joining consecutive blobs
 SPEC_RESID_19 = 1e-3      # float64 residuals, of ||L||
 MOD_19 = (4096, 8, 0.05, 0.002)  # planted partition: n, blocks, p_in, p_out
 ARI_19 = 0.999
+
+# Phase 20: the pylibraft and raft_dask facades over the port
+# (pylibraft_torch, raft_dask_torch), at the main path's shapes.
+N_NUMPY_20 = 1000         # numpy queries of (a)'s second call
+PQ_DIM_20, PQ_BITS_20 = 64, 8
+N_CAND_20 = 100           # IVF-PQ candidates a query, refined to K
+N_CHECK_20 = 100_000      # rows of (d)'s arg-min held to float64
+N_PAIRWISE_20 = 1000
+PAIRWISE_20 = ("euclidean", "sqeuclidean", "cityblock", "cosine",
+               "inner_product")
+RMAT_SCALE_20 = 20        # rmat: 2^20 x 2^20 ...
+RMAT_EDGES_20 = 1_000_000  # ... with 1M edges
+DASK_SELF_TESTS_20 = ("perform_test_comms_allreduce",
+                      "perform_test_comms_allgather",
+                      "perform_test_comms_bcast",
+                      "perform_test_comms_reduce",
+                      "perform_test_comms_reducescatter",
+                      "perform_test_comms_send_recv",
+                      "perform_test_comm_split")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FP32 = 67e12
@@ -3075,8 +3118,9 @@ def _sharded_rank(rank, data_dir, init, cfg, results) -> None:
         p14 = _rank_work_ops(rank, data_dir, cfg)
         if cfg["device"].startswith("cuda"):
             torch.cuda.empty_cache()
-        results.put((rank, {"p12": p12, "p13": p13, "p14": p14,
-                            "p15": _rank_work_durable(rank, data_dir, cfg)}))
+        p15 = _rank_work_durable(rank, data_dir, cfg)
+        results.put((rank, {"p12": p12, "p13": p13, "p14": p14, "p15": p15,
+                            "p20": _rank_work_dask(rank, data_dir, cfg)}))
     except Exception:
         results.put((rank, {"error": traceback.format_exc()}))
     finally:
@@ -3086,7 +3130,7 @@ def _sharded_rank(rank, data_dir, init, cfg, results) -> None:
 
 def spawn_ranks(dev, X, Q, centers, model, stream):
     """The 4-rank gloo world on the one card, which runs phases 12 (b),
-    13 (b), 14 (b) and 15 (b) in turn: X, Q, phase 4's centers, phase 6's
+    13 (b), 14 (b), 15 (b) and 20 (f) in turn: X, Q, phase 4's centers, phase 6's
     IVF-PQ model and the request stream of phases 14 and 15 go to a
     temporary directory once.
     Returns each rank's results and the wall seconds with the spawn. A
@@ -7039,6 +7083,350 @@ def slice19_phase(dev, X, Q, bf, card) -> dict:
             "spectral": e}
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the pylibraft and raft_dask facades over the port
+
+
+def _facade_step(what, fn, steps, secs):
+    """One step of phase 20: the counters set to 0 just before it and read
+    just after; its launches and seconds kept under ``what``."""
+    import torch
+
+    _zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs[what] = time.perf_counter() - t0
+    steps[what] = _launches()
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def facade_neighbors_20(dev, X, Q, bf, iv, flat4, card, steps, secs):
+    """Phase 20 (a)-(c) and (e): brute force, IVF-Flat and IVF-PQ through
+    ``pylibraft_torch.neighbors`` on the card, and their save / load."""
+    import tempfile
+
+    import torch
+
+    from pylibraft_torch.common import DeviceResources
+    from pylibraft_torch.neighbors import brute_force, ivf_flat, ivf_pq
+    from pylibraft_torch.neighbors import refine
+
+    handle = DeviceResources()
+    # (a) brute force: phase 4's ids bit for bit; numpy queries with no
+    # handle land on the card.
+    d, i = _facade_step("a_knn", lambda: brute_force.knn(X, Q, k=K,
+                                                          handle=handle),
+                        steps, secs)
+    if not (torch.equal(i.array, bf[1]) and torch.equal(d.array, bf[0])):
+        raise AssertionError("phase 20 (a): brute_force.knn != phase 4's "
+                             "answer")
+    Qh = Q[:N_NUMPY_20].cpu().numpy()
+    d2, i2 = _facade_step("a_numpy", lambda: brute_force.knn(X, Qh, k=K),
+                          steps, secs)
+    if not (i2.array.is_cuda and d2.array.is_cuda):
+        raise AssertionError("phase 20 (a): numpy queries did not land on "
+                             "the card")
+    rows_a = same_up_to_exact_ties("phase 20 (a), numpy queries", d2.array,
+                                   i2.array, bf[0][:N_NUMPY_20],
+                                   bf[1][:N_NUMPY_20])
+    log(f"phase 20 (a): pylibraft_torch brute_force.knn {N_QUERIES} x "
+        f"{N_ROWS} x {DIM}, k={K}: {secs['a_knn']:.3f} s, ids and distances "
+        f"= phase 4's bit for bit; {N_NUMPY_20} numpy queries with no "
+        f"handle on {i2.array.device} in {secs['a_numpy']:.3f} s = phase "
+        f"4's ({rows_a} rows differ only in exact-tie order) [{card}]")
+
+    # (b) IVF-Flat: build (B1), search (B2); phase 4's index wrapped.
+    index = _facade_step("b_build", lambda: ivf_flat.build(
+        ivf_flat.IndexParams(n_lists=N_LISTS), X, handle=handle),
+        steps, secs)
+    sp = ivf_flat.SearchParams(n_probes=N_PROBES)
+    fd, fi = _facade_step("b_search", lambda: ivf_flat.search(
+        sp, index, Q, K, handle=handle), steps, secs)
+    rec_flat = recall(fi.array, bf[1])
+    wrapped = ivf_flat.Index(flat4)
+    wd, wi = _facade_step("b_wrapped", lambda: ivf_flat.search(
+        sp, wrapped, Q, K, handle=handle), steps, secs)
+    log(f"phase 20 (b): ivf_flat.build {secs['b_build']:.3f} s "
+        f"({index!r}), search {secs['b_search']:.3f} s, recall@{K} "
+        f"{rec_flat:.6f} (bar {RECALL_IVF}); phase 4's index as "
+        f"ivf_flat.Index: {secs['b_wrapped']:.3f} s, bit for bit "
+        f"{torch.equal(wd.array, iv[0]) and torch.equal(wi.array, iv[1])}"
+        f" [{card}]")
+    if rec_flat < RECALL_IVF:
+        raise AssertionError(f"phase 20 (b): recall {rec_flat}")
+    if not (torch.equal(wd.array, iv[0]) and torch.equal(wi.array, iv[1])):
+        raise AssertionError("phase 20 (b): phase 4's index wrapped does not "
+                             "answer as phase 4 did")
+
+    # (c) IVF-PQ: build (B1), compressed search (B4), refine.
+    pq_index = _facade_step("c_build", lambda: ivf_pq.build(
+        ivf_pq.IndexParams(n_lists=N_LISTS, pq_dim=PQ_DIM_20,
+                           pq_bits=PQ_BITS_20), X, handle=handle),
+        steps, secs)
+    psp = ivf_pq.SearchParams(n_probes=N_PROBES)
+    pd, pi = _facade_step("c_search", lambda: ivf_pq.search(
+        psp, pq_index, Q, K, handle=handle), steps, secs)
+    rec_pq = recall(pi.array, bf[1])
+    _, cand = _facade_step("c_candidates", lambda: ivf_pq.search(
+        psp, pq_index, Q, N_CAND_20, handle=handle), steps, secs)
+    rd, ri = _facade_step("c_refine", lambda: refine(
+        X, Q, cand, k=K, handle=handle), steps, secs)
+    rec_ref = recall(ri.array, bf[1])
+    log(f"phase 20 (c): ivf_pq.build {secs['c_build']:.3f} s ({pq_index!r})"
+        f", compressed search {secs['c_search']:.3f} s, recall@{K} "
+        f"{rec_pq:.6f} (bar {RECALL_PQ}); refine of {N_CAND_20} candidates "
+        f"a query {secs['c_refine']:.3f} s, recall@{K} {rec_ref:.6f} (bar: "
+        f"the search's) [{card}]")
+    for name, t in (("search", pd.array), ("refine", rd.array)):
+        if not bool(torch.isfinite(t).all()) or t.shape != (N_QUERIES, K):
+            raise AssertionError(f"phase 20 (c): {name} distances")
+    if rec_pq < RECALL_PQ or rec_ref < rec_pq:
+        raise AssertionError(f"phase 20 (c): recall {rec_pq}, refined "
+                             f"{rec_ref}")
+
+    # (e) save / load through a temporary directory.
+    def save_load(mod, idx, params, name, tmp):
+        mod.save(f"{tmp}/{name}", idx)
+        loaded = mod.load(f"{tmp}/{name}", handle=handle)
+        a = mod.search(params, idx, Q, K, handle=handle)
+        b = mod.search(params, loaded, Q, K, handle=handle)
+        same = all(torch.equal(x.array, y.array) for x, y in zip(a, b))
+        if not same or loaded.size != idx.size:
+            raise AssertionError(f"phase 20 (e): the loaded {name} index "
+                                 f"does not search as the saved one")
+        return loaded
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _facade_step("e_flat", lambda: save_load(ivf_flat, index, sp,
+                                                 "ivf_flat", tmp), steps,
+                     secs)
+        _facade_step("e_pq", lambda: save_load(ivf_pq, pq_index, psp,
+                                               "ivf_pq", tmp), steps, secs)
+    log(f"phase 20 (e): save / load / search of both: IVF-Flat "
+        f"{secs['e_flat']:.3f} s, IVF-PQ {secs['e_pq']:.3f} s; the loaded "
+        f"indexes search bit for bit as the saved ones [{card}]")
+
+
+def facade_kmeans_20(dev, card, steps, secs):
+    """Phase 20 (d): k-means, the fused arg-min, the cluster cost,
+    pairwise distances and R-MAT through ``pylibraft_torch``."""
+    import torch
+
+    from pylibraft_torch.cluster import kmeans
+    from pylibraft_torch.common import DeviceResources, device_ndarray
+    from pylibraft_torch.distance import (DISTANCE_TYPES,
+                                          fused_l2_nn_argmin,
+                                          pairwise_distance)
+    from pylibraft_torch.random import rmat
+    from raft_tpu_torch import random as rnd
+    from raft_tpu_torch.cluster import InitMethod as PortInit
+    from raft_tpu_torch.cluster import KMeansParams as PortParams
+    from raft_tpu_torch.cluster import kmeans as port_kmeans
+    from raft_tpu_torch.random import RngState
+
+    handle = DeviceResources()
+    centers = rnd.uniform(RngState(SEED + 200), (N_CLUSTERS_17, DIM), -10.0,
+                          10.0, device=dev)
+    Xb, truth = rnd.make_blobs(N_ROWS, DIM, centers=centers,
+                               cluster_std=BLOB_STD_17, seed=SEED + 20,
+                               device=dev)
+    params = kmeans.KMeansParams(n_clusters=N_CLUSTERS_17,
+                                 init=kmeans.InitMethod.Array,
+                                 max_iter=MAX_ITER_17)
+    C, inertia, it = _facade_step("d_fit", lambda: kmeans.fit(
+        params, Xb, centroids=centers, handle=handle), steps, secs)
+    Cp, inertia_p, it_p = port_kmeans.fit(
+        PortParams(n_clusters=N_CLUSTERS_17, init=PortInit.Array,
+                   max_iter=MAX_ITER_17), Xb, centroids_init=centers)
+    labels = _facade_step("d_argmin", lambda: fused_l2_nn_argmin(
+        Xb, C, handle=handle), steps, secs).array
+    labels_p = fused_l2_nn_argmin(Xb, Cp, handle=handle).array
+    cost = _facade_step("d_cost", lambda: kmeans.cluster_cost(
+        Xb, C, handle=handle), steps, secs)
+    C64 = C.array.double()
+    ref = 0.0
+    for s in range(0, N_ROWS, 100_000):
+        ref += float(torch.sum((Xb[s:s + 100_000].double()
+                                - C64[labels[s:s + 100_000].long()]) ** 2))
+    ari = _ari_19(truth, labels)
+    ari_p = _ari_19(labels_p, labels)
+    errs = {"inertia": abs(inertia - ref) / ref,
+            "cluster_cost": abs(cost - ref) / ref,
+            "port inertia": abs(inertia - float(inertia_p)) / ref}
+    # The arg-min against float64 on N_CHECK_20 rows: a row may differ only
+    # at a near-tie (its f32 pick within norm_tol of the best in float64).
+    xs = Xb[:N_CHECK_20]
+    d64 = torch.cdist(xs.double(), C64) ** 2
+    best = torch.argmin(d64, dim=1)
+    gap = d64.gather(1, labels[:N_CHECK_20].long()[:, None])[:, 0] \
+        - d64.gather(1, best[:, None])[:, 0]
+    tol = norm_tol(xs, C.array)
+    n_diff = int((best != labels[:N_CHECK_20].long()).sum())
+    log(f"phase 20 (d): kmeans.fit {N_ROWS} x {DIM} x {N_CLUSTERS_17} from "
+        f"InitMethod.Array {secs['d_fit']:.3f} s, {it} iterations (port "
+        f"fit {it_p}); ARI against the blobs {ari:.6f}, against the port's "
+        f"fit {ari_p:.6f} (bar {ARI_17}); inertia, cluster_cost and the "
+        f"port's inertia off float64 by "
+        + ", ".join(f"{v:.3e}" for v in errs.values())
+        + f" (bar {INERTIA_RTOL_17}); fused_l2_nn_argmin "
+        f"{secs['d_argmin']:.3f} s: {n_diff} of {N_CHECK_20} rows off the "
+        f"float64 arg-min, largest gap {float(gap.max()):.3e} (tol "
+        f"{tol:.3e}) [{card}]")
+    if (min(ari, ari_p) < ARI_17 or max(errs.values()) > INERTIA_RTOL_17
+            or float(gap.max()) > tol):
+        raise AssertionError("phase 20 (d): k-means off its bars")
+    del Xb, truth, d64
+
+    rng = np.random.default_rng(SEED + 20)
+    gx = rng.standard_normal((N_PAIRWISE_20, DIM)).astype(np.float32)
+    gy = rng.standard_normal((N_PAIRWISE_20, DIM)).astype(np.float32)
+    worst = {}
+    for metric in PAIRWISE_20:
+        got = _facade_step(f"d_pairwise_{metric}", lambda: pairwise_distance(
+            gx, gy, metric=metric, handle=handle), steps, secs)
+        if not got.array.is_cuda:
+            raise AssertionError("phase 20 (d): numpy operands did not land "
+                                 "on the card")
+        want = _np_f64(gx, gy, DISTANCE_TYPES[metric], 2.0)
+        host = got.copy_to_host()
+        scale = max(1.0, float(np.max(np.abs(want))))
+        worst[metric] = float(np.max(np.abs(host - want))) / scale
+        if not np.isfinite(host).all() or worst[metric] > METRIC_RTOL:
+            raise AssertionError(f"phase 20 (d): pairwise {metric} off "
+                                 f"float64 by {worst[metric]:.3e}")
+    log(f"phase 20 (d): pairwise_distance {N_PAIRWISE_20} x {N_PAIRWISE_20} "
+        f"from numpy, relative error against float64 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" (bar {METRIC_RTOL}) [{card}]")
+
+    out = device_ndarray.empty((RMAT_EDGES_20, 2), dtype=np.int32)
+    theta = np.asarray(RMAT_THETA_17, np.float32)
+    edges = _facade_step("d_rmat", lambda: rmat(
+        out, theta, RMAT_SCALE_20, RMAT_SCALE_20, seed=SEED + 20,
+        handle=handle), steps, secs)
+    e = edges.array
+    th = theta / theta.sum()
+    se = np.sqrt(th * (1 - th) / RMAT_EDGES_20)
+    s64, d64 = e[:, 0].long(), e[:, 1].long()
+    worst_z = 0.0
+    for lvl in range(RMAT_SCALE_20):
+        sh = RMAT_SCALE_20 - 1 - lvl
+        quad = (((s64 >> sh) & 1) << 1) | ((d64 >> sh) & 1)
+        f = torch.bincount(quad, minlength=4).double().cpu().numpy()
+        worst_z = max(worst_z, float(np.max(np.abs(f / RMAT_EDGES_20 - th)
+                                                / se)))
+    in_range = bool(e.min() >= 0) and bool(e.max() < 1 << RMAT_SCALE_20)
+    log(f"phase 20 (d): rmat {RMAT_EDGES_20} edges at 2^{RMAT_SCALE_20} x "
+        f"2^{RMAT_SCALE_20} into a device_ndarray on {e.device} in "
+        f"{secs['d_rmat']:.3f} s: ids in range {in_range}, max |z| of the "
+        f"levels' quadrant shares {worst_z:.2f} (bar {SE_17}) [{card}]")
+    if edges is not out or not e.is_cuda or not in_range or worst_z > SE_17:
+        raise AssertionError("phase 20 (d): rmat off its law")
+
+
+def facade_session_20(card, secs) -> None:
+    """Phase 20 (f), in this process: a ``raft_dask_torch.Comms`` session
+    that starts a NCCL world of one from its coordinator address; the
+    seven self-tests must pass, and ``destroy`` ends the world."""
+    import torch.distributed as dist
+
+    import raft_dask_torch.common as rdt
+
+    t0 = time.perf_counter()
+    with rdt.Comms(coordinator_address=f"localhost:{_free_port()}",
+                   num_processes=1, process_id=0) as c:
+        handle = rdt.local_handle(c.sessionId)
+        backend = handle.get_comms().mesh.backend
+        got = {name: getattr(rdt, name)(handle)
+               for name in DASK_SELF_TESTS_20}
+    secs["f_session"] = time.perf_counter() - t0
+    log(f"phase 20 (f): raft_dask_torch session over a {backend} world of "
+        f"one: {sum(got.values())} of {len(got)} self-tests True, ended "
+        f"{not dist.is_initialized()}, {secs['f_session']:.3f} s [{card}]")
+    if backend != "nccl" or not all(got.values()) or dist.is_initialized():
+        raise AssertionError(f"phase 20 (f): world of one {backend} {got}")
+
+
+def facade_phase(dev, X, Q, bf, iv, flat4, card) -> dict:
+    """Phase 20 (a)-(e) and (f)'s world of one: the facades on the card.
+    Returns its launches, seconds and peak device memory; (f)'s four
+    ranks run in the spawned world (:func:`_rank_work_dask`)."""
+    import torch
+
+    steps, secs = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    facade_neighbors_20(dev, X, Q, bf, iv, flat4, card, steps, secs)
+    torch.cuda.empty_cache()
+    facade_kmeans_20(dev, card, steps, secs)
+    torch.cuda.empty_cache()
+    facade_session_20(card, secs)
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: sum(st[k] for st in steps.values())
+                for k in next(iter(steps.values()))}
+    need = {"a_knn": "fused_knn", "b_build": "fused_knn",
+            "b_search": "fused_cells_knn", "c_build": "fused_knn",
+            "c_search": "pq_fused_scan", "d_fit": "fused_knn",
+            "d_argmin": "fused_knn"}
+    missing = [f"{st}: {k}" for st, k in need.items() if steps[st][k] < 1]
+    if missing or launches["fused_batch_knn"] or launches["stream_extract"]:
+        raise AssertionError(f"phase 20: B1 / B2 / B4 must launch where the "
+                             f"path runs them and nothing else ({missing}; "
+                             f"{launches})")
+    per_step = []
+    for k, v in secs.items():
+        fired = {n: c for n, c in steps.get(k, {}).items() if c}
+        per_step.append(f"{k} {v:.3f} s {fired}" if fired
+                        else f"{k} {v:.3f} s")
+    log(f"phase 20, this process: {total:.3f} s, peak device memory "
+        f"{peak:.2f} GiB, launches {launches}; per step: "
+        + ", ".join(per_step) + f" [{card}]")
+    return {"launches": launches, "seconds": total, "peak_gib": peak}
+
+
+def _rank_work_dask(rank, data_dir, cfg):
+    """Phase 20 (f) on one of the 4 gloo ranks: a ``raft_dask_torch``
+    session over the world and its seven self-tests."""
+    import raft_dask_torch.common as rdt
+
+    t0 = time.perf_counter()
+    with rdt.Comms(device=cfg["device"]) as c:
+        handle = rdt.local_handle(c.sessionId)
+        got = {name: getattr(rdt, name)(handle)
+               for name in DASK_SELF_TESTS_20}
+        info = c.worker_info()
+    return {"self_tests": got, "workers": sorted(info),
+            "wall_s": time.perf_counter() - t0}
+
+
+def dask_ranks_20(got, card) -> float:
+    """Phase 20 (f), the 4 ranks' side: every rank ran the seven
+    self-tests True in a session of 4 workers. Returns the slowest rank's
+    seconds."""
+    bad = {r: res["p20"] for r, res in got.items()
+           if not all(res["p20"]["self_tests"].values())
+           or res["p20"]["workers"] != list(range(N_RANKS))}
+    wall = max(res["p20"]["wall_s"] for res in got.values())
+    log(f"phase 20 (f), 4 gloo ranks on the card: raft_dask_torch session of "
+        f"{N_RANKS} workers, the {len(DASK_SELF_TESTS_20)} self-tests True "
+        f"on every rank {not bad}, {wall:.3f} s (the slowest rank) [{card}]")
+    if bad:
+        raise AssertionError(f"phase 20 (f): ranks {bad}")
+    return wall
+
+
 def kmeans_labels(centers, X):
     """Each row's nearest center (the lists of an IVF-Flat build)."""
     from raft_tpu_torch.cluster import kmeans_balanced
@@ -7051,8 +7439,9 @@ def kmeans_labels(centers, X):
 def sharded_phase(dev, X, Q, mp_out, pq_out, card):
     """Phases 12 to 15: sharding and durability, with the counters set to
     0 before each step and read after it; one spawned world of 4 ranks
-    runs the four phases' (b) steps. Returns the launches of each
-    phase."""
+    runs the four phases' (b) steps and phase 20 (f). Returns the
+    launches of each phase and the seconds of phase 20 (f) on the
+    ranks."""
     t0 = time.perf_counter()
     a12 = sharded_world_of_one(dev, X, Q, mp_out["bf"], mp_out["iv"],
                                mp_out["centers"], card)
@@ -7073,6 +7462,7 @@ def sharded_phase(dev, X, Q, mp_out, pq_out, card):
     b13 = routed_ranks(dev, X, Q, mp_out, pq_out, got, card)
     b14 = ops_ranks(dev, X, Q, got, stream, card)
     b15 = durable_ranks(dev, got, card)
+    dask_s = dask_ranks_20(got, card)
     p12 = {k: a12[k] + b12[k] for k in a12}
     p13 = {k: a13[k] + b13[k] for k in a13}
     p14 = {k: a14[k] + b14[k] for k in a14}
@@ -7091,7 +7481,7 @@ def sharded_phase(dev, X, Q, mp_out, pq_out, card):
         f"4 ranks {ranks15:.3f} s, the slowest rank), launches {p15} "
         f"(world of one {a15}, 4 ranks {b15}); phases 12-15 "
         f"{time.perf_counter() - t0:.3f} s")
-    return p12, p13, p14, p15
+    return p12, p13, p14, p15, dask_s
 
 
 def main() -> int:
@@ -7145,6 +7535,8 @@ def main() -> int:
     p18 = slice18_phase(dev, X, card)
     p19 = slice19_phase(dev, X, Q, mp["bf"], card)
     b5["launches"] += p19["launches"]["stream_extract"]
+    # Phase 20 runs while phase 4's index is as phase 4 built it.
+    p20 = facade_phase(dev, X, Q, mp["bf"], mp["iv"], mp["index"], card)
     # Phase 6 left IVF-PQ's reconstruction cache in place, which routes
     # search to the recon tier; the serve and lifecycle phases search the
     # compressed tier (B4), as the main path does.
@@ -7156,7 +7548,11 @@ def main() -> int:
     sm, flat_served = serve_mutations(dev, Q, compacted["ivf_flat"], card)
     sf = surface_phase(dev, X, Q, mp["bf"], mp["index"], flat_served,
                        compacted["ivf_pq"], pq["recall"], card)
-    sh, rt, ops, du = sharded_phase(dev, X, Q, mp, pq, card)
+    sh, rt, ops, du, dask_s = sharded_phase(dev, X, Q, mp, pq, card)
+    log(f"phase 20: {p20['seconds'] + dask_s:.3f} s (this process "
+        f"{p20['seconds']:.3f} s, the 4 ranks' sessions {dask_s:.3f} s), "
+        f"launches {p20['launches']}, peak device memory "
+        f"{p20['peak_gib']:.2f} GiB [{card}]")
 
     kernels = [
         dict(name="fused_knn", route="cuda",
@@ -7168,7 +7564,8 @@ def main() -> int:
              + sh["fused_knn"] + rt["fused_knn"] + ops["fused_knn"]
              + du["fused_knn"] + br["fused_knn"]
              + p17["launches"]["fused_knn"] + p18["launches"]["fused_knn"]
-             + p19["launches"]["fused_knn"], **b1),
+             + p19["launches"]["fused_knn"]
+             + p20["launches"]["fused_knn"], **b1),
         dict(name="fused_cells_knn", route="cuda",
              source="raft_tpu_torch/csrc/cells_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:426",
@@ -7177,7 +7574,8 @@ def main() -> int:
              + sm["fused_cells_knn"] + sf["fused_cells_knn"]
              + sh["fused_cells_knn"] + rt["fused_cells_knn"]
              + ops["fused_cells_knn"]
-             + du["fused_cells_knn"] + br["fused_cells_knn"], **b2),
+             + du["fused_cells_knn"] + br["fused_cells_knn"]
+             + p20["launches"]["fused_cells_knn"], **b2),
         dict(name="fused_batch_knn", route="cuda",
              source="raft_tpu_torch/csrc/batch_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:277",
@@ -7194,7 +7592,8 @@ def main() -> int:
              + lc["pq_fused_scan"] + sm["pq_fused_scan"]
              + sf["pq_fused_scan"] + sh["pq_fused_scan"]
              + rt["pq_fused_scan"] + ops["pq_fused_scan"]
-             + du["pq_fused_scan"] + br["pq_fused_scan"], **b4),
+             + du["pq_fused_scan"] + br["pq_fused_scan"]
+             + p20["launches"]["pq_fused_scan"], **b4),
         dict(name="stream_extract", route="cuda",
              source="raft_tpu_torch/csrc/stream_select.cu",
              replaces="raft_tpu/matrix/select_k.py:218", **b5),

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of raft_tpu_torch, and not
-chip_smoke.py, imports jax or raft_tpu; entry points default to the card
-and raise without one; kernel wrappers raise rather than fall back."""
+"""The port stands alone: no module of raft_tpu_torch or of its facades
+(pylibraft_torch, raft_dask_torch), and not chip_smoke.py, imports jax,
+raft_tpu, pylibraft or raft_dask; entry points default to the card and
+raise without one; kernel wrappers raise rather than fall back."""
 
 import importlib
 import os
@@ -13,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import pylibraft_torch
+import raft_dask_torch
 import raft_tpu_torch
 from raft_tpu_torch.core.error import CudaError
 from raft_tpu_torch.core.resources import Resources, as_tensor, resolve_device
@@ -25,9 +28,13 @@ fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 
 ROOT = Path(__file__).resolve().parents[1]
 
+_PACKAGES = (raft_tpu_torch, pylibraft_torch, raft_dask_torch)
 _MODULES = sorted(
-    m.name for m in pkgutil.walk_packages(raft_tpu_torch.__path__,
-                                          prefix="raft_tpu_torch."))
+    m.name for pkg in _PACKAGES
+    for m in pkgutil.walk_packages(pkg.__path__, prefix=pkg.__name__ + "."))
+# Top-level packages no module of the port may import (compared whole:
+# pylibraft_torch starts with pylibraft).
+_FORBIDDEN = ("jax", "raft_tpu", "pylibraft", "raft_dask")
 
 
 def test_module_list_covers_the_slice():
@@ -67,18 +74,33 @@ def test_module_list_covers_the_slice():
         assert f"raft_tpu_torch.{name}" in _MODULES
 
 
+def test_module_list_covers_the_facades():
+    for name in ("common", "common.ai_wrapper", "common.cuda",
+                 "common.device_ndarray", "common.handle",
+                 "common.input_validation", "common.interruptible",
+                 "common.outputs", "distance", "distance.pairwise_distance",
+                 "distance.fused_l2_nn", "neighbors", "neighbors.common",
+                 "neighbors.brute_force", "neighbors.ivf_flat",
+                 "neighbors.ivf_pq", "neighbors.refine", "cluster",
+                 "cluster.kmeans", "random",
+                 "random.rmat_rectangular_generator"):
+        assert f"pylibraft_torch.{name}" in _MODULES
+    for name in ("common", "common.comms", "common.comms_utils"):
+        assert f"raft_dask_torch.{name}" in _MODULES
+
+
 def test_no_module_imports_jax_or_raft_tpu():
     """Import every module (and chip_smoke) in a fresh interpreter where
-    ``import jax`` and ``import raft_tpu`` fail."""
+    ``import jax``, ``import raft_tpu``, ``import pylibraft`` and ``import
+    raft_dask`` fail."""
     code = "\n".join([
         "import importlib, sys",
-        "sys.modules['jax'] = None",
-        "sys.modules['raft_tpu'] = None",
+        f"for top in {_FORBIDDEN!r}:",
+        "    sys.modules[top] = None",
         f"for name in {_MODULES!r}:",
         "    importlib.import_module(name)",
         "import chip_smoke",
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'raft_tpu' or m.startswith('raft_tpu.')]",
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {_FORBIDDEN!r}]",
         "assert all(sys.modules[m] is None for m in bad), bad",
         "print('ok', len(sys.modules))",
     ])
@@ -91,12 +113,17 @@ def test_no_module_imports_jax_or_raft_tpu():
 def test_each_package_imports_first():
     """Every package of the port imports in a fresh module table whatever
     was imported before it (the package exports leave no import cycle)."""
-    packages = sorted(m.name for m in pkgutil.walk_packages(
-        raft_tpu_torch.__path__, prefix="raft_tpu_torch.") if m.ispkg)
+    packages = sorted(m.name for pkg in _PACKAGES
+                      for m in pkgutil.walk_packages(
+                          pkg.__path__, prefix=pkg.__name__ + ".")
+                      if m.ispkg)
+    packages += [pkg.__name__ for pkg in _PACKAGES[1:]]
     code = "\n".join([
         "import importlib, sys",
         f"for name in {packages!r}:",
-        "    for mod in [m for m in sys.modules if m.startswith('raft_tpu_')]:",
+        "    for mod in [m for m in sys.modules if m.split('.')[0] in",
+        "                ('raft_tpu_torch', 'pylibraft_torch',",
+        "                 'raft_dask_torch')]:",
         "        del sys.modules[mod]",
         "    importlib.import_module(name)",
         "print('ok')",

@@ -7,6 +7,10 @@ are listed below with that slice's letter, and the test asserts that they
 are still missing, so a slice that ports one must move it out of the list.
 The port's ``__all__`` holds the reference's less its pending names (the
 port's own additions, such as its mesh, may stand beside them).
+
+The facades ``pylibraft`` and ``raft_dask`` have theirs in
+``pylibraft_torch`` and ``raft_dask_torch``: module for module, with the
+reference's ``__all__`` in each package.
 """
 
 import importlib
@@ -14,6 +18,8 @@ import pkgutil
 
 import pytest
 
+import pylibraft
+import raft_dask
 import raft_tpu
 
 # Packages of raft_tpu with no counterpart yet, by slice (none left).
@@ -34,7 +40,9 @@ NOT_PORTED = {"raft_tpu.util.pallas_compat", "raft_tpu.util.shard_map_compat"}
 # the port builds its copy under build/ instead.
 BUILT_LIBRARIES = {"raft_tpu._native.libraft_tpu_host"}
 
-SLICES = set("j")
+# Every slice of ROADMAP A.6 is ported (j, the facades, last), so no
+# pending entry may name one.
+SLICES = set()
 
 _REF_MODULES = sorted(m.name for m in pkgutil.walk_packages(
     raft_tpu.__path__, prefix="raft_tpu."))
@@ -43,8 +51,19 @@ _REF_PACKAGES = ["raft_tpu"] + sorted(
                                           prefix="raft_tpu.") if m.ispkg)
 
 
+_FACADES = (pylibraft, raft_dask)
+_FACADE_MODULES = sorted(
+    m.name for pkg in _FACADES
+    for m in pkgutil.walk_packages(pkg.__path__, prefix=pkg.__name__ + "."))
+_FACADE_PACKAGES = [pkg.__name__ for pkg in _FACADES] + sorted(
+    m.name for pkg in _FACADES
+    for m in pkgutil.walk_packages(pkg.__path__, prefix=pkg.__name__ + ".")
+    if m.ispkg)
+
+
 def _port_name(ref: str) -> str:
-    return "raft_tpu_torch" + ref[len("raft_tpu"):]
+    top, _, rest = ref.partition(".")
+    return top + "_torch" + ("." + rest if rest else "")
 
 
 def _import(name):
@@ -107,3 +126,29 @@ def test_package_all_resolves_in_the_port(ref_name):
             callable(ref_obj) and callable(obj)), name
     # The port may export more (its own mesh, for one), never less.
     assert set(names) - set(pending) <= set(getattr(port, "__all__", []))
+
+
+def test_facade_walk_finds_both_facades():
+    assert len(_FACADE_MODULES) == 24
+    assert {"pylibraft.neighbors.ivf_pq", "raft_dask.common.comms_utils"} \
+        <= set(_FACADE_MODULES)
+
+
+@pytest.mark.parametrize("ref_name", _FACADE_MODULES)
+def test_every_facade_module_has_a_port(ref_name):
+    assert _import(_port_name(ref_name)) is not None, (
+        f"{_port_name(ref_name)} is missing")
+
+
+@pytest.mark.parametrize("ref_name", _FACADE_PACKAGES)
+def test_facade_all_resolves_in_the_port(ref_name):
+    """The facade packages export exactly the reference's names."""
+    ref = importlib.import_module(ref_name)
+    port = importlib.import_module(_port_name(ref_name))
+    names = list(getattr(ref, "__all__", []))
+    for name in names:
+        assert hasattr(port, name), f"{_port_name(ref_name)}.{name}"
+        ref_obj, obj = getattr(ref, name), getattr(port, name)
+        assert type(obj).__name__ == type(ref_obj).__name__ or (
+            callable(ref_obj) and callable(obj)), name
+    assert names == list(getattr(port, "__all__", []))

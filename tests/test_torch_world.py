@@ -1055,3 +1055,58 @@ def case_comm_split_part(n: int):
     except LogicError as e:
         return str(e)
     return None
+
+
+# ---------------------------------------------------------------------------
+# raft_dask_torch: sessions over the world, and a bootstrapped job.
+
+_DASK_SELF_TESTS = ("perform_test_comms_allreduce",
+                    "perform_test_comms_allgather",
+                    "perform_test_comms_bcast", "perform_test_comms_reduce",
+                    "perform_test_comms_reducescatter",
+                    "perform_test_comms_send_recv",
+                    "perform_test_comm_split")
+
+
+def case_dask_session(workers=None):
+    """A ``raft_dask_torch`` session over the world (or ``workers``):
+    whether this rank got a handle with a communicator, the session's
+    worker_info, each self-test's outcome (None off the session), and
+    whether ``destroy`` cleared the handle."""
+    import raft_dask_torch.common as rdt
+
+    c = rdt.Comms(device="cpu").init(workers)
+    handle = rdt.local_handle(c.sessionId)
+    has_comms = handle is not None and handle.comms_initialized()
+    # The split test spans the job, so a session over part of it skips it.
+    names = _DASK_SELF_TESTS if workers is None else _DASK_SELF_TESTS[:-1]
+    outcomes = {name: None if handle is None else getattr(rdt, name)(handle)
+                for name in names}
+    info = c.worker_info()
+    sid = c.sessionId
+    c.destroy()
+    return (has_comms, info, outcomes, rdt.local_handle(sid) is None,
+            c.nccl_initialized, handle is None or handle.device.type)
+
+
+def bootstrap_rank(rank: int, n: int, address: str, results) -> None:
+    """One process of a job that ``raft_dask_torch.Comms`` starts from
+    ``address`` on gloo: the session's self-tests, then ``destroy``, which
+    ends the job it started."""
+    import torch.distributed as dist
+
+    import raft_dask_torch.common as rdt
+
+    torch.set_num_threads(1)
+    try:
+        with rdt.Comms(coordinator_address=address, num_processes=n,
+                       process_id=rank, device="cpu") as c:
+            handle = rdt.local_handle(c.sessionId)
+            out = {name: getattr(rdt, name)(handle)
+                   for name in _DASK_SELF_TESTS}
+            out["size"] = handle.get_comms().get_size()
+            out["backend"] = handle.get_comms().mesh.backend
+        out["ended"] = not dist.is_initialized()
+        results.put((rank, True, out))
+    except Exception:
+        results.put((rank, False, traceback.format_exc()))
