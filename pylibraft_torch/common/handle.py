@@ -15,17 +15,26 @@ exception, a failed synchronise propagates here.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 
+from raft_tpu_torch.core.resources import DeviceLike
 from raft_tpu_torch.core.resources import DeviceResources as _PortResources
 
 
 class DeviceResources(_PortResources):
     """Ref common/handle.pyx:34, the handle passed to every pylibraft
-    call: ``DeviceResources(device=None, seed=None)`` pins the device
+    call: ``DeviceResources(n_streams=0, device=None, seed=None)`` takes
+    the reference's ``n_streams`` first and keeps it (the port runs on
+    the device's current stream, so it changes nothing), pins the device
     (``cuda`` by default; raises :class:`CudaError` without a card) and
     seeds the handle's generator."""
+
+    def __init__(self, n_streams: int = 0, device: DeviceLike = None,
+                 seed: Optional[int] = None):
+        super().__init__(device, seed)
+        self.n_streams = n_streams
 
     def getHandle(self):
         return self

@@ -65,13 +65,19 @@ def _default_generator(res: "Resources") -> torch.Generator:
 
 class Resources:
     """Handle over one explicit device (default ``cuda``, resolved at
-    construction). ``Resources(other)`` is a shallow copy: it shares the
-    objects of ``other``'s slots, but rebinding a slot on the copy leaves
-    ``other`` as it was. Keyword ``overrides`` fill slots up front."""
+    construction). ``Resources(other)`` and ``Resources(other=other)`` are
+    a shallow copy: it shares the objects of ``other``'s slots, but
+    rebinding a slot on the copy leaves ``other`` as it was. Keyword
+    ``overrides`` fill slots up front."""
 
-    def __init__(self, device: DeviceLike = None, **overrides):
+    def __init__(self, device: DeviceLike = None,
+                 other: Optional["Resources"] = None, **overrides):
         if isinstance(device, Resources):
-            self._slots = dict(device._slots)
+            device, other = None, device
+        if other is not None:
+            self._slots = dict(other._slots)
+            if device is not None:
+                self._slots["device"] = resolve_device(device)
         else:
             self._slots = {"device": resolve_device(device)}
         for name, value in overrides.items():

@@ -71,6 +71,27 @@ class TestResources:
             assert override.get_resource("x") == "tpu1"
             assert res.get_resource("x") is obj
 
+    def test_copy_by_keyword_other(self):
+        """``Resources(other=h)`` is the shallow copy ``Resources(h)`` is,
+        as the reference's copy constructor takes ``other``."""
+        for mod in (core, jcore):
+            res = mod.Resources("cpu") if mod is core else mod.Resources()
+            obj = object()
+            res.set_resource("x", obj)
+            copy = mod.Resources(other=res)
+            assert copy.get_resource("x") is obj
+            assert copy.device == res.device
+            assert "other" not in copy._slots
+            copy.set_resource("x", "other")
+            assert res.get_resource("x") is obj
+            override = mod.Resources(other=res, x="tpu1")
+            assert override.get_resource("x") == "tpu1"
+            assert res.get_resource("x") is obj
+        h = core.DeviceResources("cpu", seed=3)
+        copy = core.Resources(other=h)
+        assert copy.generator is h.generator
+        assert core.Resources("cpu", other=h).device == torch.device("cpu")
+
     def test_seeded_generator_stream(self):
         """DeviceResources(seed=) seeds the generator: the same seed
         draws the same numbers, another seed others, and the stream

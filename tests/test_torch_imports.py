@@ -135,7 +135,8 @@ def test_each_package_imports_first():
 
 
 def test_default_device_is_cuda():
-    assert Resources.__init__.__defaults__ == (None,)
+    # (device, other): no device means cuda; other is the copy source.
+    assert Resources.__init__.__defaults__ == (None, None)
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
     else:

@@ -132,6 +132,34 @@ class TestCommon:
         assert h.getHandle() is h and h.device.type == "cpu"
         pylibraft.common.DeviceResources().sync()
 
+    @pytest.mark.parametrize("form,streams", [
+        (lambda m: m.Handle(), 0), (lambda m: m.Handle(2), 2),
+        (lambda m: m.DeviceResources(n_streams=2), 2)])
+    def test_handle_takes_n_streams_first(self, monkeypatch, form, streams):
+        """The reference's ``Handle()``, ``Handle(n_streams)`` and
+        ``DeviceResources(n_streams=)`` build in both packages. The port
+        keeps the count and names ``cuda``, its default device; a card is
+        stood in for, as building a handle touches none."""
+        form(pylibraft.common)
+        with pytest.raises(CudaError):
+            form(plt_.common)  # no card, and no silent CPU
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        h = form(plt_.common)
+        assert h.device == torch.device("cuda")
+        assert h.n_streams == streams and "generator" not in h._slots
+
+    def test_handle_n_streams_then_device_and_seed(self):
+        """``DeviceResources(n_streams=2, device="cpu", seed=3)``: the
+        port's ``device`` and ``seed`` follow ``n_streams``. The
+        reference's handle takes ``n_streams`` alone."""
+        pylibraft.common.DeviceResources(n_streams=2).sync()
+        h = DeviceResources(n_streams=2, device="cpu", seed=3)
+        assert h.n_streams == 2 and h.device == torch.device("cpu")
+        same = DeviceResources(device="cpu", seed=3)
+        assert torch.equal(torch.randn(8, generator=h.generator),
+                           torch.randn(8, generator=same.generator))
+        assert Handle(0, "cpu").device == torch.device("cpu")
+
     def test_output_as_array(self, rng):
         x = rng.normal(size=(4, 3)).astype(np.float32)
         try:
