@@ -284,13 +284,14 @@ no result line):
     ``merge_labels`` on (b)'s 1M labels against numpy;
 18. the sparse layer (after phase 17, on phase 4's rows), counters set
     to 0 before it and read after its last step: (a)
-    ``sparse.neighbors.knn_graph`` of the 1M x 128 rows, k=15 (one B1
-    launch of k=16 per 131,072-query chunk): 15 edges a row, no self
-    edge, 1000 sampled rows' ids equal to an exact float64 kNN on the card
-    but at near-ties and distances within ``norm_tol``, the first
-    launch's first 4096 queries held against B1's plain version, and,
-    after the counters are read, B1 at the chunk shape beside ``addmm`` +
-    ``topk`` and its bound; (b) on that graph, ``symmetrize``,
+    ``sparse.neighbors.knn_graph`` of the first 250,000 of the 1M x 128
+    rows, k=15 (one B1 launch of k=16 per 131,072-query chunk): 15 edges
+    a row, no self edge, 1000 sampled rows' ids equal to an exact float64
+    kNN on the card but at near-ties and distances within ``norm_tol``,
+    the first launch's first 4096 queries held against B1's plain
+    version, and, after the counters are read, B1 at the chunk shape
+    against all 1M rows beside ``addmm`` + ``topk`` and its bound; (b) on
+    that graph, ``symmetrize``,
     ``coo_to_csr`` / ``csr_to_coo``, ``coo_sort``, ``max_duplicates``,
     ``transpose``, ``add`` (A + A^T), ``degree``, both row
     normalisations, both Laplacians, ``slice_csr`` of the middle 100,000
@@ -371,7 +372,38 @@ no result line):
     its coordinator address, and one over phase 12's 4 gloo ranks: the
     seven self-tests True on every rank; the phase's seconds, launches and
     peak device memory;
-21. a ``kernels`` line, the card line, and the result line.
+21. the reference bench's configurations the port had not run on the
+    card (after phase 20, before the serve phase, IVF-PQ's recon cache
+    dropped), counters set to 0 before it, each part's seconds (host
+    clock around a synchronise), launches and peak device memory printed
+    with the card line: (a) bench.py's SIFT-shaped u8 rows (1M x 128,
+    seed 11) written and read back byte for byte through the native
+    ``write_bvecs`` / ``read_bvecs``, B1's exact answer, IVF-Flat on the
+    u8 rows (storage stays uint8; ``engine="bucketed"`` reaches B2's bf16
+    + split-query tier; recall@10 >= 0.995; the bf16 cast's share of a
+    search by ``torch.profiler``), IVF-PQ (B4, >= 0.80) and its
+    ``min_recall=0.95`` recipe over the retained u8 rows (>= 0.99); (b)
+    bench.py's uniform queries (N(0, 1) x 10) on phase 4's IVF-Flat (B2:
+    at 32 probes every exact neighbour of a probed list found but at
+    near-ties, none from another list, and the share of the exact
+    neighbours within 32-256 probes printed; recall@10 >= 0.99 at 256
+    probes) and phase 6's IVF-PQ (B4, native >= 0.75, ``min_recall=0.86``
+    >= 0.86), and the int8 codeword tables on the main path's queries (B4
+    launched with int8 tables, recall within 0.02 of phase 6's); (c) both
+    scan engines at 10,000 queries and 32 probes (IVF-Flat = phase 4's
+    answer but at near-ties within ``norm_tol``; the LUT scan within 0.01
+    of the compressed tier's recall; neither launches B2 or B4); (d)
+    PER_CLUSTER codebooks at 1M (B3, never B4; recall@10 >= 0.80 on 1000
+    queries) and OPQ (``opq_iters=1``; B4 recall within 0.01 of phase
+    6's, a lower reconstruction error than phase 6's index); (e) 10M x
+    128 rows from ``make_blobs`` on the card (4000 blobs, sigma 5), an
+    IVF-PQ of 4096 lists built with ``retain_dataset=False`` (trainset
+    fraction 0.05) that keeps no source, the device memory falling by the
+    rows' bytes when they are deleted, the compressed search (B4,
+    recall@10 >= 0.80), a ``min_recall=0.95`` search that warns and
+    answers the native search bit for bit, and the largest list within
+    B4's per-list budget; the phase's seconds, launches and peak memory;
+22. a ``kernels`` line, the card line, and the result line.
 
 The data is made with numpy from a fixed seed: 1000 Gaussian blobs
 (centers uniform in [-10, 10], sigma 5), queries = database rows + N(0, 1).
@@ -536,7 +568,8 @@ TRUST_ATOL_17 = 1e-5      # trustworthiness against float64
 R2_ATOL_17 = 1e-5         # 1 - r2 of a noise-free least squares
 
 # Phase 18: the sparse layer.
-ROWS_18 = N_ROWS          # rows of (a)-(c): the graph of phase 4's X
+ROWS_18 = 250_000         # rows of (a)-(d), the first of phase 4's X (cut
+                          # from 1M to keep the script under 900 s)
 K_18 = 15                 # kNN-graph degree (B1 with k = 16)
 N_SAMPLE_18 = 1000        # rows of (a) and (c) held to float64
 N_PLAIN_18 = 4096         # queries of the first B1 launch held to plain
@@ -603,6 +636,28 @@ DASK_SELF_TESTS_20 = ("perform_test_comms_allreduce",
                       "perform_test_comms_reducescatter",
                       "perform_test_comms_send_recv",
                       "perform_test_comm_split")
+
+# Phase 21: the reference bench's configurations the port had not run on
+# the card, at the bench's sizes (bench.py:292-297, :349-380, :452-580).
+SIFT_21 = (1_000_000, 128, 1000, 1000)  # u8 rows, dim, centers, queries
+SIFT_SEED_21 = 11         # the bench's generator, also of (b)'s queries
+RECALL_U8_FLAT_21 = 0.995
+RECALL_U8_PQ_21 = 0.80
+RECALL_U8_REFINED_21 = 0.99  # min_recall=0.95 over the u8 source
+N_UNIFORM_21 = 1000       # uniform queries, N(0, 1) x 10
+RECALL_UNI_FLAT_21 = 0.99  # IVF-Flat at UNI_PROBES_21 probes: the exact
+UNI_PROBES_21 = 256        # neighbours of such queries spread over more
+COVER_PROBES_21 = (32, 64, 128, 256)  # lists than 32 probes reach
+RECALL_UNI_PQ_21 = 0.75
+MIN_RECALL_UNI_21 = 0.86  # the recall class asked for is its bar
+INT8_GAP_21 = 0.02        # int8 tables against phase 6's f32 tables
+RECALL_PER_CLUSTER_21 = 0.80
+OPQ_GAP_21 = 0.01         # OPQ recall against phase 6's
+BIG_21 = (10_000_000, 128, 4000, 1000, 4096)  # rows, dim, blobs, queries,
+                                               # lists
+BIG_SEEDS_21 = (23, 17)   # make_blobs, query noise (bench.py:552-554)
+BIG_TRAIN_FRAC_21 = 0.05
+RECALL_BIG_21 = 0.80
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FP32 = 67e12
@@ -6428,7 +6483,7 @@ def slice18_phase(dev, X, card) -> dict:
         raise AssertionError(f"phase 18 must launch B1 and only B1: "
                              f"{launches}")
     torch.cuda.empty_cache()
-    timing = b1_graph_18(Xr, a["chunk"], card)
+    timing = b1_graph_18(X, a["chunk"], card)
     return {"launches": launches, "seconds": total, **timing}
 
 def lap_19(dev, card) -> dict:
@@ -7427,6 +7482,549 @@ def dask_ranks_20(got, card) -> float:
     return wall
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the reference bench's configurations the port had not run on
+# the card
+
+
+def sift_rows_21():
+    """bench.py's SIFT-shaped u8 recipe (``_family_sift1m_u8``, seed 11):
+    rows around 1000 centers uniform in [20, 200] with sigma 18, queries
+    around random rows with sigma 6, both clipped to u8 on the host."""
+    n, d, n_centers, n_q = SIFT_21
+    rng = np.random.default_rng(SIFT_SEED_21)
+    centers = rng.uniform(20.0, 200.0, size=(n_centers, d))
+    assign = rng.integers(0, n_centers, size=n)
+    db = np.clip(centers[assign] + rng.normal(scale=18.0, size=(n, d)),
+                 0, 255).astype(np.uint8)
+    qsel = rng.integers(0, n, size=n_q)
+    q = np.clip(db[qsel].astype(np.float64)
+                + rng.normal(scale=6.0, size=(n_q, d)), 0, 255
+                ).astype(np.uint8)
+    return db, q
+
+
+def _part_21(what, fn, parts, card):
+    """One part of phase 21: ``fn()``, its seconds by the host clock
+    around a synchronise, its launches and the peak device memory while
+    it ran, kept under ``what`` and printed with the card line."""
+    import torch
+
+    before = _launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    fired = _step(before)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    parts[what] = {"seconds": secs, "launches": fired, "peak_gib": peak}
+    log(f"phase 21 ({what}): {secs:.3f} s, launches "
+        f"{ {k: v for k, v in fired.items() if v} }, peak device memory "
+        f"{peak:.2f} GiB [{card}]")
+    return out
+
+
+def _need_21(parts, what, fire=(), quiet=()):
+    """Fails unless each kernel of ``fire`` launched in part ``what`` and
+    none of ``quiet`` did."""
+    got = parts[what]["launches"]
+    if any(got[k] < 1 for k in fire) or any(got[k] for k in quiet):
+        raise AssertionError(f"phase 21 ({what}): {list(fire)} must launch "
+                             f"and {list(quiet)} must not: {got}")
+
+
+def device_split_ms(fn, part: str, reps: int = 3):
+    """Per call of ``fn``, from the self device times of one
+    ``torch.profiler`` trace of ``reps`` calls: the milliseconds of the
+    kernels whose name holds ``part`` (None when none ran), of every
+    kernel (None when the trace holds no device time), and the names of
+    the three longest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    part_us = sum(e.self_device_time_total for e in evs if part in e.key)
+    all_us = sum(e.self_device_time_total for e in evs)
+    return (part_us / reps / 1e3 if part_us > 0 else None,
+            all_us / reps / 1e3 if all_us > 0 else None,
+            [e.key[:60] for e in evs[:3]])
+
+
+def sift_u8_21(dev, card, parts) -> dict:
+    """Phase 21 (a): SIFT-shaped u8 rows through the native bvecs IO, B1's
+    exact answer, u8-storage IVF-Flat (B2's bf16 + split-query tier) and
+    IVF-PQ (B4), and the ``min_recall=0.95`` recipe over the u8 source
+    (bench.py:452-533)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from raft_tpu_torch import _native
+    from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
+
+    def data():
+        db, q = sift_rows_21()
+        with tempfile.TemporaryDirectory() as tmp:
+            need = 2 * (db.nbytes + q.nbytes)
+            free = shutil.disk_usage(tmp).free
+            if free < need:
+                raise AssertionError(f"phase 21 (a): {free} bytes free under "
+                                     f"{tmp}, {need} needed")
+            paths = [os.path.join(tmp, f) for f in ("base.bvecs",
+                                                   "query.bvecs")]
+            t0 = time.perf_counter()
+            for path, rows in zip(paths, (db, q)):
+                _native.write_bvecs(path, rows)
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = [_native.read_bvecs(path) for path in paths]
+            read_s = time.perf_counter() - t0
+            nbytes = os.path.getsize(paths[0])
+        if not all(b.dtype == np.uint8 and np.array_equal(b, r)
+                   for b, r in zip(back, (db, q))):
+            raise AssertionError("phase 21 (a): the bvecs read-back differs "
+                                 "from the written rows")
+        log(f"phase 21 (a): {db.shape[0]} x {db.shape[1]} u8 rows and "
+            f"{q.shape[0]} queries through write_bvecs / read_bvecs "
+            f"({nbytes} bytes; write {write_s:.3f} s, read {read_s:.3f} s), "
+            f"read back byte for byte")
+        return back
+
+    db, q = _part_21("a_data", data, parts, card)
+    X = torch.as_tensor(db, device=dev)
+    Qs = torch.as_tensor(q, device=dev).float()
+    del db, q
+    _, truth = _part_21("a_truth",
+                        lambda: brute_force.knn(X.float(), Qs, K),
+                        parts, card)
+    _need_21(parts, "a_truth", ("fused_knn",))
+
+    flat = _part_21("a_flat_build", lambda: ivf_flat.build(
+        ivf_flat.IndexParams(n_lists=N_LISTS), X), parts, card)
+    _need_21(parts, "a_flat_build", ("fused_knn",))
+    if flat.data.dtype != torch.uint8:
+        raise AssertionError(f"phase 21 (a): IVF-Flat stores "
+                             f"{flat.data.dtype}, not uint8")
+    sp = ivf_flat.SearchParams(n_probes=N_PROBES, engine="bucketed")
+    with _Capture("ivf_flat") as cap:
+        _, fi = _part_21("a_flat_search",
+                         lambda: ivf_flat.search(sp, flat, Qs, K),
+                         parts, card)
+    _need_21(parts, "a_flat_search", ("fused_cells_knn",))
+    args = cap.calls[K][0]
+    if (args[2].dtype, args[6], args[7]) != (torch.bfloat16, True, True):
+        raise AssertionError(f"phase 21 (a): B2 ran store {args[2].dtype}, "
+                             f"bf16 {args[6]}, qsplit {args[7]}, not the "
+                             f"bf16 + split-query tier")
+    rec_f = recall(fi, truth)
+    flat_ms = time_ms(lambda: ivf_flat.search(sp, flat, Qs, K), reps=5)
+    # The search casts the u8 lists to bf16: a copy kernel in its trace.
+    cast_ms, search_dev, top = device_split_ms(
+        lambda: ivf_flat.search(sp, flat, Qs, K), "copy_kernel")
+    share = (f"{cast_ms / search_dev:.1%}" if cast_ms and search_dev
+             else "not measured")
+    log(f"phase 21 (a) IVF-Flat on u8: recall@{K} {rec_f:.6f} (bar "
+        f"{RECALL_U8_FLAT_21}; v5e record 1.000), search {flat_ms:.3f} ms "
+        f"per {Qs.shape[0]} queries; of its {search_dev} ms of device time "
+        f"{cast_ms} ms in copy kernels, the bf16 cast of the u8 lists "
+        f"({share}; torch.profiler; longest kernels {top}) [{card}]")
+    if rec_f < RECALL_U8_FLAT_21:
+        raise AssertionError(f"phase 21 (a): IVF-Flat u8 recall {rec_f}")
+    del flat
+
+    index = _part_21("a_pq_build", lambda: ivf_pq.build(
+        ivf_pq.IndexParams(n_lists=N_LISTS), X), parts, card)
+    _need_21(parts, "a_pq_build", ("fused_knn",))
+    if index._source is not X:
+        raise AssertionError("phase 21 (a): IVF-PQ does not retain its u8 "
+                             "rows")
+    sp = ivf_pq.SearchParams(n_probes=N_PROBES, engine="bucketed",
+                             bucket_cap=BUCKET_CAP)
+    _, pi = _part_21("a_pq_search", lambda: ivf_pq.search(sp, index, Qs, K),
+                     parts, card)
+    _need_21(parts, "a_pq_search", ("pq_fused_scan",))
+    spr = dataclasses.replace(sp, min_recall=0.95)
+    _, ri = _part_21("a_pq_refined",
+                     lambda: ivf_pq.search(spr, index, Qs, K), parts, card)
+    _need_21(parts, "a_pq_refined", ("pq_fused_scan",))
+    rec_p, rec_r = recall(pi, truth), recall(ri, truth)
+    pq_ms = time_ms(lambda: ivf_pq.search(sp, index, Qs, K), reps=5)
+    refined_ms = time_ms(lambda: ivf_pq.search(spr, index, Qs, K), reps=5)
+    log(f"phase 21 (a) IVF-PQ on u8: recall@{K} {rec_p:.6f} (bar "
+        f"{RECALL_U8_PQ_21}; v5e record 0.839), {pq_ms:.3f} ms; "
+        f"min_recall=0.95 over the u8 source {rec_r:.6f} (bar "
+        f"{RECALL_U8_REFINED_21}; v5e record 0.998), {refined_ms:.3f} ms "
+        f"[{card}]")
+    if rec_p < RECALL_U8_PQ_21 or rec_r < RECALL_U8_REFINED_21:
+        raise AssertionError(f"phase 21 (a): IVF-PQ u8 recall {rec_p}, "
+                             f"refined {rec_r}")
+    return {"flat": rec_f, "pq": rec_p, "refined": rec_r, "flat_ms": flat_ms,
+            "pq_ms": pq_ms, "refined_ms": refined_ms, "cast_ms": cast_ms,
+            "search_device_ms": search_dev}
+
+
+def uniform_21(dev, X, Q, bf, flat, pq_index, pq_recall, card,
+               parts) -> dict:
+    """Phase 21 (b): bench.py's uniform queries on phase 4's and phase
+    6's 1M indexes (IVF-Flat, IVF-PQ native and ``min_recall=0.86``), and
+    the int8 codeword tables on the main path's queries
+    (bench.py:292-297, :349-380)."""
+    import torch
+
+    from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
+
+    rng = np.random.default_rng(SIFT_SEED_21)
+    rng.normal(size=(N_UNIFORM_21, DIM))   # the bench's clustered noise
+    Qu = torch.as_tensor(rng.normal(size=(N_UNIFORM_21, DIM))
+                         .astype(np.float32) * 10, device=dev)
+    bf_u = _part_21("b_truth", lambda: brute_force.knn(X, Qu, K), parts,
+                    card)
+    _need_21(parts, "b_truth", ("fused_knn",))
+    truth = bf_u[1]
+    fd, fi = _part_21("b_flat", lambda: ivf_flat.search(
+        ivf_flat.SearchParams(n_probes=N_PROBES), flat, Qu, K), parts, card)
+    _need_21(parts, "b_flat", ("fused_cells_knn",))
+    sp = ivf_pq.SearchParams(n_probes=N_PROBES, engine="bucketed",
+                             bucket_cap=BUCKET_CAP)
+    _, pi = _part_21("b_pq_native", lambda: ivf_pq.search(
+        sp, pq_index, Qu, K), parts, card)
+    _need_21(parts, "b_pq_native", ("pq_fused_scan",))
+    if pq_index._source is None:
+        raise AssertionError("phase 21 (b): phase 6's index retains no "
+                             "source")
+    _, ri = _part_21("b_pq_min_recall", lambda: ivf_pq.search(
+        dataclasses.replace(sp, min_recall=MIN_RECALL_UNI_21), pq_index, Qu,
+        K), parts, card)
+    _need_21(parts, "b_pq_min_recall", ("pq_fused_scan",))
+    rec_f, rec_p, rec_r = (recall(fi, truth), recall(pi, truth),
+                           recall(ri, truth))
+    cover, lost = _probed_exactly_21(flat, Qu, fd, fi, bf_u, X)
+    wide = ivf_flat.SearchParams(n_probes=UNI_PROBES_21)
+    _, wi = _part_21("b_flat_wide", lambda: ivf_flat.search(
+        wide, flat, Qu, K), parts, card)
+    _need_21(parts, "b_flat_wide", ("fused_cells_knn",))
+    rec_w = recall(wi, truth)
+    log(f"phase 21 (b) uniform queries (N(0, 1) x 10): IVF-Flat recall@{K} "
+        f"at {N_PROBES} probes {rec_f:.6f}, every exact neighbour of the "
+        f"probed lists found but {lost} near-tie slots; the probed lists "
+        f"hold {', '.join(f'{v:.4f} at {p}' for p, v in cover.items())} "
+        f"of the exact neighbours; at {UNI_PROBES_21} probes {rec_w:.6f} "
+        f"(bar {RECALL_UNI_FLAT_21}); IVF-PQ native {rec_p:.6f} (bar "
+        f"{RECALL_UNI_PQ_21}; v5e record 0.791), min_recall="
+        f"{MIN_RECALL_UNI_21} {rec_r:.6f} (v5e record 0.924) [{card}]")
+    if (rec_w < RECALL_UNI_FLAT_21 or rec_p < RECALL_UNI_PQ_21
+            or rec_r < MIN_RECALL_UNI_21):
+        raise AssertionError(f"phase 21 (b): uniform recalls {rec_w}, "
+                             f"{rec_p}, {rec_r}")
+
+    sp8 = ivf_pq.SearchParams(n_probes=N_PROBES, compressed_lut_int8=True)
+    with _Capture("ivf_pq") as cap:
+        _, i8 = _part_21("b_int8_lut", lambda: ivf_pq.search(
+            sp8, pq_index, Q, K), parts, card)
+    _need_21(parts, "b_int8_lut", ("pq_fused_scan",))
+    args = cap.calls[K][0]
+    if args[3].dtype != torch.int8 or args[10] is None:
+        raise AssertionError(f"phase 21 (b): B4 ran {args[3].dtype} tables, "
+                             f"scales {args[10] is not None}, not int8")
+    rec_8 = recall(i8, bf[1])
+    int8_ms = time_ms(lambda: ivf_pq.search(sp8, pq_index, Q, K), reps=5)
+    log(f"phase 21 (b) int8 LUT: recall@{K} {rec_8:.6f} against phase 6's "
+        f"f32 tables {pq_recall:.6f} (within {INT8_GAP_21}), {int8_ms:.3f} "
+        f"ms per {Q.shape[0]} queries [{card}]")
+    if abs(rec_8 - pq_recall) > INT8_GAP_21:
+        raise AssertionError(f"phase 21 (b): int8 LUT recall {rec_8}")
+    return {"flat": rec_f, "pq": rec_p, "min_recall": rec_r, "int8": rec_8,
+            "int8_ms": int8_ms}
+
+
+def _probed_exactly_21(index, Qu, fd, fi, bf_u, X):
+    """IVF-Flat's answer ``(fd, fi)`` at ``N_PROBES`` probes is exact over
+    the lists it probed: it holds every exact neighbour ``bf_u`` whose
+    list it probed, but at a near-tie with its k-th distance (within
+    ``norm_tol``), and none from another list. Returns the share of the
+    exact neighbours in the first P lists of each query's probe order,
+    for each P of ``COVER_PROBES_21``, and the near-tie slots."""
+    import torch
+
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    owner = torch.full((X.shape[0],), -1, dtype=torch.long, device=X.device)
+    live = torch.arange(index.data.shape[1], device=X.device)[None, :] \
+        < index.list_sizes[:, None]
+    lists = torch.arange(index.n_lists, device=X.device)[:, None]
+    owner[index.indices[live].long()] = lists.expand_as(live)[live]
+    order = ivf_flat._coarse_probe(Qu, index.centers, index.n_lists,
+                                   True).long()
+    rank = torch.empty_like(order)
+    rank.scatter_(1, order, torch.arange(index.n_lists, device=X.device)
+                  .expand_as(order).contiguous())
+    r = torch.gather(rank, 1, owner[bf_u[1].long()])
+    hit = (bf_u[1][:, :, None] == fi[:, None, :]).any(dim=2)
+    probed = r < N_PROBES
+    if bool((hit & ~probed).any()):
+        raise AssertionError("phase 21 (b): IVF-Flat found a neighbour in a "
+                             "list it did not probe")
+    lost = probed & ~hit
+    if bool(lost.any()):
+        gap = float((fd[:, -1:] - bf_u[0]).abs()[lost].max())
+        tol = norm_tol(Qu, X)
+        if gap > tol:
+            raise AssertionError(f"phase 21 (b): IVF-Flat missed an exact "
+                                 f"neighbour of a probed list ({gap} from "
+                                 f"its k-th distance, tol {tol})")
+    cover = {p: float((r < p).float().mean()) for p in COVER_PROBES_21}
+    return cover, int(lost.sum())
+
+
+def scan_engines_21(dev, X, Q, bf, iv, flat, pq_index, pq_recall, card,
+                    parts) -> dict:
+    """Phase 21 (c): both scan engines at the main path's 10,000 queries
+    and 32 probes: IVF-Flat's = phase 4's B2 answer but at near-ties,
+    IVF-PQ's LUT scan within 0.01 of the compressed tier's recall."""
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
+
+    d, i = _part_21("c_flat_scan", lambda: ivf_flat.search(
+        ivf_flat.SearchParams(n_probes=N_PROBES, engine="scan"), flat, Q, K),
+        parts, card)
+    diff = near_tie_check("phase 21 (c) IVF-Flat scan engine", d, i, iv[0],
+                          iv[1], X, Q, norm_tol(Q, X))
+    _, li = _part_21("c_pq_lut_scan", lambda: ivf_pq.search(
+        ivf_pq.SearchParams(n_probes=N_PROBES, engine="scan"), pq_index, Q,
+        K), parts, card)
+    rec_l = recall(li, bf[1])
+    log(f"phase 21 (c) scan engines at {Q.shape[0]} queries: IVF-Flat = "
+        f"phase 4's B2 answer but at {diff} near-tie slots; IVF-PQ LUT scan "
+        f"recall@{K} {rec_l:.6f} against the compressed tier's "
+        f"{pq_recall:.6f} (within {PQ_TIER_GAP}) [{card}]")
+    if abs(rec_l - pq_recall) > PQ_TIER_GAP:
+        raise AssertionError(f"phase 21 (c): LUT scan recall {rec_l}")
+    for what in ("c_flat_scan", "c_pq_lut_scan"):
+        _need_21(parts, what, quiet=("fused_cells_knn", "pq_fused_scan"))
+    return {"flat_near_ties": diff, "lut_scan": rec_l}
+
+
+def _recon_mse_21(index, X) -> float:
+    """Mean squared error of the index's f32 reconstruction of each stored
+    row against the row rotated (PER_SUBSPACE books; the measure of the
+    reference's ``test_opq_reduces_quantization_error``)."""
+    import torch
+
+    from raft_tpu_torch.distance.pairwise import gram
+    from raft_tpu_torch.neighbors.ivf_pq import unpack_codes
+
+    n_lists, cap, _ = index.pq_codes.shape
+    J = index.pq_dim
+    crot = index.centers_rot()
+    jj = torch.arange(J, device=X.device)
+    slot = torch.arange(cap, device=X.device)[None, :]
+    step = max(1, (1 << 24) // (cap * index.rot_dim))
+    err, cnt = 0.0, 0
+    for l0 in range(0, n_lists, step):
+        codes = unpack_codes(index.pq_codes[l0:l0 + step], J,
+                             index.pq_bits).long()
+        rec = (index.pq_centers[jj, codes].reshape(codes.shape[0], cap, -1)
+               + crot[l0:l0 + step, None, :])
+        valid = slot < index.list_sizes[l0:l0 + step, None]
+        rows = gram(X[index.indices[l0:l0 + step][valid].long()],
+                    index.rotation_matrix)
+        err += float(torch.sum(((rec[valid] - rows) ** 2).double()))
+        cnt += int(valid.sum())
+    return err / cnt
+
+
+def codebooks_21(dev, X, Q, bf, pq_index, pq_recall, card, parts) -> dict:
+    """Phase 21 (d): PER_CLUSTER codebooks (off the compressed tier: B3,
+    never B4) and OPQ (B4; a lower reconstruction error than phase 6's
+    index) at 1M on phase 4's rows."""
+    import torch
+
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    kind = ivf_pq.CodebookGen.PER_CLUSTER
+    # PER_CLUSTER's recall moves with its longest list (ROADMAP C.3) and a
+    # build on the card repeats only under deterministic algorithms
+    # (index_add_'s atomics): build it so, and every run holds one index
+    # to the bar.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        index = _part_21("d_per_cluster_build", lambda: ivf_pq.build(
+            ivf_pq.IndexParams(n_lists=N_LISTS, codebook_kind=kind), X),
+            parts, card)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _need_21(parts, "d_per_cluster_build", ("fused_knn",))
+    if ivf_pq._compressed_supported(index):
+        raise AssertionError("phase 21 (d): PER_CLUSTER passed the "
+                             "compressed tier's gate")
+    sp = ivf_pq.SearchParams(n_probes=N_PROBES, engine="bucketed",
+                             bucket_cap=BUCKET_CAP)
+    _, ci = _part_21("d_per_cluster_search", lambda: ivf_pq.search(
+        sp, index, Q[:N_SUB], K), parts, card)
+    _need_21(parts, "d_per_cluster_search", ("fused_batch_knn",),
+             ("pq_fused_scan",))
+    b3 = parts["d_per_cluster_search"]["launches"]["fused_batch_knn"]
+    tier = "recon tier" if index._recon is not None else "decode scan"
+    rec_c = recall(ci, bf[1][:N_SUB])
+    books = index.pq_centers
+    distinct = [len(torch.unique(books[i], dim=0)) for i in range(
+        books.shape[0])]
+    log(f"phase 21 (d) PER_CLUSTER (built under deterministic algorithms): "
+        f"the {tier} ({b3} B3 launches, no B4), recall@{K} {rec_c:.6f} on "
+        f"the first {N_SUB} queries (bar {RECALL_PER_CLUSTER_21}); longest "
+        f"list {int(index.list_sizes.max())} rows, distinct codewords a "
+        f"list {min(distinct)}-{max(distinct)} of {books.shape[1]} (mean "
+        f"{sum(distinct) / len(distinct):.1f}) [{card}]")
+    if rec_c < RECALL_PER_CLUSTER_21:
+        raise AssertionError(f"phase 21 (d): PER_CLUSTER recall {rec_c}")
+    del index
+
+    opq = _part_21("d_opq_build", lambda: ivf_pq.build(
+        ivf_pq.IndexParams(n_lists=N_LISTS, opq_iters=1), X), parts, card)
+    _need_21(parts, "d_opq_build", ("fused_knn",))
+    _, oi = _part_21("d_opq_search", lambda: ivf_pq.search(
+        ivf_pq.SearchParams(n_probes=N_PROBES), opq, Q, K), parts, card)
+    _need_21(parts, "d_opq_search", ("pq_fused_scan",))
+    rec_o = recall(oi, bf[1])
+    mse_o, mse_6 = _recon_mse_21(opq, X), _recon_mse_21(pq_index, X)
+    log(f"phase 21 (d) OPQ (opq_iters 1): reconstruction MSE {mse_o:.6f} "
+        f"against phase 6's {mse_6:.6f}, recall@{K} {rec_o:.6f} against "
+        f"phase 6's {pq_recall:.6f} (at least it less {OPQ_GAP_21}) "
+        f"[{card}]")
+    if mse_o >= mse_6 or rec_o < pq_recall - OPQ_GAP_21:
+        raise AssertionError(f"phase 21 (d): OPQ MSE {mse_o} (phase 6 "
+                             f"{mse_6}), recall {rec_o}")
+    return {"per_cluster": rec_c, "tier": tier, "opq": rec_o,
+            "opq_mse": mse_o, "base_mse": mse_6}
+
+
+def big_pq_21(dev, card, parts) -> dict:
+    """Phase 21 (e): bench.py's 10M x 128 compressed-only IVF-PQ
+    (:536-580): rows from ``make_blobs`` on the card, a build with
+    ``retain_dataset=False`` that holds nothing of them once they are
+    deleted, the compressed search (B4), a ``min_recall`` search that
+    warns and answers the native one, and the per-list budget."""
+    import logging
+    import logging.handlers
+
+    import torch
+
+    from raft_tpu_torch.neighbors import brute_force, ivf_pq
+    from raft_tpu_torch.random.make_blobs import make_blobs
+
+    n, d, n_blobs, n_q, n_lists = BIG_21
+
+    def data():
+        rows, _ = make_blobs(n, d, n_clusters=n_blobs, cluster_std=BLOB_STD,
+                             seed=BIG_SEEDS_21[0], device=dev)
+        noise = np.random.default_rng(BIG_SEEDS_21[1]).normal(size=(n_q, d))
+        return rows, rows[:n_q] + torch.as_tensor(noise.astype(np.float32),
+                                                  device=dev)
+
+    X, Qb = _part_21("e_data", data, parts, card)
+    _, truth = _part_21("e_truth", lambda: brute_force.knn(X, Qb, K), parts,
+                        card)
+    _need_21(parts, "e_truth", ("fused_knn",))
+    index = _part_21("e_build", lambda: ivf_pq.build(ivf_pq.IndexParams(
+        n_lists=n_lists, retain_dataset=False,
+        kmeans_trainset_fraction=BIG_TRAIN_FRAC_21), X), parts, card)
+    _need_21(parts, "e_build", ("fused_knn",))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    del X
+    freed = held - torch.cuda.memory_allocated()
+    rows_bytes = n * d * 4
+    index_bytes = sum(t.numel() * t.element_size() for t in (
+        index.pq_codes, index.indices, index.list_sizes, index.centers,
+        index.rotation_matrix, index.pq_centers))
+    log(f"phase 21 (e): {n} x {d} rows ({rows_bytes} bytes) deleted, "
+        f"{freed} bytes of device memory freed; the index holds "
+        f"{index_bytes} bytes (codes and model), source {index._source}")
+    if index._source is not None or freed < rows_bytes:
+        raise AssertionError(f"phase 21 (e): the index keeps its rows "
+                             f"({freed} of {rows_bytes} bytes freed)")
+
+    sp = ivf_pq.SearchParams(n_probes=N_PROBES, engine="bucketed")
+    bd, bi = _part_21("e_search", lambda: ivf_pq.search(sp, index, Qb, K),
+                      parts, card)
+    _need_21(parts, "e_search", ("pq_fused_scan",))
+    rec = recall(bi, truth)
+    search_ms = time_ms(lambda: ivf_pq.search(sp, index, Qb, K), reps=5)
+    seen = logging.handlers.BufferingHandler(64)
+    seen.setLevel(logging.WARNING)
+    logging.getLogger("raft_tpu_torch").addHandler(seen)
+    try:
+        md, mi = _part_21("e_min_recall", lambda: ivf_pq.search(
+            dataclasses.replace(sp, min_recall=0.95), index, Qb, K), parts,
+            card)
+    finally:
+        logging.getLogger("raft_tpu_torch").removeHandler(seen)
+    warned = any("retains no source" in r.getMessage() for r in seen.buffer)
+    same = torch.equal(md, bd) and torch.equal(mi, bi)
+    cap, nbytes = index.pq_codes.shape[1], index.pq_codes.shape[2]
+    largest = int(index.list_sizes.max())
+    fits = ivf_pq._compressed_vmem_ok(cap, nbytes, index.rot_dim)
+    log(f"phase 21 (e) {n} x {d} compressed-only: recall@{K} {rec:.6f} (bar "
+        f"{RECALL_BIG_21}; v5e record 0.856), search {search_ms:.3f} ms per "
+        f"{n_q} queries; min_recall=0.95 warned {warned}, answered the "
+        f"native search bit for bit {same}; largest list {largest} rows, "
+        f"capacity {cap}, B4's {ivf_pq._PQ_CELL_BYTES}-byte per-list budget "
+        f"holds it: {fits} [{card}]")
+    if rec < RECALL_BIG_21 or not warned or not same or not fits:
+        raise AssertionError(f"phase 21 (e): recall {rec}, warned {warned}, "
+                             f"same {same}, budget {fits}")
+    return {"recall": rec, "search_ms": search_ms, "freed": freed,
+            "index_bytes": index_bytes, "largest_list": largest,
+            "cap": cap}
+
+
+def slice21_phase(dev, X, Q, bf, iv, flat, pq_index, pq_recall,
+                  card) -> dict:
+    """Phase 21: the reference bench's configurations the port had not run
+    on the card, after phase 20 and before the serve phase, on phase 4's
+    rows, answers and IVF-Flat index and phase 6's IVF-PQ index (its
+    recon cache dropped). Counters set to 0 before it; every part's
+    launches read around it and checked. Frees what it built. Returns its
+    launches, seconds, peak device memory and part figures."""
+    import torch
+
+    _zero_counters()
+    parts = {}
+    t0 = time.perf_counter()
+    a = sift_u8_21(dev, card, parts)
+    torch.cuda.empty_cache()
+    b = uniform_21(dev, X, Q, bf, flat, pq_index, pq_recall, card, parts)
+    c = scan_engines_21(dev, X, Q, bf, iv, flat, pq_index, pq_recall, card,
+                        parts)
+    torch.cuda.empty_cache()
+    d = codebooks_21(dev, X, Q, bf, pq_index, pq_recall, card, parts)
+    torch.cuda.empty_cache()
+    e = big_pq_21(dev, card, parts)
+    torch.cuda.empty_cache()
+    total = time.perf_counter() - t0
+    launches = _launches()
+    peak = max(p["peak_gib"] for p in parts.values())
+    by_part = {}
+    for what, p in parts.items():
+        by_part[what[0]] = by_part.get(what[0], 0.0) + p["seconds"]
+    log(f"phase 21: {total:.3f} s ("
+        + ", ".join(f"{k} {v:.3f}" for k, v in by_part.items())
+        + f"), peak device memory {peak:.2f} GiB, launches {launches} "
+        f"[{card}]")
+    return {"launches": launches, "seconds": total, "peak_gib": peak,
+            "parts": parts, "sift": a, "uniform": b, "scan": c,
+            "codebooks": d, "big": e}
+
+
 def kmeans_labels(centers, X):
     """Each row's nearest center (the lists of an IVF-Flat build)."""
     from raft_tpu_torch.cluster import kmeans_balanced
@@ -7538,9 +8136,12 @@ def main() -> int:
     # Phase 20 runs while phase 4's index is as phase 4 built it.
     p20 = facade_phase(dev, X, Q, mp["bf"], mp["iv"], mp["index"], card)
     # Phase 6 left IVF-PQ's reconstruction cache in place, which routes
-    # search to the recon tier; the serve and lifecycle phases search the
-    # compressed tier (B4), as the main path does.
+    # search to the recon tier; phase 21 and the serve and lifecycle
+    # phases search the compressed tier (B4), as the main path does.
     pq["index"]._recon = None
+    p21 = slice21_phase(dev, X, Q, mp["bf"], mp["iv"], mp["index"],
+                        pq["index"], pq["recall"], card)
+    b5["launches"] += p21["launches"]["stream_extract"]
     sv = serve_phase(dev, X, card, mp["index"], pq["index"], pq["recall"])
     lc, compacted = lifecycle_phase(
         dev, X, Q, mp["bf"], mp["index"], pq["index"], mp["search_ms"],
@@ -7549,6 +8150,8 @@ def main() -> int:
     sf = surface_phase(dev, X, Q, mp["bf"], mp["index"], flat_served,
                        compacted["ivf_pq"], pq["recall"], card)
     sh, rt, ops, du, dask_s = sharded_phase(dev, X, Q, mp, pq, card)
+    log(f"phase 21: {p21['seconds']:.3f} s, launches {p21['launches']}, "
+        f"peak device memory {p21['peak_gib']:.2f} GiB [{card}]")
     log(f"phase 20: {p20['seconds'] + dask_s:.3f} s (this process "
         f"{p20['seconds']:.3f} s, the 4 ranks' sessions {dask_s:.3f} s), "
         f"launches {p20['launches']}, peak device memory "
@@ -7565,7 +8168,8 @@ def main() -> int:
              + du["fused_knn"] + br["fused_knn"]
              + p17["launches"]["fused_knn"] + p18["launches"]["fused_knn"]
              + p19["launches"]["fused_knn"]
-             + p20["launches"]["fused_knn"], **b1),
+             + p20["launches"]["fused_knn"]
+             + p21["launches"]["fused_knn"], **b1),
         dict(name="fused_cells_knn", route="cuda",
              source="raft_tpu_torch/csrc/cells_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:426",
@@ -7575,7 +8179,8 @@ def main() -> int:
              + sh["fused_cells_knn"] + rt["fused_cells_knn"]
              + ops["fused_cells_knn"]
              + du["fused_cells_knn"] + br["fused_cells_knn"]
-             + p20["launches"]["fused_cells_knn"], **b2),
+             + p20["launches"]["fused_cells_knn"]
+             + p21["launches"]["fused_cells_knn"], **b2),
         dict(name="fused_batch_knn", route="cuda",
              source="raft_tpu_torch/csrc/batch_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:277",
@@ -7584,7 +8189,8 @@ def main() -> int:
              + sm["fused_batch_knn"] + sf["fused_batch_knn"]
              + sh["fused_batch_knn"] + rt["fused_batch_knn"]
              + ops["fused_batch_knn"]
-             + du["fused_batch_knn"] + br["fused_batch_knn"], **b3),
+             + du["fused_batch_knn"] + br["fused_batch_knn"]
+             + p21["launches"]["fused_batch_knn"], **b3),
         dict(name="pq_fused_scan", route="cuda",
              source="raft_tpu_torch/csrc/pq_scan.cu",
              replaces="raft_tpu/ops/pq_scan.py:440",
@@ -7593,7 +8199,8 @@ def main() -> int:
              + sf["pq_fused_scan"] + sh["pq_fused_scan"]
              + rt["pq_fused_scan"] + ops["pq_fused_scan"]
              + du["pq_fused_scan"] + br["pq_fused_scan"]
-             + p20["launches"]["pq_fused_scan"], **b4),
+             + p20["launches"]["pq_fused_scan"]
+             + p21["launches"]["pq_fused_scan"], **b4),
         dict(name="stream_extract", route="cuda",
              source="raft_tpu_torch/csrc/stream_select.cu",
              replaces="raft_tpu/matrix/select_k.py:218", **b5),

@@ -105,6 +105,22 @@ def test_bvecs_round_trip_against_the_reference(rng, tmp_path, ref_lib):
     np.testing.assert_array_equal(got, ref_lib.read_bvecs(mine))
 
 
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_sift_shaped_bvecs_across_the_packages(tmp_path, ref_lib, writer):
+    """SIFT-shaped u8 rows (bench.py's recipe, 128 wide) written by one
+    package read back byte for byte by the other."""
+    from test_torch_configs import sift_u8
+
+    data, _ = sift_u8(np.random.default_rng(11), 500, 1, dim=128)
+    path = str(tmp_path / "sift.bvecs")
+    write, read = ((tn.write_bvecs, ref_lib.read_bvecs) if writer == "port"
+                   else (ref_lib.write_bvecs, tn.read_bvecs))
+    write(path, data)
+    got = read(path)
+    assert got.dtype == np.uint8 and got.shape == data.shape
+    np.testing.assert_array_equal(got, data)
+
+
 def test_ivecs_read_against_the_reference(rng, tmp_path, ref_lib):
     data = rng.integers(-1000, 1000, size=(5, 4)).astype(np.int32)
     path = str(tmp_path / "x.ivecs")
