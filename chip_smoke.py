@@ -40,7 +40,10 @@ no result line):
    never calls), beside the kernel's bound on an H100 SXM; B1 is also held
    against its plain version at every k=1 assignment shape of the build
    (trainset x 32 and x 1024 centers on both tiers, rows x 1024 in f32)
-   and timed there beside ``addmm`` + ``argmin``; B2 at k=10 and k=1 with
+   and timed there beside ``addmm`` + ``argmin``, with the path each tier
+   took (the bf16 tiers' tensor-core scan of ``csrc/knn_mma.cu``, the
+   f32 tier's FMA scan) and ptxas' registers and spills of the
+   tensor-core scan; B2 at k=10 and k=1 with
    its plan, its pre-pass's device-time share and its share of the
    search;
 6. the IVF-PQ path on the same rows and queries, the counters again set to
@@ -266,7 +269,9 @@ no result line):
     first split-bf16 and its final f32 B1 launch held against the plain
     version on their operands, a k-means++ fit at 100,000 x 128 x 64,
     and, after the counters are read, B1 at 1M x 1000 x 128 (k=1) on both
-    tiers beside ``addmm`` + ``argmin`` and the FP32 bound; (c)
+    tiers beside ``addmm`` + ``argmin`` and each tier's bound, with the
+    path each tier took and the split tier's plain version (the
+    tensor-core scan's figures in the ``kernels`` line); (c)
     ``find_k`` on ``make_blobs(200,000 x 32, 8 centers, std 0.3)`` with
     kmax 16 returns 8; (d) ``refine_host`` of phase 6's 100 IVF-PQ
     candidates for each query to k=10 through the port's native library
@@ -403,7 +408,15 @@ no result line):
     recall@10 >= 0.80), a ``min_recall=0.95`` search that warns and
     answers the native search bit for bit, and the largest list within
     B4's per-list budget; the phase's seconds, launches and peak memory;
-22. a ``kernels`` line, the card line, and the result line.
+22. a ``kernels`` line (B1 twice: its f32 tier's FMA scan at the
+    brute-force shape, its bf16 tiers' tensor-core scan at Lloyd's), the
+    card line, and the result line.
+
+From phase 3 on, every B1 launch of this process is held to its tier's
+scan (:class:`B1Tiers`): a bf16 request must go through the tensor-core
+scan (``fused_knn.mma_launches``), an f32 request through the FMA scan,
+checked after each phase; phases 4, 6, 17 and 20 must each run the
+split-bf16 tier.
 
 The data is made with numpy from a fixed seed: 1000 Gaussian blobs
 (centers uniform in [-10, 10], sigma 5), queries = database rows + N(0, 1).
@@ -1051,6 +1064,7 @@ def main_path(dev, X, Q):
     search_s = time.perf_counter() - t0
 
     launches = {"fused_knn": fk.fused_knn.launches,
+                "fused_knn_mma": fk.fused_knn.mma_launches,
                 "fused_cells_knn": fk.fused_cells_knn.launches}
     log(f"main path: brute force {bf_s:.3f} s ({bf_launches} B1 launch), "
         f"IVF-Flat build {build_s:.3f} s ({build_launches} B1 launches), "
@@ -1139,13 +1153,65 @@ def b1_k1_bound(m: int, n: int, d: int, bf16: bool):
     return nbytes / PEAK_BYTES * 1e3, "bytes"
 
 
+def b1_path(m: int, n: int, d: int, bf16: bool) -> str:
+    """The scan and launch plan B1 takes at k=1 on a tier
+    (``ops/fused_knn.py::_b1_tier_plan``)."""
+    import torch
+
+    fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
+    plan = fk._b1_tier_plan(m, n, d, 1, bf16, bf16, torch.cuda.
+                            get_device_properties(0).multi_processor_count)
+    if isinstance(plan, fk.B1MmaPlan):
+        return (f"tensor-core scan (knn_mma.cu), {plan.bq} x {plan.bn} "
+                f"tile, {len(plan.bounds)} slice(s), {plan.smem} B of shared "
+                f"memory")
+    return (f"FMA scan (knn_gemm.cuh), {plan.bq} queries per CTA, "
+            f"{len(plan.bounds)} slice(s)")
+
+
+def ptxas_kernels(lib: str, kernel: str) -> list:
+    """ptxas' registers and spill stores of each entry function of
+    ``lib`` whose name holds ``kernel``, from the build's log: (entry,
+    registers, spill bytes). b1_mma_kernel's template arguments are read
+    out of its mangled name (query rows x tile rows, tier, selection)."""
+    import re
+
+    from raft_tpu_torch.ops import _build
+
+    out, name, spill = [], None, None
+    for line in _build.BUILD_LOG.get(lib, "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), None
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and kernel in name:
+            t = re.search(r"b1_mma_kernelILi(\d+)ELi(\d+)ELb([01])ELi(\d)E",
+                          name)
+            short = re.search(r"(b1_mma\w*?_kernel)", name)
+            label = (short.group(1) if short else name) if t is None else (
+                f"{t.group(1)}x{t.group(2)} "
+                f"{'split' if t.group(3) == '1' else 'bf16'} "
+                f"{('k=1', 'network', 'merge')[int(t.group(4))]}")
+            out.append((label, int(m.group(1)), spill))
+            name = None
+    return out
+
+
 def b1_kmeans_shape(dev, X, centers):
     """B1 at the k=1 assignment shapes of the IVF-Flat build, each held
     against its plain version: the trainset (half the rows) against the
     32 mesocluster-sized and the 1024 list-sized center sets on the f32 and
     split-bf16 tiers (the balancing EM runs both), and every row against
     the 1024 centers in f32 (the extend assignment). Arg-min agreement must
-    reach RECALL_BF and the distances agree within ``norm_tol``."""
+    reach RECALL_BF and the distances agree within ``norm_tol``; each
+    launch must take its tier's scan (the split tier the tensor-core scan,
+    the f32 tier the FMA scan). Logs the path each tier took and ptxas'
+    registers and spills of the tensor-core scan. Returns the split tier's
+    largest distance error."""
     import torch
 
     fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
@@ -1158,19 +1224,27 @@ def b1_kmeans_shape(dev, X, centers):
              ("train", T, C1024, "f32", False),
              ("train", T, C1024, "split-bf16", True),
              ("extend", X, C1024, "f32", False)]
+    split_err = 0.0
     for what, A, C, tier, bf16 in cases:
         m, n, d = A.shape[0], C.shape[0], C.shape[1]
+        before = fk.fused_knn.mma_launches
         kd, ki = fk._fused_knn_cuda(A, C, 1, True, bf16, bf16)
+        mma = fk.fused_knn.mma_launches - before
         pd, pi = fk._fused_knn_plain(A, C, 1, True, bf16, bf16)
         torch.cuda.synchronize()
         agree = float((ki == pi).float().mean())
         err = max_err(kd, pd)
         tol = norm_tol(A, C)
         tag = f"B1 k-means {what} m={m} n={n} d={d} k=1 {tier}"
-        log(f"{tag}: arg-min agreement {agree:.6f} (bar {RECALL_BF}), max "
+        log(f"{tag}: path {b1_path(m, n, d, bf16)} ({mma} tensor-core "
+            f"launch); arg-min agreement {agree:.6f} (bar {RECALL_BF}), max "
             f"|d| err {err:.3e} (tol {tol:.3e})")
+        if mma != int(bf16):
+            raise AssertionError(f"{tag}: the launch took the wrong scan")
         if agree < RECALL_BF or err > tol:
             raise AssertionError(f"{tag}: kernel disagrees with plain")
+        if bf16:
+            split_err = max(split_err, err)
         del kd, ki, pd, pi
         ms = time_ms(lambda: fk._fused_knn_cuda(A, C, 1, True, bf16, bf16),
                      5)
@@ -1183,6 +1257,10 @@ def b1_kmeans_shape(dev, X, centers):
         log(f"{tag}: kernel {ms:.3f} ms, bound {bound:.3f} ms ({by}; "
             f"{2.0 * m * n * d / ms / 1e9:.1f} TFLOP/s), library (addmm + "
             f"argmin) {lib_ms:.3f} ms")
+    regs = ptxas_kernels("knn_mma", "b1_mma")
+    log(f"B1 tensor-core scan ptxas (tile, tier, selection: registers, "
+        f"spill bytes): {[f'{n}: {r}, {sp}' for n, r, sp in regs]}")
+    return split_err
 
 
 def b2_entry(dev, Q, index, search_ms):
@@ -1270,25 +1348,70 @@ def b2_entry(dev, Q, index, search_ms):
 
 
 def _counted():
-    """Every kernel wrapper with a launch counter, by kernel name."""
+    """Every launch counter, by kernel name: the wrapper that keeps it and
+    its attribute. ``fused_knn`` counts every B1 launch, ``fused_knn_mma``
+    those of its bf16 tiers' tensor-core scan among them."""
     fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
     from raft_tpu_torch.ops import pq_scan as ps
     from raft_tpu_torch.ops import stream_select as ss
 
-    return {"fused_knn": fk.fused_knn,
-            "fused_cells_knn": fk.fused_cells_knn,
-            "fused_batch_knn": fk.fused_batch_knn,
-            "pq_fused_scan": ps.pq_fused_scan,
-            "stream_extract": ss.stream_extract}
+    return {"fused_knn": (fk.fused_knn, "launches"),
+            "fused_knn_mma": (fk.fused_knn, "mma_launches"),
+            "fused_cells_knn": (fk.fused_cells_knn, "launches"),
+            "fused_batch_knn": (fk.fused_batch_knn, "launches"),
+            "pq_fused_scan": (ps.pq_fused_scan, "launches"),
+            "stream_extract": (ss.stream_extract, "launches")}
+
+
+#: The counters of B1's launches: the phases that "launch B1 and only B1"
+#: may show both.
+B1_COUNTERS = ("fused_knn", "fused_knn_mma")
 
 
 def _zero_counters() -> None:
-    for fn in _counted().values():
-        fn.launches = 0
+    for fn, attr in _counted().values():
+        setattr(fn, attr, 0)
 
 
 def _launches():
-    return {name: fn.launches for name, fn in _counted().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in _counted().items()}
+
+
+class B1Tiers:
+    """Wraps B1's launcher for the rest of the run and tells each launch's
+    requested tier from the scan it took: a bf16 request must add one to
+    ``fused_knn.mma_launches`` (the tensor-core scan of csrc/knn_mma.cu),
+    an f32 request must not (the FMA scan). ``take`` checks the launches
+    since the last ``take`` and fails on any that went the other way."""
+
+    def __init__(self):
+        self.fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
+        self.seen = {"bf16": 0, "bf16_mma": 0, "f32": 0, "f32_mma": 0}
+        self.mark = dict(self.seen)
+        launch = self.fk._fused_knn_cuda
+        fused_knn = self.fk.fused_knn
+
+        def counted(*args):
+            before = fused_knn.mma_launches
+            out = launch(*args)
+            tier = "bf16" if args[4] else "f32"
+            self.seen[tier] += 1
+            self.seen[tier + "_mma"] += fused_knn.mma_launches - before
+            return out
+
+        self.fk._fused_knn_cuda = counted
+
+    def take(self, phase: str) -> dict:
+        got = {k: self.seen[k] - self.mark[k] for k in self.seen}
+        self.mark = dict(self.seen)
+        log(f"{phase}: B1 bf16 launches {got['bf16']}, through the "
+            f"tensor-core scan {got['bf16_mma']}; f32 launches {got['f32']}, "
+            f"through the tensor-core scan {got['f32_mma']}")
+        if got["bf16_mma"] != got["bf16"] or got["f32_mma"]:
+            raise AssertionError(f"{phase}: a B1 launch took the wrong scan "
+                                 f"for its tier: {got}")
+        return got
 
 
 def _step(before):
@@ -5471,6 +5594,7 @@ def lloyd_17(dev, card) -> dict:
     if set(calls) != {"split-bf16", "f32"}:
         raise AssertionError(f"phase 17 (b): the fit launched B1 on the "
                              f"tiers {sorted(calls)}, not both")
+    split_err = 0.0
     for tier in ("split-bf16", "f32"):
         args, (kd, ki) = calls[tier]
         pd, pi = fk._fused_knn_plain(*args)
@@ -5486,6 +5610,8 @@ def lloyd_17(dev, card) -> dict:
         if agree < RECALL_BF or err > tol:
             raise AssertionError(f"phase 17 (b): B1 {tier} disagrees with "
                                  "its plain version")
+        if tier == "split-bf16":
+            split_err = err
         del pd, pi
     calls.clear()
 
@@ -5502,13 +5628,15 @@ def lloyd_17(dev, card) -> dict:
 
     return {"X": X, "truth": truth, "labels": labels, "C": C,
             "fit_s": fit_s, "it": it, "fit_launches": fit_launches,
-            "pp_s": pp_s, "pp_it": pp_it}
+            "pp_s": pp_s, "pp_it": pp_it, "split_err": split_err}
 
 
 def b1_lloyd_17(X, C, fit, card) -> dict:
     """Phase 17 (b), after the phase's launches are read: B1 at Lloyd's
     shape on both tiers beside ``addmm`` + ``argmin``, with each tier's
-    bound (:func:`b1_k1_bound`)."""
+    bound (:func:`b1_k1_bound`) and path; every timed launch must take its
+    tier's scan. The split tier's plain version is timed too: these are
+    the tensor-core scan's figures in the ``kernels`` line."""
     import torch
 
     fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
@@ -5516,24 +5644,39 @@ def b1_lloyd_17(X, C, fit, card) -> dict:
     Cc = C.contiguous()
     b1 = {}
     for tier, bf16 in (("f32", False), ("split-bf16", True)):
+        before = fk.fused_knn.mma_launches
         ms = time_ms(lambda: fk._fused_knn_cuda(X, Cc, 1, True, bf16, bf16),
                      5)
+        mma = fk.fused_knn.mma_launches - before
+        if mma != (6 if bf16 else 0):
+            raise AssertionError(f"phase 17 (b): B1 {tier} took the wrong "
+                                 f"scan ({mma} tensor-core launches of 6)")
         bound, by = b1_k1_bound(m, n_c, d, bf16)
-        b1[tier] = {"ms": ms, "bound_ms": bound, "bound_by": by}
+        b1[tier] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                    "path": b1_path(m, n_c, d, bf16)}
+    plain_ms = time_ms(lambda: fk._fused_knn_plain(X, Cc, 1, True, True,
+                                                   True), 2)
     cn = torch.sum(Cc * Cc, dim=1)
     lib_ms = time_ms(lambda: torch.argmin(torch.addmm(cn, X, Cc.t(),
                                                       alpha=-2.0), dim=1), 3)
     log(f"phase 17 (b): B1 at Lloyd's shape m={m} n={n_c} d={d} k=1: f32 "
         f"{b1['f32']['ms']:.3f} ms (bound {b1['f32']['bound_ms']:.3f} "
-        f"ms, {b1['f32']['bound_by']}), split-bf16 "
+        f"ms, {b1['f32']['bound_by']}; {b1['f32']['path']}), split-bf16 "
         f"{b1['split-bf16']['ms']:.3f} ms (bound "
         f"{b1['split-bf16']['bound_ms']:.3f} ms, "
-        f"{b1['split-bf16']['bound_by']}), library (addmm + argmin) "
+        f"{b1['split-bf16']['bound_by']}; {b1['split-bf16']['path']}; "
+        f"its plain version {plain_ms:.3f} ms), library (addmm + argmin) "
         f"{lib_ms:.3f} ms; fit from the true centers {fit['fit_s']:.3f} s "
         f"for {fit['it']} iterations ({fit['fit_launches']} B1 launches), "
         f"k-means++ fit "
         f"{fit['pp_s']:.3f} s for {fit['pp_it']} [{card}]")
-    return {"b1": b1, "lib_ms": lib_ms}
+    split = b1["split-bf16"]
+    return {"b1": b1, "lib_ms": lib_ms,
+            "mma": {"max_abs_err": fit["split_err"], "ms": split["ms"],
+                    "plain_ms": plain_ms, "bound_ms": split["bound_ms"],
+                    "bound_by": "operations"
+                    if split["bound_by"].startswith("operations")
+                    else "bytes", "library_ms": lib_ms}}
 
 
 def find_k_17(dev, card) -> float:
@@ -5852,7 +5995,7 @@ def slice17_phase(dev, X, Q, cand, card) -> dict:
     total = time.perf_counter() - t0
     log(f"phase 17: {total:.3f} s, launches {launches} [{card}]")
     if launches["fused_knn"] < 1 or any(
-            v for k, v in launches.items() if k != "fused_knn"):
+            v for k, v in launches.items() if k not in B1_COUNTERS):
         raise AssertionError(f"phase 17 must launch B1 and only B1: "
                              f"{launches}")
     timing = b1_lloyd_17(ll["X"], ll["C"], ll, card)
@@ -6479,7 +6622,7 @@ def slice18_phase(dev, X, card) -> dict:
     total = time.perf_counter() - t0
     log(f"phase 18: {total:.3f} s, launches {launches} [{card}]")
     if launches["fused_knn"] < 1 or any(
-            v for k, v in launches.items() if k != "fused_knn"):
+            v for k, v in launches.items() if k not in B1_COUNTERS):
         raise AssertionError(f"phase 18 must launch B1 and only B1: "
                              f"{launches}")
     torch.cuda.empty_cache()
@@ -7128,7 +7271,7 @@ def slice19_phase(dev, X, Q, bf, card) -> dict:
         f"(e) {e_launches}) [{card}]")
     if (d_launches["fused_knn"] < 1 or e_launches["fused_knn"] < 1
             or c["b5"] < 1 or any(v for k, v in launches.items()
-                                   if k not in ("fused_knn",
+                                   if k not in (*B1_COUNTERS,
                                                 "stream_extract"))):
         raise AssertionError(f"phase 19 must launch B1 in (d) and (e), B5 in "
                              f"(c) and nothing else: {launches}")
@@ -8105,7 +8248,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    # Every B1 launch from here on is held to its tier's scan.
+    tiers = B1Tiers()
     check_kernels(dev)
+    tiers.take("phase 3")
     check_kernels_b3_b4(dev)
     b5_err = check_kernel_b5(dev)
 
@@ -8118,23 +8264,35 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
 
     mp = main_path(dev, X, Q)
+    # The IVF builds of phases 4 and 6, the Lloyd fits of phase 17 and the
+    # facades' of phase 20 run B1's split-bf16 tier in their loops.
+    tiers_used = {"phase 4": tiers.take("phase 4")}
     b1 = b1_entry(dev, X, Q, mp["bf"])
-    b1_kmeans_shape(dev, X, mp["index"].centers)
+    split_err = b1_kmeans_shape(dev, X, mp["index"].centers)
     b2 = b2_entry(dev, Q, mp["index"], mp["search_ms"])
+    tiers.take("phase 5")
 
     pq = pq_path(dev, X, Q, mp["bf"][1])
     b4 = b4_entry(dev, Q, pq["index"], pq["search_ms"])
     b3 = b3_entry(dev, pq["index"], pq["probes_sub"], pq["rotq_sub"])
+    tiers_used["phase 6"] = tiers.take("phase 6")
 
     b5 = select_phase(dev, b5_err)
     br = breadth_phase(dev, X, Q, mp["index"], card)
     b5["launches"] += br["stream_extract"]
+    tiers.take("phases 7 and 16")
     p17 = slice17_phase(dev, X, Q, pq.pop("candidates"), card)
+    tiers_used["phase 17"] = tiers.take("phase 17")
     p18 = slice18_phase(dev, X, card)
     p19 = slice19_phase(dev, X, Q, mp["bf"], card)
     b5["launches"] += p19["launches"]["stream_extract"]
+    tiers.take("phases 18 and 19")
     # Phase 20 runs while phase 4's index is as phase 4 built it.
     p20 = facade_phase(dev, X, Q, mp["bf"], mp["iv"], mp["index"], card)
+    tiers_used["phase 20"] = tiers.take("phase 20")
+    idle = [ph for ph, got in tiers_used.items() if got["bf16"] < 1]
+    if idle:
+        raise AssertionError(f"no split-bf16 B1 launch in {idle}")
     # Phase 6 left IVF-PQ's reconstruction cache in place, which routes
     # search to the recon tier; phase 21 and the serve and lifecycle
     # phases search the compressed tier (B4), as the main path does.
@@ -8150,6 +8308,7 @@ def main() -> int:
     sf = surface_phase(dev, X, Q, mp["bf"], mp["index"], flat_served,
                        compacted["ivf_pq"], pq["recall"], card)
     sh, rt, ops, du, dask_s = sharded_phase(dev, X, Q, mp, pq, card)
+    tiers.take("phases 21 and 8-15 (this process)")
     log(f"phase 21: {p21['seconds']:.3f} s, launches {p21['launches']}, "
         f"peak device memory {p21['peak_gib']:.2f} GiB [{card}]")
     log(f"phase 20: {p20['seconds'] + dask_s:.3f} s (this process "
@@ -8157,19 +8316,24 @@ def main() -> int:
         f"launches {p20['launches']}, peak device memory "
         f"{p20['peak_gib']:.2f} GiB [{card}]")
 
+    # B1's launches on the main path's phases: the FMA scan's (the f32
+    # tier) and the tensor-core scan's (the bf16 tiers) apart.
+    b1_runs = [mp["launches"], pq["launches"], sv, lc, sm, sf, sh, rt, ops,
+               du, br, p17["launches"], p18["launches"], p19["launches"],
+               p20["launches"], p21["launches"]]
+    b1_mma = sum(run["fused_knn_mma"] for run in b1_runs)
+    b1_fma = sum(run["fused_knn"] for run in b1_runs) - b1_mma
+    mma = dict(p17["mma"], max_abs_err=max(p17["mma"]["max_abs_err"],
+                                           split_err))
     kernels = [
         dict(name="fused_knn", route="cuda",
              source="raft_tpu_torch/csrc/knn_gemm.cuh",
-             replaces="raft_tpu/ops/fused_knn.py:179",
-             launches=mp["launches"]["fused_knn"]
-             + pq["launches"]["fused_knn"] + sv["fused_knn"]
-             + lc["fused_knn"] + sm["fused_knn"] + sf["fused_knn"]
-             + sh["fused_knn"] + rt["fused_knn"] + ops["fused_knn"]
-             + du["fused_knn"] + br["fused_knn"]
-             + p17["launches"]["fused_knn"] + p18["launches"]["fused_knn"]
-             + p19["launches"]["fused_knn"]
-             + p20["launches"]["fused_knn"]
-             + p21["launches"]["fused_knn"], **b1),
+             replaces="raft_tpu/ops/fused_knn.py:179", launches=b1_fma,
+             **b1),
+        dict(name="fused_knn_mma", route="cuda",
+             source="raft_tpu_torch/csrc/knn_mma.cu",
+             replaces="raft_tpu/ops/fused_knn.py:179", launches=b1_mma,
+             **mma),
         dict(name="fused_cells_knn", route="cuda",
              source="raft_tpu_torch/csrc/cells_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:426",

@@ -1,16 +1,21 @@
-// The register-tiled FP32 kNN tile of kernel B1 (fused_knn) for Hopper.
+// The register-tiled FP32 kNN tile of kernel B1 (fused_knn) for Hopper:
+// B1's f32 tier, and the tile B2 (cells_knn.cu) runs on every tier.
 //
-// Replaces raft_tpu/ops/fused_knn.py::_fused_knn / _fused_knn_kernel: the
-// exact kNN of m queries against an (n, d) database, ordered by (distance,
-// id) with ties to the lowest id, for the f32 tier and the two bf16 tiers
-// (operands rounded to bf16, optionally plus the low half of the split
-// query), L2 (max(|q|^2 + |y|^2 - 2g, 0)) or inner product (-g).
+// Replaces raft_tpu/ops/fused_knn.py::_fused_knn / _fused_knn_kernel on its
+// f32 tier: the exact kNN of m queries against an (n, d) database, ordered
+// by (distance, id) with ties to the lowest id, L2 (max(|q|^2 + |y|^2 -
+// 2g, 0)) or inner product (-g). B1's bf16 tiers (operands rounded to
+// bf16, optionally plus the low half of the split query) run on bf16
+// tensor cores in knn_mma.cu, which shares this file's copies and slice
+// merge. The scan below still takes those tiers (BF16, QSPLIT) for B2,
+// whose staging also reads bf16 rows.
 //
 // What bounds it: 2*d flops per (query, row) pair at the FP32 rate outside
 // the tensor cores (TF32 would break parity with the reference's
-// Precision.HIGHEST, so every tier runs FP32 FMA; bf16 products are exact
-// in f32). At the brute-force shape (10,000 x 1M x 128) that is 38 ms on an
-// H100 SXM; the bytes (0.5 GB) are 0.15 ms. What the design does about it:
+// Precision.HIGHEST, so the f32 tier runs FP32 FMA; on B2's bf16 tiers
+// the bf16 products are exact in f32 and run as FMAs too). At the
+// brute-force shape (10,000 x 1M x 128) that is 38 ms on an H100 SXM; the
+// bytes (0.5 GB) are 0.15 ms. What the design does about it:
 //
 //   * a CTA of 256 threads owns BQ queries (128, or 64 / 32 when the top-k
 //     queue needs the room or m is small) and sweeps 128-row database
@@ -25,8 +30,8 @@
 //     being multiplied. Each thread moves its own pieces of the next chunk
 //     through registers into feature-major buffers (double-buffered, one
 //     barrier per chunk) in the middle of the current chunk's FMAs, so the
-//     move does not idle the FMA pipe; it rounds to bf16 and splits the
-//     query on the way on those tiers. Lane pairs share a 32-byte sector;
+//     move does not idle the FMA pipe; on B2's bf16 tiers it rounds to
+//     bf16 and splits the query on the way. Lane pairs share a 32-byte sector;
 //     the staging stride (BK + 8) and the feature-major stride (rows + 4)
 //     keep the piece reads, the transposing stores and the inner loop's
 //     float4 reads free of bank conflicts;
@@ -53,8 +58,9 @@
 //     sweep's, bit for bit.
 //
 // B2 (cells_knn.cu) runs the same pieces (staging, which also reads bf16
-// rows, the transposing move, the chunk's FMAs, the k = 1 reduction) over
-// the cells of the packed IVF-Flat scan.
+// rows, the transposing move with its bf16 rounding and query split, the
+// chunk's FMAs, the k = 1 reduction) over the cells of the packed IVF-Flat
+// scan.
 //
 // On the H100 this runs at about half the FP32 peak (PERF.md); the k = 1
 // scan, which does no selection, runs faster than k > 1, whose queue and

@@ -1,15 +1,20 @@
-// The bf16 tensor-core tile and its selection, shared by the packed scans
-// that multiply on mma.sync: B3 (batch_knn.cu) and B4 (pq_scan.cu).
+// The bf16 tensor-core tile and its selection, shared by the scans that
+// multiply on mma.sync: B1's bf16 tiers (knn_mma.cu), B3 (batch_knn.cu)
+// and B4 (pq_scan.cu).
 //
-// Both give one CTA of 256 threads BQ query rows (64, 32 or 16) held as a
-// bf16 operand A (BQ x kp, row stride kp + 8) and sweep 128-slot tiles of
-// bf16 rows Bt (slot-major, row stride kp + 8), double-buffered. Per tile:
+// Each gives one CTA of 256 threads BQ query rows (128 at most) held as a
+// bf16 operand A (row stride SA) and sweeps tiles of TBN slots (128 by
+// default; B1 also takes 64 and 32) of bf16 rows Bt (slot-major, row
+// stride SB), double-buffered. Per tile:
 //
-//   * mma_range: the BQ x 128 gram block by mma.sync m16n8k16 (bf16
+//   * mma_range: the BQ x TBN gram block by mma.sync m16n8k16 (bf16
 //     operands, f32 accumulators; operands by ldmatrix), 8 warps tiling
-//     it as Geo<BQ> says. bf16 products are exact in f32; within a k16
-//     step the tensor core sums in its own order, so results equal an FMA
-//     order bit for bit only where the partial sums are exact;
+//     it as Geo<BQ, TBN> says. With SPLIT a second A (the lo half of a
+//     split query, B1's qsplit tier) is multiplied into the same
+//     accumulators, fragment by fragment. bf16 products are exact in f32;
+//     within a k16 step the tensor core sums in its own order, so results
+//     equal an FMA order bit for bit only where the partial sums are
+//     exact;
 //   * select_tile: the accumulators become min-order distances in place
 //     (NaN for invalid slots and padding rows, which no test accepts);
 //     k = 1 folds them into a register (min, slot) per row; k > 1 sends
@@ -22,9 +27,10 @@
 //   * write_rows: the rows' results, ids of empty or inf slots as -1.
 //
 // What fills A and Bt differs: B4 decodes PQ codes through a codeword
-// table, B3 copies bf16 rows. So does each tile's slot metadata (B4's
-// valid flags and code norms, B3's row norms with NaN marking invalid
-// slots); each scan keeps its own tile_meta.
+// table, B3 copies bf16 rows, B1 rounds staged f32 rows. So does each
+// tile's slot metadata (B4's valid flags and code norms, B3's row norms
+// with NaN marking invalid slots, B1's rows past its slice); each scan
+// keeps its own.
 
 #pragma once
 
@@ -76,36 +82,43 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Warp geometry of a BQ x 128 block: WARPS_M x WARPS_N warps, each WM x WN
+// Warp geometry of a BQ x TBN block: WARPS_M x WARPS_N warps, each WM x WN
 // (MT m16 tiles by NT8 n8 tiles).
-template <int BQ>
+template <int BQ, int TBN = BN>
 struct Geo {
   static constexpr int WARPS_M = BQ >= 32 ? BQ / 32 : 1;
   static constexpr int WARPS_N = NW / WARPS_M;
   static constexpr int WM = BQ / WARPS_M;
-  static constexpr int WN = BN / WARPS_N;
+  static constexpr int WN = TBN / WARPS_N;
   static constexpr int MT = WM / 16;
   static constexpr int NT8 = WN / 8;
   static_assert(WM % 16 == 0 && NT8 % 2 == 0, "warp tile");
 };
 
-// acc += A[rows of this warp][k0 + [0, kw)] * Bt[cols of this warp][0, kw).
-template <int BQ>
+// acc += A[rows of this warp][k0 + [0, kw)] * Bt[cols of this warp][0, kw);
+// with SPLIT also Ls[rows][k0 + [0, kw)] * Bt (the same layout as A), each
+// fragment's second product right after its first, into the same
+// accumulators.
+template <int BQ, int TBN = BN, bool SPLIT = false>
 __device__ __forceinline__ void mma_range(
-    float (&acc)[Geo<BQ>::MT][Geo<BQ>::NT8][4], const unsigned short* As,
-    int SA, const unsigned short* Bt, int SB, int k0, int kw, int wm0,
-    int wn0) {
-  using G = Geo<BQ>;
+    float (&acc)[Geo<BQ, TBN>::MT][Geo<BQ, TBN>::NT8][4],
+    const unsigned short* As, int SA, const unsigned short* Bt, int SB,
+    int k0, int kw, int wm0, int wn0, const unsigned short* Ls = nullptr) {
+  using G = Geo<BQ, TBN>;
   const int lane = threadIdx.x & 31;
-  const unsigned short* a_row = As + (wm0 + (lane & 15)) * SA + k0 + (lane >> 4) * 8;
+  const int a_off = (wm0 + (lane & 15)) * SA + k0 + (lane >> 4) * 8;
+  const unsigned short* a_row = As + a_off;
   const unsigned short* b_row =
       Bt + (wn0 + (lane >> 4) * 8 + (lane & 7)) * SB + ((lane >> 3) & 1) * 8;
 #pragma unroll 2
   for (int kk = 0; kk < kw; kk += 16) {
-    uint32_t af[G::MT][4];
+    uint32_t af[G::MT][4], lf[SPLIT ? G::MT : 1][4];
 #pragma unroll
-    for (int mt = 0; mt < G::MT; ++mt)
+    for (int mt = 0; mt < G::MT; ++mt) {
       mma_bf16::ldmatrix_x4(af[mt], a_row + mt * 16 * SA + kk);
+      if constexpr (SPLIT)
+        mma_bf16::ldmatrix_x4(lf[mt], Ls + a_off + mt * 16 * SA + kk);
+    }
 #pragma unroll
     for (int p = 0; p < G::NT8 / 2; ++p) {
       uint32_t bf[4];
@@ -115,11 +128,18 @@ __device__ __forceinline__ void mma_range(
         mma_bf16::mma_16816(acc[mt][2 * p], af[mt], bf[0], bf[1]);
         mma_bf16::mma_16816(acc[mt][2 * p + 1], af[mt], bf[2], bf[3]);
       }
+      if constexpr (SPLIT) {
+#pragma unroll
+        for (int mt = 0; mt < G::MT; ++mt) {
+          mma_bf16::mma_16816(acc[mt][2 * p], lf[mt], bf[0], bf[1]);
+          mma_bf16::mma_16816(acc[mt][2 * p + 1], lf[mt], bf[2], bf[3]);
+        }
+      }
     }
   }
 }
 
-// The epilogue and selection of tile t (slots t * 128 + [0, 128)) for the
+// The epilogue and selection of tile t (slots t * TBN + [0, TBN)) for the
 // nq rows of this CTA: acc becomes min-order distances in place (NaN for
 // invalid slots and padding rows), then k = 1 folds them into the running
 // (bd, bi) of each row, k > 1 filters them against the queues q. qn: the
@@ -129,18 +149,19 @@ __device__ __forceinline__ void mma_range(
 // NET_K they wait in the buffers unless `drain_now` or a buffer fills;
 // *pending says on return whether some wait (the caller drains them after
 // its last tile).
-template <int BQ, int SEL, int CN = CAND, bool LAZY = false>
+template <int BQ, int SEL, int CN = CAND, bool LAZY = false, int TBN = BN>
 __device__ __forceinline__ void select_tile(
-    float (&acc)[Geo<BQ>::MT][Geo<BQ>::NT8][4], float (&bd)[2 * Geo<BQ>::MT],
+    float (&acc)[Geo<BQ, TBN>::MT][Geo<BQ, TBN>::NT8][4],
+    float (&bd)[2 * Geo<BQ>::MT],
     int (&bi)[2 * Geo<BQ>::MT], const float* qn_s,
     const cell_select::Queues& q, const float* yn, const int* ok, int t,
     int nq, int k, bool l2, int wm0, int wn0, bool first,
     bool drain_now = true, bool* pending = nullptr) {
-  using G = Geo<BQ>;
+  using G = Geo<BQ, TBN>;
   constexpr int C = CN / BQ;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tq = lane & 3;
-  const int t0 = t * BN;
+  const int t0 = t * TBN;
 #pragma unroll
   for (int mt = 0; mt < G::MT; ++mt)
 #pragma unroll
@@ -183,7 +204,7 @@ __device__ __forceinline__ void select_tile(
   const int rs = small_k ? 1 : C, js = small_k ? BQ : 1;
   // On an item's first tile the queues are empty, so every pair would
   // pass. For k <= NET_K the k-th smallest of the per-thread minima of
-  // a row (WARPS_N x 4 threads hold its 128 values, each min a distinct
+  // a row (WARPS_N x 4 threads hold its TBN values, each min a distinct
   // pair) bounds the row's k-th smallest from above: pairs above it
   // cannot enter the queue.
   const bool bound = first && small_k;

@@ -5,10 +5,15 @@ Port of ``raft_tpu/ops/fused_knn.py::fused_knn``, ``::fused_cells_knn`` and
 ``::fused_batch_knn``. The kernels are hand-written CUDA (see the sources'
 headers for the design):
 
-* B1 is the register-tiled FP32 scan, norm pre-pass and slice merge of
-  ``csrc/knn_gemm.cuh`` (entry point in ``csrc/fused_knn.cu``); it splits
-  the database into slices when its query blocks alone cannot fill the
-  card (:func:`_b1_plan`);
+* B1's f32 tier is the register-tiled FP32 scan, norm pre-pass and slice
+  merge of ``csrc/knn_gemm.cuh`` (entry point in ``csrc/fused_knn.cu``);
+  it splits the database into slices when its query blocks alone cannot
+  fill the card (:func:`_b1_plan`). Its two bf16 tiers (every k, d, m and
+  n) are ``csrc/knn_mma.cu``: a pre-pass rounds the rows to bf16 once,
+  and the staged f32 query chunks are rounded into bf16 operands (the
+  split query's lo half a second operand) on the ``mma.sync`` tile and
+  selection of ``csrc/mma_tile.cuh``, with the same slice merge
+  (:func:`_b1_mma_plan`);
 * B2 is ``csrc/cells_knn.cu``: a pre-pass (live tiles, row norms) and one
   CTA per (cell, block of query rows) on B1's tile, with the cell-level
   selection of ``csrc/cell_select.cuh`` that it shares with B4; its plan
@@ -33,13 +38,15 @@ kernel's arithmetic and tie rules:
 Dispatch: a wrapper takes the plain version only when its tensors lie on
 the CPU. For CUDA tensors it launches the kernel or raises; nothing falls
 back. ``fused_knn.launches``, ``fused_cells_knn.launches`` and
-``fused_batch_knn.launches`` count the kernel launches.
+``fused_batch_knn.launches`` count the kernel launches;
+``fused_knn.mma_launches`` counts the B1 launches of the tensor-core scan
+(its bf16 tiers) among them.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -119,21 +126,21 @@ def _b1_smem_bytes(bq: int, k: int, qsplit: bool) -> int:
 
 
 def _b1_ctas_per_sm(k: int) -> int:
-    """CTAs of B1 an SM holds at once: the minimum blocks of
-    b1_scan_kernel's ``__launch_bounds__`` (two for the k = 1 scan, one
-    for the k > 1 scan, whose queue and epilogue need the registers)."""
+    """CTAs of B1 an SM holds at once: the minimum blocks of the
+    ``__launch_bounds__`` of b1_scan_kernel and b1_mma_kernel (two for
+    the k = 1 scans, one for the k > 1 scans, whose queue and epilogue
+    need the registers and shared memory)."""
     return 2 if k == 1 else 1
 
 
-def _b1_plan(m: int, n: int, k: int, n_sm: int) -> B1Plan:
-    """Split the database so that the grid (query blocks x slices) covers
-    at least two waves where m x n allows it (a wave: ``n_sm`` SMs times
-    the CTAs an SM holds). Slices are whole 128-row tiles, at least
-    ``B1_MIN_SLICE_TILES`` of them, at most ``B1_MAX_SLICES`` slices; among
-    the counts from the two-wave minimum to twice it, the one whose last
-    wave is fullest wins (ties to fewer)."""
-    bq = _b1_bq(m, k)
-    slots = n_sm * _b1_ctas_per_sm(k)
+def _b1_slices(m: int, n: int, bq: int, slots: int
+               ) -> Tuple[int, List[Tuple[int, int]]]:
+    """Split the database so that the grid (query blocks of ``bq`` x
+    slices) covers at least two waves of ``slots`` CTAs where m x n allows
+    it. Slices are whole 128-row tiles, at least ``B1_MIN_SLICE_TILES`` of
+    them, at most ``B1_MAX_SLICES`` slices; among the counts from the
+    two-wave minimum to twice it, the one whose last wave is fullest wins
+    (ties to fewer). Returns (slice rows, bounds)."""
     blocks = -(-m // bq)
     tiles = -(-n // B1_BN)
     most = max(1, min(B1_MAX_SLICES, tiles // B1_MIN_SLICE_TILES))
@@ -152,8 +159,101 @@ def _b1_plan(m: int, n: int, k: int, n_sm: int) -> B1Plan:
                 best = (fill, p)
         per = best[1]
     rows = per * B1_BN
-    bounds = [(lo, min(n, lo + rows)) for lo in range(0, n, rows)]
+    return rows, [(lo, min(n, lo + rows)) for lo in range(0, n, rows)]
+
+
+def _b1_plan(m: int, n: int, k: int, n_sm: int) -> B1Plan:
+    """The f32 tier's launch: :func:`_b1_bq` queries per CTA, and the
+    slices of :func:`_b1_slices` over a wave of ``n_sm`` SMs times the
+    CTAs an SM holds."""
+    bq = _b1_bq(m, k)
+    rows, bounds = _b1_slices(m, n, bq, n_sm * _b1_ctas_per_sm(k))
     return B1Plan(bq, rows, bounds)
+
+
+# The bf16 tiers' tensor-core scan (the constants of csrc/knn_mma.cu):
+# features per staged chunk, chunks in flight, the bf16 operand row
+# stride, candidate slots per CTA (mma_tile.cuh's), the widest queue of
+# the insertion network.
+B1_MMA_BK = 16
+B1_MMA_STAGES = 4
+B1_MMA_SA = B1_MMA_BK + 8
+B1_MMA_CAND = 4096
+B1_MMA_NET_K = 16
+
+
+class B1MmaPlan(NamedTuple):
+    """B1's launch on a bf16 tier (the tensor-core scan of
+    ``csrc/knn_mma.cu``): ``bq`` query rows per CTA, tiles of ``bn``
+    database rows, the slices as in :class:`B1Plan`, and ``smem`` the
+    bytes of one CTA."""
+    bq: int
+    bn: int
+    slice_rows: int
+    bounds: List[Tuple[int, int]]
+    smem: int
+
+
+def _b1_mma_smem_bytes(bq: int, bn: int, k: int, qsplit: bool) -> int:
+    """Shared-memory bytes of one CTA of the tensor-core scan, region by
+    region as knn_mma.cu's ``Layout`` lays them out, each rounded up to 16
+    bytes: the ring of staged f32 query chunks (bq rows of 16 features),
+    the ring of bf16 row tiles (bn rows, stride 24), the double-buffered
+    bf16 query operand and its lo half with ``qsplit``, two tiles' row
+    norms, the query norms; then for k = 1 the cross-warp (min, id) of
+    each row, else two tiles' valid flags, the queue (bq x k pairs), the
+    candidate buffer, its counters and the bitmask of rows with
+    candidates, and for k <= 16 the per-thread row minima and the rows'
+    first-tile bounds. d does not enter: the features are staged 16 at a
+    time."""
+    warps_n = 8 // max(1, bq // 32)
+    op = B1_MMA_SA * 2
+    parts = [B1_MMA_STAGES * bq * B1_MMA_BK * 4, B1_MMA_STAGES * bn * op,
+             2 * bq * op, 2 * bq * op if qsplit else 0, 2 * bn * 4, 4 * bq]
+    if k == 1:
+        parts.append(warps_n * bq * 8)
+    else:
+        parts += [2 * bn * 4, 4 * bq * k, 4 * bq * k, 4 * B1_MMA_CAND,
+                  4 * B1_MMA_CAND, 4 * bq, 4 * (-(-bq // 32))]
+        if k <= B1_MMA_NET_K:
+            parts += [bq * warps_n * 4 * 4, 4 * bq]
+    return sum(_r16(p) for p in parts)
+
+
+def _b1_mma_tile(m: int, n: int, k: int) -> Tuple[int, int]:
+    """(query rows per CTA, database rows per tile) of the tensor-core
+    scan. k = 1: 128 rows against tiles of 128, or of 64 / 32 when n is
+    that small (the 32 mesoclusters of a balanced k-means). k > 1: 64 rows
+    (32 past k = 128, for the queue's room; 16 / 32 when m is that small)
+    against tiles of 128."""
+    if k == 1:
+        return 128, 32 if n <= 32 else 64 if n <= 64 else 128
+    most = 64 if k <= 128 else 32
+    return min(most, 16 if m <= 16 else 32 if m <= 32 else 64), 128
+
+
+def _b1_mma_plan(m: int, n: int, d: int, k: int, qsplit: bool,
+                 n_sm: int) -> B1MmaPlan:
+    """The tensor-core scan's launch for a bf16 tier: the tile of
+    :func:`_b1_mma_tile`, the slices of :func:`_b1_slices` (two CTAs an SM
+    at k = 1, one above), and the shared memory, which fits
+    ``SMEM_LIMIT`` at every k <= 256 and every d."""
+    expects(1 <= k <= MAX_K and m >= 1 and n >= 1 and d >= 1,
+            "fused_knn: no plan for m=%s n=%s d=%s k=%s", m, n, d, k)
+    bq, bn = _b1_mma_tile(m, n, k)
+    rows, bounds = _b1_slices(m, n, bq, n_sm * _b1_ctas_per_sm(k))
+    return B1MmaPlan(bq, bn, rows, bounds,
+                     _b1_mma_smem_bytes(bq, bn, k, qsplit))
+
+
+def _b1_tier_plan(m: int, n: int, d: int, k: int, bf16: bool, qsplit: bool,
+                  n_sm: int) -> Union[B1Plan, B1MmaPlan]:
+    """The plan of one B1 launch: both bf16 tiers take the tensor-core
+    scan (:func:`_b1_mma_plan`), at every shape; the f32 tier takes the
+    FMA scan (:func:`_b1_plan`)."""
+    if bf16:
+        return _b1_mma_plan(m, n, d, k, qsplit, n_sm)
+    return _b1_plan(m, n, k, n_sm)
 
 
 # B2's launch geometry (the constants of csrc/cells_knn.cu, on B1's tile):
@@ -282,7 +382,8 @@ def _fused_knn_plain(queries, db, k: int, l2: bool, bf16: bool,
     return best_d, _starved_to_pad(best_d, best_i)
 
 
-_KNN_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_KNN_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_MMA_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 _CELLS_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
                    + [ctypes.c_void_p])
@@ -294,6 +395,14 @@ def _lib():
     if lib.fused_knn_launch.argtypes is None:
         lib.fused_knn_launch.argtypes = _KNN_ARGTYPES
         lib.fused_knn_launch.restype = ctypes.c_int
+    return lib
+
+
+def _mma_lib():
+    lib = _build.load_library("knn_mma")
+    if lib.fused_knn_mma_launch.argtypes is None:
+        lib.fused_knn_mma_launch.argtypes = _MMA_ARGTYPES
+        lib.fused_knn_mma_launch.restype = ctypes.c_int
     return lib
 
 
@@ -322,25 +431,42 @@ def _fused_knn_cuda(queries, db, k: int, l2: bool, bf16: bool,
     n = db.shape[0]
     expects(1 <= k <= MAX_K and n >= 1,
             "fused_knn: unsupported shape m=%s n=%s d=%s k=%s", m, n, d, k)
-    lib = _lib()
+    qsplit = qsplit and bf16
+    lib = _mma_lib() if bf16 else _lib()
     dev = queries.device
-    plan = _b1_plan(m, n, k, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
+    plan = _b1_tier_plan(m, n, d, k, bf16, qsplit,
+                         torch.cuda.get_device_properties(
+                             dev).multi_processor_count)
     s = len(plan.bounds)
     out_d = torch.empty((m, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((m, k), dtype=torch.int32, device=dev)
-    norms = torch.empty(m + n if l2 else 0, dtype=torch.float32, device=dev)
+    # The pre-pass's norms (the rows' alone on the tensor-core scan, which
+    # sums the queries' from its staged chunks) and, there, the rows
+    # rounded to bf16 (d padded to whole chunks with zeros).
+    norms = torch.empty((n if bf16 else m + n) if l2 else 0,
+                        dtype=torch.float32, device=dev)
     ws_d = torch.empty((s, m, k) if s > 1 else 0, dtype=torch.float32,
                        device=dev)
     ws_i = torch.empty((s, m, k) if s > 1 else 0, dtype=torch.int32,
                        device=dev)
     with torch.cuda.device(dev):
-        err = lib.fused_knn_launch(
-            _ptr(queries), _ptr(db), _ptr(norms), _ptr(ws_d), _ptr(ws_i),
-            _ptr(out_d), _ptr(out_i), m, n, d, k, int(l2), int(bf16),
-            int(qsplit), plan.bq, plan.slice_rows, s, _stream(dev))
+        if bf16:
+            kp = -(-d // B1_MMA_BK) * B1_MMA_BK
+            ybf = torch.empty((n, kp), dtype=torch.bfloat16, device=dev)
+            err = lib.fused_knn_mma_launch(
+                _ptr(queries), _ptr(db), _ptr(norms), _ptr(ybf), _ptr(ws_d),
+                _ptr(ws_i), _ptr(out_d), _ptr(out_i), m, n, d, k, int(l2),
+                int(qsplit), plan.bq, plan.bn, plan.slice_rows, s,
+                plan.smem, _stream(dev))
+        else:
+            err = lib.fused_knn_launch(
+                _ptr(queries), _ptr(db), _ptr(norms), _ptr(ws_d),
+                _ptr(ws_i), _ptr(out_d), _ptr(out_i), m, n, d, k, int(l2),
+                plan.bq, plan.slice_rows, s, _stream(dev))
     _build.check(err, "fused_knn launch")
     fused_knn.launches += 1
+    if bf16:
+        fused_knn.mma_launches += 1
     return out_d, out_i
 
 
@@ -380,6 +506,7 @@ def fused_knn(queries: torch.Tensor, db: torch.Tensor, k: int, *,
 
 
 fused_knn.launches = 0
+fused_knn.mma_launches = 0
 
 
 def _fused_cells_knn_plain(cell_list, queries, db, invalid, k: int,

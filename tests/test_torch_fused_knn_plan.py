@@ -1,8 +1,10 @@
-"""B1's launch plan and its split-database merge, on the CPU.
+"""B1's launch plans and its split-database merge, on the CPU.
 
-``_b1_plan`` decides how many database slices the CUDA kernel sweeps side
-by side and how many queries a CTA holds; the kernel merges the slices'
-sorted lists by (distance, id). These tests hold the plan to its contract
+``_b1_plan`` (the f32 tier's FMA scan) and ``_b1_mma_plan`` (the bf16
+tiers' tensor-core scan) decide how many database slices the CUDA kernel
+sweeps side by side and how many queries a CTA holds; the kernel merges
+the slices' sorted lists by (distance, id). These tests hold the plans to
+their contract
 (disjoint whole-tile slices covering the database, a shared-memory budget
 that fits the H100, about two waves of CTAs where the shape allows) and
 the plain version run slice by slice and merged to the one sweep and to
@@ -64,6 +66,73 @@ def test_plan_slices_cover_the_database(k, n_sm):
             assert blocks * s >= 0.85 * target, (m, rows, k, plan)
             if blocks >= 2 * slots:
                 assert s == 1
+
+
+def _covers(plan, rows):
+    """Disjoint whole-tile slices of ``plan.slice_rows`` rows covering
+    [0, rows)."""
+    bounds = plan.bounds
+    assert plan.slice_rows % fk.B1_BN == 0
+    assert 1 <= len(bounds) <= fk.B1_MAX_SLICES
+    assert bounds[0][0] == 0 and bounds[-1][1] == rows
+    for (lo, hi), (lo2, _) in zip(bounds, bounds[1:]):
+        assert hi == lo2 and hi - lo == plan.slice_rows
+    assert all(hi > lo for lo, hi in bounds)
+
+
+@pytest.mark.parametrize("d", [1, 8, 33, 128, 1024])
+@pytest.mark.parametrize("k", [1, 10, 64, 65, 128, 129, 256])
+def test_mma_plan_fits_every_bf16_shape(k, d):
+    """Both bf16 tiers take the tensor-core scan at every shape: the plan
+    never routes them to the FMA scan, its shared memory (which d does not
+    change) fits SMEM_LIMIT, two k = 1 CTAs fit an SM, and its slices
+    cover the database as the f32 plan's do."""
+    for m in _MS:
+        for rows in _NS:
+            if k > rows:
+                continue
+            for qsplit in (False, True):
+                plan = fk._b1_tier_plan(m, rows, d, k, True, qsplit, 132)
+                assert isinstance(plan, fk.B1MmaPlan)
+                assert plan == fk._b1_mma_plan(m, rows, d, k, qsplit, 132)
+                assert plan.smem == fk._b1_mma_smem_bytes(plan.bq, plan.bn,
+                                                          k, qsplit)
+                assert plan.smem <= fk.SMEM_LIMIT
+                if k == 1:
+                    assert plan.bq == 128
+                    assert plan.bn == (32 if rows <= 32 else 64 if rows <= 64
+                                       else 128)
+                    assert 2 * (plan.smem + 1024) <= 233472
+                else:
+                    cap = 64 if k <= 128 else 32
+                    assert plan.bn == 128 and plan.bq in (16, 32, 64)
+                    assert plan.bq <= cap and (plan.bq >= m or plan.bq == cap)
+                _covers(plan, rows)
+                if len(plan.bounds) > 1:
+                    assert plan.slice_rows >= (fk.B1_MIN_SLICE_TILES
+                                               * fk.B1_BN)
+            assert isinstance(
+                fk._b1_tier_plan(m, rows, d, k, False, False, 132),
+                fk.B1Plan)
+
+
+@pytest.mark.parametrize("qsplit", [False, True])
+def test_mma_plan_at_the_kmeans_shapes(qsplit):
+    """The k-means assignments: 32 mesoclusters take 32-row tiles, 1000 /
+    1024 centers 128-row tiles, and the many query blocks need no
+    slices; the byte counts are the ones knn_mma.cu's Layout gives."""
+    for m, n, bn in ((500_000, 32, 32), (500_000, 1024, 128),
+                     (1_000_000, 1000, 128), (64, 50, 64)):
+        plan = fk._b1_mma_plan(m, n, 128, 1, qsplit, 132)
+        assert (plan.bq, plan.bn) == (128, bn)
+        assert plan.bounds == [(0, n)]
+    # 128 x 128 tile: 4 staged f32 query chunks (128 rows x 64 bytes), 4
+    # bf16 row tiles and the double-buffered query operand (stride 48
+    # bytes), two tiles' row norms, the query norms, the k = 1 reduction.
+    base = 4 * 128 * 64 + 4 * 128 * 48 + 2 * 128 * 48 + 2 * 128 * 4 \
+        + 128 * 4 + 2 * 128 * 8
+    assert fk._b1_mma_smem_bytes(128, 128, 1, qsplit) == base + (
+        2 * 128 * 48 if qsplit else 0)
 
 
 def test_plan_at_the_brute_force_shape():

@@ -215,12 +215,37 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert list((tmp_path / "build").iterdir()) == []
 
 
+@pytest.mark.parametrize("qsplit", [False, True])
+def test_bf16_tiers_never_reach_the_fma_scan(monkeypatch, tmp_path, qsplit):
+    """B1's bf16 tiers launch the tensor-core scan's library (knn_mma)
+    alone: with the FMA scan's library loaded and knn_mma unbuildable, a
+    bf16 request raises CudaError and never calls the FMA entry."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    calls = []
+
+    def fma_entry(*args):
+        calls.append(args)
+        return 0
+
+    fma_entry.argtypes = fk._KNN_ARGTYPES
+    monkeypatch.setattr(_build, "_LOADED", {"fused_knn": type(
+        "Lib", (), {"fused_knn_launch": staticmethod(fma_entry)})()})
+    q = torch.zeros((4, 8))
+    before = (fk.fused_knn.launches, fk.fused_knn.mma_launches)
+    with pytest.raises(CudaError):
+        fk._fused_knn_cuda(q, q, 2, True, True, qsplit)
+    assert calls == []
+    assert (fk.fused_knn.launches, fk.fused_knn.mma_launches) == before
+
+
 def test_library_name_follows_the_sources():
     path = _build._library_path("fused_knn")
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libfused_knn-") and path.suffix == ".so"
     assert _build.sources() == ["batch_knn", "cells_knn", "fused_knn",
-                                "pq_scan", "stream_select"]
+                                "knn_mma", "pq_scan", "stream_select"]
     # Every library's name also follows the shared header.
     assert any(p.name == "knn_tile.cuh"
                for p in _build.CSRC_DIR.glob("*.cuh"))

@@ -50,14 +50,28 @@ def _on(dev, *arrays):
 # B1 cases (m, n, d, k, hi), integer data in [0, hi): the split path (m = 1
 # and 129 against 200,000 rows; {0, 1} data ties across the slices), each
 # BQ boundary of k, n < 128, n not a multiple of the slice, d in {33, 96,
-# 1024}.
+# 1024}; the k-means assignments (k = 1 against 32, 1000 and 1024 centers,
+# each tile width of the bf16 tiers' tensor-core scan, and d = 1024).
 _B1_CASES = [(70, 3001, 96, 1, 8), (70, 3001, 96, 16, 8),
              (70, 3001, 96, 256, 8), (1, 200_000, 96, 10, 2),
              (129, 200_000, 96, 10, 2), (129, 200_001, 33, 64, 2),
              (1, 200_000, 96, 256, 2),
              *[(200, 5000, 32, k, 2) for k in (1, 10, 64, 65, 128, 129, 256)],
              (50, 100, 33, 10, 8), (50, 100, 24, 100, 2),
-             (100, 3000, 1024, 10, 8), (300, 3000, 33, 129, 2)]
+             (100, 3000, 1024, 10, 8), (300, 3000, 33, 129, 2),
+             (3000, 32, 128, 1, 8), (4000, 1000, 128, 1, 8),
+             (2500, 1024, 128, 1, 8), (2000, 64, 128, 1, 8),
+             (2000, 1000, 1024, 1, 8)]
+
+
+def _launched(launch, bf16):
+    """Run ``launch`` and assert it was one B1 launch, through the
+    tensor-core scan exactly when a bf16 tier was asked for."""
+    before = (fk.fused_knn.launches, fk.fused_knn.mma_launches)
+    out = launch()
+    assert (fk.fused_knn.launches, fk.fused_knn.mma_launches) == (
+        before[0] + 1, before[1] + int(bf16))
+    return out
 
 
 @pytest.mark.cuda
@@ -67,7 +81,8 @@ _B1_CASES = [(70, 3001, 96, 1, 8), (70, 3001, 96, 16, 8),
 def test_fused_knn_kernel(dev, gen, metric, bf16, qsplit, m, rows, d, k, hi):
     q, db = _on(dev, int_data(gen, (m, d), hi), int_data(gen, (rows, d), hi))
     before = fk.fused_knn.launches
-    dd, i = fk.fused_knn(q, db, k, metric=metric, bf16=bf16, qsplit=qsplit)
+    dd, i = _launched(lambda: fk.fused_knn(q, db, k, metric=metric,
+                                           bf16=bf16, qsplit=qsplit), bf16)
     assert fk.fused_knn.launches == before + 1
     pd, pi = fk._fused_knn_plain(q, db, k, metric == "l2", bf16, qsplit)
     if metric == "ip":
@@ -98,7 +113,8 @@ def test_fused_knn_kernel_unaligned_operands(dev, gen, metric, bf16, qsplit,
     q, db = _on(dev, int_data(gen, (m, d), 2), int_data(gen, (rows, d), 2))
     qv, dbv = _offset_view(q, q_off), _offset_view(db, db_off)
     assert (qv.data_ptr() % 16 != 0) or (dbv.data_ptr() % 16 != 0)
-    dd, i = fk.fused_knn(qv, dbv, k, metric=metric, bf16=bf16, qsplit=qsplit)
+    dd, i = _launched(lambda: fk.fused_knn(qv, dbv, k, metric=metric,
+                                           bf16=bf16, qsplit=qsplit), bf16)
     pd, pi = fk._fused_knn_plain(q, db, k, metric == "l2", bf16, qsplit)
     if metric == "ip":
         pd = -pd
@@ -111,7 +127,9 @@ def test_fused_knn_kernel_unaligned_operands(dev, gen, metric, bf16, qsplit,
 @pytest.mark.parametrize("bf16,qsplit", _TIERS)
 @pytest.mark.parametrize("m,rows,d,k", [(129, 200_000, 96, 10),
                                         (1, 200_000, 33, 64),
-                                        (300, 5000, 1024, 129)])
+                                        (300, 5000, 1024, 129),
+                                        (4000, 1000, 128, 1),
+                                        (2000, 32, 1024, 1)])
 def test_fused_knn_kernel_gaussian(dev, gen, metric, bf16, qsplit, m, rows,
                                    d, k):
     """Gaussian data: the kernel sums in another order than the plain
@@ -122,7 +140,8 @@ def test_fused_knn_kernel_gaussian(dev, gen, metric, bf16, qsplit, m, rows,
     db = torch.as_tensor(gen.standard_normal((rows, d), dtype=np.float32),
                          device=dev)
     l2 = metric == "l2"
-    kd, ki = fk._fused_knn_cuda(q, db, k, l2, bf16, qsplit)
+    kd, ki = _launched(lambda: fk._fused_knn_cuda(q, db, k, l2, bf16, qsplit),
+                       bf16)
     pd, pi = fk._fused_knn_plain(q, db, k, l2, bf16, qsplit)
     tol = 2e-6 * float(torch.max(torch.sum(q * q, 1))
                        + torch.max(torch.sum(db * db, 1)))

@@ -24,6 +24,13 @@ events (median) unless named ``_s``:
   1024 centers, f32 and split-bf16; all 1M rows against 1024 centers,
   f32). The centers are every 1000th row: the time of a k=1 scan does not
   depend on where they lie;
+* ``lloyd_1000_f32_ms``, ``lloyd_1000_bf16_ms``: B1 at Lloyd's shape,
+  all 1M rows against 1000 centers (every 1000th row), k=1, f32 and
+  split-bf16;
+* ``lloyd_fit_s``: ``kmeans.fit`` of the 1M rows, 1000 clusters from
+  those centers (``InitMethod.Array``), ``max_iter`` 10 and ``tol`` 0 so
+  that every root runs ten split-bf16 assignments and one f32, host
+  clock around a synchronise;
 * ``ivf_flat_build_s``, ``ivf_pq_build_s``: the first ``build`` of each
   index (1024 lists), host clock around a synchronise;
 * ``search_ms``: the IVF-Flat search of the 10,000 queries at 32 probes;
@@ -64,6 +71,7 @@ sys.path.insert(0, sys.argv[1])
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from raft_tpu_torch.cluster import InitMethod, KMeansParams, kmeans  # noqa
 from raft_tpu_torch.matrix.select_k import select_k  # noqa: E402
 from raft_tpu_torch.distance.pairwise import gram  # noqa: E402
 from raft_tpu_torch.neighbors import ivf_flat, ivf_pq  # noqa: E402
@@ -104,6 +112,16 @@ for name, A, C, bf16 in (("train_32_f32", T, C32, False),
     out[name + "_ms"] = cs.time_ms(
         lambda: fk._fused_knn_cuda(A, C, 1, True, bf16, bf16), 5)
 del T
+C1000 = X[::1000][:1000].contiguous()
+for name, bf16 in (("lloyd_1000_f32", False), ("lloyd_1000_bf16", True)):
+    out[name + "_ms"] = cs.time_ms(
+        lambda: fk._fused_knn_cuda(X, C1000, 1, True, bf16, bf16), 5)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+kmeans.fit(KMeansParams(n_clusters=1000, init=InitMethod.Array, max_iter=10,
+                        tol=0.0), X, centroids_init=C1000)
+torch.cuda.synchronize()
+out["lloyd_fit_s"] = time.perf_counter() - t0
 index, out["ivf_flat_build_s"] = build_s(ivf_flat, X)
 pq_index, out["ivf_pq_build_s"] = build_s(ivf_pq, X)
 sp = ivf_flat.SearchParams(n_probes=cs.N_PROBES)

@@ -1,4 +1,5 @@
-"""Build variants of kernel B1 and time them at its main-path shapes.
+"""Build variants of kernel B1's f32 tier and time them at its main-path
+shapes (the bf16 tiers are csrc/knn_mma.cu, not built here).
 
     python3 tools/tune_b1.py VARIANT [VARIANT ...]
 
@@ -14,7 +15,7 @@ copy of the sources, for example ``knn_gemm.cuh`` with another chunk depth
 version on integer data (the split path and k=1, ids and distances equal),
 then timed by CUDA events (median of 5) with random data made on the card:
 the brute-force shape (10,000 x 1M x 128, k=10, 1 and 64, f32) and the k=1
-assignments of 500,000 rows against 1024 centers (f32 and split-bf16). The
+assignment of 500,000 rows against 1024 centers (f32). The
 script also prints ptxas' register and spill lines of the B1 scan kernels,
 the card line, the SM clock and power drawn under a B1 run, and the FP32
 rate of a cuBLAS 8192^3 matrix product (TF32 off) as what this card
@@ -58,13 +59,12 @@ def main():
     T = X[:500_000]
     qi = torch.randint(0, 2, (129, 96), generator=g, device=dev).float()
     yi = torch.randint(0, 2, (200_000, 96), generator=g, device=dev).float()
-    checks = [(qi, yi, k, bf16) for k in (1, 10) for bf16 in (False, True)]
+    checks = [(qi, yi, k, False) for k in (1, 10)]
     plain = [fk._fused_knn_plain(a, b, k, True, bf, bf)
              for a, b, k, bf in checks]
     shapes = {"bf_k10_f32": (Q, X, 10, False), "bf_k1_f32": (Q, X, 1, False),
               "bf_k64_f32": (Q, X, 64, False),
-              "train1024_k1_f32": (T, C, 1, False),
-              "train1024_k1_split_bf16": (T, C, 1, True)}
+              "train1024_k1_f32": (T, C, 1, False)}
     for name, path in libs.items():
         use(path)
         ok = all(
