@@ -19,8 +19,10 @@ no result line):
    200,000 rows, {0, 1} data with ties across the slices), at each
    queries-per-CTA boundary of k, n < 128 and d in {33, 96, 1024}; B2
    at cells of 8, 64 and 65 rows, k on each selection path (1, 10, 16,
-   17, 256), cap off the 128-slot tile and on operands off 16-byte
-   alignment; B3 on both of its paths (the tensor-core scan, B2's scan),
+   17, 256), cap off the 128-slot tile, d in {24, 32, 40, 128, 385,
+   1024} and on operands off 16-byte alignment, its f32 tier on f32 rows
+   and its bf16 tiers on bf16, u8 and int8 rows; B3 on its paths (its
+   tensor-core scan, B2's scans),
    with every row and with live rows; B5 (``stream_extract``) against its
    plain version on Gaussian keys, integer keys with ties, sorted rows, a
    constant batch, +-inf-heavy rows, NaN rows, a batch of 13 x 100,000
@@ -43,9 +45,13 @@ no result line):
    and timed there beside ``addmm`` + ``argmin``, with the path each tier
    took (the bf16 tiers' tensor-core scan of ``csrc/knn_mma.cu``, the
    f32 tier's FMA scan) and ptxas' registers and spills of the
-   tensor-core scan; B2 at k=10 and k=1 with
+   tensor-core scan; B2's f32 tier at k=10 and k=1 with
    its plan, its pre-pass's device-time share and its share of the
-   search;
+   search, and both of its bf16 tiers (the tensor-core scan of
+   ``csrc/cells_mma.cu``) on a bf16 copy of the store, each held against
+   its plain version and timed beside its bound, plain version and
+   library yardstick (gather + bf16 ``baddbmm`` + ``torch.topk``), with
+   their plans and ptxas' registers and spills of both scans;
 6. the IVF-PQ path on the same rows and queries, the counters again set to
    0 before it and read after each step: build with 1024 lists (pq_dim 64,
    pq_bits 8), the compressed search with 32 probes (through B4, recall@10
@@ -385,8 +391,12 @@ no result line):
     seed 11) written and read back byte for byte through the native
     ``write_bvecs`` / ``read_bvecs``, B1's exact answer, IVF-Flat on the
     u8 rows (storage stays uint8; ``engine="bucketed"`` reaches B2's bf16
-    + split-query tier; recall@10 >= 0.995; the bf16 cast's share of a
-    search by ``torch.profiler``), IVF-PQ (B4, >= 0.80) and its
+    + split-query tier, which must get the index's own uint8 rows, no bf16
+    copy; recall@10 >= 0.995; the device split of a search by
+    ``torch.profiler``), the same rows shifted by -128 into an int8 store
+    (queries and centers alike: ids equal the u8 answer but at near-ties
+    within ``norm_tol`` where both frames probe the same lists), IVF-PQ
+    (B4, >= 0.80) and its
     ``min_recall=0.95`` recipe over the retained u8 rows (>= 0.99); (b)
     bench.py's uniform queries (N(0, 1) x 10) on phase 4's IVF-Flat (B2:
     at 32 probes every exact neighbour of a probed list found but at
@@ -409,14 +419,16 @@ no result line):
     answers the native search bit for bit, and the largest list within
     B4's per-list budget; the phase's seconds, launches and peak memory;
 22. a ``kernels`` line (B1 twice: its f32 tier's FMA scan at the
-    brute-force shape, its bf16 tiers' tensor-core scan at Lloyd's), the
-    card line, and the result line.
+    brute-force shape, its bf16 tiers' tensor-core scan at Lloyd's; B2
+    twice: its f32 tier's FMA scan and its split tier's tensor-core scan,
+    both at the main-path cells), the card line, and the result line.
 
-From phase 3 on, every B1 launch of this process is held to its tier's
-scan (:class:`B1Tiers`): a bf16 request must go through the tensor-core
-scan (``fused_knn.mma_launches``), an f32 request through the FMA scan,
-checked after each phase; phases 4, 6, 17 and 20 must each run the
-split-bf16 tier.
+From phase 3 on, every B1 and B2 launch of this process is held to its
+tier's scan (:class:`B1Tiers`, :class:`B2Tiers`): a bf16 request must go
+through the tensor-core scan (``fused_knn.mma_launches``,
+``fused_cells_knn.mma_launches``), an f32 request through the FMA scan,
+checked after each phase; phases 4, 6, 17 and 20 must each run B1's
+split-bf16 tier, phases 3, 5 and 21 B2's bf16 tiers.
 
 The data is made with numpy from a fixed seed: 1000 Gaussian blobs
 (centers uniform in [-10, 10], sigma 5), queries = database rows + N(0, 1).
@@ -468,10 +480,17 @@ B1_CASES = ((37, 1000, 32, 1, 8), (100, 5000, 128, 10, 8),
             (100, 3000, 1024, 10, 8), (300, 3000, 33, 129, 2))
 # Phase-3 B2 cases (L, cap, d, cells, qrows, k), integer data: cap off the
 # 128-slot tile, qrows off and on the row blocks (8, 64, 65), k on each
-# selection path (1, 10, 16 | 17, 256), d off the 16-feature chunk.
+# selection path (1, 10, 16 | 17, 256), d off the 16-feature chunk and the
+# 64-feature panel (40, 24, 385), d at MAX_DIM (1024).
 B2_CASES = ((6, 300, 32, 9, 64, 10), (5, 129, 128, 7, 8, 256),
             (4, 2048, 128, 6, 64, 1), (6, 300, 40, 9, 65, 16),
-            (6, 1000, 24, 9, 65, 17))
+            (6, 1000, 24, 9, 65, 17), (4, 300, 385, 5, 65, 10),
+            (4, 300, 1024, 5, 64, 17))
+# B2's (store, bf16, qsplit) combinations: the f32 tier on f32 rows, the
+# bf16 tiers on bf16 rows, the split tier on the u8 / int8 stores of 8-bit
+# indexes (int8 rows shifted by -4, so that they hold negative values).
+B2_STORES = (("f32", False, False), ("bf16", True, False),
+             ("bf16", True, True), ("u8", True, True), ("i8", True, True))
 N_PARTS = 4               # lifecycle: multi-part brute force
 N_DELETE = 100_000        # lifecycle: rows deleted from each index
 N_UPSERT = 1000           # lifecycle: rows upserted into each index
@@ -863,36 +882,37 @@ def check_kernels(dev) -> None:
         q = rng.integers(0, 8, (C, qrows, d)).astype(np.float32)
         args = [torch.as_tensor(a, device=dev)
                 for a in (cells, q, db, invalid)]
-        for bf16_db in (False, True):
+        for store, bf16, qsplit in B2_STORES:
             a = list(args)
-            if bf16_db:
-                a[2] = a[2].to(torch.bfloat16)
+            a[2] = b2_store(a[2], store)
             for l2 in (True, False):
-                kd, ki = fk._fused_cells_knn_cuda(*a, k, l2, bf16_db,
-                                                  bf16_db)
-                pd, pi = fk._fused_cells_knn_plain(*a, k, l2, bf16_db,
-                                                   bf16_db)
+                kd, ki = fk._fused_cells_knn_cuda(*a, k, l2, bf16, qsplit)
+                pd, pi = fk._fused_cells_knn_plain(*a, k, l2, bf16, qsplit)
                 torch.cuda.synchronize()
                 if not (torch.equal(ki, pi) and torch.equal(kd, pd)):
                     raise AssertionError(
                         f"B2 L={L} cap={cap} d={d} k={k} l2={l2} "
-                        f"bf16_db={bf16_db}: kernel != plain")
+                        f"store={store} bf16={bf16} qsplit={qsplit}: "
+                        f"kernel != plain")
             if k > 3 and not bool((ki[1, :, 3:] == -1).all()):
                 raise AssertionError("B2 starved list did not report -1")
+        mma = fk._b2_mma_plan(qrows, d, k, True, "u8")
         log(f"B2 ok L={L} cap={cap} d={d} cells={C} qrows={qrows} k={k} "
-            f"rows/CTA={fk._b2_plan(qrows, d, k).bq} (-1 cells, masks, "
-            f"starved list, f32/bf16 db, l2/ip)")
+            f"rows/CTA f32 tier {fk._b2_plan(qrows, d, k).bq}, "
+            f"split tier on u8 {mma.bq} in {mma.pw}-feature panels (-1 "
+            f"cells, masks, starved list, f32 / bf16 / u8 / int8 stores on "
+            f"their tiers, l2/ip)")
     # Contiguous operands one element past 16 bytes take the narrower
-    # copies (4-byte f32, 2-byte bf16) and must still agree exactly.
+    # copies (4-byte f32, 2-byte bf16, plain loads of 8-bit rows) and must
+    # still agree exactly.
     db = rng.integers(0, 2, (6, 300, 40)).astype(np.float32)
     invalid = rng.random((6, 300)) < 0.3
     cells = np.array([0, 1, -1, 2, 3, 4, 5], np.int32)
     q = rng.integers(0, 2, (7, 65, 40)).astype(np.float32)
     args = [torch.as_tensor(a, device=dev) for a in (cells, q, db, invalid)]
-    for bf16_db in (False, True):
+    for store, bf16, qsplit in B2_STORES:
         a = list(args)
-        if bf16_db:
-            a[2] = a[2].to(torch.bfloat16)
+        a[2] = b2_store(a[2], store)
         views = []
         for x in (a[1], a[2]):
             v = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:]
@@ -900,13 +920,24 @@ def check_kernels(dev) -> None:
             views[-1].copy_(x)
         for l2 in (True, False):
             kd, ki = fk._fused_cells_knn_cuda(a[0], views[0], views[1], a[3],
-                                              10, l2, bf16_db, bf16_db)
-            pd, pi = fk._fused_cells_knn_plain(*a, 10, l2, bf16_db, bf16_db)
+                                              10, l2, bf16, qsplit)
+            pd, pi = fk._fused_cells_knn_plain(*a, 10, l2, bf16, qsplit)
             if not (torch.equal(ki, pi) and torch.equal(kd, pd)):
-                raise AssertionError(f"B2 unaligned l2={l2} bf16_db="
-                                     f"{bf16_db}: kernel != plain")
+                raise AssertionError(f"B2 unaligned l2={l2} store={store} "
+                                     f"bf16={bf16} qsplit={qsplit}: kernel "
+                                     f"!= plain")
     log("B2 ok on operands off 16-byte alignment (qrows=65 d=40 k=10, "
-        "l2/ip, f32/bf16 db, exact)")
+        "l2/ip, f32 / bf16 / u8 / int8 stores on their tiers, exact)")
+
+
+def b2_store(x, store: str):
+    """Integer-valued f32 rows as B2's ``store``: f32, bf16, u8, or int8
+    shifted by -4 (negative values)."""
+    import torch
+
+    return {"f32": lambda: x, "bf16": lambda: x.to(torch.bfloat16),
+            "u8": lambda: x.to(torch.uint8),
+            "i8": lambda: (x - 4).to(torch.int8)}[store]()
 
 
 def _pq_case(rng, bits, integer=True, J=64, L=2, cap=1500, n_cells=9,
@@ -1172,8 +1203,10 @@ def b1_path(m: int, n: int, d: int, bf16: bool) -> str:
 def ptxas_kernels(lib: str, kernel: str) -> list:
     """ptxas' registers and spill stores of each entry function of
     ``lib`` whose name holds ``kernel``, from the build's log: (entry,
-    registers, spill bytes). b1_mma_kernel's template arguments are read
-    out of its mangled name (query rows x tile rows, tier, selection)."""
+    registers, spill bytes). The template arguments of b1_mma_kernel
+    (query rows x tile rows, tier, selection), b2_mma_kernel (query rows,
+    tier, selection) and b2_scan_kernel (query rows, selection) are read
+    out of their mangled names."""
     import re
 
     from raft_tpu_torch.ops import _build
@@ -1189,13 +1222,24 @@ def ptxas_kernels(lib: str, kernel: str) -> list:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and name and kernel in name:
+            sel = ("k=1", "network", "merge")
             t = re.search(r"b1_mma_kernelILi(\d+)ELi(\d+)ELb([01])ELi(\d)E",
                           name)
-            short = re.search(r"(b1_mma\w*?_kernel)", name)
-            label = (short.group(1) if short else name) if t is None else (
-                f"{t.group(1)}x{t.group(2)} "
-                f"{'split' if t.group(3) == '1' else 'bf16'} "
-                f"{('k=1', 'network', 'merge')[int(t.group(4))]}")
+            t2 = re.search(r"b2_mma_kernelILi(\d+)ELb([01])ELi(\d)E", name)
+            t3 = re.search(r"b2_scan_kernelILi(\d+)ELi(\d)E", name)
+            short = re.search(r"(b[12]_\w*?_kernel)", name)
+            if t is not None:
+                label = (f"{t.group(1)}x{t.group(2)} "
+                         f"{'split' if t.group(3) == '1' else 'bf16'} "
+                         f"{sel[int(t.group(4))]}")
+            elif t2 is not None:
+                label = (f"{t2.group(1)} rows "
+                         f"{'split' if t2.group(2) == '1' else 'bf16'} "
+                         f"{sel[int(t2.group(3))]}")
+            elif t3 is not None:
+                label = f"{t3.group(1)} rows {sel[int(t3.group(2))]}"
+            else:
+                label = short.group(1) if short else name
             out.append((label, int(m.group(1)), spill))
             name = None
     return out
@@ -1264,13 +1308,16 @@ def b1_kmeans_shape(dev, X, centers):
 
 
 def b2_entry(dev, Q, index, search_ms):
-    """Phase 5 for B2 at the IVF-Flat search shape: k=10 and k=1, its
-    plan, the device-time share of its pre-pass, its share of the search
-    and ptxas' registers and spills."""
+    """Phase 5 for B2 at the IVF-Flat search shape: its f32 tier (the FMA
+    scan) at k=10 and k=1, its plan, the device-time share of its pre-pass,
+    its share of the search and ptxas' registers and spills; then both bf16
+    tiers (the tensor-core scan) on a bf16 copy of the store, each held
+    against its plain version and timed beside its bound, plain version and
+    library yardstick. Returns the f32 tier's numbers and the split
+    tier's."""
     import torch
 
     from raft_tpu_torch.neighbors import ivf_flat
-    from raft_tpu_torch.ops import _build
     fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 
     qrows = ivf_flat._CELL_QROWS
@@ -1283,17 +1330,49 @@ def b2_entry(dev, Q, index, search_ms):
                >= index.list_sizes[:, None]).contiguous()
     data = index.data
     args = (cell_list, Qc, data, invalid)
-
-    kd, ki = fk._fused_cells_knn_cuda(*args, K, True, False, False)
-    pd, pi = fk._fused_cells_knn_plain(*args, K, True, False, False)
-    err = max_err(kd, pd)
     live = cell_list >= 0
-    rec = recall(ki[live].reshape(-1, K), pi[live].reshape(-1, K))
-    log(f"B2 vs plain at main path: per-slot recall@{K} {rec:.6f}, max |d| "
-        f"err {err:.3e} (tol {norm_tol(Q, data):.3e})")
-    if rec < RECALL_BF or err > norm_tol(Q, data):
-        raise AssertionError("B2 disagrees with its plain version")
+    sizes = index.list_sizes.long()
+    used = torch.unique(cell_list[live].long())
+    pair_rows = float(torch.sum(sizes[probes.long()]))
+    step = 512
 
+    def check(tag, a, bf16, qsplit):
+        kd, ki = fk._fused_cells_knn_cuda(*a, K, True, bf16, qsplit)
+        pd, pi = fk._fused_cells_knn_plain(*a, K, True, bf16, qsplit)
+        err = max_err(kd, pd)
+        rec = recall(ki[live].reshape(-1, K), pi[live].reshape(-1, K))
+        log(f"{tag} vs plain at main path: per-slot recall@{K} {rec:.6f}, "
+            f"max |d| err {err:.3e} (tol {norm_tol(Q, data):.3e})")
+        if rec < RECALL_BF or err > norm_tol(Q, data):
+            raise AssertionError(f"{tag} disagrees with its plain version")
+        return err, kd.numel()
+
+    def library(y, yn, qsplit):
+        """Gather + baddbmm on the tier's operands + topk, over
+        ``step``-cell chunks (the port never calls it)."""
+        def run():
+            for s in range(0, cell_list.shape[0], step):
+                lst = torch.clamp_min(cell_list[s:s + step], 0).long()
+                q = Qc[s:s + step]
+                yt = y[lst].transpose(1, 2)
+                qh = q.to(y.dtype)
+                g = torch.baddbmm(yn[lst][:, None, :], qh, yt, alpha=-2.0)
+                if qsplit:
+                    g.baddbmm_((q - qh.float()).to(y.dtype), yt, alpha=-2.0)
+                g.masked_fill_(invalid[lst][:, None, :], float("inf"))
+                torch.topk(g, K, dim=2, largest=False)
+        return time_ms(run, 3)
+
+    def bounds(row_bytes, ops, peak, n_out):
+        nbytes = (4.0 * Qc.numel()
+                  + row_bytes * DIM * float(torch.sum(sizes[used]))
+                  + float(used.numel() * cap) + 4.0 * cell_list.numel()
+                  + 8.0 * n_out)
+        bound = max(ops / peak, nbytes / PEAK_BYTES) * 1e3
+        return bound, ("operations" if ops / peak >= nbytes / PEAK_BYTES
+                       else "bytes")
+
+    err, n_out = check("B2", args, False, False)
     ms = time_ms(lambda: fk._fused_cells_knn_cuda(*args, K, True, False,
                                                   False), 5)
     k1_ms = time_ms(lambda: fk._fused_cells_knn_cuda(*args, 1, True, False,
@@ -1305,52 +1384,74 @@ def b2_entry(dev, Q, index, search_ms):
         *args, K, True, False, False), "b2_norms_kernel", reps=5)
     scan_ms = device_ms(lambda: fk._fused_cells_knn_cuda(
         *args, K, True, False, False), "b2_scan_kernel", reps=5)
-    dn = torch.sum(data * data, dim=2)
-    step = 512
-
-    def library():
-        for s in range(0, cell_list.shape[0], step):
-            lst = torch.clamp_min(cell_list[s:s + step], 0).long()
-            g = torch.baddbmm(dn[lst][:, None, :], Qc[s:s + step],
-                              data[lst].transpose(1, 2), alpha=-2.0)
-            g.masked_fill_(invalid[lst][:, None, :], float("inf"))
-            torch.topk(g, K, dim=2, largest=False)
-
-    lib_ms = time_ms(library, 3)
-
-    sizes = index.list_sizes.long()
-    used = torch.unique(cell_list[live].long())
-    pair_rows = float(torch.sum(sizes[probes.long()]))
-    ops = 2.0 * DIM * pair_rows
-    nbytes = (4.0 * Qc.numel() + 4.0 * DIM * float(torch.sum(sizes[used]))
-              + float(used.numel() * cap) + 4.0 * cell_list.numel()
-              + 8.0 * kd.numel())
-    bound = max(ops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+    lib_ms = library(data, torch.sum(data * data, dim=2), False)
+    bound, by = bounds(4.0, 2.0 * DIM * pair_rows, PEAK_FP32, n_out)
     log(f"B2 timing cells={cell_list.shape[0]} (used {int(live.sum())}) "
         f"qrows={qrows} cap={cap} d={DIM} k={K}: kernel {ms:.3f} ms "
         f"({ms / search_ms:.1%} of the {search_ms:.3f} ms search; k=1 "
         f"{k1_ms:.3f} ms), plain {plain_ms:.3f} ms, library (gather + "
         f"baddbmm + topk over {step}-cell chunks) {lib_ms:.3f} ms, bound "
         f"{bound:.3f} ms")
-    plan = fk._b2_plan(qrows, DIM, K, False)
+    plan = fk._b2_plan(qrows, DIM, K)
     log(f"B2 plan: {plan.bq} query rows per CTA, queries staged with every "
         f"chunk, {plan.smem} B of shared memory; device time pre-pass "
         f"{pre_ms} ms + scan {scan_ms} ms" + (
             f" (pre-pass share {pre_ms / (pre_ms + scan_ms):.1%})"
             if pre_ms and scan_ms else " (not traced)"))
-    text = _build.BUILD_LOG.get("cells_knn", "")
-    log(f"B2 ptxas (registers, spills): "
-        f"{[ln.strip() for ln in text.splitlines() if 'registers' in ln or 'spill' in ln]}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound,
-            "bound_by": "operations" if ops / PEAK_FP32 >= nbytes / PEAK_BYTES
-            else "bytes", "library_ms": lib_ms}
+    log(f"B2 FMA scan ptxas (rows, tier, selection: registers, spill "
+        f"bytes): {[f'{n}: {r}, {sp}' for n, r, sp in ptxas_kernels('cells_knn', 'b2_scan')]}")
+    f32 = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+
+    # The bf16 tiers on a bf16 copy of the store: B2's tensor-core scan.
+    data16 = data.to(torch.bfloat16)
+    args16 = (cell_list, Qc, data16, invalid)
+    yn16 = torch.sum(data16.float() ** 2, dim=2).to(torch.bfloat16)
+    split = None
+    for tier, qsplit in (("bf16", False), ("split", True)):
+        tag = f"B2 {tier} tier"
+        before = fk.fused_cells_knn.mma_launches
+        err, n_out = check(tag, args16, True, qsplit)
+        if fk.fused_cells_knn.mma_launches != before + 1:
+            raise AssertionError(f"{tag}: the launch missed the tensor-core "
+                                 f"scan")
+        ms = time_ms(lambda: fk._fused_cells_knn_cuda(*args16, K, True, True,
+                                                      qsplit), 5)
+        k1_ms = time_ms(lambda: fk._fused_cells_knn_cuda(
+            *args16, 1, True, True, qsplit), 5)
+        plain_ms = time_ms(lambda: fk._fused_cells_knn_plain(
+            *args16, K, True, True, qsplit), 2)
+        pre_ms = device_ms(lambda: fk._fused_cells_knn_cuda(
+            *args16, K, True, True, qsplit), "b2_norms_kernel", reps=5)
+        scan_ms = device_ms(lambda: fk._fused_cells_knn_cuda(
+            *args16, K, True, True, qsplit), "b2_mma_kernel", reps=5)
+        lib_ms = library(data16, yn16, qsplit)
+        # The function's products: one bf16 gram, two with the split query.
+        ops = 2.0 * DIM * pair_rows * (2 if qsplit else 1)
+        bound, by = bounds(2.0, ops, PEAK_BF16, n_out)
+        plan = fk._b2_mma_plan(qrows, DIM, K, qsplit, "bf16")
+        log(f"{tag} timing (bf16 store) cells={cell_list.shape[0]} "
+            f"qrows={qrows} cap={cap} d={DIM} k={K}: kernel {ms:.3f} ms "
+            f"(k=1 {k1_ms:.3f} ms; {ops / ms / 1e9:.1f} TFLOP/s), plain "
+            f"{plain_ms:.3f} ms, library (gather + bf16 baddbmm"
+            f"{' x2' if qsplit else ''} + topk over {step}-cell chunks) "
+            f"{lib_ms:.3f} ms, bound {bound:.3f} ms ({by}, bf16 tensor "
+            f"cores); plan {plan.bq} query rows per CTA, {plan.pw}-feature "
+            f"panels, {plan.smem} B of shared memory; device time pre-pass "
+            f"{pre_ms} ms + scan {scan_ms} ms")
+        if qsplit:
+            split = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+    log(f"B2 tensor-core scan ptxas (rows, tier, selection: registers, "
+        f"spill bytes): {[f'{n}: {r}, {sp}' for n, r, sp in ptxas_kernels('cells_mma', 'b2_mma')]}")
+    return f32, split
 
 
 def _counted():
     """Every launch counter, by kernel name: the wrapper that keeps it and
     its attribute. ``fused_knn`` counts every B1 launch, ``fused_knn_mma``
-    those of its bf16 tiers' tensor-core scan among them."""
+    those of its bf16 tiers' tensor-core scan among them; likewise
+    ``fused_cells_knn`` and ``fused_cells_knn_mma`` for B2."""
     fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
     from raft_tpu_torch.ops import pq_scan as ps
     from raft_tpu_torch.ops import stream_select as ss
@@ -1358,6 +1459,7 @@ def _counted():
     return {"fused_knn": (fk.fused_knn, "launches"),
             "fused_knn_mma": (fk.fused_knn, "mma_launches"),
             "fused_cells_knn": (fk.fused_cells_knn, "launches"),
+            "fused_cells_knn_mma": (fk.fused_cells_knn, "mma_launches"),
             "fused_batch_knn": (fk.fused_batch_knn, "launches"),
             "pq_fused_scan": (ps.pq_fused_scan, "launches"),
             "stream_extract": (ss.stream_extract, "launches")}
@@ -1378,40 +1480,61 @@ def _launches():
             for name, (fn, attr) in _counted().items()}
 
 
-class B1Tiers:
-    """Wraps B1's launcher for the rest of the run and tells each launch's
-    requested tier from the scan it took: a bf16 request must add one to
-    ``fused_knn.mma_launches`` (the tensor-core scan of csrc/knn_mma.cu),
-    an f32 request must not (the FMA scan). ``take`` checks the launches
-    since the last ``take`` and fails on any that went the other way."""
+class TierCheck:
+    """Wraps a kernel's launcher for the rest of the run and tells each
+    launch's requested tier from the scan it took: a bf16 request must add
+    one to the wrapper's ``mma_launches`` (its tensor-core scan), an f32
+    request must not (its FMA scan). ``take`` checks the launches since
+    the last ``take`` and fails on any that went the other way."""
 
-    def __init__(self):
+    def __init__(self, kernel: str, launcher: str, wrapper: str,
+                 bf16_at: int):
         self.fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
+        self.kernel = kernel
         self.seen = {"bf16": 0, "bf16_mma": 0, "f32": 0, "f32_mma": 0}
         self.mark = dict(self.seen)
-        launch = self.fk._fused_knn_cuda
-        fused_knn = self.fk.fused_knn
+        launch = getattr(self.fk, launcher)
+        counter = getattr(self.fk, wrapper)
 
         def counted(*args):
-            before = fused_knn.mma_launches
+            before = counter.mma_launches
             out = launch(*args)
-            tier = "bf16" if args[4] else "f32"
+            tier = "bf16" if args[bf16_at] else "f32"
             self.seen[tier] += 1
-            self.seen[tier + "_mma"] += fused_knn.mma_launches - before
+            self.seen[tier + "_mma"] += counter.mma_launches - before
             return out
 
-        self.fk._fused_knn_cuda = counted
+        setattr(self.fk, launcher, counted)
 
     def take(self, phase: str) -> dict:
         got = {k: self.seen[k] - self.mark[k] for k in self.seen}
         self.mark = dict(self.seen)
-        log(f"{phase}: B1 bf16 launches {got['bf16']}, through the "
-            f"tensor-core scan {got['bf16_mma']}; f32 launches {got['f32']}, "
-            f"through the tensor-core scan {got['f32_mma']}")
+        log(f"{phase}: {self.kernel} bf16 launches {got['bf16']}, through "
+            f"the tensor-core scan {got['bf16_mma']}; f32 launches "
+            f"{got['f32']}, through the tensor-core scan {got['f32_mma']}")
         if got["bf16_mma"] != got["bf16"] or got["f32_mma"]:
-            raise AssertionError(f"{phase}: a B1 launch took the wrong scan "
-                                 f"for its tier: {got}")
+            raise AssertionError(f"{phase}: a {self.kernel} launch took the "
+                                 f"wrong scan for its tier: {got}")
         return got
+
+
+class B1Tiers(TierCheck):
+    """B1's launches: the bf16 tiers through ``fused_knn.mma_launches``
+    (the tensor-core scan of csrc/knn_mma.cu), the f32 tier through the
+    FMA scan."""
+
+    def __init__(self):
+        super().__init__("B1", "_fused_knn_cuda", "fused_knn", 4)
+
+
+class B2Tiers(TierCheck):
+    """B2's launches: the bf16 tiers through ``fused_cells_knn.
+    mma_launches`` (the tensor-core scan of csrc/cells_mma.cu), the f32
+    tier through the FMA scan of csrc/cells_knn.cu."""
+
+    def __init__(self):
+        super().__init__("B2", "_fused_cells_knn_cuda", "fused_cells_knn",
+                         6)
 
 
 def _step(before):
@@ -7701,6 +7824,51 @@ def device_split_ms(fn, part: str, reps: int = 3):
             [e.key[:60] for e in evs[:3]])
 
 
+def int8_search_21(flat, Qs, sp, card) -> None:
+    """Phase 21 (a)'s first card run of signed int8 storage: the u8
+    index's rows shifted by -128 into an int8 store (centers and queries
+    shifted alike), searched as the u8 one. L2 is shift-invariant, so
+    where both frames probe the same lists the ids must equal the u8
+    answer except at near-ties within ``norm_tol`` (near_tie_check);
+    queries whose probed lists differ (a coarse near-tie at the 32nd
+    probe) are counted and left out."""
+    import torch
+
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    flat8 = dataclasses.replace(
+        flat, data=(flat.data.to(torch.int16) - 128).to(torch.int8),
+        centers=flat.centers - 128.0)
+    Q8 = Qs - 128.0
+    with _Capture("ivf_flat") as cap:
+        d8, i8 = ivf_flat.search(sp, flat8, Q8, K)
+    args = cap.calls[K][0]
+    if (args[2].dtype, args[6], args[7]) != (torch.int8, True, True):
+        raise AssertionError(f"phase 21 (a) int8: B2 ran store "
+                             f"{args[2].dtype}, bf16 {args[6]}, qsplit "
+                             f"{args[7]}")
+    du, iu = ivf_flat.search(sp, flat, Qs, K)
+    pu = torch.sort(ivf_flat._coarse_probe(Qs, flat.centers, N_PROBES,
+                                           True), dim=1)[0]
+    p8 = torch.sort(ivf_flat._coarse_probe(Q8, flat8.centers, N_PROBES,
+                                           True), dim=1)[0]
+    same = (pu == p8).all(dim=1)
+    X = torch.zeros((int(flat.indices.max()) + 1, flat.dim),
+                    device=Qs.device)
+    valid = flat.indices >= 0
+    X[flat.indices[valid].long()] = flat.data[valid].float()
+    tol = norm_tol(Qs, X)
+    diff = near_tie_check("phase 21 (a) int8 vs u8", d8[same], i8[same],
+                          du[same], iu[same], X, Qs[same], tol)
+    ms = time_ms(lambda: ivf_flat.search(sp, flat8, Q8, K), reps=5)
+    log(f"phase 21 (a) IVF-Flat on int8 (the u8 rows - 128): search "
+        f"{ms:.3f} ms per {Qs.shape[0]} queries; B2 took the int8 rows on "
+        f"the split tier; on the {int(same.sum())} queries whose probes "
+        f"match the u8 frame's, ids equal the u8 answer but at "
+        f"{diff} near-tie slots (tol {tol:.3e}); "
+        f"{int((~same).sum())} queries probe other lists [{card}]")
+
+
 def sift_u8_21(dev, card, parts) -> dict:
     """Phase 21 (a): SIFT-shaped u8 rows through the native bvecs IO, B1's
     exact answer, u8-storage IVF-Flat (B2's bf16 + split-query tier) and
@@ -7763,26 +7931,35 @@ def sift_u8_21(dev, card, parts) -> dict:
         _, fi = _part_21("a_flat_search",
                          lambda: ivf_flat.search(sp, flat, Qs, K),
                          parts, card)
-    _need_21(parts, "a_flat_search", ("fused_cells_knn",))
+    _need_21(parts, "a_flat_search", ("fused_cells_knn",
+                                      "fused_cells_knn_mma"))
+    # B2 reads the index's own u8 rows on the split tier: no bf16 copy of
+    # the lists is made.
     args = cap.calls[K][0]
-    if (args[2].dtype, args[6], args[7]) != (torch.bfloat16, True, True):
+    if (args[2].dtype, args[6], args[7]) != (torch.uint8, True, True) \
+            or args[2].data_ptr() != flat.data.data_ptr():
         raise AssertionError(f"phase 21 (a): B2 ran store {args[2].dtype}, "
                              f"bf16 {args[6]}, qsplit {args[7]}, not the "
-                             f"bf16 + split-query tier")
+                             f"index's own uint8 rows on the bf16 + "
+                             f"split-query tier")
     rec_f = recall(fi, truth)
     flat_ms = time_ms(lambda: ivf_flat.search(sp, flat, Qs, K), reps=5)
-    # The search casts the u8 lists to bf16: a copy kernel in its trace.
-    cast_ms, search_dev, top = device_split_ms(
+    copy_ms, search_dev, top = device_split_ms(
         lambda: ivf_flat.search(sp, flat, Qs, K), "copy_kernel")
-    share = (f"{cast_ms / search_dev:.1%}" if cast_ms and search_dev
-             else "not measured")
+    scan_ms, _, _ = device_split_ms(
+        lambda: ivf_flat.search(sp, flat, Qs, K), "b2_mma_kernel")
+    share = (f"{copy_ms / search_dev:.1%}" if copy_ms and search_dev
+             else "none")
     log(f"phase 21 (a) IVF-Flat on u8: recall@{K} {rec_f:.6f} (bar "
         f"{RECALL_U8_FLAT_21}; v5e record 1.000), search {flat_ms:.3f} ms "
-        f"per {Qs.shape[0]} queries; of its {search_dev} ms of device time "
-        f"{cast_ms} ms in copy kernels, the bf16 cast of the u8 lists "
-        f"({share}; torch.profiler; longest kernels {top}) [{card}]")
+        f"per {Qs.shape[0]} queries; B2 took the index's own uint8 rows "
+        f"(no cast of the lists); of its {search_dev} ms of device time "
+        f"{scan_ms} ms in B2's tensor-core scan, {copy_ms} ms in copy "
+        f"kernels ({share}; torch.profiler; longest kernels {top}) "
+        f"[{card}]")
     if rec_f < RECALL_U8_FLAT_21:
         raise AssertionError(f"phase 21 (a): IVF-Flat u8 recall {rec_f}")
+    int8_search_21(flat, Qs, sp, card)
     del flat
 
     index = _part_21("a_pq_build", lambda: ivf_pq.build(
@@ -7812,8 +7989,8 @@ def sift_u8_21(dev, card, parts) -> dict:
         raise AssertionError(f"phase 21 (a): IVF-PQ u8 recall {rec_p}, "
                              f"refined {rec_r}")
     return {"flat": rec_f, "pq": rec_p, "refined": rec_r, "flat_ms": flat_ms,
-            "pq_ms": pq_ms, "refined_ms": refined_ms, "cast_ms": cast_ms,
-            "search_device_ms": search_dev}
+            "pq_ms": pq_ms, "refined_ms": refined_ms, "copy_ms": copy_ms,
+            "scan_ms": scan_ms, "search_device_ms": search_dev}
 
 
 def uniform_21(dev, X, Q, bf, flat, pq_index, pq_recall, card,
@@ -8248,10 +8425,16 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    # Every B1 launch from here on is held to its tier's scan.
-    tiers = B1Tiers()
+    # Every B1 and B2 launch from here on is held to its tier's scan.
+    b1_tiers, b2_tiers = B1Tiers(), B2Tiers()
+    b2_bf16 = {}
+
+    def take(phase):
+        b2_bf16[phase] = b2_tiers.take(phase)["bf16"]
+        return b1_tiers.take(phase)
+
     check_kernels(dev)
-    tiers.take("phase 3")
+    take("phase 3")
     check_kernels_b3_b4(dev)
     b5_err = check_kernel_b5(dev)
 
@@ -8266,30 +8449,30 @@ def main() -> int:
     mp = main_path(dev, X, Q)
     # The IVF builds of phases 4 and 6, the Lloyd fits of phase 17 and the
     # facades' of phase 20 run B1's split-bf16 tier in their loops.
-    tiers_used = {"phase 4": tiers.take("phase 4")}
+    tiers_used = {"phase 4": take("phase 4")}
     b1 = b1_entry(dev, X, Q, mp["bf"])
     split_err = b1_kmeans_shape(dev, X, mp["index"].centers)
-    b2 = b2_entry(dev, Q, mp["index"], mp["search_ms"])
-    tiers.take("phase 5")
+    b2, b2m = b2_entry(dev, Q, mp["index"], mp["search_ms"])
+    take("phase 5")
 
     pq = pq_path(dev, X, Q, mp["bf"][1])
     b4 = b4_entry(dev, Q, pq["index"], pq["search_ms"])
     b3 = b3_entry(dev, pq["index"], pq["probes_sub"], pq["rotq_sub"])
-    tiers_used["phase 6"] = tiers.take("phase 6")
+    tiers_used["phase 6"] = take("phase 6")
 
     b5 = select_phase(dev, b5_err)
     br = breadth_phase(dev, X, Q, mp["index"], card)
     b5["launches"] += br["stream_extract"]
-    tiers.take("phases 7 and 16")
+    take("phases 7 and 16")
     p17 = slice17_phase(dev, X, Q, pq.pop("candidates"), card)
-    tiers_used["phase 17"] = tiers.take("phase 17")
+    tiers_used["phase 17"] = take("phase 17")
     p18 = slice18_phase(dev, X, card)
     p19 = slice19_phase(dev, X, Q, mp["bf"], card)
     b5["launches"] += p19["launches"]["stream_extract"]
-    tiers.take("phases 18 and 19")
+    take("phases 18 and 19")
     # Phase 20 runs while phase 4's index is as phase 4 built it.
     p20 = facade_phase(dev, X, Q, mp["bf"], mp["iv"], mp["index"], card)
-    tiers_used["phase 20"] = tiers.take("phase 20")
+    tiers_used["phase 20"] = take("phase 20")
     idle = [ph for ph, got in tiers_used.items() if got["bf16"] < 1]
     if idle:
         raise AssertionError(f"no split-bf16 B1 launch in {idle}")
@@ -8308,7 +8491,12 @@ def main() -> int:
     sf = surface_phase(dev, X, Q, mp["bf"], mp["index"], flat_served,
                        compacted["ivf_pq"], pq["recall"], card)
     sh, rt, ops, du, dask_s = sharded_phase(dev, X, Q, mp, pq, card)
-    tiers.take("phases 21 and 8-15 (this process)")
+    take("phases 21 and 8-15 (this process)")
+    idle = [ph for ph in ("phase 3", "phase 5",
+                          "phases 21 and 8-15 (this process)")
+            if b2_bf16[ph] < 1]
+    if idle:
+        raise AssertionError(f"no bf16-tier B2 launch in {idle}")
     log(f"phase 21: {p21['seconds']:.3f} s, launches {p21['launches']}, "
         f"peak device memory {p21['peak_gib']:.2f} GiB [{card}]")
     log(f"phase 20: {p20['seconds'] + dask_s:.3f} s (this process "
@@ -8325,6 +8513,12 @@ def main() -> int:
     b1_fma = sum(run["fused_knn"] for run in b1_runs) - b1_mma
     mma = dict(p17["mma"], max_abs_err=max(p17["mma"]["max_abs_err"],
                                            split_err))
+    # B2's likewise: the FMA scan's (the f32 tier) and the tensor-core
+    # scan's (the bf16 tiers) apart.
+    b2_runs = [mp["launches"], sv, lc, sm, sf, sh, rt, ops, du, br,
+               p20["launches"], p21["launches"]]
+    b2_mma = sum(run.get("fused_cells_knn_mma", 0) for run in b2_runs)
+    b2_fma = sum(run["fused_cells_knn"] for run in b2_runs) - b2_mma
     kernels = [
         dict(name="fused_knn", route="cuda",
              source="raft_tpu_torch/csrc/knn_gemm.cuh",
@@ -8336,15 +8530,12 @@ def main() -> int:
              **mma),
         dict(name="fused_cells_knn", route="cuda",
              source="raft_tpu_torch/csrc/cells_knn.cu",
-             replaces="raft_tpu/ops/fused_knn.py:426",
-             launches=mp["launches"]["fused_cells_knn"]
-             + sv["fused_cells_knn"] + lc["fused_cells_knn"]
-             + sm["fused_cells_knn"] + sf["fused_cells_knn"]
-             + sh["fused_cells_knn"] + rt["fused_cells_knn"]
-             + ops["fused_cells_knn"]
-             + du["fused_cells_knn"] + br["fused_cells_knn"]
-             + p20["launches"]["fused_cells_knn"]
-             + p21["launches"]["fused_cells_knn"], **b2),
+             replaces="raft_tpu/ops/fused_knn.py:426", launches=b2_fma,
+             **b2),
+        dict(name="fused_cells_knn_mma", route="cuda",
+             source="raft_tpu_torch/csrc/cells_mma.cu",
+             replaces="raft_tpu/ops/fused_knn.py:426", launches=b2_mma,
+             **b2m),
         dict(name="fused_batch_knn", route="cuda",
              source="raft_tpu_torch/csrc/batch_knn.cu",
              replaces="raft_tpu/ops/fused_knn.py:277",

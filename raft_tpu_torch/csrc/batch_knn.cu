@@ -10,10 +10,12 @@
 // _fused_batch_knn_plain): g = sum bf16(q) * y with f32 sums; max(|q|^2 +
 // |y|^2 - 2g, 0) for L2 with f32 norms of the unrounded values, or -g for
 // inner product; the exact top-k by (distance, slot), ties to the lowest
-// slot, -1 for slots left at inf. Every other tier (f32, f32 stores, the
-// split query) and any shape whose tile does not fit shared memory runs
-// B2's scan (cells_knn.cu) with the identity cell map; the plan that
-// picks the path is ops/fused_knn.py::_b3_plan.
+// slot, -1 for slots left at inf. Every other tier and store runs B2's
+// scan of that tier with the identity cell map: the bf16 tier on an f32 or
+// 8-bit store, the split query, and any d whose two row tiles do not fit
+// shared memory on B2's tensor-core scan (cells_mma.cu), the f32 tier on
+// B2's FMA scan (cells_knn.cu). The plan that picks the path is
+// ops/fused_knn.py::_b3_plan.
 //
 // Rows [live_rows[b], m) of element b are not scanned and report (inf,
 // -1): the callers fill each bucket of m query slots from slot 0 upward

@@ -1,6 +1,7 @@
 // The pre-pass of the row scans that walk only live 128-slot tiles: B2
-// (cells_knn.cu) and B3 (batch_knn.cu). Part of every call; the index
-// keeps nothing, so extend / upsert / compact cannot leave it stale.
+// (cells_knn.cu, and cells_mma.cu for its bf16 tiers) and B3
+// (batch_knn.cu). Part of every call; the index keeps nothing, so extend /
+// upsert / compact cannot leave it stale.
 
 #pragma once
 
@@ -10,14 +11,45 @@ namespace cell_norms {
 
 constexpr int BN = 128;  // slots per tile
 
+// The element types of a store (`kind`): B2's FMA scan passes 0 or 1, B3
+// passes 1, B2's tensor-core scan (cells_mma.cu) any of the four.
+enum Kind { KIND_F32 = 0, KIND_BF16 = 1, KIND_U8 = 2, KIND_I8 = 3 };
+
+// The f32 value of element i of row x.
+template <int KIND>
+__device__ __forceinline__ float elem(const void* __restrict__ x, int i) {
+  if constexpr (KIND == KIND_F32)
+    return __ldg(static_cast<const float*>(x) + i);
+  else if constexpr (KIND == KIND_BF16)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(x)[i]);
+  else if constexpr (KIND == KIND_U8)
+    return (float)static_cast<const uint8_t*>(x)[i];
+  else
+    return (float)static_cast<const int8_t*>(x)[i];
+}
+
+// |x|^2 over d elements, lanes over the features, summed across the warp.
+template <int KIND>
+__device__ __forceinline__ float row_norm(const void* x, int d, int lane) {
+  float acc = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    const float v = elem<KIND>(x, c);
+    acc = fmaf(v, v, acc);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  return acc;
+}
+
 // One block of 128 threads per (128-slot tile, list) of an (n_lists, cap,
-// d) f32 or bf16 (db16) store. Each tile's live flag (it holds a valid
+// d) store of element type `kind`. Each tile's live flag (it holds a valid
 // slot) and each slot's norm: NaN for an invalid slot or one past cap,
 // else |y|^2 in f32 of the unrounded (widened) row for L2, 0 for inner
 // product. A warp reads a row at a time, lanes over the features, and
 // sums with shuffles.
 __global__ void __launch_bounds__(BN)
-b2_norms_kernel(const void* __restrict__ db, int db16,
+b2_norms_kernel(const void* __restrict__ db, int kind,
                 const uint8_t* __restrict__ invalid, float* __restrict__ yn,
                 uint8_t* __restrict__ live, int cap, int capp, int d,
                 int l2) {
@@ -36,34 +68,30 @@ b2_norms_kernel(const void* __restrict__ db, int db16,
     const int s = __ffs(bits) - 1;
     bits &= bits - 1;
     const size_t row = ((size_t)list * cap + base + s) * d;
-    float acc = 0.f;
-    if (db16) {
-      const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(db) + row;
-      for (int c = lane; c < d; c += 32) {
-        const float v = __bfloat162float(x[c]);
-        acc = fmaf(v, v, acc);
-      }
-    } else {
-      const float* x = static_cast<const float*>(db) + row;
-      for (int c = lane; c < d; c += 32) {
-        const float v = __ldg(x + c);
-        acc = fmaf(v, v, acc);
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    float acc;
+    if (kind == KIND_BF16)
+      acc = row_norm<KIND_BF16>(static_cast<const __nv_bfloat16*>(db) + row,
+                                d, lane);
+    else if (kind == KIND_U8)
+      acc = row_norm<KIND_U8>(static_cast<const uint8_t*>(db) + row, d,
+                              lane);
+    else if (kind == KIND_I8)
+      acc = row_norm<KIND_I8>(static_cast<const int8_t*>(db) + row, d,
+                              lane);
+    else
+      acc = row_norm<KIND_F32>(static_cast<const float*>(db) + row, d, lane);
     if (lane == 0) out[base + s] = acc;
   }
 }
 
-// Launch the pre-pass over n_lists lists into yn (n_lists, capp) and live
-// (n_lists, capp / 128); capp is cap rounded up to 128.
-inline cudaError_t launch(const void* db, int db16, const uint8_t* invalid,
+// Launch the pre-pass over n_lists lists of a `kind` store into yn
+// (n_lists, capp) and live (n_lists, capp / 128); capp is cap rounded up
+// to 128.
+inline cudaError_t launch(const void* db, int kind, const uint8_t* invalid,
                           float* yn, uint8_t* live, int n_lists, int cap,
                           int capp, int d, int l2, cudaStream_t st) {
   b2_norms_kernel<<<dim3(capp / BN, (unsigned)n_lists), BN, 0, st>>>(
-      db, db16, invalid, yn, live, cap, capp, d, l2);
+      db, kind, invalid, yn, live, cap, capp, d, l2);
   return cudaGetLastError();
 }
 

@@ -1,22 +1,23 @@
-// The packed-cells IVF-Flat scan (B2) for Hopper (sm_90a).
+// The packed-cells IVF-Flat scan (B2) for Hopper (sm_90a): its f32 tier.
 //
-// Replaces raft_tpu/ops/fused_knn.py::fused_cells_knn / _cells_knn_kernel:
-// cell c scores its qrows queries against list cell_list[c] of a
-// capacity-padded (L, cap, d) store (f32 or bf16), skipping the slots a
-// per-slot `invalid` mask sets (padding and tombstones); a -1 cell writes
-// (inf, -1). The function (ops/fused_knn.py::_fused_cells_knn_plain):
-// a gram in f32, or on operands rounded to bf16 with f32 sums plus the
-// split query's low half with qsplit; max(|q|^2 + |y|^2 - 2g, 0) for L2
-// with f32 norms of the unrounded values, or -g for inner product; the
-// exact top-k by (distance, slot), ties to the lowest slot, -1 for slots
-// left at inf.
+// Replaces raft_tpu/ops/fused_knn.py::fused_cells_knn / _cells_knn_kernel
+// (pallas_call at :426) on its f32 tier: cell c scores its qrows queries
+// against list cell_list[c] of a capacity-padded (L, cap, d) store (f32 or
+// bf16), skipping the slots a per-slot `invalid` mask sets (padding and
+// tombstones); a -1 cell writes (inf, -1). The function (ops/fused_knn.py
+// ::_fused_cells_knn_plain): a gram in f32; max(|q|^2 + |y|^2 - 2g, 0) for
+// L2 with f32 norms, or -g for inner product; the exact top-k by
+// (distance, slot), ties to the lowest slot, -1 for slots left at inf.
+// The two bf16 tiers (operands rounded to bf16, optionally with the split
+// query) run on bf16 tensor cores in cells_mma.cu, which shares this
+// file's pre-pass.
 //
 // What bounds it on the H100: 2 * d flops per (query, valid row) pair at
 // the FP32 rate outside the tensor cores (TF32 would break parity with
-// the reference's Precision.HIGHEST; bf16 products are exact in f32), 2.2
-// ms at the main path (6024 cells x 64 rows, ~1470 valid rows a cell, d
-// 128); its bytes (the valid rows once, the queries, the results) are a
-// tenth of that. What the design does about it:
+// the reference's Precision.HIGHEST), 2.2 ms at the main path (6024 cells
+// x 64 rows, ~1470 valid rows a cell, d 128); its bytes (the valid rows
+// once, the queries, the results) are a tenth of that. What the design
+// does about it:
 //
 //   * one CTA of 256 threads per (cell, block of BQ query rows): BQ = 64,
 //     the cell height, or 32 / 16 when the top-k queue needs the room or
@@ -72,13 +73,12 @@ constexpr int NE = 16;  // threads (and per-thread minima) per query row
 // Byte offsets of the shared-memory regions (ops/fused_knn.py::
 // _b2_smem_bytes counts the same regions in the same order).
 struct Layout {
-  size_t stg, At, Lt, Bt, qn, kd, ki, cd, ci, cnt, qmask, tm, thr;
+  size_t stg, At, Bt, qn, kd, ki, cd, ci, cnt, qmask, tm, thr;
   size_t total;
-  __host__ __device__ Layout(int bq, int k, bool qsplit) {
+  __host__ __device__ Layout(int bq, int k) {
     size_t at = 0;
     stg = take(at, sizeof(float) * STAGES * (size_t)(bq + BN) * SKP);
     At = take(at, sizeof(float) * 2 * BK * (size_t)(bq + 4));
-    Lt = take(at, qsplit ? sizeof(float) * 2 * BK * (size_t)(bq + 4) : 0);
     Bt = take(at, sizeof(float) * 2 * BK * (size_t)(BN + 4));
     qn = take(at, sizeof(float) * (size_t)bq);
     kd = ki = cd = ci = cnt = qmask = tm = thr = 0;
@@ -113,16 +113,15 @@ struct Args {
 // One CTA: query rows [q0, q0 + BQ) of cell blockIdx.x / ceil(qrows / BQ)
 // against the live tiles of its list. With live_rows, rows of cell c at or
 // past live_rows[c] are not scanned and report (inf, -1).
-template <int BQ, bool BF16, bool QSPLIT, int SEL>
+template <int BQ, int SEL>
 __global__ void __launch_bounds__(NT, 2) b2_scan_kernel(const Args a) {
   constexpr bool K1 = SEL == SEL_MIN, NET = SEL == SEL_NET;
   constexpr int TM = BQ / 16, C = CAND / BQ;
   constexpr int LDA = BQ + 4, LDB = BN + 4, SSZ = (BQ + BN) * SKP;
   extern __shared__ __align__(16) char smem[];
-  const Layout lay(BQ, K1 ? 1 : a.k, QSPLIT);
+  const Layout lay(BQ, K1 ? 1 : a.k);
   float* stg = reinterpret_cast<float*>(smem + lay.stg);
   float* At = reinterpret_cast<float*>(smem + lay.At);
-  float* Lt = reinterpret_cast<float*>(smem + lay.Lt);
   float* Bt = reinterpret_cast<float*>(smem + lay.Bt);
   float* qn = reinterpret_cast<float*>(smem + lay.qn);
   const cell_select::Queues sq{
@@ -225,7 +224,7 @@ __global__ void __launch_bounds__(NT, 2) b2_scan_kernel(const Args a) {
   }
 
   cp_wait<STAGES - 1>();
-  transpose<BQ, BF16, QSPLIT>(stg, At, Lt, Bt, db16);
+  transpose<BQ>(stg, At, Bt, db16);
   issue();
   __syncthreads();
 
@@ -288,10 +287,9 @@ __global__ void __launch_bounds__(NT, 2) b2_scan_kernel(const Args a) {
     }
     // Chunk it + 1 has landed (this thread's copies of it).
     cp_wait<STAGES - 1>();
-    compute_chunk<BQ, BF16, QSPLIT>(
-        acc, At + buf * BK * LDA, Lt + buf * BK * LDA, Bt + buf * BK * LDB,
-        tx, ty, stg + ((it + 1) % STAGES) * SSZ, At + nb * BK * LDA,
-        Lt + nb * BK * LDA, Bt + nb * BK * LDB, db16);
+    compute_chunk<BQ>(acc, At + buf * BK * LDA, Bt + buf * BK * LDB, tx, ty,
+                      stg + ((it + 1) % STAGES) * SSZ, At + nb * BK * LDA,
+                      Bt + nb * BK * LDB, db16);
     // This thread has read its pieces of chunk it + 1: refill the buffer.
     issue();
     ++it;
@@ -391,9 +389,9 @@ __global__ void __launch_bounds__(NT, 2) b2_scan_kernel(const Args a) {
     write_queue(sq.kd, sq.ki, nq, k, od, oi, true);
 }
 
-template <int BQ, bool BF16, bool QSPLIT, int SEL>
+template <int BQ, int SEL>
 cudaError_t run_scan(const Args& a, size_t bytes, cudaStream_t st) {
-  auto kern = b2_scan_kernel<BQ, BF16, QSPLIT, SEL>;
+  auto kern = b2_scan_kernel<BQ, SEL>;
   cudaError_t err = knn::allow_smem(kern, bytes);
   if (err != cudaSuccess) {
     cudaGetLastError();  // a refused opt-in must not fail later launches
@@ -405,28 +403,28 @@ cudaError_t run_scan(const Args& a, size_t bytes, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <int BQ, bool BF16, bool QSPLIT>
+template <int BQ>
 cudaError_t scan_sel(const Args& a, size_t bytes, cudaStream_t st) {
-  if (a.k == 1) return run_scan<BQ, BF16, QSPLIT, SEL_MIN>(a, bytes, st);
-  if (a.k <= NET_K) return run_scan<BQ, BF16, QSPLIT, SEL_NET>(a, bytes, st);
-  return run_scan<BQ, BF16, QSPLIT, SEL_MERGE>(a, bytes, st);
+  if (a.k == 1) return run_scan<BQ, SEL_MIN>(a, bytes, st);
+  if (a.k <= NET_K) return run_scan<BQ, SEL_NET>(a, bytes, st);
+  return run_scan<BQ, SEL_MERGE>(a, bytes, st);
 }
 
-template <bool BF16, bool QSPLIT>
-cudaError_t scan_tier(const Args& a, int bq, size_t bytes, cudaStream_t st) {
-  if (bq == 64) return scan_sel<64, BF16, QSPLIT>(a, bytes, st);
-  if (bq == 32) return scan_sel<32, BF16, QSPLIT>(a, bytes, st);
-  return scan_sel<16, BF16, QSPLIT>(a, bytes, st);
+cudaError_t scan(const Args& a, int bq, size_t bytes, cudaStream_t st) {
+  if (bq == 64) return scan_sel<64>(a, bytes, st);
+  if (bq == 32) return scan_sel<32>(a, bytes, st);
+  return scan_sel<16>(a, bytes, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// One B2 call: the pre-pass into yn (n_lists, capp) and live (n_lists,
-// capp / 128), capp = cap rounded up to 128, then the scan on the plan of
-// ops/fused_knn.py::_b2_plan (bq query rows per CTA, smem bytes, which
-// must equal this file's Layout). db is f32, or bf16 with db_is_bf16.
+// One B2 call on the f32 tier: the pre-pass into yn (n_lists, capp) and
+// live (n_lists, capp / 128), capp = cap rounded up to 128, then the scan
+// on the plan of ops/fused_knn.py::_b2_plan (bq query rows per CTA, smem
+// bytes, which must equal this file's Layout). db is f32, or bf16 with
+// db_is_bf16.
 // live_rows (n_cells,), or nullptr for every row: rows of cell c at or past
 // live_rows[c] are not scanned and report (inf, -1) (B3's bucket callers
 // fill each bucket from slot 0 upward).
@@ -438,16 +436,14 @@ int fused_cells_knn_launch(const int* cell_list, const float* q,
                            const uint8_t* invalid, const int* live_rows,
                            float* yn, uint8_t* live, float* out_d, int* out_i,
                            int n_cells, int n_lists, int qrows, int cap, int d,
-                           int k, int l2, int bf16, int qsplit, int bq,
-                           int smem, void* stream) {
+                           int k, int l2, int bq, int smem, void* stream) {
   if (n_cells <= 0 || qrows <= 0) return 0;
-  qsplit = qsplit && bf16;
   const int capp = (cap + BN - 1) / BN * BN;
   if (k < 1 || k > KMAX || cap < 1 || d < 1 || n_lists < 1 ||
       n_lists > 65535 || !(bq == 16 || bq == 32 || bq == 64) ||
       (long long)n_cells * ((qrows + bq - 1) / bq) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const Layout lay(bq, k, qsplit != 0);
+  const Layout lay(bq, k);
   if ((size_t)smem != lay.total) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cell_norms::launch(db, db_is_bf16, invalid, yn, live,
@@ -459,13 +455,7 @@ int fused_cells_knn_launch(const int* cell_list, const float* q,
                qrows, cap, capp, d, k, l2, db_is_bf16,
                d % 4 == 0 && (qa & 15) == 0,
                d % 4 == 0 && (da & (db_is_bf16 ? 7 : 15)) == 0};
-  if (!bf16)
-    err = scan_tier<false, false>(a, bq, lay.total, st);
-  else if (!qsplit)
-    err = scan_tier<true, false>(a, bq, lay.total, st);
-  else
-    err = scan_tier<true, true>(a, bq, lay.total, st);
-  return (int)err;
+  return (int)scan(a, bq, lay.total, st);
 }
 
 }  // extern "C"

@@ -37,7 +37,7 @@ struct B1Args {
 template <int BQ, bool K1>
 cudaError_t b1_launch(const B1Args& a, dim3 grid, size_t bytes,
                       cudaStream_t st) {
-  auto kern = knn_gemm::b1_scan_kernel<BQ, false, false, K1>;
+  auto kern = knn_gemm::b1_scan_kernel<BQ, K1>;
   cudaError_t err = allow_smem(kern, bytes);
   if (err != cudaSuccess) {
     cudaGetLastError();  // a refused opt-in must not fail later launches

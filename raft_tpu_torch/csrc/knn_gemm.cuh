@@ -1,5 +1,5 @@
 // The register-tiled FP32 kNN tile of kernel B1 (fused_knn) for Hopper:
-// B1's f32 tier, and the tile B2 (cells_knn.cu) runs on every tier.
+// B1's f32 tier, and the tile of B2's f32 tier (cells_knn.cu).
 //
 // Replaces raft_tpu/ops/fused_knn.py::_fused_knn / _fused_knn_kernel on its
 // f32 tier: the exact kNN of m queries against an (n, d) database, ordered
@@ -7,13 +7,11 @@
 // 2g, 0)) or inner product (-g). B1's bf16 tiers (operands rounded to
 // bf16, optionally plus the low half of the split query) run on bf16
 // tensor cores in knn_mma.cu, which shares this file's copies and slice
-// merge. The scan below still takes those tiers (BF16, QSPLIT) for B2,
-// whose staging also reads bf16 rows.
+// merge; B2's in cells_mma.cu.
 //
 // What bounds it: 2*d flops per (query, row) pair at the FP32 rate outside
 // the tensor cores (TF32 would break parity with the reference's
-// Precision.HIGHEST, so the f32 tier runs FP32 FMA; on B2's bf16 tiers
-// the bf16 products are exact in f32 and run as FMAs too). At the
+// Precision.HIGHEST, so the f32 tier runs FP32 FMA). At the
 // brute-force shape (10,000 x 1M x 128) that is 38 ms on an H100 SXM; the
 // bytes (0.5 GB) are 0.15 ms. What the design does about it:
 //
@@ -30,8 +28,7 @@
 //     being multiplied. Each thread moves its own pieces of the next chunk
 //     through registers into feature-major buffers (double-buffered, one
 //     barrier per chunk) in the middle of the current chunk's FMAs, so the
-//     move does not idle the FMA pipe; on B2's bf16 tiers it rounds to
-//     bf16 and splits the query on the way. Lane pairs share a 32-byte sector;
+//     move does not idle the FMA pipe. Lane pairs share a 32-byte sector;
 //     the staging stride (BK + 8) and the feature-major stride (rows + 4)
 //     keep the piece reads, the transposing stores and the inner loop's
 //     float4 reads free of bank conflicts;
@@ -57,10 +54,9 @@
 //     arithmetic does not depend on the slice, so the result is the one
 //     sweep's, bit for bit.
 //
-// B2 (cells_knn.cu) runs the same pieces (staging, which also reads bf16
-// rows, the transposing move with its bf16 rounding and query split, the
-// chunk's FMAs, the k = 1 reduction) over the cells of the packed IVF-Flat
-// scan.
+// B2's f32 tier (cells_knn.cu) runs the same pieces (staging, which also
+// reads bf16 rows, the transposing move, the chunk's FMAs, the k = 1
+// reduction) over the cells of the packed IVF-Flat scan.
 //
 // On the H100 this runs at about half the FP32 peak (PERF.md); the k = 1
 // scan, which does no selection, runs faster than k > 1, whose queue and
@@ -78,7 +74,6 @@ using knn::KMAX;
 using knn::nan_f;
 using knn::NONE;
 using knn::pair_less;
-using knn::round_bf16;
 
 constexpr int NT = 256;          // threads per CTA
 constexpr int NW = NT / 32;      // warps per CTA
@@ -199,14 +194,12 @@ __device__ __forceinline__ void stage(float* stg, const float* __restrict__ q,
 }
 
 // Move this thread's landed piece u into the feature-major tiles A[f][row]
-// (queries; with QSPLIT also the low half into L) and B[f][row] (database
-// rows), widening bf16 rows (`db16`) to f32 and rounding to bf16 on the
-// bf16 tiers. Branch-free, so that it schedules among the FMAs of the
-// chunk being multiplied.
-template <int BQ, bool BF16, bool QSPLIT>
+// (queries) and B[f][row] (database rows), widening bf16 rows (`db16`) to
+// f32. Branch-free, so that it schedules among the FMAs of the chunk being
+// multiplied.
+template <int BQ>
 __device__ __forceinline__ void transpose_piece(const float* stg, float* A,
-                                                float* L, float* B, int u,
-                                                bool db16) {
+                                                float* B, int u, bool db16) {
   constexpr int LDA = BQ + 4, LDB = BN + 4;
   Piece<BQ> p(u);
   float4 v = *reinterpret_cast<const float4*>(stg + p.row * SKP + 4 * p.c4);
@@ -223,20 +216,16 @@ __device__ __forceinline__ void transpose_piece(const float* stg, float* A,
   const int ld = is_q ? LDA : LDB;
   const int f = 4 * p.c4;
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    float h = BF16 ? round_bf16(x[e]) : x[e];
-    dst[(f + e) * ld] = h;
-    if (QSPLIT && is_q) L[(f + e) * LDA + p.row] = round_bf16(x[e] - h);
-  }
+  for (int e = 0; e < 4; ++e) dst[(f + e) * ld] = x[e];
 }
 
 // All of this thread's pieces of a landed chunk.
-template <int BQ, bool BF16, bool QSPLIT>
+template <int BQ>
 __device__ __forceinline__ void transpose(const float* stg, float* A,
-                                          float* L, float* B, bool db16) {
+                                          float* B, bool db16) {
 #pragma unroll
   for (int u = threadIdx.x; u < Piece<BQ>::COUNT; u += NT)
-    transpose_piece<BQ, BF16, QSPLIT>(stg, A, L, B, u, db16);
+    transpose_piece<BQ>(stg, A, B, u, db16);
 }
 
 // Thread (tx, ty) of the 16 x 16 grid: a warp covers tx = 8 (w % 2) + l % 8
@@ -269,16 +258,15 @@ __device__ __forceinline__ void load_a(float (&a)[TM], const float* A, int ty) {
   }
 }
 
-// acc[i][j] += the chunk's products, feature by feature (with qsplit: the
-// hi half of a feature, then its lo half). Meanwhile this thread moves its
-// pieces of the next chunk from the staging buffer `nstg` into the other
-// tile buffers (An, Ln, Bn), one piece every few features.
-template <int BQ, bool BF16, bool QSPLIT>
+// acc[i][j] += the chunk's products, feature by feature. Meanwhile this
+// thread moves its pieces of the next chunk from the staging buffer `nstg`
+// into the other tile buffers (An, Bn), one piece every few features.
+template <int BQ>
 __device__ __forceinline__ void compute_chunk(
     float (&acc)[BQ / 16][8], const float* __restrict__ A,
-    const float* __restrict__ L, const float* __restrict__ B, int tx, int ty,
+    const float* __restrict__ B, int tx, int ty,
     const float* __restrict__ nstg, float* __restrict__ An,
-    float* __restrict__ Ln, float* __restrict__ Bn, bool db16) {
+    float* __restrict__ Bn, bool db16) {
   constexpr int TM = BQ / 16, LDA = BQ + 4, LDB = BN + 4;
   constexpr int COUNT = Piece<BQ>::COUNT;
   constexpr int PPT = (COUNT + NT - 1) / NT;  // pieces per thread
@@ -295,17 +283,10 @@ __device__ __forceinline__ void compute_chunk(
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    if (QSPLIT) {
-      load_a<TM>(a, L + f * LDA, ty);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
     if (f % EVERY == 0 && f / EVERY < PPT) {
       const int piece = threadIdx.x + NT * (f / EVERY);
       if (COUNT % NT == 0 || piece < COUNT)
-        transpose_piece<BQ, BF16, QSPLIT>(nstg, An, Ln, Bn, piece, db16);
+        transpose_piece<BQ>(nstg, An, Bn, piece, db16);
     }
   }
 }
@@ -373,7 +354,7 @@ __device__ __forceinline__ void write_queue(const float* kd, const int* ki,
 // out + (blockIdx.y * m + query) * k; with `direct` (one slice) the ids
 // of empty or inf slots become -1 there, else they stay for the merge.
 // `vec`: every row of q and db starts on 16 bytes (16-byte copies).
-template <int BQ, bool BF16, bool QSPLIT, bool K1>
+template <int BQ, bool K1>
 __global__ void __launch_bounds__(NT, K1 ? 2 : 1)
 b1_scan_kernel(const float* __restrict__ q, const float* __restrict__ db,
                const float* __restrict__ qn, const float* __restrict__ yn,
@@ -387,8 +368,7 @@ b1_scan_kernel(const float* __restrict__ q, const float* __restrict__ db,
   constexpr int SSZ = (BQ + BN) * SKP;
   float* stg = smem;                                   // [STAGES][SSZ]
   float* At = stg + STAGES * SSZ;                      // [2][BK][LDA]
-  float* Lt = At + 2 * BK * LDA;                       // [2][BK][LDA]
-  float* Bt = Lt + (QSPLIT ? 2 * BK * LDA : 0);        // [2][BK][LDB]
+  float* Bt = At + 2 * BK * LDA;                       // [2][BK][LDB]
   float* kd = Bt + 2 * BK * LDB;                       // [BQ][k]
   int* ki = reinterpret_cast<int*>(kd + BQ * k);       // [BQ][k]
   float* cd = reinterpret_cast<float*>(ki + BQ * k);   // [BQ][C]
@@ -442,7 +422,7 @@ b1_scan_kernel(const float* __restrict__ q, const float* __restrict__ db,
 #pragma unroll
   for (int j = 0; j < STAGES; ++j) issue(j);
   cp_wait<STAGES - 1>();
-  transpose<BQ, BF16, QSPLIT>(stg, At, Lt, Bt, false);
+  transpose<BQ>(stg, At, Bt, false);
   issue(STAGES);
   __syncthreads();
   for (int it = 0; it < total; ++it) {
@@ -450,10 +430,9 @@ b1_scan_kernel(const float* __restrict__ q, const float* __restrict__ db,
     const int nb = buf ^ 1;
     // Chunk it + 1 has landed (this thread's copies of it).
     cp_wait<STAGES - 1>();
-    compute_chunk<BQ, BF16, QSPLIT>(
-        acc, At + buf * BK * LDA, Lt + buf * BK * LDA, Bt + buf * BK * LDB,
-        tx, ty, stg + ((it + 1) % STAGES) * SSZ, At + nb * BK * LDA,
-        Lt + nb * BK * LDA, Bt + nb * BK * LDB, false);
+    compute_chunk<BQ>(acc, At + buf * BK * LDA, Bt + buf * BK * LDB, tx, ty,
+                      stg + ((it + 1) % STAGES) * SSZ, At + nb * BK * LDA,
+                      Bt + nb * BK * LDB, false);
     // This thread has read its pieces of chunk it + 1: refill the buffer.
     issue(it + 1 + STAGES);
 

@@ -112,14 +112,6 @@ struct Layout {
   }
 };
 
-// Two floats rounded to bf16 (nearest, ties to even) in one word: lo's
-// bits low, hi's high.
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  unsigned d;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
-  return d;
-}
-
 // The database pre-pass: row r's f32 norm (from the unrounded values, if
 // l2) into yn[r], and its bf16 copy into ybf[r][0, kp), zero past d. One
 // warp per row.
@@ -144,56 +136,6 @@ __global__ void b1_mma_rows_kernel(const float* __restrict__ db,
   for (int o2 = 16; o2 > 0; o2 >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, o2);
   if (lane == 0) yn[r] = acc;
-}
-
-// k = 1: fold the tile at rows t0 + [0, TBN) into each row's running
-// (min, id). yo holds the tile's row norms for L2, +inf at rows past the
-// slice (their distance is then inf), and for inner product 0 or +inf
-// (the distance is -g, or inf past the slice). Each thread takes the
-// minimum of its columns of a row, and only when that beats the row's
-// running minimum looks up the lowest column that holds it. Its columns
-// ascend in id and the tiles come in order, so a strict < keeps the
-// lowest id of a tie, as (distance, id) order does.
-template <int BQ, int TBN, bool L2>
-__device__ __forceinline__ void fold_min(
-    float (&acc)[Geo<BQ, TBN>::MT][Geo<BQ, TBN>::NT8][4],
-    float (&bd)[2 * Geo<BQ>::MT], int (&bi)[2 * Geo<BQ>::MT],
-    const float* qn_s, const float* yo_s, int t0, int wm0, int wn0) {
-  using G = Geo<BQ, TBN>;
-  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-  float yo[G::NT8][2];
-#pragma unroll
-  for (int nt = 0; nt < G::NT8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) yo[nt][e] = yo_s[wn0 + nt * 8 + 2 * tq + e];
-#pragma unroll
-  for (int mt = 0; mt < G::MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float qr = L2 ? qn_s[wm0 + mt * 16 + g + h * 8] : 0.f;
-      float m = INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < G::NT8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& v = acc[mt][nt][2 * h + e];
-          v = L2 ? fmaxf(qr + yo[nt][e] - 2.0f * v, 0.f)
-                 : (yo[nt][e] == 0.f ? -v : INFINITY);
-          m = fminf(m, v);
-        }
-      const int r = 2 * mt + h;
-      if (m < bd[r]) {
-        int id = NONE;
-#pragma unroll
-        for (int nt = G::NT8 - 1; nt >= 0; --nt)
-#pragma unroll
-          for (int e = 1; e >= 0; --e)
-            if (acc[mt][nt][2 * h + e] == m)
-              id = t0 + wn0 + nt * 8 + 2 * tq + e;
-        bd[r] = m;
-        bi[r] = id;
-      }
-    }
 }
 
 struct Args {

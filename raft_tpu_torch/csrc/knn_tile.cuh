@@ -1,8 +1,7 @@
 // The shared selection primitives of the port's kNN kernels for Hopper:
 // the (distance, id) order with ties to the lowest id, the empty-slot id,
 // the widest top-k queue, the NaN that marks a pair no test accepts, the
-// 16-byte steps of a shared-memory layout, round-to-nearest-even bf16, the
-// warp-cooperative
+// 16-byte steps of a shared-memory layout, the warp-cooperative
 // insertion into a sorted queue in shared memory (B1's merge,
 // knn_gemm.cuh), and the opt-in to more than 48 KB of dynamic shared
 // memory. B1 (knn_gemm.cuh), B2 (cells_knn.cu), B3 (batch_knn.cu) and B4
@@ -30,11 +29,6 @@ __host__ __device__ inline size_t take(size_t& at, size_t bytes) {
   size_t here = at;
   at += (bytes + 15) / 16 * 16;
   return here;
-}
-
-// Round to the nearest bf16 (ties to even), as astype(bfloat16) does.
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 __device__ __forceinline__ bool pair_less(float da, int ia, float db, int ib) {

@@ -1,6 +1,6 @@
 // The bf16 tensor-core tile and its selection, shared by the scans that
-// multiply on mma.sync: B1's bf16 tiers (knn_mma.cu), B3 (batch_knn.cu)
-// and B4 (pq_scan.cu).
+// multiply on mma.sync: B1's bf16 tiers (knn_mma.cu), B2's bf16 tiers
+// (cells_mma.cu), B3 (batch_knn.cu) and B4 (pq_scan.cu).
 //
 // Each gives one CTA of 256 threads BQ query rows (128 at most) held as a
 // bf16 operand A (row stride SA) and sweeps tiles of TBN slots (128 by
@@ -10,11 +10,13 @@
 //   * mma_range: the BQ x TBN gram block by mma.sync m16n8k16 (bf16
 //     operands, f32 accumulators; operands by ldmatrix), 8 warps tiling
 //     it as Geo<BQ, TBN> says. With SPLIT a second A (the lo half of a
-//     split query, B1's qsplit tier) is multiplied into the same
+//     split query, B1's and B2's qsplit tiers) is multiplied into the same
 //     accumulators, fragment by fragment. bf16 products are exact in f32;
 //     within a k16 step the tensor core sums in its own order, so results
 //     equal an FMA order bit for bit only where the partial sums are
 //     exact;
+//   * fold_min (B1's and B2's k = 1): each row's running (min, slot) in
+//     registers, the slot looked up only when a tile beats it;
 //   * select_tile: the accumulators become min-order distances in place
 //     (NaN for invalid slots and padding rows, which no test accepts);
 //     k = 1 folds them into a register (min, slot) per row; k > 1 sends
@@ -27,7 +29,8 @@
 //   * write_rows: the rows' results, ids of empty or inf slots as -1.
 //
 // What fills A and Bt differs: B4 decodes PQ codes through a codeword
-// table, B3 copies bf16 rows, B1 rounds staged f32 rows. So does each
+// table, B3 copies bf16 rows, B1 rounds staged f32 rows, B2 copies bf16
+// rows or widens staged f32 / 8-bit ones. So does each
 // tile's slot metadata (B4's valid flags and code norms, B3's row norms
 // with NaN marking invalid slots, B1's rows past its slice); each scan
 // keeps its own.
@@ -58,6 +61,14 @@ constexpr int CAND = 4096;   // candidate slots per CTA (CAND / BQ a row)
 // Round to the nearest bf16 (ties to even): its bits.
 __device__ __forceinline__ unsigned short bf16_bits(float v) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// Two floats rounded to bf16 (nearest, ties to even) in one word: lo's
+// bits low, hi's high.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  unsigned d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
 }
 
 // cp.async of BYTES (16, 8 or 4) from global to shared memory.
@@ -286,6 +297,56 @@ __device__ __forceinline__ void select_tile(
     if (!__syncthreads_or(over)) break;
   }
   if (LAZY) *pending = false;
+}
+
+// k = 1: fold the tile at rows t0 + [0, TBN) into each row's running
+// (min, id). yo holds the tile's row norms for L2, +inf at rows that do
+// not count (past B1's slice, B2's invalid slots: their distance is then
+// inf), and for inner product 0 or +inf (the distance is -g, or inf).
+// Each thread takes the minimum of its columns of a row, and only when
+// that beats the row's running minimum looks up the lowest column that
+// holds it. Its columns ascend in id and the tiles come in order, so a
+// strict < keeps the lowest id of a tie, as (distance, id) order does.
+template <int BQ, int TBN, bool L2>
+__device__ __forceinline__ void fold_min(
+    float (&acc)[Geo<BQ, TBN>::MT][Geo<BQ, TBN>::NT8][4],
+    float (&bd)[2 * Geo<BQ>::MT], int (&bi)[2 * Geo<BQ>::MT],
+    const float* qn_s, const float* yo_s, int t0, int wm0, int wn0) {
+  using G = Geo<BQ, TBN>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  float yo[G::NT8][2];
+#pragma unroll
+  for (int nt = 0; nt < G::NT8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) yo[nt][e] = yo_s[wn0 + nt * 8 + 2 * tq + e];
+#pragma unroll
+  for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float qr = L2 ? qn_s[wm0 + mt * 16 + g + h * 8] : 0.f;
+      float m = INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < G::NT8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& v = acc[mt][nt][2 * h + e];
+          v = L2 ? fmaxf(qr + yo[nt][e] - 2.0f * v, 0.f)
+                 : (yo[nt][e] == 0.f ? -v : INFINITY);
+          m = fminf(m, v);
+        }
+      const int r = 2 * mt + h;
+      if (m < bd[r]) {
+        int id = NONE;
+#pragma unroll
+        for (int nt = G::NT8 - 1; nt >= 0; --nt)
+#pragma unroll
+          for (int e = 1; e >= 0; --e)
+            if (acc[mt][nt][2 * h + e] == m)
+              id = t0 + wn0 + nt * 8 + 2 * tq + e;
+        bd[r] = m;
+        bi[r] = id;
+      }
+    }
 }
 
 // Write the results of the CTA's nq rows to od / oi (row stride k): for

@@ -582,7 +582,7 @@ def _bucketed_probe_scan(queries, data, indices, list_sizes, probe_ids,
     live_rows = (bucket >= 0).sum(1).to(torch.int32)
     bd_, bi_ = fused_batch_knn(Qb, data, invalid, k,
                                metric="l2" if inner_is_l2 else "ip",
-                               bf16=data.dtype == torch.bfloat16,
+                               bf16=data.dtype == torch.bfloat16 or qsplit,
                                qsplit=qsplit, live_rows=live_rows)
     gi = indices[torch.arange(n_lists, device=queries.device)[:, None, None],
                  torch.clamp_min(bi_, 0).long()]
@@ -672,7 +672,7 @@ def _cells_scan_probes(Q, probe_ids, data, indices, list_sizes, k: int,
         invalid = invalid | deleted
     bd_, bi_ = fused_cells_knn(cell_list, Qc, data, invalid, k,
                                l2=inner_is_l2,
-                               bf16=data.dtype == torch.bfloat16,
+                               bf16=data.dtype == torch.bfloat16 or qsplit,
                                qsplit=qsplit)
     gi = indices[torch.clamp_min(cell_list, 0).long()[:, None, None],
                  torch.clamp_min(bi_, 0).long()]
@@ -704,9 +704,10 @@ def search(params: SearchParams, index: Index, queries, k: int,
                       DistanceType.L2SqrtUnexpanded)
     probe_ids = _coarse_probe(Q, index.centers, n_probes, inner_is_l2)
     if index.data.dtype in (torch.uint8, torch.int8):
-        # 8-bit values are exact in bf16: the kernels read bf16 rows and
-        # keep f32 query precision with the split query.
-        data, qsplit = index.data.to(torch.bfloat16), True
+        # 8-bit values are exact in bf16: the kernels read the 8-bit rows
+        # themselves on the bf16 tier and keep f32 query precision with the
+        # split query.
+        data, qsplit = index.data, True
     else:
         data, qsplit = as_float(index.data), False
 

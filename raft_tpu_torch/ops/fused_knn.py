@@ -14,16 +14,22 @@ headers for the design):
   split query's lo half a second operand) on the ``mma.sync`` tile and
   selection of ``csrc/mma_tile.cuh``, with the same slice merge
   (:func:`_b1_mma_plan`);
-* B2 is ``csrc/cells_knn.cu``: a pre-pass (live tiles, row norms) and one
-  CTA per (cell, block of query rows) on B1's tile, with the cell-level
-  selection of ``csrc/cell_select.cuh`` that it shares with B4; its plan
-  is :func:`_b2_plan`;
+* B2's f32 tier is ``csrc/cells_knn.cu``: a pre-pass (live tiles, row
+  norms) and one CTA per (cell, block of query rows) on B1's FMA tile,
+  with the cell-level selection of ``csrc/cell_select.cuh`` that it
+  shares with B3 and B4; its plan is :func:`_b2_plan`. Its two bf16 tiers
+  (every k, d and qrows) are ``csrc/cells_mma.cu``: the same pre-pass,
+  the query block resident as bf16 operands (the split query's lo half a
+  second operand), the store's rows (bf16, f32, uint8 or int8, read in
+  their own type and widened in the kernel) staged in feature panels, on
+  the ``mma.sync`` tile and selection of ``csrc/mma_tile.cuh``
+  (:func:`_b2_mma_plan`);
 * B3 is ``csrc/batch_knn.cu`` for the bf16 tier on a bf16 store (every
   main-path call): B2's pre-pass and one CTA per (element, block of query
   rows) on the bf16 tensor-core tile and selection of
   ``csrc/mma_tile.cuh``, which it shares with B4; every other tier, and a
-  d whose tile does not fit shared memory, runs B2's scan with the
-  identity cell map. Its plan is :func:`_b3_plan`.
+  d whose tile does not fit shared memory, runs B2's scan of that tier
+  with the identity cell map. Its plan is :func:`_b3_plan`.
 
 Beside each kernel is its plain PyTorch version, which repeats the
 kernel's arithmetic and tie rules:
@@ -39,8 +45,9 @@ Dispatch: a wrapper takes the plain version only when its tensors lie on
 the CPU. For CUDA tensors it launches the kernel or raises; nothing falls
 back. ``fused_knn.launches``, ``fused_cells_knn.launches`` and
 ``fused_batch_knn.launches`` count the kernel launches;
-``fused_knn.mma_launches`` counts the B1 launches of the tensor-core scan
-(its bf16 tiers) among them.
+``fused_knn.mma_launches`` and ``fused_cells_knn.mma_launches`` count the
+B1 and B2 launches of their tensor-core scans (their bf16 tiers) among
+them.
 """
 
 from __future__ import annotations
@@ -275,17 +282,17 @@ def _r16(x: int) -> int:
     return -(-x // 16) * 16
 
 
-def _b2_smem_bytes(bq: int, k: int, qsplit: bool) -> int:
-    """Shared-memory bytes of one B2 CTA, region by region as
+def _b2_smem_bytes(bq: int, k: int) -> int:
+    """Shared-memory bytes of one CTA of B2's f32 tier, region by region as
     cells_knn.cu's ``Layout`` lays them out, each rounded up to 16 bytes:
-    B1's staging ring and feature-major tiles (the query's lo half with
-    ``qsplit``), the query norms; for k > 1 the queue (bq x k pairs), the
+    B1's staging ring and feature-major tiles, the query norms; for k > 1
+    the queue (bq x k pairs), the
     candidate buffer, its counters and the bitmask of rows with
     candidates, and for k <= 16 the per-thread row minima and the rows'
     first-tile bounds."""
     tile = 4 * 2 * B1_BK * (bq + 4)
     parts = [4 * B1_STAGES * (bq + B1_BN) * (B1_BK + 8), tile,
-             tile if qsplit else 0, 4 * 2 * B1_BK * (B1_BN + 4), 4 * bq]
+             4 * 2 * B1_BK * (B1_BN + 4), 4 * bq]
     if k > 1:
         parts += [4 * bq * k, 4 * bq * k, 4 * B1_CAND, 4 * B1_CAND, 4 * bq,
                   4 * (-(-bq // 32))]
@@ -294,22 +301,110 @@ def _b2_smem_bytes(bq: int, k: int, qsplit: bool) -> int:
     return sum(_r16(p) for p in parts)
 
 
-def _b2_plan(qrows: int, d: int, k: int, qsplit: bool = True) -> B2Plan:
-    """The most query rows per CTA (64, 32 or 16; never more than
-    ``qrows`` needs) whose shared memory fits ``SMEM_LIMIT``. The queries
-    are staged with every feature chunk of the rows, so ``d`` does not
-    change the plan. Raises when nothing fits."""
+def _b2_plan(qrows: int, d: int, k: int) -> B2Plan:
+    """B2's f32 tier: the most query rows per CTA (64, 32 or 16; never
+    more than ``qrows`` needs) whose shared memory fits ``SMEM_LIMIT``.
+    The queries are staged with every feature chunk of the rows, so ``d``
+    does not change the plan. Raises when nothing fits."""
     expects(1 <= k <= MAX_K and d >= 1 and qrows >= 1,
             "fused_cells_knn: no plan for qrows=%s d=%s k=%s", qrows, d, k)
     most = max(16, min(64, _r16(qrows)))
     for bq in B2_ROWS:
         if bq > most:
             continue
-        smem = _b2_smem_bytes(bq, k, qsplit)
+        smem = _b2_smem_bytes(bq, k)
         if smem <= SMEM_LIMIT:
             return B2Plan(bq, smem)
     raise LogicError(f"fused_cells_knn: no plan fits shared memory (qrows="
                      f"{qrows}, k={k})")
+
+
+# B2's bf16 tiers' tensor-core scan: candidate slots per CTA (CN of
+# csrc/cells_mma.cu), the widest feature panel the plan stages, and the
+# bytes an element of each store type takes.
+B2_MMA_CAND = 2048
+B2_MMA_PW = 64
+_STORE_BYTES = {"f32": 4, "bf16": 2, "u8": 1, "i8": 1}
+#: The store type of each element dtype B2 and B3 read, and its code in
+#: the C entry points (cell_norms.cuh's ``Kind``).
+_STORES = {torch.float32: "f32", torch.bfloat16: "bf16",
+           torch.uint8: "u8", torch.int8: "i8"}
+_STORE_KIND = {"f32": 0, "bf16": 1, "u8": 2, "i8": 3}
+
+
+class B2MmaPlan(NamedTuple):
+    """B2's launch on a bf16 tier (the tensor-core scan of
+    ``csrc/cells_mma.cu``): ``bq`` query rows per CTA, ``pw`` features per
+    staged panel of the rows and ``smem`` the bytes of one CTA."""
+    bq: int
+    pw: int
+    smem: int
+
+
+def _b2_mma_smem_bytes(bq: int, d: int, pw: int, k: int, qsplit: bool,
+                       store: str) -> int:
+    """Shared-memory bytes of one CTA of B2's tensor-core scan, region by
+    region as cells_mma.cu's ``Layout`` lays them out, each rounded up to
+    16 bytes: the resident bf16 query operand (bq x (kp + 8), kp = d
+    rounded up to 16) and its lo half with ``qsplit``, two bf16 row panels
+    (128 x (pw + 8)), the staging buffer of one panel in the store's own
+    type (none for a bf16 store, whose rows land in the panels), the query
+    norms, two tiles' row norms; then for k = 1 the cross-warp (min, slot)
+    of each row, else two tiles' valid flags, the queue (bq x k pairs),
+    the candidate buffer, its counters and the bitmask of rows with
+    candidates, and for k <= 16 the per-thread row minima and the rows'
+    first-tile bounds."""
+    kp = _r16(d)
+    warps_n = 8 // max(1, bq // 32)
+    op = bq * (kp + 8) * 2
+    parts = [op, op if qsplit else 0, 2 * B1_BN * (pw + 8) * 2,
+             0 if store == "bf16" else B1_BN * pw * _STORE_BYTES[store],
+             4 * bq, 2 * B1_BN * 4]
+    if k == 1:
+        parts.append(warps_n * bq * 8)
+    else:
+        parts += [2 * B1_BN * 4, 4 * bq * k, 4 * bq * k, 4 * B2_MMA_CAND,
+                  4 * B2_MMA_CAND, 4 * bq, 4 * (-(-bq // 32))]
+        if k <= B2_NET_K:
+            parts += [bq * warps_n * 4 * 4, 4 * bq]
+    return sum(_r16(p) for p in parts)
+
+
+def _b2_mma_plan(qrows: int, d: int, k: int, qsplit: bool,
+                 store: str) -> B2MmaPlan:
+    """The tensor-core scan's launch for a bf16 tier on a ``store`` of
+    "bf16", "f32", "u8" or "i8" elements: panels of ``B2_MMA_PW``
+    features (d rounded up to 16 when smaller) and the most query rows per
+    CTA (64, 32 or 16; never more than ``qrows`` needs) whose shared memory
+    fits ``SMEM_LIMIT``, which 16 rows do at every k <= 256 and d <= 1024.
+    Raises when nothing fits."""
+    expects(1 <= k <= MAX_K and 1 <= d <= MAX_DIM and qrows >= 1
+            and store in _STORE_BYTES,
+            "fused_cells_knn: no plan for qrows=%s d=%s k=%s store=%s",
+            qrows, d, k, store)
+    pw = min(_r16(d), B2_MMA_PW)
+    most = max(16, min(64, _r16(qrows)))
+    for bq in B2_ROWS:
+        if bq > most:
+            continue
+        smem = _b2_mma_smem_bytes(bq, d, pw, k, qsplit, store)
+        if smem <= SMEM_LIMIT:
+            return B2MmaPlan(bq, pw, smem)
+    raise LogicError(f"fused_cells_knn: no plan fits shared memory (qrows="
+                     f"{qrows}, d={d}, k={k})")
+
+
+def _b2_tier_plan(qrows: int, d: int, k: int, bf16: bool, qsplit: bool,
+                  store: str) -> Union[B2Plan, B2MmaPlan]:
+    """The plan of one B2 launch: both bf16 tiers take the tensor-core
+    scan (:func:`_b2_mma_plan`) on every store, at every shape; the f32
+    tier takes the FMA scan (:func:`_b2_plan`) on an f32 or bf16 store."""
+    if bf16:
+        return _b2_mma_plan(qrows, d, k, qsplit, store)
+    expects(store in ("f32", "bf16"),
+            "fused_cells_knn: the f32 tier reads f32 or bf16 rows, not %s",
+            store)
+    return _b2_plan(qrows, d, k)
 
 
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -385,8 +480,11 @@ def _fused_knn_plain(queries, db, k: int, l2: bool, bf16: bool,
 _KNN_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _MMA_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 _CELLS_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
+_CELLS_MMA_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
+                       + [ctypes.c_void_p])
 _BATCH_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
@@ -419,6 +517,14 @@ def _cells_lib():
     if lib.fused_cells_knn_launch.argtypes is None:
         lib.fused_cells_knn_launch.argtypes = _CELLS_ARGTYPES
         lib.fused_cells_knn_launch.restype = ctypes.c_int
+    return lib
+
+
+def _cells_mma_lib():
+    lib = _build.load_library("cells_mma")
+    if lib.fused_cells_mma_launch.argtypes is None:
+        lib.fused_cells_mma_launch.argtypes = _CELLS_MMA_ARGTYPES
+        lib.fused_cells_mma_launch.restype = ctypes.c_int
     return lib
 
 
@@ -509,12 +615,24 @@ fused_knn.launches = 0
 fused_knn.mma_launches = 0
 
 
+def _as_store(db: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """The store as B2 and B3 read it: bf16 as is, uint8 / int8 as is on
+    a bf16 tier (exact in bf16, widened in the kernel), anything else as
+    f32."""
+    if db.dtype == torch.bfloat16 or (
+            bf16 and db.dtype in (torch.uint8, torch.int8)):
+        return db
+    return db.to(torch.float32)
+
+
 def _fused_cells_knn_plain(cell_list, queries, db, invalid, k: int,
                            l2: bool, bf16: bool, qsplit: bool
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of B2, over blocks of cells: gather each cell's list,
     score it, mask invalid slots to inf, stable-select k; -1 cells and
-    starved slots come out as (inf, -1)."""
+    starved slots come out as (inf, -1). An 8-bit store is widened to f32
+    and, on a bf16 tier, rounded to bf16 by :func:`distance_tile`, which
+    is exact."""
     n_cells, qrows, _ = queries.shape
     cap = db.shape[1]
     kk = min(k, cap)
@@ -538,15 +656,54 @@ def _fused_cells_knn_plain(cell_list, queries, db, invalid, k: int,
     return out_d, out_i
 
 
+def _b2_scratch(n_lists: int, cap: int, dev):
+    """The pre-pass's row norms (NaN for invalid slots) and live-tile
+    flags: one call's scratch."""
+    capp = -(-cap // B1_BN) * B1_BN
+    return (torch.empty((n_lists, capp), dtype=torch.float32, device=dev),
+            torch.empty((n_lists, capp // B1_BN), dtype=torch.uint8,
+                        device=dev))
+
+
+def _b2_launch(cell_list, queries, db, invalid, live_rows, k: int, l2: bool,
+               bf16: bool, qsplit: bool, out_d, out_i) -> None:
+    """One B2 launch into out_d / out_i: the tensor-core scan of
+    ``csrc/cells_mma.cu`` for a bf16 tier, the FMA scan of
+    ``csrc/cells_knn.cu`` for the f32 tier, each on its plan; the plan's
+    shared-memory count is checked against the kernel's ``Layout`` by the
+    C entry point. ``live_rows`` (B3's bucket engines) or None."""
+    n_cells, qrows, d = queries.shape
+    n_lists, cap, _ = db.shape
+    store = _STORES[db.dtype]
+    plan = _b2_tier_plan(qrows, d, k, bf16, qsplit, store)
+    lib = _cells_mma_lib() if bf16 else _cells_lib()
+    dev = queries.device
+    yn, live = _b2_scratch(n_lists, cap, dev)
+    lr = None if live_rows is None else _ptr(live_rows)
+    with torch.cuda.device(dev):
+        if bf16:
+            err = lib.fused_cells_mma_launch(
+                _ptr(cell_list), _ptr(queries), _ptr(db), _STORE_KIND[store],
+                _ptr(invalid), lr, _ptr(yn), _ptr(live), _ptr(out_d),
+                _ptr(out_i), n_cells, n_lists, qrows, cap, d, k, int(l2),
+                int(qsplit), plan.bq, plan.pw, plan.smem, _stream(dev))
+        else:
+            err = lib.fused_cells_knn_launch(
+                _ptr(cell_list), _ptr(queries), _ptr(db),
+                int(store == "bf16"), _ptr(invalid), lr, _ptr(yn),
+                _ptr(live), _ptr(out_d), _ptr(out_i), n_cells, n_lists,
+                qrows, cap, d, k, int(l2), plan.bq, plan.smem, _stream(dev))
+    _build.check(err, "fused_cells_knn launch")
+
+
 def _fused_cells_knn_cuda(cell_list, queries, db, invalid, k: int, l2: bool,
                           bf16: bool, qsplit: bool
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_cuda("fused_cells_knn", cell_list, queries, db, invalid)
     expects(cell_list.dtype == torch.int32 and queries.dtype == torch.float32
-            and invalid.dtype == torch.bool
-            and db.dtype in (torch.float32, torch.bfloat16),
-            "fused_cells_knn: int32 cell_list, f32 queries, f32/bf16 db "
-            "and bool invalid expected")
+            and invalid.dtype == torch.bool and db.dtype in _STORES,
+            "fused_cells_knn: int32 cell_list, f32 queries, f32 / bf16 / "
+            "uint8 / int8 db and bool invalid expected")
     n_cells, qrows, d = queries.shape
     n_lists, cap, _ = db.shape
     expects(1 <= k <= MAX_K and d <= MAX_DIM,
@@ -557,23 +714,11 @@ def _fused_cells_knn_cuda(cell_list, queries, db, invalid, k: int, l2: bool,
     dev = queries.device
     out_d = torch.empty((n_cells, qrows, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_cells, qrows, k), dtype=torch.int32, device=dev)
-    plan = _b2_plan(qrows, d, k, qsplit)
-    # The pre-pass's row norms (NaN for invalid slots) and live-tile
-    # flags: one call's scratch.
-    capp = -(-cap // B1_BN) * B1_BN
-    yn = torch.empty((n_lists, capp), dtype=torch.float32, device=dev)
-    live = torch.empty((n_lists, capp // B1_BN), dtype=torch.uint8,
-                       device=dev)
-    lib = _cells_lib()
-    with torch.cuda.device(dev):
-        err = lib.fused_cells_knn_launch(
-            _ptr(cell_list), _ptr(queries), _ptr(db),
-            int(db.dtype == torch.bfloat16), _ptr(invalid), None, _ptr(yn),
-            _ptr(live), _ptr(out_d), _ptr(out_i), n_cells, n_lists, qrows,
-            cap, d, k, int(l2), int(bf16), int(qsplit), plan.bq, plan.smem,
-            _stream(dev))
-    _build.check(err, "fused_cells_knn launch")
+    _b2_launch(cell_list, queries, db, invalid, None, k, l2, bf16, qsplit,
+               out_d, out_i)
     fused_cells_knn.launches += 1
+    if bf16:
+        fused_cells_knn.mma_launches += 1
     return out_d, out_i
 
 
@@ -583,18 +728,18 @@ def fused_cells_knn(cell_list, queries, db, invalid, k: int, *,
     """Packed-cells batched kNN: cell c scores ``queries[c]`` (qrows, d)
     against list ``cell_list[c]``'s rows ``db[cell_list[c]]`` (cap, d),
     skipping slots where ``invalid`` (n_lists, cap) is set. Min-selection
-    order for both metrics (ip scores negated). Returns (distances
-    (n_cells, qrows, k), int32 local slot ids); -1 cells and starved
-    slots give (inf, -1). Operands must be finite (the entry points reject
-    non-finite inputs): on the card an L2 NaN comes out of ``fmaxf`` as
-    distance 0."""
+    order for both metrics (ip scores negated). A bf16 ``db`` is read as
+    is; a uint8 or int8 one too on the bf16 tiers (its values are exact in
+    bf16), else as f32. Returns (distances (n_cells, qrows, k), int32
+    local slot ids); -1 cells and starved slots give (inf, -1). Operands
+    must be finite (the entry points reject non-finite inputs): on the
+    card an L2 NaN comes out of ``fmaxf`` as distance 0."""
     expects(queries.ndim == 3 and db.ndim == 3 and invalid.ndim == 2,
             "fused_cells_knn: queries (C, qrows, d), db (L, cap, d) and "
             "invalid (L, cap) expected")
     qsplit = qsplit and bf16
     queries = queries.to(torch.float32)
-    if db.dtype != torch.bfloat16:
-        db = db.to(torch.float32)
+    db = _as_store(db, bf16)
     tensors = (cell_list, queries, db, invalid)
     if all(t.device.type == "cpu" for t in tensors):
         return _fused_cells_knn_plain(cell_list, queries, db, invalid, k, l2,
@@ -608,6 +753,7 @@ def fused_cells_knn(cell_list, queries, db, invalid, k: int, *,
 
 
 fused_cells_knn.launches = 0
+fused_cells_knn.mma_launches = 0
 
 
 def _fused_batch_knn_plain(queries, db, invalid, k: int, l2: bool,
@@ -641,12 +787,15 @@ B3_NET_K = 16
 
 class B3Plan(NamedTuple):
     """B3's launch: ``path`` "mma" (the bf16 tensor-core scan of
-    ``csrc/batch_knn.cu``) or "cells" (B2's scan of ``csrc/cells_knn.cu``
-    with the identity cell map), ``bq`` query rows per CTA and ``smem``
-    the bytes of one CTA."""
+    ``csrc/batch_knn.cu``), "cells_mma" (B2's bf16 tiers' tensor-core scan
+    of ``csrc/cells_mma.cu``) or "cells" (B2's f32 tier, the FMA scan of
+    ``csrc/cells_knn.cu``), both of B2 with the identity cell map; ``bq``
+    query rows per CTA, ``smem`` the bytes of one CTA and, on "cells_mma",
+    ``pw`` the features of one staged panel (:class:`B2MmaPlan`)."""
     path: str
     bq: int
     smem: int
+    pw: int = 0
 
 
 def _b3_smem_bytes(bq: int, kp: int, k: int) -> int:
@@ -673,13 +822,16 @@ def _b3_smem_bytes(bq: int, kp: int, k: int) -> int:
 
 def _b3_plan(m: int, d: int, k: int, tier: str, store: str) -> B3Plan:
     """B3's path and launch. ``tier`` is "f32", "bf16" or "qsplit" (the
-    bf16 tier with the split query), ``store`` "f32" or "bf16". The bf16
-    tier on a bf16 store takes the tensor-core scan with the most query
-    rows per CTA (64, 32 or 16; never more than ``m`` needs) whose two
-    resident row tiles fit ``SMEM_LIMIT`` (d up to about 384); every other
-    tier and store, and a d past that, takes B2's scan on B2's plan.
-    Raises when nothing fits."""
-    expects(tier in ("f32", "bf16", "qsplit") and store in ("f32", "bf16")
+    bf16 tier with the split query), ``store`` "f32" or "bf16", or "u8" /
+    "i8" on a bf16 tier. The bf16 tier on a bf16 store takes B3's
+    tensor-core scan with the most query rows per CTA (64, 32 or 16; never
+    more than ``m`` needs) whose two resident row tiles fit ``SMEM_LIMIT``
+    (d up to about 384); the other bf16 tiers and stores, and a d past
+    that, take B2's tensor-core scan on its plan (path "cells_mma"); the
+    f32 tier takes B2's FMA scan on B2's plan. Raises when nothing
+    fits."""
+    expects(tier in ("f32", "bf16", "qsplit") and store in _STORE_BYTES
+            and (tier != "f32" or store in ("f32", "bf16"))
             and 1 <= k <= MAX_K and d >= 1 and m >= 1,
             "fused_batch_knn: no plan for m=%s d=%s k=%s tier=%s store=%s",
             m, d, k, tier, store)
@@ -691,7 +843,10 @@ def _b3_plan(m: int, d: int, k: int, tier: str, store: str) -> B3Plan:
             smem = _b3_smem_bytes(bq, _r16(d), k)
             if smem <= SMEM_LIMIT:
                 return B3Plan("mma", bq, smem)
-    plan = _b2_plan(m, d, k, tier == "qsplit")
+    if tier != "f32":
+        plan = _b2_mma_plan(m, d, k, tier == "qsplit", store)
+        return B3Plan("cells_mma", plan.bq, plan.smem, plan.pw)
+    plan = _b2_plan(m, d, k)
     return B3Plan("cells", plan.bq, plan.smem)
 
 
@@ -701,9 +856,9 @@ def _fused_batch_knn_cuda(queries, db, invalid, k: int, l2: bool,
     rows = () if live_rows is None else (live_rows,)
     _check_cuda("fused_batch_knn", queries, db, invalid, *rows)
     expects(queries.dtype == torch.float32 and invalid.dtype == torch.bool
-            and db.dtype in (torch.float32, torch.bfloat16),
-            "fused_batch_knn: f32 queries, f32/bf16 db and bool invalid "
-            "expected")
+            and db.dtype in _STORES,
+            "fused_batch_knn: f32 queries, f32 / bf16 / uint8 / int8 db and "
+            "bool invalid expected")
     batch, m, d = queries.shape
     n = db.shape[1]
     expects(db.shape == (batch, n, d) and invalid.shape == (batch, n),
@@ -718,34 +873,27 @@ def _fused_batch_knn_cuda(queries, db, invalid, k: int, l2: bool,
             "(got %s)", batch)
     qsplit = qsplit and bf16
     tier = "qsplit" if qsplit else "bf16" if bf16 else "f32"
-    store = "bf16" if db.dtype == torch.bfloat16 else "f32"
-    plan = _b3_plan(m, d, k, tier, store)
-    lib = _batch_lib() if plan.path == "mma" else _cells_lib()
+    plan = _b3_plan(m, d, k, tier, _STORES[db.dtype])
     dev = queries.device
     out_d = torch.empty((batch, m, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((batch, m, k), dtype=torch.int32, device=dev)
-    # The pre-pass's row norms (NaN for invalid slots) and live-tile
-    # flags, and the slabs' scan order: one call's scratch.
-    capp = -(-n // B3_BN) * B3_BN
-    yn = torch.empty((batch, capp), dtype=torch.float32, device=dev)
-    live = torch.empty((batch, capp // B3_BN), dtype=torch.uint8, device=dev)
-    lr = None if live_rows is None else _ptr(live_rows)
-    with torch.cuda.device(dev):
-        if plan.path == "mma":
-            order = torch.empty(batch, dtype=torch.int32, device=dev)
+    if plan.path != "mma":
+        # B2's scan of the tier with the identity cell map.
+        cells = torch.arange(batch, dtype=torch.int32, device=dev)
+        _b2_launch(cells, queries, db, invalid, live_rows, k, l2, bf16,
+                   qsplit, out_d, out_i)
+    else:
+        # The pre-pass's scratch and the slabs' scan order.
+        lib = _batch_lib()
+        yn, live = _b2_scratch(batch, n, dev)
+        order = torch.empty(batch, dtype=torch.int32, device=dev)
+        lr = None if live_rows is None else _ptr(live_rows)
+        with torch.cuda.device(dev):
             err = lib.fused_batch_knn_launch(
                 _ptr(queries), _ptr(db), _ptr(invalid), lr, _ptr(yn),
                 _ptr(live), _ptr(order), _ptr(out_d), _ptr(out_i), batch, m,
                 n, d, k, int(l2), plan.bq, plan.smem, _stream(dev))
-        else:
-            cells = torch.arange(batch, dtype=torch.int32, device=dev)
-            err = lib.fused_cells_knn_launch(
-                _ptr(cells), _ptr(queries), _ptr(db),
-                int(db.dtype == torch.bfloat16), _ptr(invalid), lr,
-                _ptr(yn), _ptr(live), _ptr(out_d), _ptr(out_i), batch,
-                batch, m, n, d, k, int(l2), int(bf16), int(qsplit), plan.bq,
-                plan.smem, _stream(dev))
-    _build.check(err, "fused_batch_knn launch")
+        _build.check(err, "fused_batch_knn launch")
     fused_batch_knn.launches += 1
     return out_d, out_i
 
@@ -756,8 +904,8 @@ def fused_batch_knn(queries, db, invalid, k: int, *, metric: str = "l2",
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched independent fused kNN: element b searches ``queries[b]``
     (m, d) against ``db[b]`` (n, d), skipping slots where ``invalid[b]``
-    (n,) is set. A bf16 ``db`` is taken as is when ``bf16``; otherwise it
-    is read as f32. ``bd`` is the reference's db tile width: the result
+    (n,) is set. A bf16 ``db`` is read as is; a uint8 or int8 one too on
+    the bf16 tiers (exact in bf16), else as f32. ``bd`` is the reference's db tile width: the result
     does not depend on it, so it is accepted and ignored. Returns
     (distances (B, m, k), int32 local slot ids) with k = min(k, n); short
     results pad with (worst, -1). On the card k is at most 256.
@@ -776,8 +924,7 @@ def fused_batch_knn(queries, db, invalid, k: int, *, metric: str = "l2",
             "fused_batch_knn: queries (B, m, d), db (B, n, d) and invalid "
             "(B, n) expected")
     queries = queries.to(torch.float32)
-    if not (bf16 and db.dtype == torch.bfloat16):
-        db = db.to(torch.float32)
+    db = _as_store(db, bf16)
     k = int(min(k, db.shape[1]))
     l2 = metric == "l2"
     qsplit = qsplit and bf16

@@ -1,8 +1,10 @@
 """B3's launch plan and its plain version with live rows, on the CPU.
 
 ``_b3_plan`` picks B3's path (the bf16 tensor-core scan of
-``csrc/batch_knn.cu`` or B2's scan with the identity cell map), the query
-rows one CUDA CTA takes and the bytes of shared memory it needs; the C
+``csrc/batch_knn.cu``, or B2's scan of the tier with the identity cell
+map: its tensor-core scan for the bf16 tiers, its FMA scan for the f32
+tier), the query rows one CUDA CTA takes and the bytes of shared memory it
+needs; the C
 entry points refuse a launch whose count differs from their own layout,
 so the plan is held here to its contract over the shapes the wrapper
 accepts. The plain version, which the card kernel is held to, takes the
@@ -28,7 +30,8 @@ _MS = (1, 8, 15, 16, 17, 31, 32, 33, 37, 63, 64, 65, 100, 128, 200, 256)
 _DIMS = (16, 33, 48, 100, 128, 256, 384, 512, 1024)
 _KS = (1, 2, 10, 16, 17, 32, 64, 65, 100, 128, 129, 200, 255, 256)
 _TIERS = [("f32", "f32"), ("bf16", "f32"), ("qsplit", "f32"),
-          ("bf16", "bf16"), ("qsplit", "bf16"), ("f32", "bf16")]
+          ("bf16", "bf16"), ("qsplit", "bf16"), ("f32", "bf16"),
+          ("qsplit", "u8"), ("qsplit", "i8"), ("bf16", "u8")]
 
 
 def _r16(x):
@@ -45,11 +48,18 @@ def test_plan_fits_shared_memory(k, tier, store):
             assert plan.smem <= fk.SMEM_LIMIT and plan.smem % 16 == 0
             assert plan.bq <= most
             if plan.path == "cells":
-                # B2's plan, as B2's own wrapper makes it.
-                assert tuple(plan[1:]) == tuple(fk._b2_plan(
-                    m, d, k, tier == "qsplit"))
+                # B2's f32 tier: its plan, as B2's own wrapper makes it.
+                assert tier == "f32"
+                assert (plan.bq, plan.smem) == tuple(fk._b2_plan(m, d, k))
+                continue
+            if plan.path == "cells_mma":
+                # B2's bf16 tiers: the tensor-core scan's plan, as B2's
+                # own wrapper makes it; never the FMA scan.
+                assert tier in ("bf16", "qsplit")
+                assert (plan.bq, plan.pw, plan.smem) == tuple(
+                    fk._b2_mma_plan(m, d, k, tier == "qsplit", store))
                 if tier == "bf16" and store == "bf16":
-                    # Only when no tensor-core tile fits.
+                    # Only when no tile of B3's own scan fits.
                     assert all(fk._b3_smem_bytes(bq, _r16(d), k)
                                > fk.SMEM_LIMIT
                                for bq in fk.B3_ROWS if bq <= most)
@@ -66,11 +76,13 @@ def test_plan_fits_shared_memory(k, tier, store):
 def test_plan_at_the_main_path():
     """The recon tier and the decode scan: 256-slot buckets, d 128, bf16
     rows, k 10 (and 1): the tensor-core scan, 64 rows a CTA; d 1024 does
-    not fit two resident row tiles and runs B2's scan."""
+    not fit two resident row tiles and runs B2's tensor-core scan, as do
+    the split query and the u8 rows of the IVF-Flat bucket engine."""
     for k in (1, 10):
         plan = fk._b3_plan(256, 128, k, "bf16", "bf16")
         assert (plan.path, plan.bq) == ("mma", 64)
-    assert fk._b3_plan(256, 1024, 10, "bf16", "bf16").path == "cells"
+    assert fk._b3_plan(256, 1024, 10, "bf16", "bf16").path == "cells_mma"
+    assert fk._b3_plan(256, 128, 10, "qsplit", "u8").path == "cells_mma"
     assert fk._b3_plan(256, 128, 10, "f32", "f32").path == "cells"
 
 

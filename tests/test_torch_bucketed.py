@@ -169,6 +169,41 @@ def test_bucket_engine_on_8bit_storage():
     np.testing.assert_allclose(n(d), n(jd), rtol=1e-6)
 
 
+@pytest.mark.parametrize("dtype,shift", [("uint8", 0), ("int8", -4)])
+@pytest.mark.parametrize("bucket_cap", [0, 16])
+def test_search_hands_the_kernels_the_8bit_store(monkeypatch, dtype, shift,
+                                                 bucket_cap):
+    """An 8-bit index is scanned on its own store: the packed-cells engine
+    (bucket_cap 0) hands B2, the bucket engine B3, the uint8 / int8 rows
+    themselves (no bf16 copy) on the bf16 tier with the split query; the
+    answer equals the reference's, which casts the rows to bf16."""
+    _, j = _indexes()
+    j8 = dataclasses.replace(j, data=(j.data + shift).astype(dtype))
+    p8 = ivf_flat.index_from_numpy(n(j8.centers), n(j8.data), n(j8.indices),
+                                   n(j8.list_sizes), 0, device="cpu")
+    seen = []
+
+    def spy(name, pos):
+        real = getattr(ivf_flat, name)
+
+        def call(*args, **kw):
+            seen.append((name, args[pos].dtype, kw["bf16"], kw["qsplit"]))
+            return real(*args, **kw)
+
+        monkeypatch.setattr(ivf_flat, name, call)
+
+    spy("fused_cells_knn", 2)
+    spy("fused_batch_knn", 1)
+    q = _Q + 0.25
+    sp = dict(n_probes=4, engine="bucketed", bucket_cap=bucket_cap)
+    d, i = ivf_flat.search(ivf_flat.SearchParams(**sp), p8, t(q), 10)
+    jd, ji = jivf.search(jivf.SearchParams(**sp), j8, q, 10)
+    kernel = "fused_batch_knn" if bucket_cap else "fused_cells_knn"
+    assert seen == [(kernel, getattr(torch, dtype), True, True)]
+    np.testing.assert_array_equal(n(i), n(ji))
+    np.testing.assert_allclose(n(d), n(jd), rtol=1e-6)
+
+
 def test_probe_map_inversion_and_routing_match_reference():
     rng = np.random.default_rng(11)
     probes = rng.integers(0, 9, (37, 4)).astype(np.int32)

@@ -10,13 +10,16 @@ ragged or full, block of rows) against the reference Pallas kernel in
 interpret mode: integer data, so ids and distances agree bit for bit.
 """
 
+import ctypes
 import importlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from raft_tpu_torch.ops import _build
 from test_torch_common import int_data, n, t
 
 fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
@@ -28,32 +31,31 @@ _DIMS = (16, 33, 128, 1024)
 _KS = (1, 2, 10, 16, 17, 32, 64, 65, 100, 128, 129, 200, 255, 256)
 
 
-@pytest.mark.parametrize("qsplit", [False, True])
 @pytest.mark.parametrize("k", _KS)
-def test_plan_fits_shared_memory(k, qsplit):
+def test_plan_fits_shared_memory(k):
+    """B2's f32 tier (the FMA scan)."""
     for qrows in _QROWS:
         for d in _DIMS:
-            plan = fk._b2_plan(qrows, d, k, qsplit)
+            plan = fk._b2_plan(qrows, d, k)
             assert plan.bq in fk.B2_ROWS
             # Never more rows than the cell needs (past the smallest
             # block), and the most rows whose bytes fit.
             assert plan.bq <= max(16, -(-qrows // 16) * 16)
-            assert plan.smem == fk._b2_smem_bytes(plan.bq, k, qsplit)
+            assert plan.smem == fk._b2_smem_bytes(plan.bq, k)
             assert plan.smem <= fk.SMEM_LIMIT and plan.smem % 16 == 0
             wider = [bq for bq in fk.B2_ROWS
                      if plan.bq < bq <= max(16, -(-qrows // 16) * 16)]
             for bq in wider:
-                assert fk._b2_smem_bytes(bq, k, qsplit) > fk.SMEM_LIMIT
+                assert fk._b2_smem_bytes(bq, k) > fk.SMEM_LIMIT
 
 
 def test_plan_at_the_main_path():
-    """64-row cells, d 128, k 10: one CTA per cell, and two CTAs share an
-    SM (233,472 bytes of shared memory, 1 KB reserved per block) on every
-    tier."""
-    for qsplit in (False, True):
-        plan = fk._b2_plan(64, 128, 10, qsplit)
-        assert plan.bq == 64
-        assert 2 * (plan.smem + 1024) <= 233472
+    """64-row cells, d 128, k 10 on the f32 tier: one CTA per cell, and
+    two CTAs share an SM (233,472 bytes of shared memory, 1 KB reserved per
+    block)."""
+    plan = fk._b2_plan(64, 128, 10)
+    assert plan.bq == 64
+    assert 2 * (plan.smem + 1024) <= 233472
 
 
 def test_plan_rejects_what_the_kernel_cannot_take():
@@ -102,3 +104,127 @@ def test_plain_bf16_store_matches_reference(rng, qrows, qsplit):
                                  interpret=True)
     np.testing.assert_array_equal(n(i), n(ji))
     np.testing.assert_array_equal(n(d), n(jd))
+
+
+# B2's bf16 tiers: the tensor-core scan of csrc/cells_mma.cu.
+_MMA_KS = (1, 10, 16, 17, 128, 256)
+_MMA_DIMS = (1, 8, 33, 128, 384, 385, 1024)
+_MMA_QROWS = (8, 16, 64)
+_STORES = ("bf16", "f32", "u8", "i8")
+
+
+def _r16(x):
+    return -(-x // 16) * 16
+
+
+@pytest.mark.parametrize("store", _STORES)
+@pytest.mark.parametrize("qsplit", [False, True])
+@pytest.mark.parametrize("k", _MMA_KS)
+def test_mma_plan_fits_shared_memory(k, qsplit, store):
+    """Both bf16 tiers, every store: the most rows a CTA whose bytes fit,
+    panels of 64 features (fewer when d is smaller), at every d up to
+    1024."""
+    for qrows in _MMA_QROWS:
+        most = max(16, _r16(qrows))
+        for d in _MMA_DIMS:
+            plan = fk._b2_mma_plan(qrows, d, k, qsplit, store)
+            assert plan.bq in fk.B2_ROWS and plan.bq <= most
+            assert plan.pw == min(_r16(d), fk.B2_MMA_PW)
+            assert plan.smem == fk._b2_mma_smem_bytes(plan.bq, d, plan.pw,
+                                                      k, qsplit, store)
+            assert plan.smem <= fk.SMEM_LIMIT and plan.smem % 16 == 0
+            for bq in fk.B2_ROWS:
+                if plan.bq < bq <= most:
+                    assert fk._b2_mma_smem_bytes(
+                        bq, d, plan.pw, k, qsplit, store) > fk.SMEM_LIMIT
+
+
+def test_mma_plan_at_the_main_path():
+    """64-row cells, d 128, k 10 and 1 on a bf16 or 8-bit store: 64 rows a
+    CTA in two 64-feature panels a tile, and two CTAs share an SM
+    (233,472 bytes of shared memory, 1 KB reserved per block) on both bf16
+    tiers."""
+    for store in ("bf16", "u8", "i8"):
+        for qsplit in (False, True):
+            for k in (1, 10):
+                plan = fk._b2_mma_plan(64, 128, k, qsplit, store)
+                assert (plan.bq, plan.pw) == (64, 64)
+                assert 2 * (plan.smem + 1024) <= 233472
+
+
+@pytest.mark.parametrize("store", _STORES)
+@pytest.mark.parametrize("qsplit", [False, True])
+def test_bf16_tiers_never_take_the_fma_scan(store, qsplit):
+    """Every bf16-tier plan of B2, and of B3's tiers that run B2's scan, is
+    the tensor-core scan's; the f32 tier keeps the FMA scan and takes no
+    8-bit store."""
+    tier = "qsplit" if qsplit else "bf16"
+    for k in _MMA_KS:
+        for d in _MMA_DIMS:
+            for qrows in _MMA_QROWS:
+                plan = fk._b2_tier_plan(qrows, d, k, True, qsplit, store)
+                assert isinstance(plan, fk.B2MmaPlan)
+                assert fk._b3_plan(qrows, d, k, tier, store).path in (
+                    "mma", "cells_mma")
+                if store in ("f32", "bf16"):
+                    assert isinstance(fk._b2_tier_plan(
+                        qrows, d, k, False, False, store), fk.B2Plan)
+                else:
+                    with pytest.raises(fk.LogicError):
+                        fk._b2_tier_plan(qrows, d, k, False, False, store)
+
+
+@pytest.mark.parametrize("args", [(64, 128, fk.MAX_K + 1, True, "u8"),
+                                  (64, 128, 0, True, "u8"),
+                                  (64, fk.MAX_DIM + 1, 10, True, "u8"),
+                                  (0, 128, 10, True, "u8"),
+                                  (64, 128, 10, True, "u4")])
+def test_mma_plan_rejects_what_the_kernel_cannot_take(args):
+    with pytest.raises(fk.LogicError):
+        fk._b2_mma_plan(*args)
+
+
+@pytest.mark.parametrize("store", ["uint8", "int8"])
+@pytest.mark.parametrize("qsplit", [False, True])
+@pytest.mark.parametrize("k", [1, 10, 17])
+@pytest.mark.parametrize("qrows", [8, 65])
+def test_plain_8bit_store_matches_reference(rng, monkeypatch, store, qsplit,
+                                            k, qrows):
+    """A uint8 or int8 store on the bf16 tiers: the wrapper hands the plain
+    version the 8-bit store itself, which it rounds to bf16 exactly; the
+    reference's kernel (interpret mode) gets the same store cast to bf16.
+    Full-range 8-bit rows and integer queries keep every gram and norm
+    exact, so both agree bit for bit."""
+    cell_list, q, _, invalid = _cells_case(rng, qrows)
+    lo, hi = (0, 256) if store == "uint8" else (-128, 128)
+    db = rng.integers(lo, hi, invalid.shape + (q.shape[2],)).astype(store)
+    seen = []
+    plain = fk._fused_cells_knn_plain
+
+    def spy(*args):
+        seen.append(args[2].dtype)
+        return plain(*args)
+
+    monkeypatch.setattr(fk, "_fused_cells_knn_plain", spy)
+    d, i = fk.fused_cells_knn(t(cell_list), t(q), torch.as_tensor(db),
+                              t(invalid), k, bf16=True, qsplit=qsplit)
+    assert seen == [getattr(torch, store)]
+    jd, ji = jfk.fused_cells_knn(cell_list, q,
+                                 jnp.asarray(db).astype(jnp.bfloat16),
+                                 invalid, k, bf16=True, qsplit=qsplit,
+                                 interpret=True)
+    np.testing.assert_array_equal(n(i), n(ji))
+    np.testing.assert_array_equal(n(d), n(jd))
+
+
+@pytest.mark.parametrize("source,entry,argtypes", [
+    ("cells_knn.cu", "fused_cells_knn_launch", "_CELLS_ARGTYPES"),
+    ("cells_mma.cu", "fused_cells_mma_launch", "_CELLS_MMA_ARGTYPES")])
+def test_argtypes_follow_the_c_prototype(source, entry, argtypes):
+    """Each B2 entry point's ctypes signature: a pointer for each pointer
+    parameter and the stream, an int for each int."""
+    text = (_build.CSRC_DIR / source).read_text()
+    proto = re.search(r"int " + entry + r"\(([^)]*)\)", text)
+    params = [p.strip() for p in proto.group(1).split(",")]
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+    assert getattr(fk, argtypes) == want

@@ -240,12 +240,47 @@ def test_bf16_tiers_never_reach_the_fma_scan(monkeypatch, tmp_path, qsplit):
     assert (fk.fused_knn.launches, fk.fused_knn.mma_launches) == before
 
 
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16,
+                                   torch.uint8, torch.int8])
+@pytest.mark.parametrize("qsplit", [False, True])
+def test_b2_bf16_tiers_never_reach_the_fma_scan(monkeypatch, tmp_path,
+                                                qsplit, store):
+    """B2's bf16 tiers launch the tensor-core scan's library (cells_mma)
+    alone, on every store: with the FMA scan's library loaded and
+    cells_mma unbuildable, a bf16 request raises CudaError and never calls
+    the FMA entry, through B2's wrapper or B3's."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    calls = []
+
+    def fma_entry(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(_build, "_LOADED", {"cells_knn": type(
+        "Lib", (), {"fused_cells_knn_launch": staticmethod(fma_entry)})()})
+    q = torch.zeros((1, 4, 8))
+    db = torch.zeros((1, 300, 8), dtype=store)
+    invalid = torch.zeros((1, 300), dtype=torch.bool)
+    before = (fk.fused_cells_knn.launches, fk.fused_cells_knn.mma_launches)
+    with pytest.raises(CudaError):
+        fk._fused_cells_knn_cuda(torch.zeros(1, dtype=torch.int32), q, db,
+                                 invalid, 2, True, True, qsplit)
+    with pytest.raises(CudaError):
+        fk._fused_batch_knn_cuda(q, db, invalid, 2, True, True, qsplit)
+    assert calls == []
+    assert (fk.fused_cells_knn.launches,
+            fk.fused_cells_knn.mma_launches) == before
+
+
 def test_library_name_follows_the_sources():
     path = _build._library_path("fused_knn")
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libfused_knn-") and path.suffix == ".so"
-    assert _build.sources() == ["batch_knn", "cells_knn", "fused_knn",
-                                "knn_mma", "pq_scan", "stream_select"]
+    assert _build.sources() == ["batch_knn", "cells_knn", "cells_mma",
+                                "fused_knn", "knn_mma", "pq_scan",
+                                "stream_select"]
     # Every library's name also follows the shared header.
     assert any(p.name == "knn_tile.cuh"
                for p in _build.CSRC_DIR.glob("*.cuh"))

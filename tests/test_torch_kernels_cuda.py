@@ -189,15 +189,35 @@ def _cells_case(gen, qrows, hi=8, L=6, cap=300, d=40, C=7):
     return cells, q, db, invalid
 
 
-def _cells_both(dev, cells, q, db, invalid, k, l2, bf16_db, bf16, qsplit):
-    """B2 on the card through the wrapper (one launch) and its plain
-    version on the card's operands."""
+#: B2's stores: f32, bf16, and the 8-bit stores of u8 / int8 indexes
+#: (integer data, shifted by -1 for int8 so that it holds negative rows).
+_B2_STORES = ["f32", "bf16", "u8", "i8"]
+
+
+def _as_store(x: torch.Tensor, store: str) -> torch.Tensor:
+    return {"f32": lambda: x, "bf16": lambda: x.to(torch.bfloat16),
+            "u8": lambda: x.to(torch.uint8),
+            "i8": lambda: (x - 1).to(torch.int8)}[store]()
+
+
+def _b2_counted(launch, bf16):
+    """Run ``launch`` and assert it was one B2 launch, through the
+    tensor-core scan exactly when a bf16 tier was asked for."""
+    before = (fk.fused_cells_knn.launches, fk.fused_cells_knn.mma_launches)
+    out = launch()
+    assert (fk.fused_cells_knn.launches,
+            fk.fused_cells_knn.mma_launches) == (before[0] + 1,
+                                                 before[1] + int(bf16))
+    return out
+
+
+def _cells_both(dev, cells, q, db, invalid, k, l2, store, bf16, qsplit):
+    """B2 on the card through the wrapper (one launch, through its tier's
+    scan) and its plain version on the card's operands."""
     args = _on(dev, cells, q, db, invalid)
-    if bf16_db:
-        args[2] = args[2].to(torch.bfloat16)
-    before = fk.fused_cells_knn.launches
-    kd, ki = fk.fused_cells_knn(*args, k, l2=l2, bf16=bf16, qsplit=qsplit)
-    assert fk.fused_cells_knn.launches == before + 1
+    args[2] = _as_store(args[2], store)
+    kd, ki = _b2_counted(lambda: fk.fused_cells_knn(
+        *args, k, l2=l2, bf16=bf16, qsplit=qsplit), bf16)
     pd, pi = fk._fused_cells_knn_plain(*args, k, l2, bf16, bf16 and qsplit)
     return kd, ki, pd, pi
 
@@ -209,17 +229,17 @@ _B2_QROWS = [1, 8, 63, 64, 65, 128]
 @pytest.mark.cuda
 @pytest.mark.parametrize("l2", [True, False])
 @pytest.mark.parametrize("bf16,qsplit", _TIERS)
-@pytest.mark.parametrize("bf16_db", [False, True])
+@pytest.mark.parametrize("store", _B2_STORES)
 @pytest.mark.parametrize("k", _B2_KS)
 @pytest.mark.parametrize("qrows", _B2_QROWS)
-def test_cells_kernel_grid(dev, gen, l2, bf16, qsplit, bf16_db, k, qrows):
+def test_cells_kernel_grid(dev, gen, l2, bf16, qsplit, store, k, qrows):
     """B2 against its plain version, bit for bit on integer data: every
     store x tier x metric, each selection path of k (a register minimum,
     the insertion network up to 16, warp merges above, 64 / 32 / 16 rows
     a CTA), qrows off and on the row blocks, sentinels."""
     cells, q, db, invalid = _cells_case(gen, qrows)
     kd, ki, pd, pi = _cells_both(dev, cells, q, db, invalid, k, l2,
-                                 bf16_db, bf16, qsplit)
+                                 store, bf16, qsplit)
     np.testing.assert_array_equal(n(ki), n(pi))
     np.testing.assert_array_equal(n(kd), n(pd))
     ki = n(ki)
@@ -231,17 +251,17 @@ def test_cells_kernel_grid(dev, gen, l2, bf16, qsplit, bf16_db, k, qrows):
 @pytest.mark.cuda
 @pytest.mark.parametrize("l2", [True, False])
 @pytest.mark.parametrize("bf16,qsplit", _TIERS)
-@pytest.mark.parametrize("bf16_db", [False, True])
+@pytest.mark.parametrize("store", _B2_STORES)
 @pytest.mark.parametrize("k", [1, 10, 17, 256])
 @pytest.mark.parametrize("qrows", [1, 64, 65])
 def test_cells_kernel_ties_and_skipped_tiles(dev, gen, l2, bf16, qsplit,
-                                             bf16_db, k, qrows):
+                                             store, k, qrows):
     """{0, 1} data: distances tie within a thread's micro-tile, across
     threads and across tiles, so a wrong (row, slot) map shows as a wrong
     id; cap 1000 with a list whose tiles 1-3 are all invalid (skipped)."""
     cells, q, db, invalid = _cells_case(gen, qrows, hi=2, cap=1000, d=24)
     kd, ki, pd, pi = _cells_both(dev, cells, q, db, invalid, k, l2,
-                                 bf16_db, bf16, qsplit)
+                                 store, bf16, qsplit)
     np.testing.assert_array_equal(n(ki), n(pi))
     np.testing.assert_array_equal(n(kd), n(pd))
 
@@ -249,23 +269,24 @@ def test_cells_kernel_ties_and_skipped_tiles(dev, gen, l2, bf16, qsplit,
 @pytest.mark.cuda
 @pytest.mark.parametrize("l2", [True, False])
 @pytest.mark.parametrize("bf16,qsplit", _TIERS)
-@pytest.mark.parametrize("bf16_db", [False, True])
+@pytest.mark.parametrize("store", _B2_STORES)
 @pytest.mark.parametrize("d,q_off,db_off", [(40, 1, 1), (40, 0, 1),
                                             (40, 1, 0), (33, 0, 0),
-                                            (42, 0, 0)])
-def test_cells_kernel_unaligned_operands(dev, gen, l2, bf16, qsplit,
-                                         bf16_db, d, q_off, db_off):
-    """Operands one element past 16-byte alignment, and d with d % 4 != 0,
-    take the narrower copies and still agree bit for bit."""
+                                            (42, 0, 0), (48, 0, 4)])
+def test_cells_kernel_unaligned_operands(dev, gen, l2, bf16, qsplit, store,
+                                         d, q_off, db_off):
+    """Operands off 16-byte alignment, and d off 16, 8 and 4, take the
+    narrower copies (8-bit rows: 4-byte copies, or plain loads) and still
+    agree bit for bit."""
     cells, q, db, invalid = _cells_case(gen, 65, hi=2, d=d)
     args = _on(dev, cells, q, db, invalid)
-    if bf16_db:
-        args[2] = args[2].to(torch.bfloat16)
+    args[2] = _as_store(args[2], store)
     qv, dbv = _offset_view(args[1], q_off), _offset_view(args[2], db_off)
-    if q_off or db_off:
+    if (4 * q_off) % 16 or (db_off * dbv.element_size()) % 16:
         assert qv.data_ptr() % 16 != 0 or dbv.data_ptr() % 16 != 0
-    kd, ki = fk.fused_cells_knn(args[0], qv, dbv, args[3], 10, l2=l2,
-                                bf16=bf16, qsplit=qsplit)
+    kd, ki = _b2_counted(lambda: fk.fused_cells_knn(
+        args[0], qv, dbv, args[3], 10, l2=l2, bf16=bf16, qsplit=qsplit),
+        bf16)
     pd, pi = fk._fused_cells_knn_plain(*args, 10, l2, bf16, bf16 and qsplit)
     np.testing.assert_array_equal(n(ki), n(pi))
     np.testing.assert_array_equal(n(kd), n(pd))
@@ -274,28 +295,54 @@ def test_cells_kernel_unaligned_operands(dev, gen, l2, bf16, qsplit,
 @pytest.mark.cuda
 @pytest.mark.parametrize("l2", [True, False])
 @pytest.mark.parametrize("bf16,qsplit", _TIERS)
-@pytest.mark.parametrize("bf16_db", [False, True])
+@pytest.mark.parametrize("store", _B2_STORES)
+@pytest.mark.parametrize("k", [1, 10, 17, 256])
+@pytest.mark.parametrize("d", [385, 1024])
+def test_cells_kernel_wide_rows(dev, gen, l2, bf16, qsplit, store, k, d):
+    """d past B3's resident tiles (385, and MAX_DIM 1024): the bf16 tiers
+    stay on the tensor-core scan (16- or 32-row CTAs, many feature panels
+    a tile, the last one partly zero) and agree bit for bit on {0, 1}
+    data."""
+    cells, q, db, invalid = _cells_case(gen, 65, hi=2, cap=300, d=d)
+    kd, ki, pd, pi = _cells_both(dev, cells, q, db, invalid, k, l2,
+                                 store, bf16, qsplit)
+    np.testing.assert_array_equal(n(ki), n(pi))
+    np.testing.assert_array_equal(n(kd), n(pd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l2", [True, False])
+@pytest.mark.parametrize("bf16,qsplit", _TIERS)
+@pytest.mark.parametrize("store", _B2_STORES)
 @pytest.mark.parametrize("k", [1, 10, 100])
-def test_cells_kernel_gaussian(dev, gen, l2, bf16, qsplit, bf16_db, k):
+def test_cells_kernel_gaussian(dev, gen, l2, bf16, qsplit, store, k):
     """The main-path geometry (64-row cells, capacity 4096 with 700-1300
-    valid rows, d 128) on Gaussian data: the kernel sums in another order
+    valid rows, d 128) on Gaussian data (Gaussian queries and full-range
+    integer rows on the 8-bit stores): the kernel sums in another order
     than the plain version's matmul, so distances agree within 2e-6 of the
     largest |q|^2 + |y|^2 (chip_smoke.py's norm_tol) and near-ties may
     swap ids (per-slot recall >= 0.999)."""
     L, cap, d, C = 8, 4096, 128, 24
-    db = torch.as_tensor(gen.standard_normal((L, cap, d), dtype=np.float32),
-                         device=dev)
+    if store in ("u8", "i8"):
+        lo, hi = (0, 256) if store == "u8" else (-128, 128)
+        db = torch.as_tensor(gen.integers(lo, hi, (L, cap, d)).astype(
+            np.uint8 if store == "u8" else np.int8), device=dev)
+    else:
+        db = torch.as_tensor(gen.standard_normal((L, cap, d),
+                                                 dtype=np.float32),
+                             device=dev)
+        db = _as_store(db, store)
     q = torch.as_tensor(gen.standard_normal((C, 64, d), dtype=np.float32),
                         device=dev)
-    if bf16_db:
-        db = db.to(torch.bfloat16)
     invalid = torch.as_tensor(
         np.arange(cap)[None, :] >= gen.integers(700, 1300, (L, 1)),
         device=dev)
     cells = torch.as_tensor(gen.integers(-1, L, C).astype(np.int32),
                             device=dev)
-    kd, ki = fk._fused_cells_knn_cuda(cells, q, db, invalid, k, l2, bf16,
-                                      qsplit)
+    if not bf16:
+        db = db.float() if db.dtype in (torch.uint8, torch.int8) else db
+    kd, ki = _b2_counted(lambda: fk._fused_cells_knn_cuda(
+        cells, q, db, invalid, k, l2, bf16, qsplit), bf16)
     pd, pi = fk._fused_cells_knn_plain(cells, q, db, invalid, k, l2, bf16,
                                        qsplit)
     tol = 2e-6 * float(torch.max(torch.sum(q * q, -1))

@@ -1,7 +1,7 @@
 """Time the main path's kernels and entry points for the raft_tpu_torch
 found at a given repository root.
 
-    python3 tools/ab_main_path.py <repository root>
+    python3 tools/ab_main_path.py <repository root> [b2]
 
 To compare two commits on one card, unpack the parent into a gitignored
 directory (``git archive <parent> | tar -x -C build/parent``) and run, in
@@ -11,7 +11,8 @@ one go on one card, parent, change, change, parent::
         python3 tools/ab_main_path.py $r; done
 
 This script times every root, so a metric that an older root's copy of it
-lacks is read on both.
+lacks is read on both. With ``b2`` it times B2's metrics alone (the
+IVF-Flat search, ``b2*`` and ``u8_*`` below).
 
 Each run builds that root's kernels, makes the 1M x 128 rows and 10,000
 queries of its ``chip_smoke.py`` and prints one JSON line, times by CUDA
@@ -36,6 +37,18 @@ events (median) unless named ``_s``:
 * ``search_ms``: the IVF-Flat search of the 10,000 queries at 32 probes;
 * ``b2_ms``: kernel B2 (``fused_cells_knn``) alone at that search's cells
   (6024 cells x 64 rows, capacity 4096, d 128, k=10, f32);
+* ``b2_bf16_ms``, ``b2_split_ms``: B2's bf16 tier and its bf16 +
+  split-query tier at those cells on a bf16 copy of the store;
+* ``fma_regs``: ptxas' registers (and spill bytes) of each instance of
+  the FMA scans (B1's and B2's f32 tiers), by kernel, query rows and
+  selection;
+* ``u8_search_ms``: the IVF-Flat search (``engine="bucketed"``) of
+  phase 21 (a): 1000 queries at 32 probes on an index of chip_smoke.py's
+  SIFT-shaped u8 rows (1M x 128, 1024 lists); ``u8_device_ms``,
+  ``u8_copy_ms``: that search's device time and its copy kernels' by
+  ``torch.profiler``; ``b2_u8_split_ms``: B2's split tier alone at that
+  search's cells, on the u8 store where the root's B2 takes it, else on
+  the bf16 copy its search makes (``b2_u8_store`` says which);
 * ``select_10000x1024_k32_ms``, ``select_10000x320_k10_ms``: ``select_k``
   of a 10,000 x 1024 selection of 32 (the coarse probe) and a 10,000 x
   320 selection of 10 (the final merge);
@@ -62,6 +75,7 @@ events (median) unless named ``_s``:
 import importlib
 import inspect
 import json
+import re
 import subprocess
 import sys
 import time
@@ -72,6 +86,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from raft_tpu_torch.cluster import InitMethod, KMeansParams, kmeans  # noqa
+from raft_tpu_torch.core.error import LogicError  # noqa: E402
 from raft_tpu_torch.matrix.select_k import select_k  # noqa: E402
 from raft_tpu_torch.distance.pairwise import gram  # noqa: E402
 from raft_tpu_torch.neighbors import ivf_flat, ivf_pq  # noqa: E402
@@ -90,6 +105,81 @@ def build_s(mod, X):
     return index, time.perf_counter() - t0
 
 
+def fma_regs():
+    """ptxas' [registers, spill store bytes] of each instance of the FMA
+    scans, B1's f32 tier (b1_scan_kernel) and B2's (b2_scan_kernel), by
+    "<kernel> <query rows> <selection>"; the tier arguments (false, false)
+    that an older root's names carry are left out."""
+    regs = {}
+    for lib, pat, sel in (
+            ("fused_knn", r"(b1)_scan_kernelILi(\d+)E(?:Lb0ELb0E)?Lb([01])E",
+             ("k>1", "k=1")),
+            ("cells_knn", r"(b2)_scan_kernelILi(\d+)E(?:Lb0ELb0E)?Li(\d)E",
+             ("k=1", "network", "merge"))):
+        name, spill = None, 0
+        for line in _build.BUILD_LOG.get(lib, "").splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                name, spill = m.group(1), 0
+                continue
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spill = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            t = name and re.search(pat, name)
+            if m and t:
+                regs[f"{t.group(1)} {t.group(2)} {sel[int(t.group(3))]}"] = [
+                    int(m.group(1)), spill]
+    return regs
+
+
+def b2_metrics(out, index, Q):
+    """The B2 metrics at the main path's IVF-Flat search and phase 21
+    (a)'s u8 search."""
+    sp = ivf_flat.SearchParams(n_probes=cs.N_PROBES)
+    out["search_ms"] = cs.time_ms(lambda: ivf_flat.search(sp, index, Q, cs.K),
+                                  11)
+    cells, bucket, _ = ivf_flat._invert_probe_map_cells(
+        ivf_flat._coarse_probe(Q, index.centers, cs.N_PROBES, True),
+        index.n_lists, ivf_flat._CELL_QROWS)
+    Qc = Q[torch.clamp_min(bucket, 0)].contiguous()
+    invalid = (torch.arange(index.data.shape[1], device=dev)[None, :]
+               >= index.list_sizes[:, None]).contiguous()
+    out["b2_ms"] = cs.time_ms(lambda: fk._fused_cells_knn_cuda(
+        cells, Qc, index.data, invalid, cs.K, True, False, False), 11)
+    data16 = index.data.to(torch.bfloat16)
+    for name, qsplit in (("b2_bf16_ms", False), ("b2_split_ms", True)):
+        out[name] = cs.time_ms(lambda: fk._fused_cells_knn_cuda(
+            cells, Qc, data16, invalid, cs.K, True, True, qsplit), 11)
+    out["fma_regs"] = fma_regs()
+    del Qc, data16
+
+    db, q = cs.sift_rows_21()
+    X8 = torch.as_tensor(db, device=dev)
+    Q8 = torch.as_tensor(q, device=dev).float()
+    flat = ivf_flat.build(ivf_flat.IndexParams(n_lists=cs.N_LISTS), X8)
+    sp = ivf_flat.SearchParams(n_probes=cs.N_PROBES, engine="bucketed")
+    out["u8_search_ms"] = cs.time_ms(
+        lambda: ivf_flat.search(sp, flat, Q8, cs.K), 11)
+    copy_ms, dev_ms, _ = cs.device_split_ms(
+        lambda: ivf_flat.search(sp, flat, Q8, cs.K), "copy_kernel")
+    out["u8_device_ms"], out["u8_copy_ms"] = dev_ms, copy_ms
+    cells, bucket, _ = ivf_flat._invert_probe_map_cells(
+        ivf_flat._coarse_probe(Q8, flat.centers, cs.N_PROBES, True),
+        flat.n_lists, min(ivf_flat._CELL_QROWS, Q8.shape[0]))
+    Qc = Q8[torch.clamp_min(bucket, 0)].contiguous()
+    invalid = (torch.arange(flat.data.shape[1], device=dev)[None, :]
+               >= flat.list_sizes[:, None]).contiguous()
+    try:
+        fk._fused_cells_knn_cuda(cells, Qc, flat.data, invalid, cs.K, True,
+                                 True, True)
+        store, out["b2_u8_store"] = flat.data, "uint8"
+    except LogicError:
+        store, out["b2_u8_store"] = flat.data.to(torch.bfloat16), "bf16"
+    out["b2_u8_split_ms"] = cs.time_ms(lambda: fk._fused_cells_knn_cuda(
+        cells, Qc, store, invalid, cs.K, True, True, True), 11)
+
+
 dev = torch.device("cuda")
 _build.build_all()
 Xh, Qh = cs.make_data(cs.N_ROWS, cs.DIM, cs.N_BLOBS, cs.N_QUERIES)
@@ -98,9 +188,14 @@ del Xh, Qh
 out = {"root": sys.argv[1],
        "card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                "--format=csv,noheader"], capture_output=True,
-                              text=True, check=True).stdout.strip(),
-       "bf_ms": cs.time_ms(
-           lambda: fk._fused_knn_cuda(Q, X, cs.K, True, False, False), 5)}
+                              text=True, check=True).stdout.strip()}
+if sys.argv[2:] == ["b2"]:
+    index, out["ivf_flat_build_s"] = build_s(ivf_flat, X)
+    b2_metrics(out, index, Q)
+    print(json.dumps(out), flush=True)
+    sys.exit(0)
+out["bf_ms"] = cs.time_ms(
+    lambda: fk._fused_knn_cuda(Q, X, cs.K, True, False, False), 5)
 T = X[::2][:cs.N_ROWS // 2].contiguous()
 C1024 = X[::1000][:cs.N_LISTS].contiguous()
 C32 = C1024[::cs.N_LISTS // 32].contiguous()
@@ -124,21 +219,11 @@ torch.cuda.synchronize()
 out["lloyd_fit_s"] = time.perf_counter() - t0
 index, out["ivf_flat_build_s"] = build_s(ivf_flat, X)
 pq_index, out["ivf_pq_build_s"] = build_s(ivf_pq, X)
-sp = ivf_flat.SearchParams(n_probes=cs.N_PROBES)
 g = torch.Generator(device=dev)
 g.manual_seed(1)
 a = torch.randn((10000, 1024), generator=g, device=dev)
 b = torch.randn((10000, 320), generator=g, device=dev)
-out["search_ms"] = cs.time_ms(lambda: ivf_flat.search(sp, index, Q, cs.K), 11)
-cells, bucket, _ = ivf_flat._invert_probe_map_cells(
-    ivf_flat._coarse_probe(Q, index.centers, cs.N_PROBES, True),
-    index.n_lists, ivf_flat._CELL_QROWS)
-Qc = Q[torch.clamp_min(bucket, 0)].contiguous()
-invalid = (torch.arange(index.data.shape[1], device=dev)[None, :]
-           >= index.list_sizes[:, None]).contiguous()
-out["b2_ms"] = cs.time_ms(lambda: fk._fused_cells_knn_cuda(
-    cells, Qc, index.data, invalid, cs.K, True, False, False), 11)
-del Qc
+b2_metrics(out, index, Q)
 out["select_10000x1024_k32_ms"] = cs.time_ms(lambda: select_k(a, 32), 21)
 out["select_10000x320_k10_ms"] = cs.time_ms(lambda: select_k(b, 10), 21)
 sp_pq = ivf_pq.SearchParams(n_probes=cs.N_PROBES)

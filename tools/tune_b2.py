@@ -1,4 +1,5 @@
-"""Build variants of kernel B2 and time them at its main-path shape.
+"""Build variants of kernel B2's f32 tier (the FMA scan) and time them at
+its main-path shape.
 
     python3 tools/tune_b2.py VARIANT [VARIANT ...]
 
@@ -11,13 +12,15 @@ edited copy of the sources::
     python3 tools/tune_b2.py base v1@build/v1
 
 Each variant is first held to the plain version on integer data (ids and
-distances equal; k = 1, 10 and 17, f32 and bf16 stores), then timed by
+distances equal; k = 1, 10 and 17, f32 and bf16 stores on the f32 tier;
+the bf16 tiers run ``cells_mma.cu``, which ``tools/tune_b2_mma.py``
+tunes), then timed by
 CUDA events (median of 5) on operands made on the card from a seed at the
 main-path shape of the IVF-Flat search: 6024 cells x 64 query rows, each
 list's cells side by side as the probe inversion packs them, 1024 lists
 of capacity 4096 with 977 valid rows on average (uniform in [500, 1454]),
-d 128, L2: the f32 store at k = 10 and k = 1, and the bf16 store on the
-bf16 tier at k = 10; then the f32 store at k = 10 with longer lists
+d 128, L2: the f32 store at k = 10 and k = 1, and the bf16 store at
+k = 10; then the f32 store at k = 10 with longer lists
 (uniform in [1200, 2300), 14 live tiles on average, as the main path's
 probes weight them). The script also prints ptxas' register and spill
 lines of the B2 scans and the card line.
@@ -81,23 +84,23 @@ def main():
             invalid
 
     plain = {case: fk._fused_cells_knn_plain(*args(small, case[1]), case[0],
-                                             True, case[1] == "bf16", False)
+                                             True, False, False)
              for case in cases}
     for name, path in libs.items():
         use(path)
         ok = True
         for (k, store), (pd, pi) in plain.items():
             kd, ki = fk._fused_cells_knn_cuda(*args(small, store), k, True,
-                                              store == "bf16", False)
+                                              False, False)
             ok = ok and torch.equal(kd, pd) and torch.equal(ki, pi)
         res = {"variant": name, "exact_vs_plain": ok}
         for k in (10, 1):
             res[f"main_k{k}_ms"] = round(time_ms(
                 lambda: fk._fused_cells_knn_cuda(c, q, db, inv, k, True,
                                                  False, False)), 3)
-        res["main_bf16_k10_ms"] = round(time_ms(
-            lambda: fk._fused_cells_knn_cuda(c, q, db16, inv, 10, True, True,
-                                             False)), 3)
+        res["main_bf16_store_k10_ms"] = round(time_ms(
+            lambda: fk._fused_cells_knn_cuda(c, q, db16, inv, 10, True,
+                                             False, False)), 3)
         res["main_long_k10_ms"] = round(time_ms(
             lambda: fk._fused_cells_knn_cuda(c, q, db, inv_long, 10, True,
                                              False, False)), 3)
