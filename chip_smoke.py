@@ -44,8 +44,11 @@ no result line):
    (trainset x 32 and x 1024 centers on both tiers, rows x 1024 in f32)
    and timed there beside ``addmm`` + ``argmin``, with the path each tier
    took (the bf16 tiers' tensor-core scan of ``csrc/knn_mma.cu``, the
-   f32 tier's FMA scan) and ptxas' registers and spills of the
-   tensor-core scan; B2's f32 tier at k=10 and k=1 with
+   f32 tier's 3xTF32 tensor-core scan of ``csrc/knn_tf32.cu``) and
+   ptxas' registers and spills of both scans, and timed at a 16-row
+   request against the 1M rows (k=10 and 100); the f32 tier's bound is
+   its three TF32 products' (beside the FP32 pipes'); B2's f32 tier at
+   k=10 and k=1 with
    its plan, its pre-pass's device-time share and its share of the
    search, and both of its bf16 tiers (the tensor-core scan of
    ``csrc/cells_mma.cu``) on a bf16 copy of the store, each held against
@@ -418,16 +421,18 @@ no result line):
     recall@10 >= 0.80), a ``min_recall=0.95`` search that warns and
     answers the native search bit for bit, and the largest list within
     B4's per-list budget; the phase's seconds, launches and peak memory;
-22. a ``kernels`` line (B1 twice: its f32 tier's FMA scan at the
-    brute-force shape, its bf16 tiers' tensor-core scan at Lloyd's; B2
-    twice: its f32 tier's FMA scan and its split tier's tensor-core scan,
-    both at the main-path cells), the card line, and the result line.
+22. a ``kernels`` line (B1 twice: its f32 tier's 3xTF32 tensor-core scan
+    at the brute-force shape, its bf16 tiers' tensor-core scan at
+    Lloyd's; B2 twice: its f32 tier's FMA scan and its split tier's
+    tensor-core scan, both at the main-path cells), the card line, and
+    the result line.
 
 From phase 3 on, every B1 and B2 launch of this process is held to its
-tier's scan (:class:`B1Tiers`, :class:`B2Tiers`): a bf16 request must go
-through the tensor-core scan (``fused_knn.mma_launches``,
-``fused_cells_knn.mma_launches``), an f32 request through the FMA scan,
-checked after each phase; phases 4, 6, 17 and 20 must each run B1's
+tier's scan (:class:`B1Tiers`, :class:`B2Tiers`): every B1 request and
+a bf16 B2 request must go through a tensor-core scan
+(``fused_knn.mma_launches``, ``fused_cells_knn.mma_launches``; a B1
+f32 request through knn_tf32.cu's, ``fused_knn.tf32_launches``), an f32
+B2 request through the FMA scan, checked after each phase; phases 4, 6, 17 and 20 must each run B1's
 split-bf16 tier, phases 3, 5 and 21 B2's bf16 tiers.
 
 The data is made with numpy from a fixed seed: 1000 Gaussian blobs
@@ -693,6 +698,7 @@ RECALL_BIG_21 = 0.80
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
@@ -848,7 +854,7 @@ def check_kernels(dev) -> None:
                         raise AssertionError(f"{tag}: kernel != plain "
                                              f"(max err {err})")
         log(f"B1 ok m={m} n={n} d={d} k={k} slices="
-            f"{len(fk._b1_plan(m, n, k, n_sm).bounds)} (l2/ip, "
+            f"{len(fk._b1_tf32_plan(m, n, d, k, n_sm).bounds)} (l2/ip, "
             f"f32/bf16/qsplit, int in [0, {hi}) exact / gauss max err "
             f"within tol)")
     # Contiguous operands that start one float past 16 bytes take the
@@ -1096,6 +1102,7 @@ def main_path(dev, X, Q):
 
     launches = {"fused_knn": fk.fused_knn.launches,
                 "fused_knn_mma": fk.fused_knn.mma_launches,
+                "fused_knn_tf32": fk.fused_knn.tf32_launches,
                 "fused_cells_knn": fk.fused_cells_knn.launches}
     log(f"main path: brute force {bf_s:.3f} s ({bf_launches} B1 launch), "
         f"IVF-Flat build {build_s:.3f} s ({build_launches} B1 launches), "
@@ -1127,8 +1134,23 @@ def main_path(dev, X, Q):
             "centers": index.centers.clone()}
 
 
+def b1_f32_bound(m: int, n: int, d: int, nbytes: float):
+    """B1's f32 tier's bound in ms, with what sets it: the larger of its
+    three TF32 products (3 x 2*m*n*d operations at the TF32 peak: the split
+    the kernel needs to hold an f32 gram) and ``nbytes`` at the memory
+    rate; and beside it the FP32 pipes' bound (2*m*n*d at the FP32 peak)
+    that a scan outside the tensor cores would have."""
+    ops = 2.0 * m * n * d
+    tf32, by_bytes = 3.0 * ops / PEAK_TF32, nbytes / PEAK_BYTES
+    fp32 = max(ops / PEAK_FP32, by_bytes) * 1e3
+    if tf32 >= by_bytes:
+        return tf32 * 1e3, "operations, 3xTF32", fp32
+    return by_bytes * 1e3, "bytes", fp32
+
+
 def b1_entry(dev, X, Q, bf):
-    """Phase 5 for B1 at the brute-force shape."""
+    """Phase 5 for B1 at the brute-force shape, and at a 16-row request
+    against the same rows (k=10 and 100), both on the f32 tier."""
     import torch
 
     fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
@@ -1155,32 +1177,60 @@ def b1_entry(dev, X, Q, bf):
             torch.topk(g, K, dim=1, largest=False)
 
     lib_ms = time_ms(library, 3)
-    plan = fk._b1_plan(m, n, K, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
-    ops = 2.0 * m * n * d
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = fk._b1_tf32_plan(m, n, d, K, n_sm)
     nbytes = 4.0 * (m * d + n * d) + 8.0 * m * K
-    bound = max(ops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+    bound, by, fp32 = b1_f32_bound(m, n, d, nbytes)
     log(f"B1 timing m={m} n={n} d={d} k={K}: kernel {ms:.3f} ms "
-        f"({ops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, library "
-        f"(addmm + topk over {-(-m // chunk)} query chunks) {lib_ms:.3f} ms, "
-        f"bound {bound:.3f} ms (FP32 ops); plan: {plan.bq} queries per CTA, "
-        f"{len(plan.bounds)} database slices")
+        f"({2.0 * m * n * d / ms / 1e9:.1f} TFLOP/s of the f32 gram), plain "
+        f"{plain_ms:.3f} ms, library (addmm + topk over {-(-m // chunk)} "
+        f"query chunks) {lib_ms:.3f} ms, bound {bound:.3f} ms ({by}; the "
+        f"FP32 pipes' {fp32:.3f} ms); plan: {plan.bq} x {plan.bn} tile, "
+        f"{len(plan.bounds)} database slices, {plan.smem} B of shared "
+        f"memory")
+    Q16 = Q[:16].contiguous()
+    for k in (10, 100):
+        kd, ki = fk._fused_knn_cuda(Q16, X, k, True, False, False)
+        pd, pi = fk._fused_knn_plain(Q16, X, k, True, False, False)
+        rq, eq = recall(ki, pi), max_err(kd, pd)
+        if rq < RECALL_BF or eq > norm_tol(Q16, X):
+            raise AssertionError(f"B1 16-row request k={k} disagrees with "
+                                 f"its plain version: recall {rq}, max "
+                                 f"err {eq}")
+        r_ms = time_ms(lambda: fk._fused_knn_cuda(Q16, X, k, True, False,
+                                                  False), 11)
+        r_plain = time_ms(lambda: fk._fused_knn_plain(Q16, X, k, True, False,
+                                                      False), 5)
+        r_lib = time_ms(lambda: torch.topk(torch.addmm(
+            yn, Q16, X.t(), alpha=-2.0), k, dim=1, largest=False), 5)
+        r_bound, r_by, _ = b1_f32_bound(16, n, d, 4.0 * (16 + n) * d
+                                        + 8.0 * 16 * k)
+        r_plan = fk._b1_tf32_plan(16, n, d, k, n_sm)
+        log(f"B1 16-row request m=16 n={n} d={d} k={k} f32: kernel "
+            f"{r_ms:.4f} ms, plain {r_plain:.4f} ms, library (addmm + "
+            f"topk) {r_lib:.4f} ms, bound {r_bound:.4f} ms ({r_by}); "
+            f"recall@{k} {rq:.6f}, max |d| err {eq:.3e}; plan: "
+            f"{r_plan.bq} x {r_plan.bn} tile, {len(r_plan.bounds)} "
+            f"slices")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
-            "bound_by": "operations" if ops / PEAK_FP32 >= nbytes / PEAK_BYTES
-            else "bytes", "library_ms": lib_ms}
+            "bound_by": "bytes" if by == "bytes" else "operations",
+            "library_ms": lib_ms}
 
 
 def b1_k1_bound(m: int, n: int, d: int, bf16: bool):
-    """B1's bound at k=1 in ms, with what sets it: the function's 2*m*n*d
-    operations at the peak of the operand type (bf16 for the split tier,
-    whose two products per pair are the kernel's own choice), or the bytes
-    of the f32 rows, the centers and the (distance, id) out."""
-    ops = 2.0 * m * n * d
-    peak, name = (PEAK_BF16, "bf16") if bf16 else (PEAK_FP32, "FP32")
+    """B1's bound at k=1 in ms, with what sets it: the f32 tier's of
+    :func:`b1_f32_bound` (its three TF32 products), or for the split tier
+    the function's 2*m*n*d operations at the bf16 peak (its two products
+    per pair are the kernel's own choice), each against the bytes of the
+    f32 rows, the centers and the (distance, id) out."""
     nbytes = 4.0 * (m * d + n * d) + 8.0 * m
-    if ops / peak >= nbytes / PEAK_BYTES:
-        return ops / peak * 1e3, f"operations, {name}"
+    if not bf16:
+        bound, by, _ = b1_f32_bound(m, n, d, nbytes)
+        return bound, by
+    ops = 2.0 * m * n * d
+    if ops / PEAK_BF16 >= nbytes / PEAK_BYTES:
+        return ops / PEAK_BF16 * 1e3, "operations, bf16"
     return nbytes / PEAK_BYTES * 1e3, "bytes"
 
 
@@ -1192,21 +1242,20 @@ def b1_path(m: int, n: int, d: int, bf16: bool) -> str:
     fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
     plan = fk._b1_tier_plan(m, n, d, 1, bf16, bf16, torch.cuda.
                             get_device_properties(0).multi_processor_count)
-    if isinstance(plan, fk.B1MmaPlan):
-        return (f"tensor-core scan (knn_mma.cu), {plan.bq} x {plan.bn} "
-                f"tile, {len(plan.bounds)} slice(s), {plan.smem} B of shared "
-                f"memory")
-    return (f"FMA scan (knn_gemm.cuh), {plan.bq} queries per CTA, "
-            f"{len(plan.bounds)} slice(s)")
+    scan = ("tensor-core scan (knn_mma.cu)" if isinstance(plan, fk.B1MmaPlan)
+            else "3xTF32 tensor-core scan (knn_tf32.cu)")
+    return (f"{scan}, {plan.bq} x {plan.bn} tile, {len(plan.bounds)} "
+            f"slice(s), {plan.smem} B of shared memory")
 
 
 def ptxas_kernels(lib: str, kernel: str) -> list:
     """ptxas' registers and spill stores of each entry function of
     ``lib`` whose name holds ``kernel``, from the build's log: (entry,
     registers, spill bytes). The template arguments of b1_mma_kernel
-    (query rows x tile rows, tier, selection), b2_mma_kernel (query rows,
-    tier, selection) and b2_scan_kernel (query rows, selection) are read
-    out of their mangled names."""
+    (query rows x tile rows, tier, selection), b1_tf32_kernel (query rows
+    x tile rows, selection), b2_mma_kernel (query rows, tier, selection)
+    and b2_scan_kernel (query rows, selection) are read out of their
+    mangled names."""
     import re
 
     from raft_tpu_torch.ops import _build
@@ -1225,6 +1274,7 @@ def ptxas_kernels(lib: str, kernel: str) -> list:
             sel = ("k=1", "network", "merge")
             t = re.search(r"b1_mma_kernelILi(\d+)ELi(\d+)ELb([01])ELi(\d)E",
                           name)
+            t1 = re.search(r"b1_tf32_kernelILi(\d+)ELi(\d+)ELi(\d)E", name)
             t2 = re.search(r"b2_mma_kernelILi(\d+)ELb([01])ELi(\d)E", name)
             t3 = re.search(r"b2_scan_kernelILi(\d+)ELi(\d)E", name)
             short = re.search(r"(b[12]_\w*?_kernel)", name)
@@ -1232,6 +1282,9 @@ def ptxas_kernels(lib: str, kernel: str) -> list:
                 label = (f"{t.group(1)}x{t.group(2)} "
                          f"{'split' if t.group(3) == '1' else 'bf16'} "
                          f"{sel[int(t.group(4))]}")
+            elif t1 is not None:
+                label = (f"{t1.group(1)}x{t1.group(2)} "
+                         f"{sel[int(t1.group(3))]}")
             elif t2 is not None:
                 label = (f"{t2.group(1)} rows "
                          f"{'split' if t2.group(2) == '1' else 'bf16'} "
@@ -1252,10 +1305,12 @@ def b1_kmeans_shape(dev, X, centers):
     split-bf16 tiers (the balancing EM runs both), and every row against
     the 1024 centers in f32 (the extend assignment). Arg-min agreement must
     reach RECALL_BF and the distances agree within ``norm_tol``; each
-    launch must take its tier's scan (the split tier the tensor-core scan,
-    the f32 tier the FMA scan). Logs the path each tier took and ptxas'
-    registers and spills of the tensor-core scan. Returns the split tier's
-    largest distance error."""
+    launch must take its tier's tensor-core scan (the split tier
+    knn_mma.cu's, the f32 tier knn_tf32.cu's). Logs the path each tier
+    took, its time beside its bound (the f32 tier's three TF32 products
+    beside the FP32 pipes'), its plain version and ``addmm`` + ``argmin``,
+    and ptxas' registers and spills of both scans. Returns the split tier's largest
+    distance error."""
     import torch
 
     fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
@@ -1271,9 +1326,10 @@ def b1_kmeans_shape(dev, X, centers):
     split_err = 0.0
     for what, A, C, tier, bf16 in cases:
         m, n, d = A.shape[0], C.shape[0], C.shape[1]
-        before = fk.fused_knn.mma_launches
+        before = (fk.fused_knn.mma_launches, fk.fused_knn.tf32_launches)
         kd, ki = fk._fused_knn_cuda(A, C, 1, True, bf16, bf16)
-        mma = fk.fused_knn.mma_launches - before
+        mma = fk.fused_knn.mma_launches - before[0]
+        tf32 = fk.fused_knn.tf32_launches - before[1]
         pd, pi = fk._fused_knn_plain(A, C, 1, True, bf16, bf16)
         torch.cuda.synchronize()
         agree = float((ki == pi).float().mean())
@@ -1283,7 +1339,7 @@ def b1_kmeans_shape(dev, X, centers):
         log(f"{tag}: path {b1_path(m, n, d, bf16)} ({mma} tensor-core "
             f"launch); arg-min agreement {agree:.6f} (bar {RECALL_BF}), max "
             f"|d| err {err:.3e} (tol {tol:.3e})")
-        if mma != int(bf16):
+        if mma != 1 or tf32 != int(not bf16):
             raise AssertionError(f"{tag}: the launch took the wrong scan")
         if agree < RECALL_BF or err > tol:
             raise AssertionError(f"{tag}: kernel disagrees with plain")
@@ -1293,17 +1349,25 @@ def b1_kmeans_shape(dev, X, centers):
         ms = time_ms(lambda: fk._fused_knn_cuda(A, C, 1, True, bf16, bf16),
                      5)
         bound, by = b1_k1_bound(m, n, d, bf16)
+        fp32 = ("" if bf16 else f", the FP32 pipes' "
+                f"{b1_f32_bound(m, n, d, 4.0 * (m + n) * d + 8.0 * m)[2]:.3f}"
+                f" ms")
+        plain_ms = time_ms(lambda: fk._fused_knn_plain(A, C, 1, True, bf16,
+                                                       bf16), 2)
         # The library yardstick of a k=1 scan: one addmm of the expanded
         # L2 (f32) and its row arg-min.
         cn = torch.sum(C * C, dim=1)
         lib_ms = time_ms(lambda: torch.argmin(
             torch.addmm(cn, A, C.t(), alpha=-2.0), dim=1), 3)
-        log(f"{tag}: kernel {ms:.3f} ms, bound {bound:.3f} ms ({by}; "
-            f"{2.0 * m * n * d / ms / 1e9:.1f} TFLOP/s), library (addmm + "
-            f"argmin) {lib_ms:.3f} ms")
-    regs = ptxas_kernels("knn_mma", "b1_mma")
-    log(f"B1 tensor-core scan ptxas (tile, tier, selection: registers, "
-        f"spill bytes): {[f'{n}: {r}, {sp}' for n, r, sp in regs]}")
+        log(f"{tag}: kernel {ms:.3f} ms, bound {bound:.3f} ms ({by}{fp32}; "
+            f"{2.0 * m * n * d / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} "
+            f"ms, library (addmm + argmin) {lib_ms:.3f} ms")
+    for lib, kern, what in (("knn_mma", "b1_mma", "tier"),
+                            ("knn_tf32", "b1_tf32", "f32 tier")):
+        regs = ptxas_kernels(lib, kern)
+        log(f"B1 tensor-core scan {lib} ptxas (tile, {what}, selection: "
+            f"registers, spill bytes): "
+            f"{[f'{n}: {r}, {sp}' for n, r, sp in regs]}")
     return split_err
 
 
@@ -1450,14 +1514,17 @@ def b2_entry(dev, Q, index, search_ms):
 def _counted():
     """Every launch counter, by kernel name: the wrapper that keeps it and
     its attribute. ``fused_knn`` counts every B1 launch, ``fused_knn_mma``
-    those of its bf16 tiers' tensor-core scan among them; likewise
-    ``fused_cells_knn`` and ``fused_cells_knn_mma`` for B2."""
+    those of a tensor-core scan among them (every one), ``fused_knn_tf32``
+    those of its f32 tier's 3xTF32 scan (knn_tf32.cu) among those;
+    ``fused_cells_knn`` and ``fused_cells_knn_mma`` every B2 launch and
+    those of its bf16 tiers' tensor-core scan."""
     fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
     from raft_tpu_torch.ops import pq_scan as ps
     from raft_tpu_torch.ops import stream_select as ss
 
     return {"fused_knn": (fk.fused_knn, "launches"),
             "fused_knn_mma": (fk.fused_knn, "mma_launches"),
+            "fused_knn_tf32": (fk.fused_knn, "tf32_launches"),
             "fused_cells_knn": (fk.fused_cells_knn, "launches"),
             "fused_cells_knn_mma": (fk.fused_cells_knn, "mma_launches"),
             "fused_batch_knn": (fk.fused_batch_knn, "launches"),
@@ -1467,7 +1534,7 @@ def _counted():
 
 #: The counters of B1's launches: the phases that "launch B1 and only B1"
 #: may show both.
-B1_COUNTERS = ("fused_knn", "fused_knn_mma")
+B1_COUNTERS = ("fused_knn", "fused_knn_mma", "fused_knn_tf32")
 
 
 def _zero_counters() -> None:
@@ -1483,14 +1550,16 @@ def _launches():
 class TierCheck:
     """Wraps a kernel's launcher for the rest of the run and tells each
     launch's requested tier from the scan it took: a bf16 request must add
-    one to the wrapper's ``mma_launches`` (its tensor-core scan), an f32
-    request must not (its FMA scan). ``take`` checks the launches since
-    the last ``take`` and fails on any that went the other way."""
+    one to the wrapper's ``mma_launches`` (its tensor-core scan); an f32
+    request must too where ``f32_mma`` (B1's 3xTF32 scan), and must not
+    elsewhere (B2's FMA scan). ``take`` checks the launches since the last
+    ``take`` and fails on any that went the other way."""
 
     def __init__(self, kernel: str, launcher: str, wrapper: str,
-                 bf16_at: int):
+                 bf16_at: int, f32_mma: bool):
         self.fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
         self.kernel = kernel
+        self.f32_mma = f32_mma
         self.seen = {"bf16": 0, "bf16_mma": 0, "f32": 0, "f32_mma": 0}
         self.mark = dict(self.seen)
         launch = getattr(self.fk, launcher)
@@ -1512,19 +1581,20 @@ class TierCheck:
         log(f"{phase}: {self.kernel} bf16 launches {got['bf16']}, through "
             f"the tensor-core scan {got['bf16_mma']}; f32 launches "
             f"{got['f32']}, through the tensor-core scan {got['f32_mma']}")
-        if got["bf16_mma"] != got["bf16"] or got["f32_mma"]:
+        f32_want = got["f32"] if self.f32_mma else 0
+        if got["bf16_mma"] != got["bf16"] or got["f32_mma"] != f32_want:
             raise AssertionError(f"{phase}: a {self.kernel} launch took the "
                                  f"wrong scan for its tier: {got}")
         return got
 
 
 class B1Tiers(TierCheck):
-    """B1's launches: the bf16 tiers through ``fused_knn.mma_launches``
-    (the tensor-core scan of csrc/knn_mma.cu), the f32 tier through the
-    FMA scan."""
+    """B1's launches: every tier through ``fused_knn.mma_launches`` (the
+    bf16 tiers the tensor-core scan of csrc/knn_mma.cu, the f32 tier the
+    3xTF32 one of csrc/knn_tf32.cu)."""
 
     def __init__(self):
-        super().__init__("B1", "_fused_knn_cuda", "fused_knn", 4)
+        super().__init__("B1", "_fused_knn_cuda", "fused_knn", 4, True)
 
 
 class B2Tiers(TierCheck):
@@ -1534,7 +1604,7 @@ class B2Tiers(TierCheck):
 
     def __init__(self):
         super().__init__("B2", "_fused_cells_knn_cuda", "fused_cells_knn",
-                         6)
+                         6, False)
 
 
 def _step(before):
@@ -5758,8 +5828,8 @@ def b1_lloyd_17(X, C, fit, card) -> dict:
     """Phase 17 (b), after the phase's launches are read: B1 at Lloyd's
     shape on both tiers beside ``addmm`` + ``argmin``, with each tier's
     bound (:func:`b1_k1_bound`) and path; every timed launch must take its
-    tier's scan. The split tier's plain version is timed too: these are
-    the tensor-core scan's figures in the ``kernels`` line."""
+    tier's tensor-core scan. The split tier's plain version is timed too:
+    these are knn_mma.cu's figures in the ``kernels`` line."""
     import torch
 
     fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
@@ -5767,13 +5837,15 @@ def b1_lloyd_17(X, C, fit, card) -> dict:
     Cc = C.contiguous()
     b1 = {}
     for tier, bf16 in (("f32", False), ("split-bf16", True)):
-        before = fk.fused_knn.mma_launches
+        before = (fk.fused_knn.mma_launches, fk.fused_knn.tf32_launches)
         ms = time_ms(lambda: fk._fused_knn_cuda(X, Cc, 1, True, bf16, bf16),
                      5)
-        mma = fk.fused_knn.mma_launches - before
-        if mma != (6 if bf16 else 0):
+        mma = fk.fused_knn.mma_launches - before[0]
+        tf32 = fk.fused_knn.tf32_launches - before[1]
+        if mma != 6 or tf32 != (0 if bf16 else 6):
             raise AssertionError(f"phase 17 (b): B1 {tier} took the wrong "
-                                 f"scan ({mma} tensor-core launches of 6)")
+                                 f"scan ({mma} tensor-core launches of 6, "
+                                 f"{tf32} of knn_tf32.cu's)")
         bound, by = b1_k1_bound(m, n_c, d, bf16)
         b1[tier] = {"ms": ms, "bound_ms": bound, "bound_by": by,
                     "path": b1_path(m, n_c, d, bf16)}
@@ -6696,7 +6768,8 @@ def tfidf_18(dev, card) -> None:
 def b1_graph_18(X, chunk, card) -> dict:
     """Phase 18 (a), after the phase's launches are read: B1 at the kNN
     graph's chunk shape beside ``addmm`` + ``topk`` over 2500-query
-    slices, and its FP32 bound."""
+    slices, and its bound (:func:`b1_f32_bound`: the three TF32 products,
+    beside the FP32 pipes')."""
     import torch
 
     fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
@@ -6715,11 +6788,12 @@ def b1_graph_18(X, chunk, card) -> dict:
     lib_ms = time_ms(library, 1, warmup=0)
     ops = 2.0 * m * n * d
     nbytes = 4.0 * (m * d + n * d) + 8.0 * m * k
-    bound = max(ops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+    bound, by, fp32 = b1_f32_bound(m, n, d, nbytes)
     log(f"phase 18 (a): B1 at the kNN graph's chunk m={m} n={n} d={d} "
-        f"k={k}: {ms:.3f} ms ({ops / ms / 1e9:.1f} TFLOP/s), library "
-        f"(addmm + topk over {-(-m // 2500)} slices) {lib_ms:.3f} ms, bound "
-        f"{bound:.3f} ms (FP32 operations) [{card}]")
+        f"k={k}: {ms:.3f} ms ({ops / ms / 1e9:.1f} TFLOP/s of the f32 "
+        f"gram), library (addmm + topk over {-(-m // 2500)} slices) "
+        f"{lib_ms:.3f} ms, bound {bound:.3f} ms ({by}; the FP32 pipes' "
+        f"{fp32:.3f} ms) [{card}]")
     return {"b1_ms": ms, "lib_ms": lib_ms, "bound_ms": bound}
 
 
@@ -8504,13 +8578,17 @@ def main() -> int:
         f"launches {p20['launches']}, peak device memory "
         f"{p20['peak_gib']:.2f} GiB [{card}]")
 
-    # B1's launches on the main path's phases: the FMA scan's (the f32
-    # tier) and the tensor-core scan's (the bf16 tiers) apart.
+    # B1's launches on the main path's phases: knn_tf32.cu's (the f32
+    # tier) and knn_mma.cu's (the bf16 tiers) apart; every one is a
+    # tensor-core launch.
     b1_runs = [mp["launches"], pq["launches"], sv, lc, sm, sf, sh, rt, ops,
                du, br, p17["launches"], p18["launches"], p19["launches"],
                p20["launches"], p21["launches"]]
-    b1_mma = sum(run["fused_knn_mma"] for run in b1_runs)
-    b1_fma = sum(run["fused_knn"] for run in b1_runs) - b1_mma
+    b1_tf32 = sum(run["fused_knn_tf32"] for run in b1_runs)
+    b1_mma = sum(run["fused_knn_mma"] for run in b1_runs) - b1_tf32
+    if sum(run["fused_knn_mma"] for run in b1_runs) != sum(
+            run["fused_knn"] for run in b1_runs):
+        raise AssertionError("a B1 launch missed the tensor-core scans")
     mma = dict(p17["mma"], max_abs_err=max(p17["mma"]["max_abs_err"],
                                            split_err))
     # B2's likewise: the FMA scan's (the f32 tier) and the tensor-core
@@ -8520,9 +8598,9 @@ def main() -> int:
     b2_mma = sum(run.get("fused_cells_knn_mma", 0) for run in b2_runs)
     b2_fma = sum(run["fused_cells_knn"] for run in b2_runs) - b2_mma
     kernels = [
-        dict(name="fused_knn", route="cuda",
-             source="raft_tpu_torch/csrc/knn_gemm.cuh",
-             replaces="raft_tpu/ops/fused_knn.py:179", launches=b1_fma,
+        dict(name="fused_knn_tf32", route="cuda",
+             source="raft_tpu_torch/csrc/knn_tf32.cu",
+             replaces="raft_tpu/ops/fused_knn.py:179", launches=b1_tf32,
              **b1),
         dict(name="fused_knn_mma", route="cuda",
              source="raft_tpu_torch/csrc/knn_mma.cu",

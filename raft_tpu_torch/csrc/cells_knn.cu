@@ -13,17 +13,18 @@
 // file's pre-pass.
 //
 // What bounds it on the H100: 2 * d flops per (query, valid row) pair at
-// the FP32 rate outside the tensor cores (TF32 would break parity with
-// the reference's Precision.HIGHEST), 2.2 ms at the main path (6024 cells
-// x 64 rows, ~1470 valid rows a cell, d 128); its bytes (the valid rows
-// once, the queries, the results) are a tenth of that. What the design
-// does about it:
+// the FP32 rate outside the tensor cores (one TF32 product would break
+// parity with the reference's Precision.HIGHEST; B1's 3xTF32 split,
+// knn_tf32.cu, would not, and B2 has not taken it yet), 2.2 ms at the
+// main path (6024 cells x 64 rows, ~1470 valid rows a cell, d 128); its
+// bytes (the valid rows once, the queries, the results) are a tenth of
+// that. What the design does about it:
 //
 //   * one CTA of 256 threads per (cell, block of BQ query rows): BQ = 64,
 //     the cell height, or 32 / 16 when the top-k queue needs the room or
 //     the cells are short (ops/fused_knn.py::_b2_plan), so each list is
-//     staged once per cell. It runs B1's register-tiled FP32 tile
-//     (knn_gemm.cuh): a (BQ / 16) x 8 micro-tile per thread over 128-row
+//     staged once per cell. It runs the register-tiled FP32 tile of
+//     knn_gemm.cuh: a (BQ / 16) x 8 micro-tile per thread over 128-row
 //     tiles, 16-feature chunks landed by cp.async (16 bytes for f32, 8 for
 //     bf16 rows, narrower copies for unaligned operands) and moved into
 //     double-buffered feature-major tiles inside the previous chunk's

@@ -12,8 +12,9 @@
 // with qsplit, f32 sums; max(|q|^2 + |y|^2 - 2g, 0) for L2 with f32 norms
 // of the unrounded rows, or -g for inner product; the exact top-k by
 // (distance, slot), ties to the lowest slot, -1 for slots left at inf.
-// The f32 tier stays on the FMA scan of cells_knn.cu: TF32 would break its
-// parity with the reference's Precision.HIGHEST.
+// The f32 tier stays on the FMA scan of cells_knn.cu (one TF32 product
+// would break its parity with the reference's Precision.HIGHEST; B1's
+// 3xTF32 split, knn_tf32.cu, would not, and B2 has not taken it yet).
 //
 // Who runs it: every u8 / int8 IVF-Flat search (the bf16 + split-query
 // tier, which keeps f32 query precision; values -128..255 are exact in

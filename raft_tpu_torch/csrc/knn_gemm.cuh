@@ -1,29 +1,27 @@
-// The register-tiled FP32 kNN tile of kernel B1 (fused_knn) for Hopper:
-// B1's f32 tier, and the tile of B2's f32 tier (cells_knn.cu).
+// The register-tiled FP32 kNN tile for Hopper, the tile of B2's f32 tier
+// (cells_knn.cu), and the pieces of kernel B1 (fused_knn) that its
+// tensor-core scans share: the norm pre-pass, the slice merge and the
+// cp.async copies with zero fill.
 //
-// Replaces raft_tpu/ops/fused_knn.py::_fused_knn / _fused_knn_kernel on its
-// f32 tier: the exact kNN of m queries against an (n, d) database, ordered
-// by (distance, id) with ties to the lowest id, L2 (max(|q|^2 + |y|^2 -
-// 2g, 0)) or inner product (-g). B1's bf16 tiers (operands rounded to
-// bf16, optionally plus the low half of the split query) run on bf16
-// tensor cores in knn_mma.cu, which shares this file's copies and slice
-// merge; B2's in cells_mma.cu.
+// B1 runs on tensor cores at every tier: its f32 tier on the 3xTF32 scan
+// of knn_tf32.cu, which keeps the parity of an f32 gram with the
+// reference's Precision.HIGHEST (one TF32 product would not), its bf16
+// tiers on knn_mma.cu. Both take their norms from b1_norms_kernel (the f32
+// tier; the bf16 tiers' pre-pass is their own) and merge their database
+// slices with b1_merge_kernel.
 //
-// What bounds it: 2*d flops per (query, row) pair at the FP32 rate outside
-// the tensor cores (TF32 would break parity with the reference's
-// Precision.HIGHEST, so the f32 tier runs FP32 FMA). At the
-// brute-force shape (10,000 x 1M x 128) that is 38 ms on an H100 SXM; the
-// bytes (0.5 GB) are 0.15 ms. What the design does about it:
+// The FMA tile (B2's f32 tier; B2's bf16 tiers are cells_mma.cu). What
+// bounds it: 2*d flops per (query, row) pair at the FP32 rate outside the
+// tensor cores, where it has had no tensor-core design yet (knn_tf32.cu's
+// split would keep its parity; ROADMAP B.1). What the design does about
+// it:
 //
-//   * a CTA of 256 threads owns BQ queries (128, or 64 / 32 when the top-k
-//     queue needs the room or m is small) and sweeps 128-row database
+//   * a CTA of 256 threads owns BQ query rows and sweeps 128-row database
 //     tiles; each thread accumulates a (BQ/16) x 8 register micro-tile, so
-//     a CTA re-reads the database once per 128 queries (64 flop per byte of
-//     db traffic, above the card's ridge). With k = 1 two CTAs share an SM
-//     (their registers allow it), so one CTA's start and end overlap the
-//     other's FMAs;
+//     a CTA re-reads the database once per BQ queries;
 //   * features come in chunks of BK. 16-byte cp.async copies (4-byte ones
-//     unless d % 4 == 0 and both operands start on 16 bytes) land each chunk row-major in a ring of STAGES
+//     unless d % 4 == 0 and both operands start on 16 bytes; 8-byte ones
+//     for a bf16 store) land each chunk row-major in a ring of STAGES
 //     staging buffers, zero past m, n and d, STAGES chunks ahead of the one
 //     being multiplied. Each thread moves its own pieces of the next chunk
 //     through registers into feature-major buffers (double-buffered, one
@@ -34,33 +32,14 @@
 //     float4 reads free of bank conflicts;
 //   * the inner loop reads 8 query and 8 row values per feature (four
 //     16-byte loads, a warp covering 4 x 8 threads) for 64 FMAs;
-//   * the norms come from a pre-pass, once per call (f32, sequential in
-//     feature order, from the unrounded values);
-//   * selection filters in registers: at the end of a tile the
-//     accumulators become distances in place (NaN marks a pair past the
-//     slice or already sent, which no test accepts), each compared with its
-//     query's k-th (distance, id) in shared memory, a float test first.
-//     Only the pairs that pass go through an atomic counter into a
-//     per-query candidate buffer, and one warp per query that received any
-//     inserts them into its sorted queue; a tile where no pair passes costs
-//     one barrier. A buffer that overflows is drained and the unsent pairs
-//     are offered again against the tighter k-th. With k = 1 each thread
-//     keeps a running (min, id) per query in registers, reduced across the
-//     CTA at the end;
-//   * the grid is (query blocks, database slices): when the query blocks
-//     alone cannot fill the card, each slice sweeps a contiguous range of
-//     whole tiles and writes its sorted top-k to a workspace, and
-//     b1_merge_kernel merges the slices by (distance, id). The per-pair
-//     arithmetic does not depend on the slice, so the result is the one
-//     sweep's, bit for bit.
+//   * write_k1 reduces a register (min, id) per query across the CTA
+//     (k = 1), write_queue writes sorted queues.
 //
-// B2's f32 tier (cells_knn.cu) runs the same pieces (staging, which also
-// reads bf16 rows, the transposing move, the chunk's FMAs, the k = 1
-// reduction) over the cells of the packed IVF-Flat scan.
-//
-// On the H100 this runs at about half the FP32 peak (PERF.md); the k = 1
-// scan, which does no selection, runs faster than k > 1, whose queue and
-// epilogue need the registers of a second CTA.
+// b1_merge_kernel: when B1's query blocks alone cannot fill the card, each
+// database slice sweeps a contiguous range of whole tiles and writes its
+// sorted top-k to a workspace, merged here by (distance, id). The per-pair
+// arithmetic does not depend on the slice, so the result is the one
+// sweep's, bit for bit.
 
 #pragma once
 
@@ -85,17 +64,6 @@ constexpr int CAND = 4096;       // candidate slots per CTA (CAND / BQ each)
 constexpr int MAX_SLICES = 256;  // database slices the merge takes
 
 static_assert(BK % 16 == 0, "a staged row is whole 32-byte sectors");
-
-// Shared-memory bytes of one CTA (ops/fused_knn.py::_b1_smem_bytes).
-inline size_t smem_bytes(int bq, int k, bool qsplit) {
-  size_t stage = sizeof(float) * STAGES * (size_t)(bq + BN) * SKP;
-  size_t tiles = sizeof(float) * 2 * BK *
-                 ((size_t)(bq + 4) * (qsplit ? 2 : 1) + (BN + 4));
-  if (k == 1) return stage + tiles;
-  int c = CAND / bq;
-  return stage + tiles + 8 * (size_t)bq * k + 8 * (size_t)bq * c +
-         4 * (size_t)bq + 4 * (size_t)((bq + 31) / 32);
-}
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                                            int bytes) {
@@ -349,236 +317,33 @@ __device__ __forceinline__ void write_queue(const float* kd, const int* ki,
   }
 }
 
-// One CTA: queries [q0, q0 + BQ) against database slice blockIdx.y, rows
-// [r0, r1). Writes the slice's top-k, ascending by (distance, id), to
-// out + (blockIdx.y * m + query) * k; with `direct` (one slice) the ids
-// of empty or inf slots become -1 there, else they stay for the merge.
-// `vec`: every row of q and db starts on 16 bytes (16-byte copies).
-template <int BQ, bool K1>
-__global__ void __launch_bounds__(NT, K1 ? 2 : 1)
-b1_scan_kernel(const float* __restrict__ q, const float* __restrict__ db,
-               const float* __restrict__ qn, const float* __restrict__ yn,
-               float* __restrict__ out_d, int* __restrict__ out_i, int m,
-               int n, int d, int k, int l2, int slice_rows, int direct,
-               int vec) {
-  constexpr int TM = BQ / 16;
-  constexpr int C = CAND / BQ;
-  constexpr int LDA = BQ + 4, LDB = BN + 4;
-  extern __shared__ __align__(16) float smem[];
-  constexpr int SSZ = (BQ + BN) * SKP;
-  float* stg = smem;                                   // [STAGES][SSZ]
-  float* At = stg + STAGES * SSZ;                      // [2][BK][LDA]
-  float* Bt = At + 2 * BK * LDA;                       // [2][BK][LDB]
-  float* kd = Bt + 2 * BK * LDB;                       // [BQ][k]
-  int* ki = reinterpret_cast<int*>(kd + BQ * k);       // [BQ][k]
-  float* cd = reinterpret_cast<float*>(ki + BQ * k);   // [BQ][C]
-  int* ci = reinterpret_cast<int*>(cd + BQ * C);       // [BQ][C]
-  int* cnt = ci + BQ * C;                              // [BQ]
-  unsigned* qmask = reinterpret_cast<unsigned*>(cnt + BQ);  // [BQ / 32]
+// |x|^2 of the m rows of q, then the n rows of db, into out[0, m + n), f32
+// from the unrounded values: one warp a row, lane l summing features l,
+// l + 32, ... with FMAs in order, then the 32 lane sums by an xor tree
+// (the bf16 tiers' pre-pass sums so too). The rows are read as coalesced
+// lines, and the tree keeps the error of a long row near a blocked sum's:
+// a thread summing a whole row in feature order read each row's lines by
+// a different thread and, at d = 1024, carried 4.5x the error of the
+// plain version's norms against float64 on an H100.
+constexpr int NORMS_THREADS = 256;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tx = 8 * (warp & 1) + (lane & 7);
-  const int ty = 4 * (warp >> 1) + (lane >> 3);
-  const int q0 = blockIdx.x * BQ;
-  const int nq = min(BQ, m - q0);
-  const int r0 = blockIdx.y * slice_rows;
-  const int r1 = min(n, r0 + slice_rows);
-  const int nchunk = (d + BK - 1) / BK;
-  const int total = ((r1 - r0 + BN - 1) / BN) * nchunk;
-
-  bool qok[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) qok[i] = qrow<TM>(ty, i) < nq;
-  float bd[TM];
-  int bi[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    bd[i] = INFINITY;
-    bi[i] = NONE;
-  }
-  if (!K1) {
-    for (int j = tid; j < BQ * k; j += NT) {
-      kd[j] = INFINITY;
-      ki[j] = NONE;
-    }
-    for (int j = tid; j < BQ; j += NT) cnt[j] = 0;
-    for (int j = tid; j < (BQ + 31) / 32; j += NT) qmask[j] = 0;
-  }
-  float acc[TM][8];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  // Chunk j (tile j / nchunk, features (j % nchunk) * BK on) lands in
-  // staging buffer j % STAGES and is moved into tile buffer j % 2 while
-  // chunk j - 1 is multiplied; every step commits one group, empty or not.
-  auto issue = [&](int j) {
-    if (j < total)
-      stage<BQ>(stg + (j % STAGES) * SSZ, q, db, q0, m, r0 + (j / nchunk) * BN,
-                r1, (j % nchunk) * BK, d, vec, vec);
-    cp_commit();
-  };
-#pragma unroll
-  for (int j = 0; j < STAGES; ++j) issue(j);
-  cp_wait<STAGES - 1>();
-  transpose<BQ>(stg, At, Bt, false);
-  issue(STAGES);
-  __syncthreads();
-  for (int it = 0; it < total; ++it) {
-    const int buf = it & 1, tile = it / nchunk, c = it % nchunk;
-    const int nb = buf ^ 1;
-    // Chunk it + 1 has landed (this thread's copies of it).
-    cp_wait<STAGES - 1>();
-    compute_chunk<BQ>(acc, At + buf * BK * LDA, Bt + buf * BK * LDB, tx, ty,
-                      stg + ((it + 1) % STAGES) * SSZ, At + nb * BK * LDA,
-                      Bt + nb * BK * LDB, false);
-    // This thread has read its pieces of chunk it + 1: refill the buffer.
-    issue(it + 1 + STAGES);
-
-    if (c == nchunk - 1) {
-      // Epilogue of the tile at rows t0 + [0, BN). The accumulators become
-      // the pairs' distances in place; NaN marks a pair past the slice (or,
-      // below, one already sent), which every test below rejects.
-      const int t0 = r0 + tile * BN;
-      float qnr[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-        qnr[i] = (l2 && qok[i]) ? qn[q0 + qrow<TM>(ty, i)] : 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int id = t0 + dcol(tx, j);
-        const bool ok = id < r1;
-        const float y = (l2 && ok) ? yn[id] : 0.f;
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          float g = acc[i][j];
-          float v = l2 ? fmaxf((qnr[i] + y) - 2.0f * g, 0.f) : -g;
-          acc[i][j] = ok ? v : nan_f();
-        }
-      }
-      if (K1) {
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int id = t0 + dcol(tx, j);
-            if (pair_less(acc[i][j], id, bd[i], bi[i])) {
-              bd[i] = acc[i][j];
-              bi[i] = id;
-            }
-          }
-      } else {
-        const unsigned mine = 0x01010101u << warp;  // queries r % NW == warp
-        while (true) {
-          bool over = false, any = false;
-#pragma unroll
-          for (int i = 0; i < TM; ++i) {
-            if (!qok[i]) continue;
-            const int r = qrow<TM>(ty, i);
-            const float td = kd[r * k + k - 1];
-            const int ti = ki[r * k + k - 1];
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              const float v = acc[i][j];
-              const int id = t0 + dcol(tx, j);
-              // The float test first: almost every pair fails it.
-              if (v <= td && pair_less(v, id, td, ti)) {
-                any = true;
-                int slot = atomicAdd(&cnt[r], 1);
-                if (slot < C) {
-                  cd[r * C + slot] = v;
-                  ci[r * C + slot] = id;
-                  acc[i][j] = nan_f();
-                  atomicOr(&qmask[r >> 5], 1u << (r & 31));
-                } else {
-                  over = true;
-                }
-              }
-            }
-          }
-          if (!__syncthreads_or(any)) break;
-          // Warp w inserts the candidates of its queries r % NW == w that
-          // have any (the bits of qmask), then clears its bits.
-          for (int w0 = 0; w0 < (BQ + 31) / 32; ++w0) {
-            unsigned bits = __shfl_sync(0xffffffffu, qmask[w0], 0) & mine;
-            while (bits) {
-              const int r = 32 * w0 + __ffs(bits) - 1;
-              bits &= bits - 1;
-              const int nc_r = min(cnt[r], C);
-              float* qd = kd + r * k;
-              int* qi = ki + r * k;
-              float td = qd[k - 1];
-              int ti = qi[k - 1];
-              for (int j0 = 0; j0 < nc_r; j0 += 32) {
-                int j = j0 + lane;
-                float v = j < nc_r ? cd[r * C + j] : INFINITY;
-                int id = j < nc_r ? ci[r * C + j] : NONE;
-                bool cand = j < nc_r && pair_less(v, id, td, ti);
-                unsigned mask = __ballot_sync(0xffffffffu, cand);
-                while (mask) {
-                  int src = __ffs(mask) - 1;
-                  mask &= mask - 1;
-                  float cv = __shfl_sync(0xffffffffu, v, src);
-                  int cid = __shfl_sync(0xffffffffu, id, src);
-                  if (pair_less(cv, cid, td, ti)) {
-                    knn::queue_insert(qd, qi, k, cv, cid, lane);
-                    td = qd[k - 1];
-                    ti = qi[k - 1];
-                  }
-                }
-              }
-              __syncwarp();
-              if (lane == 0) cnt[r] = 0;
-            }
-            if (lane == 0) atomicAnd(&qmask[w0], ~mine);
-          }
-          if (!__syncthreads_or(over)) break;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    }
-    __syncthreads();
-  }
-
-  float* od = out_d + ((size_t)blockIdx.y * m + q0) * k;
-  int* oi = out_i + ((size_t)blockIdx.y * m + q0) * k;
-  __syncthreads();
-  if (K1)
-    write_k1<BQ>(bd, bi, stg, nq, od, oi, direct);
-  else
-    write_queue(kd, ki, nq, k, od, oi, direct);
-}
-
-// |x|^2 of the m rows of q, then the n rows of db, into out[0, m + n): one
-// thread per row, f32 FMA in feature order; float4 loads with `vec`.
-__global__ void b1_norms_kernel(const float* __restrict__ q,
-                                const float* __restrict__ db,
-                                float* __restrict__ out, int m, int n, int d,
-                                int vec) {
-  long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(NORMS_THREADS)
+    b1_norms_kernel(const float* __restrict__ q, const float* __restrict__ db,
+                    float* __restrict__ out, int m, int n, int d) {
+  const long long r = (long long)blockIdx.x * (NORMS_THREADS / 32) +
+                      threadIdx.x / 32;
   if (r >= (long long)m + n) return;
-  const float* x = r < m ? q + (size_t)r * d : db + (size_t)(r - m) * d;
+  const int lane = threadIdx.x & 31;
+  const float* x = r < m ? q + r * d : db + (r - m) * d;
   float acc = 0.f;
-  if (vec) {
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    for (int c = 0; c < d / 4; ++c) {
-      float4 v = __ldg(x4 + c);
-      acc = fmaf(v.x, v.x, acc);
-      acc = fmaf(v.y, v.y, acc);
-      acc = fmaf(v.z, v.z, acc);
-      acc = fmaf(v.w, v.w, acc);
-    }
-  } else {
-    for (int c = 0; c < d; ++c) {
-      float v = __ldg(x + c);
-      acc = fmaf(v, v, acc);
-    }
+  for (int c = lane; c < d; c += 32) {
+    const float v = __ldg(x + c);
+    acc = fmaf(v, v, acc);
   }
-  out[r] = acc;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (lane == 0) out[r] = acc;
 }
 
 // Merge the S sorted slice lists ws[s][query][0, k) of each query by

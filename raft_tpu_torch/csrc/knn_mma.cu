@@ -9,9 +9,10 @@
 // bf16(q - bf16(q)) * bf16(y) with qsplit, f32 sums; max(|q|^2 + |y|^2 -
 // 2g, 0) for L2 with f32 norms of the unrounded rows, or -g for inner
 // product; the top-k by (distance, id), ties to the lowest id, inf slots
-// as id -1. The f32 tier stays on the FMA scan of knn_gemm.cuh
-// (fused_knn.cu): TF32 would break its parity with the reference's
-// Precision.HIGHEST.
+// as id -1. The f32 tier is knn_tf32.cu, on mma_tile.cuh's warp layout
+// and selection with the f32 gram as three TF32 products (the split keeps
+// its parity with the reference's Precision.HIGHEST, which one TF32
+// product would not).
 //
 // What bounds it on the H100: 2 * d operations per (query, row) pair at
 // the bf16 tensor-core rate, twice with qsplit (the lo half is a second

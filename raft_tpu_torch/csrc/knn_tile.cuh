@@ -1,12 +1,10 @@
 // The shared selection primitives of the port's kNN kernels for Hopper:
 // the (distance, id) order with ties to the lowest id, the empty-slot id,
 // the widest top-k queue, the NaN that marks a pair no test accepts, the
-// 16-byte steps of a shared-memory layout, the warp-cooperative
-// insertion into a sorted queue in shared memory (B1's merge,
-// knn_gemm.cuh), and the opt-in to more than 48 KB of dynamic shared
-// memory. B1 (knn_gemm.cuh), B2 (cells_knn.cu), B3 (batch_knn.cu) and B4
-// (pq_scan.cu) build on it; cell_select.cuh holds the cell-level selection
-// B2, B3 and B4 share.
+// 16-byte steps of a shared-memory layout, and the opt-in to more than
+// 48 KB of dynamic shared memory. B1 (knn_tf32.cu, knn_mma.cu), B2
+// (cells_knn.cu, cells_mma.cu), B3 (batch_knn.cu) and B4 (pq_scan.cu)
+// build on it; cell_select.cuh holds the cell-level selection B1-B4 share.
 
 #pragma once
 
@@ -33,32 +31,6 @@ __host__ __device__ inline size_t take(size_t& at, size_t bytes) {
 
 __device__ __forceinline__ bool pair_less(float da, int ia, float db, int ib) {
   return da < db || (da == db && ia < ib);
-}
-
-// Insert (d, i) into the ascending queue of length k; warp-cooperative.
-__device__ inline void queue_insert(float* kd, int* ki, int k, float d, int i,
-                                    int lane) {
-  int pos = 0;
-  for (int j0 = 0; j0 < k; j0 += 32) {
-    int j = j0 + lane;
-    bool less = j < k && pair_less(kd[j], ki[j], d, i);
-    pos += __popc(__ballot_sync(0xffffffffu, less));
-  }
-  float od[KMAX / 32];
-  int oi[KMAX / 32];
-#pragma unroll
-  for (int t = 0; t < KMAX / 32; ++t) {
-    int j = t * 32 + lane;
-    if (j < k && j > pos) { od[t] = kd[j - 1]; oi[t] = ki[j - 1]; }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int t = 0; t < KMAX / 32; ++t) {
-    int j = t * 32 + lane;
-    if (j < k && j > pos) { kd[j] = od[t]; ki[j] = oi[t]; }
-    if (j == pos && j < k) { kd[j] = d; ki[j] = i; }
-  }
-  __syncwarp();
 }
 
 template <typename K>

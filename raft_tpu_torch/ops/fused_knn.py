@@ -5,15 +5,17 @@ Port of ``raft_tpu/ops/fused_knn.py::fused_knn``, ``::fused_cells_knn`` and
 ``::fused_batch_knn``. The kernels are hand-written CUDA (see the sources'
 headers for the design):
 
-* B1's f32 tier is the register-tiled FP32 scan, norm pre-pass and slice
-  merge of ``csrc/knn_gemm.cuh`` (entry point in ``csrc/fused_knn.cu``);
-  it splits the database into slices when its query blocks alone cannot
-  fill the card (:func:`_b1_plan`). Its two bf16 tiers (every k, d, m and
-  n) are ``csrc/knn_mma.cu``: a pre-pass rounds the rows to bf16 once,
-  and the staged f32 query chunks are rounded into bf16 operands (the
-  split query's lo half a second operand) on the ``mma.sync`` tile and
-  selection of ``csrc/mma_tile.cuh``, with the same slice merge
-  (:func:`_b1_mma_plan`);
+* B1 runs on tensor cores at every tier, k, d, m and n, with one slice
+  merge for all (:func:`_b1_slices`). Its f32 tier is ``csrc/knn_tf32.cu``:
+  B1's norm pre-pass, then f32 query and row chunks staged by ``cp.async``
+  and split in registers into TF32 hi and lo parts, the f32 gram taken as
+  three TF32 ``mma.sync`` products (lo(q) hi(y) + hi(q) lo(y) + hi(q)
+  hi(y)), which holds the error of an f32 gram where one TF32 product
+  would not (:func:`_b1_tf32_plan`). Its two bf16 tiers are
+  ``csrc/knn_mma.cu``: a pre-pass rounds the rows to bf16 once, and the
+  staged f32 query chunks are rounded into bf16 operands (the split
+  query's lo half a second operand) (:func:`_b1_mma_plan`). Both use the
+  ``mma.sync`` tile and selection of ``csrc/mma_tile.cuh``;
 * B2's f32 tier is ``csrc/cells_knn.cu``: a pre-pass (live tiles, row
   norms) and one CTA per (cell, block of query rows) on B1's FMA tile,
   with the cell-level selection of ``csrc/cell_select.cuh`` that it
@@ -45,9 +47,10 @@ Dispatch: a wrapper takes the plain version only when its tensors lie on
 the CPU. For CUDA tensors it launches the kernel or raises; nothing falls
 back. ``fused_knn.launches``, ``fused_cells_knn.launches`` and
 ``fused_batch_knn.launches`` count the kernel launches;
-``fused_knn.mma_launches`` and ``fused_cells_knn.mma_launches`` count the
-B1 and B2 launches of their tensor-core scans (their bf16 tiers) among
-them.
+``fused_knn.mma_launches`` counts B1's launches of a tensor-core scan
+(every one of them), ``fused_knn.tf32_launches`` those of its f32 tier's
+among them, and ``fused_cells_knn.mma_launches`` B2's launches of its
+tensor-core scan (its bf16 tiers).
 """
 
 from __future__ import annotations
@@ -80,10 +83,10 @@ MAX_DIM = 1024
 # Element budget of one plain-version distance block (~256 MB of f32).
 _PLAIN_BLOCK = 1 << 26
 
-# B1's launch geometry (the constants of csrc/knn_gemm.cuh): database rows
-# per tile, features per staged chunk, staged chunks in flight, candidate
-# slots per CTA, the most slices the merge takes; and the fewest tiles a
-# slice gets.
+# The FMA tile's geometry (the constants of csrc/knn_gemm.cuh, which B2's
+# f32 tier runs): database rows per tile, features per staged chunk,
+# staged chunks in flight, candidate slots per CTA. B1's slices: the most
+# the merge takes, and the fewest tiles a slice gets.
 B1_BN = 128
 B1_BK = 16
 B1_STAGES = 2
@@ -100,44 +103,19 @@ def fused_knn_supported(m: int, n: int, d: int, k: int) -> bool:
     return k <= MAX_K and d <= MAX_DIM and n >= 1 and m >= 1
 
 
-class B1Plan(NamedTuple):
-    """B1's launch: ``bq`` queries per CTA, and the database slices
-    ``bounds`` [(lo, hi), ...], each ``slice_rows`` long but the last."""
-    bq: int
-    slice_rows: int
-    bounds: List[Tuple[int, int]]
-
-
-def _b1_bq(m: int, k: int) -> int:
-    """Queries per CTA: 128, or 64 / 32 when the top-k queue (bq x k x 8
-    bytes) needs the room or m is small; k=1 keeps no queue."""
-    if k == 1:
-        return 128
-    cap = 128 if k <= 64 else 64 if k <= 128 else 32
-    return min(cap, 32 if m <= 32 else 64 if m <= 64 else 128)
-
-
-def _b1_smem_bytes(bq: int, k: int, qsplit: bool) -> int:
-    """Shared-memory bytes of one B1 CTA, as knn_gemm.cuh's smem_bytes
-    counts them (the CPU tests hold them to ``SMEM_LIMIT``): the
-    ring of row-major staging chunks (stride BK + 8), the double-buffered
-    feature-major query (and lo-half) and row tiles (stride rows + 4),
-    then, for k > 1, the queue, the candidate buffer, its counters and the
-    bitmask of queries with candidates."""
-    stage = 4 * B1_STAGES * (bq + B1_BN) * (B1_BK + 8)
-    tiles = 4 * 2 * B1_BK * ((bq + 4) * (2 if qsplit else 1) + B1_BN + 4)
-    if k == 1:
-        return stage + tiles
-    return (stage + tiles + 8 * bq * k + 8 * bq * (B1_CAND // bq) + 4 * bq
-            + 4 * (-(-bq // 32)))
-
-
 def _b1_ctas_per_sm(k: int) -> int:
-    """CTAs of B1 an SM holds at once: the minimum blocks of the
-    ``__launch_bounds__`` of b1_scan_kernel and b1_mma_kernel (two for
-    the k = 1 scans, one for the k > 1 scans, whose queue and epilogue
-    need the registers and shared memory)."""
+    """CTAs of B1's bf16 tiers an SM holds at once: the minimum blocks of
+    the ``__launch_bounds__`` of b1_mma_kernel (two for the k = 1 scans,
+    one for the k > 1 scans, whose queue and epilogue need the registers
+    and shared memory)."""
     return 2 if k == 1 else 1
+
+
+def _b1_tf32_ctas_per_sm(k: int) -> int:
+    """The same for the f32 tier's scan, b1_tf32_kernel: two CTAs an SM
+    up to k = 16 (its insertion network; both fit the SM's shared memory),
+    one for the warp merges above."""
+    return 2 if k <= B1_MMA_NET_K else 1
 
 
 def _b1_slices(m: int, n: int, bq: int, slots: int
@@ -169,15 +147,6 @@ def _b1_slices(m: int, n: int, bq: int, slots: int
     return rows, [(lo, min(n, lo + rows)) for lo in range(0, n, rows)]
 
 
-def _b1_plan(m: int, n: int, k: int, n_sm: int) -> B1Plan:
-    """The f32 tier's launch: :func:`_b1_bq` queries per CTA, and the
-    slices of :func:`_b1_slices` over a wave of ``n_sm`` SMs times the
-    CTAs an SM holds."""
-    bq = _b1_bq(m, k)
-    rows, bounds = _b1_slices(m, n, bq, n_sm * _b1_ctas_per_sm(k))
-    return B1Plan(bq, rows, bounds)
-
-
 # The bf16 tiers' tensor-core scan (the constants of csrc/knn_mma.cu):
 # features per staged chunk, chunks in flight, the bf16 operand row
 # stride, candidate slots per CTA (mma_tile.cuh's), the widest queue of
@@ -192,8 +161,9 @@ B1_MMA_NET_K = 16
 class B1MmaPlan(NamedTuple):
     """B1's launch on a bf16 tier (the tensor-core scan of
     ``csrc/knn_mma.cu``): ``bq`` query rows per CTA, tiles of ``bn``
-    database rows, the slices as in :class:`B1Plan`, and ``smem`` the
-    bytes of one CTA."""
+    database rows, the database slices ``bounds`` [(lo, hi), ...], each
+    ``slice_rows`` long but the last, and ``smem`` the bytes of one
+    CTA."""
     bq: int
     bn: int
     slice_rows: int
@@ -253,14 +223,77 @@ def _b1_mma_plan(m: int, n: int, d: int, k: int, qsplit: bool,
                      _b1_mma_smem_bytes(bq, bn, k, qsplit))
 
 
+# The f32 tier's tensor-core scan (the constants of csrc/knn_tf32.cu):
+# features per staged chunk, chunks in flight, the f32 row stride of a
+# staged chunk, candidate slots per CTA.
+B1_TF32_BK = 32
+B1_TF32_STAGES = 2
+B1_TF32_SF = B1_TF32_BK + 8
+B1_TF32_CAND = 2048
+
+
+class B1Tf32Plan(NamedTuple):
+    """B1's launch on its f32 tier (the 3xTF32 tensor-core scan of
+    ``csrc/knn_tf32.cu``): the fields of :class:`B1MmaPlan`."""
+    bq: int
+    bn: int
+    slice_rows: int
+    bounds: List[Tuple[int, int]]
+    smem: int
+
+
+def _b1_tf32_smem_bytes(bq: int, bn: int, k: int) -> int:
+    """Shared-memory bytes of one CTA of the f32 tier's scan, region by
+    region as knn_tf32.cu's ``Layout`` lays them out, each rounded up to
+    16 bytes: the rings of staged f32 query and row chunks (bq and bn rows
+    of 32 features, stride 40 floats), two tiles' row norms, the query
+    norms; then for k = 1 the cross-warp (min, id) of each row, else the
+    k > 1 regions of :func:`_b1_mma_smem_bytes` (with this scan's
+    candidate count). d does not enter: the features are staged 32 at a
+    time."""
+    warps_n = 8 // max(1, bq // 32)
+    ring = B1_TF32_STAGES * B1_TF32_SF * 4
+    parts = [ring * bq, ring * bn, 2 * bn * 4, 4 * bq]
+    if k == 1:
+        parts.append(warps_n * bq * 8)
+    else:
+        parts += [2 * bn * 4, 4 * bq * k, 4 * bq * k, 4 * B1_TF32_CAND,
+                  4 * B1_TF32_CAND, 4 * bq, 4 * (-(-bq // 32))]
+        if k <= B1_MMA_NET_K:
+            parts += [bq * warps_n * 4 * 4, 4 * bq]
+    return sum(_r16(p) for p in parts)
+
+
+def _b1_tf32_tile(m: int, n: int, k: int) -> Tuple[int, int]:
+    """(query rows per CTA, database rows per tile) of the f32 tier's
+    scan: the bf16 tiers' (:func:`_b1_mma_tile`) but at k = 1 against
+    more than 64 rows, where 64 x 128 replaces 128 x 128 (that tile
+    spilled at the two-CTA register cap when the split's partial sums
+    took a second set of accumulators)."""
+    bq, bn = _b1_mma_tile(m, n, k)
+    return (64, bn) if k == 1 and bn == 128 else (bq, bn)
+
+
+def _b1_tf32_plan(m: int, n: int, d: int, k: int, n_sm: int) -> B1Tf32Plan:
+    """The f32 tier's launch: the tile of :func:`_b1_tf32_tile`, the
+    slices of :func:`_b1_slices` (over :func:`_b1_tf32_ctas_per_sm`), and
+    the shared memory, which fits ``SMEM_LIMIT`` at every k <= 256 and
+    every d."""
+    expects(1 <= k <= MAX_K and m >= 1 and n >= 1 and d >= 1,
+            "fused_knn: no plan for m=%s n=%s d=%s k=%s", m, n, d, k)
+    bq, bn = _b1_tf32_tile(m, n, k)
+    rows, bounds = _b1_slices(m, n, bq, n_sm * _b1_tf32_ctas_per_sm(k))
+    return B1Tf32Plan(bq, bn, rows, bounds, _b1_tf32_smem_bytes(bq, bn, k))
+
+
 def _b1_tier_plan(m: int, n: int, d: int, k: int, bf16: bool, qsplit: bool,
-                  n_sm: int) -> Union[B1Plan, B1MmaPlan]:
-    """The plan of one B1 launch: both bf16 tiers take the tensor-core
-    scan (:func:`_b1_mma_plan`), at every shape; the f32 tier takes the
-    FMA scan (:func:`_b1_plan`)."""
+                  n_sm: int) -> Union[B1Tf32Plan, B1MmaPlan]:
+    """The plan of one B1 launch, a tensor-core scan at every tier and
+    shape: both bf16 tiers take knn_mma.cu's (:func:`_b1_mma_plan`), the
+    f32 tier knn_tf32.cu's (:func:`_b1_tf32_plan`)."""
     if bf16:
         return _b1_mma_plan(m, n, d, k, qsplit, n_sm)
-    return _b1_plan(m, n, k, n_sm)
+    return _b1_tf32_plan(m, n, d, k, n_sm)
 
 
 # B2's launch geometry (the constants of csrc/cells_knn.cu, on B1's tile):
@@ -477,7 +510,7 @@ def _fused_knn_plain(queries, db, k: int, l2: bool, bf16: bool,
     return best_d, _starved_to_pad(best_d, best_i)
 
 
-_KNN_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_TF32_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _MMA_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 _CELLS_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
@@ -488,11 +521,11 @@ _CELLS_MMA_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
 _BATCH_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
-def _lib():
-    lib = _build.load_library("fused_knn")
-    if lib.fused_knn_launch.argtypes is None:
-        lib.fused_knn_launch.argtypes = _KNN_ARGTYPES
-        lib.fused_knn_launch.restype = ctypes.c_int
+def _tf32_lib():
+    lib = _build.load_library("knn_tf32")
+    if lib.fused_knn_tf32_launch.argtypes is None:
+        lib.fused_knn_tf32_launch.argtypes = _TF32_ARGTYPES
+        lib.fused_knn_tf32_launch.restype = ctypes.c_int
     return lib
 
 
@@ -538,7 +571,7 @@ def _fused_knn_cuda(queries, db, k: int, l2: bool, bf16: bool,
     expects(1 <= k <= MAX_K and n >= 1,
             "fused_knn: unsupported shape m=%s n=%s d=%s k=%s", m, n, d, k)
     qsplit = qsplit and bf16
-    lib = _mma_lib() if bf16 else _lib()
+    lib = _mma_lib() if bf16 else _tf32_lib()
     dev = queries.device
     plan = _b1_tier_plan(m, n, d, k, bf16, qsplit,
                          torch.cuda.get_device_properties(
@@ -546,9 +579,10 @@ def _fused_knn_cuda(queries, db, k: int, l2: bool, bf16: bool,
     s = len(plan.bounds)
     out_d = torch.empty((m, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((m, k), dtype=torch.int32, device=dev)
-    # The pre-pass's norms (the rows' alone on the tensor-core scan, which
-    # sums the queries' from its staged chunks) and, there, the rows
-    # rounded to bf16 (d padded to whole chunks with zeros).
+    # The pre-pass's norms (the queries' and the rows' on the f32 tier, the
+    # rows' alone on the bf16 tiers, whose scan sums the queries' from its
+    # staged chunks) and, there, the rows rounded to bf16 (d padded to
+    # whole chunks with zeros).
     norms = torch.empty((n if bf16 else m + n) if l2 else 0,
                         dtype=torch.float32, device=dev)
     ws_d = torch.empty((s, m, k) if s > 1 else 0, dtype=torch.float32,
@@ -565,14 +599,16 @@ def _fused_knn_cuda(queries, db, k: int, l2: bool, bf16: bool,
                 int(qsplit), plan.bq, plan.bn, plan.slice_rows, s,
                 plan.smem, _stream(dev))
         else:
-            err = lib.fused_knn_launch(
+            err = lib.fused_knn_tf32_launch(
                 _ptr(queries), _ptr(db), _ptr(norms), _ptr(ws_d),
                 _ptr(ws_i), _ptr(out_d), _ptr(out_i), m, n, d, k, int(l2),
-                plan.bq, plan.slice_rows, s, _stream(dev))
+                plan.bq, plan.bn, plan.slice_rows, s, plan.smem,
+                _stream(dev))
     _build.check(err, "fused_knn launch")
     fused_knn.launches += 1
-    if bf16:
-        fused_knn.mma_launches += 1
+    fused_knn.mma_launches += 1
+    if not bf16:
+        fused_knn.tf32_launches += 1
     return out_d, out_i
 
 
@@ -613,6 +649,7 @@ def fused_knn(queries: torch.Tensor, db: torch.Tensor, k: int, *,
 
 fused_knn.launches = 0
 fused_knn.mma_launches = 0
+fused_knn.tf32_launches = 0
 
 
 def _as_store(db: torch.Tensor, bf16: bool) -> torch.Tensor:

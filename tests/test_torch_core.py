@@ -557,7 +557,7 @@ def test_compilation_cache_names_and_moves_the_build_dir(monkeypatch,
     mine = tmp_path / "kernels"
     assert compilation_cache.enable_compilation_cache(str(mine)) == str(mine)
     assert mine.is_dir() and _build.BUILD_DIR == mine
-    assert _build._library_path("fused_knn").parent == mine
+    assert _build._library_path("knn_tf32").parent == mine
     assert compilation_cache.enable_compilation_cache() == str(mine)
 
 

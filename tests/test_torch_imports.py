@@ -194,7 +194,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_LOADED", {})
     with pytest.raises(CudaError):
-        _build.load_library("fused_knn")
+        _build.load_library("knn_tf32")
     q = torch.zeros((4, 8))
     with pytest.raises(CudaError):
         fk._fused_knn_cuda(q, q, 2, True, False, False)
@@ -217,27 +217,58 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("qsplit", [False, True])
 def test_bf16_tiers_never_reach_the_fma_scan(monkeypatch, tmp_path, qsplit):
-    """B1's bf16 tiers launch the tensor-core scan's library (knn_mma)
-    alone: with the FMA scan's library loaded and knn_mma unbuildable, a
-    bf16 request raises CudaError and never calls the FMA entry."""
+    """B1's bf16 tiers launch their tensor-core scan's library (knn_mma)
+    alone: with the f32 tier's library (knn_tf32; B1 has no FMA scan left)
+    loaded and knn_mma unbuildable, a bf16 request raises CudaError and
+    never calls the f32 tier's entry."""
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     calls = []
 
-    def fma_entry(*args):
+    def f32_entry(*args):
         calls.append(args)
         return 0
 
-    fma_entry.argtypes = fk._KNN_ARGTYPES
-    monkeypatch.setattr(_build, "_LOADED", {"fused_knn": type(
-        "Lib", (), {"fused_knn_launch": staticmethod(fma_entry)})()})
+    f32_entry.argtypes = fk._TF32_ARGTYPES
+    monkeypatch.setattr(_build, "_LOADED", {"knn_tf32": type(
+        "Lib", (), {"fused_knn_tf32_launch": staticmethod(f32_entry)})()})
     q = torch.zeros((4, 8))
     before = (fk.fused_knn.launches, fk.fused_knn.mma_launches)
     with pytest.raises(CudaError):
         fk._fused_knn_cuda(q, q, 2, True, True, qsplit)
     assert calls == []
     assert (fk.fused_knn.launches, fk.fused_knn.mma_launches) == before
+
+
+@pytest.mark.parametrize("l2", [True, False])
+@pytest.mark.parametrize("k", [1, 10])
+def test_f32_tier_never_reaches_an_fma_scan(monkeypatch, tmp_path, l2, k):
+    """B1's f32 tier launches the 3xTF32 tensor-core scan's library
+    (knn_tf32) alone, and no B1 FMA scan is left to take it: no kernel
+    source is named fused_knn, and with knn_mma loaded and knn_tf32
+    unbuildable an f32 request raises CudaError and never calls the bf16
+    tiers' entry."""
+    assert "fused_knn" not in _build.sources()
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    calls = []
+
+    def mma_entry(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(_build, "_LOADED", {"knn_mma": type(
+        "Lib", (), {"fused_knn_mma_launch": staticmethod(mma_entry)})()})
+    q = torch.zeros((4, 8))
+    before = (fk.fused_knn.launches, fk.fused_knn.mma_launches,
+              fk.fused_knn.tf32_launches)
+    with pytest.raises(CudaError):
+        fk._fused_knn_cuda(q, q, k, l2, False, False)
+    assert calls == []
+    assert (fk.fused_knn.launches, fk.fused_knn.mma_launches,
+            fk.fused_knn.tf32_launches) == before
 
 
 @pytest.mark.parametrize("store", [torch.float32, torch.bfloat16,
@@ -275,11 +306,11 @@ def test_b2_bf16_tiers_never_reach_the_fma_scan(monkeypatch, tmp_path,
 
 
 def test_library_name_follows_the_sources():
-    path = _build._library_path("fused_knn")
+    path = _build._library_path("knn_tf32")
     assert path.parent == _build.BUILD_DIR
-    assert path.name.startswith("libfused_knn-") and path.suffix == ".so"
+    assert path.name.startswith("libknn_tf32-") and path.suffix == ".so"
     assert _build.sources() == ["batch_knn", "cells_knn", "cells_mma",
-                                "fused_knn", "knn_mma", "pq_scan",
+                                "knn_mma", "knn_tf32", "pq_scan",
                                 "stream_select"]
     # Every library's name also follows the shared header.
     assert any(p.name == "knn_tile.cuh"

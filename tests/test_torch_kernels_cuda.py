@@ -51,7 +51,9 @@ def _on(dev, *arrays):
 # and 129 against 200,000 rows; {0, 1} data ties across the slices), each
 # BQ boundary of k, n < 128, n not a multiple of the slice, d in {33, 96,
 # 1024}; the k-means assignments (k = 1 against 32, 1000 and 1024 centers,
-# each tile width of the bf16 tiers' tensor-core scan, and d = 1024).
+# each tile width of the tensor-core scans, and d = 1024); the serving
+# shapes (requests of 1, 16 and 32 rows against 200,000 rows, k 10 and
+# 100).
 _B1_CASES = [(70, 3001, 96, 1, 8), (70, 3001, 96, 16, 8),
              (70, 3001, 96, 256, 8), (1, 200_000, 96, 10, 2),
              (129, 200_000, 96, 10, 2), (129, 200_001, 33, 64, 2),
@@ -61,16 +63,21 @@ _B1_CASES = [(70, 3001, 96, 1, 8), (70, 3001, 96, 16, 8),
              (100, 3000, 1024, 10, 8), (300, 3000, 33, 129, 2),
              (3000, 32, 128, 1, 8), (4000, 1000, 128, 1, 8),
              (2500, 1024, 128, 1, 8), (2000, 64, 128, 1, 8),
-             (2000, 1000, 1024, 1, 8)]
+             (2000, 1000, 1024, 1, 8),
+             *[(m, 200_000, 128, k, 2) for m in (1, 16, 32)
+               for k in (10, 100)]]
 
 
 def _launched(launch, bf16):
-    """Run ``launch`` and assert it was one B1 launch, through the
-    tensor-core scan exactly when a bf16 tier was asked for."""
-    before = (fk.fused_knn.launches, fk.fused_knn.mma_launches)
+    """Run ``launch`` and assert it was one B1 launch through a
+    tensor-core scan, on every tier: knn_tf32.cu's (``tf32_launches``)
+    exactly when the f32 tier was asked for."""
+    before = (fk.fused_knn.launches, fk.fused_knn.mma_launches,
+              fk.fused_knn.tf32_launches)
     out = launch()
-    assert (fk.fused_knn.launches, fk.fused_knn.mma_launches) == (
-        before[0] + 1, before[1] + int(bf16))
+    assert (fk.fused_knn.launches, fk.fused_knn.mma_launches,
+            fk.fused_knn.tf32_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + int(not bf16))
     return out
 
 
@@ -147,6 +154,48 @@ def test_fused_knn_kernel_gaussian(dev, gen, metric, bf16, qsplit, m, rows,
                        + torch.max(torch.sum(db * db, 1)))
     assert float(torch.max(torch.abs(kd - pd))) <= tol
     assert float((ki == pi).float().mean()) >= 0.99
+
+
+def _f64_err(q, db, d, i, l2):
+    """Largest |d - the float64 distance of the same (query, id) pair|,
+    over the slots with an id."""
+    q64, y64 = q.double(), db.double()
+    ok = i >= 0
+    y = y64[i.long().clamp_min(0)]
+    if l2:
+        ref = torch.sum((q64[:, None, :] - y) ** 2, dim=2)
+    else:
+        ref = -torch.sum(q64[:, None, :] * y, dim=2)
+    return float(torch.max(torch.abs(d.double() - ref)[ok]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("data", ["gaussian", "blobs"])
+@pytest.mark.parametrize("d", [33, 128, 1024])
+@pytest.mark.parametrize("k", [1, 10, 129])
+def test_fused_knn_f32_tier_against_float64(dev, gen, metric, data, d, k):
+    """The f32 tier's 3xTF32 gram keeps an f32 gram's accuracy: its
+    largest distance error against float64 (at the ids it returns) is at
+    most 4x that of the plain version's full-f32 product on the card (at
+    its own ids), on Gaussian rows and on the main path's blobs (centers
+    in [-10, 10], sigma 5, queries = rows + N(0, 1))."""
+    import chip_smoke
+
+    m, rows = 200, 20_000
+    if data == "gaussian":
+        x = gen.standard_normal((rows, d), dtype=np.float32)
+        qh = gen.standard_normal((m, d), dtype=np.float32)
+    else:
+        x, qh = chip_smoke.make_data(rows, d, 50, m, seed=d + k)
+    q, db = _on(dev, qh, x)
+    l2 = metric == "l2"
+    kd, ki = _launched(lambda: fk._fused_knn_cuda(q, db, k, l2, False, False),
+                       False)
+    pd, pi = fk._fused_knn_plain(q, db, k, l2, False, False)
+    err = _f64_err(q, db, kd, ki, l2)
+    plain = _f64_err(q, db, pd, pi, l2)
+    assert err <= 4.0 * plain, (err, plain)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
 """Time the main path's kernels and entry points for the raft_tpu_torch
 found at a given repository root.
 
-    python3 tools/ab_main_path.py <repository root> [b2]
+    python3 tools/ab_main_path.py <repository root> [b1 | b2]
 
 To compare two commits on one card, unpack the parent into a gitignored
 directory (``git archive <parent> | tar -x -C build/parent``) and run, in
@@ -12,7 +12,9 @@ one go on one card, parent, change, change, parent::
 
 This script times every root, so a metric that an older root's copy of it
 lacks is read on both. With ``b2`` it times B2's metrics alone (the
-IVF-Flat search, ``b2*`` and ``u8_*`` below).
+IVF-Flat search, ``b2*`` and ``u8_*`` below); with ``b1`` B1's alone
+(``bf_ms``, the k=1 shapes, ``lloyd_1000_*``, ``req16_*``,
+``graph_chunk_ms`` and ``b1_regs``), building B1's libraries only.
 
 Each run builds that root's kernels, makes the 1M x 128 rows and 10,000
 queries of its ``chip_smoke.py`` and prints one JSON line, times by CUDA
@@ -28,6 +30,15 @@ events (median) unless named ``_s``:
 * ``lloyd_1000_f32_ms``, ``lloyd_1000_bf16_ms``: B1 at Lloyd's shape,
   all 1M rows against 1000 centers (every 1000th row), k=1, f32 and
   split-bf16;
+* ``req16_k10_ms``, ``req16_k100_ms``: B1's f32 tier at a 16-row request
+  (the first 16 queries) against the 1M rows, k=10 and 100 (serving);
+  ``req16_k10_device`` / ``req16_k100_device``: its device milliseconds
+  by kernel (``torch.profiler``: the norm pre-pass, the scan, the slice
+  merge);
+* ``graph_chunk_ms``: one chunk of ``sparse.neighbors.knn_graph`` over
+  the 1M rows (131,072 queries, k=16, f32), median of 2;
+* ``b1_regs``: ptxas' [registers, spill store bytes] of each instance of
+  B1's scans, by library and kernel name (``b1`` only);
 * ``lloyd_fit_s``: ``kmeans.fit`` of the 1M rows, 1000 clusters from
   those centers (``InitMethod.Array``), ``max_iter`` 10 and ``tol`` 0 so
   that every root runs ten split-bf16 assignments and one f32, host
@@ -40,8 +51,8 @@ events (median) unless named ``_s``:
 * ``b2_bf16_ms``, ``b2_split_ms``: B2's bf16 tier and its bf16 +
   split-query tier at those cells on a bf16 copy of the store;
 * ``fma_regs``: ptxas' registers (and spill bytes) of each instance of
-  the FMA scans (B1's and B2's f32 tiers), by kernel, query rows and
-  selection;
+  the FMA scans (B2's f32 tier, and B1's in a root older than its 3xTF32
+  scan), by kernel, query rows and selection;
 * ``u8_search_ms``: the IVF-Flat search (``engine="bucketed"``) of
   phase 21 (a): 1000 queries at 32 probes on an index of chip_smoke.py's
   SIFT-shaped u8 rows (1M x 128, 1024 lists); ``u8_device_ms``,
@@ -133,6 +144,80 @@ def fma_regs():
     return regs
 
 
+def b1_regs():
+    """ptxas' [registers, spill store bytes] of each B1 scan instance of
+    the libraries built, by "<library> <kernel template arguments>"."""
+    regs = {}
+    for lib in ("fused_knn", "knn_tf32", "knn_mma"):
+        name, spill = None, 0
+        for line in _build.BUILD_LOG.get(lib, "").splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                name, spill = m.group(1), 0
+                continue
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spill = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            t = name and re.search(r"(b1_\w*?_kernel)I(\w*?)E+v", name)
+            if m and t:
+                regs[f"{lib} {t.group(1)} {t.group(2)}"] = [int(m.group(1)),
+                                                            spill]
+    return regs
+
+
+def b1_metrics(out, X, Q):
+    """B1's metrics: the brute-force shape, the k=1 shapes, a 16-row
+    request and a knn_graph chunk."""
+    out["bf_ms"] = cs.time_ms(
+        lambda: fk._fused_knn_cuda(Q, X, cs.K, True, False, False), 5)
+    T = X[::2][:cs.N_ROWS // 2].contiguous()
+    C1024 = X[::1000][:cs.N_LISTS].contiguous()
+    C32 = C1024[::cs.N_LISTS // 32].contiguous()
+    for name, A, C, bf16 in (("train_32_f32", T, C32, False),
+                             ("train_32_bf16", T, C32, True),
+                             ("train_1024_f32", T, C1024, False),
+                             ("train_1024_bf16", T, C1024, True),
+                             ("extend_1024_f32", X, C1024, False)):
+        out[name + "_ms"] = cs.time_ms(
+            lambda: fk._fused_knn_cuda(A, C, 1, True, bf16, bf16), 5)
+    del T
+    C1000 = X[::1000][:1000].contiguous()
+    for name, bf16 in (("lloyd_1000_f32", False), ("lloyd_1000_bf16", True)):
+        out[name + "_ms"] = cs.time_ms(
+            lambda: fk._fused_knn_cuda(X, C1000, 1, True, bf16, bf16), 5)
+    Q16 = Q[:16].contiguous()
+    for k in (10, 100):
+        out[f"req16_k{k}_ms"] = cs.time_ms(
+            lambda: fk._fused_knn_cuda(Q16, X, k, True, False, False), 21)
+        out[f"req16_k{k}_device"] = b1_device_ms(
+            lambda: fk._fused_knn_cuda(Q16, X, k, True, False, False))
+    out["graph_chunk_ms"] = cs.time_ms(
+        lambda: fk._fused_knn_cuda(X[:131072], X, 16, True, False, False), 2)
+
+
+def b1_device_ms(fn, reps: int = 5):
+    """Device milliseconds per call of ``fn`` by kernel, from one
+    ``torch.profiler`` trace of ``reps`` calls: the norm pre-pass, the
+    scan, the slice merge, anything else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total <= 0:
+            continue
+        key = ("norms" if "norms" in e.key else "merge" if "merge" in e.key
+               else "scan" if "b1_" in e.key else "other")
+        out[key] = out.get(key, 0.0) + e.self_device_time_total / reps / 1e3
+    return out
+
+
 def b2_metrics(out, index, Q):
     """The B2 metrics at the main path's IVF-Flat search and phase 21
     (a)'s u8 search."""
@@ -181,7 +266,11 @@ def b2_metrics(out, index, Q):
 
 
 dev = torch.device("cuda")
-_build.build_all()
+if sys.argv[2:] == ["b1"]:
+    _build.build_all([n for n in ("fused_knn", "knn_tf32", "knn_mma")
+                      if n in _build.sources()])
+else:
+    _build.build_all()
 Xh, Qh = cs.make_data(cs.N_ROWS, cs.DIM, cs.N_BLOBS, cs.N_QUERIES)
 X, Q = torch.as_tensor(Xh, device=dev), torch.as_tensor(Qh, device=dev)
 del Xh, Qh
@@ -189,28 +278,18 @@ out = {"root": sys.argv[1],
        "card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                "--format=csv,noheader"], capture_output=True,
                               text=True, check=True).stdout.strip()}
+if sys.argv[2:] == ["b1"]:
+    b1_metrics(out, X, Q)
+    out["b1_regs"] = b1_regs()
+    print(json.dumps(out), flush=True)
+    sys.exit(0)
 if sys.argv[2:] == ["b2"]:
     index, out["ivf_flat_build_s"] = build_s(ivf_flat, X)
     b2_metrics(out, index, Q)
     print(json.dumps(out), flush=True)
     sys.exit(0)
-out["bf_ms"] = cs.time_ms(
-    lambda: fk._fused_knn_cuda(Q, X, cs.K, True, False, False), 5)
-T = X[::2][:cs.N_ROWS // 2].contiguous()
-C1024 = X[::1000][:cs.N_LISTS].contiguous()
-C32 = C1024[::cs.N_LISTS // 32].contiguous()
-for name, A, C, bf16 in (("train_32_f32", T, C32, False),
-                         ("train_32_bf16", T, C32, True),
-                         ("train_1024_f32", T, C1024, False),
-                         ("train_1024_bf16", T, C1024, True),
-                         ("extend_1024_f32", X, C1024, False)):
-    out[name + "_ms"] = cs.time_ms(
-        lambda: fk._fused_knn_cuda(A, C, 1, True, bf16, bf16), 5)
-del T
+b1_metrics(out, X, Q)
 C1000 = X[::1000][:1000].contiguous()
-for name, bf16 in (("lloyd_1000_f32", False), ("lloyd_1000_bf16", True)):
-    out[name + "_ms"] = cs.time_ms(
-        lambda: fk._fused_knn_cuda(X, C1000, 1, True, bf16, bf16), 5)
 torch.cuda.synchronize()
 t0 = time.perf_counter()
 kmeans.fit(KMeansParams(n_clusters=1000, init=InitMethod.Array, max_iter=10,

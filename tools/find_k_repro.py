@@ -62,7 +62,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("find_k_repro: CUDA is not available")
     t0 = time.perf_counter()
-    _build.build_all(["fused_knn"])
+    _build.build_all(["knn_tf32"])
     card = cs.card_line()
     print(f"build {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
     rows, dim, blobs, std, kmax = cs.FINDK_17

@@ -19,8 +19,8 @@ events (median of 5) on random rows made on the card: the train
 assignments 500,000 x 32 and 500,000 x 1024 and Lloyd's 1M x 1000, d =
 128, k = 1, on the bf16 and split-bf16 tiers. The script also prints
 ptxas' register and spill lines of the scan kernels, the card line, and
-once the f32 tier (the FMA scan) and ``addmm`` + ``argmin`` at the same
-shapes as the yardsticks.
+once the f32 tier (the 3xTF32 scan of ``knn_tf32.cu``) and ``addmm`` +
+``argmin`` at the same shapes as the yardsticks.
 """
 import ctypes
 import importlib
@@ -98,7 +98,7 @@ def main():
     for s, (a, c) in shapes.items():
         cn = torch.sum(c * c, dim=1)
         base[s] = {
-            "f32_fma_ms": round(time_ms(lambda: fk._fused_knn_cuda(
+            "f32_tf32_ms": round(time_ms(lambda: fk._fused_knn_cuda(
                 a, c, 1, True, False, False)), 4),
             "addmm_argmin_ms": round(time_ms(lambda: torch.argmin(
                 torch.addmm(cn, a, c.t(), alpha=-2.0), dim=1)), 4)}
