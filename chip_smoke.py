@@ -20,8 +20,11 @@ no result line):
    queries-per-CTA boundary of k, n < 128 and d in {33, 96, 1024}; B2
    at cells of 8, 64 and 65 rows, k on each selection path (1, 10, 16,
    17, 256), cap off the 128-slot tile, d in {24, 32, 40, 128, 385,
-   1024} and on operands off 16-byte alignment, its f32 tier on f32 rows
-   and its bf16 tiers on bf16, u8 and int8 rows; B3 on its paths (its
+   1024} and on operands off 16-byte alignment, its f32 tier (the 3xTF32
+   scan of ``csrc/cells_tf32.cu``) on f32 and bf16 rows and its bf16
+   tiers on bf16, u8 and int8 rows, and its f32 tier on Gaussian cells
+   held to float64 (the largest error at most 4x the plain version's);
+   B3 on its paths (its
    tensor-core scan, B2's scans),
    with every row and with live rows; B5 (``stream_extract``) against its
    plain version on Gaussian keys, integer keys with ties, sorted rows, a
@@ -47,14 +50,15 @@ no result line):
    f32 tier's 3xTF32 tensor-core scan of ``csrc/knn_tf32.cu``) and
    ptxas' registers and spills of both scans, and timed at a 16-row
    request against the 1M rows (k=10 and 100); the f32 tier's bound is
-   its three TF32 products' (beside the FP32 pipes'); B2's f32 tier at
-   k=10 and k=1 with
-   its plan, its pre-pass's device-time share and its share of the
-   search, and both of its bf16 tiers (the tensor-core scan of
+   its three TF32 products' (beside the FP32 pipes'); B2's f32 tier (the
+   3xTF32 tensor-core scan of ``csrc/cells_tf32.cu``) at k=10 and k=1 with
+   its plan, its pre-pass's device-time share, its share of the search,
+   ptxas' registers and spills and its bound (three TF32 products, beside
+   the FP32 pipes'), and both of its bf16 tiers (the tensor-core scan of
    ``csrc/cells_mma.cu``) on a bf16 copy of the store, each held against
    its plain version and timed beside its bound, plain version and
    library yardstick (gather + bf16 ``baddbmm`` + ``torch.topk``), with
-   their plans and ptxas' registers and spills of both scans;
+   their plans and ptxas' registers and spills;
 6. the IVF-PQ path on the same rows and queries, the counters again set to
    0 before it and read after each step: build with 1024 lists (pq_dim 64,
    pq_bits 8), the compressed search with 32 probes (through B4, recall@10
@@ -423,17 +427,19 @@ no result line):
     B4's per-list budget; the phase's seconds, launches and peak memory;
 22. a ``kernels`` line (B1 twice: its f32 tier's 3xTF32 tensor-core scan
     at the brute-force shape, its bf16 tiers' tensor-core scan at
-    Lloyd's; B2 twice: its f32 tier's FMA scan and its split tier's
-    tensor-core scan, both at the main-path cells), the card line, and
+    Lloyd's; B2 twice: its f32 tier's 3xTF32 tensor-core scan and its
+    split tier's tensor-core scan, both at the main-path cells), the card
+    line, and
     the result line.
 
 From phase 3 on, every B1 and B2 launch of this process is held to its
-tier's scan (:class:`B1Tiers`, :class:`B2Tiers`): every B1 request and
-a bf16 B2 request must go through a tensor-core scan
-(``fused_knn.mma_launches``, ``fused_cells_knn.mma_launches``; a B1
-f32 request through knn_tf32.cu's, ``fused_knn.tf32_launches``), an f32
-B2 request through the FMA scan, checked after each phase; phases 4, 6, 17 and 20 must each run B1's
-split-bf16 tier, phases 3, 5 and 21 B2's bf16 tiers.
+tier's scan (:class:`B1Tiers`, :class:`B2Tiers`), checked after each
+phase: a bf16 request through its bf16 tiers' tensor-core scan
+(``fused_knn.mma_launches``, ``fused_cells_knn.mma_launches``), an f32
+request through its f32 tier's 3xTF32 scan (``fused_knn.tf32_launches``,
+knn_tf32.cu's; ``fused_cells_knn.tf32_launches``, cells_tf32.cu's);
+phases 4, 6, 17 and 20 must each run B1's split-bf16 tier, phases 3, 5
+and 21 B2's bf16 tiers.
 
 The data is made with numpy from a fixed seed: 1000 Gaussian blobs
 (centers uniform in [-10, 10], sigma 5), queries = database rows + N(0, 1).
@@ -491,11 +497,16 @@ B2_CASES = ((6, 300, 32, 9, 64, 10), (5, 129, 128, 7, 8, 256),
             (4, 2048, 128, 6, 64, 1), (6, 300, 40, 9, 65, 16),
             (6, 1000, 24, 9, 65, 17), (4, 300, 385, 5, 65, 10),
             (4, 300, 1024, 5, 64, 17))
-# B2's (store, bf16, qsplit) combinations: the f32 tier on f32 rows, the
-# bf16 tiers on bf16 rows, the split tier on the u8 / int8 stores of 8-bit
-# indexes (int8 rows shifted by -4, so that they hold negative values).
-B2_STORES = (("f32", False, False), ("bf16", True, False),
-             ("bf16", True, True), ("u8", True, True), ("i8", True, True))
+# B2's (store, bf16, qsplit) combinations: the f32 tier on f32 and bf16
+# rows, the bf16 tiers on bf16 rows, the split tier on the u8 / int8
+# stores of 8-bit indexes (int8 rows shifted by -4, so that they hold
+# negative values).
+B2_STORES = (("f32", False, False), ("bf16", False, False),
+             ("bf16", True, False), ("bf16", True, True), ("u8", True, True),
+             ("i8", True, True))
+# The f32 tier on Gaussian cells: its largest distance error against
+# float64 may be at most this multiple of the plain version's.
+B2_F64_RATIO = 4.0
 N_PARTS = 4               # lifecycle: multi-part brute force
 N_DELETE = 100_000        # lifecycle: rows deleted from each index
 N_UPSERT = 1000           # lifecycle: rows upserted into each index
@@ -904,7 +915,7 @@ def check_kernels(dev) -> None:
                 raise AssertionError("B2 starved list did not report -1")
         mma = fk._b2_mma_plan(qrows, d, k, True, "u8")
         log(f"B2 ok L={L} cap={cap} d={d} cells={C} qrows={qrows} k={k} "
-            f"rows/CTA f32 tier {fk._b2_plan(qrows, d, k).bq}, "
+            f"rows/CTA f32 tier {fk._b2_tf32_plan(qrows, d, k, 'f32').bq}, "
             f"split tier on u8 {mma.bq} in {mma.pw}-feature panels (-1 "
             f"cells, masks, starved list, f32 / bf16 / u8 / int8 stores on "
             f"their tiers, l2/ip)")
@@ -934,6 +945,53 @@ def check_kernels(dev) -> None:
                                      f"!= plain")
     log("B2 ok on operands off 16-byte alignment (qrows=65 d=40 k=10, "
         "l2/ip, f32 / bf16 / u8 / int8 stores on their tiers, exact)")
+    # The f32 tier on Gaussian cells (64 rows, 700-1300 valid slots of
+    # 2048 with tombstones, d 128): the 3xTF32 gram keeps an f32 gram's
+    # accuracy against float64, on f32 and bf16 stores.
+    L, cap, C = 6, 2048, 24
+    db = torch.as_tensor(rng.standard_normal((L, cap, DIM),
+                                             dtype=np.float32), device=dev)
+    q = torch.as_tensor(rng.standard_normal((C, 64, DIM), dtype=np.float32),
+                        device=dev)
+    inv = np.arange(cap)[None, :] >= rng.integers(700, 1300, (L, 1))
+    inv |= rng.random((L, cap)) < 0.1
+    invalid = torch.as_tensor(inv, device=dev)
+    cells = torch.as_tensor(rng.integers(-1, L, C).astype(np.int32),
+                            device=dev)
+    worst = 0.0
+    for store in ("f32", "bf16"):
+        y = b2_store(db, store)
+        for k in (1, 10):
+            for l2 in (True, False):
+                kd, ki = fk._fused_cells_knn_cuda(cells, q, y, invalid, k,
+                                                  l2, False, False)
+                pd, pi = fk._fused_cells_knn_plain(cells, q, y, invalid, k,
+                                                   l2, False, False)
+                err = cells_f64_err(cells, q, y, kd, ki, l2)
+                plain = cells_f64_err(cells, q, y, pd, pi, l2)
+                worst = max(worst, err / plain)
+                if err > B2_F64_RATIO * plain or not torch.equal(ki >= 0,
+                                                                 pi >= 0):
+                    raise AssertionError(
+                        f"B2 f32 tier Gaussian store={store} k={k} l2={l2}: "
+                        f"error {err:.3e} against float64, plain {plain:.3e}")
+    log(f"B2 f32 tier ok on Gaussian cells (C={C} x 64 rows, cap {cap}, "
+        f"d {DIM}, k 1/10, l2/ip, f32 / bf16 stores): largest error against "
+        f"float64 {worst:.3f}x the plain version's (bar {B2_F64_RATIO})")
+
+
+def cells_f64_err(cells, q, db, d, i, l2: bool) -> float:
+    """Largest |d - the float64 distance of the same (query, slot)
+    pair| over B2's result slots with an id."""
+    import torch
+
+    y64 = db.double()[cells.long().clamp_min(0)]
+    idx = i.long().clamp_min(0)[..., None].expand(-1, -1, -1, q.shape[2])
+    y = torch.gather(y64[:, None].expand(-1, q.shape[1], -1, -1), 2, idx)
+    q64 = q.double()[:, :, None, :]
+    ref = (torch.sum((q64 - y) ** 2, dim=3) if l2
+           else -torch.sum(q64 * y, dim=3))
+    return float(torch.max(torch.abs(d.double() - ref)[i >= 0]))
 
 
 def b2_store(x, store: str):
@@ -1103,7 +1161,9 @@ def main_path(dev, X, Q):
     launches = {"fused_knn": fk.fused_knn.launches,
                 "fused_knn_mma": fk.fused_knn.mma_launches,
                 "fused_knn_tf32": fk.fused_knn.tf32_launches,
-                "fused_cells_knn": fk.fused_cells_knn.launches}
+                "fused_cells_knn": fk.fused_cells_knn.launches,
+                "fused_cells_knn_mma": fk.fused_cells_knn.mma_launches,
+                "fused_cells_knn_tf32": fk.fused_cells_knn.tf32_launches}
     log(f"main path: brute force {bf_s:.3f} s ({bf_launches} B1 launch), "
         f"IVF-Flat build {build_s:.3f} s ({build_launches} B1 launches), "
         f"first search {search_s:.3f} s "
@@ -1254,8 +1314,8 @@ def ptxas_kernels(lib: str, kernel: str) -> list:
     registers, spill bytes). The template arguments of b1_mma_kernel
     (query rows x tile rows, tier, selection), b1_tf32_kernel (query rows
     x tile rows, selection), b2_mma_kernel (query rows, tier, selection)
-    and b2_scan_kernel (query rows, selection) are read out of their
-    mangled names."""
+    and b2_tf32_kernel (query rows, store, selection) are read out of
+    their mangled names."""
     import re
 
     from raft_tpu_torch.ops import _build
@@ -1276,7 +1336,8 @@ def ptxas_kernels(lib: str, kernel: str) -> list:
                           name)
             t1 = re.search(r"b1_tf32_kernelILi(\d+)ELi(\d+)ELi(\d)E", name)
             t2 = re.search(r"b2_mma_kernelILi(\d+)ELb([01])ELi(\d)E", name)
-            t3 = re.search(r"b2_scan_kernelILi(\d+)ELi(\d)E", name)
+            t3 = re.search(r"b2_tf32_kernelILi(\d+)ELb([01])ELi(\d)E",
+                           name)
             short = re.search(r"(b[12]_\w*?_kernel)", name)
             if t is not None:
                 label = (f"{t.group(1)}x{t.group(2)} "
@@ -1290,7 +1351,9 @@ def ptxas_kernels(lib: str, kernel: str) -> list:
                          f"{'split' if t2.group(2) == '1' else 'bf16'} "
                          f"{sel[int(t2.group(3))]}")
             elif t3 is not None:
-                label = f"{t3.group(1)} rows {sel[int(t3.group(2))]}"
+                label = (f"{t3.group(1)} rows "
+                         f"{'bf16' if t3.group(2) == '1' else 'f32'} store "
+                         f"{sel[int(t3.group(3))]}")
             else:
                 label = short.group(1) if short else name
             out.append((label, int(m.group(1)), spill))
@@ -1372,9 +1435,11 @@ def b1_kmeans_shape(dev, X, centers):
 
 
 def b2_entry(dev, Q, index, search_ms):
-    """Phase 5 for B2 at the IVF-Flat search shape: its f32 tier (the FMA
-    scan) at k=10 and k=1, its plan, the device-time share of its pre-pass,
-    its share of the search and ptxas' registers and spills; then both bf16
+    """Phase 5 for B2 at the IVF-Flat search shape: its f32 tier (the
+    3xTF32 tensor-core scan) at k=10 and k=1, its plan, the device-time
+    share of its pre-pass, its share of the search, ptxas' registers and
+    spills, and its bound (three TF32 products, beside the FP32 pipes');
+    then both bf16
     tiers (the tensor-core scan) on a bf16 copy of the store, each held
     against its plain version and timed beside its bound, plain version and
     library yardstick. Returns the f32 tier's numbers and the split
@@ -1436,7 +1501,10 @@ def b2_entry(dev, Q, index, search_ms):
         return bound, ("operations" if ops / peak >= nbytes / PEAK_BYTES
                        else "bytes")
 
+    before = fk.fused_cells_knn.tf32_launches
     err, n_out = check("B2", args, False, False)
+    if fk.fused_cells_knn.tf32_launches != before + 1:
+        raise AssertionError("B2 f32 tier: the launch missed the 3xTF32 scan")
     ms = time_ms(lambda: fk._fused_cells_knn_cuda(*args, K, True, False,
                                                   False), 5)
     k1_ms = time_ms(lambda: fk._fused_cells_knn_cuda(*args, 1, True, False,
@@ -1447,23 +1515,31 @@ def b2_entry(dev, Q, index, search_ms):
     pre_ms = device_ms(lambda: fk._fused_cells_knn_cuda(
         *args, K, True, False, False), "b2_norms_kernel", reps=5)
     scan_ms = device_ms(lambda: fk._fused_cells_knn_cuda(
-        *args, K, True, False, False), "b2_scan_kernel", reps=5)
+        *args, K, True, False, False), "b2_tf32_kernel", reps=5)
+    k1_scan_ms = device_ms(lambda: fk._fused_cells_knn_cuda(
+        *args, 1, True, False, False), "b2_tf32_kernel", reps=5)
     lib_ms = library(data, torch.sum(data * data, dim=2), False)
-    bound, by = bounds(4.0, 2.0 * DIM * pair_rows, PEAK_FP32, n_out)
-    log(f"B2 timing cells={cell_list.shape[0]} (used {int(live.sum())}) "
-        f"qrows={qrows} cap={cap} d={DIM} k={K}: kernel {ms:.3f} ms "
-        f"({ms / search_ms:.1%} of the {search_ms:.3f} ms search; k=1 "
-        f"{k1_ms:.3f} ms), plain {plain_ms:.3f} ms, library (gather + "
-        f"baddbmm + topk over {step}-cell chunks) {lib_ms:.3f} ms, bound "
-        f"{bound:.3f} ms")
-    plan = fk._b2_plan(qrows, DIM, K)
-    log(f"B2 plan: {plan.bq} query rows per CTA, queries staged with every "
-        f"chunk, {plan.smem} B of shared memory; device time pre-pass "
+    # The function's products: an f32 gram, three TF32 products a pair on
+    # the tensor cores (the FP32 pipes' bound beside it).
+    ops = 2.0 * DIM * pair_rows
+    bound, by = bounds(4.0, 3.0 * ops, PEAK_TF32, n_out)
+    fp32, _ = bounds(4.0, ops, PEAK_FP32, n_out)
+    log(f"B2 f32 tier timing cells={cell_list.shape[0]} (used "
+        f"{int(live.sum())}) qrows={qrows} cap={cap} d={DIM} k={K}: kernel "
+        f"{ms:.3f} ms ({ms / search_ms:.1%} of the {search_ms:.3f} ms "
+        f"search; k=1 {k1_ms:.3f} ms; {ops / ms / 1e9:.1f} TFLOP/s of the "
+        f"f32 gram), plain {plain_ms:.3f} ms, library (gather + baddbmm + "
+        f"topk over {step}-cell chunks) {lib_ms:.3f} ms, bound {bound:.3f} "
+        f"ms ({by}, three TF32 products; the FP32 pipes' {fp32:.3f} ms)")
+    plan = fk._b2_tf32_plan(qrows, DIM, K, "f32")
+    log(f"B2 f32 tier plan: {plan.bq} query rows per CTA, the query block "
+        f"resident, {plan.smem} B of shared memory; device time pre-pass "
         f"{pre_ms} ms + scan {scan_ms} ms" + (
             f" (pre-pass share {pre_ms / (pre_ms + scan_ms):.1%})"
-            if pre_ms and scan_ms else " (not traced)"))
-    log(f"B2 FMA scan ptxas (rows, tier, selection: registers, spill "
-        f"bytes): {[f'{n}: {r}, {sp}' for n, r, sp in ptxas_kernels('cells_knn', 'b2_scan')]}")
+            if pre_ms and scan_ms else " (not traced)")
+        + f"; k=1 scan {k1_scan_ms} ms")
+    log(f"B2 f32 tier 3xTF32 scan ptxas (rows, store, selection: registers, "
+        f"spill bytes): {[f'{n}: {r}, {sp}' for n, r, sp in ptxas_kernels('cells_tf32', 'b2_tf32')]}")
     f32 = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
 
@@ -1516,8 +1592,10 @@ def _counted():
     its attribute. ``fused_knn`` counts every B1 launch, ``fused_knn_mma``
     those of a tensor-core scan among them (every one), ``fused_knn_tf32``
     those of its f32 tier's 3xTF32 scan (knn_tf32.cu) among those;
-    ``fused_cells_knn`` and ``fused_cells_knn_mma`` every B2 launch and
-    those of its bf16 tiers' tensor-core scan."""
+    ``fused_cells_knn`` every B2 launch, ``fused_cells_knn_mma`` those of
+    its bf16 tiers' tensor-core scan (cells_mma.cu) and
+    ``fused_cells_knn_tf32`` those of its f32 tier's 3xTF32 scan
+    (cells_tf32.cu): the two add up to every launch."""
     fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
     from raft_tpu_torch.ops import pq_scan as ps
     from raft_tpu_torch.ops import stream_select as ss
@@ -1527,6 +1605,7 @@ def _counted():
             "fused_knn_tf32": (fk.fused_knn, "tf32_launches"),
             "fused_cells_knn": (fk.fused_cells_knn, "launches"),
             "fused_cells_knn_mma": (fk.fused_cells_knn, "mma_launches"),
+            "fused_cells_knn_tf32": (fk.fused_cells_knn, "tf32_launches"),
             "fused_batch_knn": (fk.fused_batch_knn, "launches"),
             "pq_fused_scan": (ps.pq_fused_scan, "launches"),
             "stream_extract": (ss.stream_extract, "launches")}
@@ -1550,27 +1629,32 @@ def _launches():
 class TierCheck:
     """Wraps a kernel's launcher for the rest of the run and tells each
     launch's requested tier from the scan it took: a bf16 request must add
-    one to the wrapper's ``mma_launches`` (its tensor-core scan); an f32
-    request must too where ``f32_mma`` (B1's 3xTF32 scan), and must not
-    elsewhere (B2's FMA scan). ``take`` checks the launches since the last
-    ``take`` and fails on any that went the other way."""
+    one to the wrapper's ``mma_launches`` (its bf16 tiers' tensor-core
+    scan) and none to its ``tf32_launches``; an f32 request must add one
+    to its ``tf32_launches`` (its f32 tier's 3xTF32 scan). ``take`` checks
+    the launches since the last ``take`` and fails on any that went
+    another way."""
 
     def __init__(self, kernel: str, launcher: str, wrapper: str,
-                 bf16_at: int, f32_mma: bool):
+                 bf16_at: int):
         self.fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
         self.kernel = kernel
-        self.f32_mma = f32_mma
-        self.seen = {"bf16": 0, "bf16_mma": 0, "f32": 0, "f32_mma": 0}
+        self.seen = {"bf16": 0, "bf16_mma": 0, "f32": 0, "f32_tf32": 0}
         self.mark = dict(self.seen)
         launch = getattr(self.fk, launcher)
         counter = getattr(self.fk, wrapper)
 
         def counted(*args):
-            before = counter.mma_launches
+            before = (counter.mma_launches, counter.tf32_launches)
             out = launch(*args)
-            tier = "bf16" if args[bf16_at] else "f32"
-            self.seen[tier] += 1
-            self.seen[tier + "_mma"] += counter.mma_launches - before
+            mma = counter.mma_launches - before[0]
+            tf32 = counter.tf32_launches - before[1]
+            if args[bf16_at]:
+                self.seen["bf16"] += 1
+                self.seen["bf16_mma"] += int(mma == 1 and tf32 == 0)
+            else:
+                self.seen["f32"] += 1
+                self.seen["f32_tf32"] += int(tf32 == 1)
             return out
 
         setattr(self.fk, launcher, counted)
@@ -1579,32 +1663,33 @@ class TierCheck:
         got = {k: self.seen[k] - self.mark[k] for k in self.seen}
         self.mark = dict(self.seen)
         log(f"{phase}: {self.kernel} bf16 launches {got['bf16']}, through "
-            f"the tensor-core scan {got['bf16_mma']}; f32 launches "
-            f"{got['f32']}, through the tensor-core scan {got['f32_mma']}")
-        f32_want = got["f32"] if self.f32_mma else 0
-        if got["bf16_mma"] != got["bf16"] or got["f32_mma"] != f32_want:
+            f"the bf16 tiers' tensor-core scan {got['bf16_mma']}; f32 "
+            f"launches {got['f32']}, through the 3xTF32 scan "
+            f"{got['f32_tf32']}")
+        if got["bf16_mma"] != got["bf16"] or got["f32_tf32"] != got["f32"]:
             raise AssertionError(f"{phase}: a {self.kernel} launch took the "
                                  f"wrong scan for its tier: {got}")
         return got
 
 
 class B1Tiers(TierCheck):
-    """B1's launches: every tier through ``fused_knn.mma_launches`` (the
-    bf16 tiers the tensor-core scan of csrc/knn_mma.cu, the f32 tier the
-    3xTF32 one of csrc/knn_tf32.cu)."""
+    """B1's launches: the bf16 tiers through the tensor-core scan of
+    csrc/knn_mma.cu, the f32 tier through the 3xTF32 one of
+    csrc/knn_tf32.cu (``fused_knn.mma_launches`` counts both)."""
 
     def __init__(self):
-        super().__init__("B1", "_fused_knn_cuda", "fused_knn", 4, True)
+        super().__init__("B1", "_fused_knn_cuda", "fused_knn", 4)
 
 
 class B2Tiers(TierCheck):
     """B2's launches: the bf16 tiers through ``fused_cells_knn.
     mma_launches`` (the tensor-core scan of csrc/cells_mma.cu), the f32
-    tier through the FMA scan of csrc/cells_knn.cu."""
+    tier through ``fused_cells_knn.tf32_launches`` (the 3xTF32 scan of
+    csrc/cells_tf32.cu)."""
 
     def __init__(self):
         super().__init__("B2", "_fused_cells_knn_cuda", "fused_cells_knn",
-                         6, False)
+                         6)
 
 
 def _step(before):
@@ -8591,12 +8676,14 @@ def main() -> int:
         raise AssertionError("a B1 launch missed the tensor-core scans")
     mma = dict(p17["mma"], max_abs_err=max(p17["mma"]["max_abs_err"],
                                            split_err))
-    # B2's likewise: the FMA scan's (the f32 tier) and the tensor-core
-    # scan's (the bf16 tiers) apart.
+    # B2's likewise: cells_tf32.cu's (the f32 tier) and cells_mma.cu's
+    # (the bf16 tiers) apart; every one is a tensor-core launch.
     b2_runs = [mp["launches"], sv, lc, sm, sf, sh, rt, ops, du, br,
                p20["launches"], p21["launches"]]
     b2_mma = sum(run.get("fused_cells_knn_mma", 0) for run in b2_runs)
-    b2_fma = sum(run["fused_cells_knn"] for run in b2_runs) - b2_mma
+    b2_tf32 = sum(run.get("fused_cells_knn_tf32", 0) for run in b2_runs)
+    if b2_mma + b2_tf32 != sum(run["fused_cells_knn"] for run in b2_runs):
+        raise AssertionError("a B2 launch missed the tensor-core scans")
     kernels = [
         dict(name="fused_knn_tf32", route="cuda",
              source="raft_tpu_torch/csrc/knn_tf32.cu",
@@ -8606,9 +8693,9 @@ def main() -> int:
              source="raft_tpu_torch/csrc/knn_mma.cu",
              replaces="raft_tpu/ops/fused_knn.py:179", launches=b1_mma,
              **mma),
-        dict(name="fused_cells_knn", route="cuda",
-             source="raft_tpu_torch/csrc/cells_knn.cu",
-             replaces="raft_tpu/ops/fused_knn.py:426", launches=b2_fma,
+        dict(name="fused_cells_knn_tf32", route="cuda",
+             source="raft_tpu_torch/csrc/cells_tf32.cu",
+             replaces="raft_tpu/ops/fused_knn.py:426", launches=b2_tf32,
              **b2),
         dict(name="fused_cells_knn_mma", route="cuda",
              source="raft_tpu_torch/csrc/cells_mma.cu",

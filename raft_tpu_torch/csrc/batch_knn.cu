@@ -14,7 +14,7 @@
 // scan of that tier with the identity cell map: the bf16 tier on an f32 or
 // 8-bit store, the split query, and any d whose two row tiles do not fit
 // shared memory on B2's tensor-core scan (cells_mma.cu), the f32 tier on
-// B2's FMA scan (cells_knn.cu). The plan that picks the path is
+// B2's 3xTF32 tensor-core scan (cells_tf32.cu). The plan that picks the path is
 // ops/fused_knn.py::_b3_plan.
 //
 // Rows [live_rows[b], m) of element b are not scanned and report (inf,

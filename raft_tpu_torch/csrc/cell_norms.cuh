@@ -1,5 +1,5 @@
 // The pre-pass of the row scans that walk only live 128-slot tiles: B2
-// (cells_knn.cu, and cells_mma.cu for its bf16 tiers) and B3
+// (cells_tf32.cu for its f32 tier, cells_mma.cu for its bf16 tiers) and B3
 // (batch_knn.cu). Part of every call; the index keeps nothing, so extend /
 // upsert / compact cannot leave it stale.
 
@@ -11,7 +11,7 @@ namespace cell_norms {
 
 constexpr int BN = 128;  // slots per tile
 
-// The element types of a store (`kind`): B2's FMA scan passes 0 or 1, B3
+// The element types of a store (`kind`): B2's f32 tier passes 0 or 1, B3
 // passes 1, B2's tensor-core scan (cells_mma.cu) any of the four.
 enum Kind { KIND_F32 = 0, KIND_BF16 = 1, KIND_U8 = 2, KIND_I8 = 3 };
 

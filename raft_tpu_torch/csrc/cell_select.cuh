@@ -1,5 +1,5 @@
 // Cell-level top-k selection of the packed scans for Hopper: B2
-// (cells_knn.cu), B3 (batch_knn.cu) and B4 (pq_scan.cu).
+// (cells_tf32.cu, cells_mma.cu), B3 (batch_knn.cu) and B4 (pq_scan.cu).
 //
 // Each scan gives one CTA of 256 threads the rows of one query cell (B3:
 // one block of a bucket) and sweeps the 128-slot tiles of one list. Each

@@ -3,7 +3,7 @@
 // the widest top-k queue, the NaN that marks a pair no test accepts, the
 // 16-byte steps of a shared-memory layout, and the opt-in to more than
 // 48 KB of dynamic shared memory. B1 (knn_tf32.cu, knn_mma.cu), B2
-// (cells_knn.cu, cells_mma.cu), B3 (batch_knn.cu) and B4 (pq_scan.cu)
+// (cells_tf32.cu, cells_mma.cu), B3 (batch_knn.cu) and B4 (pq_scan.cu)
 // build on it; cell_select.cuh holds the cell-level selection B1-B4 share.
 
 #pragma once

@@ -1,6 +1,8 @@
 // The bf16 tensor-core tile and its selection, shared by the scans that
 // multiply on mma.sync: B1's bf16 tiers (knn_mma.cu), B2's bf16 tiers
-// (cells_mma.cu), B3 (batch_knn.cu) and B4 (pq_scan.cu).
+// (cells_mma.cu), B3 (batch_knn.cu) and B4 (pq_scan.cu). B1's and B2's
+// f32 tiers (knn_tf32.cu, cells_tf32.cu) multiply TF32 fragments of their
+// own into the same accumulator layout and take the selection here.
 //
 // Each gives one CTA of 256 threads BQ query rows (128 at most) held as a
 // bf16 operand A (row stride SA) and sweeps tiles of TBN slots (128 by

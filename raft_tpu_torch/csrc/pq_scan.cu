@@ -57,7 +57,7 @@
 //     from the unrounded values) of every valid (list, slot) into scratch
 //     the wrapper allocates per call; the index keeps nothing, so extend /
 //     upsert / compact cannot leave it stale;
-//   * selection in registers, after B1's filter (knn_gemm.cuh): the
+//   * selection in registers, after B1's filter: the
 //     accumulators become distances in place (NaN marks invalid slots and
 //     padding rows, which no test accepts), each pair is tested against
 //     its row's k-th (distance, slot), and only the pairs that pass go
@@ -70,7 +70,7 @@
 //     k > 16 one warp per row, by a warp bitonic sort and a merge by
 //     rank. k = 1 keeps a running (min, slot) per row in registers.
 //     The bound, the network and the merge are cell_select.cuh's, which
-//     B2 (cells_knn.cu) shares; the product, the filter and the write-out
+//     B2 (cells_tf32.cu, cells_mma.cu) shares; the product, the filter and the write-out
 //     are mma_tile.cuh's, which B3 (batch_knn.cu) shares.
 //
 // On the H100 (tools/tune_b4.py, PERF.md) selection still takes about

@@ -16,16 +16,19 @@ headers for the design):
   staged f32 query chunks are rounded into bf16 operands (the split
   query's lo half a second operand) (:func:`_b1_mma_plan`). Both use the
   ``mma.sync`` tile and selection of ``csrc/mma_tile.cuh``;
-* B2's f32 tier is ``csrc/cells_knn.cu``: a pre-pass (live tiles, row
-  norms) and one CTA per (cell, block of query rows) on B1's FMA tile,
-  with the cell-level selection of ``csrc/cell_select.cuh`` that it
-  shares with B3 and B4; its plan is :func:`_b2_plan`. Its two bf16 tiers
-  (every k, d and qrows) are ``csrc/cells_mma.cu``: the same pre-pass,
+* B2 runs on tensor cores at every tier, with a pre-pass (live tiles,
+  row norms) and one CTA per (cell, block of query rows). Its f32 tier is
+  ``csrc/cells_tf32.cu``: the cell's query block resident in f32, the
+  list's f32 or bf16 rows staged in 32-feature chunks by ``cp.async``,
+  both split in registers into TF32 hi and lo parts and multiplied as B1's
+  f32 tier does, three TF32 ``mma.sync`` products a step
+  (:func:`_b2_tf32_plan`). Its two bf16 tiers are ``csrc/cells_mma.cu``:
   the query block resident as bf16 operands (the split query's lo half a
   second operand), the store's rows (bf16, f32, uint8 or int8, read in
-  their own type and widened in the kernel) staged in feature panels, on
-  the ``mma.sync`` tile and selection of ``csrc/mma_tile.cuh``
-  (:func:`_b2_mma_plan`);
+  their own type and widened in the kernel) staged in feature panels
+  (:func:`_b2_mma_plan`). Both use the ``mma.sync`` tile and selection
+  of ``csrc/mma_tile.cuh`` and the cell-level selection of
+  ``csrc/cell_select.cuh``, which B3 and B4 share;
 * B3 is ``csrc/batch_knn.cu`` for the bf16 tier on a bf16 store (every
   main-path call): B2's pre-pass and one CTA per (element, block of query
   rows) on the bf16 tensor-core tile and selection of
@@ -49,8 +52,9 @@ back. ``fused_knn.launches``, ``fused_cells_knn.launches`` and
 ``fused_batch_knn.launches`` count the kernel launches;
 ``fused_knn.mma_launches`` counts B1's launches of a tensor-core scan
 (every one of them), ``fused_knn.tf32_launches`` those of its f32 tier's
-among them, and ``fused_cells_knn.mma_launches`` B2's launches of its
-tensor-core scan (its bf16 tiers).
+among them; ``fused_cells_knn.mma_launches`` counts B2's launches of its
+bf16 tiers' scan and ``fused_cells_knn.tf32_launches`` those of its f32
+tier's (every B2 launch is one of the two).
 """
 
 from __future__ import annotations
@@ -83,14 +87,9 @@ MAX_DIM = 1024
 # Element budget of one plain-version distance block (~256 MB of f32).
 _PLAIN_BLOCK = 1 << 26
 
-# The FMA tile's geometry (the constants of csrc/knn_gemm.cuh, which B2's
-# f32 tier runs): database rows per tile, features per staged chunk,
-# staged chunks in flight, candidate slots per CTA. B1's slices: the most
-# the merge takes, and the fewest tiles a slice gets.
+# Database rows (slots) per tile of every scan. B1's slices: the most the
+# merge takes, and the fewest tiles a slice gets.
 B1_BN = 128
-B1_BK = 16
-B1_STAGES = 2
-B1_CAND = 4096
 B1_MAX_SLICES = 256
 B1_MIN_SLICE_TILES = 4
 #: Shared memory a block may use on the H100 (232,448 bytes).
@@ -296,60 +295,14 @@ def _b1_tier_plan(m: int, n: int, d: int, k: int, bf16: bool, qsplit: bool,
     return _b1_tf32_plan(m, n, d, k, n_sm)
 
 
-# B2's launch geometry (the constants of csrc/cells_knn.cu, on B1's tile):
-# the query rows a CTA may take, the threads (and per-thread minima) of a
-# row, and the widest queue selected by the insertion network.
+# B2's launch geometry: the query rows a CTA may take, and the widest
+# queue selected by the insertion network.
 B2_ROWS = (64, 32, 16)
-B2_NE = 16
 B2_NET_K = 16
-
-
-class B2Plan(NamedTuple):
-    """B2's launch: ``bq`` query rows per CTA (the queries are staged with
-    every chunk of the list's rows) and ``smem`` the bytes of one CTA."""
-    bq: int
-    smem: int
 
 
 def _r16(x: int) -> int:
     return -(-x // 16) * 16
-
-
-def _b2_smem_bytes(bq: int, k: int) -> int:
-    """Shared-memory bytes of one CTA of B2's f32 tier, region by region as
-    cells_knn.cu's ``Layout`` lays them out, each rounded up to 16 bytes:
-    B1's staging ring and feature-major tiles, the query norms; for k > 1
-    the queue (bq x k pairs), the
-    candidate buffer, its counters and the bitmask of rows with
-    candidates, and for k <= 16 the per-thread row minima and the rows'
-    first-tile bounds."""
-    tile = 4 * 2 * B1_BK * (bq + 4)
-    parts = [4 * B1_STAGES * (bq + B1_BN) * (B1_BK + 8), tile,
-             4 * 2 * B1_BK * (B1_BN + 4), 4 * bq]
-    if k > 1:
-        parts += [4 * bq * k, 4 * bq * k, 4 * B1_CAND, 4 * B1_CAND, 4 * bq,
-                  4 * (-(-bq // 32))]
-        if k <= B2_NET_K:
-            parts += [4 * bq * B2_NE, 4 * bq]
-    return sum(_r16(p) for p in parts)
-
-
-def _b2_plan(qrows: int, d: int, k: int) -> B2Plan:
-    """B2's f32 tier: the most query rows per CTA (64, 32 or 16; never
-    more than ``qrows`` needs) whose shared memory fits ``SMEM_LIMIT``.
-    The queries are staged with every feature chunk of the rows, so ``d``
-    does not change the plan. Raises when nothing fits."""
-    expects(1 <= k <= MAX_K and d >= 1 and qrows >= 1,
-            "fused_cells_knn: no plan for qrows=%s d=%s k=%s", qrows, d, k)
-    most = max(16, min(64, _r16(qrows)))
-    for bq in B2_ROWS:
-        if bq > most:
-            continue
-        smem = _b2_smem_bytes(bq, k)
-        if smem <= SMEM_LIMIT:
-            return B2Plan(bq, smem)
-    raise LogicError(f"fused_cells_knn: no plan fits shared memory (qrows="
-                     f"{qrows}, k={k})")
 
 
 # B2's bf16 tiers' tensor-core scan: candidate slots per CTA (CN of
@@ -427,17 +380,77 @@ def _b2_mma_plan(qrows: int, d: int, k: int, qsplit: bool,
                      f"{qrows}, d={d}, k={k})")
 
 
+# B2's f32 tier's tensor-core scan (the constants of csrc/cells_tf32.cu):
+# features per staged chunk, chunks in flight, the row stride of a staged
+# chunk in elements (f32 or bf16), candidate slots per CTA.
+B2_TF32_BK = 32
+B2_TF32_STAGES = 2
+B2_TF32_SR = B2_TF32_BK + 8
+B2_TF32_CAND = 2048
+
+
+class B2Tf32Plan(NamedTuple):
+    """B2's launch on its f32 tier (the 3xTF32 tensor-core scan of
+    ``csrc/cells_tf32.cu``): ``bq`` query rows per CTA and ``smem`` the
+    bytes of one CTA."""
+    bq: int
+    smem: int
+
+
+def _b2_tf32_smem_bytes(bq: int, d: int, k: int, store: str) -> int:
+    """Shared-memory bytes of one CTA of B2's f32 tier, region by region as
+    cells_tf32.cu's ``Layout`` lays them out, each rounded up to 16 bytes:
+    the resident f32 query block (bq x (kp + 8), kp = d rounded up to 32),
+    the ring of staged row chunks (two chunks of 128 rows x 40 elements of
+    the store's type, f32 or bf16), the query norms, two tiles' row norms;
+    then for k = 1 the cross-warp (min, slot) of each row, else the k > 1
+    regions of :func:`_b2_mma_smem_bytes` (with this scan's candidate
+    count)."""
+    kp = -(-d // B2_TF32_BK) * B2_TF32_BK
+    warps_n = 8 // max(1, bq // 32)
+    parts = [bq * (kp + 8) * 4,
+             B2_TF32_STAGES * B1_BN * B2_TF32_SR * _STORE_BYTES[store],
+             4 * bq, 2 * B1_BN * 4]
+    if k == 1:
+        parts.append(warps_n * bq * 8)
+    else:
+        parts += [2 * B1_BN * 4, 4 * bq * k, 4 * bq * k, 4 * B2_TF32_CAND,
+                  4 * B2_TF32_CAND, 4 * bq, 4 * (-(-bq // 32))]
+        if k <= B2_NET_K:
+            parts += [bq * warps_n * 4 * 4, 4 * bq]
+    return sum(_r16(p) for p in parts)
+
+
+def _b2_tf32_plan(qrows: int, d: int, k: int, store: str) -> B2Tf32Plan:
+    """The f32 tier's launch on a ``store`` of "f32" or "bf16" rows: the
+    most query rows per CTA (64, 32 or 16; never more than ``qrows``
+    needs) whose shared memory fits ``SMEM_LIMIT``, which 16 rows do at
+    every k <= 256 and d <= 1024 (the query block is resident, so d
+    enters). Raises when nothing fits."""
+    expects(1 <= k <= MAX_K and 1 <= d <= MAX_DIM and qrows >= 1
+            and store in ("f32", "bf16"),
+            "fused_cells_knn: no f32-tier plan for qrows=%s d=%s k=%s "
+            "store=%s", qrows, d, k, store)
+    most = max(16, min(64, _r16(qrows)))
+    for bq in B2_ROWS:
+        if bq > most:
+            continue
+        smem = _b2_tf32_smem_bytes(bq, d, k, store)
+        if smem <= SMEM_LIMIT:
+            return B2Tf32Plan(bq, smem)
+    raise LogicError(f"fused_cells_knn: no plan fits shared memory (qrows="
+                     f"{qrows}, d={d}, k={k})")
+
+
 def _b2_tier_plan(qrows: int, d: int, k: int, bf16: bool, qsplit: bool,
-                  store: str) -> Union[B2Plan, B2MmaPlan]:
-    """The plan of one B2 launch: both bf16 tiers take the tensor-core
-    scan (:func:`_b2_mma_plan`) on every store, at every shape; the f32
-    tier takes the FMA scan (:func:`_b2_plan`) on an f32 or bf16 store."""
+                  store: str) -> Union[B2Tf32Plan, B2MmaPlan]:
+    """The plan of one B2 launch, a tensor-core scan at every tier: both
+    bf16 tiers take cells_mma.cu's (:func:`_b2_mma_plan`) on every store,
+    the f32 tier cells_tf32.cu's (:func:`_b2_tf32_plan`) on an f32 or bf16
+    store."""
     if bf16:
         return _b2_mma_plan(qrows, d, k, qsplit, store)
-    expects(store in ("f32", "bf16"),
-            "fused_cells_knn: the f32 tier reads f32 or bf16 rows, not %s",
-            store)
-    return _b2_plan(qrows, d, k)
+    return _b2_tf32_plan(qrows, d, k, store)
 
 
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -512,9 +525,9 @@ def _fused_knn_plain(queries, db, k: int, l2: bool, bf16: bool,
 
 _TF32_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _MMA_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-_CELLS_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                   + [ctypes.c_void_p])
+_CELLS_TF32_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                        + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                        + [ctypes.c_void_p])
 _CELLS_MMA_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
                        + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
                        + [ctypes.c_void_p])
@@ -545,11 +558,11 @@ def _batch_lib():
     return lib
 
 
-def _cells_lib():
-    lib = _build.load_library("cells_knn")
-    if lib.fused_cells_knn_launch.argtypes is None:
-        lib.fused_cells_knn_launch.argtypes = _CELLS_ARGTYPES
-        lib.fused_cells_knn_launch.restype = ctypes.c_int
+def _cells_tf32_lib():
+    lib = _build.load_library("cells_tf32")
+    if lib.fused_cells_tf32_launch.argtypes is None:
+        lib.fused_cells_tf32_launch.argtypes = _CELLS_TF32_ARGTYPES
+        lib.fused_cells_tf32_launch.restype = ctypes.c_int
     return lib
 
 
@@ -705,15 +718,15 @@ def _b2_scratch(n_lists: int, cap: int, dev):
 def _b2_launch(cell_list, queries, db, invalid, live_rows, k: int, l2: bool,
                bf16: bool, qsplit: bool, out_d, out_i) -> None:
     """One B2 launch into out_d / out_i: the tensor-core scan of
-    ``csrc/cells_mma.cu`` for a bf16 tier, the FMA scan of
-    ``csrc/cells_knn.cu`` for the f32 tier, each on its plan; the plan's
+    ``csrc/cells_mma.cu`` for a bf16 tier, the 3xTF32 one of
+    ``csrc/cells_tf32.cu`` for the f32 tier, each on its plan; the plan's
     shared-memory count is checked against the kernel's ``Layout`` by the
     C entry point. ``live_rows`` (B3's bucket engines) or None."""
     n_cells, qrows, d = queries.shape
     n_lists, cap, _ = db.shape
     store = _STORES[db.dtype]
     plan = _b2_tier_plan(qrows, d, k, bf16, qsplit, store)
-    lib = _cells_mma_lib() if bf16 else _cells_lib()
+    lib = _cells_mma_lib() if bf16 else _cells_tf32_lib()
     dev = queries.device
     yn, live = _b2_scratch(n_lists, cap, dev)
     lr = None if live_rows is None else _ptr(live_rows)
@@ -725,7 +738,7 @@ def _b2_launch(cell_list, queries, db, invalid, live_rows, k: int, l2: bool,
                 _ptr(out_i), n_cells, n_lists, qrows, cap, d, k, int(l2),
                 int(qsplit), plan.bq, plan.pw, plan.smem, _stream(dev))
         else:
-            err = lib.fused_cells_knn_launch(
+            err = lib.fused_cells_tf32_launch(
                 _ptr(cell_list), _ptr(queries), _ptr(db),
                 int(store == "bf16"), _ptr(invalid), lr, _ptr(yn),
                 _ptr(live), _ptr(out_d), _ptr(out_i), n_cells, n_lists,
@@ -756,6 +769,8 @@ def _fused_cells_knn_cuda(cell_list, queries, db, invalid, k: int, l2: bool,
     fused_cells_knn.launches += 1
     if bf16:
         fused_cells_knn.mma_launches += 1
+    else:
+        fused_cells_knn.tf32_launches += 1
     return out_d, out_i
 
 
@@ -791,6 +806,7 @@ def fused_cells_knn(cell_list, queries, db, invalid, k: int, *,
 
 fused_cells_knn.launches = 0
 fused_cells_knn.mma_launches = 0
+fused_cells_knn.tf32_launches = 0
 
 
 def _fused_batch_knn_plain(queries, db, invalid, k: int, l2: bool,
@@ -825,8 +841,9 @@ B3_NET_K = 16
 class B3Plan(NamedTuple):
     """B3's launch: ``path`` "mma" (the bf16 tensor-core scan of
     ``csrc/batch_knn.cu``), "cells_mma" (B2's bf16 tiers' tensor-core scan
-    of ``csrc/cells_mma.cu``) or "cells" (B2's f32 tier, the FMA scan of
-    ``csrc/cells_knn.cu``), both of B2 with the identity cell map; ``bq``
+    of ``csrc/cells_mma.cu``) or "cells_tf32" (B2's f32 tier, the 3xTF32
+    tensor-core scan of ``csrc/cells_tf32.cu``), both of B2 with the
+    identity cell map; ``bq``
     query rows per CTA, ``smem`` the bytes of one CTA and, on "cells_mma",
     ``pw`` the features of one staged panel (:class:`B2MmaPlan`)."""
     path: str
@@ -865,8 +882,8 @@ def _b3_plan(m: int, d: int, k: int, tier: str, store: str) -> B3Plan:
     more than ``m`` needs) whose two resident row tiles fit ``SMEM_LIMIT``
     (d up to about 384); the other bf16 tiers and stores, and a d past
     that, take B2's tensor-core scan on its plan (path "cells_mma"); the
-    f32 tier takes B2's FMA scan on B2's plan. Raises when nothing
-    fits."""
+    f32 tier takes B2's 3xTF32 scan on its plan (path "cells_tf32").
+    Raises when nothing fits."""
     expects(tier in ("f32", "bf16", "qsplit") and store in _STORE_BYTES
             and (tier != "f32" or store in ("f32", "bf16"))
             and 1 <= k <= MAX_K and d >= 1 and m >= 1,
@@ -883,8 +900,8 @@ def _b3_plan(m: int, d: int, k: int, tier: str, store: str) -> B3Plan:
     if tier != "f32":
         plan = _b2_mma_plan(m, d, k, tier == "qsplit", store)
         return B3Plan("cells_mma", plan.bq, plan.smem, plan.pw)
-    plan = _b2_plan(m, d, k)
-    return B3Plan("cells", plan.bq, plan.smem)
+    plan = _b2_tf32_plan(m, d, k, store)
+    return B3Plan("cells_tf32", plan.bq, plan.smem)
 
 
 def _fused_batch_knn_cuda(queries, db, invalid, k: int, l2: bool,

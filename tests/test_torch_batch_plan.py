@@ -2,10 +2,9 @@
 
 ``_b3_plan`` picks B3's path (the bf16 tensor-core scan of
 ``csrc/batch_knn.cu``, or B2's scan of the tier with the identity cell
-map: its tensor-core scan for the bf16 tiers, its FMA scan for the f32
-tier), the query rows one CUDA CTA takes and the bytes of shared memory it
-needs; the C
-entry points refuse a launch whose count differs from their own layout,
+map: its bf16 tensor-core scan for the bf16 tiers, its 3xTF32 one for
+the f32 tier), the query rows one CUDA CTA takes and the bytes of shared
+memory it needs; the C entry points refuse a launch whose count differs from their own layout,
 so the plan is held here to its contract over the shapes the wrapper
 accepts. The plain version, which the card kernel is held to, takes the
 bucket engines' ``live_rows``: on the live rows it must equal the
@@ -47,14 +46,15 @@ def test_plan_fits_shared_memory(k, tier, store):
             plan = fk._b3_plan(m, d, k, tier, store)
             assert plan.smem <= fk.SMEM_LIMIT and plan.smem % 16 == 0
             assert plan.bq <= most
-            if plan.path == "cells":
+            if plan.path == "cells_tf32":
                 # B2's f32 tier: its plan, as B2's own wrapper makes it.
                 assert tier == "f32"
-                assert (plan.bq, plan.smem) == tuple(fk._b2_plan(m, d, k))
+                assert (plan.bq, plan.smem) == tuple(
+                    fk._b2_tf32_plan(m, d, k, store))
                 continue
             if plan.path == "cells_mma":
                 # B2's bf16 tiers: the tensor-core scan's plan, as B2's
-                # own wrapper makes it; never the FMA scan.
+                # own wrapper makes it; never the f32 tier's scan.
                 assert tier in ("bf16", "qsplit")
                 assert (plan.bq, plan.pw, plan.smem) == tuple(
                     fk._b2_mma_plan(m, d, k, tier == "qsplit", store))
@@ -83,7 +83,7 @@ def test_plan_at_the_main_path():
         assert (plan.path, plan.bq) == ("mma", 64)
     assert fk._b3_plan(256, 1024, 10, "bf16", "bf16").path == "cells_mma"
     assert fk._b3_plan(256, 128, 10, "qsplit", "u8").path == "cells_mma"
-    assert fk._b3_plan(256, 128, 10, "f32", "f32").path == "cells"
+    assert fk._b3_plan(256, 128, 10, "f32", "f32").path == "cells_tf32"
 
 
 @pytest.mark.parametrize("args", [(64, 128, fk.MAX_K + 1, "bf16", "bf16"),

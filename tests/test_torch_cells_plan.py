@@ -1,10 +1,11 @@
 """B2's launch plan and its plain version at cell heights off the row
 blocks, on the CPU.
 
-``_b2_plan`` decides how many query rows of a cell one CUDA CTA takes and
-how many bytes of shared memory it needs; the C entry point refuses a
-launch whose count differs from its own layout, so the plan is held here
-to its contract over the shapes the wrapper accepts. The plain version,
+``_b2_tf32_plan`` (the f32 tier's 3xTF32 scan) and ``_b2_mma_plan`` (the
+bf16 tiers' scan) decide how many query rows of a cell one CUDA CTA takes
+and how many bytes of shared memory it needs; the C entry points refuse a
+launch whose count differs from their own layout, so the plans are held
+here to their contract over the shapes the wrapper accepts. The plain version,
 which the card kernel is held to, is run at qrows 65 and 128 (a second,
 ragged or full, block of rows) against the reference Pallas kernel in
 interpret mode: integer data, so ids and distances agree bit for bit.
@@ -27,42 +28,58 @@ fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 jfk = importlib.import_module("raft_tpu.ops.fused_knn")
 
 _QROWS = (1, 8, 15, 16, 17, 31, 32, 33, 63, 64, 65, 100, 128)
-_DIMS = (16, 33, 128, 1024)
+_TF32_DIMS = (1, 16, 33, 128, 256, 384, 385, 512, 1024)
+
+
+def _r16(x):
+    return -(-x // 16) * 16
 _KS = (1, 2, 10, 16, 17, 32, 64, 65, 100, 128, 129, 200, 255, 256)
 
 
+@pytest.mark.parametrize("store", ["f32", "bf16"])
 @pytest.mark.parametrize("k", _KS)
-def test_plan_fits_shared_memory(k):
-    """B2's f32 tier (the FMA scan)."""
+def test_plan_fits_shared_memory(k, store):
+    """B2's f32 tier (the 3xTF32 scan) on an f32 or bf16 store: the most
+    rows a CTA whose bytes fit, at every d up to 1024 (the query block is
+    resident, so d enters the count)."""
     for qrows in _QROWS:
-        for d in _DIMS:
-            plan = fk._b2_plan(qrows, d, k)
+        most = max(16, _r16(qrows))
+        for d in _TF32_DIMS:
+            plan = fk._b2_tf32_plan(qrows, d, k, store)
             assert plan.bq in fk.B2_ROWS
             # Never more rows than the cell needs (past the smallest
             # block), and the most rows whose bytes fit.
-            assert plan.bq <= max(16, -(-qrows // 16) * 16)
-            assert plan.smem == fk._b2_smem_bytes(plan.bq, k)
+            assert plan.bq <= most
+            assert plan.smem == fk._b2_tf32_smem_bytes(plan.bq, d, k, store)
             assert plan.smem <= fk.SMEM_LIMIT and plan.smem % 16 == 0
-            wider = [bq for bq in fk.B2_ROWS
-                     if plan.bq < bq <= max(16, -(-qrows // 16) * 16)]
-            for bq in wider:
-                assert fk._b2_smem_bytes(bq, k) > fk.SMEM_LIMIT
+            for bq in fk.B2_ROWS:
+                if plan.bq < bq <= most:
+                    assert fk._b2_tf32_smem_bytes(bq, d, k,
+                                                  store) > fk.SMEM_LIMIT
 
 
 def test_plan_at_the_main_path():
-    """64-row cells, d 128, k 10 on the f32 tier: one CTA per cell, and
-    two CTAs share an SM (233,472 bytes of shared memory, 1 KB reserved per
-    block)."""
-    plan = fk._b2_plan(64, 128, 10)
-    assert plan.bq == 64
-    assert 2 * (plan.smem + 1024) <= 233472
+    """64-row cells, d 128 on the f32 tier, k 1, 10 and 16 (each selection
+    path that shares an SM): one CTA per cell, and two CTAs share an SM
+    (233,472 bytes of shared memory, 1 KB reserved per block), on f32 and
+    bf16 stores."""
+    for store in ("f32", "bf16"):
+        for k in (1, 10, 16):
+            plan = fk._b2_tf32_plan(64, 128, k, store)
+            assert plan.bq == 64
+            assert 2 * (plan.smem + 1024) <= 233472
 
 
-def test_plan_rejects_what_the_kernel_cannot_take():
+@pytest.mark.parametrize("args", [(64, 128, fk.MAX_K + 1, "f32"),
+                                  (64, 128, 0, "f32"),
+                                  (64, fk.MAX_DIM + 1, 10, "f32"),
+                                  (0, 128, 10, "f32"),
+                                  (64, 128, 10, "u8")])
+def test_plan_rejects_what_the_kernel_cannot_take(args):
+    """k past the queue or below 1, d past MAX_DIM, no rows, and an 8-bit
+    store (the f32 tier reads f32 or bf16 rows)."""
     with pytest.raises(fk.LogicError):
-        fk._b2_plan(64, 128, fk.MAX_K + 1)
-    with pytest.raises(fk.LogicError):
-        fk._b2_plan(64, 128, 0)
+        fk._b2_tf32_plan(*args)
 
 
 def _cells_case(rng, qrows, L=5, cap=300, d=24, hi=8):
@@ -113,10 +130,6 @@ _MMA_QROWS = (8, 16, 64)
 _STORES = ("bf16", "f32", "u8", "i8")
 
 
-def _r16(x):
-    return -(-x // 16) * 16
-
-
 @pytest.mark.parametrize("store", _STORES)
 @pytest.mark.parametrize("qsplit", [False, True])
 @pytest.mark.parametrize("k", _MMA_KS)
@@ -156,8 +169,9 @@ def test_mma_plan_at_the_main_path():
 @pytest.mark.parametrize("qsplit", [False, True])
 def test_bf16_tiers_never_take_the_fma_scan(store, qsplit):
     """Every bf16-tier plan of B2, and of B3's tiers that run B2's scan, is
-    the tensor-core scan's; the f32 tier keeps the FMA scan and takes no
-    8-bit store."""
+    the bf16 tensor-core scan's; the f32 tier never takes a bf16 scan: its
+    plan, B2's and B3's, is the 3xTF32 scan's, and it takes no 8-bit
+    store."""
     tier = "qsplit" if qsplit else "bf16"
     for k in _MMA_KS:
         for d in _MMA_DIMS:
@@ -168,7 +182,9 @@ def test_bf16_tiers_never_take_the_fma_scan(store, qsplit):
                     "mma", "cells_mma")
                 if store in ("f32", "bf16"):
                     assert isinstance(fk._b2_tier_plan(
-                        qrows, d, k, False, False, store), fk.B2Plan)
+                        qrows, d, k, False, False, store), fk.B2Tf32Plan)
+                    assert fk._b3_plan(qrows, d, k, "f32",
+                                       store).path == "cells_tf32"
                 else:
                     with pytest.raises(fk.LogicError):
                         fk._b2_tier_plan(qrows, d, k, False, False, store)
@@ -218,7 +234,7 @@ def test_plain_8bit_store_matches_reference(rng, monkeypatch, store, qsplit,
 
 
 @pytest.mark.parametrize("source,entry,argtypes", [
-    ("cells_knn.cu", "fused_cells_knn_launch", "_CELLS_ARGTYPES"),
+    ("cells_tf32.cu", "fused_cells_tf32_launch", "_CELLS_TF32_ARGTYPES"),
     ("cells_mma.cu", "fused_cells_mma_launch", "_CELLS_MMA_ARGTYPES")])
 def test_argtypes_follow_the_c_prototype(source, entry, argtypes):
     """Each B2 entry point's ctypes signature: a pointer for each pointer

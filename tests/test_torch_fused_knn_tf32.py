@@ -192,3 +192,118 @@ def test_step_partials_keep_the_truncation_bias_off_the_inertia_bar():
     chained = _inertia_bias(128)
     assert 0.0 < step < 0.5 * bar, step
     assert chained > 4.0 * bar, chained
+
+
+# B2's f32 tier (csrc/cells_tf32.cu) takes the same step arithmetic over
+# the cells of an IVF-Flat store: each cell's resident queries against
+# its list's rows, f32 or bf16 (widened exactly, so their lo is 0), with
+# tombstoned slots skipped.
+
+
+def _gram_tc_cells(q: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """The gram of ``q`` (m, d) and ``y`` (n, d) as the scan takes it on the
+    tensor core: per 8-feature step the products lo(q) hi(y), hi(q) lo(y),
+    hi(q) hi(y), each added to a fresh partial rounded toward zero, which
+    one f32 add (to nearest) takes into the accumulator."""
+    pad = -q.shape[1] % _STEP
+    q = np.pad(q, ((0, 0), (0, pad)))
+    y = np.pad(y, ((0, 0), (0, pad)))
+    qh, ql = (t.numpy().astype(np.float64) for t in _split(torch.from_numpy(q)))
+    yh, yl = (t.numpy().astype(np.float64) for t in _split(torch.from_numpy(y)))
+    acc = np.zeros((q.shape[0], y.shape[0]), np.float32)
+    for c in range(0, q.shape[1], _STEP):
+        part = np.zeros_like(acc)
+        for a, b in ((ql, yh), (qh, yl), (qh, yh)):
+            part = _rz(part.astype(np.float64)
+                       + a[:, c:c + _STEP] @ b[:, c:c + _STEP].T)
+        acc = (acc.astype(np.float64) + part).astype(np.float32)
+    return acc
+
+
+def _cells_store(kind: str, store: str, d: int, seed: int):
+    """Cells of 16 query rows against 4 lists of capacity 300: scattered
+    tombstones, a starved list (3 valid slots), a whole tile tombstoned,
+    a -1 cell. The store is f32 or bf16 (rows rounded to bf16)."""
+    rng = np.random.default_rng(seed)
+    L, cap, C, qrows = 4, 300, 5, 16
+    if kind == "integer":
+        db = rng.integers(0, 8, (L, cap, d)).astype(np.float32)
+        q = rng.integers(0, 8, (C, qrows, d)).astype(np.float32)
+    else:
+        db = rng.standard_normal((L, cap, d), dtype=np.float32)
+        q = rng.standard_normal((C, qrows, d), dtype=np.float32)
+    if store == "bf16":
+        db = torch.from_numpy(db).to(torch.bfloat16).float().numpy()
+    invalid = rng.random((L, cap)) < 0.2
+    invalid[2, 3:] = True
+    invalid[3, 128:256] = True
+    cells = np.array([0, 2, -1, 3, 1], np.int32)
+    return cells, q, db, invalid
+
+
+def _cells_tc(cells, q, db, invalid, k: int, l2: bool):
+    """The scan on the emulated gram: max(|q|^2 + |y|^2 - 2g, 0) with f32
+    norms, or -g; tombstones and -1 cells at (inf, -1); the top k by
+    (distance, slot)."""
+    C, qrows, _ = q.shape
+    out_d = np.full((C, qrows, k), np.inf, np.float32)
+    out_i = np.full((C, qrows, k), -1, np.int32)
+    for c, lst in enumerate(cells):
+        if lst < 0:
+            continue
+        y = db[lst]
+        g = _gram_tc_cells(q[c], y)
+        if l2:
+            qn = np.sum(q[c].astype(np.float64) ** 2, 1).astype(np.float32)
+            yn = np.sum(y.astype(np.float64) ** 2, 1).astype(np.float32)
+            w = np.maximum((qn[:, None] + yn[None, :]) - np.float32(2) * g,
+                           np.float32(0))
+        else:
+            w = -g
+        w = np.where(invalid[lst][None, :], np.float32(np.inf), w)
+        order = np.argsort(w, axis=1, kind="stable")[:, :k]
+        out_d[c] = np.take_along_axis(w, order, 1)
+        out_i[c] = np.where(np.isinf(out_d[c]), -1, order)
+    return out_d, out_i
+
+
+@pytest.mark.parametrize("store", ["f32", "bf16"])
+@pytest.mark.parametrize("l2", [True, False])
+@pytest.mark.parametrize("k", [1, 10])
+def test_cells_integer_data_is_exact(store, l2, k):
+    """Integer rows below 2^11 split with lo = 0: over cells with
+    tombstones, the emulated scan equals B2's plain version bit for bit,
+    distances and slots, on f32 and bf16 stores."""
+    import importlib
+
+    fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
+    cells, q, db, invalid = _cells_store("integer", store, 40, 3)
+    dd, ii = _cells_tc(cells, q, db, invalid, k, l2)
+    y = torch.from_numpy(db)
+    if store == "bf16":
+        y = y.to(torch.bfloat16)
+    pd, pi = fk.fused_cells_knn(torch.from_numpy(cells), torch.from_numpy(q),
+                                y, torch.from_numpy(invalid), k, l2=l2)
+    np.testing.assert_array_equal(ii, pi.numpy())
+    np.testing.assert_array_equal(dd, pd.numpy())
+
+
+@pytest.mark.parametrize("store", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [33, 128])
+def test_cells_split_gram_holds_the_f32_gram_accuracy(store, d):
+    """Gaussian cells: over every valid (query, slot) pair of every cell,
+    the emulated gram's largest error of 2g against float64 is at most 4x
+    the plain f32 product's and under chip_smoke.py's ``norm_tol``."""
+    cells, q, db, invalid = _cells_store("gaussian", store, d, 100 + d)
+    split = plain = 0.0
+    for c, lst in enumerate(cells):
+        if lst < 0:
+            continue
+        y, ok = db[lst], ~invalid[lst]
+        g64 = q[c].astype(np.float64) @ y.astype(np.float64).T
+        g32 = torch.from_numpy(q[c]) @ torch.from_numpy(y).T
+        plain = max(plain, _err(g32[:, ok], g64[:, ok]))
+        split = max(split, _err(torch.from_numpy(
+            _gram_tc_cells(q[c], y))[:, ok], g64[:, ok]))
+    assert split <= 4.0 * plain, (split, plain)
+    assert split < _norm_tol(q.reshape(-1, d), db.reshape(-1, d)), split

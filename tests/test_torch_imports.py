@@ -276,40 +276,76 @@ def test_f32_tier_never_reaches_an_fma_scan(monkeypatch, tmp_path, l2, k):
 @pytest.mark.parametrize("qsplit", [False, True])
 def test_b2_bf16_tiers_never_reach_the_fma_scan(monkeypatch, tmp_path,
                                                 qsplit, store):
-    """B2's bf16 tiers launch the tensor-core scan's library (cells_mma)
-    alone, on every store: with the FMA scan's library loaded and
-    cells_mma unbuildable, a bf16 request raises CudaError and never calls
-    the FMA entry, through B2's wrapper or B3's."""
+    """B2's bf16 tiers launch the bf16 tensor-core scan's library
+    (cells_mma) alone, on every store: with the f32 tier's library
+    (cells_tf32) loaded and cells_mma unbuildable, a bf16 request raises
+    CudaError and never calls the f32 tier's entry, through B2's wrapper or
+    B3's."""
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     calls = []
 
-    def fma_entry(*args):
+    def tf32_entry(*args):
         calls.append(args)
         return 0
 
-    monkeypatch.setattr(_build, "_LOADED", {"cells_knn": type(
-        "Lib", (), {"fused_cells_knn_launch": staticmethod(fma_entry)})()})
+    monkeypatch.setattr(_build, "_LOADED", {"cells_tf32": type(
+        "Lib", (), {"fused_cells_tf32_launch": staticmethod(tf32_entry)})()})
     q = torch.zeros((1, 4, 8))
     db = torch.zeros((1, 300, 8), dtype=store)
     invalid = torch.zeros((1, 300), dtype=torch.bool)
-    before = (fk.fused_cells_knn.launches, fk.fused_cells_knn.mma_launches)
+    c = fk.fused_cells_knn
+    before = (c.launches, c.mma_launches, c.tf32_launches)
     with pytest.raises(CudaError):
         fk._fused_cells_knn_cuda(torch.zeros(1, dtype=torch.int32), q, db,
                                  invalid, 2, True, True, qsplit)
     with pytest.raises(CudaError):
         fk._fused_batch_knn_cuda(q, db, invalid, 2, True, True, qsplit)
     assert calls == []
-    assert (fk.fused_cells_knn.launches,
-            fk.fused_cells_knn.mma_launches) == before
+    assert (c.launches, c.mma_launches, c.tf32_launches) == before
+
+
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 10, 17])
+def test_b2_f32_tier_never_reaches_an_fma_scan(monkeypatch, tmp_path, k,
+                                               store):
+    """B2's f32 tier launches the 3xTF32 tensor-core scan's library
+    (cells_tf32) alone, and no B2 FMA scan is left to take it: no kernel
+    source is named cells_knn, and with cells_mma loaded and cells_tf32
+    unbuildable an f32 request raises CudaError and never calls the bf16
+    tiers' entry, through B2's wrapper or B3's."""
+    assert "cells_knn" not in _build.sources()
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    calls = []
+
+    def mma_entry(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(_build, "_LOADED", {"cells_mma": type(
+        "Lib", (), {"fused_cells_mma_launch": staticmethod(mma_entry)})()})
+    q = torch.zeros((1, 4, 8))
+    db = torch.zeros((1, 300, 8), dtype=store)
+    invalid = torch.zeros((1, 300), dtype=torch.bool)
+    c = fk.fused_cells_knn
+    before = (c.launches, c.mma_launches, c.tf32_launches)
+    with pytest.raises(CudaError):
+        fk._fused_cells_knn_cuda(torch.zeros(1, dtype=torch.int32), q, db,
+                                 invalid, k, True, False, False)
+    with pytest.raises(CudaError):
+        fk._fused_batch_knn_cuda(q, db, invalid, k, True, False, False)
+    assert calls == []
+    assert (c.launches, c.mma_launches, c.tf32_launches) == before
 
 
 def test_library_name_follows_the_sources():
     path = _build._library_path("knn_tf32")
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libknn_tf32-") and path.suffix == ".so"
-    assert _build.sources() == ["batch_knn", "cells_knn", "cells_mma",
+    assert _build.sources() == ["batch_knn", "cells_mma", "cells_tf32",
                                 "knn_mma", "knn_tf32", "pq_scan",
                                 "stream_select"]
     # Every library's name also follows the shared header.

@@ -23,7 +23,7 @@ from raft_tpu_torch.matrix.select_k import SelectMethod, select_k
 from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
 from raft_tpu_torch.ops import pq_scan as ps
 from raft_tpu_torch.ops import stream_select as ss
-from chip_smoke import same_up_to_exact_ties
+from chip_smoke import cells_f64_err, same_up_to_exact_ties
 from test_torch_common import int_data, n
 
 fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
@@ -250,13 +250,14 @@ def _as_store(x: torch.Tensor, store: str) -> torch.Tensor:
 
 
 def _b2_counted(launch, bf16):
-    """Run ``launch`` and assert it was one B2 launch, through the
-    tensor-core scan exactly when a bf16 tier was asked for."""
-    before = (fk.fused_cells_knn.launches, fk.fused_cells_knn.mma_launches)
+    """Run ``launch`` and assert it was one B2 launch, through the bf16
+    tiers' tensor-core scan (``mma_launches``) when a bf16 tier was asked
+    for, else through the f32 tier's 3xTF32 scan (``tf32_launches``)."""
+    c = fk.fused_cells_knn
+    before = (c.launches, c.mma_launches, c.tf32_launches)
     out = launch()
-    assert (fk.fused_cells_knn.launches,
-            fk.fused_cells_knn.mma_launches) == (before[0] + 1,
-                                                 before[1] + int(bf16))
+    assert (c.launches, c.mma_launches, c.tf32_launches) == (
+        before[0] + 1, before[1] + int(bf16), before[2] + int(not bf16))
     return out
 
 
@@ -404,6 +405,37 @@ def test_cells_kernel_gaussian(dev, gen, l2, bf16, qsplit, store, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("l2", [True, False])
+@pytest.mark.parametrize("store", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [33, 128, 1024])
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_cells_f32_tier_against_float64(dev, gen, l2, store, d, k):
+    """B2's f32 tier's 3xTF32 gram keeps an f32 gram's accuracy on
+    Gaussian cells (64 rows, 700-1300 valid slots of 2048, tombstones):
+    its largest error against float64 is at most 4x the plain version's
+    full-f32 product's (each at its own ids), on f32 and bf16 stores."""
+    L, cap, C = 6, 2048, 12
+    db = torch.as_tensor(gen.standard_normal((L, cap, d), dtype=np.float32),
+                         device=dev)
+    db = _as_store(db, store)
+    q = torch.as_tensor(gen.standard_normal((C, 64, d), dtype=np.float32),
+                        device=dev)
+    invalid = np.arange(cap)[None, :] >= gen.integers(700, 1300, (L, 1))
+    invalid |= gen.random((L, cap)) < 0.1
+    invalid = torch.as_tensor(invalid, device=dev)
+    cells = torch.as_tensor(gen.integers(-1, L, C).astype(np.int32),
+                            device=dev)
+    kd, ki = _b2_counted(lambda: fk._fused_cells_knn_cuda(
+        cells, q, db, invalid, k, l2, False, False), False)
+    pd, pi = fk._fused_cells_knn_plain(cells, q, db, invalid, k, l2, False,
+                                       False)
+    err = cells_f64_err(cells, q, db, kd, ki, l2)
+    plain = cells_f64_err(cells, q, db, pd, pi, l2)
+    assert err <= 4.0 * plain, (err, plain)
+    assert torch.equal(ki >= 0, pi >= 0)
+
+
+@pytest.mark.cuda
 def test_entry_points_launch_the_kernels(dev, gen):
     """brute force, the k-means of build, and search go through B1/B2."""
     X = int_data(gen, (9000, 32))
@@ -475,6 +507,26 @@ def _batch_case(gen, m, d=48, hi=8, B=5, nn=300):
     return q, db, invalid, live
 
 
+def _tf32_scans(launch, want):
+    """Run ``launch`` and assert it loaded B2's f32-tier library
+    (csrc/cells_tf32.cu) for ``want`` launches: B3's f32 tier runs B2's
+    3xTF32 scan, its other tiers never do."""
+    calls = []
+    lib = fk._cells_tf32_lib
+
+    def counted():
+        calls.append(1)
+        return lib()
+
+    fk._cells_tf32_lib = counted
+    try:
+        out = launch()
+    finally:
+        fk._cells_tf32_lib = lib
+    assert len(calls) == want
+    return out
+
+
 def _batch_both(dev, q, db, invalid, live, k, metric, bf16_db, bf16, qsplit,
                 q_off=0, db_off=0):
     """B3 on the card through the wrapper (one launch, on operands q_off /
@@ -486,8 +538,9 @@ def _batch_both(dev, q, db, invalid, live, k, metric, bf16_db, bf16, qsplit,
     lr = None if live is None else torch.as_tensor(live, device=dev)
     qv, dbv = _offset_view(q, q_off), _offset_view(db, db_off)
     before = fk.fused_batch_knn.launches
-    kd, ki = fk.fused_batch_knn(qv, dbv, invalid, k, metric=metric,
-                                bf16=bf16, qsplit=qsplit, live_rows=lr)
+    kd, ki = _tf32_scans(lambda: fk.fused_batch_knn(
+        qv, dbv, invalid, k, metric=metric, bf16=bf16, qsplit=qsplit,
+        live_rows=lr), int(not bf16))
     assert fk.fused_batch_knn.launches == before + 1
     y = db if bf16 and bf16_db else db.float()
     pd, pi = fk._fused_batch_knn_plain(q, y, invalid, min(k, db.shape[1]),

@@ -46,13 +46,15 @@ events (median) unless named ``_s``:
 * ``ivf_flat_build_s``, ``ivf_pq_build_s``: the first ``build`` of each
   index (1024 lists), host clock around a synchronise;
 * ``search_ms``: the IVF-Flat search of the 10,000 queries at 32 probes;
-* ``b2_ms``: kernel B2 (``fused_cells_knn``) alone at that search's cells
-  (6024 cells x 64 rows, capacity 4096, d 128, k=10, f32);
+* ``b2_ms``, ``b2_k1_ms``: kernel B2 (``fused_cells_knn``) alone at that
+  search's cells (6024 cells x 64 rows, capacity 4096, d 128, k=10 and 1,
+  f32); ``b2_device``, ``b2_k1_device``: its device milliseconds by kernel
+  (``torch.profiler``: the pre-pass, the scan);
 * ``b2_bf16_ms``, ``b2_split_ms``: B2's bf16 tier and its bf16 +
   split-query tier at those cells on a bf16 copy of the store;
-* ``fma_regs``: ptxas' registers (and spill bytes) of each instance of
-  the FMA scans (B2's f32 tier, and B1's in a root older than its 3xTF32
-  scan), by kernel, query rows and selection;
+* ``b2_f32_regs``: ptxas' registers (and spill bytes) of each instance
+  of B2's f32-tier scan (the 3xTF32 scan, or the FMA scan in a root older
+  than it), by kernel, query rows, store and selection;
 * ``u8_search_ms``: the IVF-Flat search (``engine="bucketed"``) of
   phase 21 (a): 1000 queries at 32 probes on an index of chip_smoke.py's
   SIFT-shaped u8 rows (1M x 128, 1024 lists); ``u8_device_ms``,
@@ -116,17 +118,16 @@ def build_s(mod, X):
     return index, time.perf_counter() - t0
 
 
-def fma_regs():
-    """ptxas' [registers, spill store bytes] of each instance of the FMA
-    scans, B1's f32 tier (b1_scan_kernel) and B2's (b2_scan_kernel), by
-    "<kernel> <query rows> <selection>"; the tier arguments (false, false)
-    that an older root's names carry are left out."""
+def b2_f32_regs():
+    """ptxas' [registers, spill store bytes] of each instance of B2's
+    f32-tier scan, by "<kernel> <query rows> [<store>] <selection>": the
+    3xTF32 scan (b2_tf32_kernel), or in a root older than it the FMA scan
+    (b2_scan_kernel, whose names carry no store)."""
+    sel = ("k=1", "network", "merge")
     regs = {}
-    for lib, pat, sel in (
-            ("fused_knn", r"(b1)_scan_kernelILi(\d+)E(?:Lb0ELb0E)?Lb([01])E",
-             ("k>1", "k=1")),
-            ("cells_knn", r"(b2)_scan_kernelILi(\d+)E(?:Lb0ELb0E)?Li(\d)E",
-             ("k=1", "network", "merge"))):
+    for lib, pat in (
+            ("cells_tf32", r"(b2_tf32)_kernelILi(\d+)ELb([01])ELi(\d)E"),
+            ("cells_knn", r"(b2_scan)_kernelILi(\d+)E(?:Lb0ELb0E)?()Li(\d)E")):
         name, spill = None, 0
         for line in _build.BUILD_LOG.get(lib, "").splitlines():
             m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -139,8 +140,9 @@ def fma_regs():
             m = re.search(r"Used (\d+) registers", line)
             t = name and re.search(pat, name)
             if m and t:
-                regs[f"{t.group(1)} {t.group(2)} {sel[int(t.group(3))]}"] = [
-                    int(m.group(1)), spill]
+                store = {"0": " f32", "1": " bf16", "": ""}[t.group(3)]
+                regs[f"{t.group(1)} {t.group(2)}{store} "
+                     f"{sel[int(t.group(4))]}"] = [int(m.group(1)), spill]
     return regs
 
 
@@ -190,16 +192,17 @@ def b1_metrics(out, X, Q):
     for k in (10, 100):
         out[f"req16_k{k}_ms"] = cs.time_ms(
             lambda: fk._fused_knn_cuda(Q16, X, k, True, False, False), 21)
-        out[f"req16_k{k}_device"] = b1_device_ms(
-            lambda: fk._fused_knn_cuda(Q16, X, k, True, False, False))
+        out[f"req16_k{k}_device"] = device_by_kernel(
+            lambda: fk._fused_knn_cuda(Q16, X, k, True, False, False), "b1_")
     out["graph_chunk_ms"] = cs.time_ms(
         lambda: fk._fused_knn_cuda(X[:131072], X, 16, True, False, False), 2)
 
 
-def b1_device_ms(fn, reps: int = 5):
+def device_by_kernel(fn, scan: str, reps: int = 5):
     """Device milliseconds per call of ``fn`` by kernel, from one
     ``torch.profiler`` trace of ``reps`` calls: the norm pre-pass, the
-    scan, the slice merge, anything else."""
+    scan (kernels whose name holds ``scan``), the slice merge, anything
+    else."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -213,7 +216,7 @@ def b1_device_ms(fn, reps: int = 5):
         if e.self_device_time_total <= 0:
             continue
         key = ("norms" if "norms" in e.key else "merge" if "merge" in e.key
-               else "scan" if "b1_" in e.key else "other")
+               else "scan" if scan in e.key else "other")
         out[key] = out.get(key, 0.0) + e.self_device_time_total / reps / 1e3
     return out
 
@@ -230,13 +233,17 @@ def b2_metrics(out, index, Q):
     Qc = Q[torch.clamp_min(bucket, 0)].contiguous()
     invalid = (torch.arange(index.data.shape[1], device=dev)[None, :]
                >= index.list_sizes[:, None]).contiguous()
-    out["b2_ms"] = cs.time_ms(lambda: fk._fused_cells_knn_cuda(
-        cells, Qc, index.data, invalid, cs.K, True, False, False), 11)
+    for name, k in (("b2", cs.K), ("b2_k1", 1)):
+        out[name + "_ms"] = cs.time_ms(lambda: fk._fused_cells_knn_cuda(
+            cells, Qc, index.data, invalid, k, True, False, False), 11)
+        out[name + "_device"] = device_by_kernel(
+            lambda: fk._fused_cells_knn_cuda(cells, Qc, index.data, invalid,
+                                             k, True, False, False), "b2_")
     data16 = index.data.to(torch.bfloat16)
     for name, qsplit in (("b2_bf16_ms", False), ("b2_split_ms", True)):
         out[name] = cs.time_ms(lambda: fk._fused_cells_knn_cuda(
             cells, Qc, data16, invalid, cs.K, True, True, qsplit), 11)
-    out["fma_regs"] = fma_regs()
+    out["b2_f32_regs"] = b2_f32_regs()
     del Qc, data16
 
     db, q = cs.sift_rows_21()

@@ -1,14 +1,15 @@
-"""Build variants of kernel B2's f32 tier (the FMA scan) and time them at
-its main-path shape.
+"""Build variants of kernel B2's f32 tier (the 3xTF32 tensor-core scan of
+``csrc/cells_tf32.cu``) and time them at its main-path shape.
 
     python3 tools/tune_b2.py VARIANT [VARIANT ...]
 
-A VARIANT is ``name[@dir]``: ``cells_knn.cu`` of the source directory
+A VARIANT is ``name[@dir]``: ``cells_tf32.cu`` of the source directory
 ``dir`` (default ``raft_tpu_torch/csrc``) built with the package's nvcc
 flags, all variants at once into ``build/tune_b2/``. A variant is an
-edited copy of the sources::
+edited copy of the sources; its ``CN`` (read from its ``cells_tf32.cu``)
+sets the shared-memory count the plan hands its C entry::
 
-    cp -r raft_tpu_torch/csrc build/v1   # then edit build/v1/cells_knn.cu
+    cp -r raft_tpu_torch/csrc build/v1   # then edit build/v1/cells_tf32.cu
     python3 tools/tune_b2.py base v1@build/v1
 
 Each variant is first held to the plain version on integer data (ids and
@@ -22,12 +23,14 @@ of capacity 4096 with 977 valid rows on average (uniform in [500, 1454]),
 d 128, L2: the f32 store at k = 10 and k = 1, and the bf16 store at
 k = 10; then the f32 store at k = 10 with longer lists
 (uniform in [1200, 2300), 14 live tiles on average, as the main path's
-probes weight them). The script also prints ptxas' register and spill
-lines of the B2 scans and the card line.
+probes weight them); beside each time at the main shape, the scan
+kernel's device time by ``torch.profiler``. The script also prints
+ptxas' register and spill lines of the B2 scans and the card line.
 """
 import ctypes
 import importlib
 import json
+import re
 import sys
 
 import torch
@@ -36,16 +39,22 @@ from tune_common import ROOT, build, card_line, parse, time_ms
 
 sys.path.insert(0, str(ROOT))
 
+import chip_smoke as cs  # noqa: E402
 from raft_tpu_torch.ops import _build  # noqa: E402
 
 fk = importlib.import_module("raft_tpu_torch.ops.fused_knn")
 
 
-def use(path):
+def use(path, src):
+    """Route the f32 tier to the variant library at ``path``, with the
+    plan's candidate count read from its source."""
     lib = ctypes.CDLL(str(path))
-    lib.fused_cells_knn_launch.argtypes = fk._CELLS_ARGTYPES
-    lib.fused_cells_knn_launch.restype = ctypes.c_int
-    fk._cells_lib = lambda: lib
+    lib.fused_cells_tf32_launch.argtypes = fk._CELLS_TF32_ARGTYPES
+    lib.fused_cells_tf32_launch.restype = ctypes.c_int
+    fk._cells_tf32_lib = lambda: lib
+    text = (src / "cells_tf32.cu").read_text()
+    fk.B2_TF32_CAND = int(re.search(r"constexpr int CN = (\d+);",
+                                    text).group(1))
 
 
 def operands(g, dev, n_lists, cap, n_cells, d, lo_size, hi_size, integer):
@@ -66,8 +75,9 @@ def operands(g, dev, n_lists, cap, n_cells, d, lo_size, hi_size, integer):
 def main():
     variants = [parse(s, _build.CSRC_DIR) for s in sys.argv[1:]]
     print(f"card: {card_line()}", flush=True)
-    libs = build(variants, "cells_knn.cu", "b2_scan_kernel", "tune_b2", _build.nvcc_path(),
-                 _build.NVCC_FLAGS)
+    libs = build(variants, "cells_tf32.cu", "b2_tf32_kernel", "tune_b2",
+                 _build.nvcc_path(), _build.NVCC_FLAGS)
+    srcs = dict(variants)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(0)
@@ -87,7 +97,7 @@ def main():
                                              True, False, False)
              for case in cases}
     for name, path in libs.items():
-        use(path)
+        use(path, srcs[name])
         ok = True
         for (k, store), (pd, pi) in plain.items():
             kd, ki = fk._fused_cells_knn_cuda(*args(small, store), k, True,
@@ -95,9 +105,11 @@ def main():
             ok = ok and torch.equal(kd, pd) and torch.equal(ki, pi)
         res = {"variant": name, "exact_vs_plain": ok}
         for k in (10, 1):
-            res[f"main_k{k}_ms"] = round(time_ms(
-                lambda: fk._fused_cells_knn_cuda(c, q, db, inv, k, True,
-                                                 False, False)), 3)
+            run = (lambda: fk._fused_cells_knn_cuda(c, q, db, inv, k, True,
+                                                    False, False))
+            res[f"main_k{k}_ms"] = round(time_ms(run), 3)
+            res[f"main_k{k}_scan_device_ms"] = cs.device_ms(
+                run, "b2_tf32_kernel", reps=5)
         res["main_bf16_store_k10_ms"] = round(time_ms(
             lambda: fk._fused_cells_knn_cuda(c, q, db16, inv, 10, True,
                                              False, False)), 3)
