@@ -1,0 +1,7 @@
+"""Percent of the traced window in which no device operation ran."""
+
+from perfbench.readers import idle_share
+
+
+def read(ctx):
+    return idle_share(ctx)
