@@ -435,7 +435,8 @@ no result line):
 From phase 3 on, every B1 and B2 launch of this process is held to its
 tier's scan (:class:`B1Tiers`, :class:`B2Tiers`), checked after each
 phase: a bf16 request through its bf16 tiers' tensor-core scan
-(``fused_knn.mma_launches``, ``fused_cells_knn.mma_launches``), an f32
+(B1's ``fused_knn.launches`` less its ``tf32_launches``,
+``fused_cells_knn.mma_launches``), an f32
 request through its f32 tier's 3xTF32 scan (``fused_knn.tf32_launches``,
 knn_tf32.cu's; ``fused_cells_knn.tf32_launches``, cells_tf32.cu's);
 phases 4, 6, 17 and 20 must each run B1's split-bf16 tier, phases 3, 5
@@ -1159,7 +1160,6 @@ def main_path(dev, X, Q):
     search_s = time.perf_counter() - t0
 
     launches = {"fused_knn": fk.fused_knn.launches,
-                "fused_knn_mma": fk.fused_knn.mma_launches,
                 "fused_knn_tf32": fk.fused_knn.tf32_launches,
                 "fused_cells_knn": fk.fused_cells_knn.launches,
                 "fused_cells_knn_mma": fk.fused_cells_knn.mma_launches,
@@ -1389,9 +1389,9 @@ def b1_kmeans_shape(dev, X, centers):
     split_err = 0.0
     for what, A, C, tier, bf16 in cases:
         m, n, d = A.shape[0], C.shape[0], C.shape[1]
-        before = (fk.fused_knn.mma_launches, fk.fused_knn.tf32_launches)
+        before = (fk.fused_knn.launches, fk.fused_knn.tf32_launches)
         kd, ki = fk._fused_knn_cuda(A, C, 1, True, bf16, bf16)
-        mma = fk.fused_knn.mma_launches - before[0]
+        mma = fk.fused_knn.launches - before[0]
         tf32 = fk.fused_knn.tf32_launches - before[1]
         pd, pi = fk._fused_knn_plain(A, C, 1, True, bf16, bf16)
         torch.cuda.synchronize()
@@ -1589,9 +1589,9 @@ def b2_entry(dev, Q, index, search_ms):
 
 def _counted():
     """Every launch counter, by kernel name: the wrapper that keeps it and
-    its attribute. ``fused_knn`` counts every B1 launch, ``fused_knn_mma``
-    those of a tensor-core scan among them (every one), ``fused_knn_tf32``
-    those of its f32 tier's 3xTF32 scan (knn_tf32.cu) among those;
+    its attribute. ``fused_knn`` counts every B1 launch (every one a
+    tensor-core scan), ``fused_knn_tf32`` those of its f32 tier's 3xTF32
+    scan (knn_tf32.cu) among them;
     ``fused_cells_knn`` every B2 launch, ``fused_cells_knn_mma`` those of
     its bf16 tiers' tensor-core scan (cells_mma.cu) and
     ``fused_cells_knn_tf32`` those of its f32 tier's 3xTF32 scan
@@ -1601,7 +1601,6 @@ def _counted():
     from raft_tpu_torch.ops import stream_select as ss
 
     return {"fused_knn": (fk.fused_knn, "launches"),
-            "fused_knn_mma": (fk.fused_knn, "mma_launches"),
             "fused_knn_tf32": (fk.fused_knn, "tf32_launches"),
             "fused_cells_knn": (fk.fused_cells_knn, "launches"),
             "fused_cells_knn_mma": (fk.fused_cells_knn, "mma_launches"),
@@ -1613,7 +1612,7 @@ def _counted():
 
 #: The counters of B1's launches: the phases that "launch B1 and only B1"
 #: may show both.
-B1_COUNTERS = ("fused_knn", "fused_knn_mma", "fused_knn_tf32")
+B1_COUNTERS = ("fused_knn", "fused_knn_tf32")
 
 
 def _zero_counters() -> None:
@@ -1629,9 +1628,9 @@ def _launches():
 class TierCheck:
     """Wraps a kernel's launcher for the rest of the run and tells each
     launch's requested tier from the scan it took: a bf16 request must add
-    one to the wrapper's ``mma_launches`` (its bf16 tiers' tensor-core
-    scan) and none to its ``tf32_launches``; an f32 request must add one
-    to its ``tf32_launches`` (its f32 tier's 3xTF32 scan). ``take`` checks
+    one to the wrapper's ``launches`` and none to its ``tf32_launches``
+    (so it took its bf16 tiers' tensor-core scan); an f32 request must add
+    one to its ``tf32_launches`` (its f32 tier's 3xTF32 scan). ``take`` checks
     the launches since the last ``take`` and fails on any that went
     another way."""
 
@@ -1645,9 +1644,9 @@ class TierCheck:
         counter = getattr(self.fk, wrapper)
 
         def counted(*args):
-            before = (counter.mma_launches, counter.tf32_launches)
+            before = (counter.launches, counter.tf32_launches)
             out = launch(*args)
-            mma = counter.mma_launches - before[0]
+            mma = counter.launches - before[0]
             tf32 = counter.tf32_launches - before[1]
             if args[bf16_at]:
                 self.seen["bf16"] += 1
@@ -1675,17 +1674,16 @@ class TierCheck:
 class B1Tiers(TierCheck):
     """B1's launches: the bf16 tiers through the tensor-core scan of
     csrc/knn_mma.cu, the f32 tier through the 3xTF32 one of
-    csrc/knn_tf32.cu (``fused_knn.mma_launches`` counts both)."""
+    csrc/knn_tf32.cu (``fused_knn.launches`` counts both)."""
 
     def __init__(self):
         super().__init__("B1", "_fused_knn_cuda", "fused_knn", 4)
 
 
 class B2Tiers(TierCheck):
-    """B2's launches: the bf16 tiers through ``fused_cells_knn.
-    mma_launches`` (the tensor-core scan of csrc/cells_mma.cu), the f32
-    tier through ``fused_cells_knn.tf32_launches`` (the 3xTF32 scan of
-    csrc/cells_tf32.cu)."""
+    """B2's launches: the bf16 tiers through the tensor-core scan of
+    csrc/cells_mma.cu, the f32 tier through ``fused_cells_knn.
+    tf32_launches`` (the 3xTF32 scan of csrc/cells_tf32.cu)."""
 
     def __init__(self):
         super().__init__("B2", "_fused_cells_knn_cuda", "fused_cells_knn",
@@ -5922,10 +5920,10 @@ def b1_lloyd_17(X, C, fit, card) -> dict:
     Cc = C.contiguous()
     b1 = {}
     for tier, bf16 in (("f32", False), ("split-bf16", True)):
-        before = (fk.fused_knn.mma_launches, fk.fused_knn.tf32_launches)
+        before = (fk.fused_knn.launches, fk.fused_knn.tf32_launches)
         ms = time_ms(lambda: fk._fused_knn_cuda(X, Cc, 1, True, bf16, bf16),
                      5)
-        mma = fk.fused_knn.mma_launches - before[0]
+        mma = fk.fused_knn.launches - before[0]
         tf32 = fk.fused_knn.tf32_launches - before[1]
         if mma != 6 or tf32 != (0 if bf16 else 6):
             raise AssertionError(f"phase 17 (b): B1 {tier} took the wrong "
@@ -8670,10 +8668,7 @@ def main() -> int:
                du, br, p17["launches"], p18["launches"], p19["launches"],
                p20["launches"], p21["launches"]]
     b1_tf32 = sum(run["fused_knn_tf32"] for run in b1_runs)
-    b1_mma = sum(run["fused_knn_mma"] for run in b1_runs) - b1_tf32
-    if sum(run["fused_knn_mma"] for run in b1_runs) != sum(
-            run["fused_knn"] for run in b1_runs):
-        raise AssertionError("a B1 launch missed the tensor-core scans")
+    b1_mma = sum(run["fused_knn"] for run in b1_runs) - b1_tf32
     mma = dict(p17["mma"], max_abs_err=max(p17["mma"]["max_abs_err"],
                                            split_err))
     # B2's likewise: cells_tf32.cu's (the f32 tier) and cells_mma.cu's

@@ -30,7 +30,7 @@ import torch
 
 from raft_tpu_torch.cluster.kmeans_types import InitMethod, KMeansParams
 from raft_tpu_torch.core.error import expects, expects_finite
-from raft_tpu_torch.core.nvtx import traced
+from raft_tpu_torch.core.nvtx import range_scope, traced
 from raft_tpu_torch.core.resources import as_float, as_tensor
 from raft_tpu_torch.distance.distance_types import DistanceType
 from raft_tpu_torch.distance.fused_l2_nn import _min_reduce
@@ -145,16 +145,24 @@ def init_plus_plus(generator: torch.Generator, X: torch.Tensor,
     n, d = X.shape
     first = torch.randint(0, n, (1,), generator=generator, device=X.device)
     centroids = torch.zeros((n_clusters, d), dtype=X.dtype, device=X.device)
-    centroids[0] = X[first[0]]
+    # Indexing by a 0-dim device tensor reads it on the host: two syncs a
+    # pick.
+    with range_scope("sync.pp_row"):
+        centroids[0] = X[first[0]]
     Xf = X.float()
-    mind = torch.sum((Xf - Xf[first[0]][None, :]) ** 2, dim=1)
+    with range_scope("sync.pp_row"):
+        x0 = Xf[first[0]]
+    mind = torch.sum((Xf - x0[None, :]) ** 2, dim=1)
     for i in range(1, n_clusters):
         total = torch.sum(mind)
         probs = torch.where(total > 0, mind / torch.clamp_min(total, 1e-30),
                             torch.full_like(mind, 1.0 / n))
         idx = torch.multinomial(probs, 1, generator=generator)[0]
-        centroids[i] = X[idx]
-        dnew = torch.sum((Xf - Xf[idx][None, :]) ** 2, dim=1)
+        with range_scope("sync.pp_row"):
+            centroids[i] = X[idx]
+        with range_scope("sync.pp_row"):
+            xi = Xf[idx]
+        dnew = torch.sum((Xf - xi[None, :]) ** 2, dim=1)
         mind = torch.minimum(mind, dnew)
     return centroids
 

@@ -27,6 +27,7 @@ import torch
 
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
 from raft_tpu_torch.core.error import expects, expects_finite
+from raft_tpu_torch.core.nvtx import range_scope
 from raft_tpu_torch.core.resources import as_float
 from raft_tpu_torch.distance.distance_types import (
     DistanceType, value_form_select_min)
@@ -104,7 +105,8 @@ def _balanced_em(X, centroids0, n_iters: int, n_clusters: int,
 def _predict_and_count(X, centroids, metric: DistanceType):
     """Labels + per-cluster populations."""
     labels = _labels(X, centroids, metric)
-    counts = torch.bincount(labels.long(), minlength=centroids.shape[0])
+    with range_scope("sync.bincount", syncs=2):
+        counts = torch.bincount(labels.long(), minlength=centroids.shape[0])
     return labels, counts
 
 
@@ -131,22 +133,27 @@ def _hierarchical_fine_em(X, meso_labels, owner, seed_slots,
 
     seeds = torch.zeros((n_clusters, d), dtype=X.dtype, device=dev)
     mind = torch.full((n,), 1e30, dtype=X.dtype, device=dev)
-    for r in range(seed_slots.shape[0]):
-        slot = seed_slots[r]
-        valid = slot >= 0
-        gumbel = -torch.log(torch.empty((n,), dtype=X.dtype, device=dev)
-                            .exponential_(generator=generator))
-        z = torch.log(torch.clamp_min(mind, 1e-12)) + gumbel
-        segmax = torch.full((n_meso,), float("-inf"), dtype=X.dtype,
-                            device=dev).scatter_reduce_(0, meso, z, "amax")
-        cand = torch.where(z == segmax[meso], rows, n)
-        pick = torch.full((n_meso,), n, dtype=rows.dtype, device=dev)
-        pick = torch.clamp(pick.scatter_reduce_(0, meso, cand, "amin"),
-                           0, n - 1)
-        S = X[pick]
-        seeds[slot[valid].long()] = S[valid]
-        dnew = torch.sum((X - S[meso]) ** 2, dim=1)
-        mind = torch.where(valid[meso], torch.minimum(mind, dnew), mind)
+    with range_scope("kmeans.fine_seed", rounds=seed_slots.shape[0]):
+        for r in range(seed_slots.shape[0]):
+            slot = seed_slots[r]
+            valid = slot >= 0
+            gumbel = -torch.log(torch.empty((n,), dtype=X.dtype, device=dev)
+                                .exponential_(generator=generator))
+            z = torch.log(torch.clamp_min(mind, 1e-12)) + gumbel
+            segmax = torch.full((n_meso,), float("-inf"), dtype=X.dtype,
+                                device=dev).scatter_reduce_(0, meso, z,
+                                                            "amax")
+            cand = torch.where(z == segmax[meso], rows, n)
+            pick = torch.full((n_meso,), n, dtype=rows.dtype, device=dev)
+            pick = torch.clamp(pick.scatter_reduce_(0, meso, cand, "amin"),
+                               0, n - 1)
+            S = X[pick]
+            with range_scope("sync.seed_mask"):
+                dst = slot[valid].long()
+            with range_scope("sync.seed_mask"):
+                seeds[dst] = S[valid]
+            dnew = torch.sum((X - S[meso]) ** 2, dim=1)
+            mind = torch.where(valid[meso], torch.minimum(mind, dnew), mind)
 
     owner = owner.long()
 
@@ -177,12 +184,13 @@ def _hierarchical_fine_em(X, meso_labels, owner, seed_slots,
 
     ones = torch.ones((n,), dtype=X.dtype, device=dev)
     C = seeds
-    for _ in range(n_iters):
-        labels = assign(C)
-        sums = _segment_sum(X, labels, n_clusters)
-        cnts = _segment_sum(ones, labels, n_clusters)
-        new = sums / torch.clamp_min(cnts, 1.0)[:, None]
-        C = torch.where((cnts > 0)[:, None], new, C)
+    with range_scope("kmeans.fine_em", iters=n_iters):
+        for _ in range(n_iters):
+            labels = assign(C)
+            sums = _segment_sum(X, labels, n_clusters)
+            cnts = _segment_sum(ones, labels, n_clusters)
+            new = sums / torch.clamp_min(cnts, 1.0)[:, None]
+            C = torch.where((cnts > 0)[:, None], new, C)
     return C
 
 
@@ -203,8 +211,9 @@ def build_clusters(params: KMeansBalancedParams, X, n_clusters: int,
     else:
         stride = n // n_clusters
         centroids0 = X[::max(stride, 1)][:n_clusters]
-    return _balanced_em(X, centroids0, params.n_iters, n_clusters,
-                        X.device.type == "cuda")
+    with range_scope("kmeans.em", iters=params.n_iters):
+        return _balanced_em(X, centroids0, params.n_iters, n_clusters,
+                            X.device.type == "cuda")
 
 
 def fit(params: KMeansBalancedParams, X, n_clusters: int,
@@ -230,29 +239,38 @@ def _fit(params: KMeansBalancedParams, X: torch.Tensor,
     meso_params = KMeansBalancedParams(
         n_iters=params.n_iters, metric=params.metric,
         rng_state=params.rng_state)
-    meso_centroids = build_clusters(meso_params, X, n_meso)
-    meso_labels, counts_dev = _predict_and_count(X, meso_centroids,
-                                                 params.metric)
-    counts = counts_dev.cpu().numpy()
+    with range_scope("kmeans.meso", clusters=n_meso):
+        meso_centroids = build_clusters(meso_params, X, n_meso)
+    with range_scope("kmeans.meso_predict", rows=n):
+        meso_labels, counts_dev = _predict_and_count(X, meso_centroids,
+                                                     params.metric)
+        with range_scope("sync.meso_counts"):
+            counts = counts_dev.cpu().numpy()
 
-    quota = np.maximum(1, np.floor(counts / n * n_clusters)).astype(np.int64)
-    while quota.sum() < n_clusters:
-        quota[np.argmax(counts / np.maximum(quota, 1))] += 1
-    while quota.sum() > n_clusters:
-        cand = np.where(quota > 1)[0]
-        quota[cand[np.argmin(counts[cand] / quota[cand])]] -= 1
+        quota = np.maximum(1, np.floor(counts / n * n_clusters)).astype(
+            np.int64)
+        while quota.sum() < n_clusters:
+            quota[np.argmax(counts / np.maximum(quota, 1))] += 1
+        while quota.sum() > n_clusters:
+            cand = np.where(quota > 1)[0]
+            quota[cand[np.argmin(counts[cand] / quota[cand])]] -= 1
 
-    owner_h = np.repeat(np.arange(n_meso), quota).astype(np.int32)
-    rank_h = np.concatenate([np.arange(q) for q in quota]).astype(np.int32)
-    seed_slots = np.full((int(quota.max()), n_meso), -1, np.int32)
-    seed_slots[rank_h, owner_h] = np.arange(n_clusters, dtype=np.int32)
+        owner_h = np.repeat(np.arange(n_meso), quota).astype(np.int32)
+        rank_h = np.concatenate([np.arange(q) for q in quota]).astype(
+            np.int32)
+        seed_slots = np.full((int(quota.max()), n_meso), -1, np.int32)
+        seed_slots[rank_h, owner_h] = np.arange(n_clusters, dtype=np.int32)
+        with range_scope("sync.upload"):
+            owner = torch.as_tensor(owner_h, device=X.device)
+        with range_scope("sync.upload"):
+            slots = torch.as_tensor(seed_slots, device=X.device)
     centroids = _hierarchical_fine_em(
-        X, meso_labels, torch.as_tensor(owner_h, device=X.device),
-        torch.as_tensor(seed_slots, device=X.device),
+        X, meso_labels, owner, slots,
         params.rng_state.next_generator(X.device), params.n_iters,
         n_clusters)
-    return _balanced_em(X, centroids, max(2, params.n_iters // 2),
-                        n_clusters, X.device.type == "cuda")
+    with range_scope("kmeans.polish", iters=max(2, params.n_iters // 2)):
+        return _balanced_em(X, centroids, max(2, params.n_iters // 2),
+                            n_clusters, X.device.type == "cuda")
 
 
 def fit_predict(params: KMeansBalancedParams, X, n_clusters: int,

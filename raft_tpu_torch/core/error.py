@@ -10,6 +10,8 @@ from typing import NoReturn
 
 import torch
 
+from raft_tpu_torch.core.nvtx import range_scope
+
 
 class RaftError(Exception):
     """Base exception for raft_tpu_torch."""
@@ -41,8 +43,12 @@ def expects_finite(name: str, *tensors) -> None:
     call; the public entry points call it on the vectors the caller hands
     them, and what they derive from those is not checked again.
     Non-floating operands (int8 / uint8 datasets) and empty ones are
-    skipped."""
+    skipped. The sync is traced as ``sync.finite``."""
     flags = [torch.isfinite(t).all() for t in tensors
              if torch.is_floating_point(t) and t.numel()]
-    if flags and not bool(torch.stack(flags).all()):
+    if not flags:
+        return
+    with range_scope("sync.finite"):
+        finite = bool(torch.stack(flags).all())
+    if not finite:
         raise LogicError(f"{name}: inputs must be finite (found NaN or inf)")

@@ -52,6 +52,7 @@ from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
 from raft_tpu_torch.core.error import expects, expects_finite
 from raft_tpu_torch.core.mdarray import expects_ids_fit, validate_idx_dtype
+from raft_tpu_torch.core.nvtx import range_scope
 from raft_tpu_torch.core.resources import (as_float, as_tensor, as_vectors,
                                            resolve_device)
 from raft_tpu_torch.core.sentinels import PAD_ID, worst_value
@@ -169,8 +170,10 @@ def _pack_lists(X, labels, ids, n_lists: int, min_cap: int = 0):
     position from the offset prefix sums, one scatter."""
     n, d = X.shape
     labels = labels.long()
-    counts = torch.bincount(labels, minlength=n_lists)
-    cap = int(max(int(torch.max(counts)), 1, min_cap))
+    with range_scope("sync.bincount", syncs=2):
+        counts = torch.bincount(labels, minlength=n_lists)
+    with range_scope("sync.max_count"):
+        cap = int(max(int(torch.max(counts)), 1, min_cap))
     order = torch.argsort(labels, stable=True)
     sl = labels[order]
     offsets = torch.cumsum(counts, 0) - counts
@@ -214,14 +217,21 @@ def _coarse_probe(Q, centers, n_probes: int, inner_is_l2: bool):
 
 def build(params: IndexParams, dataset, handle=None) -> Index:
     """Train centers (balanced k-means on a subsample) and fill the lists
-    (ids ``0..n-1`` in ``params.idx_dtype``)."""
+    (ids ``0..n-1`` in ``params.idx_dtype``). Traced as ``ivf_flat.build``
+    with its stages ``build.train`` and ``build.extend``."""
+    with range_scope("ivf_flat.build", lists=params.n_lists):
+        return _build(params, dataset, handle)
+
+
+def _build(params: IndexParams, dataset, handle) -> Index:
     idx_dtype = validate_idx_dtype(params.idx_dtype)
     X = as_vectors(dataset, handle)
     expects(X.ndim == 2, "dataset must be (n_rows, dim)")
     n = X.shape[0]
     expects(n >= params.n_lists, "need at least n_lists rows")
     expects_finite("ivf_flat.build", X)
-    centers = _train_centers(params, as_float(X))
+    with range_scope("build.train", lists=params.n_lists):
+        centers = _train_centers(params, as_float(X))
     index = Index(
         metric=params.metric,
         centers=centers,
@@ -235,8 +245,9 @@ def build(params: IndexParams, dataset, handle=None) -> Index:
         conservative_memory_allocation=params.conservative_memory_allocation,
     )
     if params.add_data_on_build:
-        index = _extend(index, X, torch.arange(n, dtype=idx_dtype,
-                                               device=X.device))
+        with range_scope("build.extend", rows=n):
+            index = _extend(index, X, torch.arange(n, dtype=idx_dtype,
+                                                   device=X.device))
     return index
 
 
@@ -286,7 +297,8 @@ def _auto_id_base(index: Index) -> int:
     """First free auto-assigned id: ``max(existing id) + 1``."""
     if index._next_id is not None:
         return index._next_id
-    return int(torch.max(index.indices)) + 1
+    with range_scope("sync.max_id"):
+        return int(torch.max(index.indices)) + 1
 
 
 def _track_next_id(index: Index, new_indices, default_base=None,
@@ -295,7 +307,8 @@ def _track_next_id(index: Index, new_indices, default_base=None,
     if default_base is not None:
         index._next_id = max(cur, default_base + n_new)
     else:
-        index._next_id = max(cur, int(torch.max(new_indices)) + 1)
+        with range_scope("sync.max_id"):
+            index._next_id = max(cur, int(torch.max(new_indices)) + 1)
 
 
 def _pad_deleted(deleted, new_cap: int):
@@ -338,15 +351,32 @@ def _extend(index: Index, X: torch.Tensor, new_indices=None) -> Index:
         new_indices = as_tensor(new_indices, device=dev).to(
             index.indices.dtype)
 
-    labels = kmeans_balanced._predict(
-        KMeansBalancedParams(metric=index.metric), index.centers,
-        as_float(X))
+    with range_scope("extend.predict", rows=n_new):
+        labels = kmeans_balanced._predict(
+            KMeansBalancedParams(metric=index.metric), index.centers,
+            as_float(X))
+    with range_scope("extend.pack", rows=n_new):
+        _place(index, X, labels, new_indices, default_base)
+    index.epoch += 1
+    index.reset_search_cache()  # occupancy changed
+    return index
 
-    if not index.size:
+
+def _place(index: Index, X: torch.Tensor, labels, new_indices,
+           default_base) -> None:
+    """Put the labelled rows into the index's lists: packed in bulk into
+    an empty index, else appended in place."""
+    dev = X.device
+    with range_scope("sync.size"):
+        empty = not index.size
+    if empty:
         min_cap = 0
         if not index.conservative_memory_allocation:
-            counts = torch.bincount(labels.long(), minlength=index.n_lists)
-            min_cap = next_pow2(int(torch.max(counts)))
+            with range_scope("sync.bincount", syncs=2):
+                counts = torch.bincount(labels.long(),
+                                        minlength=index.n_lists)
+            with range_scope("sync.max_count"):
+                min_cap = next_pow2(int(torch.max(counts)))
         data, ids, sizes = _pack_lists(X.to(index.data.dtype), labels,
                                        new_indices, index.n_lists, min_cap)
         centers = index.centers
@@ -372,10 +402,7 @@ def _extend(index: Index, X: torch.Tensor, new_indices=None) -> Index:
         index.deleted = _pad_deleted(index.deleted, data.shape[1])
         if index.adaptive_centers:
             index.centers = centers
-    _track_next_id(index, new_indices, default_base, n_new)
-    index.epoch += 1
-    index.reset_search_cache()  # occupancy changed
-    return index
+    _track_next_id(index, new_indices, default_base, X.shape[0])
 
 
 def _probe_scan(queries, data, data_sq_norms, indices, list_sizes, k: int,
@@ -605,7 +632,8 @@ def _invert_probe_map_cells(probe_ids, n_lists: int, qrows: int):
     max_cells = (q * p) // qrows + n_lists
     sorted_lists, sorted_query, pos, order = _sorted_probe_pairs(
         probe_ids, n_lists)
-    loads = torch.bincount(sorted_lists, minlength=n_lists)
+    with range_scope("sync.bincount", syncs=2):
+        loads = torch.bincount(sorted_lists, minlength=n_lists)
     n_cells = (loads + qrows - 1) // qrows
     base_cell = torch.cumsum(n_cells, 0) - n_cells
     cell = base_cell[sorted_lists] + pos // qrows
@@ -658,29 +686,38 @@ def _cells_eligible(engine: str, k: int, bucket_cap: int, cap: int, dim: int,
 
 def _cells_scan_probes(Q, probe_ids, data, indices, list_sizes, k: int,
                        inner_is_l2: bool, qrows: int, qsplit: bool,
-                       deleted=None):
+                       deleted=None, sqrt: bool = False):
     """Scan the given probed lists with the packed-cells engine (kernel
-    B2): best-first (q, k) candidates in true metric values, no sqrt."""
+    B2): best-first (q, k) candidates in true metric values (their square
+    roots with ``sqrt``), in the stage spans ``search.invert``, ``.scan``,
+    ``.route`` and ``.select``."""
     q = Q.shape[0]
     cap = data.shape[1]
-    cell_list, bucket, route = _invert_probe_map_cells(
-        probe_ids, data.shape[0], qrows)
-    Qc = Q[torch.clamp_min(bucket, 0)]             # (max_cells, qrows, d)
-    invalid = (torch.arange(cap, device=Q.device)[None, :]
-               >= list_sizes[:, None])
-    if deleted is not None:
-        invalid = invalid | deleted
-    bd_, bi_ = fused_cells_knn(cell_list, Qc, data, invalid, k,
-                               l2=inner_is_l2,
-                               bf16=data.dtype == torch.bfloat16 or qsplit,
-                               qsplit=qsplit)
-    gi = indices[torch.clamp_min(cell_list, 0).long()[:, None, None],
-                 torch.clamp_min(bi_, 0).long()]
-    gi = torch.where(bi_ < 0, PAD_ID, gi)
-    cd, ci = _route_candidates_cells(bd_, gi, route, q, probe_ids.shape[1])
-    best_d, best_i = select_k(cd, k, select_min=True, indices=ci)
-    if not inner_is_l2:
-        best_d = -best_d
+    with range_scope("search.invert", rows=q):
+        cell_list, bucket, route = _invert_probe_map_cells(
+            probe_ids, data.shape[0], qrows)
+        Qc = Q[torch.clamp_min(bucket, 0)]         # (max_cells, qrows, d)
+    with range_scope("search.scan", cells=bucket.shape[0], k=k):
+        invalid = (torch.arange(cap, device=Q.device)[None, :]
+                   >= list_sizes[:, None])
+        if deleted is not None:
+            invalid = invalid | deleted
+        bd_, bi_ = fused_cells_knn(cell_list, Qc, data, invalid, k,
+                                   l2=inner_is_l2,
+                                   bf16=data.dtype == torch.bfloat16 or qsplit,
+                                   qsplit=qsplit)
+    with range_scope("search.route"):
+        gi = indices[torch.clamp_min(cell_list, 0).long()[:, None, None],
+                     torch.clamp_min(bi_, 0).long()]
+        gi = torch.where(bi_ < 0, PAD_ID, gi)
+        cd, ci = _route_candidates_cells(bd_, gi, route, q,
+                                         probe_ids.shape[1])
+    with range_scope("search.select", rows=q, k=k):
+        best_d, best_i = select_k(cd, k, select_min=True, indices=ci)
+        if not inner_is_l2:
+            best_d = -best_d
+        if sqrt:
+            best_d = torch.sqrt(best_d)
     return best_d, best_i
 
 
@@ -689,20 +726,30 @@ def search(params: SearchParams, index: Index, queries, k: int,
     """Probe the ``n_probes`` nearest centers, then scan the probed lists.
     Returns ``(distances (q, k), neighbors (q, k))``, the neighbors in the
     index's id dtype; fewer than k
-    valid candidates leave (worst, -1) slots."""
-    dev = handle.device if handle is not None else index.centers.device
-    Q = as_float(queries, device=dev)
-    expects(Q.ndim == 2 and Q.shape[1] == index.dim, "query dim mismatch")
-    expects_finite("ivf_flat.search", Q)
-    expects(params.engine in ("auto", "scan", "bucketed"),
-            f"unknown engine {params.engine!r} (auto|scan|bucketed)")
+    valid candidates leave (worst, -1) slots. Traced as
+    ``ivf_flat.search`` with its stages (``search.check``, ``.probe``,
+    ``.invert``, ``.scan``, ``.route``, ``.select`` on the cells engine)."""
+    with range_scope("ivf_flat.search", k=k):
+        return _search(params, index, queries, k, handle)
+
+
+def _search(params: SearchParams, index: Index, queries, k: int, handle):
+    with range_scope("search.check"):
+        dev = handle.device if handle is not None else index.centers.device
+        Q = as_float(queries, device=dev)
+        expects(Q.ndim == 2 and Q.shape[1] == index.dim,
+                "query dim mismatch")
+        expects_finite("ivf_flat.search", Q)
+        expects(params.engine in ("auto", "scan", "bucketed"),
+                f"unknown engine {params.engine!r} (auto|scan|bucketed)")
     n_probes = min(params.n_probes, index.n_lists)
     k = min(k, max(index.capacity, 1))
     metric = index.metric
     inner_is_l2 = metric != DistanceType.InnerProduct
     sqrt = metric in (DistanceType.L2SqrtExpanded,
                       DistanceType.L2SqrtUnexpanded)
-    probe_ids = _coarse_probe(Q, index.centers, n_probes, inner_is_l2)
+    with range_scope("search.probe", rows=Q.shape[0], probes=n_probes):
+        probe_ids = _coarse_probe(Q, index.centers, n_probes, inner_is_l2)
     if index.data.dtype in (torch.uint8, torch.int8):
         # 8-bit values are exact in bf16: the kernels read the 8-bit rows
         # themselves on the bf16 tier and keep f32 query precision with the
@@ -714,13 +761,10 @@ def search(params: SearchParams, index: Index, queries, k: int,
     if _cells_eligible(params.engine, k, params.bucket_cap,
                        index.data.shape[1], index.dim, Q.shape[0], n_probes,
                        index.n_lists, Q.device):
-        best_d, best_i = _cells_scan_probes(
+        return _cells_scan_probes(
             Q, probe_ids, data, index.indices, index.list_sizes, k,
             inner_is_l2, min(_CELL_QROWS, max(8, Q.shape[0])), qsplit,
-            index.deleted)
-        if inner_is_l2 and sqrt:
-            best_d = torch.sqrt(best_d)
-        return best_d, best_i
+            index.deleted, sqrt=inner_is_l2 and sqrt)
 
     engine, cap_q = _pick_engine(params.engine, Q.shape[0], n_probes,
                                  index.n_lists, k, params.bucket_cap,

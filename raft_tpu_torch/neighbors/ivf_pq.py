@@ -51,6 +51,7 @@ from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
 from raft_tpu_torch.core.error import expects, expects_finite
 from raft_tpu_torch.core.mdarray import expects_ids_fit, validate_idx_dtype
+from raft_tpu_torch.core.nvtx import range_scope
 from raft_tpu_torch.core.resources import (as_float, as_tensor, as_vectors,
                                            resolve_device)
 from raft_tpu_torch.core.sentinels import PAD_ID, worst_value
@@ -476,8 +477,10 @@ def _compressed_search(Q, centers, rot, codesT, abs_lo, abs_hi, invalid,
                        int8_lut=None):
     """The compressed tier: coarse probe, rotation, then
     :func:`_compressed_scan_probes`."""
-    probe_ids = _select_clusters(Q, centers, n_probes, is_ip)
-    rotq_p = permute_subspaces(gram(Q, rot), J, bits)
+    with range_scope("search.probe", rows=Q.shape[0], probes=n_probes):
+        probe_ids = _select_clusters(Q, centers, n_probes, is_ip)
+    with range_scope("search.rotate"):
+        rotq_p = permute_subspaces(gram(Q, rot), J, bits)
     return _compressed_scan_probes(rotq_p, probe_ids, codesT, abs_lo,
                                    abs_hi, invalid, indices, crot_p, k,
                                    is_ip, J, bits, qrows, cell_k=cell_k,
@@ -490,32 +493,40 @@ def _compressed_scan_probes(rotq_p, probe_ids, codesT, abs_lo, abs_hi,
                             int8_lut=None):
     """Scan the given probed lists with B4: cells inversion, the residual
     query shift (L2), the scan, routing and the per-query merge. Returns
-    best-first (q, k) candidates in true metric values, no sqrt.
+    best-first (q, k) candidates in true metric values, no sqrt, in the
+    stage spans ``search.invert``, ``.scan``, ``.route`` and ``.select``.
     ``cell_k`` < k bounds each (query, probe) queue (0 = k)."""
     q, n_lists = rotq_p.shape[0], codesT.shape[0]
     cell_k = cell_k or k
-    cell_list, bucket, route = _invert_probe_map_cells(probe_ids, n_lists,
-                                                       qrows)
-    qsel = torch.clamp_min(bucket, 0)
-    safe_cl = torch.clamp_min(cell_list, 0).long()
-    Qc = rotq_p[qsel]
-    if not is_ip:
-        # ||(q - c) - cw||^2 is the absolute ADC distance, scored at
-        # residual scale where bf16 rounding is relative to the signal.
-        Qc = Qc - crot_p[safe_cl][:, None, :]
-    bd_, bi_ = pq_fused_scan(cell_list, Qc, codesT, abs_lo, abs_hi, invalid,
-                             cell_k, J, bits, is_ip, int8_lut=int8_lut)
-    if is_ip:
-        # score = q.c + q.cw; the kernel reports -(q.cw). q.c is constant
-        # within a cell, so it is added after the in-cell selection.
-        qc = gram(rotq_p, crot_p)                       # (q, n_lists)
-        bd_ = bd_ - qc[qsel, safe_cl[:, None]][:, :, None]
-    gi = indices[safe_cl[:, None, None], torch.clamp_min(bi_, 0).long()]
-    gi = torch.where(bi_ < 0, PAD_ID, gi)
-    cd, ci = _route_candidates_cells(bd_, gi, route, q, probe_ids.shape[1])
-    best_d, best_i = select_k(cd, k, select_min=True, indices=ci)
-    if is_ip:
-        best_d = -best_d
+    with range_scope("search.invert", rows=q):
+        cell_list, bucket, route = _invert_probe_map_cells(
+            probe_ids, n_lists, qrows)
+        qsel = torch.clamp_min(bucket, 0)
+        safe_cl = torch.clamp_min(cell_list, 0).long()
+        Qc = rotq_p[qsel]
+        if not is_ip:
+            # ||(q - c) - cw||^2 is the absolute ADC distance, scored at
+            # residual scale where bf16 rounding is relative to the signal.
+            Qc = Qc - crot_p[safe_cl][:, None, :]
+    with range_scope("search.scan", cells=bucket.shape[0], k=cell_k):
+        bd_, bi_ = pq_fused_scan(cell_list, Qc, codesT, abs_lo, abs_hi,
+                                 invalid, cell_k, J, bits, is_ip,
+                                 int8_lut=int8_lut)
+        if is_ip:
+            # score = q.c + q.cw; the kernel reports -(q.cw). q.c is
+            # constant within a cell, so it is added after the in-cell
+            # selection.
+            qc = gram(rotq_p, crot_p)                   # (q, n_lists)
+            bd_ = bd_ - qc[qsel, safe_cl[:, None]][:, :, None]
+    with range_scope("search.route"):
+        gi = indices[safe_cl[:, None, None], torch.clamp_min(bi_, 0).long()]
+        gi = torch.where(bi_ < 0, PAD_ID, gi)
+        cd, ci = _route_candidates_cells(bd_, gi, route, q,
+                                         probe_ids.shape[1])
+    with range_scope("search.select", rows=q, k=k):
+        best_d, best_i = select_k(cd, k, select_min=True, indices=ci)
+        if is_ip:
+            best_d = -best_d
     return best_d, best_i
 
 
@@ -647,7 +658,14 @@ def _residuals(X, labels, centers, rot, pq_dim: int) -> torch.Tensor:
 def build(params: IndexParams, dataset, handle=None) -> Index:
     """Train the index: trainset -> balanced k-means coarse centers ->
     rotation -> rotated residuals -> codebooks -> extend with the
-    dataset (ids ``0..n-1`` in ``params.idx_dtype``)."""
+    dataset (ids ``0..n-1`` in ``params.idx_dtype``). Traced as
+    ``ivf_pq.build`` with its stages ``build.train``, ``build.codebooks``
+    and ``build.extend`` (``build.encode``, ``extend.pack``)."""
+    with range_scope("ivf_pq.build", lists=params.n_lists):
+        return _build(params, dataset, handle)
+
+
+def _build(params: IndexParams, dataset, handle) -> Index:
     idx_dtype = validate_idx_dtype(params.idx_dtype)
     X = as_vectors(dataset, handle)
     expects(X.ndim == 2, "dataset must be (n_rows, dim)")
@@ -660,7 +678,6 @@ def build(params: IndexParams, dataset, handle=None) -> Index:
 
     pq_dim = params.pq_dim or _calculate_pq_dim(dim)
     pq_len = ceildiv(dim, pq_dim)
-    rot_dim = pq_dim * pq_len
     book_size = 1 << params.pq_bits
     state = RngState(seed=0)
 
@@ -672,7 +689,39 @@ def build(params: IndexParams, dataset, handle=None) -> Index:
     kb = KMeansBalancedParams(n_iters=params.kmeans_n_iters,
                               metric=DistanceType.L2Expanded,
                               rng_state=state)
-    centers = kmeans_balanced._fit(kb, trainset, params.n_lists)
+    with range_scope("build.train", lists=params.n_lists):
+        centers = kmeans_balanced._fit(kb, trainset, params.n_lists)
+    with range_scope("build.codebooks", rows=trainset.shape[0]):
+        rot, pq_centers = _train_codebooks(params, trainset, centers, kb,
+                                           state, dim, pq_dim, pq_len,
+                                           book_size)
+    index = Index(
+        metric=params.metric, codebook_kind=params.codebook_kind,
+        centers=centers, rotation_matrix=rot, pq_centers=pq_centers,
+        pq_codes=torch.zeros((params.n_lists, 1,
+                              packed_row_bytes(pq_dim, params.pq_bits)),
+                             dtype=torch.uint8, device=dev),
+        indices=torch.full((params.n_lists, 1), PAD_ID, dtype=idx_dtype,
+                           device=dev),
+        list_sizes=torch.zeros((params.n_lists,), dtype=torch.int32,
+                               device=dev),
+        pq_bits=params.pq_bits, pq_dim=pq_dim,
+        conservative_memory_allocation=params.conservative_memory_allocation)
+    if params.add_data_on_build:
+        with range_scope("build.extend", rows=n):
+            index = _extend(index, X, torch.arange(n, dtype=idx_dtype,
+                                                   device=dev), dev)
+        if params.retain_dataset:
+            index._source = X
+    return index
+
+
+def _train_codebooks(params: IndexParams, trainset, centers, kb, state,
+                     dim: int, pq_dim: int, pq_len: int, book_size: int):
+    """The rotation (OPQ's when ``opq_iters``) and the codebooks, trained
+    on the trainset's rotated residuals."""
+    dev = trainset.device
+    rot_dim = pq_dim * pq_len
     rot = make_rotation_matrix(
         state.next_generator(dev) if params.force_random_rotation else None,
         dim, rot_dim, params.force_random_rotation, dev)
@@ -716,26 +765,7 @@ def build(params: IndexParams, dataset, handle=None) -> Index:
         w = (slot < sizes[:, None]).to(torch.float32)
         pq_centers = _vq_train_batched(blocks, w, book_size,
                                        params.kmeans_n_iters)
-    del res
-
-    index = Index(
-        metric=params.metric, codebook_kind=params.codebook_kind,
-        centers=centers, rotation_matrix=rot, pq_centers=pq_centers,
-        pq_codes=torch.zeros((params.n_lists, 1,
-                              packed_row_bytes(pq_dim, params.pq_bits)),
-                             dtype=torch.uint8, device=dev),
-        indices=torch.full((params.n_lists, 1), PAD_ID, dtype=idx_dtype,
-                           device=dev),
-        list_sizes=torch.zeros((params.n_lists,), dtype=torch.int32,
-                               device=dev),
-        pq_bits=params.pq_bits, pq_dim=pq_dim,
-        conservative_memory_allocation=params.conservative_memory_allocation)
-    if params.add_data_on_build:
-        index = _extend(index, X, torch.arange(n, dtype=idx_dtype,
-                                               device=dev), dev)
-        if params.retain_dataset:
-            index._source = X
-    return index
+    return rot, pq_centers
 
 
 def _invalidate_caches(index: Index) -> None:
@@ -807,26 +837,10 @@ def _extend(index: Index, new_vectors, new_indices, dev) -> Index:
         else:
             index._source = None
 
-    labels, codes = encode_rows(index, X)
-    if not index.size:
-        min_cap = 0
-        if not index.conservative_memory_allocation:
-            counts = torch.bincount(labels.long(), minlength=index.n_lists)
-            min_cap = next_pow2(int(torch.max(counts)))
-        packed, ids, sizes = _pack_lists(codes, labels, new_indices,
-                                         index.n_lists, min_cap)
-        index.pq_codes, index.indices, index.list_sizes = packed, ids, sizes
-        index.deleted = (None if index.deleted is None
-                         else torch.zeros(ids.shape, dtype=torch.bool,
-                                          device=dev))
-        index.n_deleted = 0
-    else:
-        store, ids, sizes, _ = _append_in_place(
-            index.pq_codes, index.indices, index.list_sizes, codes,
-            new_indices, labels, index.conservative_memory_allocation)
-        index.pq_codes, index.indices, index.list_sizes = store, ids, sizes
-        index.deleted = _pad_deleted(index.deleted, store.shape[1])
-    _track_next_id(index, new_indices, default_base, n_new)
+    with range_scope("build.encode", rows=n_new):
+        labels, codes = encode_rows(index, X)
+    with range_scope("extend.pack", rows=n_new):
+        _place(index, codes, labels, new_indices, default_base)
     index.epoch += 1
     _invalidate_caches(index)
     return index
@@ -915,7 +929,8 @@ def _pq_probe_scan(rotq, probe_ids, pq_codes, indices, list_sizes, k: int,
 
 def _finish(index: Index, best_d, best_i):
     if index.metric == DistanceType.L2SqrtExpanded:
-        best_d = torch.sqrt(torch.clamp_min(best_d, 0.0))
+        with range_scope("search.select"):
+            best_d = torch.sqrt(torch.clamp_min(best_d, 0.0))
     return best_d, best_i
 
 
@@ -924,12 +939,18 @@ def search(params: SearchParams, index: Index, queries, k: int,
     """Approximate search. Returns ``(distances (q, k), neighbors (q, k))``,
     the neighbors in the index's id dtype; L2 metrics report approximate
     squared (or sqrt'ed) distances from the PQ scores. Rejects non-finite
-    queries."""
-    dev = handle.device if handle is not None else index.centers.device
-    Q = as_float(queries, device=dev)
-    expects(Q.ndim == 2 and Q.shape[1] == index.dim, "query dim mismatch")
-    expects_finite("ivf_pq.search", Q)
-    return _search(params, index, Q, k, handle)
+    queries. Traced as ``ivf_pq.search`` with its stages (``search.check``,
+    ``.probe``, ``.rotate``, then ``.invert``, ``.scan``, ``.route``,
+    ``.select`` on the compressed tier)."""
+    with range_scope("ivf_pq.search", k=k):
+        with range_scope("search.check"):
+            dev = (handle.device if handle is not None
+                   else index.centers.device)
+            Q = as_float(queries, device=dev)
+            expects(Q.ndim == 2 and Q.shape[1] == index.dim,
+                    "query dim mismatch")
+            expects_finite("ivf_pq.search", Q)
+        return _search(params, index, Q, k, handle)
 
 
 def _search(params: SearchParams, index: Index, Q: torch.Tensor, k: int,
@@ -970,8 +991,10 @@ def _search(params: SearchParams, index: Index, Q: torch.Tensor, k: int,
             index.pq_dim, index.pq_bits, qrows,
             int8_lut=ops[5] if int8 else None))
 
-    probe_ids = _select_clusters(Q, index.centers, n_probes, is_ip)
-    rotq = gram(Q, index.rotation_matrix)
+    with range_scope("search.probe", rows=Q.shape[0], probes=n_probes):
+        probe_ids = _select_clusters(Q, index.centers, n_probes, is_ip)
+    with range_scope("search.rotate"):
+        rotq = gram(Q, index.rotation_matrix)
     engine, cap_q = _pick_engine(
         params.engine, Q.shape[0], n_probes, index.n_lists, k,
         params.bucket_cap, index.rot_dim, probe_ids, Q.device,
@@ -1001,6 +1024,36 @@ def _search(params: SearchParams, index: Index, Q: torch.Tensor, k: int,
             pq_centers=index.pq_centers, centers_rot=centers_rot,
             deleted=index.deleted),
         rotq, probe_ids, per_q, k, index.indices.dtype))
+
+
+def _place(index: Index, codes, labels, new_indices, default_base) -> None:
+    """Put the labelled code rows into the index's lists: packed in bulk
+    into an empty index, else appended in place."""
+    dev = codes.device
+    with range_scope("sync.size"):
+        empty = not index.size
+    if empty:
+        min_cap = 0
+        if not index.conservative_memory_allocation:
+            with range_scope("sync.bincount", syncs=2):
+                counts = torch.bincount(labels.long(),
+                                        minlength=index.n_lists)
+            with range_scope("sync.max_count"):
+                min_cap = next_pow2(int(torch.max(counts)))
+        packed, ids, sizes = _pack_lists(codes, labels, new_indices,
+                                         index.n_lists, min_cap)
+        index.pq_codes, index.indices, index.list_sizes = packed, ids, sizes
+        index.deleted = (None if index.deleted is None
+                         else torch.zeros(ids.shape, dtype=torch.bool,
+                                          device=dev))
+        index.n_deleted = 0
+    else:
+        store, ids, sizes, _ = _append_in_place(
+            index.pq_codes, index.indices, index.list_sizes, codes,
+            new_indices, labels, index.conservative_memory_allocation)
+        index.pq_codes, index.indices, index.list_sizes = store, ids, sizes
+        index.deleted = _pad_deleted(index.deleted, store.shape[1])
+    _track_next_id(index, new_indices, default_base, codes.shape[0])
 
 
 def _probe_concentration(Q, centers) -> float:

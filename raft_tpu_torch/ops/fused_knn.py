@@ -49,10 +49,10 @@ kernel's arithmetic and tie rules:
 Dispatch: a wrapper takes the plain version only when its tensors lie on
 the CPU. For CUDA tensors it launches the kernel or raises; nothing falls
 back. ``fused_knn.launches``, ``fused_cells_knn.launches`` and
-``fused_batch_knn.launches`` count the kernel launches;
-``fused_knn.mma_launches`` counts B1's launches of a tensor-core scan
-(every one of them), ``fused_knn.tf32_launches`` those of its f32 tier's
-among them; ``fused_cells_knn.mma_launches`` counts B2's launches of its
+``fused_batch_knn.launches`` count the kernel launches (every B1 and B2
+launch is a tensor-core scan); ``fused_knn.tf32_launches`` counts those
+of B1's f32 tier (knn_tf32.cu) among them, the rest are its bf16 tiers'
+(knn_mma.cu); ``fused_cells_knn.mma_launches`` counts B2's launches of its
 bf16 tiers' scan and ``fused_cells_knn.tf32_launches`` those of its f32
 tier's (every B2 launch is one of the two).
 """
@@ -619,7 +619,6 @@ def _fused_knn_cuda(queries, db, k: int, l2: bool, bf16: bool,
                 _stream(dev))
     _build.check(err, "fused_knn launch")
     fused_knn.launches += 1
-    fused_knn.mma_launches += 1
     if not bf16:
         fused_knn.tf32_launches += 1
     return out_d, out_i
@@ -661,7 +660,6 @@ def fused_knn(queries: torch.Tensor, db: torch.Tensor, k: int, *,
 
 
 fused_knn.launches = 0
-fused_knn.mma_launches = 0
 fused_knn.tf32_launches = 0
 
 

@@ -234,11 +234,11 @@ def test_bf16_tiers_never_reach_the_fma_scan(monkeypatch, tmp_path, qsplit):
     monkeypatch.setattr(_build, "_LOADED", {"knn_tf32": type(
         "Lib", (), {"fused_knn_tf32_launch": staticmethod(f32_entry)})()})
     q = torch.zeros((4, 8))
-    before = (fk.fused_knn.launches, fk.fused_knn.mma_launches)
+    before = fk.fused_knn.launches
     with pytest.raises(CudaError):
         fk._fused_knn_cuda(q, q, 2, True, True, qsplit)
     assert calls == []
-    assert (fk.fused_knn.launches, fk.fused_knn.mma_launches) == before
+    assert fk.fused_knn.launches == before
 
 
 @pytest.mark.parametrize("l2", [True, False])
@@ -262,13 +262,11 @@ def test_f32_tier_never_reaches_an_fma_scan(monkeypatch, tmp_path, l2, k):
     monkeypatch.setattr(_build, "_LOADED", {"knn_mma": type(
         "Lib", (), {"fused_knn_mma_launch": staticmethod(mma_entry)})()})
     q = torch.zeros((4, 8))
-    before = (fk.fused_knn.launches, fk.fused_knn.mma_launches,
-              fk.fused_knn.tf32_launches)
+    before = (fk.fused_knn.launches, fk.fused_knn.tf32_launches)
     with pytest.raises(CudaError):
         fk._fused_knn_cuda(q, q, k, l2, False, False)
     assert calls == []
-    assert (fk.fused_knn.launches, fk.fused_knn.mma_launches,
-            fk.fused_knn.tf32_launches) == before
+    assert (fk.fused_knn.launches, fk.fused_knn.tf32_launches) == before
 
 
 @pytest.mark.parametrize("store", [torch.float32, torch.bfloat16,

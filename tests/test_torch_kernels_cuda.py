@@ -72,12 +72,10 @@ def _launched(launch, bf16):
     """Run ``launch`` and assert it was one B1 launch through a
     tensor-core scan, on every tier: knn_tf32.cu's (``tf32_launches``)
     exactly when the f32 tier was asked for."""
-    before = (fk.fused_knn.launches, fk.fused_knn.mma_launches,
-              fk.fused_knn.tf32_launches)
+    before = (fk.fused_knn.launches, fk.fused_knn.tf32_launches)
     out = launch()
-    assert (fk.fused_knn.launches, fk.fused_knn.mma_launches,
-            fk.fused_knn.tf32_launches) == (
-        before[0] + 1, before[1] + 1, before[2] + int(not bf16))
+    assert (fk.fused_knn.launches, fk.fused_knn.tf32_launches) == (
+        before[0] + 1, before[1] + int(not bf16))
     return out
 
 
@@ -1800,3 +1798,114 @@ def test_lap_cuda_graph_equals_the_cpu(dev, gen):
     capped = lap(torch.as_tensor(costs[0], device=dev), max_rounds=5)[0]
     assert torch.equal(capped.cpu(), lap(torch.as_tensor(costs[0]),
                                          max_rounds=5)[0])
+
+
+def _blobs_on(dev, n_rows, d, n_blobs, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    centers = torch.empty((n_blobs, d), device=dev).uniform_(-10, 10,
+                                                             generator=g)
+    labels = torch.randint(0, n_blobs, (n_rows,), device=dev, generator=g)
+    return centers[labels] + 5.0 * torch.randn((n_rows, d), device=dev,
+                                               generator=g)
+
+
+def _traced_syncs(fn):
+    """Run ``fn`` under the profiler with ``set_sync_debug_mode("warn")``:
+    ``(syncs inside a span of the port, the stacks of those outside,
+    spans, profile)`` (each sync warning sorted by whether a span was open
+    when raised)."""
+    import traceback
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_tpu_torch.core import nvtx
+
+    nvtx.take_spans()
+    torch.cuda.synchronize()
+    inside, outside = [], []
+
+    def show(message, *args, **kwargs):
+        if "called a synchronizing CUDA operation" in str(message):
+            if nvtx._open_spans():
+                inside.append(1)
+            else:
+                outside.append("".join(traceback.format_stack(limit=12)))
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    taken = nvtx.take_spans()
+    assert taken.dropped == 0
+    return len(inside), outside, taken.spans, prof
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["ivf_flat.search", "ivf_pq.search",
+                                  "ivf_flat.build"])
+def test_stage_spans_on_the_card(dev, what):
+    """A flat-batch-shaped IVF-Flat search (10,000 queries, 1024 lists, 32
+    probes), an IVF-PQ search of the compressed tier and a small
+    hierarchical IVF-Flat build: their ``sync.*`` spans count exactly the
+    host syncs ``set_sync_debug_mode`` reports inside them, and none is
+    outside; every span has a device interval; a search's stages tile its
+    root's device interval to 2%; each span's host interval lies within
+    50 us of its record function's event in the profiler's trace."""
+    if what == "ivf_flat.build":
+        X = _blobs_on(dev, 50_000, 32, 100, 3)
+        params = ivf_flat.IndexParams(n_lists=512)
+
+        def fn():
+            return ivf_flat.build(params, X)
+    else:
+        X = _blobs_on(dev, 200_000, 128, 1000, 4)
+        Q = X[:10_000] + torch.randn_like(X[:10_000])
+        if what == "ivf_flat.search":
+            index = ivf_flat.build(ivf_flat.IndexParams(n_lists=1024), X)
+            sp = ivf_flat.SearchParams(n_probes=32)
+
+            def fn():
+                return ivf_flat.search(sp, index, Q, 10)
+        else:
+            index = ivf_pq.build(ivf_pq.IndexParams(
+                n_lists=1024, pq_dim=64, pq_bits=8), X)
+            sp = ivf_pq.SearchParams(n_probes=32)
+
+            def fn():
+                return ivf_pq.search(sp, index, Q, 10)
+    fn()
+    inside, outside, spans, prof = _traced_syncs(fn)
+    counted = sum(s.attrs.get("syncs", 1) for s in spans
+                  if s.name.startswith("sync."))
+    root = spans[0]
+    assert root.name == what and root.parent == 0
+    assert outside == []
+    assert inside == counted
+    assert all(s.device_ms is not None for s in spans)
+    if what.endswith("search"):
+        stages = sum(s.device_ms for s in spans if s.parent == root.id)
+        assert abs(stages - root.device_ms) <= 0.02 * root.device_ms
+    events = {}
+    for ev in prof.profiler.kineto_results.events():
+        if (ev.name().startswith("raft_tpu_torch::")
+                and not str(ev.device_type()).endswith("CUDA")):
+            events.setdefault(ev.name(), []).append(
+                (ev.start_ns(), ev.start_ns() + ev.duration_ns()))
+    worst = 0
+    for label in {s.label for s in spans}:
+        group = sorted((s for s in spans if s.label == label),
+                       key=lambda s: s.start_ns)
+        evs = sorted(events[label])
+        assert len(evs) == len(group), label
+        for s, (e0, e1) in zip(group, evs):
+            worst = max(worst, abs(s.start_ns - e0), abs(s.end_ns - e1))
+    assert worst <= 50_000, worst
