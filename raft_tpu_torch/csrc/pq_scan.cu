@@ -49,39 +49,44 @@
 //     finds the next live one from 32 flags a load (no barrier);
 //   * the product: mma.sync m16n8k16 bf16 with f32 accumulators, operands
 //     by ldmatrix; 8 warps tile the BQ x 128 block (32 x 32, 32 x 16 or
-//     16 x 16 each). bf16 products are exact in f32; within a k16 step the
-//     tensor core sums in its own order, so results equal the FMA order
-//     bit for bit only where the partial sums are exact (integer data);
+//     16 x 16 each; 16 x 64, 16 x 32 or 16 x 16 where the selection is
+//     kept in registers, so a warp holds whole rows of 16). bf16 products
+//     are exact in f32; within a k16 step the tensor core sums in its own
+//     order, so results equal the FMA order bit for bit only where the
+//     partial sums are exact (integer data);
 //   * the pre-pass, a kernel of this library and part of every call,
 //     writes each tile's live flag and, for L2, |cw|^2 in f32 (row order,
 //     from the unrounded values) of every valid (list, slot) into scratch
 //     the wrapper allocates per call; the index keeps nothing, so extend /
 //     upsert / compact cannot leave it stale;
-//   * selection in registers, after B1's filter: the
-//     accumulators become distances in place (NaN marks invalid slots and
-//     padding rows, which no test accepts), each pair is tested against
-//     its row's k-th (distance, slot), and only the pairs that pass go
-//     into per-row candidate buffers (one atomic per thread and row). A
-//     cell's first tile meets empty queues; for k <= 16 the k-th smallest
-//     of the per-thread row minima bounds the row's k-th from above, so
-//     only ~k pairs a row pass there instead of 128. The candidates then
-//     enter the sorted queues: for k <= 16 one thread per row, through an
-//     unrolled insertion network on the queue held in registers; for
-//     k > 16 one warp per row, by a warp bitonic sort and a merge by
-//     rank. k = 1 keeps a running (min, slot) per row in registers.
-//     The bound, the network and the merge are cell_select.cuh's, which
-//     B2 (cells_tf32.cu, cells_mma.cu) shares; the product, the filter and the write-out
-//     are mma_tile.cuh's, which B3 (batch_knn.cu) shares.
+//   * selection by k. For 1 < k <= 16 (every IVF-PQ search at the
+//     default k = 10) the top-k stays in the registers of the threads
+//     that hold the distances (thread_topk.cuh): each thread keeps a
+//     sorted queue of one row over its own slots, tests each tile's pairs
+//     against its k-th and the row's least published bound, and inserts
+//     the few that pass by an unrolled network; no atomic and no barrier
+//     per tile. A row's queues merge once per (cell, row block), by
+//     shuffles within a warp and by rank across warps. k = 1 keeps a
+//     running (min, slot) per row in registers; k > 16 sends the pairs
+//     that beat their row's k-th into shared-memory candidate buffers,
+//     which one warp per row merges into the row's queue (warp bitonic
+//     sort, merge by rank). Those two are mma_tile.cuh's select_tile and
+//     cell_select.cuh's drains, shared with B2 (cells_tf32.cu,
+//     cells_mma.cu) and B3 (batch_knn.cu).
 //
-// On the H100 (tools/tune_b4.py, PERF.md) selection still takes about
-// half of the k = 10 time: the insertion rounds run on the 2 warps that
-// own the rows while the other 6 wait at the barrier. Decoding is the
-// next largest part; the product itself is a small one.
+// On the H100 (tools/tune_b4.py at the main path, k = 10; PERF.md) the
+// shared-memory queues took 3.03 of 5.93 ms: the insertion rounds ran on
+// the 2 warps that own the rows while the other 6 waited, 5 barriers a
+// tile. With the queues in registers the scan takes 3.46-3.57 ms (k = 1:
+// 2.94-3.05, its path unchanged). The decode (0.82 ms), the per-item
+// staging and the first tile's insertions are what is left of the gap
+// to the 0.15 ms product; a tile's insertion rounds run as long as the
+// busiest lane of the warp needs.
 //
 // Callers pass finite operands (the entry points reject non-finite
 // inputs): an L2 NaN would come out of fmaxf as distance 0.
 
-#include "mma_tile.cuh"
+#include "thread_topk.cuh"
 
 namespace {
 
@@ -105,11 +110,20 @@ __device__ __forceinline__ float cw_value(const T* __restrict__ lo,
   return v;
 }
 
+// The selection of a scan instance: k = 1 (a register minimum per row,
+// select_tile's SEL_MIN), 1 < k <= 16 (thread_topk.cuh's queues in
+// registers) or k > 16 (select_tile's warp merges).
+enum Path { P_MIN, P_REGS, P_MERGE };
+
+__host__ __device__ inline Path path_of(int k) {
+  return k == 1 ? P_MIN : k <= thread_topk::QMAX ? P_REGS : P_MERGE;
+}
+
 // Byte offsets of the shared-memory regions (ops/pq_scan.py::
 // _b4_smem_bytes counts the same regions in the same order).
 struct Layout {
-  size_t A, tab, Bt, cs, kmap, qn, yn, ok, red, kd, ki, cd, ci, cnt, qmask,
-      tm, thr;
+  size_t A, tab, Bt, cs, kmap, qn, yn, ok, red, rb, mrg, kd, ki, cd, ci,
+      cnt, qmask;
   size_t total;
   __host__ __device__ Layout(int bq, int warps_n, int kp, int ks, int pq_bits,
                              int nbytes, int k, bool sliced) {
@@ -122,9 +136,15 @@ struct Layout {
     qn = take(at, (size_t)bq * 4);
     yn = take(at, 2 * BN * 4);
     ok = take(at, 2 * BN * 4);
-    red = kd = ki = cd = ci = cnt = qmask = tm = thr = 0;
-    if (k == 1) {
+    red = rb = mrg = kd = ki = cd = ci = cnt = qmask = 0;
+    const Path path = path_of(k);
+    if (path == P_MIN) {
       red = take(at, (size_t)warps_n * bq * 8);
+    } else if (path == P_REGS) {
+      // The rows' published bounds, and k pairs for each of the 16 rows
+      // of each of the 8 warps.
+      rb = take(at, (size_t)bq * 4);
+      mrg = take(at, (size_t)NW * 16 * k * 8);
     } else {
       kd = take(at, (size_t)bq * k * 4);
       ki = take(at, (size_t)bq * k * 4);
@@ -132,10 +152,6 @@ struct Layout {
       ci = take(at, (size_t)CAND * 4);
       cnt = take(at, (size_t)bq * 4);
       qmask = take(at, 4 * (size_t)((bq + 31) / 32));
-      if (k <= NET_K) {
-        tm = take(at, (size_t)bq * warps_n * 4 * 4);
-        thr = take(at, (size_t)bq * 4);
-      }
     }
     total = at;
   }
@@ -244,7 +260,8 @@ __device__ __forceinline__ void decode_tile(
     decode_pass<false>(kmap, tab, ks, k0, kw, codes, stride, Bt, SB);
 }
 
-// Validity and code norms of tile t's slots into ok / yn.
+// Validity and code norms of tile t's slots into ok / yn (+inf at invalid
+// slots, 0 at valid ones for inner product).
 __device__ __forceinline__ void tile_meta(const uint8_t* __restrict__ inv,
                                           const float* __restrict__ cwn,
                                           int t, bool l2, int* ok, float* yn) {
@@ -252,63 +269,50 @@ __device__ __forceinline__ void tile_meta(const uint8_t* __restrict__ inv,
     const int slot = t * BN + threadIdx.x;
     const int v = !inv[slot];
     ok[threadIdx.x] = v;
-    yn[threadIdx.x] = (l2 && v) ? cwn[slot] : 0.f;
+    yn[threadIdx.x] = !v ? INFINITY : l2 ? cwn[slot] : 0.f;
   }
 }
 
-// Shared-memory pointers of one CTA.
-struct Smem {
-  unsigned short *A, *tab, *Bt;
-  uint8_t* cs;
-  int* kmap;
-  float* qn;
-  float* yn;
-  int* ok;
-  float* red_d;
-  int* red_i;
-  float* tm;  // [BQ][WARPS_N * 4] per-thread row minima (k <= NET_K)
-  float* thr;  // [BQ] first-tile bounds
-  float* kd;
-  int* ki;
-  float* cd;
-  int* ci;
-  int* cnt;
-  unsigned* qmask;
-};
-
 // One CTA walks (cell, row block) items w = blockIdx.x, + gridDim.x, ...
-template <int BQ, bool SLICED, bool K1, typename T>
+// P_MIN and P_MERGE tile the block as mma_tile.cuh's Geo<BQ> and select by
+// its select_tile; P_REGS as thread_topk.cuh's RowGeo<BQ>, selecting in
+// registers.
+template <int BQ, bool SLICED, int PATH, int Q, typename T>
 __global__ void __launch_bounds__(NT, 1) b4_scan_kernel(const Args<T> a) {
-  using G = Geo<BQ>;
-  constexpr int SEL = K1 ? SEL_MIN : SEL_ANY;
+  constexpr bool REGS = PATH == P_REGS;
+  using GA = Geo<BQ>;
+  using GR = thread_topk::RowGeo<BQ>;
+  constexpr int MT = REGS ? 1 : GA::MT;
+  constexpr int NT8 = REGS ? GR::NT8 : GA::NT8;
+  constexpr int WARPS_N = REGS ? GR::WARPS_N : GA::WARPS_N;
+  constexpr int WM = REGS ? 16 : GA::WM;
+  constexpr int WN = REGS ? GR::WN : GA::WN;
+  constexpr int SEL = PATH == P_MIN ? SEL_MIN : SEL_MERGE;
   extern __shared__ __align__(16) char smem[];
-  const Layout lay(BQ, G::WARPS_N, a.kp, a.ks, a.pq_bits, a.nbytes, a.k,
+  const Layout lay(BQ, GA::WARPS_N, a.kp, a.ks, a.pq_bits, a.nbytes, a.k,
                    SLICED);
-  Smem s;
-  s.A = reinterpret_cast<unsigned short*>(smem + lay.A);
-  s.tab = reinterpret_cast<unsigned short*>(smem + lay.tab);
-  s.Bt = reinterpret_cast<unsigned short*>(smem + lay.Bt);
-  s.cs = reinterpret_cast<uint8_t*>(smem + lay.cs);
-  s.kmap = reinterpret_cast<int*>(smem + lay.kmap);
-  s.qn = reinterpret_cast<float*>(smem + lay.qn);
-  s.yn = reinterpret_cast<float*>(smem + lay.yn);
-  s.ok = reinterpret_cast<int*>(smem + lay.ok);
-  s.red_d = reinterpret_cast<float*>(smem + lay.red);
-  s.red_i = reinterpret_cast<int*>(smem + lay.red) + G::WARPS_N * BQ;
-  s.kd = reinterpret_cast<float*>(smem + lay.kd);
-  s.ki = reinterpret_cast<int*>(smem + lay.ki);
-  s.cd = reinterpret_cast<float*>(smem + lay.cd);
-  s.ci = reinterpret_cast<int*>(smem + lay.ci);
-  s.cnt = reinterpret_cast<int*>(smem + lay.cnt);
-  s.qmask = reinterpret_cast<unsigned*>(smem + lay.qmask);
-  s.tm = reinterpret_cast<float*>(smem + lay.tm);
-  s.thr = reinterpret_cast<float*>(smem + lay.thr);
-  const cell_select::Queues q{s.kd,  s.ki,    s.cd, s.ci,
-                              s.cnt, s.qmask, s.tm, s.thr};
+  unsigned short* sA = reinterpret_cast<unsigned short*>(smem + lay.A);
+  unsigned short* tab = reinterpret_cast<unsigned short*>(smem + lay.tab);
+  unsigned short* Bt = reinterpret_cast<unsigned short*>(smem + lay.Bt);
+  uint8_t* cs = reinterpret_cast<uint8_t*>(smem + lay.cs);
+  int* kmap = reinterpret_cast<int*>(smem + lay.kmap);
+  float* qn = reinterpret_cast<float*>(smem + lay.qn);
+  float* yn = reinterpret_cast<float*>(smem + lay.yn);
+  int* ok = reinterpret_cast<int*>(smem + lay.ok);
+  float* kd = reinterpret_cast<float*>(smem + lay.kd);
+  int* ki = reinterpret_cast<int*>(smem + lay.ki);
+  const cell_select::Queues q{kd,
+                              ki,
+                              reinterpret_cast<float*>(smem + lay.cd),
+                              reinterpret_cast<int*>(smem + lay.ci),
+                              reinterpret_cast<int*>(smem + lay.cnt),
+                              reinterpret_cast<unsigned*>(smem + lay.qmask),
+                              nullptr,
+                              nullptr};
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm0 = (warp / G::WARPS_N) * G::WM;
-  const int wn0 = (warp % G::WARPS_N) * G::WN;
+  const int wm0 = (warp / WARPS_N) * WM;
+  const int wn0 = (warp % WARPS_N) * WN;
   const int SA = a.kp + 8, SB = a.ks + 8;
   const int k = a.k;
   const bool l2 = a.l2 != 0;
@@ -326,9 +330,9 @@ __global__ void __launch_bounds__(NT, 1) b4_scan_kernel(const Args<T> a) {
           : j < a.nbytes ? (j | (1 << 16))
                          : ((j - a.nbytes) | (2 << 16));
     }
-    s.kmap[r] = m;
+    kmap[r] = m;
   }
-  if (!SLICED) stage_table(a, s.tab, 0, a.kp);
+  if (!SLICED) stage_table(a, tab, 0, a.kp);
 
   for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
     const int cell = w / nqb, q0 = (w % nqb) * BQ;
@@ -352,49 +356,53 @@ __global__ void __launch_bounds__(NT, 1) b4_scan_kernel(const Args<T> a) {
       for (int c = lane; c < a.kp; c += 32) {
         const float v = (r < nq && c < a.rot) ? qb[(size_t)r * a.rot + c] : 0.f;
         acc = fmaf(v, v, acc);
-        s.A[r * SA + c] = bf16_bits(v);
+        sA[r * SA + c] = bf16_bits(v);
       }
       for (int o = 16; o > 0; o >>= 1)
         acc += __shfl_xor_sync(0xffffffffu, acc, o);
-      if (lane == 0) s.qn[r] = acc;
+      if (lane == 0) qn[r] = acc;
     }
-    if (!K1) {
+    if (PATH == P_MERGE) {
       for (int j = tid; j < BQ * k; j += NT) {
-        s.kd[j] = INFINITY;
-        s.ki[j] = NONE;
+        kd[j] = INFINITY;
+        ki[j] = NONE;
       }
-      for (int j = tid; j < BQ; j += NT) s.cnt[j] = 0;
-      for (int j = tid; j < (BQ + 31) / 32; j += NT) s.qmask[j] = 0;
+      for (int j = tid; j < BQ; j += NT) q.cnt[j] = 0;
+      for (int j = tid; j < (BQ + 31) / 32; j += NT) q.qmask[j] = 0;
     }
-    float bd[2 * G::MT];
-    int bi[2 * G::MT];
+    float* rb = reinterpret_cast<float*>(smem + lay.rb);
+    if (REGS)
+      for (int j = tid; j < BQ; j += NT) rb[j] = INFINITY;
+    float bd[2 * GA::MT];
+    int bi[2 * GA::MT];
 #pragma unroll
-    for (int i = 0; i < 2 * G::MT; ++i) {
+    for (int i = 0; i < 2 * GA::MT; ++i) {
       bd[i] = INFINITY;
       bi[i] = NONE;
     }
+    thread_topk::Queue<Q> rq;
+    if constexpr (REGS) thread_topk::reset(rq, k);
     const uint8_t* codes = a.codesT + (size_t)list * a.nbytes * a.capp;
     const uint8_t* inv = a.invalid + (size_t)list * a.capp;
     const float* cwn = a.cwn + (size_t)list * a.capp;
     const uint8_t* live = a.live + (size_t)list * ntiles;
-    float acc[G::MT][G::NT8][4];
+    float acc[MT][NT8][4];
     bool first = true;  // the item's first live tile
-
     if (!SLICED) {
       // Tile t is decoded in Bt[cur]; the codes of tn sit in cs[cur ^ 1].
       const int csz = a.nbytes * BN;
       int t = cell_select::next_live(live, -1, ntiles);
-      if (t < ntiles) load_codes(s.cs, codes, t, a.nbytes, a.capp, a.vec);
+      if (t < ntiles) load_codes(cs, codes, t, a.nbytes, a.capp, a.vec);
       cp_commit();
       cp_wait<0>();
       __syncthreads();
       int tn = ntiles;
       if (t < ntiles) {
-        decode_tile(pairs, s.kmap, s.tab, a.ks, 0, a.kp, s.cs, BN, s.Bt, SB);
-        tile_meta(inv, cwn, t, l2, s.ok, s.yn);
+        decode_tile(pairs, kmap, tab, a.ks, 0, a.kp, cs, BN, Bt, SB);
+        tile_meta(inv, cwn, t, l2, ok, yn);
         tn = cell_select::next_live(live, t, ntiles);
         if (tn < ntiles)
-          load_codes(s.cs + csz, codes, tn, a.nbytes, a.capp, a.vec);
+          load_codes(cs + csz, codes, tn, a.nbytes, a.capp, a.vec);
       }
       cp_commit();
       cp_wait<0>();
@@ -403,25 +411,33 @@ __global__ void __launch_bounds__(NT, 1) b4_scan_kernel(const Args<T> a) {
       while (t < ntiles) {
         const int nxt = cur ^ 1;
 #pragma unroll
-        for (int mt = 0; mt < G::MT; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-          for (int nt = 0; nt < G::NT8; ++nt)
+          for (int nt = 0; nt < NT8; ++nt)
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-        mma_range<BQ>(acc, s.A, SA, s.Bt + cur * tile_elems, SB, 0, a.kp,
-                      wm0, wn0);
+        if constexpr (REGS)
+          thread_topk::mma_rows<BQ>(acc[0], sA, SA, Bt + cur * tile_elems, SB,
+                                    0, a.kp, wm0, wn0);
+        else
+          mma_range<BQ>(acc, sA, SA, Bt + cur * tile_elems, SB, 0, a.kp, wm0,
+                        wn0);
         int tnn = ntiles;
         if (tn < ntiles) {
-          decode_tile(pairs, s.kmap, s.tab, a.ks, 0, a.kp, s.cs + nxt * csz, BN,
-                      s.Bt + nxt * tile_elems, SB);
-          tile_meta(inv, cwn, tn, l2, s.ok + nxt * BN, s.yn + nxt * BN);
+          decode_tile(pairs, kmap, tab, a.ks, 0, a.kp, cs + nxt * csz, BN,
+                      Bt + nxt * tile_elems, SB);
+          tile_meta(inv, cwn, tn, l2, ok + nxt * BN, yn + nxt * BN);
           tnn = cell_select::next_live(live, tn, ntiles);
           if (tnn < ntiles)
-            load_codes(s.cs + cur * csz, codes, tnn, a.nbytes, a.capp, a.vec);
+            load_codes(cs + cur * csz, codes, tnn, a.nbytes, a.capp, a.vec);
         }
         cp_commit();
-        select_tile<BQ, SEL>(acc, bd, bi, s.qn, q, s.yn + cur * BN,
-                             s.ok + cur * BN, t, nq, k, l2, wm0, wn0, first);
+        if constexpr (REGS)
+          thread_topk::select_regs<BQ>(acc[0], rq, qn, yn + cur * BN, rb, t,
+                                       nq, l2, wm0, wn0, first);
+        else
+          select_tile<BQ, SEL>(acc, bd, bi, qn, q, yn + cur * BN,
+                               ok + cur * BN, t, nq, k, l2, wm0, wn0, first);
         first = false;
         cp_wait<0>();
         __syncthreads();
@@ -434,32 +450,50 @@ __global__ void __launch_bounds__(NT, 1) b4_scan_kernel(const Args<T> a) {
       for (int t = cell_select::next_live(live, -1, ntiles); t < ntiles;
            t = cell_select::next_live(live, t, ntiles)) {
 #pragma unroll
-        for (int mt = 0; mt < G::MT; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-          for (int nt = 0; nt < G::NT8; ++nt)
+          for (int nt = 0; nt < NT8; ++nt)
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
         for (int k0 = 0; k0 < a.kp; k0 += a.ks) {
           const int kw = min(a.ks, a.kp - k0);
           __syncthreads();
-          stage_table(a, s.tab, k0, kw);
-          if (k0 == 0) tile_meta(inv, cwn, t, l2, s.ok, s.yn);
+          stage_table(a, tab, k0, kw);
+          if (k0 == 0) tile_meta(inv, cwn, t, l2, ok, yn);
           __syncthreads();
-          decode_tile(pairs, s.kmap, s.tab, a.ks, k0, kw, codes + (size_t)t * BN,
-                      a.capp, s.Bt, SB);
+          decode_tile(pairs, kmap, tab, a.ks, k0, kw, codes + (size_t)t * BN,
+                      a.capp, Bt, SB);
           __syncthreads();
-          mma_range<BQ>(acc, s.A, SA, s.Bt, SB, k0, kw, wm0, wn0);
+          if constexpr (REGS)
+            thread_topk::mma_rows<BQ>(acc[0], sA, SA, Bt, SB, k0, kw, wm0,
+                                      wn0);
+          else
+            mma_range<BQ>(acc, sA, SA, Bt, SB, k0, kw, wm0, wn0);
         }
-        select_tile<BQ, SEL>(acc, bd, bi, s.qn, q, s.yn, s.ok, t, nq, k, l2,
-                             wm0, wn0, first);
+        if constexpr (REGS)
+          thread_topk::select_regs<BQ>(acc[0], rq, qn, yn, rb, t, nq, l2, wm0,
+                                       wn0, first);
+        else
+          select_tile<BQ, SEL>(acc, bd, bi, qn, q, yn, ok, t, nq, k, l2, wm0,
+                               wn0, first);
         first = false;
       }
       __syncthreads();
     }
 
-    write_rows<BQ, K1>(bd, bi, s.red_d, s.red_i, s.kd, s.ki, nq, k, wm0, od,
-                       oi);
-    __syncthreads();
+    if constexpr (REGS)
+      thread_topk::merge_rows<BQ>(rq, reinterpret_cast<float*>(smem + lay.mrg),
+                                  reinterpret_cast<int*>(smem + lay.mrg) +
+                                      NW * 16 * k,
+                                  nq, k, wm0, wn0, od, oi);
+    else
+      write_rows<BQ, PATH == P_MIN>(
+          bd, bi, reinterpret_cast<float*>(smem + lay.red),
+          reinterpret_cast<int*>(smem + lay.red) + GA::WARPS_N * BQ, kd, ki,
+          nq, k, wm0, od, oi);
+    // The merge's barrier orders the next item's writes after this one's
+    // reads of shared memory.
+    if constexpr (!REGS) __syncthreads();
   }
 }
 
@@ -499,9 +533,9 @@ __global__ void __launch_bounds__(BN) b4_norms_kernel(const Args<T> a) {
   a.cwn[at] = acc;
 }
 
-template <int BQ, bool SLICED, bool K1, typename T>
+template <int BQ, bool SLICED, int PATH, int Q, typename T>
 cudaError_t run_scan(const Args<T>& a, size_t bytes, cudaStream_t st) {
-  auto kern = b4_scan_kernel<BQ, SLICED, K1, T>;
+  auto kern = b4_scan_kernel<BQ, SLICED, PATH, Q, T>;
   cudaError_t err = knn::allow_smem(kern, bytes);
   if (err != cudaSuccess) {
     cudaGetLastError();  // a refused opt-in must not fail later launches
@@ -522,12 +556,27 @@ cudaError_t run_scan(const Args<T>& a, size_t bytes, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <bool SLICED, bool K1, typename T>
+template <bool SLICED, int PATH, int Q, typename T>
 cudaError_t scan_rows(const Args<T>& a, int bq, size_t bytes,
                       cudaStream_t st) {
-  if (bq == 64) return run_scan<64, SLICED, K1, T>(a, bytes, st);
-  if (bq == 32) return run_scan<32, SLICED, K1, T>(a, bytes, st);
-  return run_scan<16, SLICED, K1, T>(a, bytes, st);
+  if (bq == 64) return run_scan<64, SLICED, PATH, Q, T>(a, bytes, st);
+  if (bq == 32) return run_scan<32, SLICED, PATH, Q, T>(a, bytes, st);
+  return run_scan<16, SLICED, PATH, Q, T>(a, bytes, st);
+}
+
+template <bool SLICED, typename T>
+cudaError_t scan_path(const Args<T>& a, int bq, size_t bytes,
+                      cudaStream_t st) {
+  switch (path_of(a.k)) {
+    case P_MIN:
+      return scan_rows<SLICED, P_MIN, 1>(a, bq, bytes, st);
+    case P_REGS:
+      // The queue's length: k = 10, the common case, wastes no entry.
+      if (a.k <= 10) return scan_rows<SLICED, P_REGS, 10>(a, bq, bytes, st);
+      return scan_rows<SLICED, P_REGS, thread_topk::QMAX>(a, bq, bytes, st);
+    default:
+      return scan_rows<SLICED, P_MERGE, 1>(a, bq, bytes, st);
+  }
 }
 
 template <typename T>
@@ -540,12 +589,8 @@ int launch(Args<T> a, int bq, int sliced, int smem, cudaStream_t st) {
       a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (sliced)
-    err = a.k == 1 ? scan_rows<true, true>(a, bq, lay.total, st)
-                   : scan_rows<true, false>(a, bq, lay.total, st);
-  else
-    err = a.k == 1 ? scan_rows<false, true>(a, bq, lay.total, st)
-                   : scan_rows<false, false>(a, bq, lay.total, st);
+  err = sliced ? scan_path<true>(a, bq, lay.total, st)
+               : scan_path<false>(a, bq, lay.total, st);
   return (int)err;
 }
 

@@ -29,7 +29,9 @@ step:
 
 Dispatch: the wrapper takes the plain version only for CPU tensors; for
 CUDA tensors it launches the kernel or raises. ``pq_fused_scan.launches``
-counts the calls (one per call, pre-pass included).
+counts the calls (one per call, pre-pass included), and
+``pq_fused_scan.launches_by_select`` the same calls by selection path
+(:func:`_b4_select`: ``min``, ``regs``, ``merge``).
 """
 
 from __future__ import annotations
@@ -58,13 +60,14 @@ _SC = 512
 _PLAIN_BLOCK = 1 << 26
 
 # B4's launch geometry (the constants of csrc/pq_scan.cu): code slots per
-# tile, candidate slots per CTA, the query rows a CTA may take, and the
-# table slice widths the sliced mode tries (widest first).
+# tile, candidate slots per CTA, the query rows a CTA may take, the table
+# slice widths the sliced mode tries (widest first), and the widest k
+# selected in registers.
 B4_BN = 128
 B4_CAND = 4096
 B4_ROWS = (64, 32, 16)
 B4_SLICES = (512, 256, 128, 64, 32, 16)
-B4_NET_K = 16
+B4_REGS_K = 16
 
 
 class B4Plan(NamedTuple):
@@ -80,30 +83,40 @@ class B4Plan(NamedTuple):
     smem: int
 
 
+def _b4_select(k: int) -> str:
+    """B4's selection path for ``k``: ``min`` (k = 1, a register minimum
+    per row), ``regs`` (k <= 16, sorted queues in the registers of the
+    threads that hold the distances) or ``merge`` (warp merges of
+    shared-memory queues)."""
+    return "min" if k == 1 else "regs" if k <= B4_REGS_K else "merge"
+
+
 def _b4_smem_bytes(bq: int, kp: int, ks: int, pq_bits: int, nbytes: int,
                    k: int, sliced: bool) -> int:
     """Shared-memory bytes of one B4 CTA, region by region as
-    pq_scan.cu's ``Carve`` lays them out, each rounded up to 16 bytes:
+    pq_scan.cu's ``Layout`` lays them out, each rounded up to 16 bytes:
     the bf16 query operand (bq x (kp + 8)), the bf16 table (2^pq_bits x
     (ks + 2)), the bf16 code tiles (two, or one when sliced; 128 x (ks + 8)),
     two u8 code tiles (nbytes x 128, resident mode only), the K map
     (kp ints), the query norms, two tiles' code norms and valid flags;
-    then for k = 1 the cross-warp (min, slot) of each row, else the queue
-    (bq x k pairs), the candidate buffer, its counters and the bitmask of
-    rows with candidates, and for k <= 16 (queues kept in registers) the
-    per-thread row minima and the rows' first-tile bounds."""
+    then by :func:`_b4_select`: for ``min`` the cross-warp (min, slot) of
+    each row; for ``regs`` the rows' published bounds and the merge of each
+    row's queues across warps (k pairs for each of the 16 rows of each of
+    the 8 warps); for ``merge`` the queue (bq x k pairs), the candidate
+    buffer, its counters and the bitmask of rows with candidates."""
     warps_n = 8 // max(1, bq // 32)
     parts = [bq * (kp + 8) * 2, (1 << pq_bits) * (ks + 2) * 2,
              (1 if sliced else 2) * B4_BN * (ks + 8) * 2,
              0 if sliced else 2 * nbytes * B4_BN, kp * 4, bq * 4,
              2 * B4_BN * 4, 2 * B4_BN * 4]
-    if k == 1:
+    path = _b4_select(k)
+    if path == "min":
         parts.append(warps_n * bq * 8)
+    elif path == "regs":
+        parts += [bq * 4, 8 * 16 * k * 8]
     else:
         parts += [bq * k * 4, bq * k * 4, B4_CAND * 4, B4_CAND * 4, bq * 4,
                   4 * (-(-bq // 32))]
-        if k <= B4_NET_K:
-            parts += [bq * warps_n * 4 * 4, bq * 4]
     return sum(_r16(p) for p in parts)
 
 
@@ -314,6 +327,7 @@ def _pq_fused_scan_cuda(cell_list, rotq_cells, codesT, lo, hi, invalid,
             int(plan.sliced), plan.ks, plan.smem, _stream(dev))
     _build.check(err, "pq_fused_scan launch")
     pq_fused_scan.launches += 1
+    pq_fused_scan.launches_by_select[_b4_select(k)] += 1
     return out_d, out_i
 
 
@@ -366,3 +380,4 @@ def pq_fused_scan(cell_list, rotq_cells, codesT, abs_lo, abs_hi, invalid,
 
 
 pq_fused_scan.launches = 0
+pq_fused_scan.launches_by_select = {"min": 0, "regs": 0, "merge": 0}

@@ -681,8 +681,9 @@ def _pq_case(gen, bits, cap=700, J=8, L=2, C=7, qrows=40, hi=4):
     in every row of both table halves (so the int8 tables have a scale of
     exactly 1 and dequantize to the same integers) and queries in [-hi,
     hi]; hi=0 gives {0, 1} books and queries instead (ties everywhere:
-    within an mma fragment and across tiles). Lists: an empty one (1) and
-    a starved one (3); cells: one -1."""
+    within an mma fragment, across the slots of different threads and
+    warps, and across tiles). Lists: an empty one (1), a starved one (3)
+    and one whose tiles 1 and 2 hold no valid slot (4); cells: one -1."""
     B = 1 << bits
     if hi:
         books = gen.integers(-3, 4, (J, B, L)).astype(np.float32)
@@ -698,22 +699,26 @@ def _pq_case(gen, bits, cap=700, J=8, L=2, C=7, qrows=40, hi=4):
     invalid = gen.random((5, cap)) < 0.2
     invalid[1, :] = True            # an empty list
     invalid[3, 5:] = True           # a starved list
+    invalid[4, 128:384] = True      # dead tiles between live ones
     cells = np.array([0, 1, -1, 3, 2, 4, 3], np.int32)[:C]
     return books, cells, q, codesT, invalid
 
 
 def _pq_both(dev, books, cells, q, codesT, invalid, k, J, bits, is_ip,
              int8):
-    """B4 on the card through the wrapper (one launch) and its plain
-    version on the CPU copies."""
+    """B4 on the card through the wrapper (one launch, counted under its
+    selection path) and its plain version on the CPU copies."""
     tables = [t.to(dev) for t in ps.book_tables(torch.as_tensor(books),
                                                  bits, int8=int8)]
     cells, q, codesT, invalid = _on(dev, cells, q, codesT, invalid)
     scale = tables[2] if int8 else None
     before = ps.pq_fused_scan.launches
+    by_select = dict(ps.pq_fused_scan.launches_by_select)
     kd, ki = ps.pq_fused_scan(cells, q, codesT, tables[0], tables[1],
                               invalid, k, J, bits, is_ip, int8_lut=scale)
     assert ps.pq_fused_scan.launches == before + 1
+    by_select[ps._b4_select(k)] += 1
+    assert ps.pq_fused_scan.launches_by_select == by_select
     pd, pi = ps.pq_fused_scan(cells.cpu(), q.cpu(), codesT.cpu(),
                               tables[0].cpu(), tables[1].cpu(),
                               invalid.cpu(), k, J, bits, is_ip,
@@ -722,20 +727,30 @@ def _pq_both(dev, books, cells, q, codesT, invalid, k, J, bits, is_ip,
 
 
 # (J, L, qrows): rot 16 at 40 rows; rot 128 with L = 1, 2, 4 at 64, 1 and
-# 40 rows; rot 96 with L = 3 (codes straddle the 32-bit words).
+# 40 rows; rot 96 with L = 3 (codes straddle the 32-bit words). 64 rows
+# take 64-row CTAs, 40 rows 32-row CTAs (the second with 8 rows), 1 row
+# a 16-row CTA.
 _PQ_GEOMS = [(8, 2, 40), (128, 1, 64), (64, 2, 1), (32, 4, 40),
              (32, 3, 64)]
+
+# k of each selection path: 1 (a register minimum), 2, 10 and 16 (queues
+# in registers), 256 (warp merges).
+_PQ_KS = [1, 2, 10, 16, 256]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [4, 8])
 @pytest.mark.parametrize("is_ip", [False, True])
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("k", [1, 10, 256])
+@pytest.mark.parametrize("k", _PQ_KS)
 @pytest.mark.parametrize("J,L,qrows", _PQ_GEOMS)
 def test_pq_fused_scan_kernel(dev, gen, bits, is_ip, int8, k, J, L, qrows):
     """B4 on integer codebooks and queries: pq_bits 4/8, L2/IP, f32/int8
-    tables, -1 cells, empty and starved lists, odd L, 1 to 64 rows."""
+    tables, -1 cells, empty, starved and holed lists, odd L, 1 to 64 rows
+    (every CTA height, and CTAs with fewer rows than their height)."""
+    if k <= 16:
+        assert ps._b4_plan(qrows, J * L, J, bits, k).bq == {
+            40: 32, 64: 64, 1: 16}[qrows]
     books, cells, q, codesT, invalid = _pq_case(gen, bits, J=J, L=L,
                                                 qrows=qrows)
     kd, ki, pd, pi = _pq_both(dev, books, cells, q, codesT, invalid, k, J,
@@ -750,7 +765,7 @@ def test_pq_fused_scan_kernel(dev, gen, bits, is_ip, int8, k, J, L, qrows):
 @pytest.mark.cuda
 @pytest.mark.parametrize("is_ip", [False, True])
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("k", [1, 10, 256])
+@pytest.mark.parametrize("k", _PQ_KS)
 @pytest.mark.parametrize("J,L", [(256, 2), (128, 4)])
 def test_pq_fused_scan_kernel_sliced_table(dev, gen, is_ip, int8, k, J, L):
     """rot 512 at pq_bits 8: the table does not fit beside the tiles, so
@@ -767,15 +782,17 @@ def test_pq_fused_scan_kernel_sliced_table(dev, gen, is_ip, int8, k, J, L):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [4, 8])
 @pytest.mark.parametrize("is_ip", [False, True])
-@pytest.mark.parametrize("k", [1, 10, 20, 64, 256])
+@pytest.mark.parametrize("k", [1, 2, 10, 16, 20, 64, 256])
 @pytest.mark.parametrize("J,L,qrows", [(8, 2, 64), (64, 2, 40),
-                                       (256, 2, 64)])
+                                       (256, 2, 64), (8, 2, 8)])
 def test_pq_fused_scan_kernel_ties(dev, gen, bits, is_ip, k, J, L, qrows):
-    """{0, 1} books and queries: distances tie within an mma fragment and
-    across tiles, so a wrong lane-to-(row, slot) map shows as a wrong id.
-    f32 tables (the int8 scale of a {0, 1} row is not exact). k covers
-    each selection path: 1 (a register minimum), 10 (the insertion
-    network), 20, 64 and 256 (warp merges at 64, 32 and 16 rows a
+    """{0, 1} books and queries: distances tie within an mma fragment,
+    across the slots of different threads and warps and across tiles, so
+    a wrong lane-to-(row, slot) map or a merge that breaks a tie by
+    anything but the slot shows as a wrong id. f32 tables (the int8 scale
+    of a {0, 1} row is not exact). k covers each selection path: 1 (a
+    register minimum), 2, 10 and 16 (queues in registers at 64, 32 and 16
+    rows a CTA), 20, 64 and 256 (warp merges at 64, 32 and 16 rows a
     CTA)."""
     books, cells, q, codesT, invalid = _pq_case(gen, bits, J=J, L=L,
                                                 qrows=qrows, hi=0)
@@ -794,8 +811,12 @@ _B4_REL_TOL = 2e-6
 def test_pq_fused_scan_kernel_gaussian(dev, gen, is_ip):
     """The main-path geometry (64-row cells, capacity 4096, rot 128, pq_dim
     64, pq_bits 8, k = 10) on Gaussian books and queries: per-slot recall
-    >= 0.999 against the plain version, distances within the tolerance."""
+    >= 0.999 against the plain version, distances within the tolerance.
+    The launch takes 64-row CTAs, the resident table and the queues in
+    registers (``_pq_both`` checks its count under ``regs``)."""
     J, L, B, C, cap = 64, 2, 256, 24, 4096
+    plan = ps._b4_plan(64, J * L, J, 8, 10)
+    assert (plan.bq, plan.sliced, ps._b4_select(10)) == (64, False, "regs")
     books = gen.standard_normal((J, B, L)).astype(np.float32)
     q = gen.standard_normal((C, 64, J * L)).astype(np.float32)
     codes = gen.integers(0, B, (8, cap, J)).astype(np.int32)

@@ -185,6 +185,11 @@ def test_b4_plan_fits_every_shape(bits, k):
 
 @pytest.mark.parametrize("qrows,rot,pq_dim,bits,k,bq,sliced", [
     (64, 128, 64, 8, 10, 64, False),    # the IVF-PQ main path
+    (64, 128, 64, 8, 2, 64, False),     # queues in registers, k 2 to 16
+    (64, 128, 64, 8, 16, 64, False),
+    (64, 128, 128, 8, 16, 64, False),   # they take no shared memory
+    (64, 256, 256, 4, 10, 64, False),
+    (40, 128, 64, 8, 10, 32, False),    # 40 rows: 32-row CTAs
     (64, 128, 64, 8, 64, 32, False),    # the queue takes the room
     (64, 128, 64, 8, 256, 16, False),
     (8, 128, 64, 8, 10, 16, False),     # few rows
@@ -194,3 +199,20 @@ def test_b4_plan_fits_every_shape(bits, k):
 def test_b4_plan_main_cases(qrows, rot, pq_dim, bits, k, bq, sliced):
     plan = ps._b4_plan(qrows, rot, pq_dim, bits, k)
     assert (plan.bq, plan.sliced) == (bq, sliced)
+
+
+@pytest.mark.parametrize("k,path", [(1, "min"), (2, "regs"), (10, "regs"),
+                                    (16, "regs"), (17, "merge"),
+                                    (256, "merge")])
+def test_b4_select_paths(k, path):
+    """k = 1 keeps a register minimum, k <= 16 queues in registers (whose
+    only shared memory is a bound a row and the cross-warp merge, k pairs
+    for each of 128 warp rows), wider k the warp merges of shared-memory
+    queues."""
+    assert ps._b4_select(k) == path
+    base = ps._b4_smem_bytes(64, 128, 128, 8, 64, 1, False) - 4 * 64 * 8
+    extra = ps._b4_smem_bytes(64, 128, 128, 8, 64, k, False) - base
+    if path == "regs":
+        assert extra == 64 * 4 + 128 * k * 8
+    elif path == "merge":
+        assert extra > 2 * ps.B4_CAND * 4
